@@ -1,0 +1,163 @@
+// Pre-norm MLP half-block: out = x + fc2(gelu(fc1(LN(x)))), bf16 in and out.
+//
+// Replaces mtt_tpu/kernels/mlp.py:_mlp_ln_res_kernel and its batch-blocked
+// twin _mlp_ln_res_bb_kernel. The batch blocking there is a TPU weight-streaming
+// choice over the same function; rows are independent, so here the (B*N, C)
+// rows are simply cut into blocks of 32.
+//
+// What bounds it on the H100: 138 GFLOP per ViT-L call (8232 rows, C=1024,
+// hidden 4096) on the tensor cores, and the (8232, 4096) hidden activation,
+// which would be 67 MB each way through device memory. The design keeps the
+// hidden out of device memory: a block normalises its 32 rows once into shared
+// memory, then walks the hidden dimension in chunks of 128 columns; each chunk
+// is fc1 (wmma, f32), bias + A&S-erf GELU in f32, one bf16 rounding into shared
+// memory, and fc2 accumulated into f32 fragments that stay in registers for the
+// whole walk (each warp owns C/8 output columns). The weights are read from L2
+// straight into fragments; every block reads both weight matrices once, which is
+// the traffic a 32-row block pays for keeping its accumulator on chip.
+#include "common.cuh"
+
+using namespace mtt;
+
+namespace {
+
+constexpr int MBM = 32;    // rows per block
+constexpr int MHC = 128;   // hidden columns per chunk (16 per warp)
+constexpr int MT = 256;    // 8 warps
+constexpr int HFL = MHC + 4;
+constexpr int HSL = MHC + 8;
+
+template <int C>
+constexpr int mlp_smem() {
+  return MBM * (C + 8) * 2 + MBM * HFL * 4 + MBM * HSL * 2;
+}
+
+template <int C>
+__global__ void __launch_bounds__(MT, 1) mlp_ln_res_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
+    const bf16* __restrict__ w1, const float* __restrict__ b1, const bf16* __restrict__ w2,
+    const float* __restrict__ b2, bf16* __restrict__ out, int M, int Hd, float eps) {
+  constexpr int XL = C + 8;
+  constexpr int CW = C / 8;         // output columns per warp
+  constexpr int NCW = CW / 16;      // their 16-wide tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* XN = reinterpret_cast<bf16*>(smem);
+  float* HF = reinterpret_cast<float*>(XN + MBM * XL);
+  bf16* HS = reinterpret_cast<bf16*>(HF + MBM * HFL);
+
+  const int m0 = blockIdx.x * MBM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // LN(x) of the block's rows, rounded to bf16 once (mlp.py:293-298)
+  for (int r = warp; r < MBM; r += MT / 32) {
+    bf16* dst = XN + r * XL;
+    if (m0 + r < M) {
+      ln_row_warp<C / 256>(x + (size_t)(m0 + r) * C, gamma, beta, dst, C, eps, lane);
+    } else {
+      for (int c = lane * 8; c < C; c += 256) *reinterpret_cast<uint4*>(dst + c) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  __syncthreads();
+
+  FragC acc[2][NCW];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NCW; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int j0 = 0; j0 < Hd; j0 += MHC) {
+    // fc1: this warp's 16 hidden columns for all 32 rows
+    {
+      FragC h[2];
+      wmma::fill_fragment(h[0], 0.f);
+      wmma::fill_fragment(h[1], 0.f);
+      const bf16* wp = w1 + (size_t)(j0 + 16 * warp) * C;
+#pragma unroll 4
+      for (int k = 0; k < C; k += 16) {
+        FragBt bt;
+        FragA a0, a1;
+        wmma::load_matrix_sync(bt, wp + k, C);
+        wmma::load_matrix_sync(a0, XN + k, XL);
+        wmma::load_matrix_sync(a1, XN + 16 * XL + k, XL);
+        wmma::mma_sync(h[0], a0, bt, h[0]);
+        wmma::mma_sync(h[1], a1, bt, h[1]);
+      }
+      wmma::store_matrix_sync(HF + 16 * warp, h[0], HFL, wmma::mem_row_major);
+      wmma::store_matrix_sync(HF + 16 * HFL + 16 * warp, h[1], HFL, wmma::mem_row_major);
+    }
+    __syncthreads();
+    // bias + GELU in f32, cast once before fc2 (mlp.py:303)
+    for (int i = threadIdx.x; i < MBM * (MHC / 8); i += MT) {
+      const int r = i / (MHC / 8), c = (i % (MHC / 8)) * 8;
+      float f[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) f[k] = gelu_erf_poly(HF[r * HFL + c + k] + b1[j0 + c + k]);
+      *reinterpret_cast<uint4*>(HS + r * HSL + c) = pack8(f);
+    }
+    __syncthreads();
+    // fc2: accumulate this chunk into the warp's output columns
+#pragma unroll
+    for (int kk = 0; kk < MHC; kk += 16) {
+      FragA a0, a1;
+      wmma::load_matrix_sync(a0, HS + kk, HSL);
+      wmma::load_matrix_sync(a1, HS + 16 * HSL + kk, HSL);
+      const bf16* wp = w2 + (size_t)(warp * CW) * Hd + j0 + kk;
+#pragma unroll
+      for (int jt = 0; jt < NCW; ++jt) {
+        FragBt bt;
+        wmma::load_matrix_sync(bt, wp + (size_t)(jt * 16) * Hd, Hd);
+        wmma::mma_sync(acc[0][jt], a0, bt, acc[0][jt]);
+        wmma::mma_sync(acc[1][jt], a1, bt, acc[1][jt]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // epilogue: acc + b2 + x in f32, one bf16 rounding (mlp.py:309-310)
+  float* scratch = HF + warp * 256;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jt = 0; jt < NCW; ++jt) {
+      float v[8];
+      frag_row8(acc[i][jt], scratch, lane, v);
+      const int row = m0 + i * 16 + (lane >> 1);
+      const int col = warp * CW + jt * 16 + (lane & 1) * 8;
+      if (row < M) {
+        float xr[8];
+        unpack8(*reinterpret_cast<const uint4*>(x + (size_t)row * C + col), xr);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = v[k] + b2[col + k] + xr[k];
+        *reinterpret_cast<uint4*>(out + (size_t)row * C + col) = pack8(v);
+      }
+    }
+}
+
+template <int C>
+int launch_mlp(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1,
+               const void* w2, const void* b2, void* out, int M, int Hd, float eps, cudaStream_t st) {
+  constexpr int smem = mlp_smem<C>();
+  // set on every launch: the attribute belongs to the current device's context
+  cudaError_t e = cudaFuncSetAttribute(mlp_ln_res_kernel<C>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((M + MBM - 1) / MBM);
+  mlp_ln_res_kernel<C><<<grid, MT, smem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<bf16*>(out), M, Hd, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x (M, C) bf16; w1 (Hd, C), w2 (C, Hd) bf16 as nn.Linear stores them; gamma,
+// beta, b1, b2 f32. C is 768 or 1024, Hd % 128 == 0.
+extern "C" int mtt_mlp_ln_res_bf16(const void* x, const void* gamma, const void* beta, const void* w1,
+                                   const void* b1, const void* w2, const void* b2, void* out, int M,
+                                   int C, int Hd, float eps, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (C == 1024) return launch_mlp<1024>(x, gamma, beta, w1, b1, w2, b2, out, M, Hd, eps, st);
+  if (C == 768) return launch_mlp<768>(x, gamma, beta, w1, b1, w2, b2, out, M, Hd, eps, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,60 @@
+"""JAX package variables -> the port's state dict.
+
+The port's module tree mirrors the JAX package's, so the conversion is a walk
+over the flax tree that renames leaves and changes layouts:
+
+  Dense kernel (in, out)              -> nn.Linear weight (out, in)
+  Conv kernel HWIO (grouped: I = in/T) -> nn.Conv2d weight OIHW (groups=T)
+  LayerNorm / BatchNorm scale          -> weight
+  BatchNorm batch_stats mean / var     -> running_mean / running_var
+                                          (+ num_batches_tracked = 0)
+  pos_embed, task_prompts              -> as they are
+
+The qkv weight stays head-major (H, 3, D): only its transpose changes. Flax
+BatchNorm momentum 0.9 is torch's 0.1 and eps 1e-5 on both sides (set by the
+modules). A checkpoint of the reference PyTorch repo loads by composition:
+``mtt_tpu.models.convert_torch.convert_full_checkpoint`` then this function.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """``{"params": ..., "batch_stats": ...}`` (arrays convertible with
+    numpy) -> a state dict that loads into the port's model strictly."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, v in _flatten(variables["params"]):
+        a = np.asarray(v, dtype=np.float32)
+        *mod, leaf = path
+        key = ".".join(mod)
+        if leaf == "kernel" and a.ndim == 2:
+            sd[f"{key}.weight"] = torch.tensor(a.T)
+        elif leaf == "kernel" and a.ndim == 4:
+            sd[f"{key}.weight"] = torch.tensor(a.transpose(3, 2, 0, 1))
+        elif leaf == "scale":
+            sd[f"{key}.weight"] = torch.tensor(a)
+        elif leaf == "bias":
+            sd[f"{key}.bias"] = torch.tensor(a)
+        else:
+            sd[".".join(path)] = torch.tensor(a)
+    for path, v in _flatten(variables.get("batch_stats", {})):
+        a = np.asarray(v, dtype=np.float32)
+        *mod, leaf = path
+        key = ".".join(mod)
+        name = {"mean": "running_mean", "var": "running_var"}[leaf]
+        sd[f"{key}.{name}"] = torch.tensor(a)
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+    return sd

@@ -1,0 +1,259 @@
+"""TaskPrompter-ViT backbone, eval forward (port of
+mtt_tpu/models/taskprompter.py: ``PromptedBlock``, ``TaskFeatureDecode``,
+``TaskPrompterViT``, ``TASKPROMPTER_VIT_SPECS``).
+
+Each block runs the joint token stream [prompts; patches] through the
+attention kernel (cached variant, or the emit variant at tap layers, which
+also returns qkv and LN(x) for the raw prompt scores) and the MLP kernel. At
+the tap layers the task decode kernel turns the raw spatial and channel
+prompt scores into per-task features. Module names mirror the JAX tree.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mtt_tpu_torch.kernels.attention import fused_attention_ln_qkv
+from mtt_tpu_torch.kernels.layernorm import layernorm_plain
+from mtt_tpu_torch.kernels.task_decode import fused_task_decode
+from mtt_tpu_torch.models.layers import (FusedLN, Mlp, PatchEmbed, bn_eval,
+                                         interpolate, to_nchw, to_nhwc)
+
+TASKPROMPTER_VIT_SPECS = {
+    "TaskPrompter_vitL": dict(patch_size=16, embed_dim=1024, depth=24,
+                              num_heads=16, select_list=(6, 12, 18)),
+    "TaskPrompter_vitB": dict(patch_size=16, embed_dim=768, depth=12,
+                              num_heads=12, select_list=(3, 6, 9)),
+    "TaskPrompter_vitT": dict(patch_size=16, embed_dim=64, depth=4,
+                              num_heads=4, select_list=(1, 2, 3)),
+}
+
+
+class PromptBlockOut:
+    """Per-block tap payload: raw spatial and channel attention scores."""
+    __slots__ = ("raw_spa", "raw_chan")
+
+    def __init__(self, raw_spa, raw_chan):
+        self.raw_spa = raw_spa      # (B, H, P, P+N) f32, pre-scale
+        self.raw_chan = raw_chan    # (B, nwins, P, C) f32
+
+
+class PromptedBlock(nn.Module):
+    """One TaskPrompter block over the joint stream (B, P+N, C)."""
+
+    def __init__(self, dim: int, num_heads: int, num_prompts: int,
+                 chan_windows: Tuple[int, int], grid: Tuple[int, int],
+                 mlp_ratio: float = 4.0, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.num_heads = num_heads
+        self.num_prompts = num_prompts
+        self.chan_windows = chan_windows
+        self.grid = grid
+        pixel_no = grid[0] * grid[1]
+        self.norm1 = FusedLN(dim, **kw)
+        self.qkv = nn.Linear(dim, 3 * dim, **kw)      # rows head-major (H,3,D)
+        self.proj = nn.Linear(dim, dim, **kw)
+        self.token_trans = nn.Linear(dim, pixel_no, **kw)
+        self.token_trans1 = nn.Linear(pixel_no, dim, **kw)
+        self.norm2 = FusedLN(dim, **kw)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), **kw)
+
+    def forward(self, joint, need_taps: bool = False,
+                impl: Optional[str] = None):
+        B, M, C = joint.shape
+        P = self.num_prompts
+        H, D = self.num_heads, C // self.num_heads
+        ln1 = self.norm1
+        if need_taps:
+            out, qkv, jn = fused_attention_ln_qkv(
+                joint, ln1.weight, ln1.bias, self.qkv.weight, self.qkv.bias,
+                H, D ** -0.5, ln1.eps, need_qkv=True, impl=impl, safe=False)
+            pn = jn[:, :P]
+        else:
+            out = fused_attention_ln_qkv(
+                joint, ln1.weight, ln1.bias, self.qkv.weight, self.qkv.bias,
+                H, D ** -0.5, ln1.eps, impl=impl, safe=False)
+            # the P prompt rows' LN stays plain torch, as it is XLA in JAX
+            pn = layernorm_plain(joint[:, :P], ln1.weight, ln1.bias, ln1.eps)
+        out = self.proj(out)
+
+        # channel pathway: prompts -> pixel-space queries; the prompt-only
+        # update joins the attention residual branch
+        chan_prompts = self.token_trans(pn)                 # (B, P, pixel_no)
+        out[:, :P] += self.token_trans1(chan_prompts)
+
+        raw = None
+        if need_taps:
+            # raw (pre-scale, pre-softmax) prompt-row spatial scores from the
+            # head-major qkv, accumulated in f32
+            qkv5 = qkv.view(B, M, H, 3, D)
+            q, k = qkv5[:, :P, :, 0], qkv5[:, :, :, 1]
+            raw_spa = torch.einsum("bphd,bkhd->bhpk", q.float(), k.float())
+            # raw windowed channel scores, contracted over pixels
+            gh, gw = self.grid
+            nh, nw = self.chan_windows
+            wh, ww = gh // nh, gw // nw
+            qc = chan_prompts.reshape(B, P, nh, wh, nw, ww).float()
+            kc = jn[:, P:].reshape(B, nh, wh, nw, ww, C).float()
+            raw_chan = torch.einsum("bphvnw,bhvnwc->bhnpc", qc, kc)
+            raw = PromptBlockOut(raw_spa, raw_chan.reshape(B, nh * nw, P, C))
+
+        joint = joint + out
+        return self.mlp(joint, self.norm2, impl=impl), raw
+
+
+class TaskFeatureDecode(nn.Module):
+    """Per-task features from the raw scores of one tap layer, eval mode,
+    chan_nheads == 1 (one channel window)."""
+
+    def __init__(self, tasks: Sequence[str], num_heads: int, prompt_len: int,
+                 chan_windows: Tuple[int, int], dim: int, tar_dim: int,
+                 final_dim: int, use_ctr: bool, layer_idx: int, *,
+                 device=None, dtype=None):
+        super().__init__()
+        if prompt_len != 1:
+            # the channel decode takes prompt row t*pl per task while the
+            # reference cal_task_feature indexes flat row t (equal only for
+            # prompt_len == 1, the value of every published config)
+            raise NotImplementedError(
+                "TaskFeatureDecode requires prompt_len == 1; the channel-"
+                "pathway prompt-row convention diverges from the reference "
+                f"for prompt_len={prompt_len}")
+        if chan_windows[0] * chan_windows[1] != 1:
+            raise NotImplementedError(
+                "windowed channel decode (chan_nheads > 1) is not ported yet: "
+                "ROADMAP.md, open item 'Windowed task decode'")
+        kw = dict(device=device, dtype=dtype)
+        T = len(tasks)
+        self.tasks = tuple(tasks)
+        self.num_heads = num_heads
+        self.use_ctr = use_ctr
+        self.tar_dim, self.final_dim = tar_dim, final_dim
+        il = self.il = layer_idx
+        # stacked per-task convs as grouped convs, task-major channels
+        self.add_module(f"spa_{il}", nn.Conv2d(T * dim, T * tar_dim, 1,
+                                               groups=T, **kw))
+        self.add_module(f"chan_{il}", nn.Conv2d(T * dim, T * tar_dim, 1,
+                                                groups=T, **kw))
+        self.add_module(f"fuse0_{il}", nn.Conv2d(T * 2 * tar_dim,
+                                                 T * final_dim, 1, groups=T,
+                                                 **kw))
+        self.add_module(f"fuse1_{il}", nn.Conv2d(T * final_dim, T * final_dim,
+                                                 3, padding=1, groups=T, **kw))
+        self.add_module(f"fuse_bn_{il}", nn.BatchNorm2d(T * final_dim,
+                                                        eps=1e-5, **kw))
+        self.add_module(f"fuse2_{il}", nn.Conv2d(T * final_dim, T * final_dim,
+                                                 1, groups=T, **kw))
+        if use_ctr:
+            G = num_heads * prompt_len
+            for t in tasks:
+                self.add_module(f"ctr_{il}_{t}_0", nn.Linear(num_heads, G, **kw))
+                self.add_module(f"ctr_{il}_{t}_1", nn.Linear(G, 1, **kw))
+
+    def _sub(self, name):
+        return getattr(self, f"{name}_{self.il}")
+
+    def forward(self, x_map, raw: PromptBlockOut, impl: Optional[str] = None):
+        B, gh, gw, C = x_map.shape
+        T = len(self.tasks)
+        P = T
+        G = self.num_heads
+        S = gh * gw
+        tar, fin = self.tar_dim, self.final_dim
+        # (B, H, P, N) -> (B, T, S, G), head-major groups
+        a = raw.raw_spa[:, :, :, P:].permute(0, 2, 3, 1).contiguous()
+        cwv = raw.raw_chan.reshape(B, T, C)
+        spa, chan, fuse0 = self._sub("spa"), self._sub("chan"), \
+            self._sub("fuse0")
+        cat = fused_task_decode(
+            x_map.reshape(B, S, C), a.to(x_map.dtype), cwv.contiguous(),
+            spa.weight.view(T, tar, C), spa.bias.view(T, tar),
+            chan.weight.view(T, tar, C), chan.bias.view(T, tar),
+            fuse0.weight.view(T, fin, 2 * tar), fuse0.bias.view(T, fin),
+            impl=impl)
+        y = self._sub("fuse1")(to_nchw(cat.view(B, gh, gw, T * fin)))
+        y = F.gelu(bn_eval(y, self._sub("fuse_bn")))
+        y = to_nhwc(self._sub("fuse2")(y))
+        stack = y.reshape(B, gh, gw, T, fin)
+        task_fea = {t: stack[:, :, :, ti] for ti, t in enumerate(self.tasks)}
+
+        if self.use_ctr:
+            # Cross-Task Reweighting from the prompt->prompt raw scores
+            pp = raw.raw_spa[:, :, :, :P]                  # (B, H, P, P)
+            new_fea = {}
+            for ti, t in enumerate(self.tasks):
+                wgt = pp[:, :, ti, :].to(x_map.dtype).transpose(1, 2)  # (B,T,H)
+                wgt = F.gelu(getattr(self, f"ctr_{self.il}_{t}_0")(wgt))
+                wgt = getattr(self, f"ctr_{self.il}_{t}_1")(wgt)[:, :, 0]
+                new_fea[t] = sum(wgt[:, k, None, None, None] * task_fea[tk]
+                                 for k, tk in enumerate(self.tasks))
+            task_fea = new_fea
+        return task_fea
+
+
+class TaskPrompterViT(nn.Module):
+    """Prompted ViT backbone; per-task features at 4x the patch grid."""
+
+    def __init__(self, tasks: Sequence[str], img_size: Tuple[int, int],
+                 select_list: Sequence[int], patch_size: int = 16,
+                 embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
+                 chan_nheads: int = 1, prompt_len: int = 1,
+                 tar_dim: int = 300, final_dim: int = 350,
+                 use_ctr: bool = False, mlp_ratio: float = 4.0, *,
+                 device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        T = len(tasks)
+        self.tasks = tuple(tasks)
+        self.embed_dim = embed_dim
+        self.num_prompts = T * prompt_len
+        self.tap_set = set(select_list)
+        self.depth = depth
+        gh, gw = img_size[0] // patch_size, img_size[1] // patch_size
+        nh = int(round(chan_nheads ** 0.5))
+        chan_windows = (nh, max(chan_nheads // max(nh, 1), 1))
+        self.patch_embed = PatchEmbed(patch_size, embed_dim, **kw)
+        self.pos_embed = nn.Parameter(torch.zeros(1, gh * gw + 1, embed_dim,
+                                                  **kw))
+        self.task_prompts = nn.Parameter(torch.zeros(T * prompt_len,
+                                                     embed_dim, **kw))
+        for i in range(depth):
+            self.add_module(f"blocks_{i}", PromptedBlock(
+                embed_dim, num_heads, self.num_prompts, chan_windows,
+                (gh, gw), mlp_ratio, **kw))
+        for il in range(len(select_list) + 1):
+            self.add_module(f"decode_{il}", TaskFeatureDecode(
+                tasks, num_heads, prompt_len, chan_windows, embed_dim,
+                tar_dim, final_dim, use_ctr, il, **kw))
+        self.norm = FusedLN(embed_dim, **kw)
+
+    def forward(self, x, impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
+        B = x.shape[0]
+        P, E = self.num_prompts, self.embed_dim
+        tokens, (gh, gw) = self.patch_embed(x)
+        tokens = tokens + self.pos_embed[:, 1:]
+        prompts = self.task_prompts[None].expand(B, P, E)
+        joint = torch.cat([prompts, tokens], dim=1)
+        task_fea: Dict[str, torch.Tensor] = {}
+        il = 0
+        for i in range(self.depth):
+            # the final tap (after the closing norm) reuses the last block's
+            # raw scores, so the last block always computes them
+            is_tap = (i + 1) in self.tap_set
+            need = is_tap or i == self.depth - 1
+            joint, raw = getattr(self, f"blocks_{i}")(joint, need, impl=impl)
+            if is_tap:
+                x_map = joint[:, P:].reshape(B, gh, gw, E).contiguous()
+                fea = getattr(self, f"decode_{il}")(x_map, raw, impl=impl)
+                task_fea = {t: task_fea.get(t, 0) + fea[t] for t in self.tasks}
+                il += 1
+        tokens = self.norm(joint[:, P:].contiguous(), impl=impl)
+        fea = getattr(self, f"decode_{il}")(tokens.view(B, gh, gw, E), raw,
+                                            impl=impl)
+        return {t: interpolate(task_fea.get(t, 0) + fea[t], (4 * gh, 4 * gw))
+                for t in self.tasks}

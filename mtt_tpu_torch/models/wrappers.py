@@ -1,0 +1,90 @@
+"""Top-level TaskPrompter model and its factory (port of
+mtt_tpu/models/wrappers.py ``TaskPrompterNet`` with the dense ConvHead, and
+the TaskPrompter-ViT branch of ``build_model``)."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from mtt_tpu_torch.models.heads import ConvHead
+from mtt_tpu_torch.models.layers import interpolate
+from mtt_tpu_torch.models.taskprompter import (TASKPROMPTER_VIT_SPECS,
+                                               TaskPrompterViT)
+
+# task table of mtt_tpu/config/config.py:parse_task_dictionary, in its order
+_SEMSEG_CLASSES = {"PASCALContext": 21, "NYUD": 40}
+_TASK_OUTPUTS = (("semseg", None), ("depth", 1), ("human_parts", 7),
+                 ("sal", 2), ("normals", 3), ("edge", 1))
+# test scales per database (height, width), mtt_tpu/config/config.py:71-75
+DB_SCALES = {"PASCALContext": (512, 512), "NYUD": (448, 576)}
+
+
+class TaskPrompterNet(nn.Module):
+    """TaskPrompter: prompted ViT backbone + conv heads, NHWC logits at
+    ``target_size`` (default: the input size). The heads run dense: the
+    backbone returns 4x-upsampled features and each ConvHead convolves
+    them, as the JAX package does under MTT_HEAD_IMPL=dense."""
+
+    def __init__(self, tasks: Sequence[str], num_outputs: Dict[str, int],
+                 img_size: Tuple[int, int],
+                 backbone_name: str = "TaskPrompter_vitB",
+                 head_name: str = "conv", tar_dim: int = 300,
+                 final_dim: int = 350, prompt_len: int = 1,
+                 chan_nheads: int = 1, use_ctr: bool = True,
+                 target_size: Optional[Tuple[int, int]] = None, *,
+                 device=None, dtype=None):
+        super().__init__()
+        if head_name != "conv":
+            raise NotImplementedError(f"head {head_name!r} is not ported yet")
+        self.tasks = tuple(tasks)
+        self.target_size = target_size
+        self.backbone = TaskPrompterViT(
+            tasks=self.tasks, img_size=img_size, chan_nheads=chan_nheads,
+            prompt_len=prompt_len, tar_dim=tar_dim, final_dim=final_dim,
+            use_ctr=use_ctr, device=device, dtype=dtype,
+            **TASKPROMPTER_VIT_SPECS[backbone_name])
+        for t in self.tasks:
+            self.add_module(f"head_{t}", ConvHead(
+                final_dim, num_outputs[t], device=device, dtype=dtype))
+
+    def forward(self, x, impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
+        """x: (B, H, W, 3) normalised image batch -> {task: (B, h, w, n)}."""
+        target = self.target_size or tuple(x.shape[1:3])
+        feats = self.backbone(x, impl=impl)
+        return {t: interpolate(getattr(self, f"head_{t}")(feats[t]), target)
+                for t in self.tasks}
+
+
+def task_table(db_name: str, task_dictionary: dict):
+    """(task names, {task: output channels}) from a config's
+    ``task_dictionary`` block."""
+    names, num_out = [], {}
+    for name, n in _TASK_OUTPUTS:
+        if task_dictionary.get(f"include_{name}", False):
+            names.append(name)
+            num_out[name] = _SEMSEG_CLASSES[db_name] if n is None else n
+    return tuple(names), num_out
+
+
+def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
+                device=None, dtype=None) -> TaskPrompterNet:
+    """Config dict (the keys of configs/pascal/taskprompter_vitLp16.yml) ->
+    model. ``img_size`` defaults to the database's test scale."""
+    if p["model"] != "TaskPrompter" or "swin" in p["backbone"].lower():
+        raise NotImplementedError(
+            f"only TaskPrompter-ViT is ported, got {p['model']} / "
+            f"{p['backbone']}")
+    tasks, num_outputs = task_table(p["train_db_name"], p["task_dictionary"])
+    return TaskPrompterNet(
+        tasks=tasks, num_outputs=num_outputs,
+        img_size=img_size or DB_SCALES[p["val_db_name"]],
+        backbone_name=p["backbone"], head_name=p["head"],
+        tar_dim=p["embed_dim"], final_dim=p["final_embed_dim"],
+        prompt_len=p["prompt_len"], chan_nheads=p["chan_nheads"],
+        use_ctr=p.get("use_ctr", False),
+        target_size=tuple(p["dd_label_map_size"])
+        if "dd_label_map_size" in p else None,
+        device=device, dtype=dtype)

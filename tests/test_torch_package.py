@@ -1,0 +1,145 @@
+"""The PyTorch port as a package: it imports no JAX, refuses what the JAX
+package refuses, and its kernel wrappers check their arguments before they
+dispatch, so bad input raises on the CPU too."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_package_imports_no_jax():
+    """Importing every mtt_tpu_torch module leaves no jax, flax or mtt_tpu
+    in sys.modules (the card's machine has none of them)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import mtt_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    mtt_tpu_torch.__path__, 'mtt_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'mtt_tpu'))\n"
+        "assert len(mods) >= 12, mods\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_refuses_prompt_len_above_one():
+    from mtt_tpu_torch.models.wrappers import TaskPrompterNet
+    with pytest.raises(NotImplementedError, match="prompt_len"):
+        TaskPrompterNet(("semseg",), {"semseg": 5}, (32, 32),
+                        "TaskPrompter_vitT", tar_dim=8, final_dim=8,
+                        prompt_len=2, device="meta")
+
+
+def test_refuses_windowed_channel_decode_and_other_heads():
+    from mtt_tpu_torch.models.wrappers import TaskPrompterNet
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TaskPrompterNet(("semseg",), {"semseg": 5}, (32, 32),
+                        "TaskPrompter_vitT", tar_dim=8, final_dim=8,
+                        chan_nheads=4, device="meta")
+    from mtt_tpu_torch.models.heads import ConvHead
+    for mode in ("factored", "phase"):
+        with pytest.raises(NotImplementedError, match="up4"):
+            ConvHead(8, 5, up4=mode, device="meta")
+
+
+@pytest.mark.parametrize("hw", [(40, 32), (32, 20)])
+def test_refuses_size_not_divisible_by_patch(hw):
+    from mtt_tpu_torch.models.layers import PatchEmbed
+    with pytest.raises(ValueError, match="divisible"):
+        PatchEmbed(16, 8)(torch.zeros(1, *hw, 3))
+
+
+def _attn_args(C=64, heads=2):
+    x = torch.randn(2, 5, C)
+    return [x, torch.ones(C), torch.zeros(C), torch.randn(3 * C, C),
+            torch.zeros(3 * C)], heads
+
+
+def test_attention_wrapper_checks_arguments():
+    from mtt_tpu_torch.kernels.attention import fused_attention_ln_qkv
+    args, heads = _attn_args()
+    fused_attention_ln_qkv(*args, heads)                  # well-formed
+    bad_w = args.copy()
+    bad_w[3] = torch.randn(3 * 64, 32)
+    with pytest.raises(ValueError):
+        fused_attention_ln_qkv(*bad_w, heads)
+    noncontig = args.copy()
+    noncontig[0] = torch.randn(2, 64, 5).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_attention_ln_qkv(*noncontig, heads)
+    with pytest.raises(ValueError):
+        fused_attention_ln_qkv(*args, 5)                  # 3C % (3 * 5)
+    ints = args.copy()
+    ints[0] = torch.zeros(2, 5, 64, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fused_attention_ln_qkv(*ints, heads)
+
+
+def test_wrappers_refuse_cuda_impl_on_cpu_tensors():
+    """The plain version runs only for CPU tensors or when asked for; a
+    request for the kernel on a CPU tensor raises instead of falling back."""
+    from mtt_tpu_torch.kernels.layernorm import fused_layernorm
+    x = torch.randn(3, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_layernorm(x, torch.ones(8), torch.zeros(8), impl="cuda")
+    with pytest.raises(ValueError, match="impl"):
+        fused_layernorm(x, torch.ones(8), torch.zeros(8), impl="xla")
+
+
+def test_layernorm_and_mlp_wrappers_check_shapes():
+    from mtt_tpu_torch.kernels.layernorm import fused_layernorm
+    from mtt_tpu_torch.kernels.mlp import fused_mlp_ln_res
+    x = torch.randn(2, 3, 8)
+    with pytest.raises(ValueError):
+        fused_layernorm(x, torch.ones(7), torch.zeros(8))
+    with pytest.raises(TypeError):
+        fused_layernorm(x.long(), torch.ones(8), torch.zeros(8))
+    w1, w2 = torch.randn(32, 8), torch.randn(8, 32)
+    fused_mlp_ln_res(x, torch.ones(8), torch.zeros(8), w1, torch.zeros(32),
+                     w2, torch.zeros(8))
+    with pytest.raises(ValueError):
+        fused_mlp_ln_res(x, torch.ones(8), torch.zeros(8), w1,
+                         torch.zeros(32), w2.t(), torch.zeros(8))
+    with pytest.raises(TypeError):
+        fused_mlp_ln_res(x, torch.ones(8), torch.zeros(8), w1.double(),
+                         torch.zeros(32), w2, torch.zeros(8))
+
+
+def test_task_decode_wrapper_checks_shapes():
+    from mtt_tpu_torch.kernels.task_decode import fused_task_decode
+    B, S, C, T, G, tar, F = 1, 4, 16, 2, 4, 6, 5
+    args = [torch.randn(B, S, C), torch.randn(B, T, S, G),
+            torch.randn(B, T, C), torch.randn(T, tar, C), torch.randn(T, tar),
+            torch.randn(T, tar, C), torch.randn(T, tar),
+            torch.randn(T, F, 2 * tar), torch.randn(T, F)]
+    assert fused_task_decode(*args).shape == (B, S, T * F)
+    for i, bad in [(1, torch.randn(B, T, S, 3)),       # G does not divide C
+                   (7, torch.randn(T, F, tar)),        # wf not (T, F, 2 tar)
+                   (4, torch.randn(T, tar + 1))]:
+        broken = args.copy()
+        broken[i] = bad
+        with pytest.raises(ValueError):
+            fused_task_decode(*broken)
+
+
+def test_kernel_build_needs_no_card_to_import_and_hashes_sources():
+    """Importing the build helper compiles nothing; the library path is
+    keyed by the sources' hash."""
+    from mtt_tpu_torch.kernels import _build
+    assert _build.COUNTS.keys() == {"layernorm", "attention_cached",
+                                    "attention_emit", "mlp", "task_decode"}
+    h = _build.source_hash()
+    assert len(h) == 16 and h == _build.source_hash()
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == {
+        "layernorm.cu", "attention.cu", "mlp.cu", "task_decode.cu"}
