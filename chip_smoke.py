@@ -1,23 +1,37 @@
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card and nvcc; it exits non-zero, printing no result, when either is missing
 or any phase fails.
 
-Phases, in order:
+Phases, in order (the seconds each took are printed):
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from mtt_tpu_torch/csrc (seconds printed);
-  3. each kernel against its plain PyTorch version at the ViT-L PASCAL shapes
-     the main path gives it: error, tolerance, CUDA-event times;
-  4. TaskPrompter-ViT-L PASCAL (5 tasks, dense head, CTR on) with seeded
-     random weights in bf16: ``predict`` on 8 images at 512x512, launch counts,
-     shapes, finiteness, error against an f32 run of the same weights held to
-     the plain bf16 path's own, imgs/s and peak memory.
+  3. each of the 8 kernels against its plain PyTorch version at the ViT-L
+     PASCAL shapes the main paths give it: error, tolerance in bf16 ulps,
+     CUDA-event times of the kernel, the plain version, the library call or
+     composition, and the bound of the card;
+  4. the ViT-L PASCAL eval forward (5 tasks, CTR on, bf16, seeded random
+     weights, batch 8 at 512x512) through ``predict``, with the factored up4
+     head (the default) and with the dense head: launch counts, shapes,
+     finiteness, relative RMS error against an f32 run of the same weights,
+     imgs/s and peak memory;
+  5. ViT-L PASCAL training at the config's batch of 2 on seeded synthetic
+     batches in bf16 with f32 master weights: the launch counts of one step,
+     its gradients against an f32 plain run of the same weights, batch and
+     drop-path masks (in all and per tensor), finite losses, moving
+     parameters and BN statistics, ms per step, imgs/s and peak memory.
 The line before the last is the kernels JSON; the last line is the device JSON.
+
+``python3 chip_smoke.py --profile`` runs none of these phases: after the
+build it traces one eval forward and one training step of the same models
+with ``torch.profiler`` and prints their wall time and device time by kernel
+group.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import re
@@ -27,25 +41,42 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
-# ViT-L PASCAL main-path shapes
-B, N, C, HEADS, HIDDEN = 8, 1029, 1024, 16, 4096
+# ViT-L PASCAL shapes: eval forward (batch 8) and training (batch 2)
+B, N, C, HEADS, HIDDEN, D = 8, 1029, 1024, 16, 4096, 64
 T, TAR, FIN, G, S = 5, 300, 350, 16, 1024
+GRID, NLOG = 32, 21          # up4 head: 32x32 patch grid, semseg's 21 logits
+BT = 2                       # trBatch of configs/pascal/taskprompter_vitLp16.yml
 IMG = 512
+TRAIN_STEPS = 4
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
+# outside them, HBM bandwidth
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 KERNEL_ROWS = {
-    # name: (source, TPU kernel it replaces, counter)
+    # name: (source, TPU kernel it replaces, counter, path it runs on)
     "layernorm": ("mtt_tpu_torch/csrc/layernorm.cu",
-                  "mtt_tpu/kernels/layernorm.py:29", "layernorm"),
+                  "mtt_tpu/kernels/layernorm.py:29", "layernorm", "eval"),
     "attention_cached": ("mtt_tpu_torch/csrc/attention.cu",
                          "mtt_tpu/kernels/attention.py:423",
-                         "attention_cached"),
+                         "attention_cached", "eval"),
     "attention_emit": ("mtt_tpu_torch/csrc/attention.cu",
-                       "mtt_tpu/kernels/attention.py:393", "attention_emit"),
+                       "mtt_tpu/kernels/attention.py:393", "attention_emit",
+                       "eval"),
     "mlp_ln_res": ("mtt_tpu_torch/csrc/mlp.cu",
-                   "mtt_tpu/kernels/mlp.py:355", "mlp"),
+                   "mtt_tpu/kernels/mlp.py:355", "mlp_ln_res", "eval"),
     "task_decode": ("mtt_tpu_torch/csrc/task_decode.cu",
-                    "mtt_tpu/kernels/task_decode.py:49", "task_decode"),
+                    "mtt_tpu/kernels/task_decode.py:49", "task_decode",
+                    "eval"),
+    "head_up4": ("mtt_tpu_torch/csrc/head_up4.cu",
+                 "mtt_tpu/kernels/head_up4.py:168", "head_up4", "eval"),
+    "attention_bwd": ("mtt_tpu_torch/csrc/attention_bwd.cu",
+                      "mtt_tpu/kernels/attention.py:603", "attention_bwd",
+                      "train"),
+    "mlp_fc": ("mtt_tpu_torch/csrc/mlp.cu", "mtt_tpu/kernels/mlp.py:69",
+               "mlp_fc", "train"),
 }
 
 
@@ -75,11 +106,27 @@ def _ulp_tol(want, ulps: int) -> float:
     return ulps * want.float().abs().max().item() * 2.0 ** -7
 
 
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _bound(nbytes: float, tc_flops: float, f32_flops: float = 0.0):
+    """Least time of the card for the work, ms: bytes at the HBM rate
+    against tensor-core bf16 plus f32 operations at their peaks."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (tc_flops / PEAK_BF16 + f32_flops / PEAK_F32) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def kernel_phase():
     """Each kernel against its plain version on the same seeded inputs."""
-    from mtt_tpu_torch.kernels.attention import fused_attention_ln_qkv
+    from mtt_tpu_torch.kernels.attention import (attn_core_bwd_cuda,
+                                                 attn_core_bwd_plain,
+                                                 fused_attention_ln_qkv)
+    from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
     from mtt_tpu_torch.kernels.layernorm import fused_layernorm
-    from mtt_tpu_torch.kernels.mlp import fused_mlp_ln_res
+    from mtt_tpu_torch.kernels.mlp import fused_mlp, fused_mlp_ln_res
     from mtt_tpu_torch.kernels.task_decode import fused_task_decode
 
     dev = torch.device("cuda")
@@ -90,6 +137,7 @@ def kernel_phase():
         return (torch.randn(*shape, generator=gen, device=dev) * std
                 + mean).to(dtype)
 
+    M = B * N
     x = rnd(B, N, C)
     gamma = rnd(C, std=0.1, mean=1.0, dtype=torch.float32)
     beta = rnd(C, std=0.1, dtype=torch.float32)
@@ -108,40 +156,145 @@ def kernel_phase():
     bc = rnd(T, TAR, std=0.1)
     wf = rnd(T, FIN, 2 * TAR, std=(2 * TAR) ** -0.5)
     bfin = rnd(T, FIN, std=0.1)
+    # up4 head: x (8, 32, 32, 350), conv3x3 (HWIO), folded BN, 1x1
+    xh = rnd(B, GRID, GRID, FIN, std=0.5)
+    kc = rnd(3, 3, FIN, FIN, std=(9 * FIN) ** -0.5)
+    inv = rnd(FIN, std=0.1, mean=1.0, dtype=torch.float32)
+    addv = rnd(FIN, std=0.1, dtype=torch.float32)
+    kp = rnd(FIN, NLOG, std=FIN ** -0.5)
+    # training shapes: batch 2 of the joint stream
+    xt = rnd(BT, N, C)
+    qkv_t = rnd(BT, N, 3 * C)
+    g_t = rnd(BT, N, C)
 
-    # name -> (call, outputs to compare, tolerance in bf16 ulps, reason)
+    def attn_lib():
+        xn = F.layer_norm(x, (C,), gamma.to(bf), beta.to(bf), 1e-6)
+        q, k, v = F.linear(xn, wqkv, bqkv).view(B, N, HEADS, 3, D).unbind(3)
+        o = F.scaled_dot_product_attention(q.transpose(1, 2),
+                                           k.transpose(1, 2),
+                                           v.transpose(1, 2))
+        return o.transpose(1, 2).reshape(B, N, C)
+
+    def decode_lib():
+        xt_ = xs[:, None]
+        f = torch.einsum("btsc,trc->btsr",
+                         xt_ * a.repeat_interleave(C // G, -1) + xt_, ws) \
+            + bs[None, :, None]
+        fc = torch.einsum("btsc,trc->btsr", xt_ * cw.to(bf)[:, :, None] + xt_,
+                          wc) + bc[None, :, None]
+        return torch.einsum("btsr,tfr->btsf", torch.cat([f, fc], -1), wf) \
+            + bfin[None, :, None]
+
+    # the dense cuDNN head of the same function: upsample, conv3x3 (bias 0),
+    # BN affine, GELU, 1x1
+    kc_oihw = kc.permute(3, 2, 0, 1).contiguous()
+    kp_oihw = kp.t()[:, :, None, None].contiguous()
+
+    def head_lib():
+        up = F.interpolate(xh.permute(0, 3, 1, 2), scale_factor=4,
+                           mode="bilinear", align_corners=False)
+        y = F.conv2d(up, kc_oihw, padding=1)
+        y = F.gelu(y * inv.to(bf)[:, None, None] + addv.to(bf)[:, None, None])
+        return F.conv2d(y, kp_oihw)
+
+    # SDPA's backward on the same q, k, v and dOut
+    q5 = qkv_t.view(BT, N, HEADS, 3, D)
+    qkv_sd = [q5[:, :, :, i].transpose(1, 2).detach().requires_grad_()
+              for i in range(3)]
+    sd_out = F.scaled_dot_product_attention(*qkv_sd)
+    sd_g = g_t.view(BT, N, HEADS, D).transpose(1, 2)
+
+    def attn_bwd_lib():
+        return torch.autograd.grad(sd_out, qkv_sd, sd_g, retain_graph=True)
+
+    def split3(t):
+        v = t.view(*t.shape[:-1], HEADS, 3, D)
+        return tuple(v[..., i, :] for i in range(3))
+
+    mmf = 2.0 * M  # rows x 2 flops per multiply-add
     cases = {
-        "layernorm": (lambda impl: fused_layernorm(x, gamma, beta, impl=impl),
-                      1, "same f32 statistics; only the summation order "
-                         "differs, which can move a value across one bf16 "
-                         "rounding boundary"),
+        # name: (call, ulps, reason, library call or None, library
+        #        composition or None, bytes, tensor-core flops, f32 flops)
+        "layernorm": (
+            lambda impl: fused_layernorm(x, gamma, beta, impl=impl),
+            1, "same f32 statistics; only the summation order differs, "
+               "which can move a value across one bf16 rounding boundary",
+            lambda: F.layer_norm(x, (C,), gamma.to(bf), beta.to(bf), 1e-6),
+            None, _nbytes(x, gamma, beta, x), 0.0, 8.0 * M * C),
         "attention_cached": (
             lambda impl: fused_attention_ln_qkv(x, gamma, beta, wqkv, bqkv,
                                                 HEADS, impl=impl),
             4, "qkv and P are rounded to bf16 at the same points, but f32 "
                "sums in another order can flip one rounding, which moves "
-               "the output by a few ulps"),
+               "the output by a few ulps",
+            None, attn_lib, _nbytes(x, gamma, beta, wqkv, bqkv, x),
+            mmf * C * 3 * C + 4.0 * B * HEADS * N * N * D, 0.0),
         "attention_emit": (
             lambda impl: fused_attention_ln_qkv(x, gamma, beta, wqkv, bqkv,
                                                 HEADS, need_qkv=True,
                                                 impl=impl),
-            4, "as attention_cached, for out, qkv and xn"),
+            4, "as attention_cached, for out, qkv and xn",
+            None, attn_lib,
+            _nbytes(x, gamma, beta, wqkv, bqkv, x, x) + M * 3 * C * 2,
+            mmf * C * 3 * C + 4.0 * B * HEADS * N * N * D, 0.0),
         "mlp_ln_res": (
             lambda impl: fused_mlp_ln_res(x, gamma, beta, w1, b1, w2, b2,
                                           impl=impl),
             4, "xn and the GELU output are rounded to bf16 at the same "
-               "points; f32 sums in another order can flip a rounding"),
+               "points; f32 sums in another order can flip a rounding",
+            None,
+            lambda: x + F.linear(F.gelu(F.linear(F.layer_norm(
+                x, (C,), gamma.to(bf), beta.to(bf), 1e-6), w1, b1)), w2, b2),
+            _nbytes(x, gamma, beta, w1, b1, w2, b2, x),
+            2 * mmf * C * HIDDEN, 0.0),
         "task_decode": (
             lambda impl: fused_task_decode(xs, a, cw, ws, bs, wc, bc, wf,
                                            bfin, impl=impl),
             4, "x*a+x, f and fc are rounded to bf16 at the same points; "
-               "f32 sums in another order can flip a rounding"),
+               "f32 sums in another order can flip a rounding",
+            None, decode_lib,
+            _nbytes(xs, a, cw, ws, bs, wc, bc, wf, bfin) + B * S * T * FIN * 2,
+            2.0 * B * T * S * (2 * C * TAR + 2 * TAR * FIN), 0.0),
+        "head_up4": (
+            lambda impl: fused_up4_head(xh, kc, inv, addv, kp, impl=impl),
+            4, "Gm, the width mix and the GELU output are rounded to bf16 "
+               "at the same points; f32 sums in another order can flip a "
+               "rounding; the logits are f32 on both sides",
+            None, head_lib,
+            _nbytes(xh, kc, inv, addv, kp) + B * 16 * GRID * GRID * NLOG * 4,
+            # bf16 x bf16 products on the tensor cores: Gm (9 taps), the
+            # width mix (6 nonzero taps of the shifted bilinear bands per
+            # output, as the TPU stencil counts them; this kernel also
+            # multiplies the 3 zeros) and the 1x1; in f32: the height mix
+            # (6 nonzero taps) and the affine + GELU (~25 flops)
+            2.0 * B * GRID * GRID * FIN * 9 * FIN
+            + 12.0 * B * GRID * 3 * FIN * 4 * GRID
+            + 2.0 * B * 16 * GRID * GRID * FIN * NLOG,
+            (12.0 + 25.0) * B * 16 * GRID * GRID * FIN),
+        "attention_bwd": (
+            lambda impl: (attn_core_bwd_cuda if impl == "cuda"
+                          else attn_core_bwd_plain)(qkv_t, g_t, HEADS,
+                                                    D ** -0.5),
+            4, "per q, k and v slot: dl and p are rounded to bf16 at the "
+               "same points, f32 sums in another order can flip a rounding",
+            attn_bwd_lib, None, _nbytes(qkv_t, g_t, qkv_t),
+            # S, dP, dV, dQ, dK: five N x N x D products per (item, head)
+            10.0 * BT * HEADS * N * N * D, 0.0),
+        "mlp_fc": (
+            lambda impl: fused_mlp(xt, w1, b1, w2, b2, impl=impl),
+            4, "the GELU output is rounded to bf16 at the same point; f32 "
+               "sums in another order can flip a rounding",
+            None, lambda: F.linear(F.gelu(F.linear(xt, w1, b1)), w2, b2),
+            _nbytes(xt, w1, b1, w2, b2, xt), 4.0 * BT * N * C * HIDDEN, 0.0),
     }
     results = {}
-    for name, (call, ulps, reason) in cases.items():
+    for name, (call, ulps, reason, lib, comp, nbytes, tcf, f32f) in \
+            cases.items():
         got = call("cuda")
         want = call("plain")
         torch.cuda.synchronize()
+        if name == "attention_bwd":
+            got, want = split3(got), split3(want)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err, tol = 0.0, 0.0
@@ -154,15 +307,23 @@ def kernel_phase():
                 raise RuntimeError(f"{name}: max |kernel - plain| = {e:.4g} "
                                    f"exceeds {t:.4g} ({ulps} bf16 ulps)")
             err, tol = max(err, e), max(tol, t)
+        del got, want
         kms = _time_ms(lambda: call("cuda"))
-        pms = _time_ms(lambda: call("plain"))
+        pms = _time_ms(lambda: call("plain"), reps=3, warmup=1)
+        lms = _time_ms(lib) if lib else None
+        cms = _time_ms(comp) if comp else None
+        bms, bby = _bound(nbytes, tcf, f32f)
         results[name] = dict(max_abs_err=err, tol=tol, kernel_ms=kms,
-                             plain_ms=pms)
+                             plain_ms=pms, library_ms=lms,
+                             library_composition_ms=cms, bound_ms=bms,
+                             bound_by=bby)
         print(f"[kernel] {name}: max_abs_err={err:.6g} tol={tol:.6g} "
               f"({ulps} bf16 ulps of max |plain|: {reason}) "
-              f"kernel_ms={kms:.4f} plain_ms={pms:.4f}", flush=True)
+              f"kernel_ms={kms:.4f} plain_ms={pms:.4f} library_ms={lms} "
+              f"library_composition_ms={cms} bound_ms={bms:.4f} ({bby})",
+              flush=True)
 
-    # the safe (max-subtracted) softmax is not on the eval path; check it too
+    # the safe (max-subtracted) softmax of the training forward
     got = fused_attention_ln_qkv(x, gamma, beta, wqkv, bqkv, HEADS,
                                  impl="cuda", safe=True)
     want = fused_attention_ln_qkv(x, gamma, beta, wqkv, bqkv, HEADS,
@@ -176,107 +337,430 @@ def kernel_phase():
     return results
 
 
-# configs/pascal/taskprompter_vitLp16.yml, the keys build_model reads
-VITL_PASCAL = {
-    "model": "TaskPrompter", "backbone": "TaskPrompter_vitL", "head": "conv",
-    "embed_dim": TAR, "final_embed_dim": FIN, "prompt_len": 1,
-    "chan_nheads": 1, "use_ctr": True, "train_db_name": "PASCALContext",
-    "val_db_name": "PASCALContext",
-    "task_dictionary": {"include_semseg": True, "include_human_parts": True,
-                        "include_sal": True, "include_edge": True,
-                        "include_normals": True, "edge_w": 0.95},
-}
-EXPECTED_LAUNCHES = {"attention_cached": 20, "attention_emit": 4,
-                     "layernorm": 5, "mlp": 24, "task_decode": 4}
-# The whole forward is held against an f32 run of the same (bf16-valued)
+EXPECTED_EVAL = {"factored": {"layernorm": 5, "attention_cached": 20,
+                              "attention_emit": 4, "attention_bwd": 0,
+                              "mlp_ln_res": 24, "mlp_fc": 0,
+                              "task_decode": 4, "head_up4": 5},
+                 "dense": {"layernorm": 5, "attention_cached": 20,
+                           "attention_emit": 4, "attention_bwd": 0,
+                           "mlp_ln_res": 24, "mlp_fc": 0, "task_decode": 4,
+                           "head_up4": 0}}
+# one training step: blocks 1..23 run under drop-path (LN + plain MLP),
+# block 0 the fused half-block; 24 attention backwards; no up4 head kernel
+EXPECTED_TRAIN = {"layernorm": 23 + 4 + 1, "attention_cached": 20,
+                  "attention_emit": 4, "attention_bwd": 24, "mlp_ln_res": 1,
+                  "mlp_fc": 23, "task_decode": 4, "head_up4": 0}
+# The eval forward is held against an f32 run of the same (bf16-valued)
 # weights on the plain versions, by the relative RMS error per task,
 # ||logits - f32|| / ||f32||. Both bf16 paths (kernels, and the plain versions
-# in bf16) round at the same points, yet each sits 0.016-0.039 from the f32
-# run at this seed on an H100: 24 blocks of random weights amplify bf16
+# in bf16) round at the same points, yet each sat 0.016-0.039 from the f32 run
+# with the dense head on an H100: 24 blocks of random weights amplify bf16
 # rounding, and which roundings flip differs between the two paths, so
 # neither is the other's exact reference. The bound is 2.5x the largest of
 # those; wiring faults (a wrong head order, a dropped bias or task) give
 # errors of order 1. The kernels themselves are held to ulps in phase 3.
 FORWARD_RMS_TOL = 0.1
+# The training step's gradients against an f32 run on the plain versions of
+# the same weights, batch and drop-path masks: relative RMS over all
+# gradients, sqrt(sum ||g - g32||^2 / sum ||g32||^2). On an H100 the kernels
+# measured 0.062 and the plain versions in bf16 0.060 at this seed: bf16
+# rounding carried back through 24 blocks of random weights, alike on both
+# paths. The bound is 2.5x that, as for the forward; a wiring fault (a
+# missing cotangent, a transposed weight gradient) gives order 1.
+GRAD_RMS_TOL = 0.15
+# Per tensor, the same bound holds, divided by the cancellation rho of the
+# sum that forms the tensor's gradient (``_cancellation``): batch-statistics
+# BN in the heads makes the loss nearly blind to a common scale or shift of a
+# head's input, so the gradients of the parameters that set one (the CTR
+# weights and biases, the decode's last biases) are small sums of large terms
+# (rho 1e-6 to 0.25 on an H100), and the bf16 error of the terms comes out
+# magnified by 1 / rho on both bf16 paths alike. A tensor outside the sums
+# that rho covers is held to GRAD_RMS_TOL itself. Gradients under 1e-6 of
+# all are left out: the biases ahead of batch-statistics BN, whose exact
+# gradient is zero, and a few that these random weights leave near zero.
 
 
-def model_phase():
-    """ViT-L PASCAL eval forward through the kernels; returns the launch
-    counts of that one forward."""
-    from mtt_tpu_torch.inference import predict, preprocess
-    from mtt_tpu_torch.kernels import _build
+def _rel_rms(got: dict, ref: dict) -> float:
+    num = sum(((got[k].float() - ref[k].float()) ** 2).sum() for k in ref)
+    den = sum((ref[k].float() ** 2).sum() for k in ref)
+    return (num / den).sqrt().item()
+
+
+def _eval_model():
+    """The ViT-L PASCAL eval model (factored head, bf16, seeded random
+    weights) and a seeded batch of 8 preprocessed 512x512 images."""
+    from mtt_tpu_torch.inference import preprocess
     from mtt_tpu_torch.models.layers import init_weights
     from mtt_tpu_torch.models.wrappers import build_model
+    from mtt_tpu_torch.train import PASCAL_VITL
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    model = build_model(VITL_PASCAL, device=dev, dtype=torch.bfloat16).eval()
+    model = build_model(PASCAL_VITL, device=dev, dtype=torch.bfloat16).eval()
     init_weights(model, gen)
-    n_params = sum(p.numel() for p in model.parameters())
     rgb = torch.randint(0, 256, (B, IMG, IMG, 3), generator=gen, device=dev)
-    x = preprocess(rgb)
+    return model, preprocess(rgb)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_counts()
-    logits, preds = predict(model, x)
-    torch.cuda.synchronize()
-    counts = dict(_build.COUNTS)
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[model] TaskPrompter-ViT-L PASCAL, {n_params / 1e6:.1f} M params,"
-          f" batch {B} at {IMG}x{IMG} bf16; launches {counts}", flush=True)
-    if counts != EXPECTED_LAUNCHES:
-        raise RuntimeError(f"launch counts {counts} != {EXPECTED_LAUNCHES}")
 
-    for t in model.tasks:
-        n = model.get_submodule(f"head_{t}").linear_pred.out_channels
-        if logits[t].shape != (B, IMG, IMG, n):
-            raise RuntimeError(f"{t}: logits {tuple(logits[t].shape)}")
-        if not torch.isfinite(logits[t]).all():
-            raise RuntimeError(f"{t}: non-finite logits")
-        if preds[t].shape[:3] != (B, IMG, IMG) or \
-                not torch.isfinite(preds[t].float()).all():
-            raise RuntimeError(f"{t}: bad prediction {tuple(preds[t].shape)}")
+def _vitl_trainer():
+    """The ViT-L PASCAL trainer (seeded) and its synthetic dataset."""
+    from mtt_tpu_torch.train import PASCAL_VITL, make_trainer
+    return make_trainer(PASCAL_VITL, seed=2, device=torch.device("cuda"))
 
-    ms = _time_ms(lambda: predict(model, x), reps=5, warmup=1)
-    plain_ms = _time_ms(lambda: predict(model, x, impl="plain"), reps=3,
-                        warmup=1)
-    plain, plain_preds = predict(model, x, impl="plain")
-    # f32 reference: full-precision matmuls and convolutions (no TF32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    ref_model = copy.deepcopy(model).float()
-    ref, ref_preds = predict(ref_model, x, impl="plain")
-    del ref_model
-    for t in model.tasks:
-        r = ref[t].float()
-        k, p = logits[t].float(), plain[t].float()
-        rms_k = ((k - r).norm() / r.norm()).item()
-        rms_p = ((p - r).norm() / r.norm()).item()
-        max_k = ((k - r).abs().max() / r.abs().max()).item()
-        max_p = ((p - r).abs().max() / r.abs().max()).item()
-        line = (f"[model] {t}: logits {tuple(logits[t].shape)}; vs the f32 "
-                f"run: relative RMS error kernels {rms_k:.5g} (tol "
-                f"{FORWARD_RMS_TOL}), plain bf16 {rms_p:.5g}; max error / "
-                f"max|f32| kernels {max_k:.5g}, plain bf16 {max_p:.5g}")
-        if t in ("semseg", "human_parts"):
-            line += (f"; argmax agreement with f32: kernels "
-                     f"{(preds[t] == ref_preds[t]).float().mean().item():.5f},"
-                     f" plain bf16 "
-                     f"{(plain_preds[t] == ref_preds[t]).float().mean().item():.5f}")
-        print(line, flush=True)
-        if not rms_k <= FORWARD_RMS_TOL:
-            raise RuntimeError(f"{t}: kernel forward is {rms_k:.4g} (relative"
-                               f" RMS) from the f32 run, over "
-                               f"{FORWARD_RMS_TOL}")
-    print(f"[model] forward+postprocess {ms:.2f} ms = {B / ms * 1e3:.2f} "
-          f"imgs/s through the kernels; plain versions {plain_ms:.2f} ms = "
-          f"{B / plain_ms * 1e3:.2f} imgs/s; peak memory of the first "
-          f"forward {peak_gib:.2f} GiB", flush=True)
+
+def eval_phase():
+    """The ViT-L PASCAL eval forward through the kernels, factored head then
+    dense head; returns the launch counts of each forward."""
+    from mtt_tpu_torch.inference import predict
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.models.wrappers import TaskPrompterNet
+
+    dev = torch.device("cuda")
+    factored, x = _eval_model()
+    dense = TaskPrompterNet(
+        factored.tasks, {t: factored.get_submodule(f"head_{t}").linear_pred
+                         .out_channels for t in factored.tasks}, (IMG, IMG),
+        "TaskPrompter_vitL", head_up4="dense", device=dev,
+        dtype=torch.bfloat16).eval()
+    dense.load_state_dict(factored.state_dict())
+    n_params = sum(p.numel() for p in factored.parameters())
+    counts = {}
+    for mode, model in (("factored", factored), ("dense", dense)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        logits, preds = predict(model, x)
+        torch.cuda.synchronize()
+        counts[mode] = dict(_build.COUNTS)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[eval {mode}] TaskPrompter-ViT-L PASCAL, "
+              f"{n_params / 1e6:.1f} M params, batch {B} at {IMG}x{IMG} "
+              f"bf16; launches {counts[mode]}", flush=True)
+        if counts[mode] != EXPECTED_EVAL[mode]:
+            raise RuntimeError(f"{mode} launch counts {counts[mode]} != "
+                               f"{EXPECTED_EVAL[mode]}")
+        for t in model.tasks:
+            n = model.get_submodule(f"head_{t}").linear_pred.out_channels
+            if logits[t].shape != (B, IMG, IMG, n) or \
+                    not torch.isfinite(logits[t]).all():
+                raise RuntimeError(f"{mode} {t}: logits "
+                                   f"{tuple(logits[t].shape)} or non-finite")
+            if preds[t].shape[:3] != (B, IMG, IMG) or \
+                    not torch.isfinite(preds[t].float()).all():
+                raise RuntimeError(f"{mode} {t}: bad prediction "
+                                   f"{tuple(preds[t].shape)}")
+        ms = _time_ms(lambda: predict(model, x), reps=5, warmup=1)
+        plain_ms = _time_ms(lambda: predict(model, x, impl="plain"), reps=3,
+                            warmup=1)
+        plain, plain_preds = predict(model, x, impl="plain")
+        # f32 reference: full-precision matmuls and convolutions (no TF32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        ref_model = copy.deepcopy(model).float()
+        ref, ref_preds = predict(ref_model, x, impl="plain")
+        del ref_model
+        for t in model.tasks:
+            r = ref[t].float()
+            k, p = logits[t].float(), plain[t].float()
+            rms_k = ((k - r).norm() / r.norm()).item()
+            rms_p = ((p - r).norm() / r.norm()).item()
+            line = (f"[eval {mode}] {t}: vs the f32 run: relative RMS error "
+                    f"kernels {rms_k:.5g} (tol {FORWARD_RMS_TOL}), plain bf16 "
+                    f"{rms_p:.5g}; max error / max|f32| kernels "
+                    f"{((k - r).abs().max() / r.abs().max()).item():.5g}")
+            if t in ("semseg", "human_parts"):
+                line += (f"; argmax agreement with f32: kernels "
+                         f"{(preds[t] == ref_preds[t]).float().mean().item():.5f}"
+                         f", plain bf16 "
+                         f"{(plain_preds[t] == ref_preds[t]).float().mean().item():.5f}")
+            print(line, flush=True)
+            if not rms_k <= FORWARD_RMS_TOL:
+                raise RuntimeError(f"{mode} {t}: kernel forward is {rms_k:.4g}"
+                                   f" (relative RMS) from the f32 run, over "
+                                   f"{FORWARD_RMS_TOL}")
+        print(f"[eval {mode}] forward+postprocess {ms:.2f} ms = "
+              f"{B / ms * 1e3:.2f} imgs/s through the kernels; plain versions "
+              f"{plain_ms:.2f} ms = {B / plain_ms * 1e3:.2f} imgs/s; peak "
+              f"memory of the first forward {peak_gib:.2f} GiB", flush=True)
+        del logits, preds, plain, plain_preds, ref, ref_preds
     return counts
 
 
-def main():
+def _grads_of(model, batch, criterion, gen_state, impl=None):
+    """One train-mode forward and backward with the drop-path generator set
+    to ``gen_state``; the gradients by parameter name."""
+    gen = torch.Generator(device="cuda")
+    gen.set_state(gen_state)
+    model.zero_grad(set_to_none=True)
+    dt = next(model.parameters()).dtype
+    out = model(batch["image"].to(dt), train=True, generator=gen, impl=impl)
+    criterion(out, batch)["total"].backward()
+    return {n: w.grad.detach().clone() for n, w in model.named_parameters()}
+
+
+def _cancellation(model, batch, criterion, gen_state, names) -> dict:
+    """How far the terms that sum to each named gradient cancel, in one f32
+    plain run: rho = ||sum_i t_i|| / ||sum_i |t_i|||, over samples and
+    positions i, where t_i is the output cotangent for a bias and the product
+    of cotangent and input for a Linear weight. A relative error e in every
+    term moves the sum by at most e / rho of itself. Other tensors (and
+    modules called more than once) are left out."""
+    seen, hooks = {}, []
+
+    def grabber(mod_name):
+        def grab(_, inp, out):
+            def keep(g):
+                seen.setdefault(mod_name, []).append(
+                    (inp[0].detach().float(), g.detach().float()))
+            out.register_hook(keep)
+        return grab
+
+    for mod_name in {n.rsplit(".", 1)[0] for n in names}:
+        hooks.append(model.get_submodule(mod_name).register_forward_hook(
+            grabber(mod_name)))
+    try:
+        _grads_of(model, batch, criterion, gen_state, "plain")
+    finally:
+        for h in hooks:
+            h.remove()
+    rho = {}
+    for name in names:
+        mod_name, kind = name.rsplit(".", 1)
+        mod = model.get_submodule(mod_name)
+        if len(seen.get(mod_name, ())) != 1:
+            continue
+        x, g = seen[mod_name][0]
+        if isinstance(mod, torch.nn.Conv2d):    # channels first
+            g, x = g.movedim(1, -1), x.movedim(1, -1)
+        g = g.reshape(-1, g.shape[-1])
+        if kind == "bias":
+            rho[name] = (g.sum(0).norm() / g.abs().sum(0).norm()).item()
+        elif kind == "weight" and isinstance(mod, torch.nn.Linear):
+            x = x.reshape(-1, x.shape[-1])
+            rho[name] = ((g.t() @ x).norm()
+                         / (g.abs().t() @ x.abs()).norm()).item()
+    return rho
+
+
+def train_phase():
+    """ViT-L PASCAL training steps through the kernels; returns the launch
+    counts of one step."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.utils.train_utils import to_device
+
+    dev = torch.device("cuda")
+    trainer, data = _vitl_trainer()
+    model = trainer.model
+    batches = [to_device(data.batch(i * BT, BT), dev)
+               for i in range(TRAIN_STEPS)]
+
+    # gradients of the first step: the kernels in bf16, the plain versions in
+    # bf16, and an f32 plain run of the same weights, batch and masks
+    state = trainer.generator.get_state()
+    g_plain = _grads_of(copy.deepcopy(model), batches[0], trainer.criterion,
+                        state, "plain")
+    ref_model = copy.deepcopy(model).float()
+    g_ref = _grads_of(ref_model, batches[0], trainer.criterion, state,
+                      "plain")
+    ref_model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    buffers0 = {n: b.clone() for n, b in model.named_buffers()
+                if "running" in n}
+    master0 = [m.detach().cpu() for m in trainer.master]  # off the card
+
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    losses = trainer.backward(batches[0])
+    torch.cuda.synchronize()
+    counts = dict(_build.COUNTS)
+    g_kernel = {n: w.grad.detach().clone() for n, w in
+                model.named_parameters()}
+    trainer.update()
+    torch.cuda.synchronize()
+    print(f"[train] TaskPrompter-ViT-L PASCAL, batch {BT} at {IMG}x{IMG}, "
+          f"bf16 with f32 master weights; launches of one step {counts}",
+          flush=True)
+    if counts != EXPECTED_TRAIN:
+        raise RuntimeError(f"training launch counts {counts} != "
+                           f"{EXPECTED_TRAIN}")
+    rms_k, rms_p = _rel_rms(g_kernel, g_ref), _rel_rms(g_plain, g_ref)
+    print(f"[train] step-1 gradients vs the f32 plain run: relative RMS over "
+          f"all gradients kernels {rms_k:.5g} (tol {GRAD_RMS_TOL}), plain "
+          f"bf16 {rms_p:.5g}", flush=True)
+    if not all(torch.isfinite(g).all() for g in g_kernel.values()):
+        raise RuntimeError("non-finite gradients")
+    if not rms_k <= GRAD_RMS_TOL:
+        raise RuntimeError(f"gradients {rms_k:.4g} (relative RMS) from the "
+                           f"f32 run, over {GRAD_RMS_TOL}")
+    # per tensor: each path's relative error against the f32 run, leaving
+    # out the gradients that are zero but for rounding noise
+    total = sum((g ** 2).sum() for g in g_ref.values()).sqrt().item()
+    per, tiny = {}, []
+    for k, r in g_ref.items():
+        rn = r.norm().item()
+        if rn <= 1e-6 * total:
+            tiny.append(k)
+            continue
+        per[k] = ((g_kernel[k].float() - r).norm().item() / rn,
+                  (g_plain[k].float() - r).norm().item() / rn,
+                  rn / total, r.numel())
+    print(f"[train] {len(tiny)} gradients under 1e-6 of all in the f32 run, "
+          f"left out per tensor: {tiny}", flush=True)
+    over = [k for k, (ek, ep, _, _) in per.items()
+            if max(ek, ep) > GRAD_RMS_TOL]
+    rho = _cancellation(ref_model, batches[0], trainer.criterion, state,
+                        over)
+    del ref_model
+    bad = []
+    for k in sorted(over, key=lambda k: -max(per[k][:2])):
+        ek, ep, share, n = per[k]
+        tol = GRAD_RMS_TOL / rho[k] if k in rho else GRAD_RMS_TOL
+        print(f"[train] tensor {k} ({n} values, ||g32|| = {share:.3g} of "
+              f"all): relative error kernels {ek:.5g}, plain bf16 {ep:.5g}; "
+              f"cancellation rho {rho.get(k, 'not measured')}, tol "
+              f"{tol:.5g}", flush=True)
+        if not ek <= tol:
+            bad.append(k)
+    print(f"[train] per tensor: {len(per) - len(over)} of {len(per)} within "
+          f"{GRAD_RMS_TOL} on both bf16 paths; {len(bad)} over their "
+          f"tolerance", flush=True)
+    if bad:
+        raise RuntimeError(f"per-tensor gradient check failed for {bad}")
+    has_grad = [g_ref[n].abs().sum().item() > 0
+                for n, _ in model.named_parameters()]
+    del g_kernel, g_plain, g_ref
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    all_losses = [losses]
+    step_ms = []
+    for batch in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_losses.append(trainer.step(batch))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    totals = [float(ls["total"]) for ls in all_losses]
+    print(f"[train] losses per step {[round(v, 5) for v in totals]}; "
+          f"step 1 {({k: round(float(v), 5) for k, v in losses.items()})}",
+          flush=True)
+    if not all(torch.isfinite(v).all() for ls in all_losses
+               for v in ls.values()):
+        raise RuntimeError("non-finite training loss")
+    names = [n for n, _ in model.named_parameters()]
+    still = [n for n, a, b in zip(names, master0, trainer.master)
+             if torch.equal(a, b.detach().cpu())]
+    stuck = [n for n, g in zip(names, has_grad) if g and n in still]
+    bn_moved = sum(not torch.equal(buffers0[n], b) for n, b in
+                   model.named_buffers() if n in buffers0)
+    print(f"[train] parameters moved {len(names) - len(still)}/{len(names)} "
+          f"(unmoved, each with a zero f32 gradient: {still}); BN running "
+          f"statistics moved {bn_moved}/{len(buffers0)}", flush=True)
+    if stuck or bn_moved != len(buffers0):
+        raise RuntimeError(f"parameters with a gradient that did not move "
+                           f"{stuck}, or BN statistics that did not move")
+    ms = statistics.median(step_ms)
+    print(f"[train] {ms:.2f} ms per step (median of {len(step_ms)}; "
+          f"{[round(v, 2) for v in step_ms]}) = {BT / ms * 1e3:.2f} imgs/s; "
+          f"peak memory of steps 2-{TRAIN_STEPS} {peak_gib:.2f} GiB",
+          flush=True)
+    return counts
+
+
+# profile: kernel-name fragment -> group; anything else is library work
+PROFILE_GROUPS = (("mlp_kernel", "mlp (mlp.cu)"),
+                  ("attn_bwd", "attention backward"),
+                  ("attn_core", "attention core"),
+                  ("gemm_nt_bias", "qkv projection"),
+                  ("ln_kernel", "layernorm"), ("task_decode", "task decode"),
+                  ("head_up4", "up4 head"))
+
+
+def _wall_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of ``reps`` synchronised calls."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _profile(title: str, fn, top: int = 12) -> None:
+    """Wall time of ``fn`` after warm-up, then one ``torch.profiler`` trace
+    of it: device time in all, per kernel group, and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    wall = _wall_ms(fn)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # device rows, without the annotations that the profiler also puts on
+    # the device's timeline (named like "Optimizer.step#Adam.step"); the
+    # self device time attribute was renamed across torch versions
+    dev = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and "#" not in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            dev[e.key] = (e.count, e.self_cuda_time_total if t is None else t)
+    total = sum(t for _, t in dev.values()) / 1e3
+    print(f"[profile] {title}: wall {wall:.2f} ms (median of 5); device "
+          f"time of all kernels {total:.2f} ms = "
+          f"{100 * total / wall:.1f}% of the wall time", flush=True)
+    if not dev:
+        raise RuntimeError("the profiler trace holds no device time")
+    groups = {}
+    for name, (count, t) in dev.items():
+        g = next((g for frag, g in PROFILE_GROUPS if frag in name),
+                 "library (cuBLAS, cuDNN, elementwise, copies)")
+        c0, t0 = groups.get(g, (0, 0.0))
+        groups[g] = (c0 + count, t0 + t / 1e3)
+    for g, (count, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+        print(f"[profile] {title} | {g}: {ms:.2f} ms in {count} launches "
+              f"({100 * ms / wall:.1f}%)", flush=True)
+    for name, (count, t) in sorted(dev.items(),
+                                   key=lambda kv: -kv[1][1])[:top]:
+        print(f"[profile] {title} | kernel {name[:90]}: {t / 1e3:.3f} ms in "
+              f"{count}", flush=True)
+
+
+def profile_phase():
+    """``--profile``: the device-time breakdown of one eval forward (the
+    eval phase's model and batch) and of one training step (the training
+    phase's trainer and first batch)."""
+    from mtt_tpu_torch.inference import predict
+    from mtt_tpu_torch.utils.train_utils import to_device
+    model, x = _eval_model()
+    _profile(f"eval forward, batch {B}", lambda: predict(model, x))
+    del model, x
+    trainer, data = _vitl_trainer()
+    batch = to_device(data.batch(0, BT), torch.device("cuda"))
+    _profile(f"training step, batch {BT}", lambda: trainer.step(batch))
+
+
+def _kernel_name(mangled: str) -> str:
+    """The ``*_kernel`` identifier of a mangled name (<length><identifier>)
+    and its template arguments."""
+    for m in re.finditer(r"(?=(\d+)([a-z_][a-z_0-9]*))", mangled):
+        name = m.group(2)[:int(m.group(1))]
+        if len(name) == int(m.group(1)) and name.endswith("_kernel"):
+            tmpl = re.match(r"I\w*?EE", mangled[m.start(2) + len(name):])
+            return name + (tmpl.group(0) if tmpl else "")
+    return mangled
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="only print the device-time breakdown of one eval "
+                         "forward and one training step (torch.profiler)")
+    profile_only = ap.parse_args(argv).profile
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -293,24 +777,43 @@ def main():
           f"s)", flush=True)
     kernel = None
     for line in _build.build_log.splitlines():
-        m = re.search(r"entry function '\w*?(\d+)([a-z_]+_kernel)(IL\w+?E)?",
-                      line)
+        m = re.search(r"entry function '(\w+)'", line)
         if m:
-            kernel = m.group(2) + (m.group(3) or "")
+            kernel = _kernel_name(m.group(1))
         elif kernel and ("spill" in line or "registers" in line):
             print(f"[ptxas] {kernel}: {line.split(':', 1)[-1].strip()}")
+    if profile_only:
+        profile_phase()
+        return 0
 
+    phases = {}
+    t = time.perf_counter()
     results = kernel_phase()
-    counts = model_phase()
+    phases["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    eval_counts = eval_phase()
+    phases["eval"] = time.perf_counter() - t
+    t = time.perf_counter()
+    train_counts = train_phase()
+    phases["train"] = time.perf_counter() - t
+    print(f"[phases] seconds {({k: round(v, 1) for k, v in phases.items()})}",
+          flush=True)
 
     rows = []
-    for name, (src, replaces, counter) in KERNEL_ROWS.items():
+    for name, (src, replaces, counter, path) in KERNEL_ROWS.items():
         r = results[name]
-        rows.append(dict(name=name, route="cuda", source=src,
-                         replaces=replaces, launches=counts[counter],
-                         max_abs_err=r["max_abs_err"], tol=r["tol"],
-                         ms=r["kernel_ms"], kernel_ms=r["kernel_ms"],
-                         plain_ms=r["plain_ms"]))
+        by_path = {"eval_factored": eval_counts["factored"][counter],
+                   "eval_dense": eval_counts["dense"][counter],
+                   "train_step": train_counts[counter]}
+        rows.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=by_path["eval_factored" if path == "eval"
+                             else "train_step"],
+            launches_by_path=by_path, max_abs_err=r["max_abs_err"],
+            tol=r["tol"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            library_composition_ms=r["library_composition_ms"]))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -147,4 +147,23 @@ __device__ __forceinline__ float gelu_erf_poly(float h) {
   return 0.5f * h * (1.0f + erf_poly(h * 0.70710678118654752f));
 }
 
+// The polynomial-only GELU of the up4 head (mtt_tpu/kernels/mlp.py:
+// _gelu_erf_poly_fast, |err| <= 2.1e-4): erf(z)/z as a degree-9 polynomial in
+// z^2 on z clamped to [-3, 3], evaluated by Horner's rule from the top.
+__device__ __forceinline__ float gelu_erf_poly_fast(float h) {
+  const float z = fminf(fmaxf(h * 0.70710678118654752f, -3.f), 3.f);
+  const float u = z * z;
+  float p = -4.8841998736e-09f;
+  p = p * u + 2.4628598067e-07f;
+  p = p * u + -5.5816809050e-06f;
+  p = p * u + 7.6191207693e-05f;
+  p = p * u + -7.1228464379e-04f;
+  p = p * u + 4.9304063297e-03f;
+  p = p * u + -2.6508064540e-02f;
+  p = p * u + 1.1261189222e-01f;
+  p = p * u + -3.7607042872e-01f;
+  p = p * u + 1.1283768672e+00f;
+  return 0.5f * h * (1.0f + z * p);
+}
+
 }  // namespace mtt

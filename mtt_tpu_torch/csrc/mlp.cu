@@ -1,16 +1,20 @@
-// Pre-norm MLP half-block: out = x + fc2(gelu(fc1(LN(x)))), bf16 in and out.
-//
-// Replaces mtt_tpu/kernels/mlp.py:_mlp_ln_res_kernel and its batch-blocked
-// twin _mlp_ln_res_bb_kernel. The batch blocking there is a TPU weight-streaming
-// choice over the same function; rows are independent, so here the (B*N, C)
-// rows are simply cut into blocks of 32.
+// Transformer MLPs, bf16 in and out, one kernel in two variants:
+//   LN_RES = true:  the pre-norm half-block out = x + fc2(gelu(fc1(LN(x)))),
+//                   replacing mtt_tpu/kernels/mlp.py:_mlp_ln_res_kernel and its
+//                   batch-blocked twin _mlp_ln_res_bb_kernel (every eval block);
+//   LN_RES = false: out = fc2(gelu(fc1(x))), replacing mlp.py:_mlp_kernel
+//                   (pallas_call at :142), which the training blocks with
+//                   drop-path run after a separate LayerNorm.
+// The batch blocking of the TPU kernels is a weight-streaming choice over the
+// same function; rows are independent, so here the (B*N, C) rows are simply
+// cut into blocks of 32.
 //
 // What bounds it on the H100: 138 GFLOP per ViT-L call (8232 rows, C=1024,
 // hidden 4096) on the tensor cores, and the (8232, 4096) hidden activation,
 // which would be 67 MB each way through device memory. The design keeps the
 // hidden out of device memory: a block normalises its 32 rows once into shared
-// memory, then walks the hidden dimension in chunks of 128 columns; each chunk
-// is fc1 (wmma, f32), bias + A&S-erf GELU in f32, one bf16 rounding into shared
+// memory (the variant without LN copies them), then walks the hidden dimension
+// in chunks of 128 columns; each chunk is fc1 (wmma, f32), bias + A&S-erf GELU in f32, one bf16 rounding into shared
 // memory, and fc2 accumulated into f32 fragments that stay in registers for the
 // whole walk (each warp owns C/8 output columns). The weights are read from L2
 // straight into fragments; every block reads both weight matrices once, which is
@@ -32,8 +36,8 @@ constexpr int mlp_smem() {
   return MBM * (C + 8) * 2 + MBM * HFL * 4 + MBM * HSL * 2;
 }
 
-template <int C>
-__global__ void __launch_bounds__(MT, 1) mlp_ln_res_kernel(
+template <int C, bool LN_RES>
+__global__ void __launch_bounds__(MT, 1) mlp_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
     const bf16* __restrict__ w1, const float* __restrict__ b1, const bf16* __restrict__ w2,
     const float* __restrict__ b2, bf16* __restrict__ out, int M, int Hd, float eps) {
@@ -48,11 +52,17 @@ __global__ void __launch_bounds__(MT, 1) mlp_ln_res_kernel(
   const int m0 = blockIdx.x * MBM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  // LN(x) of the block's rows, rounded to bf16 once (mlp.py:293-298)
+  // LN(x) of the block's rows, rounded to bf16 once (mlp.py:293-298), or x
   for (int r = warp; r < MBM; r += MT / 32) {
     bf16* dst = XN + r * XL;
     if (m0 + r < M) {
-      ln_row_warp<C / 256>(x + (size_t)(m0 + r) * C, gamma, beta, dst, C, eps, lane);
+      const bf16* src = x + (size_t)(m0 + r) * C;
+      if (LN_RES) {
+        ln_row_warp<C / 256>(src, gamma, beta, dst, C, eps, lane);
+      } else {
+        for (int c = lane * 8; c < C; c += 256)
+          *reinterpret_cast<uint4*>(dst + c) = *reinterpret_cast<const uint4*>(src + c);
+      }
     } else {
       for (int c = lane * 8; c < C; c += 256) *reinterpret_cast<uint4*>(dst + c) = make_uint4(0, 0, 0, 0);
     }
@@ -113,7 +123,7 @@ __global__ void __launch_bounds__(MT, 1) mlp_ln_res_kernel(
   }
   __syncthreads();
 
-  // epilogue: acc + b2 + x in f32, one bf16 rounding (mlp.py:309-310)
+  // epilogue: acc + b2 (+ x) in f32, one bf16 rounding (mlp.py:309-310, :105)
   float* scratch = HF + warp * 256;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -124,8 +134,8 @@ __global__ void __launch_bounds__(MT, 1) mlp_ln_res_kernel(
       const int row = m0 + i * 16 + (lane >> 1);
       const int col = warp * CW + jt * 16 + (lane & 1) * 8;
       if (row < M) {
-        float xr[8];
-        unpack8(*reinterpret_cast<const uint4*>(x + (size_t)row * C + col), xr);
+        float xr[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (LN_RES) unpack8(*reinterpret_cast<const uint4*>(x + (size_t)row * C + col), xr);
 #pragma unroll
         for (int k = 0; k < 8; ++k) v[k] = v[k] + b2[col + k] + xr[k];
         *reinterpret_cast<uint4*>(out + (size_t)row * C + col) = pack8(v);
@@ -133,16 +143,16 @@ __global__ void __launch_bounds__(MT, 1) mlp_ln_res_kernel(
     }
 }
 
-template <int C>
+template <int C, bool LN_RES>
 int launch_mlp(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1,
                const void* w2, const void* b2, void* out, int M, int Hd, float eps, cudaStream_t st) {
   constexpr int smem = mlp_smem<C>();
   // set on every launch: the attribute belongs to the current device's context
-  cudaError_t e = cudaFuncSetAttribute(mlp_ln_res_kernel<C>,
+  cudaError_t e = cudaFuncSetAttribute(mlp_kernel<C, LN_RES>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((M + MBM - 1) / MBM);
-  mlp_ln_res_kernel<C><<<grid, MT, smem, st>>>(
+  mlp_kernel<C, LN_RES><<<grid, MT, smem, st>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(b2), static_cast<bf16*>(out), M, Hd, eps);
@@ -157,7 +167,16 @@ extern "C" int mtt_mlp_ln_res_bf16(const void* x, const void* gamma, const void*
                                    const void* b1, const void* w2, const void* b2, void* out, int M,
                                    int C, int Hd, float eps, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (C == 1024) return launch_mlp<1024>(x, gamma, beta, w1, b1, w2, b2, out, M, Hd, eps, st);
-  if (C == 768) return launch_mlp<768>(x, gamma, beta, w1, b1, w2, b2, out, M, Hd, eps, st);
+  if (C == 1024) return launch_mlp<1024, true>(x, gamma, beta, w1, b1, w2, b2, out, M, Hd, eps, st);
+  if (C == 768) return launch_mlp<768, true>(x, gamma, beta, w1, b1, w2, b2, out, M, Hd, eps, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same without LN and residual: out = fc2(gelu(fc1(x))).
+extern "C" int mtt_mlp_fc_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+                               const void* b2, void* out, int M, int C, int Hd, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (C == 1024) return launch_mlp<1024, false>(x, nullptr, nullptr, w1, b1, w2, b2, out, M, Hd, 0.f, st);
+  if (C == 768) return launch_mlp<768, false>(x, nullptr, nullptr, w1, b1, w2, b2, out, M, Hd, 0.f, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIB_NAME = "libmtt_kernels.so"
 
 COUNTS = {"layernorm": 0, "attention_cached": 0, "attention_emit": 0,
-          "mlp": 0, "task_decode": 0}
+          "attention_bwd": 0, "mlp_ln_res": 0, "mlp_fc": 0, "task_decode": 0,
+          "head_up4": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +48,10 @@ _SIGNATURES = {
                             _P),
     "mtt_task_decode_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _I, _I, _P),
+    "mtt_attn_bwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "mtt_mlp_fc_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "mtt_head_up4_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _P),
 }
 
 _lock = threading.Lock()

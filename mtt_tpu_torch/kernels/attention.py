@@ -15,6 +15,14 @@ both tensor-core bound at ViT-L shapes; see the source note in attention.cu.
 
 The weight is the nn.Linear layout (3C, C) whose rows are HEAD-MAJOR (H, 3, D):
 the transpose of the JAX package's (C, 3C) kernel with head-major columns.
+
+The gradient ports the JAX custom VJP (attention.py:697-736): it recomputes LN
+and qkv (through the forward's own kernels on the card, uncounted), runs the
+attention-core backward (``_attn_bwd_kernel``, csrc/attention_bwd.cu, plain
+twin ``attn_core_bwd_plain``), then closes the qkv-projection and LN
+gradients. Those closing products are XLA in JAX and ``torch.matmul`` plus
+``layernorm_vjp`` in plain torch here. The emit variant also takes the
+cotangents of its qkv and xn outputs, which the tap blocks' raw scores feed.
 """
 
 from __future__ import annotations
@@ -26,8 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from mtt_tpu_torch.kernels import _build
-from mtt_tpu_torch.kernels.layernorm import (fused_layernorm, layernorm_cuda,
-                                             layernorm_plain)
+from mtt_tpu_torch.kernels.layernorm import (layernorm_cuda, layernorm_plain,
+                                             layernorm_vjp)
 
 LOG2E = 1.4426950408889634
 EXP2_CLAMP = 126.0
@@ -65,6 +73,11 @@ def scaled_log2e(scale: float, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(scale * LOG2E, dtype=dtype)
 
 
+def qkv_proj_plain(xn, w, b):
+    """qkv bias added in f32, rounded once."""
+    return (F.linear(xn.float(), w.float()) + b.float()).to(xn.dtype)
+
+
 def attention_ln_qkv_plain(x, gamma, beta, w, b, heads: int, scale: float,
                            eps: float = 1e-6, need_qkv: bool = False,
                            safe: bool = False):
@@ -74,7 +87,7 @@ def attention_ln_qkv_plain(x, gamma, beta, w, b, heads: int, scale: float,
     B, N, C = x.shape
     D = w.shape[0] // heads // 3
     xn = layernorm_plain(x, gamma, beta, eps)
-    qkv = (F.linear(xn.float(), w.float()) + b.float()).to(x.dtype)
+    qkv = qkv_proj_plain(xn, w, b)
     q5 = qkv.view(B, N, heads, 3, D)
     q = q5[:, :, :, 0] * scaled_log2e(scale, x.dtype).to(x.device)
     k, v = q5[:, :, :, 1], q5[:, :, :, 2]
@@ -84,6 +97,55 @@ def attention_ln_qkv_plain(x, gamma, beta, w, b, heads: int, scale: float,
     o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
     out = (o / s).to(x.dtype).permute(0, 2, 1, 3).reshape(B, N, heads * D)
     return (out, qkv, xn) if need_qkv else out
+
+
+def attn_core_bwd_plain(qkv, g, heads: int, scale: float):
+    """dqkv of softmax(q k^T * scale) v from the head-major qkv (B, N, H*3*D)
+    and dOut (B, N, H*D). Rounding points of ``_attn_bwd_kernel``
+    (attention.py:603-644): max-subtracted softmax in f32 with the scale
+    applied to the f32 logits; r = sum(dp * p); dl = p (dp - r) and p cast
+    to the dtype before the dq/dk and dv products; dq, dk scaled in f32,
+    each output rounded once."""
+    B, N, C3 = qkv.shape
+    D = C3 // heads // 3
+    dt = qkv.dtype
+    q5 = qkv.view(B, N, heads, 3, D).float()
+    q, k, v = q5[:, :, :, 0], q5[:, :, :, 1], q5[:, :, :, 2]
+    gf = g.reshape(B, N, heads, D).float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, v)
+    r = (dp * p).sum(-1, keepdim=True)
+    dl = (p * (dp - r)).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", dl, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", dl, q) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), gf)
+    return torch.stack([dq.to(dt), dk.to(dt), dv.to(dt)], 3).reshape(
+        B, N, C3)
+
+
+def attn_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, heads: int,
+                       scale: float):
+    B, N, C3 = qkv.shape
+    D = C3 // heads // 3
+    if D != 64:
+        raise ValueError(f"the attention backward kernel takes head dim 64, "
+                         f"got {D}")
+    if qkv.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
+        raise TypeError("the attention backward kernel takes bfloat16")
+    if g.shape != (B, N, heads * D) or not g.is_contiguous() \
+            or not qkv.is_contiguous():
+        raise ValueError(f"dOut must be contiguous (B, N, H*D) = "
+                         f"{(B, N, heads * D)}, got {tuple(g.shape)}")
+    dqkv = torch.empty_like(qkv)
+    # per (batch, head, query row): softmax max, row sum and r = sum(dp p)
+    stats = torch.empty(3, B, heads, N, dtype=torch.float32,
+                        device=qkv.device)
+    _build.check(_build.lib().mtt_attn_bwd_bf16(
+        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B, N,
+        heads, float(scale), _build.stream()), "mtt_attn_bwd_bf16")
+    return dqkv
 
 
 def _check(x, gamma, beta, w, b, heads):
@@ -132,6 +194,59 @@ def attn_core_cuda(qkv: torch.Tensor, heads: int, scale: float, safe: bool):
     return out
 
 
+class _AttentionLnQkv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w, b, heads, scale, eps, need_qkv, impl,
+                safe):
+        ctx.save_for_backward(x, gamma, beta, w, b)
+        ctx.cfg = (heads, scale, eps, impl)
+        ctx.set_materialize_grads(False)
+        if impl == "plain":
+            return attention_ln_qkv_plain(x, gamma, beta, w, b, heads, scale,
+                                          eps, need_qkv, safe)
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"the attention kernels take bfloat16, got "
+                            f"{x.dtype}")
+        xn = layernorm_cuda(x, gamma, beta, eps)
+        if need_qkv:
+            # tap layers: LN(x) is an output, a launch of the public LN entry
+            # point, as attention.py:550 calls fused_layernorm
+            _build.COUNTS["layernorm"] += 1
+        qkv = qkv_proj_cuda(xn, w, b)
+        out = attn_core_cuda(qkv, heads, scale, safe)
+        _build.COUNTS["attention_emit" if need_qkv else "attention_cached"] += 1
+        return (out, qkv, xn) if need_qkv else out
+
+    @staticmethod
+    def backward(ctx, g_out, g_qkv=None, g_xn=None):
+        x, gamma, beta, w, b = ctx.saved_tensors
+        heads, scale, eps, impl = ctx.cfg
+        B, N, C = x.shape
+        if impl == "plain":
+            xn = layernorm_plain(x, gamma, beta, eps)
+            qkv = qkv_proj_plain(xn, w, b)
+        else:
+            xn = layernorm_cuda(x, gamma, beta, eps)
+            qkv = qkv_proj_cuda(xn, w, b)
+        if g_out is None:
+            dqkv = torch.zeros_like(qkv)
+        elif impl == "plain":
+            dqkv = attn_core_bwd_plain(qkv, g_out, heads, scale)
+        else:
+            dqkv = attn_core_bwd_cuda(qkv, g_out.contiguous(), heads, scale)
+            _build.COUNTS["attention_bwd"] += 1
+        if g_qkv is not None:
+            dqkv = dqkv + g_qkv
+        dxn = torch.matmul(dqkv, w).float()
+        if g_xn is not None:
+            dxn = dxn + g_xn.float()
+        d2 = dqkv.reshape(B * N, -1)
+        dw = torch.matmul(d2.t(), xn.reshape(B * N, C)).to(w.dtype)
+        db = d2.float().sum(0).to(b.dtype)
+        dx, dgamma, dbeta = layernorm_vjp(x, gamma, dxn, eps)
+        return dx, dgamma, dbeta, dw, db, *[None] * 6
+
+
 def fused_attention_ln_qkv(x, gamma, beta, w, b, heads: int,
                            scale: float | None = None, eps: float = 1e-6,
                            need_qkv: bool = False, impl: str | None = None,
@@ -146,19 +261,6 @@ def fused_attention_ln_qkv(x, gamma, beta, w, b, heads: int,
     _check(x, gamma, beta, w, b, heads)
     if scale is None:
         scale = (w.shape[0] // heads // 3) ** -0.5
-    safe = resolve_safe(safe)
-    if _build.resolve_impl(impl, x) == "plain":
-        return attention_ln_qkv_plain(x, gamma, beta, w, b, heads, scale, eps,
-                                      need_qkv, safe)
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the attention kernels take bfloat16, got {x.dtype}")
-    if need_qkv:
-        # tap layers: LN(x) lands in device memory through the public LN
-        # entry point, as attention.py:550 calls fused_layernorm
-        xn = fused_layernorm(x, gamma, beta, eps)
-    else:
-        xn = layernorm_cuda(x, gamma, beta, eps)
-    qkv = qkv_proj_cuda(xn, w, b)
-    out = attn_core_cuda(qkv, heads, scale, safe)
-    _build.COUNTS["attention_emit" if need_qkv else "attention_cached"] += 1
-    return (out, qkv, xn) if need_qkv else out
+    return _AttentionLnQkv.apply(x, gamma, beta, w, b, heads, scale, eps,
+                                 need_qkv, _build.resolve_impl(impl, x),
+                                 resolve_safe(safe))

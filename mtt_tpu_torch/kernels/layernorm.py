@@ -4,6 +4,10 @@ Port of mtt_tpu/kernels/layernorm.py (``_ln_kernel``, ``fused_layernorm``).
 Statistics and affine run in f32; the result is cast to the input dtype once.
 On the H100 the op is bound by device memory (one read, one write of x); the
 kernel keeps each row in one warp's registers so x is read exactly once.
+
+The gradient is the JAX package's custom VJP (layernorm.py:89-106): an f32
+recompute of the statistics in plain torch, as JAX computes it in XLA. It has
+no kernel of its own on either side.
 """
 
 from __future__ import annotations
@@ -13,14 +17,39 @@ import torch
 from mtt_tpu_torch.kernels import _build
 
 
-def layernorm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                    eps: float = 1e-6) -> torch.Tensor:
+def ln_f32(x, gamma, beta, eps: float) -> torch.Tensor:
+    """LayerNorm in f32, not rounded (mlp.py:_ln_f32): the recompute that
+    the hand-written backwards start from."""
     xf = x.float()
     m = xf.mean(-1, keepdim=True)
     xc = xf - m
     v = (xc * xc).mean(-1, keepdim=True)
-    y = xc * torch.rsqrt(v + eps)
-    return (y * gamma.float() + beta.float()).to(x.dtype)
+    return xc * torch.rsqrt(v + eps) * gamma.float() + beta.float()
+
+
+def layernorm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                    eps: float = 1e-6) -> torch.Tensor:
+    return ln_f32(x, gamma, beta, eps).to(x.dtype)
+
+
+def layernorm_vjp(x, gamma, dy, eps: float):
+    """(dx, dgamma, dbeta) of the f32 LayerNorm at x for the cotangent dy
+    (f32 or the activation dtype); dx in x's dtype, dgamma/dbeta in gamma's.
+    Plain torch: the backward of mtt_tpu/kernels/layernorm.py:_bwd, which
+    JAX computes in XLA."""
+    xf = x.float()
+    gf = dy.float()
+    m = xf.mean(-1, keepdim=True)
+    xc = xf - m
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    lead = tuple(range(x.dim() - 1))
+    dgamma = (gf * xhat).sum(lead)
+    dbeta = gf.sum(lead)
+    dxhat = gf * gamma.float()
+    dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
 
 
 def _check(x, gamma, beta):
@@ -54,12 +83,25 @@ def layernorm_cuda(x, gamma, beta, eps: float = 1e-6) -> torch.Tensor:
     return y
 
 
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, impl):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        if impl == "plain":
+            return layernorm_plain(x, gamma, beta, eps)
+        y = layernorm_cuda(x, gamma, beta, eps)
+        _build.COUNTS["layernorm"] += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        return (*layernorm_vjp(x, gamma, dy, ctx.eps), None, None)
+
+
 def fused_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                     eps: float = 1e-6, impl: str | None = None) -> torch.Tensor:
     """LayerNorm over the last axis of x (any leading shape)."""
     _check(x, gamma, beta)
-    if _build.resolve_impl(impl, x) == "plain":
-        return layernorm_plain(x, gamma, beta, eps)
-    y = layernorm_cuda(x, gamma, beta, eps)
-    _build.COUNTS["layernorm"] += 1
-    return y
+    return _LayerNorm.apply(x, gamma, beta, eps, _build.resolve_impl(impl, x))

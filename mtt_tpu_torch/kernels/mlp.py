@@ -1,11 +1,21 @@
-"""Pre-norm MLP half-block x + fc2(gelu(fc1(LN(x)))): the CUDA kernel
-(csrc/mlp.cu) and its plain version.
+"""Transformer MLPs fc2(gelu(fc1(.))): the CUDA kernels (csrc/mlp.cu) and
+their plain versions.
 
-Port of mtt_tpu/kernels/mlp.py ``fused_mlp_ln_res`` (``_mlp_ln_res_kernel``
-and the batch-blocked ``_mlp_ln_res_bb_kernel``, one function) with the A&S
-erf GELU ``_erf_poly`` / ``_gelu_erf_poly``. On the H100 the call is
-tensor-core work (138 GFLOP at ViT-L shapes); the kernel keeps the (rows, 4C)
-hidden activation out of device memory, see the source note in mlp.cu.
+Port of mtt_tpu/kernels/mlp.py:
+  * ``fused_mlp_ln_res``, the pre-norm half-block x + MLP(LN(x))
+    (``_mlp_ln_res_kernel`` and the batch-blocked ``_mlp_ln_res_bb_kernel``,
+    one function), which every eval block runs;
+  * ``fused_mlp`` (``_mlp_kernel``), the MLP alone, which the training blocks
+    with drop-path run after a separate LayerNorm;
+with the A&S erf GELU ``_erf_poly`` / ``_gelu_erf_poly``. On the H100 both are
+tensor-core work (138 GFLOP for the half-block at ViT-L eval shapes); the
+kernels keep the (rows, 4C) hidden activation out of device memory, see the
+source note in mlp.cu.
+
+The gradients are the JAX package's hand-written backwards (mlp.py:201-222
+for ``fused_mlp``, :499-540 for ``fused_mlp_ln_res``), computed in plain torch
+as JAX computes them in XLA: they recompute the hidden layer, and their large
+products go to ``torch.matmul``. Neither backward has a kernel in JAX.
 
 Weights are the nn.Linear layouts: w1 (hidden, C), w2 (C, hidden).
 """
@@ -16,7 +26,10 @@ import torch
 import torch.nn.functional as F
 
 from mtt_tpu_torch.kernels import _build
-from mtt_tpu_torch.kernels.layernorm import layernorm_plain
+from mtt_tpu_torch.kernels.layernorm import (layernorm_plain, layernorm_vjp,
+                                             ln_f32)
+
+_INV_SQRT2PI = (2.0 * 3.141592653589793) ** -0.5
 
 
 def erf_poly(z: torch.Tensor) -> torch.Tensor:
@@ -33,6 +46,79 @@ def gelu_erf_poly(h: torch.Tensor) -> torch.Tensor:
     return 0.5 * h * (1.0 + erf_poly(h * (2.0 ** -0.5)))
 
 
+# erf(z)/z as a degree-9 polynomial in z^2 on [0, 3], constant term first
+# (mtt_tpu/kernels/mlp.py:_ERF_Z2_COEFFS)
+_ERF_Z2_COEFFS = (
+    1.1283768672e+00, -3.7607042872e-01, 1.1261189222e-01,
+    -2.6508064540e-02, 4.9304063297e-03, -7.1228464379e-04,
+    7.6191207693e-05, -5.5816809050e-06, 2.4628598067e-07,
+    -4.8841998736e-09)
+
+
+def gelu_erf_poly_fast(h: torch.Tensor) -> torch.Tensor:
+    """The up4 head's polynomial-only GELU (_gelu_erf_poly_fast, |err| <=
+    2.1e-4): no divide and no exp, for f32 h."""
+    z = h * (2.0 ** -0.5)
+    zc = z.clamp(-3.0, 3.0)
+    u = zc * zc
+    p = torch.full_like(u, _ERF_Z2_COEFFS[-1])
+    for c in _ERF_Z2_COEFFS[-2::-1]:
+        p = p * u + c
+    return 0.5 * h * (1.0 + zc * p)
+
+
+def _flat(x):
+    return x.reshape(-1, x.shape[-1])
+
+
+def mlp_fc_plain(x, w1, b1, w2, b2):
+    """Rounding points of ``_mlp_kernel``: fc1 + b1 and GELU in f32, cast to
+    the dtype before fc2; fc2 + b2 in f32, cast once."""
+    h = F.linear(x.float(), w1.float()) + b1.float()
+    g = gelu_erf_poly(h).to(x.dtype)
+    return (F.linear(g.float(), w2.float()) + b2.float()).to(x.dtype)
+
+
+def mlp_fc_vjp(x, w1, b1, w2, g):
+    """mlp.py:_bwd (fused_mlp) in f32: exact-erf GELU and its derivative
+    Phi(h) + h phi(h) on the recomputed pre-activation."""
+    xf, gf = _flat(x).float(), _flat(g).float()
+    w1f, w2f = w1.float(), w2.float()
+    pre = xf @ w1f.t() + b1.float()
+    h = F.gelu(pre)
+    dh = gf @ w2f
+    dpre = dh * (0.5 * (1.0 + torch.erf(pre * 2.0 ** -0.5))
+                 + pre * torch.exp(-0.5 * pre * pre) * _INV_SQRT2PI)
+    dx = (dpre @ w1f).reshape(x.shape)
+    return (dx.to(x.dtype), (dpre.t() @ xf).to(w1.dtype),
+            dpre.sum(0).to(b1.dtype), (gf.t() @ h).to(w2.dtype),
+            gf.sum(0).to(b1.dtype))
+
+
+def mlp_ln_res_vjp(x, gamma, beta, w1, b1, w2, g, eps: float):
+    """mlp.py:_mlp_ln_res_bwd: recompute LN and the hidden layer, h, the GELU
+    output and dh rounded to the activation dtype, products accumulated in
+    f32, the residual cotangent added last."""
+    dt = x.dtype
+    xf = _flat(x)
+    xn = ln_f32(xf, gamma, beta, eps).to(dt).float()
+    w1f, w2f = w1.float(), w2.float()
+    h = xn @ w1f.t() + b1.float()
+    hf = h.to(dt).float()
+    a = gelu_erf_poly(h).to(dt).float()
+    gf = _flat(g).to(dt).float()
+    dact = gf @ w2f
+    cdf = 0.5 * (1.0 + erf_poly(hf * 2.0 ** -0.5))
+    dh = (dact * (cdf + hf * torch.exp(-0.5 * hf * hf) * _INV_SQRT2PI)
+          ).to(dt).float()
+    dxn = dh @ w1f
+    dx, dgamma, dbeta = layernorm_vjp(xf, gamma, dxn, eps)
+    dx = (dx + gf.to(dx.dtype)).to(dt).reshape(x.shape)
+    return (dx, dgamma, dbeta, (dh.t() @ xn).to(w1.dtype),
+            dh.sum(0).to(b1.dtype), (gf.t() @ a).to(w2.dtype),
+            _flat(g).float().sum(0).to(b1.dtype))
+
+
 def mlp_ln_res_plain(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
     """Rounding points of the TPU kernel: LN(x) cast to the dtype; fc1 and
     GELU in f32, cast before fc2; fc2 + b2 + x in f32, cast once."""
@@ -43,7 +129,7 @@ def mlp_ln_res_plain(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
     return out.to(x.dtype)
 
 
-def _check(x, gamma, beta, w1, b1, w2, b2):
+def _check(x, w1, b1, w2, b2, gamma=None, beta=None):
     if not x.is_floating_point():
         raise TypeError(f"the MLP needs a floating-point input, got {x.dtype}")
     C = x.shape[-1]
@@ -51,10 +137,11 @@ def _check(x, gamma, beta, w1, b1, w2, b2):
     if w1.shape != (Hd, C) or w2.shape != (C, Hd):
         raise ValueError(f"w1 must be (hidden, {C}) and w2 ({C}, hidden), got "
                          f"{tuple(w1.shape)} and {tuple(w2.shape)}")
-    if b1.shape != (Hd,) or b2.shape != (C,) or gamma.shape != (C,) \
-            or beta.shape != (C,):
+    ln = () if gamma is None else (gamma, beta)
+    if b1.shape != (Hd,) or b2.shape != (C,) \
+            or any(t.shape != (C,) for t in ln):
         raise ValueError("b1 must be (hidden,), b2/gamma/beta (C,)")
-    for t in (x, gamma, beta, w1, b1, w2, b2):
+    for t in (x, w1, b1, w2, b2, *ln):
         if not t.is_contiguous():
             raise ValueError("MLP inputs must be contiguous")
         if t.device != x.device:
@@ -81,12 +168,66 @@ def mlp_ln_res_cuda(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
     return out
 
 
+def mlp_fc_cuda(x, w1, b1, w2, b2):
+    C = x.shape[-1]
+    Hd = w1.shape[0]
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the MLP kernel takes bfloat16, got {x.dtype}")
+    if C not in (768, 1024) or Hd % 128:
+        raise ValueError(f"the MLP kernel takes C in (768, 1024) and hidden % "
+                         f"128 == 0, got C={C}, hidden={Hd}")
+    out = torch.empty_like(x)
+    bf1, bf2 = b1.float().contiguous(), b2.float().contiguous()
+    _build.check(_build.lib().mtt_mlp_fc_bf16(
+        x.data_ptr(), w1.data_ptr(), bf1.data_ptr(), w2.data_ptr(),
+        bf2.data_ptr(), out.data_ptr(), x.numel() // C, C, Hd,
+        _build.stream()), "mtt_mlp_fc_bf16")
+    return out
+
+
+class _MlpLnRes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, impl):
+        ctx.save_for_backward(x, gamma, beta, w1, b1, w2)
+        ctx.eps = eps
+        if impl == "plain":
+            return mlp_ln_res_plain(x, gamma, beta, w1, b1, w2, b2, eps)
+        out = mlp_ln_res_cuda(x, gamma, beta, w1, b1, w2, b2, eps)
+        _build.COUNTS["mlp_ln_res"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*mlp_ln_res_vjp(*ctx.saved_tensors, g, ctx.eps), None, None)
+
+
+class _MlpFc(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, impl):
+        ctx.save_for_backward(x, w1, b1, w2)
+        if impl == "plain":
+            return mlp_fc_plain(x, w1, b1, w2, b2)
+        out = mlp_fc_cuda(x, w1, b1, w2, b2)
+        _build.COUNTS["mlp_fc"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*mlp_fc_vjp(*ctx.saved_tensors, g), None)
+
+
 def fused_mlp_ln_res(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6,
                      impl: str | None = None):
     """Pre-norm MLP half-block over (..., C): x + MLP(LN(x))."""
-    _check(x, gamma, beta, w1, b1, w2, b2)
-    if _build.resolve_impl(impl, x) == "plain":
-        return mlp_ln_res_plain(x, gamma, beta, w1, b1, w2, b2, eps)
-    out = mlp_ln_res_cuda(x, gamma, beta, w1, b1, w2, b2, eps)
-    _build.COUNTS["mlp"] += 1
-    return out
+    _check(x, w1, b1, w2, b2, gamma, beta)
+    return _MlpLnRes.apply(x, gamma, beta, w1, b1, w2, b2, eps,
+                           _build.resolve_impl(impl, x))
+
+
+def fused_mlp(x, w1, b1, w2, b2, impl: str | None = None):
+    """Transformer MLP over (..., C): fc2(gelu(fc1(x))), no LN, no residual.
+    The JAX wrapper zero-pads C and hidden to multiples of 128 for its
+    tiling; the port's kernel takes its shapes (C 768 or 1024, hidden % 128)
+    as they are and raises on others."""
+    _check(x, w1, b1, w2, b2)
+    return _MlpFc.apply(x, w1, b1, w2, b2, _build.resolve_impl(impl, x))

@@ -14,6 +14,12 @@ order; bf (T, F). Returns (B, S, T*F), task-major, where
   y_t = [f_t; fc_t] @ wf_t^T + bf_t,
   f_t  = (x * expand(a_t) + x) @ ws_t^T + bs_t,
   fc_t = (x * cw_t + x) @ wc_t^T + bc_t.
+
+The gradient is the VJP of the XLA composition ``_decode_xla``, as the JAX
+package's custom VJP takes it (task_decode.py:176-181): torch autograd through
+``task_decode_plain``, which rounds where ``_decode_xla`` rounds. That is the
+backward's composition in plain torch, as it is XLA in JAX; the forward on a
+CUDA tensor always runs the kernel.
 """
 
 from __future__ import annotations
@@ -110,13 +116,32 @@ def task_decode_cuda(x, a, cw, ws, bs, wc, bc, wf, bf):
     return out
 
 
+class _TaskDecode(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, impl, *args):
+        ctx.save_for_backward(*args)
+        if impl == "plain":
+            return task_decode_plain(*args)
+        out = task_decode_cuda(*args)
+        _build.COUNTS["task_decode"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        args = [t.detach().requires_grad_(t.is_floating_point())
+                for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = task_decode_plain(*args)
+        need = [t for t in args if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, need, g))
+        return (None, *[next(grads) if t.requires_grad else None
+                        for t in args])
+
+
 def fused_task_decode(x, a, cw, ws, bs, wc, bc, wf, bf,
                       impl: str | None = None) -> torch.Tensor:
     """Per-task spatial + channel decode and first fuse projection; see the
     module docstring for shapes."""
     _check(x, a, cw, ws, bs, wc, bc, wf, bf)
-    if _build.resolve_impl(impl, x) == "plain":
-        return task_decode_plain(x, a, cw, ws, bs, wc, bc, wf, bf)
-    out = task_decode_cuda(x, a, cw, ws, bs, wc, bc, wf, bf)
-    _build.COUNTS["task_decode"] += 1
-    return out
+    return _TaskDecode.apply(_build.resolve_impl(impl, x), x, a, cw, ws, bs,
+                             wc, bc, wf, bf)

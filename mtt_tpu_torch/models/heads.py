@@ -1,33 +1,78 @@
 """Per-task prediction heads (port of mtt_tpu/models/heads.py ``ConvHead``).
 
-Only the dense mode runs here: 3x3 conv + BN + exact GELU -> 1x1 logits on the
-4x-upsampled features. It computes the same function with the same parameter
-tree as the JAX package's factored up4 head (pinned by tests/test_models.py),
-whose fused kernel (kernels/head_up4.py) is the next slice of the port.
+3x3 conv + BN + exact GELU -> 1x1 logits. Two modes with one parameter tree:
+
+- ``up4="factored"`` (the default, as on the JAX wrapper): the input is the
+  patch-grid feature map and the head computes conv3x3(upsample4(x)) without
+  materialising the upsampled map. Eval folds BN and the conv bias into one
+  affine and runs the fused up4 head kernel (kernels/head_up4.py); training
+  runs the factored composition ``up4_conv3x3_factored`` with batch
+  statistics (heads.py:93-131).
+- ``up4="dense"``: the input is already upsampled 4x and the head runs
+  ``ConvBNAct`` and a 1x1 conv on it (cuDNN), as the JAX package does under
+  MTT_HEAD_IMPL=dense.
+
+``phase`` raises until it is ported (ROADMAP.md, open item 1).
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mtt_tpu_torch.models.layers import ConvBNAct, to_nchw, to_nhwc
+from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
+from mtt_tpu_torch.models.layers import (ConvBNAct, to_nchw, to_nhwc,
+                                         up4_conv3x3_factored,
+                                         update_running_stats)
+
+UP4_MODES = ("factored", "dense")
 
 
 class ConvHead(nn.Module):
-    """3x3 conv + BN + GELU -> 1x1 logits, NHWC, eval mode."""
+    """3x3 conv + BN + GELU -> 1x1 logits, NHWC."""
 
-    def __init__(self, in_dim: int, num_classes: int, up4: str = "dense", *,
-                 device=None, dtype=None):
+    def __init__(self, in_dim: int, num_classes: int, up4: str = "factored",
+                 *, device=None, dtype=None):
         super().__init__()
-        if up4 != "dense":
+        if up4 not in UP4_MODES:
             raise NotImplementedError(
-                f"ConvHead up4={up4!r} needs the fused up4 head kernel, which "
-                "is the next slice of the port (ROADMAP.md); use 'dense'")
+                f"ConvHead up4={up4!r} is not ported yet (ROADMAP.md, open "
+                f"item 1: the phase up4 head); use one of {UP4_MODES}")
+        self.up4 = up4
         self.mt_proj = ConvBNAct(in_dim, in_dim, 3, use_bias=True,
                                  act=F.gelu, device=device, dtype=dtype)
         self.linear_pred = nn.Conv2d(in_dim, num_classes, 1, device=device,
                                      dtype=dtype)
 
-    def forward(self, x):
-        return to_nhwc(self.linear_pred(to_nchw(self.mt_proj(x))))
+    def forward(self, x, train: bool = False, impl=None):
+        if self.up4 == "dense":
+            return to_nhwc(self.linear_pred(to_nchw(self.mt_proj(x, train))))
+        dt = x.dtype
+        conv, bn = self.mt_proj.conv, self.mt_proj.bn
+        kc = conv.weight.permute(2, 3, 1, 0)                 # HWIO
+        kp = self.linear_pred.weight[:, :, 0, 0].t()         # (C, n)
+        bp = self.linear_pred.bias.float()
+
+        def folded(m, v):
+            """BN of (conv + bias) as one f32 affine (heads.py:100-104)."""
+            inv = torch.rsqrt(v + bn.eps) * bn.weight.float()
+            return inv, bn.bias.float() - m * inv + conv.bias.float() * inv
+
+        if not train:
+            inv, addv = folded(bn.running_mean.float(), bn.running_var.float())
+            logits = fused_up4_head(x, kc, inv, addv, kp, impl=impl)
+            return (logits + bp).to(dt)
+        # training (heads.py:107-131): batch statistics of conv + bias in f32,
+        # centred variance, running averages, exact GELU, 1x1 in f32
+        Y = up4_conv3x3_factored(x, kc).to(dt)               # (B, C, W4, H4)
+        yf = (Y + conv.bias.to(dt)[None, :, None, None]).float()
+        m = yf.mean((0, 2, 3))
+        xc = yf - m[None, :, None, None]
+        v = (xc * xc).mean((0, 2, 3))
+        update_running_stats(bn, m, v)
+        inv, addv = folded(m, v)
+        y = F.gelu(Y * inv.to(dt)[None, :, None, None]
+                   + addv.to(dt)[None, :, None, None])
+        logits = torch.einsum("bcwh,cn->bwhn", y.float(), kp.to(dt).float())
+        return (logits + bp).to(dt).transpose(1, 2)          # (B, H4, W4, n)

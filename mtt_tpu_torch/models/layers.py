@@ -1,23 +1,30 @@
 """Building blocks of the port, NHWC at the public functions.
 
-Port of the parts of mtt_tpu/models/layers.py that the TaskPrompter-ViT eval
-forward runs: ``FusedLN``, ``Mlp`` on its ``ln=`` path, ``PatchEmbed``,
-``ConvBNAct`` in eval, and ``interpolate``. Parameter names follow the JAX
-package's module tree; leaves use torch's names and layouts (nn.Linear
-(out, in), nn.Conv2d OIHW), so ``models/convert_jax.py`` maps one to the other.
+Port of the parts of mtt_tpu/models/layers.py that the TaskPrompter-ViT
+forward runs in eval and in training: ``FusedLN``, ``Mlp`` (its ``ln=`` path
+and the plain MLP of the drop-path blocks), ``PatchEmbed``, ``ConvBNAct``,
+``interpolate``, the flax BatchNorm in both modes, and the factored
+conv3x3(upsample4) of the up4 head with its shift matrices. Parameter names
+follow the JAX package's module tree; leaves use torch's names and layouts
+(nn.Linear (out, in), nn.Conv2d OIHW), so ``models/convert_jax.py`` maps one
+to the other.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from mtt_tpu_torch.kernels.layernorm import fused_layernorm
-from mtt_tpu_torch.kernels.mlp import fused_mlp_ln_res
+from mtt_tpu_torch.kernels.mlp import fused_mlp, fused_mlp_ln_res
+
+BN_MOMENTUM = 0.9     # flax's: running = 0.9 running + 0.1 batch (torch 0.1)
 
 
 class FusedLN(nn.Module):
@@ -34,15 +41,21 @@ class FusedLN(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Transformer MLP fc1 -> GELU -> fc2; the pre-norm residual half-block
-    x + MLP(LN(x)) runs as one kernel (the JAX ``Mlp(..., ln=...)`` path)."""
+    """Transformer MLP fc1 -> GELU -> fc2. With ``ln`` the pre-norm residual
+    half-block x + MLP(LN(x)) runs as one kernel (the JAX ``Mlp(...,
+    ln=...)`` path); without it the MLP alone runs as one kernel (the JAX
+    ``fused_mlp`` path of the drop-path blocks)."""
 
     def __init__(self, dim: int, hidden: int, *, device=None, dtype=None):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden, device=device, dtype=dtype)
         self.fc2 = nn.Linear(hidden, dim, device=device, dtype=dtype)
 
-    def forward(self, x, ln: FusedLN, impl: Optional[str] = None):
+    def forward(self, x, ln: Optional[FusedLN] = None,
+                impl: Optional[str] = None):
+        if ln is None:
+            return fused_mlp(x, self.fc1.weight, self.fc1.bias,
+                             self.fc2.weight, self.fc2.bias, impl=impl)
         return fused_mlp_ln_res(x, ln.weight, ln.bias, self.fc1.weight,
                                 self.fc1.bias, self.fc2.weight, self.fc2.bias,
                                 ln.eps, impl=impl)
@@ -87,8 +100,37 @@ def bn_eval(x, bn: nn.BatchNorm2d):
     return (x.float() * inv[:, None, None] + add[:, None, None]).to(x.dtype)
 
 
+@torch.no_grad()
+def update_running_stats(bn: nn.BatchNorm2d, mean, var) -> None:
+    """flax running averages (momentum 0.9) of the batch mean and the BIASED
+    batch variance; torch's own update would use the unbiased one."""
+    bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
+    bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+    bn.num_batches_tracked += 1
+
+
+def bn_train(x, bn: nn.BatchNorm2d):
+    """Training BatchNorm as flax computes it, on an NCHW tensor: batch
+    statistics in f32 with the fast variance E[x^2] - E[x]^2 clipped at 0
+    (flax ``_compute_stats``), normalised in f32, cast back to x's dtype;
+    the running statistics are updated as a side effect."""
+    xf = x.float()
+    mean = xf.mean((0, 2, 3))
+    var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+    update_running_stats(bn, mean, var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    y = (xf - mean[:, None, None]) * mul[:, None, None] \
+        + bn.bias.float()[:, None, None]
+    return y.to(x.dtype)
+
+
+def batch_norm(x, bn: nn.BatchNorm2d, train: bool):
+    return bn_train(x, bn) if train else bn_eval(x, bn)
+
+
 class ConvBNAct(nn.Module):
-    """Conv -> BatchNorm (running statistics) -> activation, NHWC in and out."""
+    """Conv -> BatchNorm (running statistics, or batch statistics in
+    training) -> activation, NHWC in and out."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  use_bias: bool = False,
@@ -102,8 +144,8 @@ class ConvBNAct(nn.Module):
                                  dtype=dtype)
         self.act = act
 
-    def forward(self, x):
-        y = bn_eval(self.conv(to_nchw(x)), self.bn)
+    def forward(self, x, train: bool = False):
+        y = batch_norm(self.conv(to_nchw(x)), self.bn, train)
         if self.act is not None:
             y = self.act(y)
         return to_nhwc(y)
@@ -117,6 +159,67 @@ def interpolate(x, size: Tuple[int, int]):
     y = F.interpolate(to_nchw(x), size=tuple(size), mode="bilinear",
                       align_corners=False)
     return to_nhwc(y)
+
+
+@functools.lru_cache(maxsize=128)
+def _linear_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) half-pixel bilinear weights, the sampling of
+    ``interpolate`` for upsampling (mtt_tpu/models/layers.py:310-323)."""
+    o = np.arange(n_out)
+    c = (o + 0.5) * (n_in / n_out) - 0.5
+    lo = np.floor(c).astype(int)
+    frac = (c - lo).astype(np.float32)
+    hi = np.clip(lo + 1, 0, n_in - 1)
+    lo = np.clip(lo, 0, n_in - 1)
+    M = np.zeros((n_out, n_in), np.float32)
+    np.add.at(M, (o, lo), 1.0 - frac)
+    np.add.at(M, (o, hi), frac)
+    return M
+
+
+@functools.lru_cache(maxsize=64)
+def _upf_shift_stack_np(g: int, f: int) -> np.ndarray:
+    """(g, 3, f*g) stacked shifted-upsample mix matrices: entry [w, l, W] is
+    the weight with which low-res column w reaches high-res column W through
+    conv tap l (offset l - 1). Out-of-range rows are zero, which is the
+    conv's SAME zero padding (mtt_tpu/models/layers.py:530-543)."""
+    U = _linear_resize_matrix(g, f * g)              # (fg, g)
+    S = np.zeros((3, f * g, g), np.float32)
+    for k in range(3):
+        d = k - 1
+        lo, hi = max(0, -d), min(f * g, f * g - d)
+        S[k, lo:hi] = U[lo + d:hi + d]
+    return S.transpose(2, 0, 1).copy()               # (g, 3, fg)
+
+
+def _up4_shift_stack_np(g: int) -> np.ndarray:
+    return _upf_shift_stack_np(g, 4)
+
+
+@functools.lru_cache(maxsize=64)
+def on_device(make, g: int, device: torch.device) -> torch.Tensor:
+    """``make(g)`` (a cached numpy table) as a tensor on ``device``, copied
+    once: a copy from pageable host memory waits for the device's queue."""
+    return torch.from_numpy(make(g)).to(device)
+
+
+def up4_conv3x3_factored(x, kernel):
+    """Exact conv3x3-SAME(bilinear_upsample4(x)) with the channel contraction
+    at low resolution (mtt_tpu/models/layers.py:550-584): Gm = x . W[k, l]
+    for the 9 taps, then the width and height mixes through the shifted
+    upsample matrices. Rounds where the JAX composition rounds: Gm and the
+    width mix to x's dtype, the height mix in f32. x (B, gh, gw, C), kernel
+    HWIO (3, 3, C, D); returns channel-major (B, D, 4gw, 4gh) f32. A torch
+    composition, as it is XLA in JAX; the training head runs it."""
+    B, gh, gw, C = x.shape
+    D = kernel.shape[-1]
+    dt = x.dtype
+    Wf = kernel.to(dt).permute(2, 0, 1, 3).reshape(C, 9 * D)
+    G6 = torch.matmul(x.reshape(-1, C), Wf).reshape(B, gh, gw, 3, 3, D)
+    Sw = on_device(_up4_shift_stack_np, gw, x.device).to(dt)
+    Sh = on_device(_up4_shift_stack_np, gh, x.device)
+    M = torch.einsum("bhwkld,wlW->bhkdW", G6, Sw)
+    return torch.einsum("bhkdW,hkH->bdWH", M.float(), Sh)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

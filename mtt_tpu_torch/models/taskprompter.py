@@ -1,4 +1,4 @@
-"""TaskPrompter-ViT backbone, eval forward (port of
+"""TaskPrompter-ViT backbone, eval and training forward (port of
 mtt_tpu/models/taskprompter.py: ``PromptedBlock``, ``TaskFeatureDecode``,
 ``TaskPrompterViT``, ``TASKPROMPTER_VIT_SPECS``).
 
@@ -7,6 +7,11 @@ attention kernel (cached variant, or the emit variant at tap layers, which
 also returns qkv and LN(x) for the raw prompt scores) and the MLP kernel. At
 the tap layers the task decode kernel turns the raw spatial and channel
 prompt scores into per-task features. Module names mirror the JAX tree.
+
+In training (``train=True``) the attention takes the max-subtracted softmax,
+the decode BatchNorm uses batch statistics, and blocks with a drop-path rate
+above 0 run LayerNorm, the plain MLP kernel and per-row-group stochastic depth
+drawn from the caller's ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from torch import nn
 from mtt_tpu_torch.kernels.attention import fused_attention_ln_qkv
 from mtt_tpu_torch.kernels.layernorm import layernorm_plain
 from mtt_tpu_torch.kernels.task_decode import fused_task_decode
-from mtt_tpu_torch.models.layers import (FusedLN, Mlp, PatchEmbed, bn_eval,
+from mtt_tpu_torch.models.layers import (FusedLN, Mlp, PatchEmbed, batch_norm,
                                          interpolate, to_nchw, to_nhwc)
 
 TASKPROMPTER_VIT_SPECS = {
@@ -42,14 +47,34 @@ class PromptBlockOut:
         self.raw_chan = raw_chan    # (B, nwins, P, C) f32
 
 
+def row_drop(branch, num_prompts: int, rate: float,
+             generator: torch.Generator):
+    """Stochastic depth with independent per-sample masks for the prompt rows
+    and the patch rows (taskprompter.py:65-80): each kept group is scaled by
+    1 / keep, each dropped group is zero. The draws come from ``generator``."""
+    if generator is None:
+        raise ValueError("training with drop-path needs a torch.Generator "
+                         "for its masks: pass generator=... (or build the "
+                         "model with drop_path_rate=0)")
+    keep = 1.0 - rate
+    B = branch.shape[0]
+    mask = (torch.rand(B, 2, generator=generator, device=generator.device)
+            < keep).to(branch.device, torch.float32) / keep
+    rows = torch.ones(branch.shape[1], dtype=torch.long, device=branch.device)
+    rows[:num_prompts] = 0
+    return branch * mask[:, rows, None].to(branch.dtype)
+
+
 class PromptedBlock(nn.Module):
     """One TaskPrompter block over the joint stream (B, P+N, C)."""
 
     def __init__(self, dim: int, num_heads: int, num_prompts: int,
                  chan_windows: Tuple[int, int], grid: Tuple[int, int],
-                 mlp_ratio: float = 4.0, *, device=None, dtype=None):
+                 mlp_ratio: float = 4.0, drop_path: float = 0.0, *,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.drop_path = drop_path
         self.num_heads = num_heads
         self.num_prompts = num_prompts
         self.chan_windows = chan_windows
@@ -64,20 +89,22 @@ class PromptedBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), **kw)
 
     def forward(self, joint, need_taps: bool = False,
-                impl: Optional[str] = None):
+                impl: Optional[str] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         B, M, C = joint.shape
         P = self.num_prompts
         H, D = self.num_heads, C // self.num_heads
         ln1 = self.norm1
+        # the max-subtracted softmax on training forwards (taskprompter.py:96)
         if need_taps:
             out, qkv, jn = fused_attention_ln_qkv(
                 joint, ln1.weight, ln1.bias, self.qkv.weight, self.qkv.bias,
-                H, D ** -0.5, ln1.eps, need_qkv=True, impl=impl, safe=False)
+                H, D ** -0.5, ln1.eps, need_qkv=True, impl=impl, safe=train)
             pn = jn[:, :P]
         else:
             out = fused_attention_ln_qkv(
                 joint, ln1.weight, ln1.bias, self.qkv.weight, self.qkv.bias,
-                H, D ** -0.5, ln1.eps, impl=impl, safe=False)
+                H, D ** -0.5, ln1.eps, impl=impl, safe=train)
             # the P prompt rows' LN stays plain torch, as it is XLA in JAX
             pn = layernorm_plain(joint[:, :P], ln1.weight, ln1.bias, ln1.eps)
         out = self.proj(out)
@@ -103,12 +130,17 @@ class PromptedBlock(nn.Module):
             raw_chan = torch.einsum("bphvnw,bhvnwc->bhnpc", qc, kc)
             raw = PromptBlockOut(raw_spa, raw_chan.reshape(B, nh * nw, P, C))
 
-        joint = joint + out
-        return self.mlp(joint, self.norm2, impl=impl), raw
+        if not train or self.drop_path == 0.0:
+            joint = joint + out
+            return self.mlp(joint, self.norm2, impl=impl), raw
+        # drop-path blocks: LN, the MLP alone, a second row-group mask
+        joint = joint + row_drop(out, P, self.drop_path, generator)
+        h = self.mlp(self.norm2(joint, impl=impl), impl=impl)
+        return joint + row_drop(h, P, self.drop_path, generator), raw
 
 
 class TaskFeatureDecode(nn.Module):
-    """Per-task features from the raw scores of one tap layer, eval mode,
+    """Per-task features from the raw scores of one tap layer,
     chan_nheads == 1 (one channel window)."""
 
     def __init__(self, tasks: Sequence[str], num_heads: int, prompt_len: int,
@@ -158,7 +190,8 @@ class TaskFeatureDecode(nn.Module):
     def _sub(self, name):
         return getattr(self, f"{name}_{self.il}")
 
-    def forward(self, x_map, raw: PromptBlockOut, impl: Optional[str] = None):
+    def forward(self, x_map, raw: PromptBlockOut, impl: Optional[str] = None,
+                train: bool = False):
         B, gh, gw, C = x_map.shape
         T = len(self.tasks)
         P = T
@@ -177,7 +210,7 @@ class TaskFeatureDecode(nn.Module):
             fuse0.weight.view(T, fin, 2 * tar), fuse0.bias.view(T, fin),
             impl=impl)
         y = self._sub("fuse1")(to_nchw(cat.view(B, gh, gw, T * fin)))
-        y = F.gelu(bn_eval(y, self._sub("fuse_bn")))
+        y = F.gelu(batch_norm(y, self._sub("fuse_bn"), train))
         y = to_nhwc(self._sub("fuse2")(y))
         stack = y.reshape(B, gh, gw, T, fin)
         task_fea = {t: stack[:, :, :, ti] for ti, t in enumerate(self.tasks)}
@@ -197,19 +230,23 @@ class TaskFeatureDecode(nn.Module):
 
 
 class TaskPrompterViT(nn.Module):
-    """Prompted ViT backbone; per-task features at 4x the patch grid."""
+    """Prompted ViT backbone; per-task features at 4x the patch grid, or at
+    the patch grid with ``upsample_out=False`` (the factored up4 heads own
+    the upsample then)."""
 
     def __init__(self, tasks: Sequence[str], img_size: Tuple[int, int],
                  select_list: Sequence[int], patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  chan_nheads: int = 1, prompt_len: int = 1,
                  tar_dim: int = 300, final_dim: int = 350,
-                 use_ctr: bool = False, mlp_ratio: float = 4.0, *,
+                 use_ctr: bool = False, mlp_ratio: float = 4.0,
+                 drop_path_rate: float = 0.0, upsample_out: bool = True, *,
                  device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         T = len(tasks)
         self.tasks = tuple(tasks)
+        self.upsample_out = upsample_out
         self.embed_dim = embed_dim
         self.num_prompts = T * prompt_len
         self.tap_set = set(select_list)
@@ -223,16 +260,20 @@ class TaskPrompterViT(nn.Module):
         self.task_prompts = nn.Parameter(torch.zeros(T * prompt_len,
                                                      embed_dim, **kw))
         for i in range(depth):
+            # the stochastic-depth schedule of taskprompter.py:347
             self.add_module(f"blocks_{i}", PromptedBlock(
                 embed_dim, num_heads, self.num_prompts, chan_windows,
-                (gh, gw), mlp_ratio, **kw))
+                (gh, gw), mlp_ratio, drop_path_rate * i / max(depth - 1, 1),
+                **kw))
         for il in range(len(select_list) + 1):
             self.add_module(f"decode_{il}", TaskFeatureDecode(
                 tasks, num_heads, prompt_len, chan_windows, embed_dim,
                 tar_dim, final_dim, use_ctr, il, **kw))
         self.norm = FusedLN(embed_dim, **kw)
 
-    def forward(self, x, impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    def forward(self, x, impl: Optional[str] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         B = x.shape[0]
         P, E = self.num_prompts, self.embed_dim
         tokens, (gh, gw) = self.patch_embed(x)
@@ -246,14 +287,18 @@ class TaskPrompterViT(nn.Module):
             # raw scores, so the last block always computes them
             is_tap = (i + 1) in self.tap_set
             need = is_tap or i == self.depth - 1
-            joint, raw = getattr(self, f"blocks_{i}")(joint, need, impl=impl)
+            joint, raw = getattr(self, f"blocks_{i}")(
+                joint, need, impl=impl, train=train, generator=generator)
             if is_tap:
                 x_map = joint[:, P:].reshape(B, gh, gw, E).contiguous()
-                fea = getattr(self, f"decode_{il}")(x_map, raw, impl=impl)
+                fea = getattr(self, f"decode_{il}")(x_map, raw, impl=impl,
+                                                    train=train)
                 task_fea = {t: task_fea.get(t, 0) + fea[t] for t in self.tasks}
                 il += 1
         tokens = self.norm(joint[:, P:].contiguous(), impl=impl)
         fea = getattr(self, f"decode_{il}")(tokens.view(B, gh, gw, E), raw,
-                                            impl=impl)
-        return {t: interpolate(task_fea.get(t, 0) + fea[t], (4 * gh, 4 * gw))
-                for t in self.tasks}
+                                            impl=impl, train=train)
+        out = {t: task_fea.get(t, 0) + fea[t] for t in self.tasks}
+        if self.upsample_out:
+            out = {t: interpolate(f, (4 * gh, 4 * gw)) for t, f in out.items()}
+        return out

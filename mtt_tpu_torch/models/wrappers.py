@@ -1,6 +1,9 @@
 """Top-level TaskPrompter model and its factory (port of
-mtt_tpu/models/wrappers.py ``TaskPrompterNet`` with the dense ConvHead, and
-the TaskPrompter-ViT branch of ``build_model``)."""
+mtt_tpu/models/wrappers.py ``TaskPrompterNet`` and the TaskPrompter-ViT branch
+of ``build_model``).
+
+Both entry points build on the CUDA card unless the caller names another
+device; without a card they raise rather than build on the CPU unasked."""
 
 from __future__ import annotations
 
@@ -22,11 +25,25 @@ _TASK_OUTPUTS = (("semseg", None), ("depth", 1), ("human_parts", 7),
 DB_SCALES = {"PASCALContext": (512, 512), "NYUD": (448, 576)}
 
 
+def default_device(device=None) -> torch.device:
+    """The device an entry point builds on: the caller's, else the CUDA
+    card. Without a card that is an error, never a silent CPU build."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's entry points run on the card unless "
+            "the caller asks for another device (pass device='cpu')")
+    return device
+
+
 class TaskPrompterNet(nn.Module):
     """TaskPrompter: prompted ViT backbone + conv heads, NHWC logits at
-    ``target_size`` (default: the input size). The heads run dense: the
-    backbone returns 4x-upsampled features and each ConvHead convolves
-    them, as the JAX package does under MTT_HEAD_IMPL=dense."""
+    ``target_size`` (default: the input size). With ``head_up4="factored"``
+    (the default, as in the JAX wrapper) the backbone returns patch-grid
+    features and each ConvHead fuses the 4x upsample into its conv; with
+    ``"dense"`` the backbone upsamples and the heads convolve the 4x maps, as
+    the JAX package does under MTT_HEAD_IMPL=dense. ``drop_path_rate`` is
+    the stochastic depth of the last block in training (0.15 in JAX)."""
 
     def __init__(self, tasks: Sequence[str], num_outputs: Dict[str, int],
                  img_size: Tuple[int, int],
@@ -34,27 +51,36 @@ class TaskPrompterNet(nn.Module):
                  head_name: str = "conv", tar_dim: int = 300,
                  final_dim: int = 350, prompt_len: int = 1,
                  chan_nheads: int = 1, use_ctr: bool = True,
-                 target_size: Optional[Tuple[int, int]] = None, *,
+                 target_size: Optional[Tuple[int, int]] = None,
+                 drop_path_rate: float = 0.15, head_up4: str = "factored", *,
                  device=None, dtype=None):
         super().__init__()
         if head_name != "conv":
             raise NotImplementedError(f"head {head_name!r} is not ported yet")
+        device = default_device(device)
         self.tasks = tuple(tasks)
         self.target_size = target_size
         self.backbone = TaskPrompterViT(
             tasks=self.tasks, img_size=img_size, chan_nheads=chan_nheads,
             prompt_len=prompt_len, tar_dim=tar_dim, final_dim=final_dim,
-            use_ctr=use_ctr, device=device, dtype=dtype,
+            use_ctr=use_ctr, drop_path_rate=drop_path_rate,
+            upsample_out=head_up4 == "dense", device=device, dtype=dtype,
             **TASKPROMPTER_VIT_SPECS[backbone_name])
         for t in self.tasks:
             self.add_module(f"head_{t}", ConvHead(
-                final_dim, num_outputs[t], device=device, dtype=dtype))
+                final_dim, num_outputs[t], up4=head_up4, device=device,
+                dtype=dtype))
 
-    def forward(self, x, impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
-        """x: (B, H, W, 3) normalised image batch -> {task: (B, h, w, n)}."""
+    def forward(self, x, impl: Optional[str] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """x: (B, H, W, 3) normalised image batch -> {task: (B, h, w, n)}.
+        ``train`` takes batch statistics (and updates the running ones) and
+        drop-path masks from ``generator``."""
         target = self.target_size or tuple(x.shape[1:3])
-        feats = self.backbone(x, impl=impl)
-        return {t: interpolate(getattr(self, f"head_{t}")(feats[t]), target)
+        feats = self.backbone(x, impl=impl, train=train, generator=generator)
+        return {t: interpolate(getattr(self, f"head_{t}")(feats[t], train,
+                                                          impl=impl), target)
                 for t in self.tasks}
 
 

@@ -1,0 +1,54 @@
+"""Optimizer and learning-rate schedule (port of mtt_tpu/utils/optim.py:16-49).
+
+The optax chain there is: clip by global norm, add the L2 weight decay to the
+gradient, Adam, then scale by the learning rate of the poly schedule counted
+from step 0. In torch that is ``clip_grad_norm_`` on the gradients, then
+``torch.optim.Adam(weight_decay=...)`` (which adds wd * param to the clipped
+gradient before its moments, as ``add_decayed_weights`` does), then a
+``LambdaLR`` whose factor for the k-th update (k from 0) is
+(1 - k / max_iter) ** 0.9, as optax's count starts at 0. One difference is
+left: ``clip_grad_norm_`` scales by max_norm / (norm + 1e-6) where optax
+scales by max_norm / norm.
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import Iterable, Optional
+
+import torch
+
+
+def poly_factor(max_iter: int, power: float = 0.9):
+    return lambda step: (1.0 - step / max_iter) ** power
+
+
+def grad_clip_norm(p: dict) -> Optional[float]:
+    """max_norm of ``grad_clip_param`` (a dict, or the dict literal that the
+    YAML files store), or None."""
+    clip = p.get("grad_clip_param")
+    if not clip:
+        return None
+    if isinstance(clip, str):
+        clip = ast.literal_eval(clip)
+    return float(clip["max_norm"])
+
+
+def build_optimizer(params: Iterable[torch.Tensor], p: dict):
+    """(optimizer, scheduler) over ``params``; call ``clip_gradients`` before
+    ``optimizer.step()`` and ``scheduler.step()`` after it."""
+    if p.get("optimizer", "adam") != "adam":
+        raise NotImplementedError(f"optimizer {p['optimizer']!r} is not "
+                                  f"ported yet")
+    kwargs = p.get("optimizer_kwargs", {})
+    opt = torch.optim.Adam(params, lr=float(kwargs.get("lr", 1e-4)),
+                           weight_decay=float(kwargs.get("weight_decay", 0.0)))
+    factor = poly_factor(int(p.get("max_iter", 40000))) \
+        if p.get("scheduler") == "poly" else (lambda step: 1.0)
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
+
+
+def clip_gradients(params, p: dict) -> None:
+    max_norm = grad_clip_norm(p)
+    if max_norm is not None:
+        torch.nn.utils.clip_grad_norm_(params, max_norm)

@@ -111,15 +111,19 @@ def test_model_goes_through_kernels(gen):
 
     tasks = ("semseg", "edge")
     model = TaskPrompterNet(tasks, {"semseg": 21, "edge": 1}, (64, 64),
-                            "TaskPrompter_vitB", device="cuda",
-                            dtype=torch.bfloat16).eval()
+                            "TaskPrompter_vitB", head_up4="dense",
+                            device="cuda", dtype=torch.bfloat16).eval()
     init_weights(model, gen)
     x = torch.randn(2, 64, 64, 3, generator=gen, device="cuda")
     _build.reset_counts()
     logits, preds = predict(model, x)
     torch.cuda.synchronize()
+    # 64x64 is a 4x4 grid, which the up4 head kernel does not take: the
+    # dense head keeps this forward on the kernels
     assert _build.COUNTS == {"layernorm": 4 + 1, "attention_cached": 8,
-                             "attention_emit": 4, "mlp": 12, "task_decode": 4}
+                             "attention_emit": 4, "attention_bwd": 0,
+                             "mlp_ln_res": 12, "mlp_fc": 0, "task_decode": 4,
+                             "head_up4": 0}
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         ref, _ = predict(copy.deepcopy(model).float(), x, impl="plain")
     for t in tasks:
@@ -128,3 +132,110 @@ def test_model_goes_through_kernels(gen):
         r = ref[t].float()
         err = ((logits[t].float() - r).norm() / r.norm()).item()
         assert err <= 0.1, (t, err)
+
+
+@pytest.mark.parametrize("gh,gw,n", [(32, 32, 1), (32, 32, 21), (28, 36, 21)])
+def test_head_up4_kernel(gen, gh, gw, n):
+    """Main-path grid with the smallest and largest n, and NYUD's 28x36."""
+    from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
+    C = 350
+    args = (_rnd(gen, 2, gh, gw, C, std=0.3),
+            _rnd(gen, 3, 3, C, C, std=(9 * C) ** -0.5),
+            _rnd(gen, C, std=0.1, mean=1.0, dtype=torch.float32),
+            _rnd(gen, C, std=0.1, dtype=torch.float32),
+            _rnd(gen, C, n, std=C ** -0.5))
+    _check(fused_up4_head(*args), fused_up4_head(*args, impl="plain"))
+
+
+@pytest.mark.parametrize("N", [77, 1029])
+def test_attention_bwd_kernel(gen, N):
+    """dq, dk and dv each within 4 bf16 ulps of their own largest value."""
+    from mtt_tpu_torch.kernels.attention import (attn_core_bwd_cuda,
+                                                 attn_core_bwd_plain)
+    B, H, D = 2, 4, 64
+    qkv = _rnd(gen, B, N, H * 3 * D)
+    g = _rnd(gen, B, N, H * D)
+    got = attn_core_bwd_cuda(qkv, g, H, D ** -0.5).view(B, N, H, 3, D)
+    want = attn_core_bwd_plain(qkv, g, H, D ** -0.5).view(B, N, H, 3, D)
+    _check(tuple(got[:, :, :, i] for i in range(3)),
+           tuple(want[:, :, :, i] for i in range(3)))
+
+
+@pytest.mark.parametrize("C", [768, 1024])
+def test_mlp_fc_kernel(gen, C):
+    from mtt_tpu_torch.kernels.mlp import fused_mlp
+    Hd = 384
+    x = _rnd(gen, 3, 15, C)
+    w1, b1 = _rnd(gen, Hd, C, std=C ** -0.5), _rnd(gen, Hd, std=0.1)
+    w2, b2 = _rnd(gen, C, Hd, std=Hd ** -0.5), _rnd(gen, C, std=0.1)
+    args = (x, w1, b1, w2, b2)
+    _check(fused_mlp(*args), fused_mlp(*args, impl="plain"))
+
+
+@pytest.mark.parametrize("need_qkv", [False, True])
+def test_attention_grads_through_kernels(gen, need_qkv):
+    """The whole attention Function's gradients on the card (LN and qkv
+    recomputed by the forward kernels, the core backward kernel, the closing
+    products) against the same Function on the plain versions: relative RMS
+    1e-2 per gradient (bf16 roundings flip differently on the two paths;
+    a wiring fault gives order 1)."""
+    from mtt_tpu_torch.kernels.attention import fused_attention_ln_qkv
+    B, N, H, D = 2, 77, 4, 64
+    C = H * D
+    leaves = [_rnd(gen, B, N, C),
+              _rnd(gen, C, std=0.1, mean=1.0, dtype=torch.float32),
+              _rnd(gen, C, std=0.1, dtype=torch.float32),
+              _rnd(gen, 3 * C, C, std=C ** -0.5), _rnd(gen, 3 * C, std=0.1)]
+    cot = [_rnd(gen, B, N, C), _rnd(gen, B, N, 3 * C), _rnd(gen, B, N, C)]
+    grads = []
+    for impl in ("cuda", "plain"):
+        ins = [t.clone().requires_grad_() for t in leaves]
+        out = fused_attention_ln_qkv(*ins, H, need_qkv=need_qkv, safe=True,
+                                     impl=impl)
+        out = out if need_qkv else (out,)
+        torch.autograd.backward(out, cot[:len(out)])
+        grads.append([t.grad.float() for t in ins])
+    for g_k, g_p in zip(*grads):
+        err = ((g_k - g_p).norm() / g_p.norm()).item()
+        assert torch.isfinite(g_k).all() and err <= 1e-2, err
+
+
+def test_train_step_goes_through_kernels(gen):
+    """One ViT-B training step at 64x64 in bf16: every training kernel
+    launches as often as the block schedule says, losses and gradients are
+    finite, and the parameters with a gradient move."""
+    from mtt_tpu_torch.data.synthetic import SyntheticMT
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import TaskPrompterNet
+    from mtt_tpu_torch.train import PASCAL_VITL
+    from mtt_tpu_torch.utils.train_utils import Trainer, to_device
+
+    tasks = ("semseg", "human_parts", "sal", "normals", "edge")
+    num_out = {"semseg": 21, "human_parts": 7, "sal": 2, "normals": 3,
+               "edge": 1}
+    model = TaskPrompterNet(tasks, num_out, (64, 64), "TaskPrompter_vitB",
+                            device="cuda")
+    init_weights(model, gen)
+    trainer = Trainer(model, PASCAL_VITL, tasks, torch.bfloat16,
+                      generator=gen)
+    batch = to_device(SyntheticMT(tasks, num_out, (64, 64)).batch(0, 2),
+                      "cuda")
+    before = [w.detach().clone() for w in trainer.master]
+    _build.reset_counts()
+    losses = trainer.backward(batch)
+    torch.cuda.synchronize()
+    # ViT-B: 12 blocks, taps after 3, 6, 9 and the last; drop-path > 0 on
+    # blocks 1..11, which run LN + the plain MLP
+    assert _build.COUNTS == {"layernorm": 11 + 4 + 1, "attention_cached": 8,
+                             "attention_emit": 4, "attention_bwd": 12,
+                             "mlp_ln_res": 1, "mlp_fc": 11, "task_decode": 4,
+                             "head_up4": 0}
+    assert all(torch.isfinite(v) for v in losses.values())
+    grads = [w.grad for w in model.parameters()]
+    assert all(torch.isfinite(g).all() for g in grads)
+    trainer.update()
+    # every parameter with a gradient moves (the last block's prompt-row
+    # update and the conv biases ahead of batch-statistics BN get none)
+    assert all(not torch.equal(a, b) for a, b, g in
+               zip(before, trainer.master, grads) if g.abs().sum() > 0)

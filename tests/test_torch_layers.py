@@ -65,7 +65,7 @@ def test_conv_head_dense_matches_jax():
     jm = JConvHead(5, up4=False)
     v = random_variables(jm, jnp.asarray(x), seed=2)
     want = jm.apply(v, jnp.asarray(x), train=False)
-    _close(_load(ConvHead(24, 5), v)(torch.from_numpy(x)), want)
+    _close(_load(ConvHead(24, 5, up4="dense"), v)(torch.from_numpy(x)), want)
 
 
 @pytest.mark.parametrize("need_taps", [False, True])

@@ -7,7 +7,14 @@ load), and both models run the same numpy image batch in f32 on the CPU.
 
 Tolerance: max |port - jax| <= 1e-5 * max |jax| per task. The two sides run
 the same function in f32 with sums in another order, the port's MLP GELU on
-the A&S erf (|err| <= 1.5e-7) and its softmax in exp2 form.
+the A&S erf (|err| <= 1.5e-7) and its softmax in exp2 form. The port's
+factored head runs the up4 head kernel's function with its fast polynomial
+GELU, where JAX's factored head on the CPU runs the XLA composition with the
+A&S erf. The fast GELU's error is at most 2.3e-5 * max(|h|, 9.2) (2.1e-4 up
+to |h| = 9.2, growing past the erf clamp at |z| = 3), so that case adds
+2.3e-5 * max(max |h|, 9.2) * max_j sum_d |kp[d, j]| per task to the
+tolerance: the GELU error carried through the task's 1x1 weights, h being the
+head's pre-GELU values on this input.
 """
 
 import math
@@ -57,20 +64,40 @@ def _jax_net(tasks=TASKS, num_out=NUM_OUT):
                            drop_path_rate=0.0)
 
 
-def _port_net(tasks=TASKS, num_out=NUM_OUT):
+def _port_net(tasks=TASKS, num_out=NUM_OUT, head_up4="factored"):
     from mtt_tpu_torch.models.wrappers import TaskPrompterNet
     return TaskPrompterNet(tasks, num_out, IMG, "TaskPrompter_vitT",
                            tar_dim=TAR, final_dim=FIN, use_ctr=True,
-                           chan_nheads=1)
+                           chan_nheads=1, head_up4=head_up4, device="cpu")
 
 
-def _compare(got, want, num_out):
+def _compare(got, want, num_out, extra=None):
     for t, n in num_out.items():
         g = got[t].detach().numpy()
         w = np.asarray(want[t])
         assert g.shape == w.shape == (2, *IMG, n)
         err = np.abs(g - w).max()
-        assert err <= 1e-5 * np.abs(w).max(), (t, err, np.abs(w).max())
+        tol = 1e-5 * np.abs(w).max() + (extra or {}).get(t, 0.0)
+        assert err <= tol, (t, err, tol)
+
+
+def _gelu_poly_slack(model, image):
+    """Per task, the fast GELU's error bound through the 1x1 (docstring)."""
+    from mtt_tpu_torch.models.layers import up4_conv3x3_factored
+    out = {}
+    with torch.no_grad():
+        feats = model.backbone(torch.from_numpy(image))
+        for t in TASKS:
+            head = model.get_submodule(f"head_{t}")
+            conv, bn = head.mt_proj.conv, head.mt_proj.bn
+            Y = up4_conv3x3_factored(feats[t], conv.weight.permute(2, 3, 1, 0))
+            inv = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+            addv = bn.bias - bn.running_mean * inv + conv.bias * inv
+            h = Y * inv[:, None, None] + addv[:, None, None]
+            kp = head.linear_pred.weight[:, :, 0, 0]
+            out[t] = 2.3e-5 * max(h.abs().max().item(), 9.2) \
+                * kp.abs().sum(1).max().item()
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -84,12 +111,16 @@ def variables(image):
     return random_variables(_jax_net(), jnp.asarray(image), seed=1)
 
 
-@pytest.fixture(scope="module")
-def port_model(variables):
+def _load_port(variables, head_up4="factored"):
     from mtt_tpu_torch.models.convert_jax import state_dict_from_flax
-    model = _port_net()
+    model = _port_net(head_up4=head_up4)
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
     return model
+
+
+@pytest.fixture(scope="module")
+def port_model(variables):
+    return _load_port(variables)
 
 
 @pytest.fixture(scope="module")
@@ -99,13 +130,21 @@ def port_out(port_model, image):
 
 
 @pytest.mark.parametrize("head_impl", ["dense", "factored"])
-def test_forward_matches_jax(head_impl, variables, image, port_out,
-                             monkeypatch):
-    """The port runs the dense head; the JAX package's dense and default
-    factored heads compute the same function, so both must agree."""
+def test_forward_matches_jax(head_impl, variables, image, port_model,
+                             port_out, monkeypatch):
+    """Each of the port's head modes against the same mode of the JAX
+    package (MTT_HEAD_IMPL), on one parameter tree: the dense head within
+    1e-5 of the output scale, the factored one within that plus the fast
+    GELU's slack (module docstring)."""
     monkeypatch.setenv("MTT_HEAD_IMPL", head_impl)
     want = _jax_net().apply(variables, jnp.asarray(image), train=False)
-    _compare(port_out, want, NUM_OUT)
+    if head_impl == "factored":
+        _compare(port_out, want, NUM_OUT,
+                 _gelu_poly_slack(port_model, image))
+        return
+    with torch.no_grad():
+        got = _load_port(variables, "dense")(torch.from_numpy(image))
+    _compare(got, want, NUM_OUT)
 
 
 def test_reference_checkpoint_loads_by_composition(image):
@@ -125,7 +164,9 @@ def test_reference_checkpoint_loads_by_composition(image):
     variables = {k: variables[k] for k in ("params", "batch_stats")}
     want = jnet.apply(variables, x, train=False)
 
-    model = _port_net(REF_TASKS, REF_OUT)
+    # the dense head: the JAX factored head on the CPU runs the exact-GELU
+    # composition, which the port's dense head computes
+    model = _port_net(REF_TASKS, REF_OUT, head_up4="dense")
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
     # the reference's qkv rows reach the port head-major
     D = 64 // HEADS

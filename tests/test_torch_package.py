@@ -24,7 +24,7 @@ def test_package_imports_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'mtt_tpu'))\n"
-        "assert len(mods) >= 12, mods\n"
+        "assert len(mods) >= 24, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -48,9 +48,10 @@ def test_refuses_windowed_channel_decode_and_other_heads():
                         "TaskPrompter_vitT", tar_dim=8, final_dim=8,
                         chan_nheads=4, device="meta")
     from mtt_tpu_torch.models.heads import ConvHead
-    for mode in ("factored", "phase"):
-        with pytest.raises(NotImplementedError, match="up4"):
-            ConvHead(8, 5, up4=mode, device="meta")
+    with pytest.raises(NotImplementedError, match="up4"):
+        ConvHead(8, 5, up4="phase", device="meta")
+    for mode in ("factored", "dense"):
+        assert ConvHead(8, 5, up4=mode, device="meta").up4 == mode
 
 
 @pytest.mark.parametrize("hw", [(40, 32), (32, 20)])
@@ -138,8 +139,58 @@ def test_kernel_build_needs_no_card_to_import_and_hashes_sources():
     keyed by the sources' hash."""
     from mtt_tpu_torch.kernels import _build
     assert _build.COUNTS.keys() == {"layernorm", "attention_cached",
-                                    "attention_emit", "mlp", "task_decode"}
+                                    "attention_emit", "attention_bwd",
+                                    "mlp_ln_res", "mlp_fc", "task_decode",
+                                    "head_up4"}
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "layernorm.cu", "attention.cu", "mlp.cu", "task_decode.cu"}
+        "layernorm.cu", "attention.cu", "attention_bwd.cu", "mlp.cu",
+        "task_decode.cu", "head_up4.cu"}
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a device argument the model and the trainer build on the
+    card; where there is none they raise instead of running on the CPU."""
+    from mtt_tpu_torch.models.wrappers import TaskPrompterNet, build_model
+    from mtt_tpu_torch.train import PASCAL_VITL, train_steps
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p = dict(PASCAL_VITL, backbone="TaskPrompter_vitT")
+    for call in (lambda: build_model(p),
+                 lambda: TaskPrompterNet(("semseg",), {"semseg": 5},
+                                         (32, 32), "TaskPrompter_vitT"),
+                 lambda: train_steps(p, 1, 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    model = build_model(p, device="meta")
+    assert next(model.parameters()).device.type == "meta"
+
+
+@pytest.mark.parametrize("hw,n", [((4, 4), 5), ((8, 10), 5), ((8, 8), 129)])
+def test_up4_head_kernel_refuses_other_grids(hw, n):
+    """The kernel path takes the grids the JAX kernel admits and raises on
+    the others before any launch (the plain version takes any grid)."""
+    from mtt_tpu_torch.kernels.head_up4 import fused_up4_head, head_up4_cuda
+    C = 16
+    args = (torch.zeros(1, *hw, C), torch.zeros(3, 3, C, C), torch.ones(C),
+            torch.zeros(C), torch.zeros(C, n))
+    with pytest.raises(ValueError, match="up4 head kernel"):
+        head_up4_cuda(*args)
+    assert fused_up4_head(*args).shape == (1, 4 * hw[0], 4 * hw[1], n)
+
+
+def test_training_kernel_wrappers_check_arguments():
+    from mtt_tpu_torch.kernels.attention import attn_core_bwd_cuda
+    from mtt_tpu_torch.kernels.mlp import fused_mlp
+    qkv = torch.zeros(2, 5, 3 * 2 * 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 64"):
+        attn_core_bwd_cuda(qkv, torch.zeros(2, 5, 64, dtype=torch.bfloat16),
+                           2, 0.125)
+    x = torch.randn(2, 3, 8)
+    w1, w2 = torch.randn(32, 8), torch.randn(8, 32)
+    assert fused_mlp(x, w1, torch.zeros(32), w2, torch.zeros(8)).shape == \
+        x.shape
+    with pytest.raises(ValueError):
+        fused_mlp(x, w1, torch.zeros(32), w2.t(), torch.zeros(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp(x, w1, torch.zeros(32), w2, torch.zeros(8), impl="cuda")
