@@ -7,16 +7,23 @@ or any phase fails.
 Phases, in order (the seconds each took are printed):
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from mtt_tpu_torch/csrc (seconds printed);
-  3. each of the 8 kernels against its plain PyTorch version at the ViT-L
-     PASCAL shapes the main paths give it: error, tolerance in bf16 ulps,
-     CUDA-event times of the kernel, the plain version, the library call or
-     composition, and the bound of the card;
+  3. each of the 11 kernel entry points (10 TPU kernels; the multi-scale tail
+     with and without its fused head) against its plain PyTorch version at the
+     ViT-L PASCAL shapes the main paths give it, and the earlier kernels again
+     at the shapes the InvPT path adds (N = 1025, LayerNorm rows of 2880, MLP
+     widths 576, 288, 144; the tail on NYUD's non-square grid): error,
+     tolerance in bf16 ulps, CUDA-event times of the kernel, the plain version,
+     the library call or composition, and the bound of the card;
   4. the ViT-L PASCAL eval forward (5 tasks, CTR on, bf16, seeded random
      weights, batch 8 at 512x512) through ``predict``, with the factored up4
      head (the default) and with the dense head: launch counts, shapes,
      finiteness, relative RMS error against an f32 run of the same weights,
      imgs/s and peak memory;
-  5. ViT-L PASCAL training at the config's batch of 2 on seeded synthetic
+  5. the InvPT-ViT-L PASCAL eval forward (ViT-L backbone with a cls token,
+     InvPT decoder, 1x1 heads; batch 8 at 512x512, bf16, seeded random
+     weights, full width and depth) through ``predict``, with the fused tail
+     (the default) and with the head-fused tail: the same checks;
+  6. ViT-L PASCAL training at the config's batch of 2 on seeded synthetic
      batches in bf16 with f32 master weights: the launch counts of one step,
      its gradients against an f32 plain run of the same weights, batch and
      drop-path masks (in all and per tensor), finite losses, moving
@@ -24,9 +31,10 @@ Phases, in order (the seconds each took are printed):
 The line before the last is the kernels JSON; the last line is the device JSON.
 
 ``python3 chip_smoke.py --profile`` runs none of these phases: after the
-build it traces one eval forward and one training step of the same models
-with ``torch.profiler`` and prints their wall time and device time by kernel
-group.
+build it traces one eval forward of each model and one training step with
+``torch.profiler`` and prints their wall time and device time by kernel group.
+``--phases kernels,invpt`` (any subset of kernels, eval, invpt, train) runs
+only those phases and prints no result lines: a quick look, not the check.
 """
 
 from __future__ import annotations
@@ -50,6 +58,14 @@ GRID, NLOG = 32, 21          # up4 head: 32x32 patch grid, semseg's 21 logits
 BT = 2                       # trBatch of configs/pascal/taskprompter_vitLp16.yml
 IMG = 512
 TRAIN_STEPS = 4
+# InvPT-ViT-L PASCAL: cls token + 1024 patches; decoder width D = 512 + 64,
+# 2 heads, kv length 5 tasks x 8 x 8 at every stage; per stage (query grid per
+# task, stage width)
+NV = 1025
+INV_D, INV_H, INV_LK = 576, 2, 320
+INV_STAGES = ((8, 576), (16, 288), (32, 144))
+INV_TH = 128                 # the tail's output grid (8 h0)
+NYUD_TH, NYUD_TW, NYUD_NLOG = 112, 144, 40   # 448x576 inputs, 40 classes
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
 # outside them, HBM bandwidth
@@ -77,6 +93,15 @@ KERNEL_ROWS = {
                       "train"),
     "mlp_fc": ("mtt_tpu_torch/csrc/mlp.cu", "mtt_tpu/kernels/mlp.py:69",
                "mlp_fc", "train"),
+    "invpt_attention": ("mtt_tpu_torch/csrc/invpt_attention.cu",
+                        "mtt_tpu/kernels/invpt_attention.py:35",
+                        "invpt_attention", "invpt"),
+    "invpt_tail": ("mtt_tpu_torch/csrc/invpt_tail.cu",
+                   "mtt_tpu/kernels/invpt_tail.py:297", "invpt_tail",
+                   "invpt"),
+    "invpt_tail_head": ("mtt_tpu_torch/csrc/invpt_tail.cu",
+                        "mtt_tpu/kernels/invpt_tail.py:297",
+                        "invpt_tail_head", "invpt_head"),
 }
 
 
@@ -100,7 +125,7 @@ def _max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
-def _ulp_tol(want, ulps: int) -> float:
+def _ulp_tol(want, ulps: float) -> float:
     """``ulps`` bf16 units in the last place of the largest reference value
     (bf16 keeps 8 significant bits)."""
     return ulps * want.float().abs().max().item() * 2.0 ** -7
@@ -117,6 +142,160 @@ def _bound(nbytes: float, tc_flops: float, f32_flops: float = 0.0):
     t_ops = (tc_flops / PEAK_BF16 + f32_flops / PEAK_F32) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def _invpt_cases(rnd):
+    """The kernel cases the InvPT path adds, in ``kernel_phase``'s format:
+    rows 9 and 10 at the PASCAL ViT-L shapes (and row 10 on NYUD's non-square
+    grid), and rows 1, 3, 4 and 8 at the shapes this path gives them."""
+    from mtt_tpu_torch.kernels.attention import fused_attention_ln_qkv
+    from mtt_tpu_torch.kernels.invpt_attention import invpt_fused_attention
+    from mtt_tpu_torch.kernels.invpt_tail import (fused_ms_tail,
+                                                  fused_ms_tail_head)
+    from mtt_tpu_torch.kernels.layernorm import fused_layernorm
+    from mtt_tpu_torch.kernels.mlp import fused_mlp, fused_mlp_ln_res
+
+    bf = torch.bfloat16
+    f32 = torch.float32
+    cases = {}
+
+    # row 9 at the three stages; the first has no message
+    for i, (g, dim) in enumerate(INV_STAGES):
+        Lq, Dh = T * g * g, dim // INV_H
+        q = rnd(B, INV_H, Lq, Dh)
+        k, v = rnd(B, INV_H, INV_LK, Dh), rnd(B, INV_H, INV_LK, Dh)
+        msg = rnd(B, INV_H, Lq, INV_LK, dtype=f32) if i else None
+        w = rnd(INV_H, 2 * INV_H, std=0.5, dtype=f32) if i else None
+        b = rnd(INV_H, std=0.1, dtype=f32) if i else None
+
+        def call(impl, a=(q, k, v, msg, w, b), sc=dim ** -0.5):
+            return invpt_fused_attention(*a, sc, impl=impl)
+
+        def comp(a=(q, k, v, msg, w, b), sc=dim ** -0.5):
+            q_, k_, v_, m_, w_, b_ = a
+            fused = torch.matmul(q_, k_.transpose(-1, -2)).float() * sc
+            if m_ is not None:
+                fused = torch.einsum("hc,bcqk->bhqk", w_,
+                                     torch.cat([fused, m_], 1)) \
+                    + b_[None, :, None, None]
+            return torch.matmul(torch.softmax(fused, -1).to(bf), v_), fused
+
+        nel = B * INV_H * Lq * INV_LK
+        name = "invpt_attention" if i == 2 else f"invpt_attention@stage{i}"
+        cases[name] = (
+            call, (4, 0.01),
+            "out: scores, mix and softmax in f32 and p rounded to bf16 at the "
+            "same point, f32 sums in another order can flip that rounding; "
+            "fused (f32 on both sides): exact bf16 products summed in f32 in "
+            "another order, 0.01 bf16 ulps = 8e-5 of max |fused|",
+            None, comp,
+            _nbytes(q, k, v, q) + nel * 4 + (_nbytes(msg, w, b) if i else 0),
+            4.0 * nel * Dh, (8.0 if i else 1.0) * nel + 5.0 * nel)
+
+    # row 10, both forms, at the PASCAL grid and on NYUD's 14x18 grid
+    def tail_case(batch, th, tw, n, label):
+        xs = tuple(rnd(batch, th // f, tw // f, INV_D, std=0.5)
+                   for f in (8, 4, 2))
+        kc = rnd(3, 3, INV_D, INV_D, std=(9 * INV_D) ** -0.5)
+        inv = rnd(INV_D, std=0.1, mean=1.0, dtype=f32)
+        addv = rnd(INV_D, std=0.1, dtype=f32)
+        wh = rnd(INV_D, n, std=INV_D ** -0.5)
+        bh = rnd(n, std=0.1, dtype=f32)
+        kc_oihw = kc.permute(3, 2, 0, 1).contiguous()
+        wh_oihw = wh.t()[:, :, None, None].contiguous()
+
+        def dense(head):
+            acc = sum(F.interpolate(x.permute(0, 3, 1, 2), size=(th, tw),
+                                    mode="bilinear", align_corners=False)
+                      for x in xs)
+            y = F.relu(F.conv2d(acc, kc_oihw, padding=1)
+                       * inv.to(bf)[:, None, None]
+                       + addv.to(bf)[:, None, None])
+            return F.conv2d(y, wh_oihw, bh.to(bf)) if head else y
+
+        px = batch * sum((th // f) * (tw // f) for f in (8, 4, 2))
+        out_px = batch * th * tw
+        # bf16 x bf16 on the tensor cores: Gm (9 taps) and the width mix (6
+        # nonzero taps of the shifted bilinear bands per output, per scale;
+        # the kernel also multiplies the 3 zeros); in f32: the height mix (6
+        # nonzero taps per scale), the sum over scales and the affine + ReLU
+        tcf = 2.0 * px * INV_D * 9 * INV_D + 12.0 * 3 * tw * INV_D * batch \
+            * sum(th // f for f in (8, 4, 2))
+        f32f = (3 * 12.0 + 2.0 + 4.0) * out_px * INV_D
+        common = _nbytes(*xs, kc, inv, addv)
+        cases[f"invpt_tail{label}"] = (
+            lambda impl: fused_ms_tail(xs, kc, inv, addv, th, tw, impl=impl),
+            4, "Gm and the width mix are rounded to bf16 at the same points; "
+               "f32 sums in another order can flip a rounding",
+            None, lambda: dense(False), common + out_px * INV_D * 2, tcf,
+            f32f)
+        cases[f"invpt_tail_head{label}"] = (
+            lambda impl: fused_ms_tail_head(xs, kc, inv, addv, wh, bh, th, tw,
+                                            impl=impl),
+            4, "as invpt_tail, and the activation is rounded to bf16 at the "
+               "same point before the 1x1; the logits are f32 until the "
+               "wrapper's last rounding",
+            None, lambda: dense(True),
+            common + _nbytes(wh, bh) + out_px * n * 2,
+            tcf + 2.0 * out_px * INV_D * n, f32f)
+
+    tail_case(B, INV_TH, INV_TH, NLOG, "")
+    tail_case(2, NYUD_TH, NYUD_TW, NYUD_NLOG, "@nyud")
+
+    # rows 1 and 4 at the cls-token sequence length
+    x = rnd(B, NV, C)
+    gamma = rnd(C, std=0.1, mean=1.0, dtype=f32)
+    beta = rnd(C, std=0.1, dtype=f32)
+    wqkv, bqkv = rnd(3 * C, C, std=C ** -0.5), rnd(3 * C, std=0.1)
+    w1, b1 = rnd(HIDDEN, C, std=C ** -0.5), rnd(HIDDEN, std=0.1)
+    w2, b2 = rnd(C, HIDDEN, std=HIDDEN ** -0.5), rnd(C, std=0.1)
+    M = B * NV
+
+    def attn_lib():
+        xn = F.layer_norm(x, (C,), gamma.to(bf), beta.to(bf), 1e-6)
+        q, k, v = F.linear(xn, wqkv, bqkv).view(B, NV, HEADS, 3, D).unbind(3)
+        o = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        return o.transpose(1, 2).reshape(B, NV, C)
+
+    cases["attention_cached@N1025"] = (
+        lambda impl: fused_attention_ln_qkv(x, gamma, beta, wqkv, bqkv, HEADS,
+                                            impl=impl),
+        4, "as attention_cached, at the first odd sequence length",
+        None, attn_lib, _nbytes(x, gamma, beta, wqkv, bqkv, x),
+        2.0 * M * C * 3 * C + 4.0 * B * HEADS * NV * NV * D, 0.0)
+    cases["mlp_ln_res@N1025"] = (
+        lambda impl: fused_mlp_ln_res(x, gamma, beta, w1, b1, w2, b2,
+                                      impl=impl),
+        4, "as mlp_ln_res", None,
+        lambda: x + F.linear(F.gelu(F.linear(F.layer_norm(
+            x, (C,), gamma.to(bf), beta.to(bf), 1e-6), w1, b1)), w2, b2),
+        _nbytes(x, gamma, beta, w1, b1, w2, b2, x), 4.0 * M * C * HIDDEN, 0.0)
+
+    # row 3 on the task-merged stage norms, row 8 at the decoder widths, both
+    # at the stages' block resolution (twice the query grid)
+    for g, dim in INV_STAGES:
+        g, Cm = 2 * g, T * dim
+        xm = rnd(B, g, g, Cm)
+        gm_ = rnd(Cm, std=0.1, mean=1.0, dtype=f32)
+        bm_ = rnd(Cm, std=0.1, dtype=f32)
+        cases[f"layernorm@C{Cm}"] = (
+            lambda impl, a=(xm, gm_, bm_): fused_layernorm(*a, impl=impl),
+            1, "as layernorm, on rows of the task-merged width",
+            lambda a=(xm, gm_, bm_): F.layer_norm(
+                a[0], a[0].shape[-1:], a[1].to(bf), a[2].to(bf), 1e-6),
+            None, _nbytes(xm, gm_, bm_, xm), 0.0, 8.0 * xm.numel())
+        hid = 4 * dim
+        xd = rnd(B, T, g, g, dim)
+        wa, ba = rnd(hid, dim, std=dim ** -0.5), rnd(hid, std=0.1)
+        wb, bb = rnd(dim, hid, std=hid ** -0.5), rnd(dim, std=0.1)
+        cases[f"mlp_fc@C{dim}"] = (
+            lambda impl, a=(xd, wa, ba, wb, bb): fused_mlp(*a, impl=impl),
+            4, "as mlp_fc, at an InvPT stage's width", None,
+            lambda a=(xd, wa, ba, wb, bb): F.linear(
+                F.gelu(F.linear(a[0], a[1], a[2])), a[3], a[4]),
+            _nbytes(xd, wa, ba, wb, bb, xd), 4.0 * xd.numel() * hid, 0.0)
+    return cases
 
 
 def kernel_phase():
@@ -287,6 +466,7 @@ def kernel_phase():
             None, lambda: F.linear(F.gelu(F.linear(xt, w1, b1)), w2, b2),
             _nbytes(xt, w1, b1, w2, b2, xt), 4.0 * BT * N * C * HIDDEN, 0.0),
     }
+    cases.update(_invpt_cases(rnd))
     results = {}
     for name, (call, ulps, reason, lib, comp, nbytes, tcf, f32f) in \
             cases.items():
@@ -298,14 +478,17 @@ def kernel_phase():
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err, tol = 0.0, 0.0
-        for g_, w_ in zip(got, want):
-            if g_.shape != w_.shape or not torch.isfinite(g_).all():
+        per_out = ulps if isinstance(ulps, tuple) else (ulps,) * len(got)
+        for g_, w_, u_ in zip(got, want, per_out):
+            if g_.shape != w_.shape or g_.dtype != w_.dtype \
+                    or not torch.isfinite(g_).all():
                 raise RuntimeError(f"{name}: bad kernel output "
-                                   f"{tuple(g_.shape)} vs {tuple(w_.shape)}")
-            e, t = _max_err(g_, w_), _ulp_tol(w_, ulps)
+                                   f"{tuple(g_.shape)} {g_.dtype} vs "
+                                   f"{tuple(w_.shape)} {w_.dtype}")
+            e, t = _max_err(g_, w_), _ulp_tol(w_, u_)
             if e > t:
                 raise RuntimeError(f"{name}: max |kernel - plain| = {e:.4g} "
-                                   f"exceeds {t:.4g} ({ulps} bf16 ulps)")
+                                   f"exceeds {t:.4g} ({u_} bf16 ulps)")
             err, tol = max(err, e), max(tol, t)
         del got, want
         kms = _time_ms(lambda: call("cuda"))
@@ -337,19 +520,37 @@ def kernel_phase():
     return results
 
 
-EXPECTED_EVAL = {"factored": {"layernorm": 5, "attention_cached": 20,
-                              "attention_emit": 4, "attention_bwd": 0,
-                              "mlp_ln_res": 24, "mlp_fc": 0,
-                              "task_decode": 4, "head_up4": 5},
-                 "dense": {"layernorm": 5, "attention_cached": 20,
-                           "attention_emit": 4, "attention_bwd": 0,
-                           "mlp_ln_res": 24, "mlp_fc": 0, "task_decode": 4,
-                           "head_up4": 0}}
-# one training step: blocks 1..23 run under drop-path (LN + plain MLP),
-# block 0 the fused half-block; 24 attention backwards; no up4 head kernel
-EXPECTED_TRAIN = {"layernorm": 23 + 4 + 1, "attention_cached": 20,
-                  "attention_emit": 4, "attention_bwd": 24, "mlp_ln_res": 1,
-                  "mlp_fc": 23, "task_decode": 4, "head_up4": 0}
+def _expected(**launches) -> dict:
+    """Launch counts of one run: the named counters, every other one 0."""
+    from mtt_tpu_torch.kernels import _build
+    return {**dict.fromkeys(_build.COUNTS, 0), **launches}
+
+
+def expected_eval(mode: str) -> dict:
+    return _expected(layernorm=5, attention_cached=20, attention_emit=4,
+                     mlp_ln_res=24, task_decode=4,
+                     head_up4=5 if mode == "factored" else 0)
+
+
+def expected_train() -> dict:
+    """One training step: blocks 1..23 run under drop-path (LN + plain MLP),
+    block 0 the fused half-block; 24 attention backwards; no up4 head
+    kernel."""
+    return _expected(layernorm=23 + 4 + 1, attention_cached=20,
+                     attention_emit=4, attention_bwd=24, mlp_ln_res=1,
+                     mlp_fc=23, task_decode=4)
+
+
+def expected_invpt(tail_head: bool) -> dict:
+    """One InvPT eval forward: 24 ViT blocks (attention + MLP half-block);
+    LayerNorm = the ViT's final norm + norm1 and norm2 of the 3 decoder
+    stages + their 3 task-merged stage norms; one plain MLP and one
+    message-passing attention per stage; one tail launch per task."""
+    return _expected(layernorm=1 + 6 + 3, attention_cached=24, mlp_ln_res=24,
+                     mlp_fc=3, invpt_attention=3,
+                     **{"invpt_tail_head" if tail_head else "invpt_tail": T})
+
+
 # The eval forward is held against an f32 run of the same (bf16-valued)
 # weights on the plain versions, by the relative RMS error per task,
 # ||logits - f32|| / ||f32||. Both bf16 paths (kernels, and the plain versions
@@ -436,9 +637,9 @@ def eval_phase():
         print(f"[eval {mode}] TaskPrompter-ViT-L PASCAL, "
               f"{n_params / 1e6:.1f} M params, batch {B} at {IMG}x{IMG} "
               f"bf16; launches {counts[mode]}", flush=True)
-        if counts[mode] != EXPECTED_EVAL[mode]:
+        if counts[mode] != expected_eval(mode):
             raise RuntimeError(f"{mode} launch counts {counts[mode]} != "
-                               f"{EXPECTED_EVAL[mode]}")
+                               f"{expected_eval(mode)}")
         for t in model.tasks:
             n = model.get_submodule(f"head_{t}").linear_pred.out_channels
             if logits[t].shape != (B, IMG, IMG, n) or \
@@ -483,6 +684,100 @@ def eval_phase():
               f"{plain_ms:.2f} ms = {B / plain_ms * 1e3:.2f} imgs/s; peak "
               f"memory of the first forward {peak_gib:.2f} GiB", flush=True)
         del logits, preds, plain, plain_preds, ref, ref_preds
+    return counts
+
+
+def _invpt_model(tail_head: bool = False):
+    """The InvPT-ViT-L PASCAL eval model (bf16, seeded random weights, full
+    width and depth) and a seeded batch of 8 preprocessed 512x512 images."""
+    from mtt_tpu_torch.inference import preprocess
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import INVPT_PASCAL_VITL, build_model
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    model = build_model(INVPT_PASCAL_VITL, tail_head=tail_head, device=dev,
+                        dtype=torch.bfloat16).eval()
+    init_weights(model, gen)
+    rgb = torch.randint(0, 256, (B, IMG, IMG, 3), generator=gen, device=dev)
+    return model, preprocess(rgb)
+
+
+def invpt_phase():
+    """The InvPT-ViT-L PASCAL eval forward through the kernels, with the fused
+    tail then with the head-fused tail; returns the launch counts of each."""
+    from mtt_tpu_torch.inference import predict
+    from mtt_tpu_torch.kernels import _build
+
+    tail, x = _invpt_model()
+    head, _ = _invpt_model(tail_head=True)
+    head.load_state_dict(tail.state_dict())
+    n_params = sum(p.numel() for p in tail.parameters())
+    # f32 reference, once: full-precision matmuls and convolutions (no TF32);
+    # both tail forms compute one function
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref_model = copy.deepcopy(tail).float()
+    ref, ref_preds = predict(ref_model, x, impl="plain")
+    del ref_model
+    torch.cuda.empty_cache()
+    counts = {}
+    for mode, model in (("tail", tail), ("tail_head", head)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        logits, preds = predict(model, x)
+        torch.cuda.synchronize()
+        counts[mode] = dict(_build.COUNTS)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[invpt {mode}] InvPT-ViT-L PASCAL, {n_params / 1e6:.1f} M "
+              f"params, batch {B} at {IMG}x{IMG} bf16; launches "
+              f"{counts[mode]}", flush=True)
+        want = expected_invpt(mode == "tail_head")
+        if counts[mode] != want:
+            raise RuntimeError(f"InvPT {mode} launch counts {counts[mode]} "
+                               f"!= {want}")
+        plain, plain_preds = predict(model, x, impl="plain")
+        for t in model.tasks:
+            n = model.get_submodule(f"head_{t}").linear_pred.out_channels
+            for what, v in ((t, logits[t]),
+                            (f"inter_preds.{t}", logits["inter_preds"][t])):
+                if v.shape != (B, IMG, IMG, n) or not torch.isfinite(v).all():
+                    raise RuntimeError(f"InvPT {mode} {what}: logits "
+                                       f"{tuple(v.shape)} or non-finite")
+            if preds[t].shape[:3] != (B, IMG, IMG) or \
+                    not torch.isfinite(preds[t].float()).all():
+                raise RuntimeError(f"InvPT {mode} {t}: bad prediction "
+                                   f"{tuple(preds[t].shape)}")
+            r = ref[t].float()
+            k, p = logits[t].float(), plain[t].float()
+            rms_k = ((k - r).norm() / r.norm()).item()
+            rms_p = ((p - r).norm() / r.norm()).item()
+            ri = ref["inter_preds"][t].float()
+            rms_i = ((logits["inter_preds"][t].float() - ri).norm()
+                     / ri.norm()).item()
+            line = (f"[invpt {mode}] {t}: vs the f32 run: relative RMS error "
+                    f"kernels {rms_k:.5g} (tol {FORWARD_RMS_TOL}), plain bf16 "
+                    f"{rms_p:.5g}, intermediate prediction {rms_i:.5g}")
+            if t in ("semseg", "human_parts"):
+                line += (f"; argmax agreement with f32: kernels "
+                         f"{(preds[t] == ref_preds[t]).float().mean().item():.5f}"
+                         f", plain bf16 "
+                         f"{(plain_preds[t] == ref_preds[t]).float().mean().item():.5f}")
+            print(line, flush=True)
+            if not max(rms_k, rms_i) <= FORWARD_RMS_TOL:
+                raise RuntimeError(
+                    f"InvPT {mode} {t}: kernel forward is {rms_k:.4g} "
+                    f"(intermediate {rms_i:.4g}, relative RMS) from the f32 "
+                    f"run, over {FORWARD_RMS_TOL}")
+        del logits, preds, plain, plain_preds
+        ms = _time_ms(lambda: predict(model, x), reps=5, warmup=1)
+        plain_ms = _time_ms(lambda: predict(model, x, impl="plain"), reps=3,
+                            warmup=1)
+        print(f"[invpt {mode}] forward+postprocess {ms:.2f} ms = "
+              f"{B / ms * 1e3:.2f} imgs/s through the kernels; plain versions "
+              f"{plain_ms:.2f} ms = {B / plain_ms * 1e3:.2f} imgs/s; peak "
+              f"memory of the first forward {peak_gib:.2f} GiB", flush=True)
     return counts
 
 
@@ -580,9 +875,9 @@ def train_phase():
     print(f"[train] TaskPrompter-ViT-L PASCAL, batch {BT} at {IMG}x{IMG}, "
           f"bf16 with f32 master weights; launches of one step {counts}",
           flush=True)
-    if counts != EXPECTED_TRAIN:
+    if counts != expected_train():
         raise RuntimeError(f"training launch counts {counts} != "
-                           f"{EXPECTED_TRAIN}")
+                           f"{expected_train()}")
     rms_k, rms_p = _rel_rms(g_kernel, g_ref), _rel_rms(g_plain, g_ref)
     print(f"[train] step-1 gradients vs the f32 plain run: relative RMS over "
           f"all gradients kernels {rms_k:.5g} (tol {GRAD_RMS_TOL}), plain "
@@ -674,7 +969,9 @@ PROFILE_GROUPS = (("mlp_kernel", "mlp (mlp.cu)"),
                   ("attn_core", "attention core"),
                   ("gemm_nt_bias", "qkv projection"),
                   ("ln_kernel", "layernorm"), ("task_decode", "task decode"),
-                  ("head_up4", "up4 head"))
+                  ("head_up4", "up4 head"),
+                  ("invpt_attention", "InvPT attention"),
+                  ("invpt_tail", "InvPT tail"))
 
 
 def _wall_ms(fn, reps: int = 5) -> float:
@@ -731,14 +1028,19 @@ def _profile(title: str, fn, top: int = 12) -> None:
 
 
 def profile_phase():
-    """``--profile``: the device-time breakdown of one eval forward (the
-    eval phase's model and batch) and of one training step (the training
-    phase's trainer and first batch)."""
+    """``--profile``: the device-time breakdown of one eval forward of each
+    model (the eval phases' models and batches) and of one training step (the
+    training phase's trainer and first batch)."""
     from mtt_tpu_torch.inference import predict
     from mtt_tpu_torch.utils.train_utils import to_device
     model, x = _eval_model()
     _profile(f"eval forward, batch {B}", lambda: predict(model, x))
     del model, x
+    for tail_head in (False, True):
+        model, x = _invpt_model(tail_head)
+        _profile(f"InvPT eval forward, batch {B}, tail_head={tail_head}",
+                 lambda: predict(model, x))
+        del model, x
     trainer, data = _vitl_trainer()
     batch = to_device(data.batch(0, BT), torch.device("cuda"))
     _profile(f"training step, batch {BT}", lambda: trainer.step(batch))
@@ -760,7 +1062,14 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="only print the device-time breakdown of one eval "
                          "forward and one training step (torch.profiler)")
-    profile_only = ap.parse_args(argv).profile
+    ap.add_argument("--phases", default="kernels,eval,invpt,train",
+                    help="comma-separated subset of kernels, eval, invpt, "
+                         "train; a subset prints no result lines")
+    args = ap.parse_args(argv)
+    profile_only = args.profile
+    wanted = args.phases.split(",")
+    if not set(wanted) <= {"kernels", "eval", "invpt", "train"}:
+        ap.error(f"unknown phase in {args.phases!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -786,29 +1095,35 @@ def main(argv=None):
         profile_phase()
         return 0
 
-    phases = {}
-    t = time.perf_counter()
-    results = kernel_phase()
-    phases["kernels"] = time.perf_counter() - t
-    t = time.perf_counter()
-    eval_counts = eval_phase()
-    phases["eval"] = time.perf_counter() - t
-    t = time.perf_counter()
-    train_counts = train_phase()
-    phases["train"] = time.perf_counter() - t
+    phases, outcome = {}, {}
+    for name, run in (("kernels", kernel_phase), ("eval", eval_phase),
+                      ("invpt", invpt_phase), ("train", train_phase)):
+        if name in wanted:
+            t = time.perf_counter()
+            outcome[name] = run()
+            phases[name] = time.perf_counter() - t
+            torch.cuda.empty_cache()
     print(f"[phases] seconds {({k: round(v, 1) for k, v in phases.items()})}",
           flush=True)
+    if len(outcome) < 4:
+        print(f"[partial] ran only {sorted(outcome)}: no result", flush=True)
+        return 0
+    results, eval_counts = outcome["kernels"], outcome["eval"]
+    invpt_counts, train_counts = outcome["invpt"], outcome["train"]
 
     rows = []
     for name, (src, replaces, counter, path) in KERNEL_ROWS.items():
         r = results[name]
         by_path = {"eval_factored": eval_counts["factored"][counter],
                    "eval_dense": eval_counts["dense"][counter],
-                   "train_step": train_counts[counter]}
+                   "train_step": train_counts[counter],
+                   "invpt_tail": invpt_counts["tail"][counter],
+                   "invpt_tail_head": invpt_counts["tail_head"][counter]}
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=by_path["eval_factored" if path == "eval"
-                             else "train_step"],
+            launches=by_path[{"eval": "eval_factored", "train": "train_step",
+                              "invpt": "invpt_tail",
+                              "invpt_head": "invpt_tail_head"}[path]],
             launches_by_path=by_path, max_abs_err=r["max_abs_err"],
             tol=r["tol"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -40,8 +40,14 @@ extern "C" int mtt_layernorm_bf16(const void* x, const void* gamma, const void* 
     ln_kernel<2><<<grid, kThreads, 0, st>>>(xb, g, b, yb, rows, C, eps);
   else if (C <= 1024)
     ln_kernel<4><<<grid, kThreads, 0, st>>>(xb, g, b, yb, rows, C, eps);
-  else
+  else if (C <= 2048)
     ln_kernel<8><<<grid, kThreads, 0, st>>>(xb, g, b, yb, rows, C, eps);
+  else if (C <= 3072)   // the InvPT stage norm over T*C task-merged channels (2880)
+    ln_kernel<12><<<grid, kThreads, 0, st>>>(xb, g, b, yb, rows, C, eps);
+  else if (C <= 4096)
+    ln_kernel<16><<<grid, kThreads, 0, st>>>(xb, g, b, yb, rows, C, eps);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

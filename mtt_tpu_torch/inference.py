@@ -25,7 +25,10 @@ def preprocess(images: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def predict(model, images: torch.Tensor, impl: Optional[str] = None
             ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """Normalised images (B, H, W, 3) -> (logits, predictions), each a dict
-    keyed by task."""
+    """Normalised images (B, H, W, 3) -> (logits, predictions). ``logits``
+    is the model's output: a dict keyed by task, with InvPT's intermediate
+    predictions under ``inter_preds``; ``predictions`` holds the
+    post-processed map of each task."""
     logits = model(images, impl=impl)
-    return logits, {t: get_output(v, t) for t, v in logits.items()}
+    return logits, {t: get_output(v, t) for t, v in logits.items()
+                    if t != "inter_preds"}

@@ -70,9 +70,12 @@ def layernorm_cuda(x, gamma, beta, eps: float = 1e-6) -> torch.Tensor:
     C = x.shape[-1]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the LayerNorm kernel takes bfloat16, got {x.dtype}")
-    if C % 8 or C > 2048:
-        raise ValueError(f"the LayerNorm kernel needs C % 8 == 0 and C <= 2048, "
-                         f"got C={C}")
+    if C % 8 or C > 4096:
+        raise ValueError(
+            f"the LayerNorm kernel takes C % 8 == 0 and C <= 4096 (a row "
+            f"lives in one warp's registers; InvPT's task-merged stage norm "
+            f"is 2880 wide), got C={C}; longer rows are ROADMAP.md open item "
+            f"1.6")
     y = torch.empty_like(x)
     rows = x.numel() // C
     g = gamma.float().contiguous()

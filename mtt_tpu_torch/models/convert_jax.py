@@ -4,11 +4,15 @@ The port's module tree mirrors the JAX package's, so the conversion is a walk
 over the flax tree that renames leaves and changes layouts:
 
   Dense kernel (in, out)              -> nn.Linear weight (out, in)
-  Conv kernel HWIO (grouped: I = in/T) -> nn.Conv2d weight OIHW (groups=T)
+  Conv kernel HWIO (grouped: I = in/groups, the outputs group-major on
+  both sides)                          -> nn.Conv2d weight OIHW (same groups)
+  ConvTranspose kernel (kh, kw, in, out) -> nn.ConvTranspose2d weight
+                                          (in, out, kh, kw), spatially flipped
   LayerNorm / BatchNorm scale          -> weight
   BatchNorm batch_stats mean / var     -> running_mean / running_var
                                           (+ num_batches_tracked = 0)
-  pos_embed, task_prompts              -> as they are
+  pos_embed, cls_token, task_prompts,
+  fuse_attn_kernel, fuse_attn_bias     -> as they are
 
 The qkv weight stays head-major (H, 3, D): only its transpose changes. Flax
 BatchNorm momentum 0.9 is torch's 0.1 and eps 1e-5 on both sides (set by the
@@ -32,9 +36,17 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+# modules that are nn.ConvTranspose in the JAX tree, by their own name
+TRANSPOSED_CONVS = ("scale_embed_0",)
+
+
+def state_dict_from_flax(variables, transposed=TRANSPOSED_CONVS
+                         ) -> Dict[str, torch.Tensor]:
     """``{"params": ..., "batch_stats": ...}`` (arrays convertible with
-    numpy) -> a state dict that loads into the port's model strictly."""
+    numpy) -> a state dict that loads into the port's model strictly.
+    ``transposed`` names the modules whose kernel is a transposed conv's:
+    flax correlates with the kernel as stored where torch's gradient form
+    flips it (mtt_tpu/models/convert_torch.py:37-44)."""
     sd: Dict[str, torch.Tensor] = {}
     for path, v in _flatten(variables["params"]):
         a = np.asarray(v, dtype=np.float32)
@@ -42,6 +54,9 @@ def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
         key = ".".join(mod)
         if leaf == "kernel" and a.ndim == 2:
             sd[f"{key}.weight"] = torch.tensor(a.T)
+        elif leaf == "kernel" and a.ndim == 4 and mod[-1] in transposed:
+            sd[f"{key}.weight"] = torch.tensor(
+                a[::-1, ::-1].transpose(2, 3, 0, 1).copy())
         elif leaf == "kernel" and a.ndim == 4:
             sd[f"{key}.weight"] = torch.tensor(a.transpose(3, 2, 0, 1))
         elif leaf == "scale":

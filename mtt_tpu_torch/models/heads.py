@@ -1,4 +1,11 @@
-"""Per-task prediction heads (port of mtt_tpu/models/heads.py ``ConvHead``).
+"""Per-task prediction heads (port of mtt_tpu/models/heads.py ``ConvHead``,
+``MLPHead`` and ``MLPHeadParams``).
+
+``MLPHead`` is InvPT's head, one 1x1 conv ``linear_pred``; ``params()`` hands
+its weights to the head-fused tail kernel, which then computes the head (one
+module and one tree for both forms).
+
+``ConvHead``:
 
 3x3 conv + BN + exact GELU -> 1x1 logits. Two modes with one parameter tree:
 
@@ -22,11 +29,28 @@ import torch.nn.functional as F
 from torch import nn
 
 from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
-from mtt_tpu_torch.models.layers import (ConvBNAct, to_nchw, to_nhwc,
-                                         up4_conv3x3_factored,
+from mtt_tpu_torch.models.layers import (ConvBNAct, conv1x1, to_nchw,
+                                         to_nhwc, up4_conv3x3_factored,
                                          update_running_stats)
 
 UP4_MODES = ("factored", "dense")
+
+
+class MLPHead(nn.Module):
+    """1x1 conv to logits, NHWC."""
+
+    def __init__(self, in_dim: int, num_classes: int, *, device=None,
+                 dtype=None):
+        super().__init__()
+        self.linear_pred = nn.Conv2d(in_dim, num_classes, 1, device=device,
+                                     dtype=dtype)
+
+    def params(self):
+        """(wh (in_dim, n), bh (n,)) for ``fused_ms_tail_head``."""
+        return self.linear_pred.weight[:, :, 0, 0].t(), self.linear_pred.bias
+
+    def forward(self, x, train: bool = False, impl=None):
+        return conv1x1(self.linear_pred, x)
 
 
 class ConvHead(nn.Module):

@@ -1,10 +1,11 @@
 """Building blocks of the port, NHWC at the public functions.
 
-Port of the parts of mtt_tpu/models/layers.py that the TaskPrompter-ViT
-forward runs in eval and in training: ``FusedLN``, ``Mlp`` (its ``ln=`` path
-and the plain MLP of the drop-path blocks), ``PatchEmbed``, ``ConvBNAct``,
-``interpolate``, the flax BatchNorm in both modes, and the factored
-conv3x3(upsample4) of the up4 head with its shift matrices. Parameter names
+Port of the parts of mtt_tpu/models/layers.py that the TaskPrompter-ViT and
+InvPT forwards run in eval and in training: ``FusedLN``, ``Mlp`` (its ``ln=``
+path and the plain MLP of the drop-path blocks), ``PatchEmbed``,
+``Attention`` and ``ViTBlock`` with per-sample ``drop_path``, ``ConvBNAct``,
+``interpolate`` and ``upsample2x``, the flax BatchNorm in both modes, and the
+factored conv3x3(upsample4) of the up4 head with its shift matrices. Parameter names
 follow the JAX package's module tree; leaves use torch's names and layouts
 (nn.Linear (out, in), nn.Conv2d OIHW), so ``models/convert_jax.py`` maps one
 to the other.
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mtt_tpu_torch.kernels.attention import fused_attention_ln_qkv
 from mtt_tpu_torch.kernels.layernorm import fused_layernorm
 from mtt_tpu_torch.kernels.mlp import fused_mlp, fused_mlp_ln_res
 
@@ -83,6 +85,67 @@ class PatchEmbed(nn.Module):
         y = self.proj(x)                              # (B, C, gh, gw)
         gh, gw = H // p, W // p
         return y.flatten(2).transpose(1, 2), (gh, gw)
+
+
+def drop_path(x, rate: float, generator: Optional[torch.Generator]):
+    """Stochastic depth per sample (``DropPath``): a kept sample is scaled by
+    1 / keep, a dropped one is zero. The draws come from ``generator``."""
+    if generator is None:
+        raise ValueError("training with drop-path needs a torch.Generator "
+                         "for its masks: pass generator=... (or build the "
+                         "model with drop_path_rate=0)")
+    keep = 1.0 - rate
+    mask = (torch.rand(x.shape[0], generator=generator,
+                       device=generator.device) < keep).to(x.device)
+    return torch.where(mask.view(-1, *[1] * (x.dim() - 1)), x / keep,
+                       torch.zeros_like(x))
+
+
+class Attention(nn.Module):
+    """ViT multi-head self-attention behind its pre-norm: LN, the qkv
+    projection (rows head-major (H, 3, D)) and the attention run through the
+    attention kernel, then the output projection. Training forwards take the
+    max-subtracted softmax."""
+
+    def __init__(self, dim: int, num_heads: int, *, device=None, dtype=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim, device=device, dtype=dtype)
+        self.proj = nn.Linear(dim, dim, device=device, dtype=dtype)
+
+    def forward(self, x, ln: FusedLN, train: bool = False,
+                impl: Optional[str] = None):
+        D = x.shape[-1] // self.num_heads
+        out = fused_attention_ln_qkv(
+            x, ln.weight, ln.bias, self.qkv.weight, self.qkv.bias,
+            self.num_heads, D ** -0.5, ln.eps, impl=impl, safe=train)
+        return self.proj(out)
+
+
+class ViTBlock(nn.Module):
+    """Pre-norm transformer block: x + Attn(LN(x)); x + MLP(LN(x)). In eval
+    (and without drop-path) the second half is the fused MLP half-block; a
+    training block with drop-path runs LayerNorm, the plain MLP and the
+    per-sample mask."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 drop_path: float = 0.0, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.drop_path = drop_path
+        self.norm1 = FusedLN(dim, **kw)
+        self.attn = Attention(dim, num_heads, **kw)
+        self.norm2 = FusedLN(dim, **kw)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), **kw)
+
+    def forward(self, x, train: bool = False, impl: Optional[str] = None,
+                generator: Optional[torch.Generator] = None):
+        h = self.attn(x, self.norm1, train, impl)
+        if not train or self.drop_path == 0.0:
+            return self.mlp(x + h, self.norm2, impl=impl)
+        x = x + drop_path(h, self.drop_path, generator)
+        h = self.mlp(self.norm2(x, impl=impl), impl=impl)
+        return x + drop_path(h, self.drop_path, generator)
 
 
 def to_nchw(x):
@@ -161,6 +224,17 @@ def interpolate(x, size: Tuple[int, int]):
     return to_nhwc(y)
 
 
+def upsample2x(x):
+    """2x bilinear upsample, NHWC."""
+    return interpolate(x, (2 * x.shape[1], 2 * x.shape[2]))
+
+
+def conv1x1(conv: nn.Conv2d, x):
+    """A 1x1 ``nn.Conv2d`` applied to an NHWC map as a product over the last
+    axis: the same function without the two layout changes."""
+    return F.linear(x, conv.weight[:, :, 0, 0], conv.bias)
+
+
 @functools.lru_cache(maxsize=128)
 def _linear_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
     """(n_out, n_in) half-pixel bilinear weights, the sampling of
@@ -197,9 +271,10 @@ def _up4_shift_stack_np(g: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def on_device(make, g: int, device: torch.device) -> torch.Tensor:
-    """``make(g)`` (a cached numpy table) as a tensor on ``device``, copied
-    once: a copy from pageable host memory waits for the device's queue."""
+def on_device(make, g, device: torch.device) -> torch.Tensor:
+    """``make(g)`` (a cached numpy table; ``g`` an int or a tuple) as a tensor
+    on ``device``, copied once: a copy from pageable host memory waits for
+    the device's queue."""
     return torch.from_numpy(make(g)).to(device)
 
 
@@ -225,8 +300,8 @@ def up4_conv3x3_factored(x, kernel):
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights with the JAX package's initialisers: LeCun
     truncated normal for Linear/Conv weights, zero biases, unit LN/BN
-    scales and BN variances; ``pos_embed`` N(0, 0.02) and ``task_prompts``
-    N(1, 1), both truncated at two sigma."""
+    scales and BN variances; ``pos_embed`` and InvPT's ``fuse_attn_kernel``
+    N(0, 0.02) and ``task_prompts`` N(1, 1), all truncated at two sigma."""
 
     def trunc_(t, std, mean=0.0):
         with torch.no_grad():
@@ -237,7 +312,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "pos_embed":
+        if leaf in ("pos_embed", "fuse_attn_kernel"):
             trunc_(p, 0.02)
         elif leaf == "task_prompts":
             trunc_(p, 1.0, 1.0)

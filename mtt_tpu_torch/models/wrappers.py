@@ -1,8 +1,8 @@
-"""Top-level TaskPrompter model and its factory (port of
-mtt_tpu/models/wrappers.py ``TaskPrompterNet`` and the TaskPrompter-ViT branch
-of ``build_model``).
+"""Top-level models and their factory (port of mtt_tpu/models/wrappers.py
+``TaskPrompterNet``, ``TransformerNet`` and the TaskPrompter-ViT and
+TransformerNet branches of ``build_model``).
 
-Both entry points build on the CUDA card unless the caller names another
+The entry points build on the CUDA card unless the caller names another
 device; without a card they raise rather than build on the CPU unasked."""
 
 from __future__ import annotations
@@ -12,15 +12,27 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from mtt_tpu_torch.models.heads import ConvHead
+from mtt_tpu_torch.models.heads import ConvHead, MLPHead
+from mtt_tpu_torch.models.invpt import InvPTDecoder
 from mtt_tpu_torch.models.layers import interpolate
 from mtt_tpu_torch.models.taskprompter import (TASKPROMPTER_VIT_SPECS,
                                                TaskPrompterViT)
+from mtt_tpu_torch.models.vit import VIT_SPECS, VisionTransformer
 
 # task table of mtt_tpu/config/config.py:parse_task_dictionary, in its order
 _SEMSEG_CLASSES = {"PASCALContext": 21, "NYUD": 40}
 _TASK_OUTPUTS = (("semseg", None), ("depth", 1), ("human_parts", 7),
                  ("sal", 2), ("normals", 3), ("edge", 1))
+# configs/pascal/invpt_vitLp16.yml, the keys the port reads
+INVPT_PASCAL_VITL = {
+    "model": "TransformerNet", "backbone": "vitL", "head": "mlp",
+    "embed_dim": 512, "mtt_resolution_downsample_rate": 2,
+    "PRED_OUT_NUM_CONSTANT": 64, "train_db_name": "PASCALContext",
+    "val_db_name": "PASCALContext",
+    "task_dictionary": {"include_semseg": True, "include_human_parts": True,
+                        "include_sal": True, "include_edge": True,
+                        "include_normals": True, "edge_w": 0.95},
+}
 # test scales per database (height, width), mtt_tpu/config/config.py:71-75
 DB_SCALES = {"PASCALContext": (512, 512), "NYUD": (448, 576)}
 
@@ -34,6 +46,73 @@ def default_device(device=None) -> torch.device:
             "no CUDA device: the port's entry points run on the card unless "
             "the caller asks for another device (pass device='cpu')")
     return device
+
+
+class TransformerNet(nn.Module):
+    """InvPT: ViT backbone + InvPT decoder + 1x1-conv heads. ``forward``
+    returns the per-task logits resized to the input plus ``inter_preds``, the
+    preamble's intermediate predictions resized the same way.
+
+    With ``tail_head`` an eval forward fuses each task's 1x1 head into the
+    decoder's tail kernel, so the per-task feature maps never reach device
+    memory; the parameter tree is the ``MLPHead`` one either way. (The JAX
+    wrapper reads MTT_TAIL_HEAD=1 from the environment for this.)"""
+
+    def __init__(self, tasks: Sequence[str], num_outputs: Dict[str, int],
+                 img_size: Tuple[int, int], backbone_name: str = "vitL",
+                 head_name: str = "mlp", embed_dim: int = 512,
+                 pred_out: int = 64, mtt_downsample: int = 2,
+                 drop_path_rate: float = 0.15, tail_head: bool = False, *,
+                 device=None, dtype=None):
+        super().__init__()
+        if head_name != "mlp":
+            raise NotImplementedError(
+                f"TransformerNet head {head_name!r} is not ported; the InvPT "
+                f"configs use 'mlp'")
+        device = default_device(device)
+        spec = VIT_SPECS[backbone_name]
+        self.tasks = tuple(tasks)
+        self.img_size = tuple(img_size)
+        self.patch_size = spec["patch_size"]
+        self.tail_head = tail_head
+        self.backbone = VisionTransformer(
+            img_size=img_size, drop_path_rate=drop_path_rate, device=device,
+            dtype=dtype, **spec)
+        self.decoder = InvPTDecoder(
+            self.tasks, dict(num_outputs), embed_dim=embed_dim,
+            pred_out=pred_out, backbone_dim=spec["embed_dim"],
+            mtt_downsample=mtt_downsample, device=device, dtype=dtype)
+        for t in self.tasks:
+            self.add_module(f"head_{t}", MLPHead(
+                embed_dim + pred_out, num_outputs[t], device=device,
+                dtype=dtype))
+
+    def forward(self, x, impl: Optional[str] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """x: (B, H, W, 3) normalised image batch -> {task: (B, H, W, n),
+        "inter_preds": {task: (B, H, W, n)}}."""
+        size = tuple(x.shape[1:3])
+        if size != self.img_size:
+            raise ValueError(f"this model's position embedding was built for "
+                             f"{self.img_size} inputs, got {size}")
+        _, taps = self.backbone(x, train=train, impl=impl,
+                                generator=generator)
+        grid = (size[0] // self.patch_size, size[1] // self.patch_size)
+        head_params = None
+        if self.tail_head and not train:
+            head_params = {t: getattr(self, f"head_{t}").params()
+                           for t in self.tasks}
+        feats, inter_preds = self.decoder(taps, grid, train=train,
+                                          head_params=head_params, impl=impl,
+                                          generator=generator)
+        out = {}
+        for t in self.tasks:
+            logits = feats[t] if head_params is not None else \
+                getattr(self, f"head_{t}")(feats[t], train, impl=impl)
+            out[t] = interpolate(logits, size)
+        out["inter_preds"] = {t: interpolate(v, size)
+                              for t, v in inter_preds.items()}
+        return out
 
 
 class TaskPrompterNet(nn.Module):
@@ -96,14 +175,23 @@ def task_table(db_name: str, task_dictionary: dict):
 
 
 def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
-                device=None, dtype=None) -> TaskPrompterNet:
-    """Config dict (the keys of configs/pascal/taskprompter_vitLp16.yml) ->
-    model. ``img_size`` defaults to the database's test scale."""
+                tail_head: bool = False, device=None, dtype=None):
+    """Config dict (the keys of configs/pascal/taskprompter_vitLp16.yml or
+    configs/pascal/invpt_vitLp16.yml) -> model. ``img_size`` defaults to the
+    database's test scale; ``tail_head`` is ``TransformerNet``'s."""
+    tasks, num_outputs = task_table(p["train_db_name"], p["task_dictionary"])
+    if p["model"] == "TransformerNet":
+        return TransformerNet(
+            tasks=tasks, num_outputs=num_outputs,
+            img_size=img_size or DB_SCALES[p["val_db_name"]],
+            backbone_name=p["backbone"], head_name=p["head"],
+            embed_dim=p["embed_dim"], pred_out=p["PRED_OUT_NUM_CONSTANT"],
+            mtt_downsample=p["mtt_resolution_downsample_rate"],
+            tail_head=tail_head, device=device, dtype=dtype)
     if p["model"] != "TaskPrompter" or "swin" in p["backbone"].lower():
         raise NotImplementedError(
-            f"only TaskPrompter-ViT is ported, got {p['model']} / "
-            f"{p['backbone']}")
-    tasks, num_outputs = task_table(p["train_db_name"], p["task_dictionary"])
+            f"only TaskPrompter-ViT and InvPT (TransformerNet) are ported, "
+            f"got {p['model']} / {p['backbone']}")
     return TaskPrompterNet(
         tasks=tasks, num_outputs=num_outputs,
         img_size=img_size or DB_SCALES[p["val_db_name"]],

@@ -30,19 +30,30 @@ def _rnd(gen, *shape, std=1.0, mean=0.0, dtype=torch.bfloat16):
             + mean).to(dtype)
 
 
+def _counts(**launches):
+    """Expected launch counts: the named counters, every other one 0."""
+    from mtt_tpu_torch.kernels import _build
+    return {**dict.fromkeys(_build.COUNTS, 0), **launches}
+
+
 def _check(got, want, ulps=4):
+    """``ulps``: bf16 ulps of the largest reference value, one number or one
+    per output."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
+    per_out = ulps if isinstance(ulps, tuple) else (ulps,) * len(got)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
+    for g, w, u in zip(got, want, per_out):
         assert g.shape == w.shape and g.dtype == w.dtype
         assert torch.isfinite(g).all()
-        tol = ulps * w.float().abs().max().item() * 2.0 ** -7
+        tol = u * w.float().abs().max().item() * 2.0 ** -7
         err = (g.float() - w.float()).abs().max().item()
         assert err <= tol, (err, tol)
 
 
-@pytest.mark.parametrize("shape", [(3, 37, 1024), (5, 64), (2, 9, 1536)])
+@pytest.mark.parametrize("shape", [(3, 37, 1024), (5, 64), (2, 9, 1536),
+                                   (2, 5, 7, 2880), (3, 11, 4096),
+                                   (2, 3, 4, 4, 144)])
 def test_layernorm_kernel(gen, shape):
     from mtt_tpu_torch.kernels.layernorm import fused_layernorm
     C = shape[-1]
@@ -71,10 +82,10 @@ def test_attention_kernels(gen, need_qkv, safe, N):
                                   impl="plain"))
 
 
-@pytest.mark.parametrize("C", [768, 1024])
-def test_mlp_kernel(gen, C):
+@pytest.mark.parametrize("C,Hd", [(768, 384), (1024, 384), (576, 2304),
+                                  (144, 576)])
+def test_mlp_kernel(gen, C, Hd):
     from mtt_tpu_torch.kernels.mlp import fused_mlp_ln_res
-    Hd = 384
     x = _rnd(gen, 3, 15, C)
     g = _rnd(gen, C, std=0.1, mean=1.0, dtype=torch.float32)
     b = _rnd(gen, C, std=0.1, dtype=torch.float32)
@@ -120,10 +131,9 @@ def test_model_goes_through_kernels(gen):
     torch.cuda.synchronize()
     # 64x64 is a 4x4 grid, which the up4 head kernel does not take: the
     # dense head keeps this forward on the kernels
-    assert _build.COUNTS == {"layernorm": 4 + 1, "attention_cached": 8,
-                             "attention_emit": 4, "attention_bwd": 0,
-                             "mlp_ln_res": 12, "mlp_fc": 0, "task_decode": 4,
-                             "head_up4": 0}
+    assert _build.COUNTS == _counts(layernorm=4 + 1, attention_cached=8,
+                                    attention_emit=4, mlp_ln_res=12,
+                                    task_decode=4)
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         ref, _ = predict(copy.deepcopy(model).float(), x, impl="plain")
     for t in tasks:
@@ -161,10 +171,13 @@ def test_attention_bwd_kernel(gen, N):
            tuple(want[:, :, :, i] for i in range(3)))
 
 
-@pytest.mark.parametrize("C", [768, 1024])
-def test_mlp_fc_kernel(gen, C):
+@pytest.mark.parametrize("C,Hd", [(768, 384), (1024, 384), (576, 2304),
+                                  (288, 1152), (144, 576), (144, 80)])
+def test_mlp_fc_kernel(gen, C, Hd):
+    """The ViT widths, the three InvPT stage widths with their hidden sizes
+    (576 ends in half a 128-column chunk), and a hidden width under one
+    chunk."""
     from mtt_tpu_torch.kernels.mlp import fused_mlp
-    Hd = 384
     x = _rnd(gen, 3, 15, C)
     w1, b1 = _rnd(gen, Hd, C, std=C ** -0.5), _rnd(gen, Hd, std=0.1)
     w2, b2 = _rnd(gen, C, Hd, std=Hd ** -0.5), _rnd(gen, C, std=0.1)
@@ -227,10 +240,9 @@ def test_train_step_goes_through_kernels(gen):
     torch.cuda.synchronize()
     # ViT-B: 12 blocks, taps after 3, 6, 9 and the last; drop-path > 0 on
     # blocks 1..11, which run LN + the plain MLP
-    assert _build.COUNTS == {"layernorm": 11 + 4 + 1, "attention_cached": 8,
-                             "attention_emit": 4, "attention_bwd": 12,
-                             "mlp_ln_res": 1, "mlp_fc": 11, "task_decode": 4,
-                             "head_up4": 0}
+    assert _build.COUNTS == _counts(layernorm=11 + 4 + 1, attention_cached=8,
+                                    attention_emit=4, attention_bwd=12,
+                                    mlp_ln_res=1, mlp_fc=11, task_decode=4)
     assert all(torch.isfinite(v) for v in losses.values())
     grads = [w.grad for w in model.parameters()]
     assert all(torch.isfinite(g).all() for g in grads)
@@ -239,3 +251,89 @@ def test_train_step_goes_through_kernels(gen):
     # update and the conv biases ahead of batch-statistics BN get none)
     assert all(not torch.equal(a, b) for a, b, g in
                zip(before, trainer.master, grads) if g.abs().sum() > 0)
+
+
+@pytest.mark.parametrize("Lq,Lk,D,with_msg", [
+    (150, 320, 72, True), (150, 320, 72, False), (64, 320, 144, True),
+    (33, 320, 288, False), (100, 252, 72, True), (40, 10, 144, True)])
+def test_invpt_attention_kernel(gen, Lq, Lk, D, with_msg):
+    """Head dims 72 (padded to 80), 144 and 288, query counts that are not
+    tile multiples, NYUD's kv length of 252 and a tiny one (both padded to
+    16-key tiles), with and without a message. out: 4 bf16 ulps (p is rounded
+    to bf16 at the same point; f32 sums in another order can flip it); fused
+    (f32 on both sides, exact bf16 products): 0.01 ulps = 8e-5 of its
+    scale."""
+    from mtt_tpu_torch.kernels.invpt_attention import invpt_fused_attention
+    B, H = 2, 2
+    q = _rnd(gen, B, H, Lq, D)
+    k, v = _rnd(gen, B, H, Lk, D), _rnd(gen, B, H, Lk, D)
+    msg = w = b = None
+    if with_msg:
+        msg = _rnd(gen, B, H, Lq, Lk, dtype=torch.float32)
+        w = _rnd(gen, H, 2 * H, std=0.5, dtype=torch.float32)
+        b = _rnd(gen, H, std=0.1, dtype=torch.float32)
+    scale = (2 * D) ** -0.5
+    _check(invpt_fused_attention(q, k, v, msg, w, b, scale),
+           invpt_fused_attention(q, k, v, msg, w, b, scale, impl="plain"),
+           ulps=(4, 0.01))
+
+
+@pytest.mark.parametrize("h0,w0,C,D,n", [(16, 16, 576, 576, 21),
+                                         (14, 18, 576, 576, 40),
+                                         (2, 5, 40, 72, 1)])
+def test_invpt_tail_kernels(gen, h0, w0, C, D, n):
+    """Both forms of the multi-scale tail at the PASCAL grid, on NYUD's
+    non-square grid with 40 logits (two logit chunks) and at a small width
+    with padded channels and a partial column segment: 4 bf16 ulps."""
+    from mtt_tpu_torch.kernels.invpt_tail import (fused_ms_tail,
+                                                  fused_ms_tail_head)
+    xs = tuple(_rnd(gen, 2, h0 * m, w0 * m, C, std=0.5) for m in (1, 2, 4))
+    kc = _rnd(gen, 3, 3, C, D, std=(9 * C) ** -0.5)
+    inv = _rnd(gen, D, std=0.1, mean=1.0, dtype=torch.float32)
+    addv = _rnd(gen, D, std=0.1, dtype=torch.float32)
+    wh = _rnd(gen, D, n, std=D ** -0.5)
+    bh = _rnd(gen, n, std=0.1, dtype=torch.float32)
+    th, tw = 8 * h0, 8 * w0
+    _check(fused_ms_tail(xs, kc, inv, addv, th, tw),
+           fused_ms_tail(xs, kc, inv, addv, th, tw, impl="plain"))
+    _check(fused_ms_tail_head(xs, kc, inv, addv, wh, bh, th, tw),
+           fused_ms_tail_head(xs, kc, inv, addv, wh, bh, th, tw,
+                              impl="plain"))
+
+
+@pytest.mark.parametrize("tail_head", [False, True])
+def test_invpt_model_goes_through_kernels(gen, tail_head):
+    """InvPT on ViT-B (C = 768, head dim 64) at the full decoder width (576,
+    288, 144) and 64x128 input in bf16: every kernel of the path launches as
+    often as the module tree says, no plain version runs, and the logits'
+    relative RMS error against an f32 run of the same weights stays within
+    0.1 (as in chip_smoke.py)."""
+    import copy
+
+    from mtt_tpu_torch.inference import predict
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import INVPT_PASCAL_VITL, build_model
+
+    model = build_model(dict(INVPT_PASCAL_VITL, backbone="vitB"),
+                        img_size=(64, 128), tail_head=tail_head,
+                        dtype=torch.bfloat16).eval()
+    init_weights(model, gen)
+    x = torch.randn(2, 64, 128, 3, generator=gen, device="cuda")
+    _build.reset_counts()
+    logits, preds = predict(model, x)
+    torch.cuda.synchronize()
+    assert _build.COUNTS == _counts(
+        layernorm=1 + 6 + 3, attention_cached=12, mlp_ln_res=12, mlp_fc=3,
+        invpt_attention=3,
+        **{"invpt_tail_head" if tail_head else "invpt_tail": 5})
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ref, _ = predict(copy.deepcopy(model).float(), x, impl="plain")
+    for t in model.tasks:
+        for got, want in ((logits[t], ref[t]), (logits["inter_preds"][t],
+                                                ref["inter_preds"][t])):
+            assert got.shape == want.shape
+            r = want.float()
+            err = ((got.float() - r).norm() / r.norm()).item()
+            assert err <= 0.1, (t, err)
+        assert preds[t].shape[:3] == (2, 64, 128)
