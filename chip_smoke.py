@@ -7,13 +7,16 @@ or any phase fails.
 Phases, in order (the seconds each took are printed):
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from mtt_tpu_torch/csrc (seconds printed);
-  3. each of the 11 kernel entry points (10 TPU kernels; the multi-scale tail
+  3. each of the 12 kernel entry points (11 TPU kernels; the multi-scale tail
      with and without its fused head) against its plain PyTorch version at the
-     ViT-L PASCAL shapes the main paths give it, and the earlier kernels again
+     ViT-L PASCAL shapes the main paths give it, the earlier kernels again
      at the shapes the InvPT path adds (N = 1025, LayerNorm rows of 2880, MLP
-     widths 576, 288, 144; the tail on NYUD's non-square grid): error,
-     tolerance in bf16 ulps, CUDA-event times of the kernel, the plain version,
-     the library call or composition, and the bound of the card;
+     widths 576, 288, 144; the tail on NYUD's non-square grid), and the Swin
+     path's at its shapes (window attention at the four Swin-B stages with
+     and without the shift mask; LayerNorm rows of 128 to 2048 at eps 1e-5;
+     MLP widths 128 to 1024, down to the 3 prompt rows): error, tolerance in
+     bf16 ulps, CUDA-event times of the kernel, the plain version, the
+     library call or composition, and the bound of the card;
   4. the ViT-L PASCAL eval forward (5 tasks, CTR on, bf16, seeded random
      weights, batch 8 at 512x512) through ``predict``, with the factored up4
      head (the default) and with the dense head: launch counts, shapes,
@@ -23,7 +26,13 @@ Phases, in order (the seconds each took are printed):
      InvPT decoder, 1x1 heads; batch 8 at 512x512, bf16, seeded random
      weights, full width and depth) through ``predict``, with the fused tail
      (the default) and with the head-fused tail: the same checks;
-  6. ViT-L PASCAL training at the config's batch of 2 on seeded synthetic
+  6. the TaskPrompter-Swin-B Cityscapes-3D eval forward (semseg, depth and
+     3D detection; one 1024x2048 image, bf16, seeded random weights, full
+     width and depth) through ``predict`` with a fixed camera matrix: launch
+     counts, shapes, finiteness, every 2D map and every detection level
+     against an f32 run of the same weights, the decode of fixed size, ms per
+     forward, imgs/s, decode ms and peak memory;
+  7. ViT-L PASCAL training at the config's batch of 2 on seeded synthetic
      batches in bf16 with f32 master weights: the launch counts of one step,
      its gradients against an f32 plain run of the same weights, batch and
      drop-path masks (in all and per tensor), finite losses, moving
@@ -32,9 +41,10 @@ The line before the last is the kernels JSON; the last line is the device JSON.
 
 ``python3 chip_smoke.py --profile`` runs none of these phases: after the
 build it traces one eval forward of each model and one training step with
-``torch.profiler`` and prints their wall time and device time by kernel group.
-``--phases kernels,invpt`` (any subset of kernels, eval, invpt, train) runs
-only those phases and prints no result lines: a quick look, not the check.
+``torch.profiler`` and prints their wall time and device time by kernel group
+(with ``--phases``, only those models').
+``--phases kernels,invpt`` (any subset of kernels, eval, invpt, swin, train)
+runs only those phases and prints no result lines: a quick look, not the check.
 """
 
 from __future__ import annotations
@@ -66,6 +76,19 @@ INV_D, INV_H, INV_LK = 576, 2, 320
 INV_STAGES = ((8, 576), (16, 288), (32, 144))
 INV_TH = 128                 # the tail's output grid (8 h0)
 NYUD_TH, NYUD_TW, NYUD_NLOG = 112, 144, 40   # 448x576 inputs, 40 classes
+
+# TaskPrompter-Swin-B Cityscapes-3D: one 1024x2048 image resized to 768x1536,
+# patch 4; per stage (token grid, width, heads); 12x12 windows with 3 prompts
+SW_IMG = (1024, 2048)
+SW_STAGES = (((192, 384), 128, 4), ((96, 192), 256, 8), ((48, 96), 512, 16),
+             ((24, 48), 1024, 32))
+SW_WIN, SW_P, SW_D = 12, 3, 32
+SW_M = SW_WIN * SW_WIN + SW_P
+SW_OUT = (512, 1024)         # dd_label_map_size
+SW_LEVELS = ((96, 192), (48, 96), (24, 48), (24, 48), (12, 24))
+# Stuttgart camera calibration of the Cityscapes demo (public constants)
+SW_CAM_K = ((2262.52, 0.0, 1096.98), (0.0, 2265.3017905988554, 513.137),
+            (0.0, 0.0, 1.0))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
 # outside them, HBM bandwidth
@@ -102,6 +125,9 @@ KERNEL_ROWS = {
     "invpt_tail_head": ("mtt_tpu_torch/csrc/invpt_tail.cu",
                         "mtt_tpu/kernels/invpt_tail.py:297",
                         "invpt_tail_head", "invpt_head"),
+    "window_attention": ("mtt_tpu_torch/csrc/window_attention.cu",
+                         "mtt_tpu/kernels/attention.py:778",
+                         "window_attention", "swin"),
 }
 
 
@@ -298,6 +324,96 @@ def _invpt_cases(rnd):
     return cases
 
 
+def _swin_cases(rnd):
+    """The kernel cases the Swin path adds, in ``kernel_phase``'s format: row
+    11 at the four Swin-B stages with and without the shift mask, rows 3 and
+    8 at the shapes this path gives them."""
+    from mtt_tpu_torch.kernels.layernorm import fused_layernorm
+    from mtt_tpu_torch.kernels.mlp import fused_mlp
+    from mtt_tpu_torch.kernels.window_attention import fused_window_attention
+
+    bf = torch.bfloat16
+    f32 = torch.float32
+    dev = torch.device("cuda")
+    cases = {}
+    M, D = SW_M, SW_D
+    for i, ((gh, gw), dim, H) in enumerate(SW_STAGES):
+        BW = gh * gw // (SW_WIN * SW_WIN)
+        # q, k, v as the block hands them over: views of the packed qkv
+        q, k, v = rnd(BW, M, 3, H, D).unbind(2)
+        bias = torch.zeros(H, M, M, device=dev)
+        bias[:, SW_P:, SW_P:] = rnd(H, M - SW_P, M - SW_P, std=0.5, dtype=f32)
+        mask = torch.zeros(BW, M, M, device=dev)
+        mask[:, SW_P:, SW_P:] = torch.where(
+            rnd(BW, M - SW_P, M - SW_P, dtype=f32) < -0.5, -100.0, 0.0)
+        mask.diagonal(dim1=1, dim2=2).zero_()
+        for m in (mask, None):
+            def call(impl, a=(q, k, v, bias, m), nW=BW):
+                return fused_window_attention(*a, D ** -0.5, nW, impl=impl)
+
+            both = (bias[None] + (0.0 if m is None else m[:, None])).to(bf)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def sdpa(a=(qt, kt, vt, both)):
+                return F.scaled_dot_product_attention(
+                    a[0], a[1], a[2], attn_mask=a[3]).transpose(1, 2)
+
+            def comp(a=(qt, kt, vt, bias, m)):
+                s_ = torch.matmul(a[0], a[1].transpose(-1, -2)).float() \
+                    * D ** -0.5 + a[3][None]
+                if a[4] is not None:
+                    s_ = s_ + a[4][:, None]
+                return torch.matmul(torch.softmax(s_, -1).to(bf),
+                                    a[2]).transpose(1, 2)
+
+            nel = BW * H * M * M
+            # stage 2 is the only one whose shifted blocks reach the kernel
+            # (the others' second block is a tap block)
+            name = "window_attention" if (i == 2 and m is not None) else \
+                f"window_attention@stage{i}" + ("+mask" if m is not None
+                                                else "")
+            cases[name] = (
+                call, 2, "logits and softmax in f32, p rounded to bf16 at "
+                         "the same point and divided by the f32 row sum "
+                         "after p.v; f32 sums in another order can flip a "
+                         "rounding",
+                sdpa, comp,
+                4 * BW * M * H * D * 2 + _nbytes(bias)
+                + (_nbytes(m) if m is not None else 0),
+                4.0 * nel * D, 6.0 * nel)
+
+    # row 3 at eps 1e-5: the stages' token rows, PatchMerging's 4C rows and
+    # the 3 prompt rows; row 8 at the stage widths, patches and prompts
+    ln_shapes = [(gh * gw, dim) for (gh, gw), dim, _ in SW_STAGES] \
+        + [(gh * gw // 4, 4 * dim) for (gh, gw), dim, _ in SW_STAGES[:3]] \
+        + [(SW_P, SW_STAGES[0][1])]
+    for rows, Cn in ln_shapes:
+        xm = rnd(1, rows, Cn)
+        gm_ = rnd(Cn, std=0.1, mean=1.0, dtype=f32)
+        bm_ = rnd(Cn, std=0.1, dtype=f32)
+        cases[f"layernorm@swin{rows}x{Cn}"] = (
+            lambda impl, a=(xm, gm_, bm_): fused_layernorm(*a, 1e-5,
+                                                           impl=impl),
+            1, "as layernorm, eps 1e-5",
+            lambda a=(xm, gm_, bm_): F.layer_norm(
+                a[0], a[0].shape[-1:], a[1].to(bf), a[2].to(bf), 1e-5),
+            None, _nbytes(xm, gm_, bm_, xm), 0.0, 8.0 * xm.numel())
+    mlp_shapes = [(gh * gw, dim) for (gh, gw), dim, _ in SW_STAGES] \
+        + [(SW_P, SW_STAGES[0][1]), (SW_P, SW_STAGES[3][1])]
+    for rows, dim in mlp_shapes:
+        hid = 4 * dim
+        xd = rnd(1, rows, dim)
+        wa, ba = rnd(hid, dim, std=dim ** -0.5), rnd(hid, std=0.1)
+        wb, bb = rnd(dim, hid, std=hid ** -0.5), rnd(dim, std=0.1)
+        cases[f"mlp_fc@swin{rows}x{dim}"] = (
+            lambda impl, a=(xd, wa, ba, wb, bb): fused_mlp(*a, impl=impl),
+            4, "as mlp_fc, at a Swin-B stage's width", None,
+            lambda a=(xd, wa, ba, wb, bb): F.linear(
+                F.gelu(F.linear(a[0], a[1], a[2])), a[3], a[4]),
+            _nbytes(xd, wa, ba, wb, bb, xd), 4.0 * xd.numel() * hid, 0.0)
+    return cases
+
+
 def kernel_phase():
     """Each kernel against its plain version on the same seeded inputs."""
     from mtt_tpu_torch.kernels.attention import (attn_core_bwd_cuda,
@@ -467,6 +583,7 @@ def kernel_phase():
             _nbytes(xt, w1, b1, w2, b2, xt), 4.0 * BT * N * C * HIDDEN, 0.0),
     }
     cases.update(_invpt_cases(rnd))
+    cases.update(_swin_cases(rnd))
     results = {}
     for name, (call, ulps, reason, lib, comp, nbytes, tcf, f32f) in \
             cases.items():
@@ -549,6 +666,18 @@ def expected_invpt(tail_head: bool) -> dict:
     return _expected(layernorm=1 + 6 + 3, attention_cached=24, mlp_ln_res=24,
                      mlp_fc=3, invpt_attention=3,
                      **{"invpt_tail_head" if tail_head else "invpt_tail": T})
+
+
+def expected_swin() -> dict:
+    """One Swin-B eval forward, depths (2, 2, 18, 2): the last block of each
+    stage is a tap block and takes the composition, the other 20 the window
+    attention kernel (12 unshifted, 8 shifted, all of those in stage 2); 4
+    LayerNorms (norm1 and norm2, on the tokens and on the prompts) and 2 MLPs
+    a block, one of each less in the last block, which drops the prompt
+    update; the patch norm, 3 PatchMerging norms and the final norm."""
+    blocks = sum(d for d in (2, 2, 18, 2))
+    return _expected(window_attention=blocks - 4, mlp_fc=2 * blocks - 1,
+                     layernorm=4 * blocks - 1 + 1 + 3 + 1)
 
 
 # The eval forward is held against an f32 run of the same (bf16-valued)
@@ -781,6 +910,134 @@ def invpt_phase():
     return counts
 
 
+def _swin_model():
+    """The TaskPrompter-Swin-B Cityscapes-3D eval model (bf16, seeded random
+    weights, full width and depth), one seeded preprocessed 1024x2048 image
+    and the camera matrix. The deformable convs' offset convs, which the
+    initialiser leaves at zero, get small random weights, so that the
+    sampling positions are fractional."""
+    from mtt_tpu_torch.inference import preprocess
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import CS3D_SWINB, build_model
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    model = build_model(CS3D_SWINB, device=dev, dtype=torch.bfloat16).eval()
+    init_weights(model, gen)
+    with torch.no_grad():
+        for name, w in model.named_parameters():
+            if name.endswith("offset_mask.weight"):
+                w.copy_(torch.randn(w.shape, generator=gen, device=dev)
+                        * 0.3 * (w[0].numel()) ** -0.5)
+    rgb = torch.randint(0, 256, (1, *SW_IMG, 3), generator=gen, device=dev)
+    return model, preprocess(rgb), torch.tensor(SW_CAM_K, device=dev)
+
+
+def _det_levels(out):
+    """{name: tensor} of the detection head's per-level outputs."""
+    return {f"3ddet.{name}{i}": t
+            for name, lvls in zip(("cls", "bbox", "dir", "ctr"), out)
+            for i, t in enumerate(lvls)}
+
+
+def swin_phase():
+    """The TaskPrompter-Swin-B Cityscapes-3D eval forward through the
+    kernels and the decode of its detections; returns the launch counts."""
+    from mtt_tpu_torch.inference import decode_3ddet, predict
+    from mtt_tpu_torch.kernels import _build
+
+    model, x, K = _swin_model()
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    logits, preds = predict(model, x, cam_K=K)
+    torch.cuda.synchronize()
+    counts = dict(_build.COUNTS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[swin] TaskPrompter-Swin-B Cityscapes-3D, {n_params / 1e6:.1f} M "
+          f"params, 1 image at {SW_IMG[0]}x{SW_IMG[1]} bf16; launches "
+          f"{counts}", flush=True)
+    if counts != expected_swin():
+        raise RuntimeError(f"Swin launch counts {counts} != {expected_swin()}")
+    nout = {"semseg": 19, "depth": 1}
+    for t, n in nout.items():
+        if logits[t].shape != (1, *SW_OUT, n) or \
+                not torch.isfinite(logits[t]).all():
+            raise RuntimeError(f"Swin {t}: logits {tuple(logits[t].shape)} "
+                               f"or non-finite")
+        if preds[t].shape != (1, *SW_OUT) or \
+                not torch.isfinite(preds[t].float()).all():
+            raise RuntimeError(f"Swin {t}: bad prediction "
+                               f"{tuple(preds[t].shape)}")
+    widths = {"cls": 6, "bbox": 13, "dir": 6, "ctr": 1}
+    got_levels = _det_levels(logits["3ddet"])
+    for name, v in got_levels.items():
+        lvl, kind = int(name[-1]), name.split(".")[1][:-1]
+        if v.shape != (1, *SW_LEVELS[lvl], widths[kind]) or \
+                not torch.isfinite(v).all():
+            raise RuntimeError(f"Swin {name}: {tuple(v.shape)} or non-finite")
+    det = preds["3ddet"]
+    n_det = model.det_cfg["test_cfg"]["max_per_img"]
+    shapes = {"boxes3d": (1, n_det, 9), "bboxes2d": (1, n_det, 4),
+              "scores": (1, n_det), "labels": (1, n_det),
+              "centers2d": (1, n_det, 3), "valid": (1, n_det)}
+    for k, shp in shapes.items():
+        if det[k].shape != shp or not torch.isfinite(det[k].float()).all():
+            raise RuntimeError(f"Swin decode {k}: {tuple(det[k].shape)} or "
+                               f"non-finite")
+    print(f"[swin] decode: {n_det} slots, {int(det['valid'].sum())} valid "
+          f"(random weights at the class prior of 0.01 leave the scores "
+          f"under score_thr), top score {det['scores'].max().item():.4g}",
+          flush=True)
+
+    plain, _ = predict(model, x, impl="plain", cam_K=K)
+    # f32 reference: full-precision matmuls and convolutions (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref_model = copy.deepcopy(model).float()
+    ref, _ = predict(ref_model, x, impl="plain", cam_K=K)
+    del ref_model
+    torch.cuda.empty_cache()
+    maps = {t: (logits[t], plain[t], ref[t]) for t in nout}
+    plain_levels, ref_levels = (_det_levels(o["3ddet"]) for o in (plain, ref))
+    maps.update({k: (v, plain_levels[k], ref_levels[k])
+                 for k, v in got_levels.items()})
+    worst = 0.0
+    for name, (k, p, r) in maps.items():
+        k, p, r = k.float(), p.float(), r.float()
+        rms_k = ((k - r).norm() / r.norm()).item()
+        rms_p = ((p - r).norm() / r.norm()).item()
+        worst = max(worst, rms_k)
+        print(f"[swin] {name}: vs the f32 run: relative RMS error kernels "
+              f"{rms_k:.5g} (tol {FORWARD_RMS_TOL}), plain bf16 {rms_p:.5g}",
+              flush=True)
+        if not rms_k <= FORWARD_RMS_TOL:
+            raise RuntimeError(f"Swin {name}: kernel forward is {rms_k:.4g} "
+                               f"(relative RMS) from the f32 run, over "
+                               f"{FORWARD_RMS_TOL}")
+    agree = (preds["semseg"] == ref["semseg"].argmax(-1)).float().mean()
+    print(f"[swin] semseg argmax agreement with f32: {agree.item():.5f}; "
+          f"worst relative RMS {worst:.5g}", flush=True)
+    del plain, ref, maps, plain_levels, ref_levels
+
+    head_out = logits["3ddet"]
+    forward = torch.no_grad()(lambda impl=None: model(x, impl=impl))
+    fwd_ms = _time_ms(forward, reps=5, warmup=1)
+    plain_ms = _time_ms(lambda: forward("plain"), reps=3, warmup=1)
+    dec_ms = _time_ms(lambda: decode_3ddet(head_out, K, model.det_cfg),
+                      reps=3, warmup=1)
+    all_ms = _wall_ms(lambda: predict(model, x, cam_K=K), reps=3)
+    print(f"[swin] forward {fwd_ms:.2f} ms = {1e3 / fwd_ms:.2f} imgs/s "
+          f"through the kernels; plain versions {plain_ms:.2f} ms = "
+          f"{1e3 / plain_ms:.2f} imgs/s; decode (top-1000 candidates, "
+          f"1000x1000 rotated IoU, 6-class greedy NMS sweep, 200 slots) "
+          f"{dec_ms:.2f} ms; predict (forward + post-processing + decode) "
+          f"{all_ms:.2f} ms wall = {1e3 / all_ms:.2f} imgs/s; peak memory of "
+          f"the first predict {peak_gib:.2f} GiB", flush=True)
+    return counts
+
+
 def _grads_of(model, batch, criterion, gen_state, impl=None):
     """One train-mode forward and backward with the drop-path generator set
     to ``gen_state``; the gradients by parameter name."""
@@ -971,7 +1228,8 @@ PROFILE_GROUPS = (("mlp_kernel", "mlp (mlp.cu)"),
                   ("ln_kernel", "layernorm"), ("task_decode", "task decode"),
                   ("head_up4", "up4 head"),
                   ("invpt_attention", "InvPT attention"),
-                  ("invpt_tail", "InvPT tail"))
+                  ("invpt_tail", "InvPT tail"),
+                  ("wattn_kernel", "window attention"))
 
 
 def _wall_ms(fn, reps: int = 5) -> float:
@@ -1025,25 +1283,43 @@ def _profile(title: str, fn, top: int = 12) -> None:
                                    key=lambda kv: -kv[1][1])[:top]:
         print(f"[profile] {title} | kernel {name[:90]}: {t / 1e3:.3f} ms in "
               f"{count}", flush=True)
+    # the host's side of the same call: where the time goes when the card
+    # waits for launches
+    host = sorted((e for e in prof.key_averages()
+                   if not str(e.device_type).endswith("CUDA")),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    for e in host:
+        print(f"[profile] {title} | host {e.key[:60]}: self "
+              f"{e.self_cpu_time_total / 1e3:.2f} ms in {e.count} calls",
+              flush=True)
 
 
-def profile_phase():
+def profile_phase(wanted):
     """``--profile``: the device-time breakdown of one eval forward of each
     model (the eval phases' models and batches) and of one training step (the
-    training phase's trainer and first batch)."""
+    training phase's trainer and first batch), for the phases in ``wanted``."""
     from mtt_tpu_torch.inference import predict
     from mtt_tpu_torch.utils.train_utils import to_device
-    model, x = _eval_model()
-    _profile(f"eval forward, batch {B}", lambda: predict(model, x))
-    del model, x
-    for tail_head in (False, True):
+    if "eval" in wanted:
+        model, x = _eval_model()
+        _profile(f"eval forward, batch {B}", lambda: predict(model, x))
+        del model, x
+    for tail_head in (False, True) if "invpt" in wanted else ():
         model, x = _invpt_model(tail_head)
         _profile(f"InvPT eval forward, batch {B}, tail_head={tail_head}",
                  lambda: predict(model, x))
         del model, x
-    trainer, data = _vitl_trainer()
-    batch = to_device(data.batch(0, BT), torch.device("cuda"))
-    _profile(f"training step, batch {BT}", lambda: trainer.step(batch))
+    if "swin" in wanted:
+        model, x, K = _swin_model()
+        _profile("Swin-B Cityscapes-3D eval forward, 1 image",
+                 torch.no_grad()(lambda: model(x)), top=24)
+        _profile("Swin-B Cityscapes-3D predict (forward + decode), 1 image",
+                 lambda: predict(model, x, cam_K=K), top=8)
+        del model, x
+    if "train" in wanted:
+        trainer, data = _vitl_trainer()
+        batch = to_device(data.batch(0, BT), torch.device("cuda"))
+        _profile(f"training step, batch {BT}", lambda: trainer.step(batch))
 
 
 def _kernel_name(mangled: str) -> str:
@@ -1062,13 +1338,13 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="only print the device-time breakdown of one eval "
                          "forward and one training step (torch.profiler)")
-    ap.add_argument("--phases", default="kernels,eval,invpt,train",
+    ap.add_argument("--phases", default="kernels,eval,invpt,swin,train",
                     help="comma-separated subset of kernels, eval, invpt, "
-                         "train; a subset prints no result lines")
+                         "swin, train; a subset prints no result lines")
     args = ap.parse_args(argv)
     profile_only = args.profile
     wanted = args.phases.split(",")
-    if not set(wanted) <= {"kernels", "eval", "invpt", "train"}:
+    if not set(wanted) <= {"kernels", "eval", "invpt", "swin", "train"}:
         ap.error(f"unknown phase in {args.phases!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1092,12 +1368,13 @@ def main(argv=None):
         elif kernel and ("spill" in line or "registers" in line):
             print(f"[ptxas] {kernel}: {line.split(':', 1)[-1].strip()}")
     if profile_only:
-        profile_phase()
+        profile_phase(wanted)
         return 0
 
     phases, outcome = {}, {}
     for name, run in (("kernels", kernel_phase), ("eval", eval_phase),
-                      ("invpt", invpt_phase), ("train", train_phase)):
+                      ("invpt", invpt_phase), ("swin", swin_phase),
+                      ("train", train_phase)):
         if name in wanted:
             t = time.perf_counter()
             outcome[name] = run()
@@ -1105,11 +1382,12 @@ def main(argv=None):
             torch.cuda.empty_cache()
     print(f"[phases] seconds {({k: round(v, 1) for k, v in phases.items()})}",
           flush=True)
-    if len(outcome) < 4:
+    if len(outcome) < 5:
         print(f"[partial] ran only {sorted(outcome)}: no result", flush=True)
         return 0
     results, eval_counts = outcome["kernels"], outcome["eval"]
     invpt_counts, train_counts = outcome["invpt"], outcome["train"]
+    swin_counts = outcome["swin"]
 
     rows = []
     for name, (src, replaces, counter, path) in KERNEL_ROWS.items():
@@ -1118,12 +1396,14 @@ def main(argv=None):
                    "eval_dense": eval_counts["dense"][counter],
                    "train_step": train_counts[counter],
                    "invpt_tail": invpt_counts["tail"][counter],
-                   "invpt_tail_head": invpt_counts["tail_head"][counter]}
+                   "invpt_tail_head": invpt_counts["tail_head"][counter],
+                   "swin": swin_counts[counter]}
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=by_path[{"eval": "eval_factored", "train": "train_step",
                               "invpt": "invpt_tail",
-                              "invpt_head": "invpt_tail_head"}[path]],
+                              "invpt_head": "invpt_tail_head",
+                              "swin": "swin"}[path]],
             launches_by_path=by_path, max_abs_err=r["max_abs_err"],
             tol=r["tol"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -7,8 +7,9 @@
 //                   drop-path run after a separate LayerNorm.
 // The batch blocking of the TPU kernels is a weight-streaming choice over the
 // same function; rows are independent, so here the (B*N, C) rows are simply
-// cut into blocks of 32. Widths: the ViT trunks (C = 1024, 768) and the InvPT
-// decoder stages (C = 576, 288, 144, whose hidden 576 ends in half a chunk).
+// cut into blocks of 32. Widths: the ViT trunks (C = 1024, 768), the InvPT
+// decoder stages (C = 576, 288, 144, whose hidden 576 ends in half a chunk)
+// and, without LN, the Swin-B stages (C = 512, 256, 128; 1024 is shared).
 //
 // What bounds it on the H100: 138 GFLOP per ViT-L call (8232 rows, C=1024,
 // hidden 4096) on the tensor cores, and the (8232, 4096) hidden activation,
@@ -205,7 +206,10 @@ extern "C" int mtt_mlp_ln_res_bf16(const void* x, const void* gamma, const void*
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The same without LN and residual: out = fc2(gelu(fc1(x))).
+// The same without LN and residual: out = fc2(gelu(fc1(x))). C may also be 512,
+// 256 or 128, the Swin-B stage widths (8, 16 and 32 column tiles: 1, 2 and 4 a
+// warp); their row counts run from 73,728 down to the 3 prompt rows, which
+// one block takes with 29 of its 32 rows zero-filled and never stored.
 extern "C" int mtt_mlp_fc_bf16(const void* x, const void* w1, const void* b1, const void* w2,
                                const void* b2, void* out, int M, int C, int Hd, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
@@ -213,6 +217,7 @@ extern "C" int mtt_mlp_fc_bf16(const void* x, const void* w1, const void* b1, co
 #define MTT_MLP_CASE(W) \
   if (C == W) return launch_mlp<W, false>(x, nullptr, nullptr, w1, b1, w2, b2, out, M, Hd, 0.f, st);
   MTT_MLP_CASE(1024) MTT_MLP_CASE(768) MTT_MLP_CASE(576) MTT_MLP_CASE(288) MTT_MLP_CASE(144)
+  MTT_MLP_CASE(512) MTT_MLP_CASE(256) MTT_MLP_CASE(128)   // the Swin-B stages
 #undef MTT_MLP_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

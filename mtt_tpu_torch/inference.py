@@ -1,5 +1,6 @@
 """Batch inference: normalisation, forward and per-task post-processing
-(the forward half of the JAX package's inference.py)."""
+(the forward half of the JAX package's inference.py, with the decode of the
+3D detections)."""
 
 from __future__ import annotations
 
@@ -22,13 +23,41 @@ def preprocess(images: torch.Tensor) -> torch.Tensor:
     return (x - mean) / std
 
 
+def decode_3ddet(head_out, cam_K, det_cfg: dict, scale_factor=1.0
+                 ) -> Dict[str, torch.Tensor]:
+    """The detection head's per-level output lists (batched, NHWC) -> the
+    decoded detections of every image, stacked: boxes3d (B, n, 9), bboxes2d
+    (B, n, 4), scores, labels, valid (B, n), centers2d (B, n, 3), n =
+    ``max_per_img``. ``cam_K`` is one camera matrix, (3, 3) or (3, 4)."""
+    from mtt_tpu_torch.detection.det_model import decode_bboxes_single
+    cls, bbox, dirp, ctr = head_out
+    per_image = [decode_bboxes_single(
+        ([c[i] for c in cls], [b[i] for b in bbox], [d[i] for d in dirp],
+         [c[i] for c in ctr]), cam_K, det_cfg, tuple(det_cfg["strides"]),
+        scale_factor) for i in range(cls[0].shape[0])]
+    return {k: torch.stack([d[k] for d in per_image]) for k in per_image[0]}
+
+
 @torch.no_grad()
-def predict(model, images: torch.Tensor, impl: Optional[str] = None
+def predict(model, images: torch.Tensor, impl: Optional[str] = None,
+            cam_K=None
             ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Normalised images (B, H, W, 3) -> (logits, predictions). ``logits``
     is the model's output: a dict keyed by task, with InvPT's intermediate
-    predictions under ``inter_preds``; ``predictions`` holds the
-    post-processed map of each task."""
+    predictions under ``inter_preds`` and, for ``3ddet``, the detection
+    head's per-level lists; ``predictions`` holds the post-processed map of
+    each task and, for ``3ddet``, the decoded detections, which need the
+    camera matrix ``cam_K``."""
     logits = model(images, impl=impl)
-    return logits, {t: get_output(v, t) for t, v in logits.items()
-                    if t != "inter_preds"}
+    preds = {}
+    for t, v in logits.items():
+        if t == "inter_preds":
+            continue
+        if t == "3ddet":
+            if cam_K is None:
+                raise ValueError("decoding the 3D detections needs the "
+                                 "camera matrix: pass cam_K")
+            preds[t] = decode_3ddet(v, cam_K, model.det_cfg)
+        else:
+            preds[t] = get_output(v, t)
+    return logits, preds

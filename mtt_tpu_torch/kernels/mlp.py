@@ -151,14 +151,17 @@ def _check(x, w1, b1, w2, b2, gamma=None, beta=None):
 
 
 KERNEL_WIDTHS = (1024, 768, 576, 288, 144)   # instantiated in csrc/mlp.cu
+# the MLP alone also at the Swin-B stage widths
+FC_KERNEL_WIDTHS = KERNEL_WIDTHS + (512, 256, 128)
 
 
-def _check_widths(C: int, Hd: int) -> None:
-    if C not in KERNEL_WIDTHS or Hd % 16 or Hd < 16:
+def _check_widths(C: int, Hd: int, widths=KERNEL_WIDTHS) -> None:
+    if C not in widths or Hd % 16 or Hd < 16:
         raise ValueError(
-            f"the MLP kernel takes C in {KERNEL_WIDTHS} (the ViT-L/B trunks "
-            f"and the InvPT decoder stages) and hidden % 16 == 0, got C={C}, "
-            f"hidden={Hd}; other widths (Swin's) are ROADMAP.md open item 1.6")
+            f"the MLP kernel takes C in {widths} (the ViT-L/B trunks, the "
+            f"InvPT decoder stages and, without LN, the Swin-B stages) and "
+            f"hidden % 16 == 0, got C={C}, hidden={Hd}; other widths are "
+            f"ROADMAP.md open item 1.6")
 
 
 def mlp_ln_res_cuda(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
@@ -182,7 +185,7 @@ def mlp_fc_cuda(x, w1, b1, w2, b2):
     Hd = w1.shape[0]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the MLP kernel takes bfloat16, got {x.dtype}")
-    _check_widths(C, Hd)
+    _check_widths(C, Hd, FC_KERNEL_WIDTHS)
     out = torch.empty_like(x)
     bf1, bf2 = b1.float().contiguous(), b2.float().contiguous()
     _build.check(_build.lib().mtt_mlp_fc_bf16(
@@ -234,7 +237,7 @@ def fused_mlp_ln_res(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6,
 def fused_mlp(x, w1, b1, w2, b2, impl: str | None = None):
     """Transformer MLP over (..., C): fc2(gelu(fc1(x))), no LN, no residual.
     The JAX wrapper zero-pads C and hidden to multiples of 128 for its
-    tiling; the port's kernel takes its shapes (C in ``KERNEL_WIDTHS``,
+    tiling; the port's kernel takes its shapes (C in ``FC_KERNEL_WIDTHS``,
     hidden % 16) as they are and raises on others."""
     _check(x, w1, b1, w2, b2)
     return _MlpFc.apply(x, w1, b1, w2, b2, _build.resolve_impl(impl, x))

@@ -1,0 +1,133 @@
+"""Swin window attention with a per-head bias and a per-window mask: the CUDA
+kernel (csrc/window_attention.cu) and its plain version.
+
+Port of mtt_tpu/kernels/attention.py ``fused_window_attention``
+(``_wattn_kernel``): per (window, head)
+    logits = scale * q k^T + bias[head] + mask[window % nW]
+    p      = exp(logits - rowmax)
+    out    = (p v) / rowsum(p)
+The prompt rows and columns are zero entries of the bias and the mask, put
+there by the caller.
+
+Rounding points, kept by the kernel and the plain version alike: logits and
+the softmax in f32; the unnormalised p cast to v's dtype before p.v; that
+product accumulated in f32, divided by the f32 row sum of the unrounded p and
+rounded once. Masked entries are -100, so the max-subtracted ``exp`` leaves
+them no probability.
+
+On the H100 the op is bound by device memory (q, k, v and the output, 19 MB
+each at stage 0 of Swin-B on a 768x1536 input and half as much at each later
+stage, against 6 GFLOP). The kernel reads q, k and v as strided views of the
+packed qkv projection and writes (BW, M, H * D), ready for the output
+projection: none of the four transposes of the TPU wrapper is launched.
+
+The gradient: the JAX package has a backward kernel for this function
+(``_wattn_bwd_kernel``). Until that is ported, a CUDA tensor that requires
+grad raises; the plain version is ordinary differentiable torch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mtt_tpu_torch.kernels import _build
+
+HEAD_DIM = 32          # every Swin-B stage: C / heads = 32
+_SMEM_MAX = 232448
+
+
+def window_attention_plain(q, k, v, bias, mask, scale: float, nW: int):
+    """q, k, v (BW, M, H, D); bias (H, M, M); mask (nW, M, M) or None ->
+    (BW, M, H, D) in q's dtype, with the kernel's rounding points."""
+    BW = q.shape[0]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = logits + bias.float()[None]
+    if mask is not None:
+        logits = logits + mask.float().repeat(BW // nW, 1, 1)[:, None]
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    s = p.sum(-1, keepdim=True)                          # (BW, H, M, 1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return (o / s.permute(0, 2, 1, 3)).to(q.dtype)
+
+
+def _check(q, k, v, bias, mask, nW):
+    if q.dim() != 4 or not q.is_floating_point():
+        raise ValueError(f"q must be a floating (BW, M, H, D) tensor, got "
+                         f"{q.dtype} {tuple(q.shape)}")
+    BW, M, H, D = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"k and v must have q's shape {tuple(q.shape)}, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share a dtype")
+    if bias.shape != (H, M, M):
+        raise ValueError(f"bias must be ({H}, {M}, {M}), got "
+                         f"{tuple(bias.shape)}")
+    if mask is not None and (mask.shape != (nW, M, M) or nW < 1 or BW % nW):
+        raise ValueError(f"mask must be (nW, {M}, {M}) with nW = {nW} "
+                         f"dividing the {BW} windows, got {tuple(mask.shape)}")
+    for t in (k, v, bias, mask):
+        if t is not None and t.device != q.device:
+            raise ValueError("window attention inputs must be on one device")
+
+
+def _strided(t):
+    """True if the kernel can read ``t`` (BW, M, H, D) where it lies: unit
+    stride along D, every row 16-byte aligned."""
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(s % 8 == 0 for s in t.stride()[:3]))
+
+
+def window_attention_cuda(q, k, v, bias, mask, scale: float, nW: int):
+    """Launches the kernel; counts nothing (the wrapper counts). q, k and v
+    may be views of one packed (BW, M, 3, H, D) projection; other layouts are
+    copied once. Returns a (BW, M, H, D) view of a contiguous (BW, M, H * D)
+    tensor."""
+    BW, M, H, D = q.shape
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the window attention kernel takes bfloat16, got "
+                        f"{q.dtype}")
+    if D != HEAD_DIM:
+        raise ValueError(f"the window attention kernel takes head dim "
+                         f"{HEAD_DIM} (every Swin-B stage), got {D}")
+    MP = -(-M // 16) * 16
+    smem = 2 * MP * (D + 8) * 2 + 5 * 16 * max(MP + 8, D + 8) * 6
+    if smem > _SMEM_MAX or MP > 352:
+        raise ValueError(f"the window attention kernel keeps a window's K, V "
+                         f"and score strips in shared memory; M={M} tokens "
+                         f"do not fit (Swin-B's 12x12 window with 3 prompts "
+                         f"is 147)")
+    if not (all(_strided(t) for t in (q, k, v))
+            and q.stride() == k.stride() == v.stride()):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    bias = bias.float().contiguous()
+    if mask is not None:
+        mask = mask.float().contiguous()
+    out = torch.empty(BW, M, H * D, dtype=q.dtype, device=q.device)
+    sb, sm, sh, _ = q.stride()
+    _build.check(_build.lib().mtt_window_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(), BW, M,
+        H, nW if mask is not None else 1, sb, sm, sh, float(scale),
+        _build.stream()), "mtt_window_attention_bf16")
+    return out.view(BW, M, H, D)
+
+
+def fused_window_attention(q, k, v, bias, mask, scale: float, nW: int,
+                           impl: str | None = None):
+    """Swin window attention over (B*nW, M, H, D) with a per-head additive
+    bias (H, M, M) and an optional per-window mask (nW, M, M), window ``w``
+    taking ``mask[w % nW]``. Returns (B*nW, M, H, D)."""
+    _check(q, k, v, bias, mask, nW)
+    if _build.resolve_impl(impl, q) == "plain":
+        return window_attention_plain(q, k, v, bias, mask, scale, nW)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, bias)):
+        raise NotImplementedError(
+            "the window attention kernel has no backward yet: the JAX "
+            "package's _wattn_bwd_kernel is still to be ported (ROADMAP.md, "
+            "kernel table row 12); run under torch.no_grad() or pass "
+            "impl='plain'")
+    out = window_attention_cuda(q, k, v, bias, mask, scale, nW)
+    _build.COUNTS["window_attention"] += 1
+    return out

@@ -12,7 +12,11 @@ over the flax tree that renames leaves and changes layouts:
   BatchNorm batch_stats mean / var     -> running_mean / running_var
                                           (+ num_batches_tracked = 0)
   pos_embed, cls_token, task_prompts,
-  fuse_attn_kernel, fuse_attn_bias     -> as they are
+  fuse_attn_kernel, fuse_attn_bias,
+  relative_position_bias_table, scales -> as they are
+  GroupNorm scale                      -> weight (flax eps 1e-6, set by the
+                                          modules)
+  DeformConv2d kernel (K*C, out)       -> weight (out, K*C), tap-major columns
 
 The qkv weight stays head-major (H, 3, D): only its transpose changes. Flax
 BatchNorm momentum 0.9 is torch's 0.1 and eps 1e-5 on both sides (set by the
@@ -37,7 +41,7 @@ def _flatten(tree, prefix=()):
 
 
 # modules that are nn.ConvTranspose in the JAX tree, by their own name
-TRANSPOSED_CONVS = ("scale_embed_0",)
+TRANSPOSED_CONVS = ("scale_embed_0", "deconv")
 
 
 def state_dict_from_flax(variables, transposed=TRANSPOSED_CONVS
@@ -52,7 +56,11 @@ def state_dict_from_flax(variables, transposed=TRANSPOSED_CONVS
         a = np.asarray(v, dtype=np.float32)
         *mod, leaf = path
         key = ".".join(mod)
-        if leaf == "kernel" and a.ndim == 2:
+        if not mod:          # a module converted on its own: bare leaf names
+            leaf = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+            sd[leaf] = torch.tensor(a.T if a.ndim == 2 and leaf == "weight"
+                                    else a)
+        elif leaf == "kernel" and a.ndim == 2:
             sd[f"{key}.weight"] = torch.tensor(a.T)
         elif leaf == "kernel" and a.ndim == 4 and mod[-1] in transposed:
             sd[f"{key}.weight"] = torch.tensor(

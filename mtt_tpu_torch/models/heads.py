@@ -1,5 +1,5 @@
 """Per-task prediction heads (port of mtt_tpu/models/heads.py ``ConvHead``,
-``MLPHead`` and ``MLPHeadParams``).
+``MLPHead``, ``MLPHeadParams`` and ``DEConvHead``).
 
 ``MLPHead`` is InvPT's head, one 1x1 conv ``linear_pred``; ``params()`` hands
 its weights to the head-fused tail kernel, which then computes the head (one
@@ -20,6 +20,10 @@ module and one tree for both forms).
   MTT_HEAD_IMPL=dense.
 
 ``phase`` raises until it is ported (ROADMAP.md, open item 1).
+
+``DEConvHead`` is the Cityscapes-3D head: a 2x2 stride-2 transposed conv, BN,
+GELU, a 3x3 conv, BN, GELU and the 1x1 logits (eval mode; cuDNN, as it is XLA
+in the JAX package).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
-from mtt_tpu_torch.models.layers import (ConvBNAct, conv1x1, to_nchw,
+from mtt_tpu_torch.models.layers import (ConvBNAct, bn_eval, conv1x1, to_nchw,
                                          to_nhwc, up4_conv3x3_factored,
                                          update_running_stats)
 
@@ -100,3 +104,30 @@ class ConvHead(nn.Module):
                    + addv.to(dt)[None, :, None, None])
         logits = torch.einsum("bcwh,cn->bwhn", y.float(), kp.to(dt).float())
         return (logits + bp).to(dt).transpose(1, 2)          # (B, H4, W4, n)
+
+
+class DEConvHead(nn.Module):
+    """Deconv 2x upsample + conv stack -> 1x1 logits, NHWC, eval mode."""
+
+    def __init__(self, in_dim: int, num_classes: int, *, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        mid = in_dim // 2
+        self.deconv = nn.ConvTranspose2d(in_dim, mid, 2, stride=2, **kw)
+        self.bn1 = nn.BatchNorm2d(mid, eps=1e-5, momentum=0.1, **kw)
+        self.conv = nn.Conv2d(mid, mid, 3, padding=1, **kw)
+        self.bn2 = nn.BatchNorm2d(mid, eps=1e-5, momentum=0.1, **kw)
+        self.linear_pred = nn.Conv2d(mid, num_classes, 1, **kw)
+
+    def forward(self, x, train: bool = False, impl=None):
+        if train:
+            raise NotImplementedError(
+                "DEConvHead training (batch statistics) is not ported yet "
+                "(ROADMAP.md: Swin training)")
+        y = F.gelu(bn_eval(self.deconv(to_nchw(x)), self.bn1))
+        y = F.gelu(bn_eval(self.conv(y), self.bn2))
+        return conv1x1(self.linear_pred, to_nhwc(y))
+
+
+HEADS = {"mlp": MLPHead, "conv": ConvHead, "deconv": DEConvHead}

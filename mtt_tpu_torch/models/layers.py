@@ -299,9 +299,13 @@ def up4_conv3x3_factored(x, kernel):
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights with the JAX package's initialisers: LeCun
-    truncated normal for Linear/Conv weights, zero biases, unit LN/BN
-    scales and BN variances; ``pos_embed`` and InvPT's ``fuse_attn_kernel``
-    N(0, 0.02) and ``task_prompts`` N(1, 1), all truncated at two sigma."""
+    truncated normal for Linear/Conv weights, zero biases, unit LN/BN/GN
+    scales and BN variances; ``pos_embed``, InvPT's ``fuse_attn_kernel`` and
+    Swin's ``relative_position_bias_table`` N(0, 0.02) and ``task_prompts``
+    N(1, 1), all truncated at two sigma. The detection head's own: the
+    deformable conv's ``offset_mask`` zero (no deformation at first), its
+    kernel He normal, the class bias at prior probability 0.01 and unit
+    per-level ``scales``."""
 
     def trunc_(t, std, mean=0.0):
         with torch.no_grad():
@@ -311,13 +315,29 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             t.copy_(tmp)
 
     for name, p in module.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("pos_embed", "fuse_attn_kernel"):
+        *owner, leaf = name.split(".")
+        owner = owner[-1] if owner else ""
+        if leaf in ("pos_embed", "fuse_attn_kernel",
+                    "relative_position_bias_table"):
             trunc_(p, 0.02)
         elif leaf == "task_prompts":
             trunc_(p, 1.0, 1.0)
+        elif leaf == "scales":
+            nn.init.ones_(p)
+        elif owner == "offset_mask":
+            nn.init.zeros_(p)
+        elif owner == "dcn" and leaf == "weight":
+            with torch.no_grad():
+                p.copy_(torch.randn(p.shape, generator=generator,
+                                    device=p.device)
+                        * (2.0 / p.shape[1]) ** 0.5)
+        elif owner == "conv_cls" and leaf == "bias":
+            nn.init.constant_(p, -4.595)
         elif leaf == "weight" and p.dim() >= 2:
             fan_in = math.prod(p.shape[1:])
+            if isinstance(module.get_submodule(name.rsplit(".", 1)[0]),
+                          nn.ConvTranspose2d):      # weight (in, out, kh, kw)
+                fan_in = p.shape[0] * math.prod(p.shape[2:])
             # flax lecun_normal: truncated normal, variance 1 / fan_in
             trunc_(p, (1.0 / fan_in) ** 0.5 / 0.87962566103423978)
         elif leaf == "weight":

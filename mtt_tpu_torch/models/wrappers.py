@@ -1,6 +1,6 @@
 """Top-level models and their factory (port of mtt_tpu/models/wrappers.py
-``TaskPrompterNet``, ``TransformerNet`` and the TaskPrompter-ViT and
-TransformerNet branches of ``build_model``).
+``TaskPrompterNet``, ``TransformerNet``, ``TaskPrompterSwinNet`` and
+``build_model``).
 
 The entry points build on the CUDA card unless the caller names another
 device; without a card they raise rather than build on the CPU unasked."""
@@ -12,17 +12,20 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from mtt_tpu_torch.models.heads import ConvHead, MLPHead
+from mtt_tpu_torch.detection.det_params import default_det_params
+from mtt_tpu_torch.detection.fcos3d_head import DetectionHead
+from mtt_tpu_torch.models.heads import HEADS, ConvHead, MLPHead
 from mtt_tpu_torch.models.invpt import InvPTDecoder
 from mtt_tpu_torch.models.layers import interpolate
 from mtt_tpu_torch.models.taskprompter import (TASKPROMPTER_VIT_SPECS,
                                                TaskPrompterViT)
+from mtt_tpu_torch.models.taskprompter_swin import TaskPrompterSwin
 from mtt_tpu_torch.models.vit import VIT_SPECS, VisionTransformer
 
 # task table of mtt_tpu/config/config.py:parse_task_dictionary, in its order
-_SEMSEG_CLASSES = {"PASCALContext": 21, "NYUD": 40}
+_SEMSEG_CLASSES = {"PASCALContext": 21, "NYUD": 40, "Cityscapes3D": 19}
 _TASK_OUTPUTS = (("semseg", None), ("depth", 1), ("human_parts", 7),
-                 ("sal", 2), ("normals", 3), ("edge", 1))
+                 ("sal", 2), ("normals", 3), ("edge", 1), ("3ddet", 12 + 6))
 # configs/pascal/invpt_vitLp16.yml, the keys the port reads
 INVPT_PASCAL_VITL = {
     "model": "TransformerNet", "backbone": "vitL", "head": "mlp",
@@ -33,8 +36,24 @@ INVPT_PASCAL_VITL = {
                         "include_sal": True, "include_edge": True,
                         "include_normals": True, "edge_w": 0.95},
 }
+# configs/cityscapes3d/taskprompter_swinB.yml, the keys the port reads
+CS3D_SWINB = {
+    "model": "TaskPrompter", "backbone": "TaskPrompter_swinB",
+    "head": "deconv", "level_embed_dim": 256, "final_embed_dim": 450,
+    "prompt_len": 1, "chan_embed_dim": 256, "chan_nheads": 1,
+    "img_ds_ratio": 0.75, "dd_label_map_size": (512, 1024),
+    "train_db_name": "Cityscapes3D", "val_db_name": "Cityscapes3D",
+    "task_dictionary": {"include_semseg": True, "include_depth": True,
+                        "include_3ddet": True},
+}
+# Swin topologies by backbone name (taskprompter_swin_base_patch4_window12)
+TASKPROMPTER_SWIN_SPECS = {
+    "TaskPrompter_swinB": dict(embed_dim=128, depths=(2, 2, 18, 2),
+                               num_heads=(4, 8, 16, 32), window_size=12),
+}
 # test scales per database (height, width), mtt_tpu/config/config.py:71-75
-DB_SCALES = {"PASCALContext": (512, 512), "NYUD": (448, 576)}
+DB_SCALES = {"PASCALContext": (512, 512), "NYUD": (448, 576),
+             "Cityscapes3D": (1024, 2048)}
 
 
 def default_device(device=None) -> torch.device:
@@ -163,6 +182,66 @@ class TaskPrompterNet(nn.Module):
                 for t in self.tasks}
 
 
+class TaskPrompterSwinNet(nn.Module):
+    """TaskPrompter-Swin + heads, and the FCOS3D detection head for
+    ``3ddet``: the 2D heads' logits are resized to ``target_size`` (default:
+    the input size); the detection head takes the backbone's 4-scale list and
+    returns per-level lists (cls_scores, bbox_preds, dir_preds,
+    centernesses). Eval mode only; ``remat`` is not ported (it changes
+    memory, not results)."""
+
+    def __init__(self, tasks: Sequence[str], num_outputs: Dict[str, int],
+                 img_size: Tuple[int, int], head_name: str = "deconv",
+                 tar_dim: int = 256, final_dim: int = 450,
+                 prompt_len: int = 1, chan_embed_dim: int = 256,
+                 img_ds_ratio: float = 1.0,
+                 target_size: Optional[Tuple[int, int]] = None,
+                 det_cfg: Optional[dict] = None, embed_dim: int = 128,
+                 depths: Sequence[int] = (2, 2, 18, 2),
+                 num_heads: Sequence[int] = (4, 8, 16, 32),
+                 window_size: int = 12, *, device=None, dtype=None):
+        super().__init__()
+        device = default_device(device)
+        self.tasks = tuple(tasks)
+        self.target_size = target_size
+        self.det_cfg = det_cfg
+        self.backbone = TaskPrompterSwin(
+            self.tasks, img_size, embed_dim=embed_dim, depths=depths,
+            num_heads=num_heads, window_size=window_size,
+            prompt_len=prompt_len, chan_embed_dim=chan_embed_dim,
+            tar_dim=tar_dim, final_dim=final_dim, img_ds_ratio=img_ds_ratio,
+            device=device, dtype=dtype)
+        for t in self.tasks:
+            if t == "3ddet":
+                if det_cfg is None:
+                    raise ValueError("the 3ddet task needs det_cfg "
+                                     "(detection.det_params)")
+                self.det_head = DetectionHead(
+                    det_cfg, (final_dim,) * len(depths), device=device,
+                    dtype=dtype)
+            else:
+                self.add_module(f"head_{t}", HEADS[head_name](
+                    final_dim, num_outputs[t], device=device, dtype=dtype))
+
+    def forward(self, x, impl: Optional[str] = None, train: bool = False):
+        """x: (B, H, W, 3) normalised image batch -> {task: (B, h, w, n)},
+        and under ``3ddet`` the detection head's four per-level lists."""
+        if train:
+            raise NotImplementedError(
+                "TaskPrompter-Swin training is not ported yet (ROADMAP.md: "
+                "Swin training with the window-attention backward kernel)")
+        target = self.target_size or tuple(x.shape[1:3])
+        feats = self.backbone(x, impl=impl)
+        out = {}
+        for t in self.tasks:
+            if t == "3ddet":
+                out[t] = self.det_head(feats[t])
+            else:
+                out[t] = interpolate(getattr(self, f"head_{t}")(
+                    feats[t], impl=impl), target)
+        return out
+
+
 def task_table(db_name: str, task_dictionary: dict):
     """(task names, {task: output channels}) from a config's
     ``task_dictionary`` block."""
@@ -176,9 +255,11 @@ def task_table(db_name: str, task_dictionary: dict):
 
 def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
                 tail_head: bool = False, device=None, dtype=None):
-    """Config dict (the keys of configs/pascal/taskprompter_vitLp16.yml or
-    configs/pascal/invpt_vitLp16.yml) -> model. ``img_size`` defaults to the
-    database's test scale; ``tail_head`` is ``TransformerNet``'s."""
+    """Config dict (the keys of configs/pascal/taskprompter_vitLp16.yml,
+    configs/pascal/invpt_vitLp16.yml or
+    configs/cityscapes3d/taskprompter_swinB.yml) -> model. ``img_size``
+    defaults to the database's test scale; ``tail_head`` is
+    ``TransformerNet``'s."""
     tasks, num_outputs = task_table(p["train_db_name"], p["task_dictionary"])
     if p["model"] == "TransformerNet":
         return TransformerNet(
@@ -188,10 +269,23 @@ def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
             embed_dim=p["embed_dim"], pred_out=p["PRED_OUT_NUM_CONSTANT"],
             mtt_downsample=p["mtt_resolution_downsample_rate"],
             tail_head=tail_head, device=device, dtype=dtype)
-    if p["model"] != "TaskPrompter" or "swin" in p["backbone"].lower():
+    if p["model"] != "TaskPrompter":
         raise NotImplementedError(
-            f"only TaskPrompter-ViT and InvPT (TransformerNet) are ported, "
-            f"got {p['model']} / {p['backbone']}")
+            f"only TaskPrompter and InvPT (TransformerNet) are ported, got "
+            f"{p['model']}")
+    if "swin" in p["backbone"].lower():
+        return TaskPrompterSwinNet(
+            tasks=tasks, num_outputs=num_outputs,
+            img_size=img_size or DB_SCALES[p["val_db_name"]],
+            head_name=p["head"], tar_dim=p.get("level_embed_dim", 256),
+            final_dim=p["final_embed_dim"], prompt_len=p["prompt_len"],
+            chan_embed_dim=p.get("chan_embed_dim", 256),
+            img_ds_ratio=float(p.get("img_ds_ratio", 1.0)),
+            target_size=tuple(p["dd_label_map_size"])
+            if "dd_label_map_size" in p else None,
+            det_cfg=default_det_params() if "3ddet" in tasks else None,
+            **TASKPROMPTER_SWIN_SPECS[p["backbone"]], device=device,
+            dtype=dtype)
     return TaskPrompterNet(
         tasks=tasks, num_outputs=num_outputs,
         img_size=img_size or DB_SCALES[p["val_db_name"]],

@@ -171,14 +171,17 @@ def test_attention_bwd_kernel(gen, N):
            tuple(want[:, :, :, i] for i in range(3)))
 
 
-@pytest.mark.parametrize("C,Hd", [(768, 384), (1024, 384), (576, 2304),
-                                  (288, 1152), (144, 576), (144, 80)])
-def test_mlp_fc_kernel(gen, C, Hd):
+@pytest.mark.parametrize("C,Hd,rows", [
+    (768, 384, 45), (1024, 384, 45), (576, 2304, 45), (288, 1152, 45),
+    (144, 576, 45), (144, 80, 45), (512, 2048, 45), (256, 1024, 45),
+    (128, 512, 45), (128, 512, 3), (1024, 4096, 3)])
+def test_mlp_fc_kernel(gen, C, Hd, rows):
     """The ViT widths, the three InvPT stage widths with their hidden sizes
-    (576 ends in half a 128-column chunk), and a hidden width under one
-    chunk."""
+    (576 ends in half a 128-column chunk), a hidden width under one chunk,
+    and the Swin-B stage widths, also on the 3 prompt rows (one block, 29 of
+    its 32 rows past the end)."""
     from mtt_tpu_torch.kernels.mlp import fused_mlp
-    x = _rnd(gen, 3, 15, C)
+    x = _rnd(gen, 3, rows // 3, C)
     w1, b1 = _rnd(gen, Hd, C, std=C ** -0.5), _rnd(gen, Hd, std=0.1)
     w2, b2 = _rnd(gen, C, Hd, std=Hd ** -0.5), _rnd(gen, C, std=0.1)
     args = (x, w1, b1, w2, b2)
@@ -337,3 +340,105 @@ def test_invpt_model_goes_through_kernels(gen, tail_head):
             err = ((got.float() - r).norm() / r.norm()).item()
             assert err <= 0.1, (t, err)
         assert preds[t].shape[:3] == (2, 64, 128)
+
+
+WATTN_CASES = [  # BW, M, H, nW: the four Swin-B stages of a 768x1536 input,
+    (512, 147, 4, 512), (128, 147, 8, 128), (32, 147, 16, 32),
+    (8, 147, 32, 8),
+    (6, 19, 3, 3),             # ragged and small: 4x4 windows, nW < BW
+    (2, 16, 1, 2), (3, 161, 2, 1),    # a whole tile; one row past ten tiles
+]
+
+
+@pytest.mark.parametrize("BW,M,H,nW", WATTN_CASES)
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_window_attention_kernel(gen, BW, M, H, nW, with_mask):
+    """q, k, v as strided views of one packed qkv projection, as the Swin
+    block hands them over; mask entries of 0 and -100. 2 bf16 ulps: p is
+    rounded to bf16 at the same point on both sides, f32 sums in another
+    order can flip that rounding."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.window_attention import fused_window_attention
+    D = 32
+    q, k, v = _rnd(gen, BW, M, 3, H, D).unbind(2)
+    bias = _rnd(gen, H, M, M, dtype=torch.float32)
+    mask = None
+    if with_mask:
+        mask = torch.where(torch.rand(nW, M, M, generator=gen,
+                                      device="cuda") < 0.3, -100.0, 0.0)
+        mask.diagonal(dim1=1, dim2=2).zero_()
+    _build.reset_counts()
+    got = fused_window_attention(q, k, v, bias, mask, D ** -0.5, nW)
+    assert _build.COUNTS == _counts(window_attention=1)
+    assert got.shape == (BW, M, H, D)
+    assert got.reshape(BW, M, H * D).is_contiguous()
+    _check(got, fused_window_attention(q, k, v, bias, mask, D ** -0.5, nW,
+                                       impl="plain"), ulps=2)
+    # contiguous q, k, v take the same kernel
+    _check(fused_window_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), bias, mask, D ** -0.5, nW),
+           got, ulps=0)
+
+
+def test_window_attention_kernel_refuses_grad(gen):
+    """The JAX package has a backward kernel for this function; until it is
+    ported the kernel path raises rather than differentiate the plain
+    version silently."""
+    from mtt_tpu_torch.kernels.window_attention import fused_window_attention
+    q, k, v = (_rnd(gen, 2, 19, 2, 32) for _ in range(3))
+    bias = _rnd(gen, 2, 19, 19, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*row 12"):
+        fused_window_attention(q.requires_grad_(), k, v, bias, None, 0.2, 1)
+    with torch.no_grad():
+        assert fused_window_attention(q, k, v, bias, None, 0.2, 1).shape == \
+            q.shape
+    out = fused_window_attention(q, k, v, bias, None, 0.2, 1, impl="plain")
+    out.sum().backward()
+    assert q.grad is not None
+
+
+def test_swin_model_goes_through_kernels(gen):
+    """A small TaskPrompter-Swin net at Swin-B's head dim (32) and window
+    (12, so 147 tokens a window), depths (2, 2, 4, 2), 192x384 input in bf16
+    with the detection head: the kernels launch as often as the block
+    schedule says (the last block of each stage is a tap block and takes the
+    composition), and every 2D map and detection level stays within 0.1
+    relative RMS of an f32 run of the same weights (as in chip_smoke.py)."""
+    import copy
+
+    from mtt_tpu_torch.inference import predict
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.detection.det_params import default_det_params
+    from mtt_tpu_torch.models.wrappers import TaskPrompterSwinNet
+
+    model = TaskPrompterSwinNet(
+        ("semseg", "depth", "3ddet"), {"semseg": 19, "depth": 1, "3ddet": 18},
+        (192, 384), target_size=(96, 192), det_cfg=default_det_params(),
+        embed_dim=128, depths=(2, 2, 4, 2), num_heads=(4, 8, 16, 32),
+        window_size=12, dtype=torch.bfloat16).eval()
+    init_weights(model, gen)
+    x = torch.randn(1, 192, 384, 3, generator=gen, device="cuda")
+    K = torch.tensor([[2262.52, 0, 1096.98], [0, 2265.30, 513.137],
+                      [0, 0, 1.0]])
+    _build.reset_counts()
+    logits, preds = predict(model, x, cam_K=K)
+    torch.cuda.synchronize()
+    # 10 blocks: 6 on the kernel; 4 LayerNorms and 2 MLPs a block (3 and 1 in
+    # the last); patch norm, 3 merge norms, final norm
+    assert _build.COUNTS == _counts(window_attention=6, mlp_fc=19,
+                                    layernorm=39 + 5)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ref, _ = predict(copy.deepcopy(model).float(), x, impl="plain",
+                         cam_K=K)
+    pairs = [(t, logits[t], ref[t]) for t in ("semseg", "depth")]
+    for name, gl, rl in zip(("cls", "bbox", "dir", "ctr"), logits["3ddet"],
+                            ref["3ddet"]):
+        pairs += [(f"{name}{i}", g, r) for i, (g, r) in enumerate(zip(gl, rl))]
+    for what, got, want in pairs:
+        assert got.shape == want.shape
+        r = want.float()
+        err = ((got.float() - r).norm() / r.norm()).item()
+        assert err <= 0.1, (what, err)
+    assert preds["semseg"].shape == (1, 96, 192)
+    assert preds["3ddet"]["boxes3d"].shape == (1, 200, 9)

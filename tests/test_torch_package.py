@@ -24,7 +24,7 @@ def test_package_imports_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'mtt_tpu'))\n"
-        "assert len(mods) >= 24, mods\n"
+        "assert len(mods) >= 36, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -142,13 +142,14 @@ def test_kernel_build_needs_no_card_to_import_and_hashes_sources():
                                     "attention_emit", "attention_bwd",
                                     "mlp_ln_res", "mlp_fc", "task_decode",
                                     "head_up4", "invpt_attention",
-                                    "invpt_tail", "invpt_tail_head"}
+                                    "invpt_tail", "invpt_tail_head",
+                                    "window_attention"}
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "layernorm.cu", "attention.cu", "attention_bwd.cu", "mlp.cu",
         "task_decode.cu", "head_up4.cu", "invpt_attention.cu",
-        "invpt_tail.cu"}
+        "invpt_tail.cu", "window_attention.cu"}
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
