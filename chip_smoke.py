@@ -7,14 +7,15 @@ or any phase fails.
 Phases, in order (the seconds each took are printed):
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from mtt_tpu_torch/csrc (seconds printed);
-  3. each of the 12 kernel entry points (11 TPU kernels; the multi-scale tail
+  3. each of the 13 kernel entry points (12 TPU kernels; the multi-scale tail
      with and without its fused head) against its plain PyTorch version at the
      ViT-L PASCAL shapes the main paths give it, the earlier kernels again
      at the shapes the InvPT path adds (N = 1025, LayerNorm rows of 2880, MLP
      widths 576, 288, 144; the tail on NYUD's non-square grid), and the Swin
-     path's at its shapes (window attention at the four Swin-B stages with
-     and without the shift mask; LayerNorm rows of 128 to 2048 at eps 1e-5;
-     MLP widths 128 to 1024, down to the 3 prompt rows): error, tolerance in
+     path's at its shapes (window attention and its backward at the four
+     Swin-B stages with and without the shift mask, the backward's dbias
+     equal across two runs; LayerNorm rows of 128 to 2048 at eps 1e-5; MLP
+     widths 128 to 1024, down to the 3 prompt rows): error, tolerance in
      bf16 ulps, CUDA-event times of the kernel, the plain version, the
      library call or composition, and the bound of the card;
   4. the ViT-L PASCAL eval forward (5 tasks, CTR on, bf16, seeded random
@@ -31,27 +32,43 @@ Phases, in order (the seconds each took are printed):
      width and depth) through ``predict`` with a fixed camera matrix: launch
      counts, shapes, finiteness, every 2D map and every detection level
      against an f32 run of the same weights, the decode of fixed size, ms per
-     forward, imgs/s, decode ms and peak memory;
+     forward, imgs/s, decode ms and peak memory; the decode of a seeded head
+     output that keeps many boxes, on the card against the CPU;
   7. ViT-L PASCAL training at the config's batch of 2 on seeded synthetic
      batches in bf16 with f32 master weights: the launch counts of one step,
      its gradients against an f32 plain run of the same weights, batch and
-     drop-path masks (in all and per tensor), finite losses, moving
-     parameters and BN statistics, ms per step, imgs/s and peak memory.
+     drop-path masks held to the step's forward point (in all and per
+     tensor, see GRAD_RMS_TOL), finite losses, moving parameters and BN
+     statistics, ms per step, imgs/s and peak memory;
+  8. TaskPrompter-Swin-B Cityscapes-3D training (semseg, depth and the
+     FCOS3D detection loss; one 1024x2048 image a step, labels at 512x1024,
+     drop-path 0.1, bf16 with f32 master weights, seeded synthetic batches):
+     the same checks as phase 7, every detection loss component finite,
+     and each window attention backward launch of the step against the
+     plain backward on its own inputs.
 The line before the last is the kernels JSON; the last line is the device JSON.
 
 ``python3 chip_smoke.py --profile`` runs none of these phases: after the
 build it traces one eval forward of each model and one training step with
 ``torch.profiler`` and prints their wall time and device time by kernel group
 (with ``--phases``, only those models').
-``--phases kernels,invpt`` (any subset of kernels, eval, invpt, swin, train)
-runs only those phases and prints no result lines: a quick look, not the check.
+``python3 chip_smoke.py --grad-diag`` runs none of them either: it prints how
+far the Swin-B training step's bf16 gradients move between two runs on equal
+inputs, and how far they sit from the f32 step's when both run free, by loss
+part, at the two bf16 paths' forward points, and at the outputs of the
+decodes and the detection head (``grad_diag``).
+``--phases kernels,invpt`` (any subset of kernels, eval, invpt, swin, train,
+swin_train) runs only those phases and prints no result lines: a quick look,
+not the check.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -85,6 +102,7 @@ SW_STAGES = (((192, 384), 128, 4), ((96, 192), 256, 8), ((48, 96), 512, 16),
 SW_WIN, SW_P, SW_D = 12, 3, 32
 SW_M = SW_WIN * SW_WIN + SW_P
 SW_OUT = (512, 1024)         # dd_label_map_size
+SW_TRAIN_STEPS = 3           # trBatch 1: one checked step, two timed
 SW_LEVELS = ((96, 192), (48, 96), (24, 48), (24, 48), (12, 24))
 # Stuttgart camera calibration of the Cityscapes demo (public constants)
 SW_CAM_K = ((2262.52, 0.0, 1096.98), (0.0, 2265.3017905988554, 513.137),
@@ -128,6 +146,9 @@ KERNEL_ROWS = {
     "window_attention": ("mtt_tpu_torch/csrc/window_attention.cu",
                          "mtt_tpu/kernels/attention.py:778",
                          "window_attention", "swin"),
+    "window_attention_bwd": ("mtt_tpu_torch/csrc/window_attention_bwd.cu",
+                             "mtt_tpu/kernels/attention.py:838",
+                             "window_attention_bwd", "swin_train"),
 }
 
 
@@ -325,12 +346,13 @@ def _invpt_cases(rnd):
 
 
 def _swin_cases(rnd):
-    """The kernel cases the Swin path adds, in ``kernel_phase``'s format: row
-    11 at the four Swin-B stages with and without the shift mask, rows 3 and
-    8 at the shapes this path gives them."""
+    """The kernel cases the Swin path adds, in ``kernel_phase``'s format: rows
+    11 and 12 at the four Swin-B stages with and without the shift mask, rows
+    3 and 8 at the shapes this path gives them."""
     from mtt_tpu_torch.kernels.layernorm import fused_layernorm
     from mtt_tpu_torch.kernels.mlp import fused_mlp
-    from mtt_tpu_torch.kernels.window_attention import fused_window_attention
+    from mtt_tpu_torch.kernels.window_attention import \
+        fused_window_attention_qkv
 
     bf = torch.bfloat16
     f32 = torch.float32
@@ -339,8 +361,9 @@ def _swin_cases(rnd):
     M, D = SW_M, SW_D
     for i, ((gh, gw), dim, H) in enumerate(SW_STAGES):
         BW = gh * gw // (SW_WIN * SW_WIN)
-        # q, k, v as the block hands them over: views of the packed qkv
-        q, k, v = rnd(BW, M, 3, H, D).unbind(2)
+        # q, k, v as the block hands them over: the packed qkv
+        qkv = rnd(BW, M, 3, H, D)
+        q, k, v = qkv.unbind(2)
         bias = torch.zeros(H, M, M, device=dev)
         bias[:, SW_P:, SW_P:] = rnd(H, M - SW_P, M - SW_P, std=0.5, dtype=f32)
         mask = torch.zeros(BW, M, M, device=dev)
@@ -348,8 +371,9 @@ def _swin_cases(rnd):
             rnd(BW, M - SW_P, M - SW_P, dtype=f32) < -0.5, -100.0, 0.0)
         mask.diagonal(dim1=1, dim2=2).zero_()
         for m in (mask, None):
-            def call(impl, a=(q, k, v, bias, m), nW=BW):
-                return fused_window_attention(*a, D ** -0.5, nW, impl=impl)
+            def call(impl, a=(qkv, bias, m), nW=BW):
+                return fused_window_attention_qkv(*a, D ** -0.5, nW,
+                                                  impl=impl)
 
             both = (bias[None] + (0.0 if m is None else m[:, None])).to(bf)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -381,6 +405,8 @@ def _swin_cases(rnd):
                 4 * BW * M * H * D * 2 + _nbytes(bias)
                 + (_nbytes(m) if m is not None else 0),
                 4.0 * nel * D, 6.0 * nel)
+            cases[name.replace("window_attention", "window_attention_bwd")] = \
+                _wattn_bwd_case(q, k, v, bias, m, rnd(BW, M, H, D), BW)
 
     # row 3 at eps 1e-5: the stages' token rows, PatchMerging's 4C rows and
     # the 3 prompt rows; row 8 at the stage widths, patches and prompts
@@ -412,6 +438,67 @@ def _swin_cases(rnd):
                 F.gelu(F.linear(a[0], a[1], a[2])), a[3], a[4]),
             _nbytes(xd, wa, ba, wb, bb, xd), 4.0 * xd.numel() * hid, 0.0)
     return cases
+
+
+def _wattn_bwd_case(q, k, v, bias, m, g, nW):
+    """Row 12 on one stage's inputs, in ``kernel_phase``'s format: the
+    kernel's (dq, dk, dv, dbias) against the plain backward's. The library
+    call is SDPA's backward with the bias and mask merged into one (BW, H, M,
+    M) bf16 mask that requires grad, plus the sum of that mask's gradient
+    over the windows for dbias; the composition (c) the autograd backward of
+    the plain torch attention."""
+    from mtt_tpu_torch.kernels.window_attention import (
+        window_attention_bwd_cuda, window_attention_bwd_plain)
+
+    bf = torch.bfloat16
+    scale = SW_D ** -0.5
+    BW, M, H, D = q.shape
+
+    def call(impl):
+        if impl == "cuda":
+            dqkv, db = window_attention_bwd_cuda(q, k, v, bias, m, g, scale,
+                                                 nW)
+            return (*dqkv.unbind(2), db)
+        return window_attention_bwd_plain(q, k, v, bias, m, g, scale, nW)
+
+    qt, kt, vt, gt = (t.transpose(1, 2) for t in (q, k, v, g))
+    merged = (bias[None] + (0.0 if m is None else m[:, None])).to(bf)
+    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt, merged)]
+
+    def sdpa_bwd():
+        d = torch.autograd.grad(sd_out, leaves, gt, retain_graph=True)
+        return d[:3], d[3].float().sum(0)
+
+    try:
+        sd_out = F.scaled_dot_product_attention(*leaves[:3],
+                                                attn_mask=leaves[3])
+        sdpa_bwd()
+    except RuntimeError as e:     # no backend differentiates the mask
+        print(f"[kernel] SDPA's backward gives no gradient of a float mask "
+              f"({str(e)[:120]}): library_ms is null, the composition (c) "
+              f"stands in", flush=True)
+        sdpa_bwd = None
+    cl = [t.detach().requires_grad_() for t in (qt, kt, vt, bias)]
+    logits = torch.matmul(cl[0], cl[1].transpose(-1, -2)).float() * scale \
+        + cl[3][None]
+    if m is not None:
+        logits = logits + m[:, None]
+    cout = torch.matmul(torch.softmax(logits, -1).to(bf), cl[2])
+
+    def comp_bwd():
+        return torch.autograd.grad(cout, cl, gt, retain_graph=True)
+
+    nel = BW * H * M * M
+    return (call, (4, 4, 4, 0.0128),
+            "dq, dk, dv: dl and pn are rounded to bf16 at the same points, "
+            "f32 sums in another order can flip a rounding; dbias (f32 on "
+            "both sides, summed over the windows in another order): 1e-4 of "
+            "max |dbias|",
+            sdpa_bwd, comp_bwd,
+            7 * BW * M * H * D * 2 + 2 * _nbytes(bias)
+            + (_nbytes(m) if m is not None else 0),
+            # q k^T, dp = g v^T, dq, dk, dv: five M x M x D products
+            10.0 * nel * D, 12.0 * nel)
 
 
 def kernel_phase():
@@ -623,6 +710,16 @@ def kernel_phase():
               f"library_composition_ms={cms} bound_ms={bms:.4f} ({bby})",
               flush=True)
 
+    # the window attention backward sums dbias over the windows in a fixed
+    # order: two runs give the same bits
+    for name, case in cases.items():
+        if name.startswith("window_attention_bwd"):
+            a, b = case[0]("cuda"), case[0]("cuda")
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise RuntimeError(f"{name}: two runs differ")
+    print("[kernel] window_attention_bwd: dq, dk, dv and dbias equal across "
+          "two runs at every stage, with and without the mask", flush=True)
+
     # the safe (max-subtracted) softmax of the training forward
     got = fused_attention_ln_qkv(x, gamma, beta, wqkv, bqkv, HEADS,
                                  impl="cuda", safe=True)
@@ -680,6 +777,13 @@ def expected_swin() -> dict:
                      layernorm=4 * blocks - 1 + 1 + 3 + 1)
 
 
+def expected_swin_train() -> dict:
+    """One Swin-B training step: the forward's launches (drop-path changes
+    no route) and one window attention backward for each of the 20 blocks
+    on the kernel; the MLP and LayerNorm backwards are torch."""
+    return {**expected_swin(), "window_attention_bwd": 20}
+
+
 # The eval forward is held against an f32 run of the same (bf16-valued)
 # weights on the plain versions, by the relative RMS error per task,
 # ||logits - f32|| / ||f32||. Both bf16 paths (kernels, and the plain versions
@@ -691,23 +795,41 @@ def expected_swin() -> dict:
 # errors of order 1. The kernels themselves are held to ulps in phase 3.
 FORWARD_RMS_TOL = 0.1
 # The training step's gradients against an f32 run on the plain versions of
-# the same weights, batch and drop-path masks: relative RMS over all
-# gradients, sqrt(sum ||g - g32||^2 / sum ||g32||^2). On an H100 the kernels
-# measured 0.062 and the plain versions in bf16 0.060 at this seed: bf16
-# rounding carried back through 24 blocks of random weights, alike on both
-# paths. The bound is 2.5x that, as for the forward; a wiring fault (a
-# missing cotangent, a transposed weight gradient) gives order 1.
+# the same weights, batch and drop-path masks, linearised where the run under
+# test ran its forward: every module of the f32 run outputs the value that
+# the same module call output in the run under test (``_ForwardPoint``), and
+# the gradient of its own f32 computation. So it is the f32 backward at the
+# run's forward point, and the comparison (relative RMS over all gradients,
+# sqrt(sum ||g - g32||^2 / sum ||g32||^2)) sees the backward's rounding and
+# wiring, kernels included, not how far bf16 moved the forward. Run free,
+# Swin-B's step is no check of the backward: on an H100 its train-mode
+# forward reached the detection head 0.05-0.24 from f32 (batch-statistics
+# BN over the 3ddet decode's large-mean activations magnifies the error
+# upstream of it about tenfold at stage 3), the head's ReLUs then pass or
+# stop a cotangent on the side bf16 chose, and the kernel and plain bf16
+# steps sat 0.40 and 1.0-1.6 from the free f32 step, while the f32 step
+# itself moved 6% of its detection gradients under a 2^-9 scaling of the
+# image (``--grad-diag``). The free distance is printed, not bounded. On
+# ViT-L the kernels measured 0.062 free-running and the plain versions in
+# bf16 0.060: bf16 rounding carried through 24 blocks of random weights. The
+# bound is 2.5x that, as for the forward; a wiring fault (a missing
+# cotangent, a transposed weight gradient) gives order 1.
 GRAD_RMS_TOL = 0.15
 # Per tensor, the same bound holds, divided by the cancellation rho of the
-# sum that forms the tensor's gradient (``_cancellation``): batch-statistics
-# BN in the heads makes the loss nearly blind to a common scale or shift of a
-# head's input, so the gradients of the parameters that set one (the CTR
-# weights and biases, the decode's last biases) are small sums of large terms
-# (rho 1e-6 to 0.25 on an H100), and the bf16 error of the terms comes out
-# magnified by 1 / rho on both bf16 paths alike. A tensor outside the sums
-# that rho covers is held to GRAD_RMS_TOL itself. Gradients under 1e-6 of
-# all are left out: the biases ahead of batch-statistics BN, whose exact
-# gradient is zero, and a few that these random weights leave near zero.
+# sum that forms the tensor's gradient at the run's forward point
+# (``_cancellation``): batch-statistics BN makes the loss nearly blind to a
+# common scale or shift of its input, so the gradients of the parameters
+# that set one (the CTR and decode biases ahead of BN) are small sums of
+# large terms, and the bf16 error of the terms comes out magnified by
+# 1 / rho. rho covers the bias of every F.linear and F.conv2d call and the
+# weight of every F.linear call, summed over the calls; any other tensor is
+# held to GRAD_RMS_TOL itself. Gradients under 1e-6 of all are left out:
+# the biases ahead of batch-statistics BN, whose exact gradient is zero, and
+# a few that these random weights leave near zero. The checked step and its
+# references run on deterministic library algorithms (``_deterministic``):
+# on an H100 the default ones moved Swin-B's bf16 gradients by 0.0147
+# relative RMS from one run to the next on equal inputs, and a prompt channel
+# projection's bias by a third of itself (``--grad-diag``).
 
 
 def _rel_rms(got: dict, ref: dict) -> float:
@@ -940,6 +1062,82 @@ def _det_levels(out):
             for i, t in enumerate(lvls)}
 
 
+def _decode_check(det_cfg, K):
+    """The box decode on the card against the same decode on the CPU, on a
+    seeded head output at the Swin-B levels that keeps many boxes: class
+    logits under score_thr everywhere but at 400 random points, where one
+    class's logit and the centerness are raised. The valid counts must be
+    equal and every valid box must have a CPU box of the same label within
+    1e-5 of its score and 1e-4 (relative to the largest value) of its 3D
+    box, 2D box and centre: the same f32 function, whose exp, sigmoid and
+    trigonometry differ between the two devices' libraries in the last
+    bits; the order of slots whose scores tie to those bits may differ."""
+    from mtt_tpu_torch.inference import decode_3ddet
+    gen = torch.Generator().manual_seed(7)
+    nc = det_cfg["num_classes"]
+    head = ([], [], [], [])
+    for h, w in SW_LEVELS:
+        cls = torch.randn(1, h, w, nc, generator=gen) - 6.0
+        ctr = torch.randn(1, h, w, 1, generator=gen) - 3.0
+        b = torch.randn(1, h, w, 13, generator=gen)
+        b[..., 2] = torch.exp(0.3 * b[..., 2]) * 20          # depth (m)
+        b[..., 3:6] = torch.exp(0.2 * b[..., 3:6]) * 2       # size
+        b[..., 9:] = b[..., 9:].abs()
+        for t, v in zip(head, (cls, b, torch.randn(1, h, w, 6,
+                                                   generator=gen), ctr)):
+            t.append(v)
+    n_pts = sum(h * w for h, w in SW_LEVELS)
+    raised = torch.randperm(n_pts, generator=gen)[:400]
+    start = 0
+    for lvl, (h, w) in enumerate(SW_LEVELS):
+        local = raised[(raised >= start) & (raised < start + h * w)] - start
+        ys, xs = local // w, local % w
+        cl = torch.randint(0, nc, (len(local),), generator=gen)
+        head[0][lvl][0, ys, xs, cl] = 1.0 + 3.0 * torch.rand(
+            len(local), generator=gen)
+        head[3][lvl][0, ys, xs, 0] = 2.0
+        start += h * w
+    Kc = torch.tensor(SW_CAM_K)
+    want = decode_3ddet(head, Kc, det_cfg)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    got = decode_3ddet(tuple([t.to(dev) for t in part] for part in head),
+                       Kc.to(dev), det_cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v[0].cpu() for k, v in got.items()}
+    want = {k: v[0] for k, v in want.items()}
+    nv, nw = int(got["valid"].sum()), int(want["valid"].sum())
+    if nv != nw or nw < 100:
+        raise RuntimeError(f"decode: {nv} valid boxes on the card, {nw} on "
+                           f"the CPU (at least 100 expected)")
+    gv = {k: v[got["valid"]] for k, v in got.items()}
+    wv = {k: v[want["valid"]] for k, v in want.items()}
+    geo = ("boxes3d", "bboxes2d", "centers2d")
+    scale = {k: wv[k].abs().max().item() for k in geo}
+    worst = {"scores": 0.0, **dict.fromkeys(geo, 0.0)}
+    for i in range(nv):
+        same = (wv["labels"] == gv["labels"][i]).nonzero()[:, 0]
+        if not len(same):
+            raise RuntimeError(f"decode: card box {i} has no CPU box of its "
+                               f"label")
+        d = (wv["boxes3d"][same] - gv["boxes3d"][i]).abs().amax(1)
+        j = same[d.argmin()]
+        worst["scores"] = max(worst["scores"], abs(
+            wv["scores"][j] - gv["scores"][i]).item())
+        for k in geo:
+            worst[k] = max(worst[k], (wv[k][j] - gv[k][i]).abs().max().item()
+                           / scale[k])
+    print(f"[swin] decode on the card vs the CPU: {nv} valid boxes on both "
+          f"(400 raised points); worst score error {worst['scores']:.3g} "
+          f"(tol 1e-5), worst relative box error "
+          f"{max(worst[k] for k in geo):.3g} (tol 1e-4); card decode "
+          f"{ms:.1f} ms wall", flush=True)
+    if worst["scores"] > 1e-5 or any(worst[k] > 1e-4 for k in geo):
+        raise RuntimeError(f"decode on the card differs from the CPU: "
+                           f"{worst}")
+
+
 def swin_phase():
     """The TaskPrompter-Swin-B Cityscapes-3D eval forward through the
     kernels and the decode of its detections; returns the launch counts."""
@@ -990,6 +1188,7 @@ def swin_phase():
           f"(random weights at the class prior of 0.01 leave the scores "
           f"under score_thr), top score {det['scores'].max().item():.4g}",
           flush=True)
+    _decode_check(model.det_cfg, K)
 
     plain, _ = predict(model, x, impl="plain", cam_K=K)
     # f32 reference: full-precision matmuls and convolutions (no TF32)
@@ -1038,114 +1237,290 @@ def swin_phase():
     return counts
 
 
-def _grads_of(model, batch, criterion, gen_state, impl=None):
-    """One train-mode forward and backward with the drop-path generator set
-    to ``gen_state``; the gradients by parameter name."""
-    gen = torch.Generator(device="cuda")
+def _map_tensors(fn, out, rec=None):
+    """``out`` with each floating tensor t replaced by fn(t) (or fn(t, r),
+    r the tensor at the same place in ``rec``), dicts, lists and tuples
+    rebuilt."""
+    if torch.is_tensor(out):
+        if not out.is_floating_point():
+            return out
+        return fn(out) if rec is None else fn(out, rec)
+    if isinstance(out, dict):
+        return {k: _map_tensors(fn, v, None if rec is None else rec[k])
+                for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_map_tensors(fn, v, None if rec is None else r)
+                         for v, r in zip(out, rec if rec is not None
+                                         else [None] * len(out)))
+    return out
+
+
+class _ForwardPoint:
+    """The output of every module call of one run (``record``), and a run
+    of another copy held to them (``pin``): there each module call outputs
+    the recorded value, with the gradient of its own computation."""
+
+    def __init__(self):
+        self.outs = {}
+
+    @contextlib.contextmanager
+    def _hooked(self, model, hook):
+        calls, handles = {}, []
+
+        def make(name):
+            def h(mod, args, out):
+                calls[name] = i = calls.get(name, -1) + 1
+                return hook((name, i), out)
+            return h
+        for name, mod in model.named_modules():
+            handles.append(mod.register_forward_hook(make(name)))
+        try:
+            yield
+        finally:
+            for h in handles:
+                h.remove()
+
+    def record(self, model):
+        self.outs = {}
+
+        def keep(key, out):
+            # copies: a caller may update an output in place afterwards
+            self.outs[key] = _map_tensors(
+                lambda t: t.detach().clone(), out)
+        return self._hooked(model, keep)
+
+    def pin(self, model):
+        def held(key, out):
+            if key not in self.outs:
+                raise RuntimeError(f"the pinned run calls {key}, which the "
+                                   f"recorded run did not")
+            return _map_tensors(
+                lambda o, r: o + (r.to(o.dtype) - o).detach(), out,
+                self.outs[key])
+        return self._hooked(model, held)
+
+
+class _Terms(torch.overrides.TorchFunctionMode):
+    """Within it, for each of ``params`` (by name) that an ``F.linear`` or
+    ``F.conv2d`` call takes as its bias, or an ``F.linear`` call as its
+    weight (a view of one counts), the terms t_i of its gradient summed over
+    every such call and position i: sum_i t_i and sum_i |t_i|, where t_i is
+    the output cotangent for a bias, the product of cotangent and input for
+    a weight."""
+
+    def __init__(self, params: dict):
+        super().__init__()
+        self.names = {id(t): n for n, t in params.items()}
+        self.sums = {}
+
+    def _add(self, name, s, a):
+        if name in self.sums:
+            self.sums[name][0].add_(s)
+            self.sums[name][1].add_(a)
+        else:
+            self.sums[name] = [s, a]
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func not in (F.linear, F.conv2d) or not out.requires_grad:
+            return out
+        x = args[0].detach()
+        w, b = (list(args[1:3]) + [kwargs.get("weight"),
+                                   kwargs.get("bias")][len(args) - 1:])[:2]
+        wn = None
+        if func is F.linear and w is not None:
+            wn = self.names.get(id(w), self.names.get(id(w._base)))
+        bn = None if b is None else self.names.get(id(b))
+        if wn is None and bn is None:
+            return out
+
+        def keep(g):
+            g = g.detach().float()
+            if func is F.conv2d:                     # channels first
+                g = g.movedim(1, -1)
+            g = g.reshape(-1, g.shape[-1])
+            if bn is not None:
+                self._add(bn, g.sum(0), g.abs().sum(0))
+            if wn is not None:
+                xf = x.float().reshape(-1, x.shape[-1])
+                self._add(wn, g.t() @ xf, g.abs().t() @ xf.abs())
+        out.register_hook(keep)
+        return out
+
+
+def _cancellation(model, names, run) -> dict:
+    """How far the terms that sum to each named gradient cancel in ``run``
+    (a forward and backward of ``model``): rho = ||sum_i t_i|| /
+    ||sum_i |t_i| ||, over every call, sample and position i that adds to
+    it (``_Terms``). A relative error e in every term moves the sum by at
+    most e / rho of itself. The gradients of other tensors (norms, the
+    weights of convolutions, tables) are left out."""
+    terms = _Terms({n: model.get_parameter(n) for n in names})
+    with terms:
+        run()
+    return {n: (s.norm() / a.norm()).item()
+            for n, (s, a) in terms.sums.items()}
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """Library ops with deterministic algorithms only (cuBLAS needs
+    CUBLAS_WORKSPACE_CONFIG, set in ``main``): a checked step then gives the
+    same gradients at every run."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _grads(model, batch, criterion, gen_state, impl, *contexts):
+    """One train-mode forward (within ``contexts``: a ``_ForwardPoint``'s
+    record or pin, ``_deterministic``) and backward, with the drop-path
+    generator set to ``gen_state``; the gradients by parameter name."""
+    gen = torch.Generator(device=batch["image"].device)
     gen.set_state(gen_state)
     model.zero_grad(set_to_none=True)
     dt = next(model.parameters()).dtype
-    out = model(batch["image"].to(dt), train=True, generator=gen, impl=impl)
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        out = model(batch["image"].to(dt), train=True, generator=gen,
+                    impl=impl)
     criterion(out, batch)["total"].backward()
-    return {n: w.grad.detach().clone() for n, w in model.named_parameters()}
-
-
-def _cancellation(model, batch, criterion, gen_state, names) -> dict:
-    """How far the terms that sum to each named gradient cancel, in one f32
-    plain run: rho = ||sum_i t_i|| / ||sum_i |t_i|||, over samples and
-    positions i, where t_i is the output cotangent for a bias and the product
-    of cotangent and input for a Linear weight. A relative error e in every
-    term moves the sum by at most e / rho of itself. Other tensors (and
-    modules called more than once) are left out."""
-    seen, hooks = {}, []
-
-    def grabber(mod_name):
-        def grab(_, inp, out):
-            def keep(g):
-                seen.setdefault(mod_name, []).append(
-                    (inp[0].detach().float(), g.detach().float()))
-            out.register_hook(keep)
-        return grab
-
-    for mod_name in {n.rsplit(".", 1)[0] for n in names}:
-        hooks.append(model.get_submodule(mod_name).register_forward_hook(
-            grabber(mod_name)))
-    try:
-        _grads_of(model, batch, criterion, gen_state, "plain")
-    finally:
-        for h in hooks:
-            h.remove()
-    rho = {}
-    for name in names:
-        mod_name, kind = name.rsplit(".", 1)
-        mod = model.get_submodule(mod_name)
-        if len(seen.get(mod_name, ())) != 1:
-            continue
-        x, g = seen[mod_name][0]
-        if isinstance(mod, torch.nn.Conv2d):    # channels first
-            g, x = g.movedim(1, -1), x.movedim(1, -1)
-        g = g.reshape(-1, g.shape[-1])
-        if kind == "bias":
-            rho[name] = (g.sum(0).norm() / g.abs().sum(0).norm()).item()
-        elif kind == "weight" and isinstance(mod, torch.nn.Linear):
-            x = x.reshape(-1, x.shape[-1])
-            rho[name] = ((g.t() @ x).norm()
-                         / (g.abs().t() @ x.abs()).norm()).item()
-    return rho
+    return {n: w.grad.detach().clone() for n, w in model.named_parameters()
+            if w.grad is not None}
 
 
 def train_phase():
     """ViT-L PASCAL training steps through the kernels; returns the launch
     counts of one step."""
-    from mtt_tpu_torch.kernels import _build
     from mtt_tpu_torch.utils.train_utils import to_device
 
     dev = torch.device("cuda")
     trainer, data = _vitl_trainer()
-    model = trainer.model
     batches = [to_device(data.batch(i * BT, BT), dev)
                for i in range(TRAIN_STEPS)]
+    return _train_run("train", f"TaskPrompter-ViT-L PASCAL, batch {BT} at "
+                      f"{IMG}x{IMG}", trainer, batches, expected_train(), BT)
 
-    # gradients of the first step: the kernels in bf16, the plain versions in
-    # bf16, and an f32 plain run of the same weights, batch and masks
+
+def _swin_trainer():
+    """The Swin-B Cityscapes-3D trainer (seeded) and its synthetic dataset
+    (labels at dd_label_map_size, 64 box slots)."""
+    from mtt_tpu_torch.train import CS3D_SWINB_TRAIN, make_trainer
+    return make_trainer(CS3D_SWINB_TRAIN, seed=6, device=torch.device("cuda"))
+
+
+def swin_train_phase():
+    """TaskPrompter-Swin-B Cityscapes-3D training steps through the kernels;
+    returns the launch counts of one step."""
+    from mtt_tpu_torch.utils.train_utils import to_device
+
+    import mtt_tpu_torch.kernels.window_attention as wa
+
+    dev = torch.device("cuda")
+    trainer, data = _swin_trainer()
+    batches = [to_device(data.batch(i, 1), dev) for i in range(SW_TRAIN_STEPS)]
+    # every window attention backward of the checked step, with its inputs
+    launches, real = [], wa.window_attention_bwd_cuda
+
+    def capture(*args):
+        out = real(*args)
+        launches.append((args, out))
+        return out
+
+    def check_launches():
+        wa.window_attention_bwd_cuda = real
+        worst, rel = 0.0, [0.0, 0.0]
+        for i, (args, (dqkv, dbias)) in enumerate(launches):
+            want = wa.window_attention_bwd_plain(*args)
+            # both against an f32 evaluation of the same inputs
+            q, k, v, bias, mask, g, scale, nW = args
+            f32 = wa.window_attention_bwd_plain(
+                q.float(), k.float(), v.float(), bias, mask, g.float(),
+                scale, nW)
+            for j, got in enumerate((dqkv.unbind(2), want[:3])):
+                rel[j] = max(rel[j], max(_rel_rms({0: a}, {0: b})
+                                         for a, b in zip(got, f32[:3])))
+            for name, g_, w_, u_ in zip(("dq", "dk", "dv", "dbias"),
+                                        (*dqkv.unbind(2), dbias), want,
+                                        (4, 4, 4, 0.0128)):
+                e, t = _max_err(g_, w_), _ulp_tol(w_, u_)
+                worst = max(worst, e / t)
+                if not e <= t:
+                    raise RuntimeError(f"swin_train: window attention "
+                                       f"backward launch {i} {name}: "
+                                       f"{e:.4g} > {t:.4g}")
+        print(f"[swin_train] each of the step's {len(launches)} window "
+              f"attention backward launches against the plain backward on "
+              f"its own inputs: worst error {worst:.3g} of its tolerance "
+              f"(dq, dk, dv 4 bf16 ulps, dbias 1e-4 of its largest value, "
+              f"as in phase 3); dq, dk and dv against an f32 evaluation of "
+              f"the same inputs, worst relative RMS: kernel {rel[0]:.4g}, "
+              f"plain bf16 {rel[1]:.4g}", flush=True)
+        launches.clear()
+
+    wa.window_attention_bwd_cuda = capture
+    try:
+        return _train_run(
+            "swin_train", f"TaskPrompter-Swin-B Cityscapes-3D, 1 image at "
+            f"{SW_IMG[0]}x{SW_IMG[1]} (labels at {SW_OUT[0]}x{SW_OUT[1]})",
+            trainer, batches, expected_swin_train(), 1, check_launches)
+    finally:
+        wa.window_attention_bwd_cuda = real
+
+
+def _train_run(tag, title, trainer, batches, expected, batch_size,
+               after_backward=None):
+    """One checked training step on batches[0] (launch counts, gradients
+    against the f32 reference of the same weights, batch and drop-path masks,
+    in all and per tensor; see GRAD_RMS_TOL), then the other batches timed;
+    finite losses, moving parameters and BN statistics. ``after_backward``
+    runs right after the checked step's backward. Returns the step's launch
+    counts."""
+    from mtt_tpu_torch.kernels import _build
+
+    model = trainer.model
     state = trainer.generator.get_state()
-    g_plain = _grads_of(copy.deepcopy(model), batches[0], trainer.criterion,
-                        state, "plain")
+    criterion = trainer.criterion
+    # copies of the weights before the step: the plain versions in bf16 and
+    # the f32 reference
+    plain_model = copy.deepcopy(model)
     ref_model = copy.deepcopy(model).float()
-    g_ref = _grads_of(ref_model, batches[0], trainer.criterion, state,
-                      "plain")
-    ref_model.zero_grad(set_to_none=True)
-    torch.cuda.empty_cache()
     buffers0 = {n: b.clone() for n, b in model.named_buffers()
                 if "running" in n}
-    master0 = [m.detach().cpu() for m in trainer.master]  # off the card
+    master0 = [m.detach().to("cpu", copy=True) for m in trainer.master]
 
+    # the kernels, through the trainer, and their f32 reference; f32 products
+    # and convolutions in f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    point = _ForwardPoint()
     torch.cuda.synchronize()
     _build.reset_counts()
-    losses = trainer.backward(batches[0])
+    with point.record(model), _deterministic():
+        losses = trainer.backward(batches[0])
     torch.cuda.synchronize()
     counts = dict(_build.COUNTS)
+    if after_backward is not None:
+        after_backward()
     g_kernel = {n: w.grad.detach().clone() for n, w in
                 model.named_parameters()}
-    trainer.update()
-    torch.cuda.synchronize()
-    print(f"[train] TaskPrompter-ViT-L PASCAL, batch {BT} at {IMG}x{IMG}, "
-          f"bf16 with f32 master weights; launches of one step {counts}",
-          flush=True)
-    if counts != expected_train():
-        raise RuntimeError(f"training launch counts {counts} != "
-                           f"{expected_train()}")
-    rms_k, rms_p = _rel_rms(g_kernel, g_ref), _rel_rms(g_plain, g_ref)
-    print(f"[train] step-1 gradients vs the f32 plain run: relative RMS over "
-          f"all gradients kernels {rms_k:.5g} (tol {GRAD_RMS_TOL}), plain "
-          f"bf16 {rms_p:.5g}", flush=True)
+    print(f"[{tag}] {title}, bf16 with f32 master weights; launches of "
+          f"one step {counts}", flush=True)
+    if counts != expected:
+        raise RuntimeError(f"{tag} launch counts {counts} != {expected}")
+    g_ref = _grads(ref_model, batches[0], criterion, state, "plain",
+                   point.pin(ref_model), _deterministic())
+    rms_k = _rel_rms(g_kernel, g_ref)
     if not all(torch.isfinite(g).all() for g in g_kernel.values()):
-        raise RuntimeError("non-finite gradients")
-    if not rms_k <= GRAD_RMS_TOL:
-        raise RuntimeError(f"gradients {rms_k:.4g} (relative RMS) from the "
-                           f"f32 run, over {GRAD_RMS_TOL}")
-    # per tensor: each path's relative error against the f32 run, leaving
-    # out the gradients that are zero but for rounding noise
+        raise RuntimeError(f"{tag}: non-finite gradients")
+    # per tensor: the relative error against the reference, leaving out the
+    # gradients that are zero but for rounding noise; over GRAD_RMS_TOL, the
+    # bound of the cancellation rule (see GRAD_RMS_TOL)
     total = sum((g ** 2).sum() for g in g_ref.values()).sqrt().item()
     per, tiny = {}, []
     for k, r in g_ref.items():
@@ -1153,34 +1528,77 @@ def train_phase():
         if rn <= 1e-6 * total:
             tiny.append(k)
             continue
-        per[k] = ((g_kernel[k].float() - r).norm().item() / rn,
-                  (g_plain[k].float() - r).norm().item() / rn,
-                  rn / total, r.numel())
-    print(f"[train] {len(tiny)} gradients under 1e-6 of all in the f32 run, "
+        per[k] = ((g_kernel[k].float() - r).norm().item() / rn, rn / total,
+                  r.numel())
+    over = [k for k, (ek, *_) in per.items() if ek > GRAD_RMS_TOL]
+    rho = _cancellation(ref_model, over, lambda: _grads(
+        ref_model, batches[0], criterion, state, "plain",
+        point.pin(ref_model), _deterministic())) if over else {}
+    # the plain versions in bf16 at the same forward point, for comparison:
+    # the kernels' backward against the plain one's
+    g_pin = _grads(plain_model, batches[0], criterion, state, "plain",
+                   point.pin(plain_model), _deterministic())
+    del point
+    rms_pin = _rel_rms(g_pin, g_ref)
+    e_pin = {k: (g_pin[k].float() - g_ref[k]).norm().item()
+             / g_ref[k].norm().item() for k in over}
+    del g_pin
+    # the tensors that carry most of the error of all, with their norms
+    err2 = {k: ((g_kernel[k].float() - r) ** 2).sum().item()
+            for k, r in g_ref.items()}
+    num = sum(err2.values())
+    shares = [f"{k} {err2[k] / num:.3g} (||g32|| {g_ref[k].norm():.4g})"
+              for k in sorted(err2, key=lambda k: -err2[k])[:6]]
+
+    # the plain versions in bf16 against their own reference, and both
+    # against the free-running f32 step, for comparison
+    point = _ForwardPoint()
+    g_plain = _grads(plain_model, batches[0], criterion, state, "plain",
+                     point.record(plain_model), _deterministic())
+    del plain_model
+    g_ref_p = _grads(ref_model, batches[0], criterion, state, "plain",
+                     point.pin(ref_model), _deterministic())
+    del point
+    rms_p = _rel_rms(g_plain, g_ref_p)
+    g_free = _grads(ref_model, batches[0], criterion, state, "plain",
+                    _deterministic())
+    free_k, free_p = _rel_rms(g_kernel, g_free), _rel_rms(g_plain, g_free)
+    del ref_model, g_free, g_plain, g_ref_p
+    trainer.update()
+    torch.cuda.synchronize()
+    print(f"[{tag}] step-1 gradients vs the f32 reference (plain versions at "
+          f"the run's forward point): relative RMS over all gradients "
+          f"kernels {rms_k:.5g} (tol {GRAD_RMS_TOL}), plain bf16 at the same "
+          f"point {rms_pin:.5g}, plain bf16 at its own {rms_p:.5g}; vs the "
+          f"free-running f32 step (not bounded): kernels {free_k:.5g}, plain "
+          f"bf16 {free_p:.5g}", flush=True)
+    print(f"[{tag}] error share of the kernels' largest: {shares}",
+          flush=True)
+    print(f"[{tag}] {len(tiny)} gradients under 1e-6 of all in the f32 run, "
           f"left out per tensor: {tiny}", flush=True)
-    over = [k for k, (ek, ep, _, _) in per.items()
-            if max(ek, ep) > GRAD_RMS_TOL]
-    rho = _cancellation(ref_model, batches[0], trainer.criterion, state,
-                        over)
-    del ref_model
     bad = []
-    for k in sorted(over, key=lambda k: -max(per[k][:2])):
-        ek, ep, share, n = per[k]
+    for k in sorted(over, key=lambda k: -per[k][0]):
+        ek, share, n = per[k]
         tol = GRAD_RMS_TOL / rho[k] if k in rho else GRAD_RMS_TOL
-        print(f"[train] tensor {k} ({n} values, ||g32|| = {share:.3g} of "
-              f"all): relative error kernels {ek:.5g}, plain bf16 {ep:.5g}; "
-              f"cancellation rho {rho.get(k, 'not measured')}, tol "
-              f"{tol:.5g}", flush=True)
         if not ek <= tol:
             bad.append(k)
-    print(f"[train] per tensor: {len(per) - len(over)} of {len(per)} within "
-          f"{GRAD_RMS_TOL} on both bf16 paths; {len(bad)} over their "
-          f"tolerance", flush=True)
+        print(f"[{tag}] tensor {k} ({n} values, ||g32|| = {share:.3g} of "
+              f"all): relative error kernels {ek:.5g} (plain bf16 at the same "
+              f"point {e_pin[k]:.5g}); cancellation rho "
+              f"{rho.get(k, 'not measured')}, tol {tol:.5g}: "
+              f"{'OVER' if k in bad else 'ok'}", flush=True)
+    print(f"[{tag}] per tensor: {len(per) - len(over)} of {len(per)} within "
+          f"{GRAD_RMS_TOL} on the kernels; {len(bad)} over their tolerance",
+          flush=True)
+    if not rms_k <= GRAD_RMS_TOL:
+        raise RuntimeError(f"{tag}: gradients {rms_k:.4g} (relative RMS) "
+                           f"from the f32 reference, over {GRAD_RMS_TOL}")
     if bad:
-        raise RuntimeError(f"per-tensor gradient check failed for {bad}")
-    has_grad = [g_ref[n].abs().sum().item() > 0
+        raise RuntimeError(f"{tag}: per-tensor gradient check failed for "
+                           f"{bad}")
+    has_grad = [n in g_ref and g_ref[n].abs().sum().item() > 0
                 for n, _ in model.named_parameters()]
-    del g_kernel, g_plain, g_ref
+    del g_kernel, g_ref
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1194,34 +1612,36 @@ def train_phase():
         step_ms.append((time.perf_counter() - t0) * 1e3)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     totals = [float(ls["total"]) for ls in all_losses]
-    print(f"[train] losses per step {[round(v, 5) for v in totals]}; "
+    print(f"[{tag}] losses per step {[round(v, 5) for v in totals]}; "
           f"step 1 {({k: round(float(v), 5) for k, v in losses.items()})}",
           flush=True)
     if not all(torch.isfinite(v).all() for ls in all_losses
                for v in ls.values()):
-        raise RuntimeError("non-finite training loss")
+        raise RuntimeError(f"{tag}: non-finite training loss")
     names = [n for n, _ in model.named_parameters()]
     still = [n for n, a, b in zip(names, master0, trainer.master)
              if torch.equal(a, b.detach().cpu())]
     stuck = [n for n, g in zip(names, has_grad) if g and n in still]
     bn_moved = sum(not torch.equal(buffers0[n], b) for n, b in
                    model.named_buffers() if n in buffers0)
-    print(f"[train] parameters moved {len(names) - len(still)}/{len(names)} "
+    print(f"[{tag}] parameters moved {len(names) - len(still)}/{len(names)} "
           f"(unmoved, each with a zero f32 gradient: {still}); BN running "
           f"statistics moved {bn_moved}/{len(buffers0)}", flush=True)
     if stuck or bn_moved != len(buffers0):
         raise RuntimeError(f"parameters with a gradient that did not move "
                            f"{stuck}, or BN statistics that did not move")
     ms = statistics.median(step_ms)
-    print(f"[train] {ms:.2f} ms per step (median of {len(step_ms)}; "
-          f"{[round(v, 2) for v in step_ms]}) = {BT / ms * 1e3:.2f} imgs/s; "
-          f"peak memory of steps 2-{TRAIN_STEPS} {peak_gib:.2f} GiB",
+    print(f"[{tag}] {ms:.2f} ms per step (median of {len(step_ms)}; "
+          f"{[round(v, 2) for v in step_ms]}) = {batch_size / ms * 1e3:.2f} "
+          f"imgs/s; peak memory of steps 2-{len(batches)} {peak_gib:.2f} GiB",
           flush=True)
     return counts
 
 
 # profile: kernel-name fragment -> group; anything else is library work
 PROFILE_GROUPS = (("mlp_kernel", "mlp (mlp.cu)"),
+                  ("wattn_bwd", "window attention backward"),
+                  ("wattn_dbias", "window attention backward"),
                   ("attn_bwd", "attention backward"),
                   ("attn_core", "attention core"),
                   ("gemm_nt_bias", "qkv projection"),
@@ -1320,6 +1740,155 @@ def profile_phase(wanted):
         trainer, data = _vitl_trainer()
         batch = to_device(data.batch(0, BT), torch.device("cuda"))
         _profile(f"training step, batch {BT}", lambda: trainer.step(batch))
+        del trainer, data, batch
+    if "swin_train" in wanted:
+        trainer, data = _swin_trainer()
+        batch = to_device(data.batch(0, 1), torch.device("cuda"))
+        _profile("Swin-B Cityscapes-3D training step, 1 image",
+                 lambda: trainer.step(batch), top=24)
+
+
+def grad_diag() -> None:
+    """``--grad-diag``: the Swin-B training step run free, against the f32
+    step of the same weights, batch and drop-path masks. For the whole loss
+    and for its 2D and detection parts: how far the kernels' and the plain
+    versions' bf16 gradients sit from the f32 ones, and how far the plain
+    bf16 and the f32 gradients move when the image is scaled by 1 + 2^-9.
+    Then, for the whole loss, the relative error of the forward value and
+    of the gradient at the outputs of the decodes, the detection head (its
+    towers at the first level) and the model. First, how far the kernels'
+    bf16 gradients move between two runs on equal inputs, on the library's
+    default algorithms and on deterministic ones."""
+    from mtt_tpu_torch.utils.train_utils import to_device
+
+    trainer, data = _swin_trainer()
+    dev = next(trainer.model.parameters()).device
+    batch = to_device(data.batch(0, 1), dev)
+    nudged = dict(batch, image=batch["image"] * (1 + 2.0 ** -9))
+    state = trainer.generator.get_state()
+    m16, m32 = trainer.model, copy.deepcopy(trainer.model).float()
+    w = trainer.p["loss_kwargs"]["loss_weights"]
+
+    for mode, ctx in (("default", contextlib.nullcontext),
+                      ("deterministic", _deterministic)):
+        g1, g2 = (_grads(m16, batch, trainer.criterion, state, None, ctx())
+                  for _ in range(2))
+        moved = {k: ((g2[k].float() - g1[k].float()).norm()
+                     / g1[k].float().norm()).item() for k in g1}
+        worst = max((k for k in moved if "chan_q" in k), key=moved.get)
+        print(f"[grad_diag] kernels, two runs on equal inputs, {mode} "
+              f"algorithms: relative RMS between them {_rel_rms(g2, g1):.5g};"
+              f" {sum(v > 0 for v in moved.values())} of {len(moved)} "
+              f"tensors differ; the most of a chan_q tensor {worst} "
+              f"{moved[worst]:.4g}", flush=True)
+        del g1, g2
+
+    def part(tasks):
+        def crit(out, b):
+            ls = trainer.criterion(out, b)
+            return {"total": sum(w[t] * ls[t] for t in tasks)}
+        return crit
+
+    for label, tasks in (("whole loss", tuple(w)),
+                         ("semseg + depth", ("semseg", "depth")),
+                         ("3ddet", ("3ddet",))):
+        crit = part(tasks)
+        g32 = _grads(m32, batch, crit, state, "plain")
+        d = {"kernels": _rel_rms(_grads(m16, batch, crit, state, None), g32)}
+        gp = _grads(m16, batch, crit, state, "plain")
+        d["plain bf16"] = _rel_rms(gp, g32)
+        d["plain bf16 moved by the image x (1 + 2^-9)"] = _rel_rms(
+            _grads(m16, nudged, crit, state, "plain"), gp)
+        d["f32 moved by it"] = _rel_rms(
+            _grads(m32, nudged, crit, state, "plain"), g32)
+        print(f"[grad_diag] {label}: gradients, relative RMS over all: "
+              + "; ".join(f"{k} {v:.5g}" for k, v in d.items()), flush=True)
+        del g32, gp
+
+    watched = re.compile(r"^$|^backbone\.(decode_\d|norm)$|^det_head\.fpn$"
+                         r"|^det_head\.fcos3d(\.(cls|reg)_tower_\d)?$")
+
+    def first_levels(out, label=""):
+        """(label, tensor) of each tensor of an output; of a list of levels,
+        the first."""
+        if torch.is_tensor(out):
+            return [(label, out)]
+        if isinstance(out, list):
+            return first_levels(out[0], label)
+        items = out.items() if isinstance(out, dict) else enumerate(out) \
+            if isinstance(out, tuple) else ()
+        return [t for k, o in items
+                for t in first_levels(o, f"{label}.{k}".lstrip("."))]
+
+    def capture(model, impl):
+        vals, grads, calls, hooks = {}, {}, {}, []
+
+        def make(name):
+            def h(mod, args, out):
+                calls[name] = i = calls.get(name, -1) + 1
+                if i:                       # a later level's call
+                    return
+                for j, t in first_levels(out):
+                    key = (name, j)
+                    vals[key] = t.detach().float()
+                    if t.requires_grad:
+                        t.register_hook(lambda g, key=key: grads.__setitem__(
+                            key, g.detach().float()))
+            return h
+        for name, mod in model.named_modules():
+            if watched.match(name):
+                hooks.append(mod.register_forward_hook(make(name)))
+        try:
+            _grads(model, batch, trainer.criterion, state, impl)
+        finally:
+            for h in hooks:
+                h.remove()
+        return vals, grads
+
+    def rel(a, b):
+        n = b.norm().item()
+        return (a - b).norm().item() / n if n else float("nan")
+
+    # the f32 gradients at the kernels' and at the plain versions' forward
+    # points (``_ForwardPoint``), and each bf16 run against its own
+    crit, pts, gs, refs = trainer.criterion, {}, {}, {}
+    for impl in (None, "plain"):
+        pts[impl] = _ForwardPoint()
+        gs[impl] = _grads(m16, batch, crit, state, impl,
+                          pts[impl].record(m16))
+        refs[impl] = _grads(m32, batch, crit, state, "plain",
+                            pts[impl].pin(m32))
+    pts_rel = _rel_rms(refs[None], refs["plain"])
+    own = [_rel_rms(gs[i], refs[i]) for i in (None, "plain")]
+    print(f"[grad_diag] f32 gradients at the kernels' forward point against "
+          f"those at the plain versions': {pts_rel:.5g}; kernels against "
+          f"their point's {own[0]:.5g}, plain bf16 against theirs "
+          f"{own[1]:.5g}", flush=True)
+    total = sum((g ** 2).sum() for g in refs[None].values()).sqrt()
+    err = {k: (gs[None][k].float() - r).norm().item() / r.norm().item()
+           for k, r in refs[None].items() if r.norm() > 1e-6 * total}
+    for k in sorted(err, key=lambda k: -err[k])[:4]:
+        print(f"[grad_diag]   {k}: ||g32|| at the kernels' point "
+              f"{refs[None][k].norm():.4g}, at the plain versions' "
+              f"{refs['plain'][k].norm():.4g}; ||error|| kernels "
+              f"{(gs[None][k].float() - refs[None][k]).norm():.4g}, plain "
+              f"{(gs['plain'][k].float() - refs['plain'][k]).norm():.4g}",
+              flush=True)
+    del pts, gs, refs
+
+    ref, runs = capture(m32, "plain"), (capture(m16, "plain"),
+                                        capture(m16, None))
+    print("[grad_diag] module output (first level of a list): relative "
+          "error of the forward value and of its gradient, plain bf16 / "
+          "kernels, against the f32 step", flush=True)
+    for key, v in ref[0].items():
+        fw = [rel(r[0][key], v) for r in runs]
+        g = ref[1].get(key)
+        gr = [rel(r[1][key], g) if g is not None and key in r[1]
+              else float("nan") for r in runs]
+        print(f"[grad_diag]   {key[0] or 'model'}[{key[1]}] "
+              f"{tuple(v.shape)}: forward {fw[0]:.4g} / {fw[1]:.4g}, "
+              f"gradient {gr[0]:.4g} / {gr[1]:.4g}", flush=True)
 
 
 def _kernel_name(mangled: str) -> str:
@@ -1333,22 +1902,33 @@ def _kernel_name(mangled: str) -> str:
     return mangled
 
 
+PHASES = {"kernels": kernel_phase, "eval": eval_phase, "invpt": invpt_phase,
+          "swin": swin_phase, "train": train_phase,
+          "swin_train": swin_train_phase}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="only print the device-time breakdown of one eval "
                          "forward and one training step (torch.profiler)")
-    ap.add_argument("--phases", default="kernels,eval,invpt,swin,train",
-                    help="comma-separated subset of kernels, eval, invpt, "
-                         "swin, train; a subset prints no result lines")
+    ap.add_argument("--grad-diag", action="store_true",
+                    help="only print how far the Swin-B training step's "
+                         "bf16 gradients sit from the f32 step's, run free "
+                         "(see grad_diag)")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ", ".join(PHASES)
+                         + "; a subset prints no result lines")
     args = ap.parse_args(argv)
     profile_only = args.profile
     wanted = args.phases.split(",")
-    if not set(wanted) <= {"kernels", "eval", "invpt", "swin", "train"}:
+    if not set(wanted) <= set(PHASES):
         ap.error(f"unknown phase in {args.phases!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # before cuBLAS starts: its deterministic mode for the checked steps
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from mtt_tpu_torch.kernels import _build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1370,11 +1950,12 @@ def main(argv=None):
     if profile_only:
         profile_phase(wanted)
         return 0
+    if args.grad_diag:
+        grad_diag()
+        return 0
 
     phases, outcome = {}, {}
-    for name, run in (("kernels", kernel_phase), ("eval", eval_phase),
-                      ("invpt", invpt_phase), ("swin", swin_phase),
-                      ("train", train_phase)):
+    for name, run in PHASES.items():
         if name in wanted:
             t = time.perf_counter()
             outcome[name] = run()
@@ -1382,12 +1963,12 @@ def main(argv=None):
             torch.cuda.empty_cache()
     print(f"[phases] seconds {({k: round(v, 1) for k, v in phases.items()})}",
           flush=True)
-    if len(outcome) < 5:
+    if len(outcome) < len(PHASES):
         print(f"[partial] ran only {sorted(outcome)}: no result", flush=True)
         return 0
     results, eval_counts = outcome["kernels"], outcome["eval"]
     invpt_counts, train_counts = outcome["invpt"], outcome["train"]
-    swin_counts = outcome["swin"]
+    swin_counts, swin_train_counts = outcome["swin"], outcome["swin_train"]
 
     rows = []
     for name, (src, replaces, counter, path) in KERNEL_ROWS.items():
@@ -1397,13 +1978,15 @@ def main(argv=None):
                    "train_step": train_counts[counter],
                    "invpt_tail": invpt_counts["tail"][counter],
                    "invpt_tail_head": invpt_counts["tail_head"][counter],
-                   "swin": swin_counts[counter]}
+                   "swin": swin_counts[counter],
+                   "swin_train": swin_train_counts[counter]}
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=by_path[{"eval": "eval_factored", "train": "train_step",
                               "invpt": "invpt_tail",
                               "invpt_head": "invpt_tail_head",
-                              "swin": "swin"}[path]],
+                              "swin": "swin",
+                              "swin_train": "swin_train"}[path]],
             launches_by_path=by_path, max_abs_err=r["max_abs_err"],
             tol=r["tol"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -1,5 +1,7 @@
 """FCOS3D-style detection hyper-parameters for Cityscapes-3D (the values of
-mtt_tpu/detection/det_params.py ``default_det_params``, as plain dicts)."""
+mtt_tpu/detection/det_params.py ``default_det_params``, as plain dicts),
+with the losses' settings and ``max_boxes``, the fixed number of ground-truth
+slots a training image carries."""
 
 from __future__ import annotations
 
@@ -26,6 +28,17 @@ def default_det_params(num_classes: int = 6) -> dict:
         group_reg_dims=(2, 1, 3, 3, 4),     # offset, depth, size, rot, bbox2d
         code_weight=(1.0, 1.0, 0.2, 1.0, 1.0, 1.0, 5.0, 5.0, 5.0, 1.0, 1.0,
                      1.0, 1.0),
+        # losses
+        loss_cls=dict(type="FocalLoss", use_sigmoid=True, gamma=2.0,
+                      alpha=0.25, loss_weight=5.0),
+        loss_dir=dict(type="CrossEntropyLoss", use_sigmoid=False,
+                      loss_weight=1.0),
+        loss_bbox=dict(type="SmoothL1Loss", beta=1.0 / 9.0, loss_weight=1.0),
+        loss_centerness=dict(type="CrossEntropyLoss", use_sigmoid=True,
+                             loss_weight=1.0),
+        loss_bbox2d=dict(type="SmoothL1Loss", beta=1.0 / 9.0,
+                         loss_weight=1.0),
+        loss_consistency=dict(type="GIoULoss", loss_weight=1.0),
         # head topology
         stacked_convs=3,
         in_channels=256,
@@ -44,4 +57,6 @@ def default_det_params(num_classes: int = 6) -> dict:
         test_cfg=dict(use_rotate_nms=True, nms_across_levels=False,
                       nms_pre=1000, nms_thr=0.3, score_thr=0.05,
                       min_bbox_size=0, max_per_img=200),
+        # fixed-capacity padding of the ragged ground-truth boxes
+        max_boxes=64,
     )

@@ -36,7 +36,8 @@ LIB_NAME = "libmtt_kernels.so"
 COUNTS = {"layernorm": 0, "attention_cached": 0, "attention_emit": 0,
           "attention_bwd": 0, "mlp_ln_res": 0, "mlp_fc": 0, "task_decode": 0,
           "head_up4": 0, "invpt_attention": 0, "invpt_tail": 0,
-          "invpt_tail_head": 0, "window_attention": 0}
+          "invpt_tail_head": 0, "window_attention": 0,
+          "window_attention_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +60,8 @@ _SIGNATURES = {
     "mtt_invpt_tail_bf16": (*[_P] * 15, _I, _I, _I, _I, _I, _I, _I, _P),
     "mtt_window_attention_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
                                   _L, _L, _F, _P),
+    "mtt_window_attention_bwd_bf16": (*[_P] * 9, _I, _I, _I, _I, *[_L] * 6,
+                                      _I, _F, _P),
 }
 
 _lock = threading.Lock()

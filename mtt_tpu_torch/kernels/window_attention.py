@@ -21,9 +21,18 @@ stage, against 6 GFLOP). The kernel reads q, k and v as strided views of the
 packed qkv projection and writes (BW, M, H * D), ready for the output
 projection: none of the four transposes of the TPU wrapper is launched.
 
-The gradient: the JAX package has a backward kernel for this function
-(``_wattn_bwd_kernel``). Until that is ported, a CUDA tensor that requires
-grad raises; the plain version is ordinary differentiable torch.
+The gradient ports the JAX custom VJP (``_wattn_bwd``) and its backward
+kernel ``_wattn_bwd_kernel`` (csrc/window_attention_bwd.cu, plain twin
+``window_attention_bwd_plain``): per (window, head) it recomputes the logits
+and the NORMALISED f32 probabilities pn (the backward normalises before it
+rounds, the forward after p.v), then dp = g v^T, r = rowsum(dp * pn), dl = pn
+(dp - r); dq = bf16(dl) k * scale, dk = bf16(dl)^T q * scale, dv = bf16(pn)^T
+g, each accumulated in f32 and rounded once; dbias (H, M, M) f32 is the sum
+of the unrounded dl over the windows. The mask gets no gradient (it is a
+buffer made from the window geometry). The Swin block hands over its packed
+(BW, M, 3, H, D) projection (``fused_window_attention_qkv``): the Function
+saves that tensor, not copies, and the backward writes dq, dk and dv into
+one packed gradient of the same layout.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from mtt_tpu_torch.kernels import _build
 
 HEAD_DIM = 32          # every Swin-B stage: C / heads = 32
 _SMEM_MAX = 232448
+BWD_MAX_TOKENS = 160   # the backward's window, padded to 16s
 
 
 def window_attention_plain(q, k, v, bias, mask, scale: float, nW: int):
@@ -113,21 +123,138 @@ def window_attention_cuda(q, k, v, bias, mask, scale: float, nW: int):
     return out.view(BW, M, H, D)
 
 
+def window_attention_bwd_plain(q, k, v, bias, mask, g, scale: float,
+                               nW: int):
+    """The backward at the TPU kernel's rounding points: (dq, dk, dv) in q's
+    dtype, each (BW, M, H, D), and dbias (H, M, M) f32."""
+    BW = q.shape[0]
+    qf, kf = q.float(), k.float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    logits = logits + bias.float()[None]
+    if mask is not None:
+        logits = logits + mask.float().repeat(BW // nW, 1, 1)[:, None]
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    pn = e / e.sum(-1, keepdim=True)                     # (BW, H, M, M) f32
+    gf = g.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, v.float())
+    dl = pn * (dp - (dp * pn).sum(-1, keepdim=True))
+    dlb = dl.to(q.dtype).float()
+    dq = (torch.einsum("bhqk,bkhd->bqhd", dlb, kf) * scale).to(q.dtype)
+    dk = (torch.einsum("bhqk,bqhd->bkhd", dlb, qf) * scale).to(k.dtype)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pn.to(q.dtype).float(), gf
+                      ).to(v.dtype)
+    return dq, dk, dv, dl.sum(0)
+
+
+# blocks of the backward launch: one window chunk a block and head, about two
+# waves of the card's 132 SMs (one block an SM: the kernel keeps 213 KB of
+# tiles and strips in shared memory)
+BWD_BLOCKS = 264
+
+
+def bwd_window_chunks(BW: int, H: int) -> int:
+    """Windows a backward block walks in order; each block sums its windows'
+    dl into one f32 partial of dbias."""
+    return max(1, -(-BW * H // BWD_BLOCKS))
+
+
+def window_attention_bwd_cuda(q, k, v, bias, mask, g, scale: float, nW: int):
+    """Launches the backward kernel and the fixed-order sum of its dbias
+    partials; counts nothing (the Function counts). q, k, v as the forward
+    takes them. Returns (dqkv (BW, M, 3, H, D) in q's dtype, dbias (H, M, M)
+    f32)."""
+    BW, M, H, D = q.shape
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the window attention backward kernel takes "
+                        f"bfloat16, got {q.dtype}")
+    if D != HEAD_DIM:
+        raise ValueError(f"the window attention backward kernel takes head "
+                         f"dim {HEAD_DIM}, got {D}")
+    MP = -(-M // 16) * 16
+    if MP > BWD_MAX_TOKENS:
+        raise ValueError(f"the window attention backward kernel keeps a "
+                         f"window's q, k, v, g, probabilities and gradients "
+                         f"in shared memory; M={M} tokens do not fit (at "
+                         f"most {BWD_MAX_TOKENS}; Swin-B's window is 147)")
+    if not (all(_strided(t) for t in (q, k, v))
+            and q.stride() == k.stride() == v.stride()):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    g = g.to(q.dtype)
+    if not _strided(g):
+        g = g.contiguous()
+    bias = bias.float().contiguous()
+    if mask is not None:
+        mask = mask.float().contiguous()
+    wpc = bwd_window_chunks(BW, H)
+    nchunk = -(-BW // wpc)
+    dqkv = torch.empty(BW, M, 3, H, D, dtype=q.dtype, device=q.device)
+    work = torch.empty(nchunk, H, M, M, dtype=torch.float32, device=q.device)
+    dbias = torch.empty(H, M, M, dtype=torch.float32, device=q.device)
+    sb, sm, sh, _ = q.stride()
+    gb, gm, gh, _ = g.stride()
+    _build.check(_build.lib().mtt_window_attention_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        bias.data_ptr(), mask.data_ptr() if mask is not None else None,
+        dqkv.data_ptr(), work.data_ptr(), dbias.data_ptr(), BW, M, H,
+        nW if mask is not None else 1, sb, sm, sh, gb, gm, gh, wpc,
+        float(scale), _build.stream()), "mtt_window_attention_bwd_bf16")
+    return dqkv, dbias
+
+
+def _forward(q, k, v, bias, mask, scale, nW, impl):
+    if impl == "plain":
+        return window_attention_plain(q, k, v, bias, mask, scale, nW)
+    out = window_attention_cuda(q, k, v, bias, mask, scale, nW)
+    _build.COUNTS["window_attention"] += 1
+    return out
+
+
+class _WindowAttention(torch.autograd.Function):
+    """Window attention over a packed (BW, M, 3, H, D) projection; the
+    gradient is the packed dqkv and dbias."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, scale, nW, impl):
+        ctx.save_for_backward(qkv, bias, mask)
+        ctx.cfg = (scale, nW, impl)
+        return _forward(*qkv.unbind(2), bias, mask, scale, nW, impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias, mask = ctx.saved_tensors
+        scale, nW, impl = ctx.cfg
+        q, k, v = qkv.unbind(2)
+        if impl == "plain":
+            dq, dk, dv, dbias = window_attention_bwd_plain(
+                q, k, v, bias, mask, g, scale, nW)
+            dqkv = torch.stack((dq, dk, dv), 2)
+        else:
+            dqkv, dbias = window_attention_bwd_cuda(q, k, v, bias, mask, g,
+                                                    scale, nW)
+            _build.COUNTS["window_attention_bwd"] += 1
+        dbias = dbias.to(bias.dtype) if ctx.needs_input_grad[1] else None
+        return dqkv, dbias, None, None, None, None
+
+
+def fused_window_attention_qkv(qkv, bias, mask, scale: float, nW: int,
+                               impl: str | None = None):
+    """``fused_window_attention`` on the packed projection qkv (BW, M, 3, H,
+    D), as the Swin block makes it; differentiable in qkv and bias."""
+    if qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"qkv must be a packed (BW, M, 3, H, D) tensor, got "
+                         f"{tuple(qkv.shape)}")
+    q, k, v = qkv.unbind(2)
+    _check(q, k, v, bias, mask, nW)
+    return _WindowAttention.apply(qkv, bias, mask, scale, nW,
+                                  _build.resolve_impl(impl, qkv))
+
+
 def fused_window_attention(q, k, v, bias, mask, scale: float, nW: int,
                            impl: str | None = None):
     """Swin window attention over (B*nW, M, H, D) with a per-head additive
     bias (H, M, M) and an optional per-window mask (nW, M, M), window ``w``
-    taking ``mask[w % nW]``. Returns (B*nW, M, H, D)."""
+    taking ``mask[w % nW]``. Returns (B*nW, M, H, D). The JAX package's
+    signature: ``fused_window_attention_qkv`` on a packed copy of q, k, v."""
     _check(q, k, v, bias, mask, nW)
-    if _build.resolve_impl(impl, q) == "plain":
-        return window_attention_plain(q, k, v, bias, mask, scale, nW)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError(
-            "the window attention kernel has no backward yet: the JAX "
-            "package's _wattn_bwd_kernel is still to be ported (ROADMAP.md, "
-            "kernel table row 12); run under torch.no_grad() or pass "
-            "impl='plain'")
-    out = window_attention_cuda(q, k, v, bias, mask, scale, nW)
-    _build.COUNTS["window_attention"] += 1
-    return out
+    return fused_window_attention_qkv(torch.stack((q, k, v), 2), bias, mask,
+                                      scale, nW, impl)

@@ -1,5 +1,7 @@
 """Multi-task weighted-sum loss (port of mtt_tpu/losses/loss_schemes.py:19-51,
-the 2D tasks without intermediate supervision: TaskPrompter has none)."""
+without intermediate supervision: TaskPrompter has none). The ``3ddet``
+route is the FCOS3D criterion on the detection head's output and the
+batch's ``det_*`` ground truth."""
 
 from __future__ import annotations
 
@@ -7,22 +9,37 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
+from mtt_tpu_torch.detection.det_model import build_detection_criterion
+from mtt_tpu_torch.detection.det_params import default_det_params
 from mtt_tpu_torch.losses.loss_functions import get_loss_fn
 
 
 def build_criterion(p: dict, tasks: Sequence[str]) -> Callable:
     """criterion(pred, gt) -> {task: loss, "total": sum_t w_t loss_t}, with
-    the weights of ``p["loss_kwargs"]["loss_weights"]``."""
+    the weights of ``p["loss_kwargs"]["loss_weights"]``. Under ``3ddet`` the
+    detection loss's components ride along as ``3ddet.<component>`` (not in
+    the total twice: the ``3ddet`` entry is their sum). The detection
+    settings are ``p["det_cfg"]``, by default ``default_det_params()``."""
     if p.get("intermediate_supervision", False):
         raise NotImplementedError("intermediate supervision (InvPT) is not "
                                   "ported yet")
     weights = {t: float(p["loss_kwargs"]["loss_weights"][t]) for t in tasks}
-    loss_fns = {t: get_loss_fn(t, p) for t in tasks}
+    loss_fns = {t: get_loss_fn(t, p) for t in tasks if t != "3ddet"}
+    det_loss = build_detection_criterion(p.get("det_cfg")
+                                         or default_det_params()) \
+        if "3ddet" in tasks else None
 
     def criterion(pred: Dict[str, torch.Tensor],
                   gt: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        out = {t: loss_fns[t](pred[t], gt[t]) for t in tasks}
+        out, parts = {}, {}
+        for t in tasks:
+            if t == "3ddet":
+                out[t], comps = det_loss(pred[t], gt)
+                parts.update({f"3ddet.{k}": v for k, v in comps.items()})
+            else:
+                out[t] = loss_fns[t](pred[t], gt[t])
         out["total"] = sum(weights[t] * out[t] for t in tasks)
+        out.update(parts)
         return out
 
     return criterion

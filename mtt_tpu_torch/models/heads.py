@@ -22,8 +22,8 @@ module and one tree for both forms).
 ``phase`` raises until it is ported (ROADMAP.md, open item 1).
 
 ``DEConvHead`` is the Cityscapes-3D head: a 2x2 stride-2 transposed conv, BN,
-GELU, a 3x3 conv, BN, GELU and the 1x1 logits (eval mode; cuDNN, as it is XLA
-in the JAX package).
+GELU, a 3x3 conv, BN, GELU and the 1x1 logits (cuDNN, as it is XLA in the JAX
+package); in training both BNs take batch statistics (``layers.bn_train``).
 """
 
 from __future__ import annotations
@@ -33,8 +33,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
-from mtt_tpu_torch.models.layers import (ConvBNAct, bn_eval, conv1x1, to_nchw,
-                                         to_nhwc, up4_conv3x3_factored,
+from mtt_tpu_torch.models.layers import (ConvBNAct, batch_norm, conv1x1,
+                                         to_nchw, to_nhwc,
+                                         up4_conv3x3_factored,
                                          update_running_stats)
 
 UP4_MODES = ("factored", "dense")
@@ -107,7 +108,7 @@ class ConvHead(nn.Module):
 
 
 class DEConvHead(nn.Module):
-    """Deconv 2x upsample + conv stack -> 1x1 logits, NHWC, eval mode."""
+    """Deconv 2x upsample + conv stack -> 1x1 logits, NHWC."""
 
     def __init__(self, in_dim: int, num_classes: int, *, device=None,
                  dtype=None):
@@ -121,12 +122,8 @@ class DEConvHead(nn.Module):
         self.linear_pred = nn.Conv2d(mid, num_classes, 1, **kw)
 
     def forward(self, x, train: bool = False, impl=None):
-        if train:
-            raise NotImplementedError(
-                "DEConvHead training (batch statistics) is not ported yet "
-                "(ROADMAP.md: Swin training)")
-        y = F.gelu(bn_eval(self.deconv(to_nchw(x)), self.bn1))
-        y = F.gelu(bn_eval(self.conv(y), self.bn2))
+        y = F.gelu(batch_norm(self.deconv(to_nchw(x)), self.bn1, train))
+        y = F.gelu(batch_norm(self.conv(y), self.bn2, train))
         return conv1x1(self.linear_pred, to_nhwc(y))
 
 

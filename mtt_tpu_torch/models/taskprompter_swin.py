@@ -1,4 +1,4 @@
-"""TaskPrompter-Swin backbone, eval forward (port of
+"""TaskPrompter-Swin backbone, eval and training forward (port of
 mtt_tpu/models/taskprompter_swin.py: ``SwinPromptBlock``, ``PatchMerging``,
 ``SwinTaskDecode``, ``TaskPrompterSwin`` and the window helpers).
 
@@ -17,10 +17,16 @@ pre-scale scores for the decode and runs the same attention as a torch
 composition, as it is an XLA composition in the JAX package. LayerNorm and
 the MLP run through their kernels. Module names mirror the JAX tree.
 
+In training, drop-path (stochastic depth per sample, rate 0.1 * i / (depth -
+1) for block i; the ViT's is 0.15) applies at the JAX block's four places,
+each a draw of its own from the caller's generator, and the decode's BNs take
+batch statistics (``layers.bn_train``). Gradients reach the window attention
+through its backward kernel, the tap blocks' composition through autograd.
+
 Unlike the JAX modules, which read the grid off their input, these are built
 for one input size: ``chan_kv`` contracts over a stage's token count, so the
-weights depend on it anyway. Training (drop-path, batch statistics) and
-``remat`` (which changes memory, not results) are not ported.
+weights depend on it anyway. ``remat`` (which changes memory, not results) is
+not ported.
 """
 
 from __future__ import annotations
@@ -32,9 +38,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mtt_tpu_torch.kernels.window_attention import fused_window_attention
-from mtt_tpu_torch.models.layers import (FusedLN, Mlp, bn_eval, conv1x1,
-                                         interpolate, to_nchw, to_nhwc)
+from mtt_tpu_torch.kernels.window_attention import fused_window_attention_qkv
+from mtt_tpu_torch.models.layers import (FusedLN, Mlp, batch_norm, conv1x1,
+                                         drop_path, interpolate, to_nchw,
+                                         to_nhwc)
 
 LN_EPS = 1e-5          # every Swin norm (1e-6 on the ViT side)
 
@@ -90,11 +97,12 @@ class SwinPromptBlock(nn.Module):
     def __init__(self, dim: int, resolution: Tuple[int, int], num_heads: int,
                  window_size: int, shift_size: int, prompts_len: int,
                  chan_embed_dim: int, last_block: bool = False,
-                 mlp_ratio: float = 4.0, qkv_bias: bool = True, *,
-                 device=None, dtype=None):
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 drop_path: float = 0.0, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         H, W = resolution
+        self.drop_path = drop_path
         # a grid under the window shrinks the window and drops the shift
         ws = min(window_size, H, W)
         self.ws = ws
@@ -143,7 +151,8 @@ class SwinPromptBlock(nn.Module):
         return F.pad(bias, (P, 0, P, 0))
 
     def forward(self, x, prompts, need_taps: bool = False,
-                impl: Optional[str] = None):
+                impl: Optional[str] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         H, W = self.resolution
         ws, shift = self.ws, self.shift
         B, L, C = x.shape
@@ -165,11 +174,13 @@ class SwinPromptBlock(nn.Module):
 
         wins = window_partition(xn, ws)                  # (B*nW, N, C)
         nW = wins.shape[0] // B
-        # the prompts join every window
-        pw = spa_prompts.repeat_interleave(nW, dim=0)    # (B*nW, P, C)
+        # the prompts join every window; as a broadcast, whose gradient sums
+        # the windows' cotangents with f32 accumulation (repeat_interleave's
+        # index_add sums them in bf16, which loses the prompts' gradient
+        # over 512 windows)
+        pw = spa_prompts[:, None].expand(B, nW, P, C).reshape(B * nW, P, C)
         joint = torch.cat([pw, wins], dim=1)             # (B*nW, P+N, C)
         qkv = self.qkv(joint).view(-1, P + N, 3, Hd, Dh)
-        q, k, v = qkv.unbind(2)
 
         bias_f = self.attention_bias()
         m_f = self.attn_mask
@@ -179,6 +190,7 @@ class SwinPromptBlock(nn.Module):
         if need_taps:
             # tap blocks keep the raw (pre-scale, pre-bias) scores for the
             # prompt attention maps: a torch composition, f32 scores
+            q, k, v = qkv.unbind(2)
             raw = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
             attn = raw * scale + bias_f[None]
             if m_f is not None:
@@ -186,8 +198,8 @@ class SwinPromptBlock(nn.Module):
             probs = torch.softmax(attn, dim=-1).to(v.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         else:
-            out = fused_window_attention(q, k, v, bias_f, m_f, scale, nW,
-                                         impl=impl)
+            out = fused_window_attention_qkv(qkv, bias_f, m_f, scale, nW,
+                                             impl=impl)
         out = self.proj(out.reshape(-1, P + N, C))
 
         p_out = out[:, :P].reshape(B, nW, P, C).mean(dim=1)
@@ -214,18 +226,28 @@ class SwinPromptBlock(nn.Module):
         kv = self.chan_kv(x_attn.transpose(1, 2))         # (B, C, 2D)
         ck, cv = kv.chunk(2, dim=-1)
         raw_chan = torch.einsum("bpd,bcd->bpc", cq.float(), ck.float())
-        cprobs = torch.softmax(raw_chan * self.chan_embed_dim ** -0.5,
-                               dim=-1).to(cv.dtype)
-        chan_x = torch.einsum("bpc,bcd->bpd", cprobs, cv)  # (B, P, D)
+        cprobs = torch.softmax(raw_chan * self.chan_embed_dim ** -0.5, dim=-1)
+        # the probabilities enter the product rounded to cv's dtype, as in
+        # the JAX module, but their cotangent stays f32: the softmax's
+        # backward subtracts nearly equal terms, and rounded to bf16 there
+        # it moves the prompts' channel gradients by a large share
+        cprobs = cprobs + (cprobs.to(cv.dtype).float() - cprobs).detach()
+        chan_x = torch.einsum("bpc,bcd->bpd", cprobs, cv.float()
+                              ).to(cv.dtype)                 # (B, P, D)
 
-        x = shortcut + x_attn
-        x = x + self.mlp(self.norm2(x, impl=impl), impl=impl)
+        def dp(branch):           # a draw of its own at each of the 4 places
+            if not train or self.drop_path == 0.0:
+                return branch
+            return drop_path(branch, self.drop_path, generator)
+
+        x = shortcut + dp(x_attn)
+        x = x + dp(self.mlp(self.norm2(x, impl=impl), impl=impl))
 
         if not self.last_block:
             p_out = p_out + self.token_trans1(self.chan_proj(chan_x))
-            prompts = prompts + p_out
-            prompts = prompts + self.mlp(self.norm2(prompts, impl=impl),
-                                         impl=impl)
+            prompts = prompts + dp(p_out)
+            prompts = prompts + dp(self.mlp(self.norm2(prompts, impl=impl),
+                                            impl=impl))
         return x, prompts, ((spa_map, raw_chan) if need_taps else None)
 
 
@@ -297,7 +319,8 @@ class SwinTaskDecode(nn.Module):
                             nn.Conv2d(final_dim, final_dim, 3, padding=1,
                                       **kw))
 
-    def forward(self, x_map, raw) -> Dict[str, torch.Tensor]:
+    def forward(self, x_map, raw, train: bool = False
+                ) -> Dict[str, torch.Tensor]:
         B, gh, gw, C = x_map.shape
         spa_map, raw_chan = raw         # (B, Hd, P, gh, gw), (B, P, C)
         G = self.num_heads * self.prompt_len
@@ -321,7 +344,7 @@ class SwinTaskDecode(nn.Module):
             cat = conv1x1(sub(f"fea_fuse_{il}_{t}_0"),
                           torch.cat([f, fc], dim=-1))
             cat = sub(f"fea_fuse_{il}_{t}_1")(to_nchw(cat))
-            cat = F.gelu(bn_eval(cat, sub(f"fea_fuse_{il}_{t}_bn")))
+            cat = F.gelu(batch_norm(cat, sub(f"fea_fuse_{il}_{t}_bn"), train))
             out[t] = to_nhwc(sub(f"fea_fuse_{il}_{t}_2")(cat))
         return out
 
@@ -338,7 +361,8 @@ class TaskPrompterSwin(nn.Module):
                  window_size: int = 12, prompt_len: int = 1,
                  chan_embed_dim: int = 256, tar_dim: int = 256,
                  final_dim: int = 450, img_ds_ratio: float = 1.0,
-                 mlp_ratio: float = 4.0, *, device=None, dtype=None):
+                 mlp_ratio: float = 4.0, drop_path_rate: float = 0.1, *,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.tasks = tuple(tasks)
@@ -357,6 +381,8 @@ class TaskPrompterSwin(nn.Module):
         dims = [embed_dim * 2 ** i for i in range(n_layers)]
         res = (self.in_size[0] // ps, self.in_size[1] // ps)
         self.grid = res
+        total = sum(self.depths)
+        dpr = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
         for il in range(n_layers):
             last_layer = il == n_layers - 1
             for d in range(self.depths[il]):
@@ -365,7 +391,8 @@ class TaskPrompterSwin(nn.Module):
                     dims[il], res, num_heads[il], window_size,
                     0 if d % 2 == 0 else window_size // 2, P, chan_embed_dim,
                     last_block=last_layer and last_of_stage,
-                    mlp_ratio=mlp_ratio, **kw))
+                    mlp_ratio=mlp_ratio,
+                    drop_path=dpr[sum(self.depths[:il]) + d], **kw))
             if not last_layer:
                 # the merge first, then the stage's decode on the merged x
                 # and maps (strides 8, 16, 32, 32)
@@ -384,8 +411,11 @@ class TaskPrompterSwin(nn.Module):
                 self.add_module(f"multi_scale_fuse_{t}", nn.Conv2d(
                     final_dim, final_dim, 3, padding=1, **kw))
 
-    def forward(self, x, impl: Optional[str] = None):
-        """x: (B, H, W, 3) normalised image batch."""
+    def forward(self, x, impl: Optional[str] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """x: (B, H, W, 3) normalised image batch. ``train`` takes batch
+        statistics (and updates the running ones) and drop-path masks from
+        ``generator``."""
         if tuple(x.shape[1:3]) != self.img_size:
             raise ValueError(f"this backbone was built for {self.img_size} "
                              f"inputs (the channel pathway contracts over "
@@ -406,7 +436,8 @@ class TaskPrompterSwin(nn.Module):
         for il in range(n_layers):
             for d in range(self.depths[il]):
                 x, prompts, r = getattr(self, f"layer{il}_block{d}")(
-                    x, prompts, d == self.depths[il] - 1, impl=impl)
+                    x, prompts, d == self.depths[il] - 1, impl=impl,
+                    train=train, generator=generator)
                 if r is not None:
                     raw = r
             if il < n_layers - 1:
@@ -414,13 +445,13 @@ class TaskPrompterSwin(nn.Module):
                     x, prompts, raw, impl=impl)
                 res = (res[0] // 2, res[1] // 2)
                 fea = getattr(self, f"decode_{il}")(
-                    x.reshape(B, res[0], res[1], -1), raw)
+                    x.reshape(B, res[0], res[1], -1), raw, train)
                 for t in self.tasks:
                     task_fea[t].append(fea[t])
 
         x = self.norm(x, impl=impl)
         fea = getattr(self, f"decode_{n_layers - 1}")(
-            x.reshape(B, res[0], res[1], -1), raw)
+            x.reshape(B, res[0], res[1], -1), raw, train)
         for t in self.tasks:
             task_fea[t].append(fea[t])
 

@@ -187,8 +187,9 @@ class TaskPrompterSwinNet(nn.Module):
     ``3ddet``: the 2D heads' logits are resized to ``target_size`` (default:
     the input size); the detection head takes the backbone's 4-scale list and
     returns per-level lists (cls_scores, bbox_preds, dir_preds,
-    centernesses). Eval mode only; ``remat`` is not ported (it changes
-    memory, not results)."""
+    centernesses). ``drop_path_rate`` is the backbone's stochastic depth in
+    training (0.1 in JAX, which the wrapper leaves at the backbone's
+    default); ``remat`` is not ported (it changes memory, not results)."""
 
     def __init__(self, tasks: Sequence[str], num_outputs: Dict[str, int],
                  img_size: Tuple[int, int], head_name: str = "deconv",
@@ -199,7 +200,8 @@ class TaskPrompterSwinNet(nn.Module):
                  det_cfg: Optional[dict] = None, embed_dim: int = 128,
                  depths: Sequence[int] = (2, 2, 18, 2),
                  num_heads: Sequence[int] = (4, 8, 16, 32),
-                 window_size: int = 12, *, device=None, dtype=None):
+                 window_size: int = 12, drop_path_rate: float = 0.1, *,
+                 device=None, dtype=None):
         super().__init__()
         device = default_device(device)
         self.tasks = tuple(tasks)
@@ -210,7 +212,7 @@ class TaskPrompterSwinNet(nn.Module):
             num_heads=num_heads, window_size=window_size,
             prompt_len=prompt_len, chan_embed_dim=chan_embed_dim,
             tar_dim=tar_dim, final_dim=final_dim, img_ds_ratio=img_ds_ratio,
-            device=device, dtype=dtype)
+            drop_path_rate=drop_path_rate, device=device, dtype=dtype)
         for t in self.tasks:
             if t == "3ddet":
                 if det_cfg is None:
@@ -223,22 +225,22 @@ class TaskPrompterSwinNet(nn.Module):
                 self.add_module(f"head_{t}", HEADS[head_name](
                     final_dim, num_outputs[t], device=device, dtype=dtype))
 
-    def forward(self, x, impl: Optional[str] = None, train: bool = False):
+    def forward(self, x, impl: Optional[str] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """x: (B, H, W, 3) normalised image batch -> {task: (B, h, w, n)},
-        and under ``3ddet`` the detection head's four per-level lists."""
-        if train:
-            raise NotImplementedError(
-                "TaskPrompter-Swin training is not ported yet (ROADMAP.md: "
-                "Swin training with the window-attention backward kernel)")
+        and under ``3ddet`` the detection head's four per-level lists.
+        ``train`` takes batch statistics (and updates the running ones) and
+        drop-path masks from ``generator``; the detection head has GroupNorm
+        only and computes the same either way."""
         target = self.target_size or tuple(x.shape[1:3])
-        feats = self.backbone(x, impl=impl)
+        feats = self.backbone(x, impl=impl, train=train, generator=generator)
         out = {}
         for t in self.tasks:
             if t == "3ddet":
                 out[t] = self.det_head(feats[t])
             else:
                 out[t] = interpolate(getattr(self, f"head_{t}")(
-                    feats[t], impl=impl), target)
+                    feats[t], train, impl=impl), target)
         return out
 
 
@@ -283,7 +285,8 @@ def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
             img_ds_ratio=float(p.get("img_ds_ratio", 1.0)),
             target_size=tuple(p["dd_label_map_size"])
             if "dd_label_map_size" in p else None,
-            det_cfg=default_det_params() if "3ddet" in tasks else None,
+            det_cfg=(p.get("det_cfg") or default_det_params())
+            if "3ddet" in tasks else None,
             **TASKPROMPTER_SWIN_SPECS[p["backbone"]], device=device,
             dtype=dtype)
     return TaskPrompterNet(

@@ -28,13 +28,15 @@ def bilinear_gather(x, py, px):
     py, px = py.float(), px.float()
     y0, x0 = torch.floor(py), torch.floor(px)
     wy, wx = (py - y0)[..., None], (px - x0)[..., None]
-    flat = x.reshape(B, H * W, C)
+    # gathered from an f32 copy: the same values, and the gradient's
+    # scatter-add (up to 36 samples a pixel) accumulates in f32, not bf16
+    flat = x.reshape(B, H * W, C).float()
 
     def gather(yi, xi):
         inb = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
         idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).long()
         vals = flat.gather(1, idx.reshape(B, -1, 1).expand(-1, -1, C))
-        return vals.reshape(*pos_shape, C).float() * inb[..., None]
+        return vals.reshape(*pos_shape, C) * inb[..., None]
 
     out = ((1 - wy) * (1 - wx) * gather(y0, x0)
            + (1 - wy) * wx * gather(y0, x0 + 1)

@@ -6,9 +6,10 @@ from step 0. In torch that is ``clip_grad_norm_`` on the gradients, then
 ``torch.optim.Adam(weight_decay=...)`` (which adds wd * param to the clipped
 gradient before its moments, as ``add_decayed_weights`` does), then a
 ``LambdaLR`` whose factor for the k-th update (k from 0) is
-(1 - k / max_iter) ** 0.9, as optax's count starts at 0. One difference is
-left: ``clip_grad_norm_`` scales by max_norm / (norm + 1e-6) where optax
-scales by max_norm / norm.
+(1 - k / max_iter) ** 0.9, as optax's count starts at 0. The clip is
+optax's ``clip_by_global_norm`` written out: where the global norm g of all
+gradients reaches max_norm, every gradient becomes (t / g) * max_norm;
+below it they stay as they are.
 """
 
 from __future__ import annotations
@@ -48,7 +49,19 @@ def build_optimizer(params: Iterable[torch.Tensor], p: dict):
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
 
 
+@torch.no_grad()
 def clip_gradients(params, p: dict) -> None:
+    """Clips the gradients of ``params`` in place as optax does, without a
+    transfer to the host: the divisor and factor are 1 below max_norm."""
     max_norm = grad_clip_norm(p)
-    if max_norm is not None:
-        torch.nn.utils.clip_grad_norm_(params, max_norm)
+    grads = [w.grad for w in params if w.grad is not None]
+    if max_norm is None or not grads:
+        return
+    # the norm summed in f64 and rounded once: optax's f32 sum carries its
+    # own rounding, which no other summation order repeats. Foreach ops: a
+    # few launches for all the gradients, as clip_grad_norm_ makes
+    norms = torch._foreach_norm(grads, 2.0, dtype=torch.float64)
+    norm = torch.linalg.vector_norm(torch.stack(norms)).float()
+    below = norm < max_norm
+    torch._foreach_div_(grads, torch.where(below, 1.0, norm))
+    torch._foreach_mul_(grads, torch.where(below, 1.0, max_norm))

@@ -9,7 +9,7 @@ of every parameter, on which the optimizer and its state live, as the JAX
 package keeps f32 parameters and casts them to ``--dtype bfloat16`` at use.
 After each update the master is rounded into the model. BatchNorm running
 statistics stay f32 in the model. With an f32 model the master is the
-model's own parameters.
+model's own parameters, and nothing is copied.
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ class Trainer:
         self.criterion = build_criterion(p, tasks)
         self.generator = generator
         params = list(model.parameters())
-        if dtype == torch.float32:
+        self._own_master = dtype != torch.float32
+        if not self._own_master:
             self.master = params
         else:
             self.master = [w.detach().float().clone().requires_grad_()
@@ -65,13 +66,13 @@ class Trainer:
         """Clip, Adam with L2 decay and the schedule on the f32 master,
         then the master rounded into the model."""
         params = list(self.model.parameters())
-        if self.master is not params:
+        if self._own_master:
             for m, w in zip(self.master, params):
                 m.grad = None if w.grad is None else w.grad.float()
         clip_gradients(self.master, self.p)
         self.optimizer.step()
         self.scheduler.step()
-        if self.master is not params:
+        if self._own_master:
             for m, w in zip(self.master, params):
                 w.copy_(m)
 
@@ -82,8 +83,9 @@ class Trainer:
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """A synthetic batch on the device, the image ImageNet-normalised as the
-    JAX transforms normalise it (mtt_tpu/data/transforms.py:158)."""
+    """A synthetic batch on the device (every array, the ``det_*`` ground
+    truth included), the image ImageNet-normalised as the JAX transforms
+    normalise it (mtt_tpu/data/transforms.py:158)."""
     out = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     out["image"] = preprocess(out["image"])
     return out

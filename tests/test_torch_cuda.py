@@ -380,21 +380,56 @@ def test_window_attention_kernel(gen, BW, M, H, nW, with_mask):
            got, ulps=0)
 
 
-def test_window_attention_kernel_refuses_grad(gen):
-    """The JAX package has a backward kernel for this function; until it is
-    ported the kernel path raises rather than differentiate the plain
-    version silently."""
-    from mtt_tpu_torch.kernels.window_attention import fused_window_attention
-    q, k, v = (_rnd(gen, 2, 19, 2, 32) for _ in range(3))
-    bias = _rnd(gen, 2, 19, 19, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*row 12"):
-        fused_window_attention(q.requires_grad_(), k, v, bias, None, 0.2, 1)
-    with torch.no_grad():
-        assert fused_window_attention(q, k, v, bias, None, 0.2, 1).shape == \
-            q.shape
-    out = fused_window_attention(q, k, v, bias, None, 0.2, 1, impl="plain")
-    out.sum().backward()
-    assert q.grad is not None
+@pytest.mark.parametrize("BW,M,H,nW", WATTN_CASES[:-1])
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_window_attention_bwd_kernel(gen, BW, M, H, nW, with_mask):
+    """The backward kernel (dq, dk, dv into one packed gradient, dbias) on a
+    CUDA tensor that requires grad, against the plain backward on the same
+    inputs: dq, dk and dv within 4 bf16 ulps (dl and pn are rounded to bf16
+    at the same points, f32 sums in another order can flip a rounding), dbias
+    within 1e-4 of its largest value (f32 on both sides, summed over the
+    windows in another order). Two runs give the same dbias bits."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.window_attention import (
+        fused_window_attention_qkv, window_attention_bwd_plain)
+    D = 32
+    qkv = _rnd(gen, BW, M, 3, H, D)
+    bias = _rnd(gen, H, M, M, dtype=torch.float32)
+    g = _rnd(gen, BW, M, H, D)
+    mask = None
+    if with_mask:
+        mask = torch.where(torch.rand(nW, M, M, generator=gen,
+                                      device="cuda") < 0.3, -100.0, 0.0)
+        mask.diagonal(dim1=1, dim2=2).zero_()
+    grads = []
+    for _ in range(2):
+        leaf, lb = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+        _build.reset_counts()
+        fused_window_attention_qkv(leaf, lb, mask, D ** -0.5, nW).backward(g)
+        torch.cuda.synchronize()
+        assert _build.COUNTS == _counts(window_attention=1,
+                                        window_attention_bwd=1)
+        grads.append((leaf.grad, lb.grad))
+    assert torch.equal(grads[0][1], grads[1][1])
+    assert torch.equal(grads[0][0], grads[1][0])
+    dq, dk, dv, dbias = window_attention_bwd_plain(
+        *qkv.unbind(2), bias, mask, g, D ** -0.5, nW)
+    _check(grads[0][0].unbind(2), (dq, dk, dv), ulps=4)
+    err = (grads[0][1] - dbias).abs().max().item()
+    assert err <= 1e-4 * dbias.abs().max().item(), err
+
+
+def test_window_attention_bwd_kernel_refusals(gen):
+    """Past 160 tokens the backward's tiles do not fit: it raises, while the
+    forward takes up to 352."""
+    from mtt_tpu_torch.kernels.window_attention import (
+        window_attention_bwd_cuda, window_attention_cuda)
+    q, k, v = _rnd(gen, 2, 161, 3, 1, 32).unbind(2)
+    bias = _rnd(gen, 1, 161, 161, dtype=torch.float32)
+    assert window_attention_cuda(q, k, v, bias, None, 0.2, 1).shape == \
+        q.shape
+    with pytest.raises(ValueError, match="shared memory"):
+        window_attention_bwd_cuda(q, k, v, bias, None, q, 0.2, 1)
 
 
 def test_swin_model_goes_through_kernels(gen):
@@ -442,3 +477,45 @@ def test_swin_model_goes_through_kernels(gen):
         assert err <= 0.1, (what, err)
     assert preds["semseg"].shape == (1, 96, 192)
     assert preds["3ddet"]["boxes3d"].shape == (1, 200, 9)
+
+
+def test_swin_train_step_goes_through_kernels(gen):
+    """One training step of a small TaskPrompter-Swin Cityscapes-3D net at
+    Swin-B's head dim and window (as above, depths (2, 2, 4, 2), 192x384, one
+    image, bf16, drop-path on): the window attention backward launches once
+    for each block on the forward kernel and nothing raises; losses (every
+    detection component) and gradients are finite, and the parameters with
+    a gradient move."""
+    from mtt_tpu_torch.data.synthetic import SyntheticMT
+    from mtt_tpu_torch.detection.det_params import default_det_params
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import TaskPrompterSwinNet
+    from mtt_tpu_torch.train import CS3D_SWINB_TRAIN
+    from mtt_tpu_torch.utils.train_utils import Trainer, to_device
+
+    tasks = ("semseg", "depth", "3ddet")
+    num_out = {"semseg": 19, "depth": 1, "3ddet": 18}
+    model = TaskPrompterSwinNet(
+        tasks, num_out, (192, 384), target_size=(96, 192),
+        det_cfg=default_det_params(), embed_dim=128, depths=(2, 2, 4, 2),
+        num_heads=(4, 8, 16, 32), window_size=12, device="cuda")
+    init_weights(model, gen)
+    trainer = Trainer(model, CS3D_SWINB_TRAIN, tasks, torch.bfloat16,
+                      generator=gen)
+    batch = to_device(SyntheticMT(tasks, num_out, (192, 384),
+                                  label_size=(96, 192)).batch(0, 1), "cuda")
+    before = [w.detach().clone() for w in trainer.master]
+    _build.reset_counts()
+    losses = trainer.backward(batch)
+    torch.cuda.synchronize()
+    assert _build.COUNTS == _counts(window_attention=6,
+                                    window_attention_bwd=6, mlp_fc=19,
+                                    layernorm=39 + 5)
+    assert {k for k in losses if k.startswith("3ddet.")}
+    assert all(torch.isfinite(v) for v in losses.values())
+    grads = [w.grad for w in model.parameters()]
+    assert all(g is not None and torch.isfinite(g).all() for g in grads)
+    trainer.update()
+    assert all(not torch.equal(a, b) for a, b, g in
+               zip(before, trainer.master, grads) if g.abs().sum() > 0)

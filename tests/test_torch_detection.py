@@ -69,10 +69,8 @@ def test_det_params_match_jax():
     got = default_det_params(6)
     for k, v in got.items():
         assert plain(v) == want[k], k
-    # what the port leaves out belongs to training
-    assert set(want) - set(got) <= {
-        "loss_cls", "loss_dir", "loss_bbox", "loss_centerness", "loss_bbox2d",
-        "loss_consistency", "max_boxes"}
+    # the losses' settings and max_boxes included, nothing is left out
+    assert set(want) == set(got)
 
 
 def test_bilinear_gather_matches_jax():
@@ -302,3 +300,210 @@ def test_decode_bboxes_matches_jax(use_rotate_nms, scale_factor, cls_bias):
         err = np.abs(g[valid] - w[valid]).max()
         assert err <= 1e-4 * np.abs(w[valid]).max(), (key, err)
     assert got["boxes3d"].shape == (120, 9) and got["scores"].shape == (120,)
+
+
+def test_decode_3ddet_per_image_camera_and_scale():
+    """``decode_3ddet`` on a batch of two images with their own camera
+    matrices and a (x, y) ``scale_factor``: image i equals JAX's
+    ``decode_bboxes_single`` with its own K (as the JAX evaluation decodes
+    each image with its ``K_matrix``), and ``predict``'s arguments reach it."""
+    from mtt_tpu.detection.det_model import decode_bboxes_single as jdecode
+    from mtt_tpu.detection.det_params import default_det_params as jmake
+    from mtt_tpu_torch.detection.det_params import default_det_params
+    from mtt_tpu_torch.inference import decode_3ddet
+    sizes = [(12, 24), (6, 12), (3, 6), (3, 6), (2, 3)]
+    heads = [_seeded_head_outputs(s, sizes, 3, cls_bias=-2.0) for s in (0, 1)]
+    Ks = np.array([[[2262.52, 0, 1096.98], [0, 2265.30, 513.137], [0, 0, 1]],
+                   [[1500.0, 0, 700.0], [0, 1480.0, 380.0], [0, 0, 1]]],
+                  np.float32)
+    sf = np.asarray((0.5, 0.75), np.float32)
+    cfgs = []
+    for make in (jmake, default_det_params):
+        cfg = make(3)
+        cfg["test_cfg"]["nms_pre"] = 150
+        cfg["test_cfg"]["max_per_img"] = 120
+        cfgs.append(cfg)
+    batched = tuple([torch.stack([_t(heads[0][g][lvl]), _t(heads[1][g][lvl])])
+                     for lvl in range(len(sizes))] for g in range(4))
+    got = decode_3ddet(batched, _t(Ks), cfgs[1], sf)
+    for i in range(2):
+        want = jdecode(tuple([jnp.asarray(a) for a in lvl]
+                             for lvl in heads[i]),
+                       jnp.asarray(Ks[i]), cfgs[0], cfgs[0]["strides"], sf)
+        valid = np.asarray(want["valid"])
+        assert valid.sum() > 5
+        assert np.array_equal(got["valid"][i].numpy(), valid)
+        assert np.array_equal(got["labels"][i].numpy()[valid],
+                              np.asarray(want["labels"])[valid])
+        for key in ("boxes3d", "bboxes2d", "scores", "centers2d"):
+            g, w = got[key][i].numpy(), np.asarray(want[key])
+            err = np.abs(g[valid] - w[valid]).max()
+            assert err <= 1e-4 * np.abs(w[valid]).max(), (i, key, err)
+    # the two cameras place the same head output differently
+    assert not torch.allclose(got["boxes3d"][0, :3], got["boxes3d"][1, :3])
+    with pytest.raises(ValueError, match="cam_K"):
+        decode_3ddet(batched, _t(Ks[:1].repeat(3, 0)), cfgs[1])
+
+
+def _det_case(B=3, seed=2):
+    """Seeded head outputs of a 64x128 batch (5 levels, 6 classes) and its
+    padded ground truth (8 slots) from the synthetic set, image 1 without a
+    labelled box."""
+    from mtt_tpu_torch.data.synthetic import SyntheticMT
+    gt = SyntheticMT(("3ddet",), {"3ddet": 18}, (64, 128), seed=seed,
+                     max_boxes=8).batch(0, B)
+    gt = {k: v for k, v in gt.items() if k.startswith("det_")}
+    gt["det_valid"][1] = 0.0
+    rng = np.random.default_rng(seed)
+    head = ([], [], [], [])
+    for h, w in [(8, 16), (4, 8), (2, 4), (2, 4), (1, 2)]:
+        head[0].append(rng.normal(size=(B, h, w, 6)).astype(np.float32) - 2)
+        b = rng.normal(size=(B, h, w, 13)).astype(np.float32)
+        b[..., 2] = np.exp(0.3 * b[..., 2]) * 20
+        head[1].append(b)
+        head[2].append(rng.normal(size=(B, h, w, 6)).astype(np.float32))
+        head[3].append(rng.normal(size=(B, h, w, 1)).astype(np.float32))
+    return head, gt
+
+
+def test_detection_loss_matches_jax():
+    """Targets, every loss component and the gradient of the total w.r.t.
+    every head output against the JAX package, on a batch with a label-less
+    image: labels equal, the rest rtol 1e-5 (gradients with a floor of 1e-5
+    of their largest value)."""
+    import jax
+    from mtt_tpu.detection import det_model as jdm
+    from mtt_tpu.detection.det_params import default_det_params as jmake
+    from mtt_tpu_torch.detection import det_model as tdm
+    from mtt_tpu_torch.detection.det_params import default_det_params
+    head, gt = _det_case()
+    jcfg, cfg = jmake(6), default_det_params(6)
+    strides = tuple(cfg["strides"])
+    jgt = {k: jnp.asarray(v) for k, v in gt.items()}
+    jhead = tuple([jnp.asarray(a) for a in lvl] for lvl in head)
+    (jtotal, jparts), jgrad = jax.jit(jax.value_and_grad(
+        lambda h: jdm.detection_loss(h, jgt, jcfg, strides), has_aux=True))(
+            jhead)
+    thead = tuple([_t(a).requires_grad_() for a in lvl] for lvl in head)
+    total, parts = tdm.detection_loss(thead, {k: _t(v) for k, v in
+                                              gt.items()}, cfg, strides)
+    total.backward()
+    assert parts.keys() == jparts.keys()
+    for k in parts:
+        np.testing.assert_allclose(parts[k].item(), float(jparts[k]),
+                                   rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(total.item(), float(jtotal), rtol=1e-5)
+    for lg, lw in zip(thead, jgrad):
+        for g, w in zip(lg, lw):
+            w = np.asarray(w)
+            np.testing.assert_allclose(g.grad.numpy(), w, rtol=1e-5,
+                                       atol=1e-5 * np.abs(w).max())
+    # the label-less image leaves the class loss: its logits get no gradient
+    assert all(lvl.grad[1].abs().max() == 0 for lvl in thead[0])
+
+    # the targets themselves, the batch written out against the vmap
+    pts, st, lvl = tdm.level_points(((8, 16), (4, 8), (2, 4), (2, 4), (1, 2)),
+                                    strides)
+    rr = torch.tensor(cfg["regress_ranges"], dtype=torch.float32)
+    got = tdm.get_targets(pts, st, rr[lvl, 0], rr[lvl, 1],
+                          {k[4:]: _t(v) for k, v in gt.items()}, cfg)
+    jp, js, jl = jdm.level_points([(8, 16), (4, 8), (2, 4), (2, 4), (1, 2)],
+                                  strides)
+    jrr = jnp.asarray(jcfg["regress_ranges"], jnp.float32)
+    want = jax.jit(jax.vmap(lambda g: jdm.get_targets_single(
+        jp, js, jrr[jl, 0], jrr[jl, 1], g, jcfg)))(
+            {k[4:]: v for k, v in jgt.items()})
+    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert (got[0] < 6).sum() > 3 and (got[0][1] == 6).all()
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5 * np.abs(np.asarray(w)).max())
+    np.testing.assert_array_equal(
+        tdm.direction_targets(got[1][..., 6:9].reshape(-1, 3)).numpy(),
+        np.asarray(jdm.direction_targets(jnp.asarray(
+            got[1][..., 6:9].reshape(-1, 3).numpy()))))
+
+
+@pytest.mark.parametrize("name", ["sigmoid_focal_loss", "smooth_l1_loss",
+                                  "softmax_ce_loss", "binary_ce_loss",
+                                  "giou_loss"])
+def test_det_losses_match_jax(name):
+    """Each detection loss and its gradient w.r.t. the prediction, with an
+    element weight and an average factor (the focal loss with background
+    labels too): rtol 1e-5, gradients with a floor of 1e-6 of their scale."""
+    import jax
+    from mtt_tpu.detection import det_losses as jl
+    from mtt_tpu_torch.detection import det_losses as tl
+    rng = np.random.default_rng(3)
+    n = 40
+    w = rng.uniform(size=(n,)).astype(np.float32)
+    if name == "sigmoid_focal_loss":
+        pred = rng.normal(size=(n, 5)).astype(np.float32)
+        tgt = rng.integers(0, 6, size=(n,))                 # 5: background
+        assert (tgt == 5).any()
+        kw = dict(num_classes=5, gamma=2.0, alpha=0.25, loss_weight=5.0)
+        fj = lambda p: jl.sigmoid_focal_loss(p, jnp.asarray(tgt), weight=w,
+                                             avg_factor=7.0, **kw)
+        ft = lambda p: tl.sigmoid_focal_loss(p, torch.from_numpy(tgt),
+                                             weight=_t(w), avg_factor=7.0,
+                                             **kw)
+    elif name == "softmax_ce_loss":
+        pred = rng.normal(size=(n, 2)).astype(np.float32)
+        tgt = rng.integers(0, 2, size=(n,))
+        fj = lambda p: jl.softmax_ce_loss(p, jnp.asarray(tgt), weight=w,
+                                          avg_factor=7.0)
+        ft = lambda p: tl.softmax_ce_loss(p, torch.from_numpy(tgt),
+                                          weight=_t(w), avg_factor=7.0)
+    else:
+        pred = rng.normal(size=(n, 4)).astype(np.float32)
+        tgt = rng.normal(size=(n, 4)).astype(np.float32)
+        if name == "giou_loss":       # xyxy boxes, some of them disjoint
+            pred[:, 2:] = pred[:, :2] + np.abs(pred[:, 2:]) + 0.1
+            tgt[:, 2:] = tgt[:, :2] + np.abs(tgt[:, 2:]) + 0.1
+        if name == "binary_ce_loss":
+            pred, tgt = pred[:, 0], rng.uniform(size=(n,)).astype(np.float32)
+        ww = w if name in ("binary_ce_loss", "giou_loss") else w[:, None]
+        fj = lambda p: getattr(jl, name)(p, jnp.asarray(tgt), weight=ww,
+                                         avg_factor=7.0)
+        ft = lambda p: getattr(tl, name)(p, _t(tgt), weight=_t(ww),
+                                         avg_factor=7.0)
+    want, gwant = jax.value_and_grad(fj)(jnp.asarray(pred))
+    pt = _t(pred).requires_grad_()
+    got = ft(pt)
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+    gwant = np.asarray(gwant)
+    np.testing.assert_allclose(pt.grad.numpy(), gwant, rtol=1e-5,
+                               atol=1e-6 * np.abs(gwant).max())
+    assert tl._reduce(_t(w)).item() == pytest.approx(float(w.mean()))
+
+
+def test_deform_conv_grads_match_jax():
+    """The deformable conv's gradient is autograd's through the gather and
+    the K*C product: w.r.t. the input, the kernel and bias, and the offset
+    and mask conv (so the sampling positions), against ``jax.grad`` in f32 at
+    rtol 1e-5 with a floor of 1e-5 of each gradient's largest value."""
+    import jax
+    from mtt_tpu.ops.deform_conv import DeformConv2d as JDcn
+    from mtt_tpu_torch.models.convert_jax import state_dict_from_flax
+    from mtt_tpu_torch.ops.deform_conv import DeformConv2d
+    x = _rand(0, 2, 6, 9, 8)
+    cot = _rand(1, 2, 6, 9, 12)
+    jm = JDcn(12)
+    v = random_variables(jm, jnp.asarray(x), seed=1)
+    jg, jgx = jax.jit(jax.grad(lambda params, xx: jnp.sum(
+        jm.apply({"params": params}, xx) * cot), argnums=(0, 1)))(
+            v["params"], jnp.asarray(x))
+    port = _load(DeformConv2d(8, 12), v)
+    xt = _t(x).requires_grad_()
+    (port(xt) * _t(cot)).sum().backward()
+    want = state_dict_from_flax({"params": jg})
+    got = {n: w.grad for n, w in port.named_parameters()}
+    got["x"], want["x"] = xt.grad, jgx
+    assert set(got) == {"x", "weight", "bias", "offset_mask.weight",
+                        "offset_mask.bias"}
+    for k in got:
+        w = np.asarray(want[k])
+        assert np.abs(w).max() > 0, k
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=k)

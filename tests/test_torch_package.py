@@ -143,13 +143,14 @@ def test_kernel_build_needs_no_card_to_import_and_hashes_sources():
                                     "mlp_ln_res", "mlp_fc", "task_decode",
                                     "head_up4", "invpt_attention",
                                     "invpt_tail", "invpt_tail_head",
-                                    "window_attention"}
+                                    "window_attention",
+                                    "window_attention_bwd"}
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "layernorm.cu", "attention.cu", "attention_bwd.cu", "mlp.cu",
         "task_decode.cu", "head_up4.cu", "invpt_attention.cu",
-        "invpt_tail.cu", "window_attention.cu"}
+        "invpt_tail.cu", "window_attention.cu", "window_attention_bwd.cu"}
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

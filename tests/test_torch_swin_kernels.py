@@ -142,8 +142,8 @@ def test_window_attention_refusals():
 
 
 def test_window_attention_plain_is_differentiable():
-    """The plain version is ordinary torch: its gradients flow (the kernel
-    path refuses a tensor that requires grad until its backward is ported)."""
+    """On a CPU tensor the gradient is the plain backward's, through the
+    autograd Function: it flows to q, k, v and the bias."""
     from mtt_tpu_torch.kernels.window_attention import fused_window_attention
     BW, M, H, D, nW = 2, 7, 1, 32, 2
     q, k, v, bias, mask = (_t(a) for a in _inputs(3, BW, M, H, D, nW))
@@ -151,6 +151,69 @@ def test_window_attention_plain_is_differentiable():
     fused_window_attention(*leaves, mask, 0.2, nW).square().sum().backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                and t.grad.abs().sum() > 0 for t in leaves)
+
+
+BWD_CASES = [  # BW, M, H, D, nW: Swin-B's 12x12 window with 3 prompts,
+    (4, 147, 2, 32, 2),       # M % 16 != 0, nW < BW
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_window_attention_bwd_plain_matches_jax(case, with_mask):
+    """``window_attention_bwd_plain`` against the TPU backward kernel
+    (``_wattn_bwd_pallas`` in interpret mode) in bf16, and the gradient of the
+    autograd Function in f32 against ``jax.grad`` of ``_window_attention_xla``.
+
+    bf16: dq, dk and dv within 2 ulps of their largest value (the same
+    rounding points, f32 sums in another order can flip one); dbias (f32 on
+    both sides, the same dl summed over the windows in another order) within
+    1e-5 of its largest value. f32: 1e-5 of each gradient's scale."""
+    import jax
+    from mtt_tpu.kernels.attention import _wattn_bwd_pallas, \
+        _window_attention_xla
+    from mtt_tpu_torch.kernels.window_attention import (
+        fused_window_attention_qkv, window_attention_bwd_plain)
+    BW, M, H, D, nW = case
+    q, k, v, bias, mask = _inputs(4, BW, M, H, D, nW)
+    g = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
+    scale = D ** -0.5
+    bf = jnp.bfloat16
+    jm = jnp.asarray(mask) if with_mask else jnp.zeros((1, M, M),
+                                                       jnp.float32)
+    want = _wattn_bwd_pallas(*(jnp.asarray(a, bf) for a in (q, k, v)),
+                             jnp.asarray(bias), jm, jnp.asarray(g, bf),
+                             scale, nW if with_mask else 1, interpret=True)
+    tb = torch.bfloat16
+    got = window_attention_bwd_plain(
+        _t(q, tb), _t(k, tb), _t(v, tb), _t(bias),
+        _t(mask) if with_mask else None, _t(g, tb), scale, nW)
+    for name, gt, wt in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        wt = np.asarray(wt.astype(jnp.float32))
+        assert gt.dtype == tb
+        err = np.abs(gt.float().numpy() - wt).max()
+        assert err <= 2 * BF16_ULP * np.abs(wt).max(), (name, err)
+    wdb = np.asarray(want[3])
+    assert got[3].dtype == torch.float32 and got[3].shape == (H, M, M)
+    assert np.abs(got[3].numpy() - wdb).max() <= 1e-5 * np.abs(wdb).max()
+
+    # f32: the Function's gradient against jax.grad of the XLA twin
+    jmask = jnp.asarray(mask) if with_mask else None
+    jgrads = jax.grad(
+        lambda qq, kk, vv, bb: jnp.sum(_window_attention_xla(
+            qq, kk, vv, bb, jmask, scale, nW) * jnp.asarray(g)),
+        argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in (q, k, v, bias)))
+    qkv = torch.stack([_t(a) for a in (q, k, v)], 2).requires_grad_()
+    tbias = _t(bias).requires_grad_()
+    out = fused_window_attention_qkv(qkv, tbias,
+                                     _t(mask) if with_mask else None, scale,
+                                     nW)
+    out.backward(_t(g))
+    for name, gt, wt in zip(("dq", "dk", "dv", "dbias"),
+                            (*qkv.grad.unbind(2), tbias.grad), jgrads):
+        wt = np.asarray(wt)
+        err = np.abs(gt.numpy() - wt).max()
+        assert err <= 1e-5 * np.abs(wt).max(), (name, err)
 
 
 @pytest.mark.parametrize("C", [128, 256, 512])

@@ -187,8 +187,14 @@ def test_deconv_head_matches_jax():
         got = port(_t(x))
     assert got.shape == (2, 10, 14, 4)
     _close(got, want)
-    with pytest.raises(NotImplementedError, match="training"):
-        port(_t(x), train=True)
+    # training: both BNs on batch statistics, and their running averages
+    want, upd = jm.apply(v, jnp.asarray(x), train=True,
+                         mutable=["batch_stats"])
+    _close(port(_t(x), train=True), want, what="train")
+    for bn in ("bn1", "bn2"):
+        st = upd["batch_stats"][bn]
+        _close(getattr(port, bn).running_mean, st["mean"], what=bn)
+        _close(getattr(port, bn).running_var, st["var"], what=bn)
 
 
 def test_swin_backbone_matches_jax():
@@ -259,8 +265,14 @@ def test_swin_net_matches_jax(size, ratio):
             _close(g, w, what=f"{name} level {i}")
     if ratio != 1.0:
         assert port.backbone.in_size == (96, 192)
-    with pytest.raises(NotImplementedError, match="training"):
-        port(_t(x), train=True)
+    # a training forward runs (drop-path masks from the generator) and
+    # gives every output at its eval shape; its values against JAX are
+    # tests/test_torch_swin_train.py's
+    tr = port(_t(x), train=True, generator=torch.Generator().manual_seed(0))
+    for t in ("semseg", "depth"):
+        assert tr[t].shape == got[t].shape and torch.isfinite(tr[t]).all()
+    assert [g.shape for g in tr["3ddet"][0]] == [g.shape for g in
+                                                  got["3ddet"][0]]
 
 
 def test_predict_decodes_detections():
@@ -295,6 +307,14 @@ def test_predict_decodes_detections():
         port.det_cfg, port.det_cfg["strides"])
     for k, val in one.items():
         assert torch.equal(det[k][1], val), k
+    # one camera per image and a scale factor reach the decode of each image
+    Ks = torch.stack([K, K * torch.tensor([[0.5], [0.5], [1.0]])])
+    _, preds2 = predict(port, x, cam_K=Ks, scale_factor=(0.5, 0.75))
+    one = decode_bboxes_single(
+        tuple([lvl[1] for lvl in part] for part in logits["3ddet"]), Ks[1],
+        port.det_cfg, port.det_cfg["strides"], (0.5, 0.75))
+    for k, val in one.items():
+        assert torch.equal(preds2["3ddet"][k][1], val), k
 
 
 def test_build_model_cs3d_swinb():

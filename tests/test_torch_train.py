@@ -107,7 +107,8 @@ def jax_step(variables, batch):
 
 @pytest.fixture(scope="module")
 def port_step(variables, batch):
-    """(trainer, losses, grads by name, parameters and grads of 2 steps)."""
+    """(losses, grads by name, running statistics, parameters of 2 steps,
+    clipped grads of 2 steps)."""
     from mtt_tpu_torch.models.convert_jax import state_dict_from_flax
     from mtt_tpu_torch.models.wrappers import TaskPrompterNet
     from mtt_tpu_torch.utils.train_utils import Trainer
@@ -120,7 +121,7 @@ def port_step(variables, batch):
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     names = [n for n, _ in model.named_parameters()]
     history = [{n: w.detach().clone() for n, w in model.named_parameters()}]
-    losses, grads, stats = None, [], None
+    losses, grads, stats, clipped = None, [], None, []
     for i in range(2):
         out = trainer.backward(tb)
         grads.append({n: w.grad.clone() for n, w in zip(
@@ -130,9 +131,12 @@ def port_step(variables, batch):
             stats = {k: v.clone() for k, v in model.state_dict().items()
                      if "running" in k}
         trainer.update()
+        # the master's gradients after the update are the clipped ones
+        clipped.append({n: w.grad.clone() for n, w in zip(
+            names, model.parameters())})
         history.append({n: w.detach().clone()
                         for n, w in model.named_parameters()})
-    return losses, grads, stats, history
+    return losses, grads, stats, history, clipped
 
 
 def _close(got, want, rtol=1e-4, atol=None, msg=""):
@@ -173,27 +177,44 @@ def test_train_step_bn_stats_match_jax(jax_step, port_step):
 
 
 def test_optimizer_steps_match_optax(port_step):
-    """Two updates of the port (clip_grad_norm_, Adam with L2 decay,
-    LambdaLR poly) against build_optimizer's optax chain fed the port's own
-    gradients, on trees in the port's layout (every op of the chain is
-    elementwise or a global norm, so the layout does not matter)."""
+    """Two updates of the port against build_optimizer's optax chain, on
+    trees in the port's layout (every op of the chain is elementwise or a
+    global norm, so the layout does not matter). The clip: the port's
+    clipped gradients against optax.clip_by_global_norm on the port's own
+    gradients at rtol 1e-6 (optax sums the squares in f32, the port in f64:
+    the norms differ by up to 6e-7 of themselves at this size; the clip's
+    arithmetic is tested exactly against numpy below). The rest of the chain
+    (L2 decay, Adam, poly) fed the port's clipped gradients: 1e-6 of the
+    parameter plus 1% of the learning rate (where decay and gradient cancel
+    to below Adam's eps, the last bits of the norm decide the move)."""
     from mtt_tpu.utils.optim import build_optimizer
-    _, grads, _, history = port_step
-    tx, _ = build_optimizer(_jax_config())
+    from mtt_tpu_torch.utils.optim import grad_clip_norm
+    _, grads, _, history, clipped = port_step
+    noclip = _jax_config()
+    del noclip["grad_clip_param"]
+    tx, _ = build_optimizer(noclip)
+    clip = optax.clip_by_global_norm(grad_clip_norm(P))
     params = {k: jnp.asarray(v.numpy()) for k, v in history[0].items()}
     state = tx.init(params)
 
     @jax.jit
     def update(g, state, params):
         updates, state = tx.update(g, state, params)
-        return optax.apply_updates(params, updates), state, \
-            optax.global_norm(g)
+        return optax.apply_updates(params, updates), state
+
+    @jax.jit
+    def clip_and_norm(g):
+        return clip.update(g, clip.init(g))[0], optax.global_norm(g)
 
     norms = []
     for i in range(2):
         g = {k: jnp.asarray(v.numpy()) for k, v in grads[i].items()}
-        params, state, norm = update(g, state, params)
+        want, norm = clip_and_norm(g)
         norms.append(float(norm))
+        for name, w in clipped[i].items():
+            _close(w, want[name], rtol=1e-6, atol=0.0, msg=name)
+        g = {k: jnp.asarray(v.numpy()) for k, v in clipped[i].items()}
+        params, state = update(g, state, params)
         for name, w in history[i + 1].items():
             _close(w, params[name], rtol=1e-6,
                    atol=0.01 * P["optimizer_kwargs"]["lr"], msg=name)
@@ -308,3 +329,58 @@ def test_train_steps_entry_point_on_the_cpu():
     (losses,) = train_steps(P, 1, 1, seed=0, device="cpu")
     assert losses.keys() == set(TASKS) | {"total"}
     assert all(np.isfinite(v) for v in losses.values())
+
+
+def test_trainer_update_copies_nothing_on_f32(monkeypatch):
+    """With an f32 model the master is the model's own parameters: an
+    update writes them in place and copies no tensor (no self-copy of each
+    parameter), while a bf16 model's update rounds the f32 master into it."""
+    from mtt_tpu_torch.utils.train_utils import Trainer
+    copies = []
+    real = torch.Tensor.copy_
+
+    def counted(self, *a, **kw):
+        copies.append(self.shape)
+        return real(self, *a, **kw)
+
+    for dtype, n_copies in ((torch.float32, 0), (torch.bfloat16, 2)):
+        model = torch.nn.Linear(4, 3)
+        trainer = Trainer(model, P, TASKS, dtype, torch.Generator())
+        ptrs = [w.data_ptr() for w in model.parameters()]
+        for w in model.parameters():
+            w.grad = torch.ones_like(w)
+        copies.clear()
+        monkeypatch.setattr(torch.Tensor, "copy_", counted)
+        trainer.update()
+        monkeypatch.undo()
+        assert len(copies) == n_copies, (dtype, copies)
+        assert [w.data_ptr() for w in model.parameters()] == ptrs
+        if dtype == torch.float32:
+            assert all(m is w for m, w in zip(trainer.master,
+                                              model.parameters()))
+            assert all((w != 0).any() for w in model.parameters())
+
+
+@pytest.mark.parametrize("factor", [10.0, 0.5])
+def test_clip_gradients_is_optax_exactly(factor):
+    """A global norm of ``factor`` times max_norm: at 10 every gradient
+    becomes (t / g) * max_norm, as optax.clip_by_global_norm computes it
+    (held against numpy at 1e-7 relative; torch's clip_grad_norm_ divides by
+    g + 1e-6); at 0.5 the gradients stay as they are, bit for bit."""
+    from mtt_tpu_torch.utils.optim import clip_gradients
+    rng = np.random.default_rng(4)
+    shapes = [(7, 5), (11,), (3, 4, 2)]
+    gs = [(1e-3 * rng.normal(size=s)).astype(np.float32) for s in shapes]
+    norm = np.sqrt(sum((g.astype(np.float64) ** 2).sum() for g in gs))
+    max_norm = float(norm / factor)
+    params = [torch.zeros(s, requires_grad=True) for s in shapes]
+    for w, g in zip(params, gs):
+        w.grad = torch.from_numpy(g.copy())
+    clip_gradients(params, {"grad_clip_param": {"max_norm": max_norm,
+                                                "norm_type": 2}})
+    for w, g in zip(params, gs):
+        if factor < 1:
+            assert np.array_equal(w.grad.numpy(), g)
+        else:
+            want = (g / np.float32(norm)) * np.float32(max_norm)
+            np.testing.assert_allclose(w.grad.numpy(), want, rtol=1e-7)
