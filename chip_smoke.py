@@ -7,9 +7,12 @@ or any phase fails.
 Phases, in order (the seconds each took are printed):
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from mtt_tpu_torch/csrc (seconds printed);
-  3. each of the 13 kernel entry points (12 TPU kernels; the multi-scale tail
-     with and without its fused head) against its plain PyTorch version at the
-     ViT-L PASCAL shapes the main paths give it, the earlier kernels again
+  3. each of the 15 kernel entry points (the 14 TPU kernels; the multi-scale
+     tail with and without its fused head) against its plain PyTorch version
+     at the ViT-L PASCAL shapes the main paths give it (row 13, attention over
+     the packed qkv, fast and safe; row 14, attention over separate q, k, v,
+     also at InvPT's cross shape with head dim 72; the up4 head also at
+     NYUD's C = 768 for n = 1, 3, 40), the earlier kernels again
      at the shapes the InvPT path adds (N = 1025, LayerNorm rows of 2880, MLP
      widths 576, 288, 144; the tail on NYUD's non-square grid), and the Swin
      path's at its shapes (window attention and its backward at the four
@@ -18,32 +21,43 @@ Phases, in order (the seconds each took are printed):
      widths 128 to 1024, down to the 3 prompt rows): error, tolerance in
      bf16 ulps, CUDA-event times of the kernel, the plain version, the
      library call or composition, and the bound of the card;
-  4. the ViT-L PASCAL eval forward (5 tasks, CTR on, bf16, seeded random
+  4. ``attention_api``: a ViT-L ``Attention`` without LN, forward and
+     backward, on LayerNormed bf16 tokens (8, 1029, 1024), and
+     ``dot_product_attention`` over the q, k, v of its projection, held to f32
+     (the backward at its forward point); the composed front half (the JAX
+     package's fallback composition) and the fused one on the same weights,
+     each against f32;
+  5. the ViT-L PASCAL eval forward (5 tasks, CTR on, bf16, seeded random
      weights, batch 8 at 512x512) through ``predict``, with the factored up4
      head (the default) and with the dense head: launch counts, shapes,
      finiteness, relative RMS error against an f32 run of the same weights,
      imgs/s and peak memory;
-  5. the InvPT-ViT-L PASCAL eval forward (ViT-L backbone with a cls token,
+  6. the InvPT-ViT-L PASCAL eval forward (ViT-L backbone with a cls token,
      InvPT decoder, 1x1 heads; batch 8 at 512x512, bf16, seeded random
      weights, full width and depth) through ``predict``, with the fused tail
      (the default) and with the head-fused tail: the same checks;
-  6. the TaskPrompter-Swin-B Cityscapes-3D eval forward (semseg, depth and
+  7. the TaskPrompter-Swin-B Cityscapes-3D eval forward (semseg, depth and
      3D detection; one 1024x2048 image, bf16, seeded random weights, full
      width and depth) through ``predict`` with a fixed camera matrix: launch
      counts, shapes, finiteness, every 2D map and every detection level
      against an f32 run of the same weights, the decode of fixed size, ms per
      forward, imgs/s, decode ms and peak memory; the decode of a seeded head
      output that keeps many boxes, on the card against the CPU;
-  7. ViT-L PASCAL training at the config's batch of 2 on seeded synthetic
+  8. ``nyud``: NYUD-v2 TaskPrompter-ViT-L (16 channel windows, no CTR,
+     768-wide heads) and InvPT-ViT-L at batch 8 and 448x576, and PASCAL
+     TaskPrompter-ViT-B at batch 8 and 512x512, through ``predict`` with
+     seeded weights at full width and depth: the checks of phase 5, every
+     map (InvPT: and every intermediate prediction) against an f32 run;
+  9. ViT-L PASCAL training at the config's batch of 2 on seeded synthetic
      batches in bf16 with f32 master weights: the launch counts of one step,
      its gradients against an f32 plain run of the same weights, batch and
      drop-path masks held to the step's forward point (in all and per
      tensor, see GRAD_RMS_TOL), finite losses, moving parameters and BN
      statistics, ms per step, imgs/s and peak memory;
-  8. TaskPrompter-Swin-B Cityscapes-3D training (semseg, depth and the
+  10. TaskPrompter-Swin-B Cityscapes-3D training (semseg, depth and the
      FCOS3D detection loss; one 1024x2048 image a step, labels at 512x1024,
      drop-path 0.1, bf16 with f32 master weights, seeded synthetic batches):
-     the same checks as phase 7, every detection loss component finite,
+     the same checks as phase 9, every detection loss component finite,
      and each window attention backward launch of the step against the
      plain backward on its own inputs.
 The line before the last is the kernels JSON; the last line is the device JSON.
@@ -57,9 +71,9 @@ far the Swin-B training step's bf16 gradients move between two runs on equal
 inputs, and how far they sit from the f32 step's when both run free, by loss
 part, at the two bf16 paths' forward points, and at the outputs of the
 decodes and the detection head (``grad_diag``).
-``--phases kernels,invpt`` (any subset of kernels, eval, invpt, swin, train,
-swin_train) runs only those phases and prints no result lines: a quick look,
-not the check.
+``--phases kernels,invpt`` (any subset of kernels, attention_api, eval,
+invpt, swin, nyud, train, swin_train) runs only those phases and prints no
+result lines: a quick look, not the check.
 """
 
 from __future__ import annotations
@@ -93,6 +107,13 @@ INV_D, INV_H, INV_LK = 576, 2, 320
 INV_STAGES = ((8, 576), (16, 288), (32, 144))
 INV_TH = 128                 # the tail's output grid (8 h0)
 NYUD_TH, NYUD_TW, NYUD_NLOG = 112, 144, 40   # 448x576 inputs, 40 classes
+# NYUD-v2 TaskPrompter-ViT-L: a 28x36 patch grid, 768-wide heads for semseg
+# (40 logits), normals (3), depth and edge (1)
+NYUD_IMG, NYUD_GH, NYUD_GW, NYUD_C = (448, 576), 28, 36, 768
+NYUD_T = 4
+# InvPT's message-passing attention: q rows of 5 tasks x 32 x 32 at its last
+# stage, k/v rows 5 x 8 x 8, head dim 72
+GEN_Q, GEN_K, GEN_H, GEN_D = 5120, 320, 2, 72
 
 # TaskPrompter-Swin-B Cityscapes-3D: one 1024x2048 image resized to 768x1536,
 # patch 4; per stage (token grid, width, heads); 12x12 windows with 3 prompts
@@ -129,6 +150,12 @@ KERNEL_ROWS = {
                     "eval"),
     "head_up4": ("mtt_tpu_torch/csrc/head_up4.cu",
                  "mtt_tpu/kernels/head_up4.py:168", "head_up4", "eval"),
+    "attention_qkv": ("mtt_tpu_torch/csrc/attention.cu",
+                      "mtt_tpu/kernels/attention.py:230", "attention_qkv",
+                      "attention_api"),
+    "attention_generic": ("mtt_tpu_torch/csrc/attention_generic.cu",
+                          "mtt_tpu/kernels/attention.py:118",
+                          "attention_generic", "attention_api"),
     "attention_bwd": ("mtt_tpu_torch/csrc/attention_bwd.cu",
                       "mtt_tpu/kernels/attention.py:603", "attention_bwd",
                       "train"),
@@ -501,6 +528,88 @@ def _wattn_bwd_case(q, k, v, bias, m, g, nW):
             10.0 * nel * D, 12.0 * nel)
 
 
+def _api_cases(rnd):
+    """The kernel cases of rows 13 and 14 and of row 6 at NYUD's width, in
+    ``kernel_phase``'s format: row 13 on the ViT-L packed qkv (8, 1029,
+    3072), fast and safe softmax; row 14 at a ViT-L self-attention shape
+    (8, 1029, 16, 64) and at InvPT's cross shape (q (8, 5120, 2, 72), k/v
+    (8, 320, 2, 72)); row 6 on NYUD's 28x36 grid at C = 768 for the n of its
+    task heads (depth and edge 1, normals 3, semseg 40). The library call of
+    rows 13-14 is SDPA on the same tensors (strided views of the packed
+    qkv), of row 6 the dense cuDNN head."""
+    from mtt_tpu_torch.kernels.attention import (fused_attention,
+                                                 fused_attention_qkv)
+    from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
+
+    bf = torch.bfloat16
+    cases = {}
+    qkv = rnd(B, N, 3 * C)
+
+    def sdpa_packed():
+        q, k, v = (t.transpose(1, 2)
+                   for t in qkv.view(B, N, HEADS, 3, D).unbind(3))
+        o = F.scaled_dot_product_attention(q, k, v)
+        return o.transpose(1, 2).reshape(B, N, C)
+
+    for safe in (False, True):
+        cases["attention_qkv" + ("_safe" if safe else "")] = (
+            lambda impl, s=safe: fused_attention_qkv(qkv, HEADS, impl=impl,
+                                                     safe=s),
+            4, "P is rounded to bf16 at the same point; f32 sums in another "
+               "order can flip that rounding" + (
+                   "; the online max rescales P after its rounding"
+                   if safe else ""),
+            sdpa_packed, None, _nbytes(qkv) + B * N * C * 2,
+            4.0 * B * HEADS * N * N * D, 0.0)
+
+    def generic_case(nq, nk, h, d):
+        q, k, v = rnd(B, nq, h, d), rnd(B, nk, h, d), rnd(B, nk, h, d)
+
+        def lib():
+            o = F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+            return o.transpose(1, 2)
+
+        return (lambda impl: fused_attention(q, k, v, impl=impl), 4,
+                "the max over all keys, then P rounded to bf16 at the same "
+                "point; f32 sums in another order can flip that rounding",
+                lib, None, _nbytes(q, k, v, q), 4.0 * B * h * nq * nk * d,
+                0.0)
+
+    cases["attention_generic"] = generic_case(N, N, HEADS, D)
+    cases["attention_generic@cross"] = generic_case(GEN_Q, GEN_K, GEN_H,
+                                                    GEN_D)
+
+    gh, gw, cn = NYUD_GH, NYUD_GW, NYUD_C
+    xh = rnd(B, gh, gw, cn, std=0.5)
+    kc = rnd(3, 3, cn, cn, std=(9 * cn) ** -0.5)
+    inv = rnd(cn, std=0.1, mean=1.0, dtype=torch.float32)
+    addv = rnd(cn, std=0.1, dtype=torch.float32)
+    kc_oihw = kc.permute(3, 2, 0, 1).contiguous()
+    for n in (1, 3, NYUD_NLOG):
+        kp = rnd(cn, n, std=cn ** -0.5)
+
+        def head_lib(kp=kp):
+            up = F.interpolate(xh.permute(0, 3, 1, 2), scale_factor=4,
+                               mode="bilinear", align_corners=False)
+            y = F.conv2d(up, kc_oihw, padding=1)
+            y = F.gelu(y * inv.to(bf)[:, None, None]
+                       + addv.to(bf)[:, None, None])
+            return F.conv2d(y, kp.t()[:, :, None, None].contiguous())
+
+        cases[f"head_up4@nyud_n{n}"] = (
+            lambda impl, kp=kp: fused_up4_head(xh, kc, inv, addv, kp,
+                                               impl=impl),
+            4, "as head_up4; the kernel streams the input channels in "
+               "slices of 128 and sums Gm in the same order",
+            None, head_lib,
+            _nbytes(xh, kc, inv, addv, kp) + B * 16 * gh * gw * n * 4,
+            2.0 * B * gh * gw * cn * 9 * cn + 12.0 * B * gh * 3 * cn * 4 * gw
+            + 2.0 * B * 16 * gh * gw * cn * n,
+            (12.0 + 25.0) * B * 16 * gh * gw * cn)
+    return cases
+
+
 def kernel_phase():
     """Each kernel against its plain version on the same seeded inputs."""
     from mtt_tpu_torch.kernels.attention import (attn_core_bwd_cuda,
@@ -671,6 +780,7 @@ def kernel_phase():
     }
     cases.update(_invpt_cases(rnd))
     cases.update(_swin_cases(rnd))
+    cases.update(_api_cases(rnd))
     results = {}
     for name, (call, ulps, reason, lib, comp, nbytes, tcf, f32f) in \
             cases.items():
@@ -755,14 +865,38 @@ def expected_train() -> dict:
                      mlp_fc=23, task_decode=4)
 
 
-def expected_invpt(tail_head: bool) -> dict:
+def expected_invpt(tail_head: bool, tasks: int = T) -> dict:
     """One InvPT eval forward: 24 ViT blocks (attention + MLP half-block);
     LayerNorm = the ViT's final norm + norm1 and norm2 of the 3 decoder
     stages + their 3 task-merged stage norms; one plain MLP and one
     message-passing attention per stage; one tail launch per task."""
     return _expected(layernorm=1 + 6 + 3, attention_cached=24, mlp_ln_res=24,
                      mlp_fc=3, invpt_attention=3,
-                     **{"invpt_tail_head" if tail_head else "invpt_tail": T})
+                     **{"invpt_tail_head" if tail_head else "invpt_tail":
+                        tasks})
+
+
+def expected_attention_api() -> dict:
+    """``attention_api_phase``: the module without LN and the composed front
+    half launch row 13 once each, ``dot_product_attention`` row 14 once, the
+    fused front half its cached kernel once; the backwards are torch."""
+    return _expected(attention_qkv=2, attention_generic=1,
+                     attention_cached=1)
+
+
+def expected_nyud_taskprompter() -> dict:
+    """NYUD TaskPrompter-ViT-L: the PASCAL forward's blocks, no task decode
+    launch (16 channel windows take the windowed torch composition) and one
+    up4 head per task."""
+    return _expected(layernorm=5, attention_cached=20, attention_emit=4,
+                     mlp_ln_res=24, head_up4=NYUD_T)
+
+
+def expected_vitb() -> dict:
+    """TaskPrompter-ViT-B PASCAL: 12 blocks with taps after blocks 3, 6 and
+    9 and the last one."""
+    return _expected(layernorm=5, attention_cached=8, attention_emit=4,
+                     mlp_ln_res=12, task_decode=4, head_up4=T)
 
 
 def expected_swin() -> dict:
@@ -839,19 +973,10 @@ def _rel_rms(got: dict, ref: dict) -> float:
 
 
 def _eval_model():
-    """The ViT-L PASCAL eval model (factored head, bf16, seeded random
-    weights) and a seeded batch of 8 preprocessed 512x512 images."""
-    from mtt_tpu_torch.inference import preprocess
-    from mtt_tpu_torch.models.layers import init_weights
-    from mtt_tpu_torch.models.wrappers import build_model
+    """The ViT-L PASCAL eval model (factored head) and its batch of 8
+    512x512 images (``_serve_model``)."""
     from mtt_tpu_torch.train import PASCAL_VITL
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    model = build_model(PASCAL_VITL, device=dev, dtype=torch.bfloat16).eval()
-    init_weights(model, gen)
-    rgb = torch.randint(0, 256, (B, IMG, IMG, 3), generator=gen, device=dev)
-    return model, preprocess(rgb)
+    return _serve_model(PASCAL_VITL, 1, (IMG, IMG))
 
 
 def _vitl_trainer():
@@ -862,173 +987,254 @@ def _vitl_trainer():
 
 def eval_phase():
     """The ViT-L PASCAL eval forward through the kernels, factored head then
-    dense head; returns the launch counts of each forward."""
-    from mtt_tpu_torch.inference import predict
-    from mtt_tpu_torch.kernels import _build
+    dense head (``_serve_check``); returns the launch counts of each."""
     from mtt_tpu_torch.models.wrappers import TaskPrompterNet
 
-    dev = torch.device("cuda")
     factored, x = _eval_model()
     dense = TaskPrompterNet(
         factored.tasks, {t: factored.get_submodule(f"head_{t}").linear_pred
                          .out_channels for t in factored.tasks}, (IMG, IMG),
-        "TaskPrompter_vitL", head_up4="dense", device=dev,
+        "TaskPrompter_vitL", head_up4="dense", device=torch.device("cuda"),
         dtype=torch.bfloat16).eval()
     dense.load_state_dict(factored.state_dict())
-    n_params = sum(p.numel() for p in factored.parameters())
-    counts = {}
-    for mode, model in (("factored", factored), ("dense", dense)):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_counts()
-        logits, preds = predict(model, x)
-        torch.cuda.synchronize()
-        counts[mode] = dict(_build.COUNTS)
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"[eval {mode}] TaskPrompter-ViT-L PASCAL, "
-              f"{n_params / 1e6:.1f} M params, batch {B} at {IMG}x{IMG} "
-              f"bf16; launches {counts[mode]}", flush=True)
-        if counts[mode] != expected_eval(mode):
-            raise RuntimeError(f"{mode} launch counts {counts[mode]} != "
-                               f"{expected_eval(mode)}")
-        for t in model.tasks:
-            n = model.get_submodule(f"head_{t}").linear_pred.out_channels
-            if logits[t].shape != (B, IMG, IMG, n) or \
-                    not torch.isfinite(logits[t]).all():
-                raise RuntimeError(f"{mode} {t}: logits "
-                                   f"{tuple(logits[t].shape)} or non-finite")
-            if preds[t].shape[:3] != (B, IMG, IMG) or \
-                    not torch.isfinite(preds[t].float()).all():
-                raise RuntimeError(f"{mode} {t}: bad prediction "
-                                   f"{tuple(preds[t].shape)}")
-        ms = _time_ms(lambda: predict(model, x), reps=5, warmup=1)
-        plain_ms = _time_ms(lambda: predict(model, x, impl="plain"), reps=3,
-                            warmup=1)
-        plain, plain_preds = predict(model, x, impl="plain")
-        # f32 reference: full-precision matmuls and convolutions (no TF32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        ref_model = copy.deepcopy(model).float()
-        ref, ref_preds = predict(ref_model, x, impl="plain")
-        del ref_model
-        for t in model.tasks:
-            r = ref[t].float()
-            k, p = logits[t].float(), plain[t].float()
-            rms_k = ((k - r).norm() / r.norm()).item()
-            rms_p = ((p - r).norm() / r.norm()).item()
-            line = (f"[eval {mode}] {t}: vs the f32 run: relative RMS error "
-                    f"kernels {rms_k:.5g} (tol {FORWARD_RMS_TOL}), plain bf16 "
-                    f"{rms_p:.5g}; max error / max|f32| kernels "
-                    f"{((k - r).abs().max() / r.abs().max()).item():.5g}")
-            if t in ("semseg", "human_parts"):
-                line += (f"; argmax agreement with f32: kernels "
-                         f"{(preds[t] == ref_preds[t]).float().mean().item():.5f}"
-                         f", plain bf16 "
-                         f"{(plain_preds[t] == ref_preds[t]).float().mean().item():.5f}")
-            print(line, flush=True)
-            if not rms_k <= FORWARD_RMS_TOL:
-                raise RuntimeError(f"{mode} {t}: kernel forward is {rms_k:.4g}"
-                                   f" (relative RMS) from the f32 run, over "
-                                   f"{FORWARD_RMS_TOL}")
-        print(f"[eval {mode}] forward+postprocess {ms:.2f} ms = "
-              f"{B / ms * 1e3:.2f} imgs/s through the kernels; plain versions "
-              f"{plain_ms:.2f} ms = {B / plain_ms * 1e3:.2f} imgs/s; peak "
-              f"memory of the first forward {peak_gib:.2f} GiB", flush=True)
-        del logits, preds, plain, plain_preds, ref, ref_preds
-    return counts
+    return {mode: _serve_check(f"eval {mode}", "TaskPrompter-ViT-L PASCAL",
+                               model, x, expected_eval(mode))
+            for mode, model in (("factored", factored), ("dense", dense))}
 
 
 def _invpt_model(tail_head: bool = False):
-    """The InvPT-ViT-L PASCAL eval model (bf16, seeded random weights, full
-    width and depth) and a seeded batch of 8 preprocessed 512x512 images."""
-    from mtt_tpu_torch.inference import preprocess
-    from mtt_tpu_torch.models.layers import init_weights
-    from mtt_tpu_torch.models.wrappers import INVPT_PASCAL_VITL, build_model
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(3)
-    model = build_model(INVPT_PASCAL_VITL, tail_head=tail_head, device=dev,
-                        dtype=torch.bfloat16).eval()
-    init_weights(model, gen)
-    rgb = torch.randint(0, 256, (B, IMG, IMG, 3), generator=gen, device=dev)
-    return model, preprocess(rgb)
+    """The InvPT-ViT-L PASCAL eval model and its batch of 8 512x512 images
+    (``_serve_model``)."""
+    from mtt_tpu_torch.models.wrappers import INVPT_PASCAL_VITL
+    return _serve_model(INVPT_PASCAL_VITL, 3, (IMG, IMG), tail_head=tail_head)
 
 
 def invpt_phase():
     """The InvPT-ViT-L PASCAL eval forward through the kernels, with the fused
-    tail then with the head-fused tail; returns the launch counts of each."""
-    from mtt_tpu_torch.inference import predict
-    from mtt_tpu_torch.kernels import _build
-
+    tail then with the head-fused tail (``_serve_check``, which also holds
+    the intermediate predictions); returns the launch counts of each."""
     tail, x = _invpt_model()
     head, _ = _invpt_model(tail_head=True)
     head.load_state_dict(tail.state_dict())
-    n_params = sum(p.numel() for p in tail.parameters())
-    # f32 reference, once: full-precision matmuls and convolutions (no TF32);
-    # both tail forms compute one function
+    return {mode: _serve_check(f"invpt {mode}", "InvPT-ViT-L PASCAL", model,
+                               x, expected_invpt(mode == "tail_head"))
+            for mode, model in (("tail", tail), ("tail_head", head))}
+
+
+def attention_api_phase():
+    """The module API of rows 13 and 14 at ViT-L width: ``Attention`` without
+    LN, forward and backward, on LayerNormed bf16 tokens (8, 1029, 1024) with
+    seeded weights, and ``dot_product_attention`` over the q, k and v of the
+    same projection (strided views of its output); then the composed front
+    half (``attention_ln_qkv_composed``, the JAX package's fallback) and the
+    fused one on the same weights. Returns the launch counts."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.attention import (attention_ln_qkv_composed,
+                                                 attention_qkv_bwd_plain,
+                                                 fused_attention_ln_qkv)
+    from mtt_tpu_torch.kernels.layernorm import layernorm_plain
+    from mtt_tpu_torch.models.layers import (Attention,
+                                             dot_product_attention,
+                                             init_weights)
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(4)
+    attn = Attention(C, HEADS, device=dev, dtype=bf)
+    init_weights(attn, gen)
+    with torch.no_grad():
+        attn.qkv.bias.copy_(0.1 * torch.randn(3 * C, generator=gen,
+                                              device=dev))
+    gamma = 1.0 + 0.1 * torch.randn(C, generator=gen, device=dev)
+    beta = 0.1 * torch.randn(C, generator=gen, device=dev)
+    xr = torch.randn(B, N, C, generator=gen, device=dev).to(bf)
+    x = layernorm_plain(xr, gamma, beta).requires_grad_()
+    g = torch.randn(B, N, C, generator=gen, device=dev).to(bf)
+    w, b = attn.qkv.weight.detach(), attn.qkv.bias.detach()
+    # the packed qkv and the attention output, kept with their gradients to
+    # hold the backward at its forward point
+    seen = {}
+
+    def keep(name, t):
+        t.retain_grad()
+        seen[name] = t
+
+    hooks = [attn.qkv.register_forward_hook(
+                 lambda m, i, o: keep("qkv", o)),
+             attn.proj.register_forward_pre_hook(
+                 lambda m, i: keep("att", i[0]))]
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    out = attn(x)
+    out.backward(g)
+    q, k, v = seen["qkv"].detach().view(B, N, HEADS, 3, D).unbind(3)
+    with torch.no_grad():
+        o_dpa = dot_product_attention(q, k, v)
+        o_comp = attention_ln_qkv_composed(xr, gamma, beta, w, b, HEADS)
+        o_fused = fused_attention_ln_qkv(xr, gamma, beta, w, b, HEADS)
+    torch.cuda.synchronize()
+    counts = dict(_build.COUNTS)
+    for h in hooks:
+        h.remove()
+    print(f"[attention_api] ViT-L Attention without LN, batch {B} x {N} "
+          f"tokens x {C}, bf16; launches {counts}", flush=True)
+    if counts != expected_attention_api():
+        raise RuntimeError(f"attention_api launch counts {counts} != "
+                           f"{expected_attention_api()}")
+
+    def rel(got, ref):
+        return ((got.float() - ref).norm() / ref.norm()).item()
+
+    # f32 references on the plain versions: full-precision products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        ref_out = copy.deepcopy(attn).float()(x.detach().float(),
+                                              impl="plain")
+        ref_dpa = dot_product_attention(q.float(), k.float(), v.float(),
+                                        impl="plain")
+        ref_ln = fused_attention_ln_qkv(xr.float(), gamma, beta, w.float(),
+                                        b.float(), HEADS, impl="plain")
+        # the backward at the run's forward point: the f32 VJP of the run's
+        # own bf16 qkv and attention-output cotangent, closed through the
+        # qkv weight in f32
+        ref_dqkv = attention_qkv_bwd_plain(
+            seen["qkv"].detach().float(), seen["att"].grad.float(), HEADS,
+            D ** -0.5)
+        ref_dx = torch.matmul(ref_dqkv, w.float())
+    errs = {"forward": (rel(out, ref_out), FORWARD_RMS_TOL),
+            "dot_product_attention": (rel(o_dpa, ref_dpa), FORWARD_RMS_TOL),
+            "composed front half": (rel(o_comp, ref_ln), FORWARD_RMS_TOL),
+            "fused front half": (rel(o_fused, ref_ln), FORWARD_RMS_TOL),
+            "dqkv at the forward point": (rel(seen["qkv"].grad, ref_dqkv),
+                                          GRAD_RMS_TOL),
+            "dx at the forward point": (rel(x.grad, ref_dx), GRAD_RMS_TOL)}
+    for what, (e, tol) in errs.items():
+        print(f"[attention_api] {what}: relative RMS error against f32 "
+              f"{e:.5g} (tol {tol})", flush=True)
+        if not e <= tol:
+            raise RuntimeError(f"attention_api {what}: {e:.4g} > {tol}")
+    print(f"[attention_api] composed against fused front half: relative RMS "
+          f"{rel(o_comp, o_fused.float()):.5g}", flush=True)
+    x.grad = None
+    fwd = _time_ms(lambda: attn(x))
+    fwd_plain = _time_ms(lambda: attn(x, impl="plain"), reps=3, warmup=1)
+    step = _time_ms(lambda: attn(x).backward(g))
+    print(f"[attention_api] module forward {fwd:.4f} ms through the kernel, "
+          f"{fwd_plain:.4f} ms plain; forward + backward {step:.4f} ms",
+          flush=True)
+    return counts
+
+
+def _serve_model(p: dict, seed: int, size, **kw):
+    """A model built by ``build_model`` from config dict ``p`` (bf16, seeded
+    random weights, full width and depth; ``kw`` to ``build_model``) and a
+    seeded batch of 8 preprocessed images of ``size``."""
+    from mtt_tpu_torch.inference import preprocess
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import build_model
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = build_model(p, img_size=size, device=dev, dtype=torch.bfloat16,
+                        **kw).eval()
+    init_weights(model, gen)
+    rgb = torch.randint(0, 256, (B, *size, 3), generator=gen, device=dev)
+    return model, preprocess(rgb)
+
+
+def _serve_check(tag: str, title: str, model, x, want: dict) -> dict:
+    """One eval forward through ``predict``: launch counts, shapes,
+    finiteness, every map (and InvPT's intermediate predictions) against an
+    f32 run of the same weights, imgs/s and peak memory. Returns the
+    launch counts."""
+    from mtt_tpu_torch.inference import predict
+    from mtt_tpu_torch.kernels import _build
+
+    size = tuple(x.shape[1:3])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    logits, preds = predict(model, x)
+    torch.cuda.synchronize()
+    counts = dict(_build.COUNTS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[{tag}] {title}, {n_params / 1e6:.1f} M params, batch {B} at "
+          f"{size[0]}x{size[1]} bf16; launches {counts}", flush=True)
+    if counts != want:
+        raise RuntimeError(f"{tag} launch counts {counts} != {want}")
+    plain, plain_preds = predict(model, x, impl="plain")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ref_model = copy.deepcopy(tail).float()
+    ref_model = copy.deepcopy(model).float()
     ref, ref_preds = predict(ref_model, x, impl="plain")
     del ref_model
-    torch.cuda.empty_cache()
-    counts = {}
-    for mode, model in (("tail", tail), ("tail_head", head)):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_counts()
-        logits, preds = predict(model, x)
-        torch.cuda.synchronize()
-        counts[mode] = dict(_build.COUNTS)
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"[invpt {mode}] InvPT-ViT-L PASCAL, {n_params / 1e6:.1f} M "
-              f"params, batch {B} at {IMG}x{IMG} bf16; launches "
-              f"{counts[mode]}", flush=True)
-        want = expected_invpt(mode == "tail_head")
-        if counts[mode] != want:
-            raise RuntimeError(f"InvPT {mode} launch counts {counts[mode]} "
-                               f"!= {want}")
-        plain, plain_preds = predict(model, x, impl="plain")
-        for t in model.tasks:
-            n = model.get_submodule(f"head_{t}").linear_pred.out_channels
-            for what, v in ((t, logits[t]),
-                            (f"inter_preds.{t}", logits["inter_preds"][t])):
-                if v.shape != (B, IMG, IMG, n) or not torch.isfinite(v).all():
-                    raise RuntimeError(f"InvPT {mode} {what}: logits "
-                                       f"{tuple(v.shape)} or non-finite")
-            if preds[t].shape[:3] != (B, IMG, IMG) or \
-                    not torch.isfinite(preds[t].float()).all():
-                raise RuntimeError(f"InvPT {mode} {t}: bad prediction "
-                                   f"{tuple(preds[t].shape)}")
-            r = ref[t].float()
-            k, p = logits[t].float(), plain[t].float()
-            rms_k = ((k - r).norm() / r.norm()).item()
-            rms_p = ((p - r).norm() / r.norm()).item()
-            ri = ref["inter_preds"][t].float()
-            rms_i = ((logits["inter_preds"][t].float() - ri).norm()
-                     / ri.norm()).item()
-            line = (f"[invpt {mode}] {t}: vs the f32 run: relative RMS error "
-                    f"kernels {rms_k:.5g} (tol {FORWARD_RMS_TOL}), plain bf16 "
-                    f"{rms_p:.5g}, intermediate prediction {rms_i:.5g}")
-            if t in ("semseg", "human_parts"):
+    for t in model.tasks:
+        n = model.get_submodule(f"head_{t}").linear_pred.out_channels
+        maps = [(t, logits[t], ref[t], plain[t])]
+        if "inter_preds" in logits:
+            maps.append((f"inter_preds.{t}", logits["inter_preds"][t],
+                         ref["inter_preds"][t], plain["inter_preds"][t]))
+        for what, k, r, p in maps:
+            if k.shape != (B, *size, n) or not torch.isfinite(k).all():
+                raise RuntimeError(f"{tag} {what}: logits {tuple(k.shape)} "
+                                   f"or non-finite")
+            r = r.float()
+            rms_k = ((k.float() - r).norm() / r.norm()).item()
+            rms_p = ((p.float() - r).norm() / r.norm()).item()
+            line = (f"[{tag}] {what}: vs the f32 run: relative RMS error "
+                    f"kernels {rms_k:.5g} (tol {FORWARD_RMS_TOL}), plain "
+                    f"bf16 {rms_p:.5g}")
+            if what in ("semseg", "human_parts"):
+                agree = [(q[t] == ref_preds[t]).float().mean().item()
+                         for q in (preds, plain_preds)]
                 line += (f"; argmax agreement with f32: kernels "
-                         f"{(preds[t] == ref_preds[t]).float().mean().item():.5f}"
-                         f", plain bf16 "
-                         f"{(plain_preds[t] == ref_preds[t]).float().mean().item():.5f}")
+                         f"{agree[0]:.5f}, plain bf16 {agree[1]:.5f}")
             print(line, flush=True)
-            if not max(rms_k, rms_i) <= FORWARD_RMS_TOL:
-                raise RuntimeError(
-                    f"InvPT {mode} {t}: kernel forward is {rms_k:.4g} "
-                    f"(intermediate {rms_i:.4g}, relative RMS) from the f32 "
-                    f"run, over {FORWARD_RMS_TOL}")
-        del logits, preds, plain, plain_preds
-        ms = _time_ms(lambda: predict(model, x), reps=5, warmup=1)
-        plain_ms = _time_ms(lambda: predict(model, x, impl="plain"), reps=3,
-                            warmup=1)
-        print(f"[invpt {mode}] forward+postprocess {ms:.2f} ms = "
-              f"{B / ms * 1e3:.2f} imgs/s through the kernels; plain versions "
-              f"{plain_ms:.2f} ms = {B / plain_ms * 1e3:.2f} imgs/s; peak "
-              f"memory of the first forward {peak_gib:.2f} GiB", flush=True)
+            if not rms_k <= FORWARD_RMS_TOL:
+                raise RuntimeError(f"{tag} {what}: kernel forward is "
+                                   f"{rms_k:.4g} (relative RMS) from the f32 "
+                                   f"run, over {FORWARD_RMS_TOL}")
+        if preds[t].shape[:3] != (B, *size) or \
+                not torch.isfinite(preds[t].float()).all():
+            raise RuntimeError(f"{tag} {t}: bad prediction "
+                               f"{tuple(preds[t].shape)}")
+    del logits, preds, plain, plain_preds, ref, ref_preds
+    ms = _time_ms(lambda: predict(model, x), reps=5, warmup=1)
+    plain_ms = _time_ms(lambda: predict(model, x, impl="plain"), reps=3,
+                        warmup=1)
+    print(f"[{tag}] forward+postprocess {ms:.2f} ms = {B / ms * 1e3:.2f} "
+          f"imgs/s through the kernels; plain versions {plain_ms:.2f} ms = "
+          f"{B / plain_ms * 1e3:.2f} imgs/s; peak memory of the first "
+          f"forward {peak_gib:.2f} GiB", flush=True)
+    return counts
+
+
+def _serve_paths():
+    """(tag, title, config, seed, input size, expected launches) of the
+    serving paths of ``nyud_phase``."""
+    from mtt_tpu_torch.models.wrappers import (NYUD_INVPT_VITL,
+                                               NYUD_TASKPROMPTER_VITL,
+                                               PASCAL_TASKPROMPTER_VITB)
+    return (("nyud_taskprompter", "TaskPrompter-ViT-L NYUD-v2 (16 channel "
+             "windows, no CTR, 768-wide heads)", NYUD_TASKPROMPTER_VITL, 5,
+             NYUD_IMG, expected_nyud_taskprompter()),
+            ("nyud_invpt", "InvPT-ViT-L NYUD-v2", NYUD_INVPT_VITL, 6,
+             NYUD_IMG, expected_invpt(False, NYUD_T)),
+            ("pascal_vitb", "TaskPrompter-ViT-B PASCAL",
+             PASCAL_TASKPROMPTER_VITB, 7, (IMG, IMG), expected_vitb()))
+
+
+def nyud_phase():
+    """NYUD-v2 TaskPrompter-ViT-L and InvPT-ViT-L at batch 8 and 448x576,
+    and PASCAL TaskPrompter-ViT-B at batch 8 and 512x512, each through
+    ``predict`` (``_serve_check``). Returns the launch counts by path."""
+    counts = {}
+    for tag, title, p, seed, size, want in _serve_paths():
+        model, x = _serve_model(p, seed, size)
+        counts[tag] = _serve_check(tag, title, model, x, want)
+        del model, x
+        torch.cuda.empty_cache()
     return counts
 
 
@@ -1644,6 +1850,7 @@ PROFILE_GROUPS = (("mlp_kernel", "mlp (mlp.cu)"),
                   ("wattn_dbias", "window attention backward"),
                   ("attn_bwd", "attention backward"),
                   ("attn_core", "attention core"),
+                  ("attn_generic", "generic attention"),
                   ("gemm_nt_bias", "qkv projection"),
                   ("ln_kernel", "layernorm"), ("task_decode", "task decode"),
                   ("head_up4", "up4 head"),
@@ -1729,6 +1936,12 @@ def profile_phase(wanted):
         _profile(f"InvPT eval forward, batch {B}, tail_head={tail_head}",
                  lambda: predict(model, x))
         del model, x
+    if "nyud" in wanted:
+        for tag, title, p, seed, size, _ in _serve_paths():
+            model, x = _serve_model(p, seed, size)
+            _profile(f"{title} eval forward, batch {B}",
+                     lambda: predict(model, x))
+            del model, x
     if "swin" in wanted:
         model, x, K = _swin_model()
         _profile("Swin-B Cityscapes-3D eval forward, 1 image",
@@ -1902,8 +2115,9 @@ def _kernel_name(mangled: str) -> str:
     return mangled
 
 
-PHASES = {"kernels": kernel_phase, "eval": eval_phase, "invpt": invpt_phase,
-          "swin": swin_phase, "train": train_phase,
+PHASES = {"kernels": kernel_phase, "attention_api": attention_api_phase,
+          "eval": eval_phase, "invpt": invpt_phase, "swin": swin_phase,
+          "nyud": nyud_phase, "train": train_phase,
           "swin_train": swin_train_phase}
 
 
@@ -1969,6 +2183,7 @@ def main(argv=None):
     results, eval_counts = outcome["kernels"], outcome["eval"]
     invpt_counts, train_counts = outcome["invpt"], outcome["train"]
     swin_counts, swin_train_counts = outcome["swin"], outcome["swin_train"]
+    api_counts, serve_counts = outcome["attention_api"], outcome["nyud"]
 
     rows = []
     for name, (src, replaces, counter, path) in KERNEL_ROWS.items():
@@ -1979,14 +2194,16 @@ def main(argv=None):
                    "invpt_tail": invpt_counts["tail"][counter],
                    "invpt_tail_head": invpt_counts["tail_head"][counter],
                    "swin": swin_counts[counter],
-                   "swin_train": swin_train_counts[counter]}
+                   "swin_train": swin_train_counts[counter],
+                   "attention_api": api_counts[counter],
+                   **{tag: c[counter] for tag, c in serve_counts.items()}}
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=by_path[{"eval": "eval_factored", "train": "train_step",
                               "invpt": "invpt_tail",
                               "invpt_head": "invpt_tail_head",
-                              "swin": "swin",
-                              "swin_train": "swin_train"}[path]],
+                              "swin": "swin", "swin_train": "swin_train",
+                              "attention_api": "attention_api"}[path]],
             launches_by_path=by_path, max_abs_err=r["max_abs_err"],
             tol=r["tol"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

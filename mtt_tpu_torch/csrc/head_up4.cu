@@ -32,6 +32,18 @@
 // device memory. The TPU kernel sums the per-chunk logits in bf16 for its
 // VMEM budget; this one keeps them in f32. Neighbouring blocks recompute each
 // Gm row three times (54 GFLOP at main-path shapes) rather than exchange it.
+//
+// Wide inputs: the staged strip is 112 x (C + 8) bf16, 174 KB at NYUD's
+// C = 768, which leaves no room for the rest. Where the strip and the
+// per-chunk buffers do not fit in the 227 KB of shared memory (C > 512), the
+// kernel runs its streamed form: per chunk of 32 output channels it walks the
+// input channels in slices of 128 (two slice buffers, the next one loading
+// while the current one is multiplied) and accumulates Gm in f32 in shared
+// memory, rounding it to bf16 after the last slice. The sums run in the same
+// order as in the resident form, so both give the same bits; the streamed form
+// reads the strip from L2 once per chunk of output channels instead of once.
+#include <type_traits>
+
 #include "common.cuh"
 
 using namespace mtt;
@@ -52,22 +64,48 @@ constexpr int TPIX = 4 * W4S;         // 512 output pixels per block
 constexpr int TLD = DC + 8;
 constexpr int KLD = NC + 8;
 
-__host__ __device__ constexpr int head_smem(int CP) {
-  return GROWS_P * (CP + 8) * 2 + GROWS_P * GLDS * 2 + TPIX * TLD * 2 + DC * KLD * 2 +
-         (W4S * 9 + 36 + 2 * DC) * 4;
+constexpr int KC = 128;               // input channels per streamed slice
+constexpr int XCLD = KC + 8;
+constexpr int kSmemMax = 232448;
+constexpr int TS_BYTES = TPIX * TLD * 2;
+// the streamed form's Ts and its two input slices share one region
+constexpr int UNION_BYTES =
+    TS_BYTES > 2 * GROWS_P * XCLD * 2 ? TS_BYTES : 2 * GROWS_P * XCLD * 2;
+constexpr int TAIL_BYTES = DC * KLD * 2 + (W4S * 9 + 36 + 2 * DC) * 4;
+
+__host__ __device__ constexpr int head_smem(int CP, bool stream) {
+  return stream ? GROWS_P * GLDS * 4 + UNION_BYTES + TAIL_BYTES
+                : GROWS_P * (CP + 8) * 2 + GROWS_P * GLDS * 2 + TS_BYTES + TAIL_BYTES;
 }
 
+__device__ __forceinline__ float ld_f(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float ld_f(const float* p) { return *p; }
+
+// STREAM false: the resident form (the strip staged once); true: the streamed
+// form (input slices per chunk, Gm accumulated in f32 in shared memory).
+template <bool STREAM>
 __global__ void __launch_bounds__(HT, 1) head_up4_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ wf, const float* __restrict__ swb,
     const float* __restrict__ shb, const float* __restrict__ inv, const float* __restrict__ addv,
     const bf16* __restrict__ kp, float* __restrict__ out, int gh, int gw, int CP, int DP, int n,
     int NP) {
+  using GT = typename std::conditional<STREAM, float, bf16>::type;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int XLD = CP + 8;
-  bf16* Xs = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = Xs + GROWS_P * XLD;
-  bf16* Ts = Gs + GROWS_P * GLDS;
-  bf16* Ks = Ts + TPIX * TLD;
+  const int XLD = STREAM ? XCLD : CP + 8;
+  unsigned char* sp = smem;
+  bf16 *Xs, *Ts;
+  GT* Gs;
+  if (STREAM) {
+    Gs = reinterpret_cast<GT*>(sp);
+    Ts = Xs = reinterpret_cast<bf16*>(sp + GROWS_P * GLDS * sizeof(GT));
+    sp += GROWS_P * GLDS * sizeof(GT) + UNION_BYTES;
+  } else {
+    Xs = reinterpret_cast<bf16*>(sp);
+    Gs = reinterpret_cast<GT*>(Xs + GROWS_P * XLD);
+    Ts = reinterpret_cast<bf16*>(Gs + GROWS_P * GLDS);
+    sp = reinterpret_cast<unsigned char*>(Ts + TPIX * TLD);
+  }
+  bf16* Ks = reinterpret_cast<bf16*>(sp);
   float* SWs = reinterpret_cast<float*>(Ks + DC * KLD);
   float* SHs = SWs + W4S * 9;
   float* IVs = SHs + 36;
@@ -80,17 +118,20 @@ __global__ void __launch_bounds__(HT, 1) head_up4_kernel(
   const int H4 = 4 * gh, W4 = 4 * gw;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  // input rows q-1..q+1, columns s0-1..s0+SEG; zero outside the map
-  {
-    const int CH = CP / 8;
+  // input rows q-1..q+1, columns s0-1..s0+SEG, channels c0..c0+w; zero
+  // outside the map
+  auto stage = [&](bf16* dst, int c0, int w) {
+    const int CH = w / 8;
     for (int i = threadIdx.x; i < GROWS_P * CH; i += HT) {
       const int row = i / CH, c = (i % CH) * 8;
       const int hh = q + row / (SEG + 2) - 1, ww = s0 + row % (SEG + 2) - 1;
       const bool ok = row < GROWS && hh >= 0 && hh < gh && ww >= 0 && ww < gw;
-      cp_async16(Xs + row * XLD + c, ok ? x + (((size_t)b * gh + hh) * gw + ww) * CP + c : x, ok);
+      cp_async16(dst + row * XLD + c,
+                 ok ? x + (((size_t)b * gh + hh) * gw + ww) * CP + c0 + c : x, ok);
     }
     cp_async_commit();
-  }
+  };
+  if (!STREAM) stage(Xs, 0, CP);
   for (int i = threadIdx.x; i < W4S * 9; i += HT) {
     const int W = W0 + i / 9;
     SWs[i] = W < W4 ? swb[(size_t)W * 9 + i % 9] : 0.f;
@@ -110,26 +151,76 @@ __global__ void __launch_bounds__(HT, 1) head_up4_kernel(
   for (int d0 = 0; d0 < DP; d0 += DC) {
     // Gm of the staged rows for this chunk: (GROWS_P x CP) @ (CP x 9*DC)
     const bf16* wj = wf + (size_t)(d0 / DC) * CP * GCOLS;
-    for (int ct = warp; ct < GCOLS / 16; ct += HT / 32) {
-      FragC gm[GRT];
+    if (!STREAM) {
+      for (int ct = warp; ct < GCOLS / 16; ct += HT / 32) {
+        FragC gm[GRT];
 #pragma unroll
-      for (int rt = 0; rt < GRT; ++rt) wmma::fill_fragment(gm[rt], 0.f);
-      for (int k = 0; k < CP; k += 16) {
-        FragB bw;
-        wmma::load_matrix_sync(bw, wj + (size_t)k * GCOLS + ct * 16, GCOLS);
+        for (int rt = 0; rt < GRT; ++rt) wmma::fill_fragment(gm[rt], 0.f);
+        for (int k = 0; k < CP; k += 16) {
+          FragB bw;
+          wmma::load_matrix_sync(bw, wj + (size_t)k * GCOLS + ct * 16, GCOLS);
+#pragma unroll
+          for (int rt = 0; rt < GRT; ++rt) {
+            FragA a;
+            wmma::load_matrix_sync(a, Xs + rt * 16 * XLD + k, XLD);
+            wmma::mma_sync(gm[rt], a, bw, gm[rt]);
+          }
+        }
 #pragma unroll
         for (int rt = 0; rt < GRT; ++rt) {
-          FragA a;
-          wmma::load_matrix_sync(a, Xs + rt * 16 * XLD + k, XLD);
-          wmma::mma_sync(gm[rt], a, bw, gm[rt]);
+          float v[8];
+          frag_row8(gm[rt], scratch, lane, v);
+          *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(Gs) +
+                                    (rt * 16 + (lane >> 1)) * GLDS + ct * 16 + (lane & 1) * 8) =
+              pack8(v);
         }
       }
+    } else {
+      // input slices of KC channels through two buffers; Gm accumulates in
+      // f32 in Gs and is rounded to bf16 after the last slice
+      const int nkc = (CP + KC - 1) / KC;
+      stage(Xs, 0, min(KC, CP));
+      for (int kc = 0; kc < nkc; ++kc) {
+        const int c0 = kc * KC, w = min(KC, CP - c0);
+        if (kc + 1 < nkc) {
+          stage(Xs + ((kc + 1) & 1) * GROWS_P * XCLD, c0 + KC, min(KC, CP - c0 - KC));
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        const bf16* Xc = Xs + (kc & 1) * GROWS_P * XCLD;
+        float* G32 = reinterpret_cast<float*>(Gs);
+        for (int ct = warp; ct < GCOLS / 16; ct += HT / 32) {
+          FragC gm[GRT];
 #pragma unroll
-      for (int rt = 0; rt < GRT; ++rt) {
-        float v[8];
-        frag_row8(gm[rt], scratch, lane, v);
-        *reinterpret_cast<uint4*>(Gs + (rt * 16 + (lane >> 1)) * GLDS + ct * 16 + (lane & 1) * 8) =
-            pack8(v);
+          for (int rt = 0; rt < GRT; ++rt) {
+            if (kc == 0)
+              wmma::fill_fragment(gm[rt], 0.f);
+            else
+              wmma::load_matrix_sync(gm[rt], G32 + rt * 16 * GLDS + ct * 16, GLDS,
+                                     wmma::mem_row_major);
+          }
+          for (int k = 0; k < w; k += 16) {
+            FragB bw;
+            wmma::load_matrix_sync(bw, wj + (size_t)(c0 + k) * GCOLS + ct * 16, GCOLS);
+#pragma unroll
+            for (int rt = 0; rt < GRT; ++rt) {
+              FragA a;
+              wmma::load_matrix_sync(a, Xc + rt * 16 * XCLD + k, XCLD);
+              wmma::mma_sync(gm[rt], a, bw, gm[rt]);
+            }
+          }
+#pragma unroll
+          for (int rt = 0; rt < GRT; ++rt) {
+            if (kc == nkc - 1)
+              for (int e = 0; e < gm[rt].num_elements; ++e)
+                gm[rt].x[e] = __bfloat162float(__float2bfloat16(gm[rt].x[e]));
+            wmma::store_matrix_sync(G32 + rt * 16 * GLDS + ct * 16, gm[rt], GLDS,
+                                    wmma::mem_row_major);
+          }
+        }
+        __syncthreads();  // this slice buffer is refilled two slices on
       }
     }
     for (int i = threadIdx.x; i < DC * NC / 8; i += HT) {
@@ -152,7 +243,7 @@ __global__ void __launch_bounds__(HT, 1) head_up4_kernel(
         float y[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int r = 0; r < 3; ++r) {   // input row q + r - 1
-          const bf16* gr = Gs + (r * (SEG + 2) + (W >> 2)) * GLDS + d;
+          const GT* gr = Gs + (r * (SEG + 2) + (W >> 2)) * GLDS + d;
 #pragma unroll
           for (int k = 0; k < 3; ++k) {
             float m = 0.f;
@@ -160,7 +251,7 @@ __global__ void __launch_bounds__(HT, 1) head_up4_kernel(
             for (int l = 0; l < 3; ++l)
 #pragma unroll
               for (int dw = 0; dw < 3; ++dw)
-                m += sw[l * 3 + dw] * __bfloat162float(gr[dw * GLDS + (k * 3 + l) * DC]);
+                m += sw[l * 3 + dw] * ld_f(gr + dw * GLDS + (k * 3 + l) * DC);
             m = __bfloat162float(__float2bfloat16(m));
 #pragma unroll
             for (int p = 0; p < 4; ++p) y[p] += SHs[p * 9 + k * 3 + r] * m;
@@ -221,13 +312,14 @@ extern "C" int mtt_head_up4_bf16(const void* x, const void* wf, const void* swb,
                                  int B, int gh, int gw, int CP, int DP, int n, void* stream) {
   if (CP % 16 || DP % DC || n < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int NP = (n + NC - 1) / NC * NC;
-  const int smem = head_smem(CP);
+  const bool stream_in = head_smem(CP, false) > kSmemMax;
+  const int smem = head_smem(CP, stream_in);
+  auto kernel = stream_in ? head_up4_kernel<true> : head_up4_kernel<false>;
   // set on every launch: the attribute belongs to the current device's context
-  cudaError_t e = cudaFuncSetAttribute(head_up4_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((gw + SEG - 1) / SEG, gh, B * (NP / NC));
-  head_up4_kernel<<<grid, HT, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, HT, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wf), static_cast<const float*>(swb),
       static_cast<const float*>(shb), static_cast<const float*>(inv),
       static_cast<const float*>(addv), static_cast<const bf16*>(kp), static_cast<float*>(out), gh,

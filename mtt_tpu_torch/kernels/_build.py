@@ -34,10 +34,10 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIB_NAME = "libmtt_kernels.so"
 
 COUNTS = {"layernorm": 0, "attention_cached": 0, "attention_emit": 0,
-          "attention_bwd": 0, "mlp_ln_res": 0, "mlp_fc": 0, "task_decode": 0,
-          "head_up4": 0, "invpt_attention": 0, "invpt_tail": 0,
-          "invpt_tail_head": 0, "window_attention": 0,
-          "window_attention_bwd": 0}
+          "attention_qkv": 0, "attention_generic": 0, "attention_bwd": 0,
+          "mlp_ln_res": 0, "mlp_fc": 0, "task_decode": 0, "head_up4": 0,
+          "invpt_attention": 0, "invpt_tail": 0, "invpt_tail_head": 0,
+          "window_attention": 0, "window_attention_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +47,8 @@ _SIGNATURES = {
     "mtt_layernorm_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
     "mtt_qkv_proj_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
     "mtt_attn_core_bf16": (_P, _P, _I, _I, _I, _F, _F, _I, _P),
+    "mtt_attn_generic_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_L] * 9,
+                              _F, _P),
     "mtt_mlp_ln_res_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                             _P),
     "mtt_task_decode_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

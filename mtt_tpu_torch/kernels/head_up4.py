@@ -37,7 +37,6 @@ from mtt_tpu_torch.models.layers import (_up4_shift_stack_np, on_device,
 
 _DC = 32     # output channels per kernel chunk (csrc/head_up4.cu)
 _NC = 32     # logits per kernel block
-_SMEM_MAX = 232448
 
 
 def head_up4_plain(x, kc, inv, addv, kp):
@@ -85,7 +84,11 @@ def _bands(g: int) -> np.ndarray:
 def head_up4_cuda(x, kc, inv, addv, kp):
     """The kernel takes the grids the JAX kernel admits (head_up4.py:_ok):
     sides multiples of 4 and at least 8, square or not (NYUD's 28x36), and
-    at most 128 logits. Anything else raises."""
+    at most 128 logits, at any width (above C = 512 it streams the input
+    channels, see csrc/head_up4.cu). Anything else raises. Unlike the TPU,
+    which sends a head whose VMEM estimate fails ``_ok`` (NYUD's 40-class
+    semseg at C = 768) to the XLA composition, the card takes every width
+    here."""
     B, gh, gw, C = x.shape
     D = kc.shape[-1]
     n = kp.shape[-1]
@@ -101,10 +104,6 @@ def head_up4_cuda(x, kc, inv, addv, kp):
     CP = -(-C // 16) * 16
     DP = -(-D // _DC) * _DC
     NP = -(-n // _NC) * _NC
-    smem = 224 * (CP + 8) + 112 * (9 * _DC + 8) * 2 + 512 * (_DC + 8) * 2 \
-        + _DC * (_NC + 8) * 2 + (128 * 9 + 36 + 2 * _DC) * 4
-    if smem > _SMEM_MAX:
-        raise ValueError(f"the up4 head kernel takes C <= 480, got {C}")
     xp = F.pad(x, (0, CP - C)).contiguous()
     # wf (DP/32, CP, 3, 3, 32): the kernel per chunk of 32 output channels
     kcp = F.pad(kc.to(dt), (0, DP - D, 0, CP - C))

@@ -138,7 +138,7 @@ def invpt_attention_cuda(q, k, v, msg, w, b, scale: float):
                          f"in shared memory (the kv length is 320 on PASCAL "
                          f"and 252 on NYUD at every stage); Lk={Lk} with "
                          f"D={D} does not fit; streaming the keys is "
-                         f"ROADMAP.md open item 1.5")
+                         f"ROADMAP.md item 1.11")
     qp = F.pad(q, (0, DP - D)).contiguous()
     kp = F.pad(k, (0, DP - D, 0, LkP - Lk)).contiguous()
     # v transposed to (B, H, DP, LkP): the kernel's p.v fragments then read

@@ -173,13 +173,13 @@ def ms_tail_cuda(xs, kc, inv, addv, th: int, tw: int, wh=None, bh=None):
     if fs != FACTORS:
         raise ValueError(
             f"the multi-scale tail kernel takes the factors {FACTORS} (the "
-            f"InvPT stages), got {fs}; other factors are ROADMAP.md open "
-            f"item 1.5")
+            f"InvPT stages), got {fs}; other factors are ROADMAP.md item "
+            f"1.11")
     CP = -(-C // 16) * 16
     if CP > _C_MAX:
         raise ValueError(f"the multi-scale tail kernel takes C <= {_C_MAX} "
                          f"(its staged rows must fit in shared memory), got "
-                         f"{C}; wider maps are ROADMAP.md open item 1.5")
+                         f"{C}; wider maps are ROADMAP.md item 1.11")
     DP = -(-D // _DC) * _DC
     xp = [F.pad(x, (0, CP - C)).contiguous() for x in xs]
     # wf (DP/32, 3, 3, 32, CP): the conv kernel per chunk of 32 output

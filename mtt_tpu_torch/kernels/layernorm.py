@@ -74,8 +74,8 @@ def layernorm_cuda(x, gamma, beta, eps: float = 1e-6) -> torch.Tensor:
         raise ValueError(
             f"the LayerNorm kernel takes C % 8 == 0 and C <= 4096 (a row "
             f"lives in one warp's registers; InvPT's task-merged stage norm "
-            f"is 2880 wide), got C={C}; longer rows are ROADMAP.md open item "
-            f"1.6")
+            f"is 2880 wide), got C={C}; longer rows are ROADMAP.md item "
+            f"1.11")
     y = torch.empty_like(x)
     rows = x.numel() // C
     g = gamma.float().contiguous()

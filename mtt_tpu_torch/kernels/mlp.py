@@ -161,7 +161,7 @@ def _check_widths(C: int, Hd: int, widths=KERNEL_WIDTHS) -> None:
             f"the MLP kernel takes C in {widths} (the ViT-L/B trunks, the "
             f"InvPT decoder stages and, without LN, the Swin-B stages) and "
             f"hidden % 16 == 0, got C={C}, hidden={Hd}; other widths are "
-            f"ROADMAP.md open item 1.6")
+            f"ROADMAP.md item 1.11")
 
 
 def mlp_ln_res_cuda(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):

@@ -19,7 +19,7 @@ module and one tree for both forms).
   ``ConvBNAct`` and a 1x1 conv on it (cuDNN), as the JAX package does under
   MTT_HEAD_IMPL=dense.
 
-``phase`` raises until it is ported (ROADMAP.md, open item 1).
+``phase`` raises until it is ported (ROADMAP.md item 1.11).
 
 ``DEConvHead`` is the Cityscapes-3D head: a 2x2 stride-2 transposed conv, BN,
 GELU, a 3x3 conv, BN, GELU and the 1x1 logits (cuDNN, as it is XLA in the JAX
@@ -66,8 +66,8 @@ class ConvHead(nn.Module):
         super().__init__()
         if up4 not in UP4_MODES:
             raise NotImplementedError(
-                f"ConvHead up4={up4!r} is not ported yet (ROADMAP.md, open "
-                f"item 1: the phase up4 head); use one of {UP4_MODES}")
+                f"ConvHead up4={up4!r} is not ported yet (ROADMAP.md item "
+                f"1.11: the phase up4 head); use one of {UP4_MODES}")
         self.up4 = up4
         self.mt_proj = ConvBNAct(in_dim, in_dim, 3, use_bias=True,
                                  act=F.gelu, device=device, dtype=dtype)

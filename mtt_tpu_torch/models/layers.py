@@ -3,7 +3,8 @@
 Port of the parts of mtt_tpu/models/layers.py that the TaskPrompter-ViT and
 InvPT forwards run in eval and in training: ``FusedLN``, ``Mlp`` (its ``ln=``
 path and the plain MLP of the drop-path blocks), ``PatchEmbed``,
-``Attention`` and ``ViTBlock`` with per-sample ``drop_path``, ``ConvBNAct``,
+``dot_product_attention``, ``Attention`` (with and without its fused
+pre-norm) and ``ViTBlock`` with per-sample ``drop_path``, ``ConvBNAct``,
 ``interpolate`` and ``upsample2x``, the flax BatchNorm in both modes, and the
 factored conv3x3(upsample4) of the up4 head with its shift matrices. Parameter names
 follow the JAX package's module tree; leaves use torch's names and layouts
@@ -22,7 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mtt_tpu_torch.kernels.attention import fused_attention_ln_qkv
+from mtt_tpu_torch.kernels.attention import (fused_attention,
+                                             fused_attention_ln_qkv,
+                                             fused_attention_qkv)
 from mtt_tpu_torch.kernels.layernorm import fused_layernorm
 from mtt_tpu_torch.kernels.mlp import fused_mlp, fused_mlp_ln_res
 
@@ -101,11 +104,20 @@ def drop_path(x, rate: float, generator: Optional[torch.Generator]):
                        torch.zeros_like(x))
 
 
+def dot_product_attention(q, k, v, scale: Optional[float] = None,
+                          impl: Optional[str] = None):
+    """Softmax attention over (B, N, H, D) tensors with an f32 max-subtracted
+    softmax, through the generic attention kernel (layers.py:195-202)."""
+    return fused_attention(q, k, v, scale=scale, impl=impl)
+
+
 class Attention(nn.Module):
-    """ViT multi-head self-attention behind its pre-norm: LN, the qkv
-    projection (rows head-major (H, 3, D)) and the attention run through the
-    attention kernel, then the output projection. Training forwards take the
-    max-subtracted softmax."""
+    """ViT multi-head self-attention. With ``ln`` (the pre-norm blocks) LN,
+    the qkv projection (rows head-major (H, 3, D)) and the attention run
+    through the front-half kernels; without it the qkv projection is a plain
+    product and the attention runs over the packed qkv (layers.py:234-240).
+    Then the output projection. Training forwards take the max-subtracted
+    softmax."""
 
     def __init__(self, dim: int, num_heads: int, *, device=None, dtype=None):
         super().__init__()
@@ -113,12 +125,16 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, device=device, dtype=dtype)
         self.proj = nn.Linear(dim, dim, device=device, dtype=dtype)
 
-    def forward(self, x, ln: FusedLN, train: bool = False,
+    def forward(self, x, ln: Optional[FusedLN] = None, train: bool = False,
                 impl: Optional[str] = None):
         D = x.shape[-1] // self.num_heads
-        out = fused_attention_ln_qkv(
-            x, ln.weight, ln.bias, self.qkv.weight, self.qkv.bias,
-            self.num_heads, D ** -0.5, ln.eps, impl=impl, safe=train)
+        if ln is None:
+            out = fused_attention_qkv(self.qkv(x), self.num_heads, D ** -0.5,
+                                      impl=impl, safe=train)
+        else:
+            out = fused_attention_ln_qkv(
+                x, ln.weight, ln.bias, self.qkv.weight, self.qkv.bias,
+                self.num_heads, D ** -0.5, ln.eps, impl=impl, safe=train)
         return self.proj(out)
 
 

@@ -5,8 +5,9 @@ mtt_tpu/models/taskprompter.py: ``PromptedBlock``, ``TaskFeatureDecode``,
 Each block runs the joint token stream [prompts; patches] through the
 attention kernel (cached variant, or the emit variant at tap layers, which
 also returns qkv and LN(x) for the raw prompt scores) and the MLP kernel. At
-the tap layers the task decode kernel turns the raw spatial and channel
-prompt scores into per-task features. Module names mirror the JAX tree.
+the tap layers the task decode kernel (or, with several channel windows, its
+plain torch composition) turns the raw spatial and channel prompt scores into
+per-task features. Module names mirror the JAX tree.
 
 In training (``train=True``) the attention takes the max-subtracted softmax,
 the decode BatchNorm uses batch statistics, and blocks with a drop-path rate
@@ -140,8 +141,11 @@ class PromptedBlock(nn.Module):
 
 
 class TaskFeatureDecode(nn.Module):
-    """Per-task features from the raw scores of one tap layer,
-    chan_nheads == 1 (one channel window)."""
+    """Per-task features from the raw scores of one tap layer. With one
+    channel window (chan_nheads == 1) the spatial and channel inputs, their
+    projections and the first fuse projection run as the task decode
+    kernel; with several windows as plain torch, as the JAX package composes
+    them in XLA (taskprompter.py:244-270). The parameter tree is the same."""
 
     def __init__(self, tasks: Sequence[str], num_heads: int, prompt_len: int,
                  chan_windows: Tuple[int, int], dim: int, tar_dim: int,
@@ -156,15 +160,12 @@ class TaskFeatureDecode(nn.Module):
                 "TaskFeatureDecode requires prompt_len == 1; the channel-"
                 "pathway prompt-row convention diverges from the reference "
                 f"for prompt_len={prompt_len}")
-        if chan_windows[0] * chan_windows[1] != 1:
-            raise NotImplementedError(
-                "windowed channel decode (chan_nheads > 1) is not ported yet: "
-                "ROADMAP.md, open item 'Windowed task decode'")
         kw = dict(device=device, dtype=dtype)
         T = len(tasks)
         self.tasks = tuple(tasks)
         self.num_heads = num_heads
         self.use_ctr = use_ctr
+        self.chan_windows = tuple(chan_windows)
         self.tar_dim, self.final_dim = tar_dim, final_dim
         il = self.il = layer_idx
         # stacked per-task convs as grouped convs, task-major channels
@@ -190,25 +191,60 @@ class TaskFeatureDecode(nn.Module):
     def _sub(self, name):
         return getattr(self, f"{name}_{self.il}")
 
+    def _windowed(self, x_map, raw: PromptBlockOut):
+        """The decode inputs of several channel windows, their grouped 1x1
+        projections and the first fuse projection (taskprompter.py:
+        244-270), in the dtype of x_map: the spatial inputs x * a + x per
+        head group, the channel inputs x * c + x with c the window's prompt
+        scores broadcast over its cells, [f_t, fc_t] interleaved task-major.
+        Returns (B, gh, gw, T * final)."""
+        B, gh, gw, C = x_map.shape
+        T, G = len(self.tasks), self.num_heads
+        nh, nw = self.chan_windows
+        wh, ww = gh // nh, gw // nw
+        dt = x_map.dtype
+        # (B, H, P, N) -> (B, gh, gw, T, G), head-major groups
+        a = raw.raw_spa[:, :, :, T:].reshape(B, G, T, gh, gw) \
+            .permute(0, 3, 4, 2, 1).to(dt)
+        xg = x_map.reshape(B, gh, gw, 1, G, C // G)
+        f_in = (xg * a[..., None]).reshape(B, gh, gw, T, C) \
+            + x_map[:, :, :, None]
+        # (B, nh*nw, P, C) -> per window (B, nh, 1, nw, 1, T, C)
+        cw = raw.raw_chan.reshape(B, nh, 1, nw, 1, T, C).to(dt)
+        xw = x_map.reshape(B, nh, wh, nw, ww, 1, C)
+        fw_in = (xw * cw).reshape(B, gh, gw, T, C) + x_map[:, :, :, None]
+
+        def grouped1x1(conv, inp):
+            w = conv.weight.view(T, -1, inp.shape[-1])
+            return torch.einsum("bhwtc,toc->bhwto", inp, w) \
+                + conv.bias.view(T, -1)
+
+        f = grouped1x1(self._sub("spa"), f_in)
+        fc = grouped1x1(self._sub("chan"), fw_in)
+        cat = grouped1x1(self._sub("fuse0"), torch.cat([f, fc], -1))
+        return cat.reshape(B, gh, gw, -1)
+
     def forward(self, x_map, raw: PromptBlockOut, impl: Optional[str] = None,
                 train: bool = False):
         B, gh, gw, C = x_map.shape
         T = len(self.tasks)
         P = T
-        G = self.num_heads
         S = gh * gw
         tar, fin = self.tar_dim, self.final_dim
-        # (B, H, P, N) -> (B, T, S, G), head-major groups
-        a = raw.raw_spa[:, :, :, P:].permute(0, 2, 3, 1).contiguous()
-        cwv = raw.raw_chan.reshape(B, T, C)
         spa, chan, fuse0 = self._sub("spa"), self._sub("chan"), \
             self._sub("fuse0")
-        cat = fused_task_decode(
-            x_map.reshape(B, S, C), a.to(x_map.dtype), cwv.contiguous(),
-            spa.weight.view(T, tar, C), spa.bias.view(T, tar),
-            chan.weight.view(T, tar, C), chan.bias.view(T, tar),
-            fuse0.weight.view(T, fin, 2 * tar), fuse0.bias.view(T, fin),
-            impl=impl)
+        if self.chan_windows == (1, 1):
+            # (B, H, P, N) -> (B, T, S, G), head-major groups
+            a = raw.raw_spa[:, :, :, P:].permute(0, 2, 3, 1).contiguous()
+            cat = fused_task_decode(
+                x_map.reshape(B, S, C), a.to(x_map.dtype),
+                raw.raw_chan.reshape(B, T, C).contiguous(),
+                spa.weight.view(T, tar, C), spa.bias.view(T, tar),
+                chan.weight.view(T, tar, C), chan.bias.view(T, tar),
+                fuse0.weight.view(T, fin, 2 * tar), fuse0.bias.view(T, fin),
+                impl=impl)
+        else:
+            cat = self._windowed(x_map, raw)
         y = self._sub("fuse1")(to_nchw(cat.view(B, gh, gw, T * fin)))
         y = F.gelu(batch_norm(y, self._sub("fuse_bn"), train))
         y = to_nhwc(self._sub("fuse2")(y))

@@ -46,6 +46,31 @@ CS3D_SWINB = {
     "task_dictionary": {"include_semseg": True, "include_depth": True,
                         "include_3ddet": True},
 }
+_NYUD_TASKS = {"include_semseg": True, "include_depth": True,
+               "include_edge": True, "include_normals": True, "edge_w": 0.95}
+# configs/nyud/taskprompter_vitLp16.yml, the keys the port reads: 16 channel
+# windows (the windowed task decode), no CTR, 768-wide decode and heads
+NYUD_TASKPROMPTER_VITL = {
+    "model": "TaskPrompter", "backbone": "TaskPrompter_vitL", "head": "conv",
+    "embed_dim": 768, "final_embed_dim": 768, "prompt_len": 1,
+    "chan_nheads": 16, "use_ctr": False, "train_db_name": "NYUD",
+    "val_db_name": "NYUD", "task_dictionary": _NYUD_TASKS,
+}
+# configs/nyud/invpt_vitLp16.yml, the keys the port reads
+NYUD_INVPT_VITL = {
+    "model": "TransformerNet", "backbone": "vitL", "head": "mlp",
+    "embed_dim": 512, "mtt_resolution_downsample_rate": 2,
+    "PRED_OUT_NUM_CONSTANT": 64, "train_db_name": "NYUD",
+    "val_db_name": "NYUD", "task_dictionary": _NYUD_TASKS,
+}
+# configs/pascal/taskprompter_vitBp16.yml, the keys the port reads
+PASCAL_TASKPROMPTER_VITB = {
+    "model": "TaskPrompter", "backbone": "TaskPrompter_vitB", "head": "conv",
+    "embed_dim": 300, "final_embed_dim": 350, "prompt_len": 1,
+    "chan_nheads": 1, "use_ctr": True, "train_db_name": "PASCALContext",
+    "val_db_name": "PASCALContext",
+    "task_dictionary": INVPT_PASCAL_VITL["task_dictionary"],
+}
 # Swin topologies by backbone name (taskprompter_swin_base_patch4_window12)
 TASKPROMPTER_SWIN_SPECS = {
     "TaskPrompter_swinB": dict(embed_dim=128, depths=(2, 2, 18, 2),
@@ -257,8 +282,9 @@ def task_table(db_name: str, task_dictionary: dict):
 
 def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
                 tail_head: bool = False, device=None, dtype=None):
-    """Config dict (the keys of configs/pascal/taskprompter_vitLp16.yml,
-    configs/pascal/invpt_vitLp16.yml or
+    """Config dict (the keys of configs/pascal/taskprompter_vitLp16.yml or
+    taskprompter_vitBp16.yml, configs/pascal/invpt_vitLp16.yml,
+    configs/nyud/taskprompter_vitLp16.yml or invpt_vitLp16.yml, or
     configs/cityscapes3d/taskprompter_swinB.yml) -> model. ``img_size``
     defaults to the database's test scale; ``tail_head`` is
     ``TransformerNet``'s."""

@@ -1,0 +1,207 @@
+"""The port's attention module API against the JAX package, on the CPU.
+
+``fused_attention_qkv`` (attention over a packed head-major qkv),
+``fused_attention`` (separate (B, N, H, D) q, k, v), the composed front half
+``attention_ln_qkv_composed``, ``layers.Attention`` without its fused LN and
+``layers.dot_product_attention``. On the CPU each wrapper runs its plain
+version; the JAX side runs its Pallas kernels in interpret mode where it has
+one, as tests/test_kernels.py does, and the flax modules through the JAX
+package's own CPU route. Inputs come from numpy with a fixed seed, in f32.
+
+Tolerance: rtol 1e-5 with an absolute floor of 1e-5 times the output scale,
+forwards and gradients alike: the same function in f32 with sums taken in
+another order (the fast softmax in exp2 form on both sides of the packed
+route; the flax modules' exact softmax equals it inside the clamp).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from test_torch_model import random_variables
+
+
+def _close(got, want, rtol=1e-5):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=1e-5 * max(1.0, np.abs(want).max()))
+
+
+def _t(a, grad=False):
+    return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(grad)
+
+
+def _rand(seed, *shape, s=1.0):
+    return (np.random.default_rng(seed).normal(size=shape) * s).astype(
+        np.float32)
+
+
+@pytest.fixture(autouse=True)
+def _no_safe_env(monkeypatch):
+    monkeypatch.delenv("MTT_ATTN_SAFE_SOFTMAX", raising=False)
+
+
+@pytest.mark.parametrize("safe", [False, True])
+@pytest.mark.parametrize("N", [40, 130])
+def test_attention_qkv_matches_pallas(N, safe):
+    """Row 13's plain version against the interpreted ``_attn_qkv_kernel``,
+    fast and safe softmax; 2 heads of 64 (the Pallas gate's smallest)."""
+    from mtt_tpu.kernels.attention import fused_attention_qkv as jax_qkv
+    from mtt_tpu_torch.kernels.attention import fused_attention_qkv
+
+    qkv = _rand(0, 2, N, 2 * 3 * 64)
+    want = jax_qkv(jnp.asarray(qkv), 2, 0.125, impl="interpret", safe=safe)
+    _close(fused_attention_qkv(_t(qkv), 2, 0.125, safe=safe), want)
+
+
+def test_attention_qkv_grad_matches_jax():
+    """The backward is JAX's custom VJP ``_qkv_bwd``: dqkv against
+    ``jax.grad`` of <out, g>."""
+    from mtt_tpu.kernels.attention import fused_attention_qkv as jax_qkv
+    from mtt_tpu_torch.kernels.attention import fused_attention_qkv
+
+    qkv, g = _rand(1, 2, 77, 2 * 3 * 64), _rand(2, 2, 77, 2 * 64)
+    want = jax.grad(lambda a: (jax_qkv(a, 2, 0.125, impl="interpret")
+                               * jnp.asarray(g)).sum())(jnp.asarray(qkv))
+    x = _t(qkv, grad=True)
+    (fused_attention_qkv(x, 2, 0.125) * _t(g)).sum().backward()
+    _close(x.grad, want)
+
+
+@pytest.mark.parametrize("Nq,Nk,D", [(40, 40, 64), (130, 130, 64),
+                                     (100, 37, 72)])
+def test_attention_generic_matches_pallas(Nq, Nk, D):
+    """Row 14's plain version against the interpreted ``_attn_kernel``:
+    self-attention and a cross shape with Nq != Nk and D = 72 (InvPT's head
+    dim); logits large enough that the max subtraction matters."""
+    from mtt_tpu.kernels.attention import fused_attention as jax_attn
+    from mtt_tpu_torch.kernels.attention import fused_attention
+
+    q, k, v = _rand(3, 2, Nq, 2, D, s=3.0), _rand(4, 2, Nk, 2, D, s=3.0), \
+        _rand(5, 2, Nk, 2, D)
+    want = jax_attn(*map(jnp.asarray, (q, k, v)), impl="interpret")
+    _close(fused_attention(_t(q), _t(k), _t(v)), want)
+
+
+def test_attention_generic_grad_matches_jax():
+    """The backward is JAX's custom VJP ``_bwd``: dq, dk, dv against
+    ``jax.grad``, Nq != Nk."""
+    from mtt_tpu.kernels.attention import fused_attention as jax_attn
+    from mtt_tpu_torch.kernels.attention import fused_attention
+
+    q, k, v = _rand(6, 2, 50, 2, 64), _rand(7, 2, 33, 2, 64), \
+        _rand(8, 2, 33, 2, 64)
+    g = _rand(9, 2, 50, 2, 64)
+    want = jax.grad(lambda *a: (jax_attn(*a, impl="xla")
+                                * jnp.asarray(g)).sum(), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))
+    ts = [_t(a, grad=True) for a in (q, k, v)]
+    (fused_attention(*ts) * _t(g)).sum().backward()
+    for t, w in zip(ts, want):
+        _close(t.grad, w)
+
+
+@pytest.mark.parametrize("emit", [False, True])
+@pytest.mark.parametrize("safe", [False, True])
+def test_attention_ln_qkv_composed_matches_xla(emit, safe):
+    """The composed front half against ``_attn_ln_qkv_xla`` with the
+    interpreted qkv kernel inside, as the TPU takes it when ``_attn_ln_ok``
+    refuses a shape; the tap variant's qkv and LN(x) too."""
+    from mtt_tpu.kernels.attention import _attn_ln_qkv_xla
+    from mtt_tpu_torch.kernels.attention import attention_ln_qkv_composed
+
+    B, N, H, D = 2, 45, 2, 64
+    C = H * D
+    x = _rand(10, B, N, C)
+    g, b = 1.0 + _rand(11, C, s=0.1), _rand(12, C, s=0.1)
+    w, bq = _rand(13, C, 3 * C, s=0.05), _rand(14, 3 * C, s=0.05)
+    want = _attn_ln_qkv_xla(*map(jnp.asarray, (x, g, b, w, bq)), H,
+                            D ** -0.5, 1e-6, emit, sub_impl="interpret",
+                            safe=safe)
+    got = attention_ln_qkv_composed(_t(x), _t(g), _t(b), _t(w.T), _t(bq), H,
+                                    need_qkv=emit, safe=safe)
+    for gv, wv in zip(got if emit else (got,), want if emit else (want,)):
+        _close(gv, wv)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_attention_module_without_ln_matches_flax(train):
+    """``layers.Attention`` called without ``ln`` against the flax
+    ``Attention`` on the same weights carried by ``state_dict_from_flax``
+    (strict load): the output and the gradient of the input; ``train``
+    is the flax module's ``deterministic=False`` (the safe softmax)."""
+    from mtt_tpu.models.layers import Attention as JAttention
+    from mtt_tpu_torch.models.convert_jax import state_dict_from_flax
+    from mtt_tpu_torch.models.layers import Attention
+
+    x, g = _rand(15, 2, 29, 128), _rand(16, 2, 29, 128)
+    jm = JAttention(num_heads=2)
+    v = random_variables(jm, jnp.asarray(x), seed=17)
+
+    def jf(a):
+        return jm.apply(v, a, deterministic=not train)
+
+    want = jf(jnp.asarray(x))
+    want_dx = jax.grad(lambda a: (jf(a) * jnp.asarray(g)).sum())(
+        jnp.asarray(x))
+    port = Attention(128, 2, device="cpu")
+    port.load_state_dict(state_dict_from_flax(v), strict=True)
+    xt = _t(x, grad=True)
+    out = port(xt, train=train)
+    _close(out, want)
+    (out * _t(g)).sum().backward()
+    _close(xt.grad, want_dx)
+
+
+def test_dot_product_attention_matches_jax():
+    from mtt_tpu.models.layers import dot_product_attention as jax_dpa
+    from mtt_tpu_torch.models.layers import dot_product_attention
+
+    q, k, v = _rand(18, 2, 21, 3, 16), _rand(19, 2, 34, 3, 16), \
+        _rand(20, 2, 34, 3, 16)
+    _close(dot_product_attention(_t(q), _t(k), _t(v), scale=0.3),
+           jax_dpa(*map(jnp.asarray, (q, k, v)), scale=0.3))
+
+
+def test_kernel_paths_refuse_what_the_kernels_do_not_take():
+    """The card's entry points check before any launch, so the refusals show
+    on the CPU: row 13 takes bf16, a contiguous qkv and head dim 64; row 14
+    bf16, head dims that are multiples of 8 up to 128 and aligned strides;
+    both raise on a request for the kernel with a CPU tensor."""
+    from mtt_tpu_torch.kernels.attention import (attention_generic_cuda,
+                                                 attn_core_cuda,
+                                                 fused_attention,
+                                                 fused_attention_qkv)
+    bf = torch.bfloat16
+    with pytest.raises(TypeError, match="bfloat16"):
+        attn_core_cuda(torch.zeros(1, 5, 384), 2, 0.125, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        attn_core_cuda(torch.zeros(1, 384, 5, dtype=bf).transpose(1, 2),
+                           2, 0.125, False)
+    with pytest.raises(ValueError, match="head dim 64"):
+        attn_core_cuda(torch.zeros(1, 5, 192, dtype=bf), 2, 0.125, False)
+    with pytest.raises(ValueError, match="H\\*3\\*D"):
+        fused_attention_qkv(torch.zeros(1, 5, 100), 3)
+    q = torch.zeros(1, 5, 2, 72, dtype=bf)
+    with pytest.raises(TypeError, match="bfloat16"):
+        attention_generic_cuda(q.float(), q.float(), q.float(), 0.1)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        attention_generic_cuda(q[..., :12], q[..., :12], q[..., :12], 0.1)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        z = torch.zeros(1, 5, 2, 136, dtype=bf)
+        attention_generic_cuda(z, z, z, 0.1)
+    odd = torch.zeros(1, 5, 2, 76, dtype=bf)[:, :, :, :72]   # head stride 76
+    with pytest.raises(ValueError, match="strides"):
+        attention_generic_cuda(odd, odd.contiguous(), odd.contiguous(), 0.1)
+    with pytest.raises(ValueError, match="Nk"):
+        fused_attention(q, q[:, :, :1], q)
+    for call in (lambda: fused_attention(q, q, q, impl="cuda"),
+                 lambda: fused_attention_qkv(torch.zeros(1, 5, 384), 2,
+                                             impl="cuda")):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()

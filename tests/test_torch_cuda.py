@@ -144,11 +144,15 @@ def test_model_goes_through_kernels(gen):
         assert err <= 0.1, (t, err)
 
 
-@pytest.mark.parametrize("gh,gw,n", [(32, 32, 1), (32, 32, 21), (28, 36, 21)])
-def test_head_up4_kernel(gen, gh, gw, n):
-    """Main-path grid with the smallest and largest n, and NYUD's 28x36."""
+@pytest.mark.parametrize("gh,gw,n,C", [
+    (32, 32, 1, 350), (32, 32, 21, 350), (28, 36, 21, 350), (28, 36, 1, 768),
+    (28, 36, 3, 768), (28, 36, 40, 768), (8, 12, 5, 528)])
+def test_head_up4_kernel(gen, gh, gw, n, C):
+    """Main-path grid with the smallest and largest n, NYUD's 28x36, and
+    NYUD's C = 768 with its n (depth and edge, normals, semseg), where the
+    kernel streams the input channels (from C = 528 on; 528 ends in a
+    partial slice)."""
     from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
-    C = 350
     args = (_rnd(gen, 2, gh, gw, C, std=0.3),
             _rnd(gen, 3, 3, C, C, std=(9 * C) ** -0.5),
             _rnd(gen, C, std=0.1, mean=1.0, dtype=torch.float32),
@@ -169,6 +173,77 @@ def test_attention_bwd_kernel(gen, N):
     want = attn_core_bwd_plain(qkv, g, H, D ** -0.5).view(B, N, H, 3, D)
     _check(tuple(got[:, :, :, i] for i in range(3)),
            tuple(want[:, :, :, i] for i in range(3)))
+
+
+@pytest.mark.parametrize("safe", [False, True])
+@pytest.mark.parametrize("N", [77, 1029])
+def test_attention_qkv_kernel(gen, N, safe):
+    """Row 13 on the card: the attention core kernel launched under its own
+    count, against its plain version."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.attention import fused_attention_qkv
+    B, H, D = 2, 4, 64
+    qkv = _rnd(gen, B, N, H * 3 * D)
+    _build.reset_counts()
+    got = fused_attention_qkv(qkv, H, safe=safe)
+    assert _build.COUNTS == _counts(attention_qkv=1)
+    _check(got, fused_attention_qkv(qkv, H, safe=safe, impl="plain"))
+
+
+@pytest.mark.parametrize("Nq,Nk,H,D", [
+    (77, 77, 4, 64), (1029, 1029, 2, 64), (130, 37, 2, 72), (64, 200, 3, 32),
+    (50, 65, 2, 128), (33, 16, 2, 8), (20, 300, 1, 80)])
+def test_attention_generic_kernel(gen, Nq, Nk, H, D):
+    """Row 14 on the card against its plain version: self and cross
+    attention, ragged query and key counts, every head-dim tile (32, 64, 80,
+    128) and a head dim that is not a multiple of 16; logits wide enough
+    that the max subtraction matters."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.attention import fused_attention
+    q = _rnd(gen, 2, Nq, H, D, std=2.0)
+    k = _rnd(gen, 2, Nk, H, D, std=2.0)
+    v = _rnd(gen, 2, Nk, H, D)
+    _build.reset_counts()
+    got = fused_attention(q, k, v)
+    assert _build.COUNTS == _counts(attention_generic=1)
+    _check(got, fused_attention(q, k, v, impl="plain"))
+
+
+def test_attention_generic_kernel_reads_strides(gen):
+    """q, k, v as strided views: of one packed (B, N, 3, H, D) tensor, and
+    a (B, N, H, D) transpose of a (B, H, N, D) tensor."""
+    from mtt_tpu_torch.kernels.attention import fused_attention
+    q, k, v = _rnd(gen, 2, 70, 3, 2, 72).unbind(2)
+    _check(fused_attention(q, k, v),
+           fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           impl="plain"))
+    t = _rnd(gen, 2, 2, 70, 64).transpose(1, 2)
+    _check(fused_attention(t, t, t), fused_attention(t, t, t, impl="plain"))
+
+
+def test_attention_modules_go_through_kernels(gen):
+    """``Attention`` without LN and ``dot_product_attention`` on the card:
+    one launch each on its own count, within 0.1 relative RMS of an f32
+    plain run of the same weights (as the model tests)."""
+    import copy
+
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.models.layers import (Attention, dot_product_attention,
+                                             init_weights)
+    attn = Attention(256, 4, device="cuda", dtype=torch.bfloat16)
+    init_weights(attn, gen)
+    x = _rnd(gen, 2, 77, 256)
+    q = _rnd(gen, 2, 50, 4, 64)
+    _build.reset_counts()
+    out = attn(x)
+    o2 = dot_product_attention(q, q, q)
+    assert _build.COUNTS == _counts(attention_qkv=1, attention_generic=1)
+    ref = copy.deepcopy(attn).float()(x.float(), impl="plain")
+    ref2 = dot_product_attention(q.float(), q.float(), q.float(),
+                                 impl="plain")
+    for got, want in ((out, ref), (o2, ref2)):
+        err = ((got.float() - want).norm() / want.norm()).item()
+        assert err <= 0.1, err
 
 
 @pytest.mark.parametrize("C,Hd,rows", [

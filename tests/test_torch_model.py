@@ -34,8 +34,10 @@ IMG = (64, 64)
 
 def random_variables(model, x, seed):
     """The JAX model's variable tree filled from numpy: LeCun-scaled
-    kernels, non-trivial biases, LN/BN scales and BN statistics."""
-    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), x))
+    kernels, non-trivial biases, LN/BN scales and BN statistics. ``x`` is
+    the model's input, or a tuple of its inputs."""
+    args = x if isinstance(x, tuple) else (x,)
+    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), *args))
     rng = np.random.default_rng(seed)
 
     def fill(path, s):
@@ -87,7 +89,7 @@ def _gelu_poly_slack(model, image):
     out = {}
     with torch.no_grad():
         feats = model.backbone(torch.from_numpy(image))
-        for t in TASKS:
+        for t in model.tasks:
             head = model.get_submodule(f"head_{t}")
             conv, bn = head.mt_proj.conv, head.mt_proj.bn
             Y = up4_conv3x3_factored(feats[t], conv.weight.permute(2, 3, 1, 0))

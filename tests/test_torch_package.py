@@ -42,13 +42,15 @@ def test_refuses_prompt_len_above_one():
 
 
 def test_refuses_windowed_channel_decode_and_other_heads():
+    """The windowed channel decode builds now (NYUD's chan_nheads 16); the
+    ``phase`` up4 head still raises with its ROADMAP item."""
     from mtt_tpu_torch.models.wrappers import TaskPrompterNet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TaskPrompterNet(("semseg",), {"semseg": 5}, (32, 32),
-                        "TaskPrompter_vitT", tar_dim=8, final_dim=8,
-                        chan_nheads=4, device="meta")
+    model = TaskPrompterNet(("semseg",), {"semseg": 5}, (32, 32),
+                            "TaskPrompter_vitT", tar_dim=8, final_dim=8,
+                            chan_nheads=4, device="meta")
+    assert model.backbone.decode_0.chan_windows == (2, 2)
     from mtt_tpu_torch.models.heads import ConvHead
-    with pytest.raises(NotImplementedError, match="up4"):
+    with pytest.raises(NotImplementedError, match="up4.*ROADMAP"):
         ConvHead(8, 5, up4="phase", device="meta")
     for mode in ("factored", "dense"):
         assert ConvHead(8, 5, up4=mode, device="meta").up4 == mode
@@ -139,7 +141,8 @@ def test_kernel_build_needs_no_card_to_import_and_hashes_sources():
     keyed by the sources' hash."""
     from mtt_tpu_torch.kernels import _build
     assert _build.COUNTS.keys() == {"layernorm", "attention_cached",
-                                    "attention_emit", "attention_bwd",
+                                    "attention_emit", "attention_qkv",
+                                    "attention_generic", "attention_bwd",
                                     "mlp_ln_res", "mlp_fc", "task_decode",
                                     "head_up4", "invpt_attention",
                                     "invpt_tail", "invpt_tail_head",
@@ -148,7 +151,8 @@ def test_kernel_build_needs_no_card_to_import_and_hashes_sources():
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "layernorm.cu", "attention.cu", "attention_bwd.cu", "mlp.cu",
+        "layernorm.cu", "attention.cu", "attention_generic.cu",
+        "attention_bwd.cu", "mlp.cu",
         "task_decode.cu", "head_up4.cu", "invpt_attention.cu",
         "invpt_tail.cu", "window_attention.cu", "window_attention_bwd.cu"}
 
