@@ -17,10 +17,11 @@ Phases, in order (the seconds each took are printed):
      widths 576, 288, 144; the tail on NYUD's non-square grid), and the Swin
      path's at its shapes (window attention and its backward at the four
      Swin-B stages with and without the shift mask, the backward's dbias
-     equal across two runs; LayerNorm rows of 128 to 2048 at eps 1e-5; MLP
-     widths 128 to 1024, down to the 3 prompt rows): error, tolerance in
-     bf16 ulps, CUDA-event times of the kernel, the plain version, the
-     library call or composition, and the bound of the card;
+     equal across two runs, as are rows 7 and 14; LayerNorm rows of 128 to
+     2048 at eps 1e-5; MLP widths 128 to 1024, down to the 3 prompt rows):
+     error, tolerance in bf16 ulps, CUDA-event times of the kernel, the
+     plain version, the library call or composition, and the bound of the
+     card;
   4. ``attention_api``: a ViT-L ``Attention`` without LN, forward and
      backward, on LayerNormed bf16 tokens (8, 1029, 1024), and
      ``dot_product_attention`` over the q, k, v of its projection, held to f32
@@ -821,14 +822,20 @@ def kernel_phase():
               flush=True)
 
     # the window attention backward sums dbias over the windows in a fixed
-    # order: two runs give the same bits
+    # order, and rows 7 and 14 sum without atomics: two runs give the same
+    # bits
     for name, case in cases.items():
-        if name.startswith("window_attention_bwd"):
+        if name.startswith(("window_attention_bwd", "attention_bwd",
+                            "attention_generic")):
             a, b = case[0]("cuda"), case[0]("cuda")
+            a = a if isinstance(a, tuple) else (a,)
+            b = b if isinstance(b, tuple) else (b,)
             if not all(torch.equal(x, y) for x, y in zip(a, b)):
                 raise RuntimeError(f"{name}: two runs differ")
     print("[kernel] window_attention_bwd: dq, dk, dv and dbias equal across "
-          "two runs at every stage, with and without the mask", flush=True)
+          "two runs at every stage, with and without the mask; "
+          "attention_bwd (dqkv) and attention_generic (self and cross "
+          "shapes) equal across two runs", flush=True)
 
     # the safe (max-subtracted) softmax of the training forward
     got = fused_attention_ln_qkv(x, gamma, beta, wqkv, bqkv, HEADS,

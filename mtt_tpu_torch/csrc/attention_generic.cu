@@ -15,95 +15,173 @@
 // What bounds it on the H100: at a ViT-L self-attention shape (B=8, N=1029,
 // H=16, D=64) it is 35 GFLOP on the tensor cores against 34 MB of q, k, v and
 // out, so the operations bound it; at InvPT's cross shape (q 5120 rows, k/v
-// 320 rows, D=72) the bytes do. The design keeps every product on the bf16
-// tensor cores (wmma 16x16x16) and the (Nq, Nk) scores out of device memory.
+// 320 rows, D=72) the bytes do.
+//
+// Design: every product is an mma.sync m16n8k16 (bf16, f32 accumulate) whose
+// operands come from registers or ldmatrix; the scores never touch shared
+// memory. Each warp owns 16 * MT query rows and keeps their Q fragments, their
+// score fragments and their O accumulators in registers. The row max and sum
+// are quad shuffles over the C fragment (common.cuh), p = exp(s - m) is
+// formed in f32 as exp2f(s log2(e) - m log2(e)) (one fma and the exp2 unit:
+// the per-score instructions compete with the products for issue slots),
+// summed unrounded into l, and repacked to bf16 A fragments
+// for O += P V, with V read by ldmatrix.trans. O is divided by l and rounded
+// once. Key and value tiles stream through a ring of STAGES cp.async buffers:
+// the next tile's copy is issued right after the barrier that frees its
+// buffer and lands while the current tile's products run (one barrier a tile).
 //
 // The max: the TPU kernel holds all Nk keys in VMEM and subtracts the global
 // row max before it rounds P to bf16. A streaming kernel with an online max
 // would round P relative to a running max and rescale it afterwards, another
-// function. This one makes two passes over the key tiles: the first forms the
-// scores only for their row max, the second forms them again and rounds P
-// relative to that max, as the TPU kernel does. It costs one more q k^T
-// product (1.5x the tensor-core work of one pass) and holds for any Nk.
+// function. So pass 1 walks the keys in 128-row K tiles (the K and V halves of
+// one ring buffer) and forms the scores only for their row max, in registers;
+// pass 2 walks 64-key K and V tiles, forms them again and rounds P relative
+// to that max, as the TPU kernel does. Both passes run through one ring, so
+// the first pass-2 tile is in flight during the last pass-1 tile.
 //
-// Layout: one block of four warps per (64-query tile, head, batch item); each
-// warp owns 16 query rows. The head dim is padded with zeros to the tile DT
-// (32, 64, 80 or 128) in shared memory; padded columns add nothing.
+// Layout: one block of four warps per (head, batch item, 64 * MT query rows),
+// the query tile the slowest grid axis. The head dim is padded with zeros to
+// the tile DT (32, 64, 80 or 128) in shared memory; padded columns add
+// nothing. Rows are DT + 8 elements apart, which puts the 8 row addresses of
+// every ldmatrix on distinct banks. Each thread copies one fixed 16-byte
+// column of its tiles at constant row strides (load_rows_async_fixed): a
+// general copy loop's per-copy index arithmetic costs 12% of the kernel. A warp
+// whose rows all lie past Nq (the ragged last query tile) takes part in the
+// copies and barriers only, and those blocks are dispatched last.
+//
+// Waves on 132 SMs: at (8, 1029, 16, 64), MT = 2 (over 200 registers, 2
+// blocks an SM): 1,152 blocks, 1,024 of them full, 3.88 full waves plus 128
+// one-warp blocks; at the cross shape (head dim 72 in the 80 tile), MT = 1
+// (shared memory allows 3 blocks an SM): 1,280 blocks, 3.23 waves.
+// One m16 tile a warp at head dims up to 64 (4 blocks an SM) measured the
+// same within the run-to-run spread; so did a third ring buffer.
 #include "common.cuh"
 
 using namespace mtt;
 
 namespace {
 
-constexpr int GQ = 64;        // query rows per block (16 per warp)
-constexpr int GK = 64;        // keys per streamed tile
-constexpr int GSL = GK + 4;   // f32 leading dim of the score tile
-constexpr int PLD = GK + 8;   // bf16 leading dim of the P tile
-constexpr int GTH = 128;
+constexpr int GK = 64;        // keys per pass-2 tile (pass 1: 2 * GK)
+constexpr int GTH = 128;      // four warps
+constexpr int STAGES = 2;     // ring buffers of K and V
+constexpr float kLog2e = 1.4426950408889634f;
 
+// Query m16 tiles per warp and blocks per SM for each head-dim tile: two m16
+// tiles share every K and V fragment (half the shared-memory reads per
+// product) where the registers allow it.
 template <int DT>
-constexpr int generic_smem() {
-  return (GQ + 2 * GK) * (DT + 8) * 2 + GQ * PLD * 2 + GQ * GSL * 4;
-}
+struct GenTile {
+  static constexpr int MT = DT <= 64 ? 2 : 1;
+  static constexpr int MIN_BLOCKS = DT <= 64 ? 2 : (DT <= 80 ? 3 : 2);
+  static constexpr int LD = DT + 8;
+  static constexpr int ROWS = 64 * MT;
+  static constexpr int STAGE = 2 * GK * LD;  // K tile then V tile (elements)
+  static constexpr int SMEM = (ROWS * LD + STAGES * STAGE) * 2;
+};
 
-// ROWS x DT bf16 tile of a strided matrix (row stride ldg elements, 16-byte
-// aligned rows); rows at or past row_limit and columns at or past D are zero.
-template <int ROWS, int DT>
-__device__ __forceinline__ void load_rows_async(bf16* s, const bf16* g, long long ldg,
-                                                int row_limit, int D) {
-  constexpr int CH = DT / 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += GTH) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = r < row_limit && c < D;
-    cp_async16(s + r * (DT + 8) + c, ok ? g + r * ldg + c : g, ok);
-  }
-}
-
-// The warp's 16 query rows (Qw) against the 64 keys in Ks -> Sw (f32).
-template <int DT>
-__device__ __forceinline__ void warp_scores(const bf16* Qw, const bf16* Ks, float* Sw) {
-  FragC s[GK / 16];
+// s = the warp's 16 * MT query rows (fragments qa) against 64 keys of the
+// row-major tile Kt: MT x 8 C tiles.
+template <int DT, int MT>
+__device__ __forceinline__ void scores64(const uint32_t (&qa)[MT][DT / 16][4], const bf16* Kt,
+                                         int lane, float (&s)[MT][8][4]) {
+  constexpr int LD = DT + 8;
 #pragma unroll
-  for (int j = 0; j < GK / 16; ++j) wmma::fill_fragment(s[j], 0.f);
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-  for (int kk = 0; kk < DT / 16; ++kk) {
-    FragA a;
-    wmma::load_matrix_sync(a, Qw + kk * 16, DT + 8);
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int j = 0; j < GK / 16; ++j) {
-      FragBt bt;
-      wmma::load_matrix_sync(bt, Ks + j * 16 * (DT + 8) + kk * 16, DT + 8);
-      wmma::mma_sync(s[j], a, bt, s[j]);
+      for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
+  const bf16* kp = Kt + ldsm_bt_off(lane, LD);
+  // key pairs outermost: the first C tiles complete early, so their
+  // exponentials can overlap the later products
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk) {
+      uint32_t b[4];
+      ldsm_x4(b, kp + jj * 16 * LD + kk * 16);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_16816(s[mt][2 * jj], qa[mt][kk], b[0], b[1]);
+        mma_16816(s[mt][2 * jj + 1], qa[mt][kk], b[2], b[3]);
+      }
     }
   }
+}
+
+// The running row max of 64 scores (C tiles sc); lane keys at or past kvt
+// (valid keys minus 2 t) are left out where MASK.
+template <bool MASK, int MT>
+__device__ __forceinline__ void row_max64(const float (&sc)[MT][8][4], int kvt, float (&m)[MT][2]) {
 #pragma unroll
-  for (int j = 0; j < GK / 16; ++j)
-    wmma::store_matrix_sync(Sw + j * 16, s[j], GSL, wmma::mem_row_major);
-  __syncwarp();
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!MASK || j * 8 + (e & 1) < kvt) m[mt][e >> 1] = fmaxf(m[mt][e >> 1], sc[mt][j][e]);
+}
+
+// p = exp(s - m) = exp2(s log2(e) - m log2(e)) in f32 over 64 scores, in
+// place; l += p unrounded. Keys at or past kvt get p = 0 where MASK.
+template <bool MASK, int MT>
+__device__ __forceinline__ void probs64(float (&sc)[MT][8][4], const float (&mlog)[MT][2], int kvt,
+                                        float (&l)[MT][2]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(sc[mt][j][e], kLog2e, -mlog[mt][e >> 1]));
+        if (MASK && j * 8 + (e & 1) >= kvt) p = 0.f;
+        l[mt][e >> 1] += p;
+        sc[mt][j][e] = p;
+      }
 }
 
 template <int DT>
-__global__ void __launch_bounds__(GTH) attn_generic_kernel(
+__global__ void __launch_bounds__(GTH, GenTile<DT>::MIN_BLOCKS) attn_generic_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ out, int Nq, int Nk, int H, int D, long long sqb, long long sqn,
     long long sqh, long long skb, long long skn, long long skh, long long svb, long long svn,
     long long svh, float scale) {
-  constexpr int LD = DT + 8;
+  using T = GenTile<DT>;
+  constexpr int MT = T::MT, LD = T::LD, ROWS = T::ROWS, KS = DT / 16, NT = DT / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + GQ * LD;
-  bf16* Vs = Ks + GK * LD;
-  bf16* Ps = Vs + GK * LD;
-  float* Ss = reinterpret_cast<float*>(Ps + GQ * PLD);
+  bf16* ring = Qs + ROWS * LD;
 
-  const int q0 = blockIdx.x * GQ, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y, q0 = blockIdx.z * ROWS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
   const bf16* qb = q + b * sqb + h * sqh;
   const bf16* kb = k + b * skb + h * skh;
   const bf16* vb = v + b * svb + h * svh;
 
+  // ring steps: n1 pass-1 tiles of 2 * GK keys (K only), then n2 pass-2
+  // tiles of GK keys (K and V)
+  const int n1 = (Nk + 2 * GK - 1) / (2 * GK), n2 = (Nk + GK - 1) / GK;
+  const int nsteps = n1 + n2;
+  auto issue = [&](int s) {
+    bf16* st = ring + (s % STAGES) * T::STAGE;
+    if (s < n1) {
+      const int k0 = s * 2 * GK;
+      load_rows_async_fixed<2 * GK, DT, LD, GTH>(st, kb + k0 * skn, skn, Nk - k0, D);
+    } else {
+      const int k0 = (s - n1) * GK;
+      load_rows_async_fixed<GK, DT, LD, GTH>(st, kb + k0 * skn, skn, Nk - k0, D);
+      load_rows_async_fixed<GK, DT, LD, GTH>(st + GK * LD, vb + k0 * svn, svn, Nk - k0, D);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nsteps) issue(s);
+    cp_async_commit();
+  }
+
   // Q tile times the bf16 scale, rounded to bf16 once; zero past Nq and D
-  for (int i = threadIdx.x; i < GQ * (DT / 8); i += GTH) {
+  for (int i = threadIdx.x; i < ROWS * (DT / 8); i += GTH) {
     const int r = i / (DT / 8), c = (i % (DT / 8)) * 8;
     uint4 raw = make_uint4(0, 0, 0, 0);
     if (q0 + r < Nq && c < D) raw = *reinterpret_cast<const uint4*>(qb + (q0 + r) * sqn + c);
@@ -114,100 +192,127 @@ __global__ void __launch_bounds__(GTH) attn_generic_kernel(
     *reinterpret_cast<uint4*>(Qs + r * LD + c) = pack8(f);
   }
 
-  // lane owns row (lane >> 1) of its warp's 16 rows, key columns ch .. ch + 31
-  const int r = lane >> 1, ch = (lane & 1) * 32;
-  const bf16* Qw = Qs + warp * 16 * LD;
-  float* Sw = Ss + warp * 16 * GSL;
-  bf16* Pw = Ps + warp * 16 * PLD;
-  const float* srow = Sw + r * GSL + ch;
-
-  // pass 1: the row max over all keys
-  float m = -INFINITY;
-  for (int k0 = 0; k0 < Nk; k0 += GK) {
-    const int kv = min(GK, Nk - k0);
-    load_rows_async<GK, DT>(Ks, kb + k0 * skn, skn, kv, D);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    warp_scores<DT>(Qw, Ks, Sw);
-    for (int c = 0; c < 32; ++c)
-      if (ch + c < kv) m = fmaxf(m, srow[c]);
-    __syncthreads();  // every warp is done with Ks
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-
-  // pass 2: P = exp(s - m) rounded to bf16, O += P V, the f32 row sum of p
-  FragC o[DT / 16];
+  const int wrow = warp * 16 * MT;           // the warp's first row in the tile
+  const bool active = q0 + wrow < Nq;
+  uint32_t qa[MT][KS][4];
+  float m[MT][2], l[MT][2], o[MT][NT][4];
 #pragma unroll
-  for (int j = 0; j < DT / 16; ++j) wmma::fill_fragment(o[j], 0.f);
-  float l = 0.f;
-  bf16* prow = Pw + r * PLD + ch;
-  for (int k0 = 0; k0 < Nk; k0 += GK) {
-    const int kv = min(GK, Nk - k0);
-    load_rows_async<GK, DT>(Ks, kb + k0 * skn, skn, kv, D);
-    load_rows_async<GK, DT>(Vs, vb + k0 * svn, svn, kv, D);
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][j][e] = 0.f;
+  }
+
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile s landed; every warp is done with the buffer refilled next
+    if (s + STAGES - 1 < nsteps) issue(s + STAGES - 1);
     cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    warp_scores<DT>(Qw, Ks, Sw);
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const float p = (ch + c < kv) ? expf(srow[c] - m) : 0.f;
-      l += p;
-      prow[c] = __float2bfloat16(p);
+    if (!active) continue;
+    if (s == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          ldsm_x4(qa[mt][kk], Qs + (wrow + mt * 16) * LD + kk * 16 + ldsm_a_off(lane, LD));
     }
-    __syncwarp();
+    const bf16* st = ring + (s % STAGES) * T::STAGE;
+    float sc[MT][8][4];
+    if (s < n1) {
+      // pass 1: the row max of 128 keys, 64 at a time
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int kv = Nk - s * 2 * GK - half * GK;  // valid keys from this half on
+        if (kv <= 0) break;
+        scores64<DT, MT>(qa, st + half * GK * LD, lane, sc);
+        if (kv >= GK)
+          row_max64<false, MT>(sc, 0, m);
+        else
+          row_max64<true, MT>(sc, kv - 2 * t, m);
+      }
+      continue;
+    }
+    if (s == n1) {
+      // the row max over all keys, in log2 units for exp2
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        m[mt][0] = quad_max(m[mt][0]) * kLog2e;
+        m[mt][1] = quad_max(m[mt][1]) * kLog2e;
+      }
+    }
+    // pass 2: p = exp(s - m) in f32, l += p, O += bf16(p) V
+    const int kv = Nk - (s - n1) * GK;
+    scores64<DT, MT>(qa, st, lane, sc);
+    if (kv >= GK)
+      probs64<false, MT>(sc, m, 0, l);
+    else
+      probs64<true, MT>(sc, m, kv - 2 * t, l);
+    const bf16* vp = st + GK * LD + ldsm_b_off(lane, LD);
 #pragma unroll
     for (int kk = 0; kk < GK / 16; ++kk) {
-      FragA a;
-      wmma::load_matrix_sync(a, Pw + kk * 16, PLD);
+      uint32_t pa[MT][4];
 #pragma unroll
-      for (int j = 0; j < DT / 16; ++j) {
-        FragB bv;
-        wmma::load_matrix_sync(bv, Vs + kk * 16 * LD + j * 16, LD);
-        wmma::mma_sync(o[j], a, bv, o[j]);
+      for (int mt = 0; mt < MT; ++mt) c_to_a(sc[mt][2 * kk], sc[mt][2 * kk + 1], pa[mt]);
+#pragma unroll
+      for (int jj = 0; jj < NT / 2; ++jj) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, vp + kk * 16 * LD + jj * 16);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_16816(o[mt][2 * jj], pa[mt], bv[0], bv[1]);
+          mma_16816(o[mt][2 * jj + 1], pa[mt], bv[2], bv[3]);
+        }
       }
     }
-    __syncthreads();  // every warp is done with Ks and Vs
   }
+  if (!active) return;
 
   // divide by the row sum after P V, round once; O leaves through the warp's
-  // score strip 64 columns at a time
-  const float tot = l + __shfl_xor_sync(0xffffffffu, l, 1);
-  const int n = q0 + warp * 16 + r;
-  bf16* dst = out + (((size_t)b * Nq + n) * H + h) * D;
+  // own rows of the Q tile in 16-byte stores
+  const int g = lane >> 2;
 #pragma unroll
-  for (int j0 = 0; j0 < DT / 16; j0 += 4) {
+  for (int mt = 0; mt < MT; ++mt) {
+    const float l0 = quad_sum(l[mt][0]), l1 = quad_sum(l[mt][1]);
+    bf16* rows = Qs + (wrow + mt * 16) * LD;
 #pragma unroll
-    for (int j = j0; j < j0 + 4 && j < DT / 16; ++j)
-      wmma::store_matrix_sync(Sw + (j - j0) * 16, o[j], GSL, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int c8 = 0; c8 < 4; ++c8) {
-      const int cc = ch + c8 * 8, col = j0 * 16 + cc;
-      if (n < Nq && col < D) {
-        float f[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) f[j] = Sw[r * GSL + cc + j] / tot;
-        *reinterpret_cast<uint4*>(dst + col) = pack8(f);
-      }
+    for (int j = 0; j < NT; ++j) {
+      const int col = j * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(rows + g * LD + col) =
+          pack_bf16x2(o[mt][j][0] / l0, o[mt][j][1] / l0);
+      *reinterpret_cast<uint32_t*>(rows + (g + 8) * LD + col) =
+          pack_bf16x2(o[mt][j][2] / l1, o[mt][j][3] / l1);
     }
-    __syncwarp();
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * MT * (DT / 8); i += 32) {
+    const int r = i / (DT / 8), c = (i % (DT / 8)) * 8;
+    const int n = q0 + wrow + r;
+    if (n < Nq && c < D)
+      *reinterpret_cast<uint4*>(out + (((size_t)b * Nq + n) * H + h) * D + c) =
+          *reinterpret_cast<const uint4*>(Qs + (wrow + r) * LD + c);
   }
 }
 
 template <int DT>
 int launch_generic(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int Nq, int Nk,
                    int H, int D, const long long* st, float scale, cudaStream_t stream) {
-  constexpr int smem = generic_smem<DT>();
+  using T = GenTile<DT>;
   // set on every launch: the attribute belongs to the current device's context
   cudaError_t e = cudaFuncSetAttribute(attn_generic_kernel<DT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Nq + GQ - 1) / GQ, H, B);
-  attn_generic_kernel<DT><<<grid, GTH, smem, stream>>>(q, k, v, out, Nq, Nk, H, D, st[0], st[1],
-                                                       st[2], st[3], st[4], st[5], st[6], st[7],
-                                                       st[8], scale);
+  e = cudaFuncSetAttribute(attn_generic_kernel<DT>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // the query tile varies slowest: the ragged last tiles, which carry few
+  // active warps, are dispatched last and fill the final wave's gaps
+  dim3 grid(H, B, (Nq + T::ROWS - 1) / T::ROWS);
+  attn_generic_kernel<DT><<<grid, GTH, T::SMEM, stream>>>(q, k, v, out, Nq, Nk, H, D, st[0],
+                                                          st[1], st[2], st[3], st[4], st[5],
+                                                          st[6], st[7], st[8], scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -159,8 +159,9 @@ def attn_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, heads: int,
         raise ValueError(f"dOut must be contiguous (B, N, H*D) = "
                          f"{(B, N, heads * D)}, got {tuple(g.shape)}")
     dqkv = torch.empty_like(qkv)
-    # per (batch, head, query row): softmax max, row sum and r = sum(dp p)
-    stats = torch.empty(3, B, heads, N, dtype=torch.float32,
+    # per (batch, head, query row): log2 of the softmax denominator and
+    # r = sum(dp p), rows padded to a multiple of the kernels' 64-row tile
+    stats = torch.empty(2, B, heads, -(-N // 64) * 64, dtype=torch.float32,
                         device=qkv.device)
     _build.check(_build.lib().mtt_attn_bwd_bf16(
         qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B, N,

@@ -161,12 +161,15 @@ def test_head_up4_kernel(gen, gh, gw, n, C):
     _check(fused_up4_head(*args), fused_up4_head(*args, impl="plain"))
 
 
-@pytest.mark.parametrize("N", [77, 1029])
-def test_attention_bwd_kernel(gen, N):
-    """dq, dk and dv each within 4 bf16 ulps of their own largest value."""
+@pytest.mark.parametrize("N,H", [(1, 4), (16, 4), (64, 4), (65, 4), (77, 4),
+                                 (1029, 16)])
+def test_attention_bwd_kernel(gen, N, H):
+    """dq, dk and dv each within 4 bf16 ulps of their own largest value: one
+    key, a part tile, one 64-row tile, one row past it, the ragged N and the
+    ViT-L training shape (16 heads of 1029 tokens)."""
     from mtt_tpu_torch.kernels.attention import (attn_core_bwd_cuda,
                                                  attn_core_bwd_plain)
-    B, H, D = 2, 4, 64
+    B, D = 2, 64
     qkv = _rnd(gen, B, N, H * 3 * D)
     g = _rnd(gen, B, N, H * D)
     got = attn_core_bwd_cuda(qkv, g, H, D ** -0.5).view(B, N, H, 3, D)
@@ -192,12 +195,19 @@ def test_attention_qkv_kernel(gen, N, safe):
 
 @pytest.mark.parametrize("Nq,Nk,H,D", [
     (77, 77, 4, 64), (1029, 1029, 2, 64), (130, 37, 2, 72), (64, 200, 3, 32),
-    (50, 65, 2, 128), (33, 16, 2, 8), (20, 300, 1, 80)])
+    (50, 65, 2, 128), (33, 16, 2, 8), (20, 300, 1, 80),
+    (9, 1, 2, 64), (1, 7, 2, 72), (1, 1, 1, 8), (129, 63, 2, 64),
+    (127, 65, 2, 64), (65, 127, 2, 128), (40, 129, 2, 72), (70, 128, 2, 8),
+    (257, 320, 2, 72), (100, 1029, 2, 128)])
 def test_attention_generic_kernel(gen, Nq, Nk, H, D):
     """Row 14 on the card against its plain version: self and cross
     attention, ragged query and key counts, every head-dim tile (32, 64, 80,
     128) and a head dim that is not a multiple of 16; logits wide enough
-    that the max subtraction matters."""
+    that the max subtraction matters. The edges of the tiling: one key,
+    fewer keys than an mma tile (16), one query, key counts one short of and
+    one past the 64-key tile and the 128-key tile of the max pass, query
+    counts one past and one short of the 128-row block (head dims up to 64)
+    and the 64-row block (72 and 128)."""
     from mtt_tpu_torch.kernels import _build
     from mtt_tpu_torch.kernels.attention import fused_attention
     q = _rnd(gen, 2, Nq, H, D, std=2.0)
@@ -207,6 +217,33 @@ def test_attention_generic_kernel(gen, Nq, Nk, H, D):
     got = fused_attention(q, k, v)
     assert _build.COUNTS == _counts(attention_generic=1)
     _check(got, fused_attention(q, k, v, impl="plain"))
+
+
+@pytest.mark.parametrize("kernel", ["attention_generic",
+                                    "attention_generic@cross",
+                                    "attention_bwd"])
+def test_attention_kernels_repeat_bits(gen, kernel):
+    """Two launches of row 14 (ViT-L self-attention and InvPT's cross shape,
+    at a cut batch) and of row 7 (the ViT-L training shape) on the same
+    inputs give the same bits: no atomics, a fixed summation order."""
+    from mtt_tpu_torch.kernels.attention import (attn_core_bwd_cuda,
+                                                 fused_attention)
+    if kernel == "attention_bwd":
+        qkv = _rnd(gen, 2, 1029, 16 * 3 * 64)
+        g = _rnd(gen, 2, 1029, 16 * 64)
+
+        def run():
+            return attn_core_bwd_cuda(qkv, g, 16, 0.125)
+    else:
+        nq, nk, h, d = ((1029, 1029, 16, 64) if kernel == "attention_generic"
+                        else (5120, 320, 2, 72))
+        q, k, v = (_rnd(gen, 2, n, h, d, std=2.0) for n in (nq, nk, nk))
+
+        def run():
+            return fused_attention(q, k, v)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_attention_generic_kernel_reads_strides(gen):
