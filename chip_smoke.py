@@ -17,8 +17,10 @@ Phases, in order (the seconds each took are printed):
      widths 576, 288, 144; the tail on NYUD's non-square grid), and the Swin
      path's at its shapes (window attention and its backward at the four
      Swin-B stages with and without the shift mask, the backward's dbias
-     equal across two runs, as are rows 7 and 14; LayerNorm rows of 128 to
-     2048 at eps 1e-5; MLP widths 128 to 1024, down to the 3 prompt rows):
+     equal across two runs, as are rows 7, 13 and 14; LayerNorm rows of 128
+     to 2048 at eps 1e-5; MLP widths 128 to 1024, down to the 3 prompt rows),
+     and the safe softmax of rows 1, 2 and 13 (at least 99% of the outputs
+     bit-equal to the plain version: the max over all keys):
      error, tolerance in bf16 ulps, CUDA-event times of the kernel, the
      plain version, the library call or composition, and the bound of the
      card;
@@ -151,7 +153,7 @@ KERNEL_ROWS = {
                     "eval"),
     "head_up4": ("mtt_tpu_torch/csrc/head_up4.cu",
                  "mtt_tpu/kernels/head_up4.py:168", "head_up4", "eval"),
-    "attention_qkv": ("mtt_tpu_torch/csrc/attention.cu",
+    "attention_qkv": ("mtt_tpu_torch/csrc/attention_generic.cu",
                       "mtt_tpu/kernels/attention.py:230", "attention_qkv",
                       "attention_api"),
     "attention_generic": ("mtt_tpu_torch/csrc/attention_generic.cu",
@@ -558,8 +560,8 @@ def _api_cases(rnd):
                                                      safe=s),
             4, "P is rounded to bf16 at the same point; f32 sums in another "
                "order can flip that rounding" + (
-                   "; the online max rescales P after its rounding"
-                   if safe else ""),
+                   "; the max over all keys first, so at least 99% of the "
+                   "outputs are bit-equal" if safe else ""),
             sdpa_packed, None, _nbytes(qkv) + B * N * C * 2,
             4.0 * B * HEADS * N * N * D, 0.0)
 
@@ -822,11 +824,11 @@ def kernel_phase():
               flush=True)
 
     # the window attention backward sums dbias over the windows in a fixed
-    # order, and rows 7 and 14 sum without atomics: two runs give the same
-    # bits
+    # order, and rows 7, 13 and 14 sum without atomics: two runs give the
+    # same bits
     for name, case in cases.items():
         if name.startswith(("window_attention_bwd", "attention_bwd",
-                            "attention_generic")):
+                            "attention_generic", "attention_qkv")):
             a, b = case[0]("cuda"), case[0]("cuda")
             a = a if isinstance(a, tuple) else (a,)
             b = b if isinstance(b, tuple) else (b,)
@@ -834,20 +836,54 @@ def kernel_phase():
                 raise RuntimeError(f"{name}: two runs differ")
     print("[kernel] window_attention_bwd: dq, dk, dv and dbias equal across "
           "two runs at every stage, with and without the mask; "
-          "attention_bwd (dqkv) and attention_generic (self and cross "
-          "shapes) equal across two runs", flush=True)
-
-    # the safe (max-subtracted) softmax of the training forward
-    got = fused_attention_ln_qkv(x, gamma, beta, wqkv, bqkv, HEADS,
-                                 impl="cuda", safe=True)
-    want = fused_attention_ln_qkv(x, gamma, beta, wqkv, bqkv, HEADS,
-                                  impl="plain", safe=True)
-    e, t = _max_err(got, want), _ulp_tol(want, 4)
-    if e > t:
-        raise RuntimeError(f"attention safe softmax: {e:.4g} > {t:.4g}")
-    print(f"[kernel] attention safe softmax: max_abs_err={e:.6g} tol={t:.6g}"
-          " (4 bf16 ulps: the online max rescales P after its bf16 rounding)",
+          "attention_bwd (dqkv), attention_generic (self and cross shapes) "
+          "and attention_qkv (fast and safe) equal across two runs",
           flush=True)
+
+    # the safe softmax (every training forward) takes the max over ALL keys
+    # before it rounds P to bf16, as the TPU kernels do: at least 99% of the
+    # outputs bit-equal to the plain version, which an online (running) max
+    # misses (tests/test_torch_cuda.py holds the same share). Row 13 against
+    # its plain version; the front halves (rows 1-2) within 4 ulps of theirs,
+    # and their core against the plain core on the qkv their own LN and
+    # projection kernels made (those roundings move more bits than the
+    # softmax)
+    from mtt_tpu_torch.kernels.attention import (attention_qkv_plain,
+                                                 qkv_proj_cuda)
+    from mtt_tpu_torch.kernels.layernorm import layernorm_cuda
+
+    def share(got, want):
+        return (got.view(torch.int16) == want.view(torch.int16)).float() \
+            .mean().item()
+
+    qkv_k = qkv_proj_cuda(layernorm_cuda(x, gamma, beta, 1e-6), wqkv, bqkv)
+    core_want = attention_qkv_plain(qkv_k, HEADS, D ** -0.5, True)
+    qkv_case = cases["attention_qkv_safe"][0]
+    checks = {"attention_qkv_safe": (qkv_case("cuda"), qkv_case("plain"),
+                                     None)}
+    for tag, need in (("attention_cached_safe", False),
+                      ("attention_emit_safe", True)):
+        got, want = (fused_attention_ln_qkv(x, gamma, beta, wqkv, bqkv, HEADS,
+                                            need_qkv=need, impl=impl,
+                                            safe=True)
+                     for impl in ("cuda", "plain"))
+        checks[tag] = (got, want, core_want)
+    for tag, (got, want, core) in checks.items():
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        e, t = 0.0, 0.0
+        for g_, w_ in zip(got, want):
+            e_, t_ = _max_err(g_, w_), _ulp_tol(w_, 4)
+            if e_ > t_:
+                raise RuntimeError(f"{tag}: {e_:.4g} > {t_:.4g}")
+            e, t = max(e, e_), max(t, t_)
+        sh = share(got[0], want[0] if core is None else core)
+        if sh < 0.99:
+            raise RuntimeError(f"{tag}: {sh:.4%} of the outputs bit-equal "
+                               f"to the plain version, under 99%")
+        print(f"[kernel] {tag}: max_abs_err={e:.6g} tol={t:.6g} (4 bf16 "
+              f"ulps); bit-equal share {sh:.6f} (at least 0.99: the max over "
+              f"all keys)", flush=True)
     return results
 
 
@@ -1856,7 +1892,10 @@ PROFILE_GROUPS = (("mlp_kernel", "mlp (mlp.cu)"),
                   ("wattn_bwd", "window attention backward"),
                   ("wattn_dbias", "window attention backward"),
                   ("attn_bwd", "attention backward"),
-                  ("attn_core", "attention core"),
+                  # rows 1, 2 and 13: attn_generic_kernel under its fast
+                  # (1) and safe (2) softmax policies
+                  ("attn_generic_kernel<64, 1>", "attention core"),
+                  ("attn_generic_kernel<64, 2>", "attention core"),
                   ("attn_generic", "generic attention"),
                   ("gemm_nt_bias", "qkv projection"),
                   ("ln_kernel", "layernorm"), ("task_decode", "task decode"),

@@ -1,16 +1,28 @@
-// Generic multi-head attention: out = softmax(q k^T * scale) v over separate
-// (B, Nq, H, D) q and (B, Nk, H, D) k, v, with a max-subtracted softmax.
+// Softmax attention core for Hopper, one kernel template over three softmax
+// policies:
+//   Generic, row 14: out = softmax(q k^T * scale) v over separate (B, Nq, H,
+//     D) q and (B, Nk, H, D) k, v, max-subtracted.
+//   Fast and Safe, rows 1-2's third launch and row 13: attention over the
+//     head-major packed qkv (B, N, H*3*64), fast exp2 or exact-max softmax.
 //
 // Replaces mtt_tpu/kernels/attention.py:_attn_kernel (pallas_call at :165,
-// wrapper fused_attention at :984). Rounding points, kept by the plain version
-// (kernels/attention.py:attention_generic_plain) alike:
-//   q' = bf16(q * bf16(scale))              (the JAX wrapper folds the scale)
-//   s  = q' k^T in f32                      (bf16 tensor cores, f32 accumulate)
-//   p  = exp(s - max_k s)                   (f32, the row max over ALL keys)
-//   o  = bf16(p) v / sum_k p                (division after P.V, rounded once)
-// The Pallas wrapper transposes q, k, v to (B*H, N, D) and pads the keys to a
-// multiple of 128 behind a -1e30 bias row; this kernel reads the (B, N, H)
-// strides directly and masks the ragged key tile, which is the same function.
+// wrapper fused_attention at :984) and _attn_qkv_kernel (:230, pallas_call
+// at :257; the same core inside _attn_ln_qkv_cached_kernel :423 and
+// _attn_ln_qkv_kernel :393). Rounding points, kept by the plain versions
+// (kernels/attention.py: attention_generic_plain, attention_qkv_plain):
+//   Generic: q' = bf16(q * bf16(scale))      (the JAX wrapper folds the scale)
+//            p  = exp(s - max_k s)           (f32, the row max over ALL keys)
+//   Fast:    q' = bf16(q * s2), s2 = bf16(scale * log2 e)
+//            p  = exp2(clamp(s, -120, hi)), hi = 126 - ceil(log2 N), no max
+//   Safe:    q' as Fast, p = exp2(s - max_k s) over ALL keys
+//   all:     s = q' k^T in f32 (bf16 tensor cores, f32 accumulate),
+//            o = bf16(p) v / sum_k p  (the sum unrounded, the division after
+//            P.V, rounded once)
+// The Pallas wrapper of row 14 transposes q, k, v to (B*H, N, D) and pads the
+// keys to a multiple of 128 behind a -1e30 bias row; this kernel reads the
+// (B, N, H) strides directly and masks the ragged key tile, which is the same
+// function. Rows 1, 2 and 13 read q, k and v as strided views of the packed
+// qkv: strides (N*3C, 3C, 3*64), bases qkv + 0, 64, 128.
 //
 // What bounds it on the H100: at a ViT-L self-attention shape (B=8, N=1029,
 // H=16, D=64) it is 35 GFLOP on the tensor cores against 34 MB of q, k, v and
@@ -21,23 +33,24 @@
 // operands come from registers or ldmatrix; the scores never touch shared
 // memory. Each warp owns 16 * MT query rows and keeps their Q fragments, their
 // score fragments and their O accumulators in registers. The row max and sum
-// are quad shuffles over the C fragment (common.cuh), p = exp(s - m) is
-// formed in f32 as exp2f(s log2(e) - m log2(e)) (one fma and the exp2 unit:
-// the per-score instructions compete with the products for issue slots),
-// summed unrounded into l, and repacked to bf16 A fragments
-// for O += P V, with V read by ldmatrix.trans. O is divided by l and rounded
-// once. Key and value tiles stream through a ring of STAGES cp.async buffers:
-// the next tile's copy is issued right after the barrier that frees its
-// buffer and lands while the current tile's products run (one barrier a tile).
+// are quad shuffles over the C fragment (common.cuh); p is formed in f32 by
+// one exp2f (Generic: of one fma, s log2(e) - m log2(e): the per-score
+// instructions compete with the products for issue slots), summed unrounded
+// into l, and repacked to bf16 A fragments for O += P V, with V read by
+// ldmatrix.trans. O is divided by l and rounded once. Key and value tiles
+// stream through a ring of STAGES cp.async buffers: the next tile's copy is
+// issued right after the barrier that frees its buffer and lands while the
+// current tile's products run (one barrier a tile).
 //
-// The max: the TPU kernel holds all Nk keys in VMEM and subtracts the global
-// row max before it rounds P to bf16. A streaming kernel with an online max
-// would round P relative to a running max and rescale it afterwards, another
-// function. So pass 1 walks the keys in 128-row K tiles (the K and V halves of
-// one ring buffer) and forms the scores only for their row max, in registers;
-// pass 2 walks 64-key K and V tiles, forms them again and rounds P relative
-// to that max, as the TPU kernel does. Both passes run through one ring, so
-// the first pass-2 tile is in flight during the last pass-1 tile.
+// The max (Generic and Safe): the TPU kernels hold all keys in VMEM and
+// subtract the global row max before they round P to bf16. A streaming kernel
+// with an online max would round P relative to a running max and rescale it
+// afterwards, another function. So pass 1 walks the keys in 128-row K tiles
+// (the K and V halves of one ring buffer) and forms the scores only for their
+// row max, in registers; pass 2 walks 64-key K and V tiles, forms them again
+// and rounds P relative to that max, as the TPU kernels do. Both passes run
+// through one ring, so the first pass-2 tile is in flight during the last
+// pass-1 tile. The Fast policy subtracts no max: it runs pass 2 alone.
 //
 // Layout: one block of four warps per (head, batch item, 64 * MT query rows),
 // the query tile the slowest grid axis. The head dim is padded with zeros to
@@ -65,6 +78,9 @@ constexpr int GK = 64;        // keys per pass-2 tile (pass 1: 2 * GK)
 constexpr int GTH = 128;      // four warps
 constexpr int STAGES = 2;     // ring buffers of K and V
 constexpr float kLog2e = 1.4426950408889634f;
+
+// softmax policies (see the head of this file)
+enum Policy { kGeneric, kFast, kSafe };
 
 // Query m16 tiles per warp and blocks per SM for each head-dim tile: two m16
 // tiles share every K and V fragment (half the shared-memory reads per
@@ -122,30 +138,37 @@ __device__ __forceinline__ void row_max64(const float (&sc)[MT][8][4], int kvt, 
         if (!MASK || j * 8 + (e & 1) < kvt) m[mt][e >> 1] = fmaxf(m[mt][e >> 1], sc[mt][j][e]);
 }
 
-// p = exp(s - m) = exp2(s log2(e) - m log2(e)) in f32 over 64 scores, in
-// place; l += p unrounded. Keys at or past kvt get p = 0 where MASK.
-template <bool MASK, int MT>
+// p in f32 over 64 scores, in place, by the policy: Generic exp(s - m) =
+// exp2(s log2(e) - m log2(e)) (mlog = m log2(e)); Safe exp2(s - m) (the
+// scores and m already in log2 units); Fast exp2(clamp(s, -120, hi)).
+// l += p unrounded. Keys at or past kvt get p = 0 where MASK.
+template <bool MASK, int MT, int POL>
 __device__ __forceinline__ void probs64(float (&sc)[MT][8][4], const float (&mlog)[MT][2], int kvt,
-                                        float (&l)[MT][2]) {
+                                        float hi, float (&l)[MT][2]) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float p = exp2f(fmaf(sc[mt][j][e], kLog2e, -mlog[mt][e >> 1]));
+        const float x = sc[mt][j][e];
+        float p = POL == kGeneric ? exp2f(fmaf(x, kLog2e, -mlog[mt][e >> 1]))
+                  : POL == kSafe  ? exp2f(x - mlog[mt][e >> 1])
+                                  : exp2f(fminf(fmaxf(x, -120.f), hi));
         if (MASK && j * 8 + (e & 1) >= kvt) p = 0.f;
         l[mt][e >> 1] += p;
         sc[mt][j][e] = p;
       }
 }
 
-template <int DT>
+// scale: the factor q is multiplied by before its bf16 rounding (Generic
+// bf16(scale), Fast and Safe s2); hi: the Fast policy's upper clamp.
+template <int DT, int POL>
 __global__ void __launch_bounds__(GTH, GenTile<DT>::MIN_BLOCKS) attn_generic_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ out, int Nq, int Nk, int H, int D, long long sqb, long long sqn,
     long long sqh, long long skb, long long skn, long long skh, long long svb, long long svn,
-    long long svh, float scale) {
+    long long svh, float scale, float hi) {
   using T = GenTile<DT>;
   constexpr int MT = T::MT, LD = T::LD, ROWS = T::ROWS, KS = DT / 16, NT = DT / 8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -159,9 +182,9 @@ __global__ void __launch_bounds__(GTH, GenTile<DT>::MIN_BLOCKS) attn_generic_ker
   const bf16* kb = k + b * skb + h * skh;
   const bf16* vb = v + b * svb + h * svh;
 
-  // ring steps: n1 pass-1 tiles of 2 * GK keys (K only), then n2 pass-2
-  // tiles of GK keys (K and V)
-  const int n1 = (Nk + 2 * GK - 1) / (2 * GK), n2 = (Nk + GK - 1) / GK;
+  // ring steps: n1 pass-1 tiles of 2 * GK keys (K only; none for the Fast
+  // policy, which takes no max), then n2 pass-2 tiles of GK keys (K and V)
+  const int n1 = POL == kFast ? 0 : (Nk + 2 * GK - 1) / (2 * GK), n2 = (Nk + GK - 1) / GK;
   const int nsteps = n1 + n2;
   auto issue = [&](int s) {
     bf16* st = ring + (s % STAGES) * T::STAGE;
@@ -180,7 +203,7 @@ __global__ void __launch_bounds__(GTH, GenTile<DT>::MIN_BLOCKS) attn_generic_ker
     cp_async_commit();
   }
 
-  // Q tile times the bf16 scale, rounded to bf16 once; zero past Nq and D
+  // Q tile times the scale, rounded to bf16 once; zero past Nq and D
   for (int i = threadIdx.x; i < ROWS * (DT / 8); i += GTH) {
     const int r = i / (DT / 8), c = (i % (DT / 8)) * 8;
     uint4 raw = make_uint4(0, 0, 0, 0);
@@ -221,7 +244,7 @@ __global__ void __launch_bounds__(GTH, GenTile<DT>::MIN_BLOCKS) attn_generic_ker
     }
     const bf16* st = ring + (s % STAGES) * T::STAGE;
     float sc[MT][8][4];
-    if (s < n1) {
+    if (POL != kFast && s < n1) {
       // pass 1: the row max of 128 keys, 64 at a time
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -235,21 +258,23 @@ __global__ void __launch_bounds__(GTH, GenTile<DT>::MIN_BLOCKS) attn_generic_ker
       }
       continue;
     }
-    if (s == n1) {
-      // the row max over all keys, in log2 units for exp2
+    if (POL != kFast && s == n1) {
+      // the row max over all keys, in log2 units for exp2 (Safe: the scores
+      // are in log2 units already, q carrying log2(e) in s2)
+      const float to_log2 = POL == kGeneric ? kLog2e : 1.f;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        m[mt][0] = quad_max(m[mt][0]) * kLog2e;
-        m[mt][1] = quad_max(m[mt][1]) * kLog2e;
+        m[mt][0] = quad_max(m[mt][0]) * to_log2;
+        m[mt][1] = quad_max(m[mt][1]) * to_log2;
       }
     }
-    // pass 2: p = exp(s - m) in f32, l += p, O += bf16(p) V
+    // pass 2: p in f32 by the policy, l += p, O += bf16(p) V
     const int kv = Nk - (s - n1) * GK;
     scores64<DT, MT>(qa, st, lane, sc);
     if (kv >= GK)
-      probs64<false, MT>(sc, m, 0, l);
+      probs64<false, MT, POL>(sc, m, 0, hi, l);
     else
-      probs64<true, MT>(sc, m, kv - 2 * t, l);
+      probs64<true, MT, POL>(sc, m, kv - 2 * t, hi, l);
     const bf16* vp = st + GK * LD + ldsm_b_off(lane, LD);
 #pragma unroll
     for (int kk = 0; kk < GK / 16; ++kk) {
@@ -296,23 +321,22 @@ __global__ void __launch_bounds__(GTH, GenTile<DT>::MIN_BLOCKS) attn_generic_ker
   }
 }
 
-template <int DT>
+template <int DT, int POL>
 int launch_generic(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int Nq, int Nk,
-                   int H, int D, const long long* st, float scale, cudaStream_t stream) {
+                   int H, int D, const long long* st, float scale, float hi, cudaStream_t stream) {
   using T = GenTile<DT>;
+  const auto kernel = attn_generic_kernel<DT, POL>;
   // set on every launch: the attribute belongs to the current device's context
-  cudaError_t e = cudaFuncSetAttribute(attn_generic_kernel<DT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(attn_generic_kernel<DT>, cudaFuncAttributePreferredSharedMemoryCarveout,
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return static_cast<int>(e);
   // the query tile varies slowest: the ragged last tiles, which carry few
   // active warps, are dispatched last and fill the final wave's gaps
   dim3 grid(H, B, (Nq + T::ROWS - 1) / T::ROWS);
-  attn_generic_kernel<DT><<<grid, GTH, T::SMEM, stream>>>(q, k, v, out, Nq, Nk, H, D, st[0],
-                                                          st[1], st[2], st[3], st[4], st[5],
-                                                          st[6], st[7], st[8], scale);
+  kernel<<<grid, GTH, T::SMEM, stream>>>(q, k, v, out, Nq, Nk, H, D, st[0], st[1], st[2], st[3],
+                                         st[4], st[5], st[6], st[7], st[8], scale, hi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -334,8 +358,28 @@ extern "C" int mtt_attn_generic_bf16(const void* q, const void* k, const void* v
   auto vp = static_cast<const bf16*>(v);
   auto op = static_cast<bf16*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return launch_generic<32>(qp, kp, vp, op, B, Nq, Nk, H, D, st, scale, s);
-  if (D <= 64) return launch_generic<64>(qp, kp, vp, op, B, Nq, Nk, H, D, st, scale, s);
-  if (D <= 80) return launch_generic<80>(qp, kp, vp, op, B, Nq, Nk, H, D, st, scale, s);
-  return launch_generic<128>(qp, kp, vp, op, B, Nq, Nk, H, D, st, scale, s);
+  if (D <= 32) return launch_generic<32, kGeneric>(qp, kp, vp, op, B, Nq, Nk, H, D, st, scale, 0.f, s);
+  if (D <= 64) return launch_generic<64, kGeneric>(qp, kp, vp, op, B, Nq, Nk, H, D, st, scale, 0.f, s);
+  if (D <= 80) return launch_generic<80, kGeneric>(qp, kp, vp, op, B, Nq, Nk, H, D, st, scale, 0.f, s);
+  return launch_generic<128, kGeneric>(qp, kp, vp, op, B, Nq, Nk, H, D, st, scale, 0.f, s);
+}
+
+// The attention core of rows 1, 2 and 13: qkv (B, N, H*3*64) head-major bf16
+// (16-byte aligned) -> out (B, N, H*64) bf16, the head concat. s2 = bf16(scale
+// * log2 e); hi = 126 - ceil(log2 N), the fast softmax's upper clamp; safe
+// selects the exact-max softmax.
+extern "C" int mtt_attn_core_bf16(const void* qkv, void* out, int B, int N, int H, float s2, float hi,
+                                  int safe, void* stream) {
+  constexpr int AD = 64;
+  if (N < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long ld3 = 3LL * H * AD;
+  // q, k and v share the packed tensor's strides: (N * 3C, 3C, 3 * 64)
+  const long long st[9] = {N * ld3, ld3, 3 * AD, N * ld3, ld3, 3 * AD, N * ld3, ld3, 3 * AD};
+  auto base = static_cast<const bf16*>(qkv);
+  auto op = static_cast<bf16*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  return safe ? launch_generic<64, kSafe>(base, base + AD, base + 2 * AD, op, B, N, N, H, AD, st, s2,
+                                          hi, s)
+              : launch_generic<64, kFast>(base, base + AD, base + 2 * AD, op, B, N, N, H, AD, st, s2,
+                                          hi, s);
 }

@@ -2,7 +2,8 @@
 // fragments (nvcuda::wmma 16x16x16, f32 accumulators), 16-byte cp.async tile
 // copies, warp reductions, and the per-warp fragment epilogue; and the
 // register-resident layer of the attention kernels (attention_generic.cu,
-// attention_bwd.cu): mma.sync m16n8k16 with ldmatrix operands, quad
+// attention_bwd.cu, window_attention_bwd.cu): mma.sync m16n8k16 with
+// ldmatrix operands, quad
 // reductions over C fragments, and the C-to-A repacking that feeds one
 // product's output to the next without shared memory.
 //

@@ -9,18 +9,22 @@ Port of mtt_tpu/kernels/attention.py:
   emit=True)`` (tap blocks), with the softmax helpers ``_fast_exp2_probs``
   and ``_resolve_safe``. On the card the call is three hand-written
   launches: LN rows, the qkv projection (tensor cores, bias added in f32 and
-  rounded once), and the attention core, which streams K/V tiles per (query
-  tile, head, batch item) and never writes scores to device memory.
+  rounded once), and the attention core (``mtt_attn_core_bf16``), which
+  streams K/V tiles per (query tile, head, batch item) and keeps the scores
+  in registers. The safe softmax takes the max over all keys in a first
+  pass before P is rounded, as the TPU kernel does.
 - ``fused_attention_qkv`` (``_attn_qkv_kernel``): attention over a packed
   head-major qkv. It is the function of the attention core above, so on the
-  card it launches the same ``attn_core_kernel`` under its own count.
+  card it launches the same core under its own count.
 - ``attention_ln_qkv_composed``: the JAX package's XLA composition of the
   front half (``_attn_ln_qkv_xla``), LN and the product in torch, then
   ``fused_attention_qkv``. ``fused_attention_ln_qkv`` does not route to it:
   the card's front-half kernels have no VMEM budget to fall back from.
 - ``fused_attention`` (``_attn_kernel``): max-subtracted attention over
-  separate (B, N, H, D) q, k, v with any key count and head dims up to 128,
-  a kernel of its own (csrc/attention_generic.cu).
+  separate (B, N, H, D) q, k, v with any key count and head dims up to 128.
+  The core of the rows above and this one are one kernel template
+  (csrc/attention_generic.cu) under three softmax policies: fast, safe and
+  generic.
 
 The weight of the front half is the nn.Linear layout (3C, C) whose rows are
 HEAD-MAJOR (H, 3, D): the transpose of the JAX package's (C, 3C) kernel with
@@ -203,7 +207,8 @@ def qkv_proj_cuda(xn: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
 
 
 def attn_core_cuda(qkv: torch.Tensor, heads: int, scale: float, safe: bool):
-    """The attention core (``attn_core_kernel``): head dim 64, bf16, a
+    """The attention core (``mtt_attn_core_bf16``: csrc/attention_generic.cu's
+    kernel under its Fast or Safe softmax policy): head dim 64, bf16, a
     contiguous head-major (B, N, H*3*D) qkv."""
     B, N, C3 = qkv.shape
     D = C3 // heads // 3
@@ -212,8 +217,9 @@ def attn_core_cuda(qkv: torch.Tensor, heads: int, scale: float, safe: bool):
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"the attention kernel takes bfloat16, got "
                         f"{qkv.dtype}")
-    if not qkv.is_contiguous():
-        raise ValueError("the attention kernel takes a contiguous qkv")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("the attention kernel takes a contiguous, 16-byte "
+                         "aligned qkv")
     out = torch.empty(B, N, heads * D, dtype=qkv.dtype, device=qkv.device)
     s2 = float(scaled_log2e(scale, qkv.dtype))
     _build.check(_build.lib().mtt_attn_core_bf16(

@@ -146,16 +146,13 @@ def window_attention_bwd_plain(q, k, v, bias, mask, g, scale: float,
     return dq, dk, dv, dl.sum(0)
 
 
-# blocks of the backward launch: one window chunk a block and head, about two
-# waves of the card's 132 SMs (one block an SM: the kernel keeps 213 KB of
-# tiles and strips in shared memory)
-BWD_BLOCKS = 264
-
-
-def bwd_window_chunks(BW: int, H: int) -> int:
-    """Windows a backward block walks in order; each block sums its windows'
-    dl into one f32 partial of dbias."""
-    return max(1, -(-BW * H // BWD_BLOCKS))
+def bwd_window_chunks(BW: int, H: int, sms: int = 132) -> int:
+    """Windows a backward block walks in order; each block keeps its
+    windows' dl sum, one f32 partial of dbias, in registers. The chunk gives
+    at most one block per (window chunk, head) on each of the card's ``sms``
+    SMs (the kernel keeps 205 KB of tiles and matrices in shared memory: one
+    block an SM), in one wave."""
+    return max(1, -(-BW * H // sms))
 
 
 def window_attention_bwd_cuda(q, k, v, bias, mask, g, scale: float, nW: int):
@@ -185,7 +182,8 @@ def window_attention_bwd_cuda(q, k, v, bias, mask, g, scale: float, nW: int):
     bias = bias.float().contiguous()
     if mask is not None:
         mask = mask.float().contiguous()
-    wpc = bwd_window_chunks(BW, H)
+    wpc = bwd_window_chunks(BW, H, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
     nchunk = -(-BW // wpc)
     dqkv = torch.empty(BW, M, 3, H, D, dtype=q.dtype, device=q.device)
     work = torch.empty(nchunk, H, M, M, dtype=torch.float32, device=q.device)

@@ -59,6 +59,59 @@ def test_attention_qkv_matches_pallas(N, safe):
     _close(fused_attention_qkv(_t(qkv), 2, 0.125, safe=safe), want)
 
 
+def _online_max_attention_qkv(qkv, heads: int, scale: float, tile: int = 64):
+    """Row 13's safe softmax as a streaming kernel with an ONLINE max would
+    compute it, key tile by key tile: P rounded to bf16 against the running
+    max, the sum and the output rescaled when the max grows. Another
+    function: the TPU kernel subtracts the max over all keys first."""
+    from mtt_tpu_torch.kernels.attention import scaled_log2e
+    B, N, C3 = qkv.shape
+    D = C3 // heads // 3
+    q5 = qkv.view(B, N, heads, 3, D).transpose(1, 2)
+    q = (q5[..., 0, :] * scaled_log2e(scale, qkv.dtype)).float()
+    k, v = q5[..., 1, :].float(), q5[..., 2, :].float()
+    m = torch.full((B, heads, N, 1), -float("inf"))
+    l, o = torch.zeros(B, heads, N, 1), torch.zeros(B, heads, N, D)
+    for k0 in range(0, N, tile):
+        s = q @ k[:, :, k0:k0 + tile].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.to(qkv.dtype).float() @ v[:, :, k0:k0 + tile]
+        m = m_new
+    return (o / l).to(qkv.dtype).transpose(1, 2).reshape(B, N, heads * D)
+
+
+def _bit_share(a, b) -> float:
+    return (a.view(torch.int16) == b.view(torch.int16)).float().mean().item()
+
+
+@pytest.mark.parametrize("safe", [False, True])
+@pytest.mark.parametrize("N", [129, 300])
+def test_attention_qkv_bf16_bits_match_pallas(N, safe):
+    """Row 13's plain version in bf16 against the interpreted
+    ``_attn_qkv_kernel`` on the same bf16 inputs: at least 99% of the
+    outputs bit-equal (the same rounding points; f32 sums in another order
+    flip a few). On the safe path a 64-key-tile online-max emulation of the
+    same inputs stays under 90% (72-83% here), so the share sees a kernel
+    that rounds P against a running max."""
+    from mtt_tpu.kernels.attention import fused_attention_qkv as jax_qkv
+    from mtt_tpu_torch.kernels.attention import fused_attention_qkv
+
+    x = _rand(N, 1, N, 2 * 3 * 64)
+    want = jax_qkv(jnp.asarray(x).astype(jnp.bfloat16), 2, 0.125,
+                   impl="interpret", safe=safe)
+    want = torch.from_numpy(np.asarray(want.astype(jnp.float32))).to(
+        torch.bfloat16)
+    qkv = _t(x).to(torch.bfloat16)
+    share = _bit_share(fused_attention_qkv(qkv, 2, 0.125, safe=safe), want)
+    assert share >= 0.99, share
+    if safe:
+        online = _bit_share(_online_max_attention_qkv(qkv, 2, 0.125), want)
+        assert online < 0.9, online
+
+
 def test_attention_qkv_grad_matches_jax():
     """The backward is JAX's custom VJP ``_qkv_bwd``: dqkv against
     ``jax.grad`` of <out, g>."""

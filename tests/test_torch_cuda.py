@@ -64,9 +64,14 @@ def test_layernorm_kernel(gen, shape):
            ulps=1)
 
 
+# token counts around the attention core's 64-key tile, the 128-key tile of
+# its max pass and its 128-row block, and ViT-L's 1029
+RAGGED_N = [1, 15, 63, 64, 65, 77, 127, 128, 129, 1029]
+
+
 @pytest.mark.parametrize("need_qkv", [False, True])
 @pytest.mark.parametrize("safe", [False, True])
-@pytest.mark.parametrize("N", [77, 128])
+@pytest.mark.parametrize("N", RAGGED_N)
 def test_attention_kernels(gen, need_qkv, safe, N):
     from mtt_tpu_torch.kernels.attention import fused_attention_ln_qkv
     B, H, D = 2, 4, 64
@@ -179,7 +184,7 @@ def test_attention_bwd_kernel(gen, N, H):
 
 
 @pytest.mark.parametrize("safe", [False, True])
-@pytest.mark.parametrize("N", [77, 1029])
+@pytest.mark.parametrize("N", RAGGED_N)
 def test_attention_qkv_kernel(gen, N, safe):
     """Row 13 on the card: the attention core kernel launched under its own
     count, against its plain version."""
@@ -191,6 +196,68 @@ def test_attention_qkv_kernel(gen, N, safe):
     got = fused_attention_qkv(qkv, H, safe=safe)
     assert _build.COUNTS == _counts(attention_qkv=1)
     _check(got, fused_attention_qkv(qkv, H, safe=safe, impl="plain"))
+
+
+def _leaning_attention_core(gen, entry, N, lean=0.3):
+    """A call ``run(impl, safe)`` of one entry point that reaches the
+    attention core, ``qkv`` (row 13, ``fused_attention_qkv``), ``cached`` or
+    ``emit`` (rows 1 and 2, ``fused_attention_ln_qkv``), on seeded inputs of
+    B 2, 4 heads of 64; and the packed qkv the card's kernels hand to the core
+    (the front halves': their LN and projection kernels' output). ``lean``
+    mixes each key toward its own query (k = lean q + sqrt(1 - lean^2) k'),
+    so that each row's max tends to lie at its own key: past the first 64-key
+    tile for every row from 64 on."""
+    from mtt_tpu_torch.kernels.attention import (fused_attention_ln_qkv,
+                                                 fused_attention_qkv,
+                                                 qkv_proj_cuda)
+    from mtt_tpu_torch.kernels.layernorm import layernorm_cuda
+    B, H, D = 2, 4, 64
+    C = H * D
+    mix = (1.0 - lean * lean) ** 0.5
+    if entry == "qkv":
+        qkv = _rnd(gen, B, N, H * 3 * D)
+        v5 = qkv.view(B, N, H, 3, D)
+        v5[:, :, :, 1] = (lean * v5[:, :, :, 0].float()
+                          + mix * v5[:, :, :, 1].float()).to(qkv.dtype)
+        return (lambda impl, safe: fused_attention_qkv(qkv, H, impl=impl,
+                                                       safe=safe)), qkv
+    x = _rnd(gen, B, N, C)
+    g = _rnd(gen, C, std=0.1, mean=1.0, dtype=torch.float32)
+    b = _rnd(gen, C, std=0.1, dtype=torch.float32)
+    w = _rnd(gen, 3 * C, C, std=C ** -0.5)
+    bq = _rnd(gen, 3 * C, std=0.1)
+    w5, b5 = w.view(H, 3, D, C), bq.view(H, 3, D)
+    w5[:, 1] = (lean * w5[:, 0].float() + mix * w5[:, 1].float()).to(w.dtype)
+    b5[:, 1] = (lean * b5[:, 0].float() + mix * b5[:, 1].float()).to(w.dtype)
+    return (lambda impl, safe: fused_attention_ln_qkv(
+        x, g, b, w, bq, H, need_qkv=entry == "emit", impl=impl, safe=safe)), \
+        qkv_proj_cuda(layernorm_cuda(x, g, b, 1e-6), w, bq)
+
+
+def _bit_share(got, want) -> float:
+    return (got.view(torch.int16) == want.view(torch.int16)).float().mean(
+        ).item()
+
+
+@pytest.mark.parametrize("entry", ["qkv", "cached", "emit"])
+@pytest.mark.parametrize("N", [77, 129, 1029])
+def test_attention_safe_softmax_takes_the_max_over_all_keys(gen, entry, N):
+    """The safe softmax of rows 1, 2 and 13 subtracts the max over ALL keys
+    before it rounds P to bf16, as the TPU kernels do: at least 99% of the
+    outputs are bit-equal to the plain version, with each row's max in a
+    late key tile (keys leaning toward their own query). A kernel that
+    rounds P against a running (online) max instead falls well short of
+    that; the 4-ulp bound alone cannot see the difference. The front
+    halves are held to 4 ulps of their plain version, and their core to the
+    share against the plain core on the qkv their own kernels made (LN and
+    projection roundings that differ move more bits than the softmax)."""
+    from mtt_tpu_torch.kernels.attention import attention_qkv_plain
+    run, qkv = _leaning_attention_core(gen, entry, N)
+    got = run("cuda", True)
+    _check(got, run("plain", True))
+    out = got[0] if entry == "emit" else got
+    share = _bit_share(out, attention_qkv_plain(qkv, 4, 0.125, safe=True))
+    assert share >= 0.99, share
 
 
 @pytest.mark.parametrize("Nq,Nk,H,D", [
@@ -221,19 +288,44 @@ def test_attention_generic_kernel(gen, Nq, Nk, H, D):
 
 @pytest.mark.parametrize("kernel", ["attention_generic",
                                     "attention_generic@cross",
-                                    "attention_bwd"])
+                                    "attention_bwd", "attention_qkv",
+                                    "attention_qkv_safe",
+                                    "window_attention_bwd"])
 def test_attention_kernels_repeat_bits(gen, kernel):
-    """Two launches of row 14 (ViT-L self-attention and InvPT's cross shape,
-    at a cut batch) and of row 7 (the ViT-L training shape) on the same
-    inputs give the same bits: no atomics, a fixed summation order."""
+    """Two launches on the same inputs give the same bits: rows 14 (ViT-L
+    self-attention and InvPT's cross shape, at a cut batch), 7 (the ViT-L
+    training shape), 13 (fast and safe, the ViT-L packed qkv at batch 2) and
+    12 (Swin-B's stage 1 with its mask: dq, dk, dv and dbias). No atomics, a
+    fixed summation order."""
     from mtt_tpu_torch.kernels.attention import (attn_core_bwd_cuda,
-                                                 fused_attention)
+                                                 fused_attention,
+                                                 fused_attention_qkv)
+    from mtt_tpu_torch.kernels.window_attention import \
+        window_attention_bwd_cuda
     if kernel == "attention_bwd":
         qkv = _rnd(gen, 2, 1029, 16 * 3 * 64)
         g = _rnd(gen, 2, 1029, 16 * 64)
 
         def run():
             return attn_core_bwd_cuda(qkv, g, 16, 0.125)
+    elif kernel.startswith("attention_qkv"):
+        qkv = _rnd(gen, 2, 1029, 16 * 3 * 64)
+
+        def run():
+            return fused_attention_qkv(qkv, 16, safe=kernel.endswith("safe"))
+    elif kernel == "window_attention_bwd":
+        BW, M, H = 128, 147, 8
+        q, k, v = _rnd(gen, BW, M, 3, H, 32).unbind(2)
+        bias = _rnd(gen, H, M, M, dtype=torch.float32)
+        mask = torch.where(torch.rand(BW, M, M, generator=gen,
+                                      device="cuda") < 0.3, -100.0, 0.0)
+        mask.diagonal(dim1=1, dim2=2).zero_()
+        g = _rnd(gen, BW, M, H, 32)
+
+        def run():
+            return torch.cat([t.flatten().float() for t in
+                              window_attention_bwd_cuda(q, k, v, bias, mask,
+                                                        g, 32 ** -0.5, BW)])
     else:
         nq, nk, h, d = ((1029, 1029, 16, 64) if kernel == "attention_generic"
                         else (5120, 320, 2, 72))
@@ -529,6 +621,38 @@ def test_window_attention_bwd_kernel(gen, BW, M, H, nW, with_mask):
     _check(grads[0][0].unbind(2), (dq, dk, dv), ulps=4)
     err = (grads[0][1] - dbias).abs().max().item()
     assert err <= 1e-4 * dbias.abs().max().item(), err
+
+
+@pytest.mark.parametrize("BW,nW", [(29, 29), (58, 29)])
+@pytest.mark.parametrize("with_mask", [True, False])
+@pytest.mark.parametrize("M", [1, 16, 17, 49, 147, 160])
+def test_window_attention_bwd_kernel_ragged(gen, M, with_mask, BW, nW):
+    """Row 12 at token counts from one to the 160 it takes, around the
+    16-row strip and the 8-key tile, with a window count that is not a
+    multiple of a block's chunk of windows (29 or 58 windows of 10 heads:
+    the last chunk is short on a card of 132 SMs, or of 114), the mask of
+    window w at w % nW, and g a strided view (the first 32 of 40
+    columns). dq, dk, dv within 4 bf16 ulps, dbias within 1e-4 of its
+    largest value, as in test_window_attention_bwd_kernel."""
+    from mtt_tpu_torch.kernels.window_attention import (
+        window_attention_bwd_cuda, window_attention_bwd_plain)
+    H, D = 10, 32
+    q, k, v = _rnd(gen, BW, M, 3, H, D).unbind(2)
+    bias = _rnd(gen, H, M, M, dtype=torch.float32)
+    g = _rnd(gen, BW, M, H, D + 8)[..., :D]
+    assert not g.is_contiguous()
+    mask = None
+    if with_mask:
+        mask = torch.where(torch.rand(nW, M, M, generator=gen,
+                                      device="cuda") < 0.3, -100.0, 0.0)
+        mask.diagonal(dim1=1, dim2=2).zero_()
+    dqkv, dbias = window_attention_bwd_cuda(q, k, v, bias, mask, g,
+                                            D ** -0.5, nW)
+    dq, dk, dv, want = window_attention_bwd_plain(q, k, v, bias, mask, g,
+                                                  D ** -0.5, nW)
+    _check(dqkv.unbind(2), (dq, dk, dv), ulps=4)
+    err = (dbias - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
 
 
 def test_window_attention_bwd_kernel_refusals(gen):
