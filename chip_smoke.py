@@ -372,6 +372,20 @@ def _invpt_cases(rnd):
             lambda a=(xd, wa, ba, wb, bb): F.linear(
                 F.gelu(F.linear(a[0], a[1], a[2])), a[3], a[4]),
             _nbytes(xd, wa, ba, wb, bb, xd), 4.0 * xd.numel() * hid, 0.0)
+        # row 4 on the same rows and weights: its GEMMs at the decoder
+        # widths, where N ends inside a tile and K inside a 64-deep stage
+        gd = rnd(dim, std=0.1, mean=1.0, dtype=f32)
+        bd = rnd(dim, std=0.1, dtype=f32)
+        cases[f"mlp_ln_res@C{dim}"] = (
+            lambda impl, a=(xd, gd, bd, wa, ba, wb, bb): fused_mlp_ln_res(
+                *a, impl=impl),
+            4, "as mlp_ln_res, at an InvPT stage's width", None,
+            lambda a=(xd, gd, bd, wa, ba, wb, bb): a[0] + F.linear(F.gelu(
+                F.linear(F.layer_norm(a[0], a[0].shape[-1:], a[1].to(bf),
+                                      a[2].to(bf), 1e-6), a[3], a[4])),
+                a[5], a[6]),
+            _nbytes(xd, gd, bd, wa, ba, wb, bb, xd), 4.0 * xd.numel() * hid,
+            0.0)
     return cases
 
 
@@ -781,6 +795,25 @@ def kernel_phase():
             None, lambda: F.linear(F.gelu(F.linear(xt, w1, b1)), w2, b2),
             _nbytes(xt, w1, b1, w2, b2, xt), 4.0 * BT * N * C * HIDDEN, 0.0),
     }
+    # row 3 with bf16 parameters, as a bf16 model stores them (read as
+    # stored, no cast); row 4 at ViT-B's width
+    gb, bb_ = gamma.to(bf), beta.to(bf)
+    cases["layernorm@bf16_params"] = (
+        lambda impl: fused_layernorm(x, gb, bb_, impl=impl),
+        1, "as layernorm", lambda: F.layer_norm(x, (C,), gb, bb_, 1e-6),
+        None, _nbytes(x, gb, bb_, x), 0.0, 8.0 * M * C)
+    xb = rnd(B, N, 768)
+    pb = [rnd(768, std=0.1, mean=1.0), rnd(768, std=0.1),
+          rnd(3072, std=0.1), rnd(768, std=0.1)]
+    w1b, w2b = rnd(3072, 768, std=768 ** -0.5), rnd(768, 3072,
+                                                      std=3072 ** -0.5)
+    cases["mlp_ln_res@C768"] = (
+        lambda impl: fused_mlp_ln_res(xb, pb[0], pb[1], w1b, pb[2], w2b,
+                                      pb[3], impl=impl),
+        4, "as mlp_ln_res, at ViT-B's width, bf16 parameters", None,
+        lambda: xb + F.linear(F.gelu(F.linear(F.layer_norm(
+            xb, (768,), pb[0], pb[1], 1e-6), w1b, pb[2])), w2b, pb[3]),
+        _nbytes(xb, *pb, w1b, w2b, xb), 4.0 * M * 768 * 3072, 0.0)
     cases.update(_invpt_cases(rnd))
     cases.update(_swin_cases(rnd))
     cases.update(_api_cases(rnd))
@@ -1888,7 +1921,9 @@ def _train_run(tag, title, trainer, batches, expected, batch_size,
 
 
 # profile: kernel-name fragment -> group; anything else is library work
-PROFILE_GROUPS = (("mlp_kernel", "mlp (mlp.cu)"),
+PROFILE_GROUPS = (("mlp_kernel", "plain mlp (mlp.cu)"),
+                  # row 4's two GEMMs (its LayerNorm launch is ln_kernel)
+                  ("gemm_kernel", "mlp-ln-res GEMMs (mlp.cu)"),
                   ("wattn_bwd", "window attention backward"),
                   ("wattn_dbias", "window attention backward"),
                   ("attn_bwd", "attention backward"),

@@ -81,50 +81,6 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return raw;
 }
 
-// LayerNorm of one row of C bf16 values by one warp: f32 mean, f32 variance of
-// the centred values, rsqrt(var + eps), affine with f32 gamma/beta, rounded to
-// bf16 once. C % 8 == 0 and C <= 256 * VPL. Same statistics as the TPU kernel
-// (mtt_tpu/kernels/layernorm.py:_ln_kernel).
-template <int VPL>
-__device__ __forceinline__ void ln_row_warp(const bf16* xr, const float* gamma, const float* beta,
-                                            bf16* yr, int C, float eps, int lane) {
-  float v[VPL][8];
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    int c = (j * 32 + lane) * 8;
-    if (c < C) {
-      unpack8(*reinterpret_cast<const uint4*>(xr + c), v[j]);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) s += v[j][k];
-    }
-  }
-  float mean = warp_sum(s) / C;
-  float q = 0.f;
-#pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    int c = (j * 32 + lane) * 8;
-    if (c < C) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        float d = v[j][k] - mean;
-        q += d * d;
-      }
-    }
-  }
-  float rstd = rsqrtf(warp_sum(q) / C + eps);
-#pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    int c = (j * 32 + lane) * 8;
-    if (c < C) {
-      float o[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) o[k] = (v[j][k] - mean) * rstd * gamma[c + k] + beta[c + k];
-      *reinterpret_cast<uint4*>(yr + c) = pack8(o);
-    }
-  }
-}
-
 // Per-warp epilogue helper: spills one 16x16 f32 accumulator to the warp's own
 // 256-float scratch and hands each lane row (lane >> 1), columns
 // (lane & 1) * 8 .. + 8 of it. The caller finishes the 8 values and stores them.

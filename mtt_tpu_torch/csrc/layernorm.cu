@@ -2,9 +2,16 @@
 //
 // Replaces mtt_tpu/kernels/layernorm.py:_ln_kernel. On the H100 it is bound by
 // device memory: one read and one write of the (rows, C) tensor, about 34 MB for
-// the ViT-L tap input (8, 1029, 1024). One warp owns one row and keeps it in
-// registers, so x is read once, the two reductions are warp shuffles, and the
-// normalised row is written once with 16-byte stores.
+// the ViT-L tap input (8, 1029, 1024), 10 us at 3.35 TB/s. A row lives in the
+// registers of 8, 16 or 32 lanes of one warp (C <= 64, <= 128, wider), so a
+// warp takes four, two or one rows and no lane idles at the Swin-B stage width
+// C = 128. x is read once with 16-byte loads, the two reductions are shuffles
+// over the row's lanes, and the normalised row is written once with 16-byte
+// stores. gamma and beta are read in their stored dtype (bf16 or f32) with
+// 16-byte loads, once per lane, and widened in registers (bf16 to f32 is
+// exact), so the wrappers launch no cast kernel. The same kernel is the first
+// stage of the attention front halves (attention.cu) and of the MLP half-block
+// (mlp.cu).
 #include "common.cuh"
 
 using namespace mtt;
@@ -13,42 +20,116 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int VPL>
+// Eight parameters from column c, widened to f32: two 16-byte loads of f32 or
+// one of bf16.
+__device__ __forceinline__ void load_param8(const void* p, int c, bool is_f32, float* out) {
+  if (is_f32) {
+    const float4* q = reinterpret_cast<const float4*>(static_cast<const float*>(p) + c);
+    const float4 a = q[0], b = q[1];
+    out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w;
+    out[4] = b.x, out[5] = b.y, out[6] = b.z, out[7] = b.w;
+  } else {
+    unpack8(*reinterpret_cast<const uint4*>(static_cast<const bf16*>(p) + c), out);
+  }
+}
+
+// Sum over the LPR lanes of one row (LPR a power of two; all 32 lanes take
+// part, each row's lanes only exchange among themselves).
+template <int LPR>
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// VPL 16-byte chunks a lane, LPR lanes a row, 32 / LPR rows a warp. Statistics
+// as the TPU kernel: f32 mean, f32 variance of the centred values,
+// rsqrt(var + eps), affine in f32, one bf16 rounding.
+template <int VPL, int LPR>
 __global__ void __launch_bounds__(kThreads) ln_kernel(const bf16* __restrict__ x,
-                                                       const float* __restrict__ gamma,
-                                                       const float* __restrict__ beta,
+                                                       const void* __restrict__ gamma,
+                                                       const void* __restrict__ beta,
                                                        bf16* __restrict__ y, int rows, int C,
-                                                       float eps) {
-  int row = (blockIdx.x * kThreads + threadIdx.x) >> 5;
-  if (row >= rows) return;
-  ln_row_warp<VPL>(x + (size_t)row * C, gamma, beta, y + (size_t)row * C, C, eps, threadIdx.x & 31);
+                                                       float eps, bool gamma_f32, bool beta_f32) {
+  constexpr int RPW = 32 / LPR;
+  const int lane = threadIdx.x & 31;
+  const int warp_row0 = ((blockIdx.x * kThreads + threadIdx.x) >> 5) * RPW;
+  if (warp_row0 >= rows) return;  // the same for every lane of the warp
+  const int row = warp_row0 + lane / LPR, l = lane % LPR;
+  const bool live = row < rows;
+  const bf16* xr = x + (size_t)row * C;
+
+  float v[VPL][8];
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const int c = (j * LPR + l) * 8;
+    if (live && c < C) {
+      unpack8(*reinterpret_cast<const uint4*>(xr + c), v[j]);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s += v[j][k];
+    }
+  }
+  const float mean = row_sum<LPR>(s) / C;
+  float q = 0.f;
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const int c = (j * LPR + l) * 8;
+    if (live && c < C) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float d = v[j][k] - mean;
+        q += d * d;
+      }
+    }
+  }
+  const float rstd = rsqrtf(row_sum<LPR>(q) / C + eps);
+  if (!live) return;
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const int c = (j * LPR + l) * 8;
+    if (c < C) {
+      float g[8], b[8], o[8];
+      load_param8(gamma, c, gamma_f32, g);
+      load_param8(beta, c, beta_f32, b);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) o[k] = (v[j][k] - mean) * rstd * g[k] + b[k];
+      *reinterpret_cast<uint4*>(y + (size_t)row * C + c) = pack8(o);
+    }
+  }
+}
+
+template <int VPL, int LPR>
+int launch_ln(const void* x, const void* gamma, const void* beta, void* y, int rows, int C,
+              float eps, int flags, cudaStream_t st) {
+  constexpr int rows_per_block = kThreads / 32 * (32 / LPR);
+  dim3 grid((rows + rows_per_block - 1) / rows_per_block);
+  ln_kernel<VPL, LPR><<<grid, kThreads, 0, st>>>(static_cast<const bf16*>(x), gamma, beta,
+                                                 static_cast<bf16*>(y), rows, C, eps, flags & 1,
+                                                 (flags >> 1) & 1);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// x, y (rows, C) bf16, C % 8 == 0 and C <= 4096; gamma, beta (C,) f32 or bf16
+// (flags bit 0: gamma is f32, bit 1: beta is f32); every pointer 16-byte
+// aligned.
 extern "C" int mtt_layernorm_bf16(const void* x, const void* gamma, const void* beta, void* y,
-                                  int rows, int C, float eps, void* stream) {
-  dim3 grid((rows + kThreads / 32 - 1) / (kThreads / 32));
+                                  int rows, int C, float eps, int flags, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto xb = static_cast<const bf16*>(x);
-  auto g = static_cast<const float*>(gamma);
-  auto b = static_cast<const float*>(beta);
-  auto yb = static_cast<bf16*>(y);
-  if (C <= 256)
-    ln_kernel<1><<<grid, kThreads, 0, st>>>(xb, g, b, yb, rows, C, eps);
-  else if (C <= 512)
-    ln_kernel<2><<<grid, kThreads, 0, st>>>(xb, g, b, yb, rows, C, eps);
-  else if (C <= 1024)
-    ln_kernel<4><<<grid, kThreads, 0, st>>>(xb, g, b, yb, rows, C, eps);
-  else if (C <= 2048)
-    ln_kernel<8><<<grid, kThreads, 0, st>>>(xb, g, b, yb, rows, C, eps);
-  else if (C <= 3072)   // the InvPT stage norm over T*C task-merged channels (2880)
-    ln_kernel<12><<<grid, kThreads, 0, st>>>(xb, g, b, yb, rows, C, eps);
-  else if (C <= 4096)
-    ln_kernel<16><<<grid, kThreads, 0, st>>>(xb, g, b, yb, rows, C, eps);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (rows <= 0) return 0;
+  if (C % 8 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (C <= 64) return launch_ln<1, 8>(x, gamma, beta, y, rows, C, eps, flags, st);
+  if (C <= 128) return launch_ln<1, 16>(x, gamma, beta, y, rows, C, eps, flags, st);
+  if (C <= 256) return launch_ln<1, 32>(x, gamma, beta, y, rows, C, eps, flags, st);
+  if (C <= 512) return launch_ln<2, 32>(x, gamma, beta, y, rows, C, eps, flags, st);
+  if (C <= 1024) return launch_ln<4, 32>(x, gamma, beta, y, rows, C, eps, flags, st);
+  if (C <= 2048) return launch_ln<8, 32>(x, gamma, beta, y, rows, C, eps, flags, st);
+  // the InvPT stage norm over T*C task-merged channels (2880)
+  if (C <= 3072) return launch_ln<12, 32>(x, gamma, beta, y, rows, C, eps, flags, st);
+  if (C <= 4096) return launch_ln<16, 32>(x, gamma, beta, y, rows, C, eps, flags, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* mtt_error_string(int err) {

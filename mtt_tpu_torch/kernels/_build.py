@@ -44,13 +44,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "mtt_layernorm_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
+    "mtt_layernorm_bf16": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     "mtt_qkv_proj_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
     "mtt_attn_core_bf16": (_P, _P, _I, _I, _I, _F, _F, _I, _P),
     "mtt_attn_generic_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_L] * 9,
                               _F, _P),
-    "mtt_mlp_ln_res_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                            _P),
+    "mtt_mlp_ln_res_bf16": (*[_P] * 10, _I, _I, _I, _F, _I, _P),
     "mtt_task_decode_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _I, _I, _P),
     "mtt_attn_bwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
@@ -92,6 +91,30 @@ def resolve_impl(impl, x: torch.Tensor) -> str:
     if impl == "cuda" and x.device.type != "cuda":
         raise ValueError("impl='cuda' needs tensors on a CUDA device")
     return impl
+
+
+def param_flags(*params: torch.Tensor) -> int:
+    """Bit i set when ``params[i]`` is f32, clear when it is bf16: the
+    kernels read a parameter in its stored dtype and widen it in registers,
+    so no cast is launched."""
+    flags = 0
+    for i, t in enumerate(params):
+        if t.dtype == torch.float32:
+            flags |= 1 << i
+        elif t.dtype != torch.bfloat16:
+            raise TypeError(f"kernel parameters must be float32 or bfloat16, "
+                            f"got {t.dtype}")
+    return flags
+
+
+def check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raises unless every tensor's data starts on a 16-byte boundary (the
+    kernels' 16-byte loads and TMA's rule)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} needs 16-byte aligned data, got a "
+                             f"tensor at offset {t.data_ptr() % 16} (a view "
+                             f"into a larger tensor?)")
 
 
 def _nvcc() -> str:

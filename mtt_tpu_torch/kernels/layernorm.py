@@ -3,7 +3,11 @@
 Port of mtt_tpu/kernels/layernorm.py (``_ln_kernel``, ``fused_layernorm``).
 Statistics and affine run in f32; the result is cast to the input dtype once.
 On the H100 the op is bound by device memory (one read, one write of x); the
-kernel keeps each row in one warp's registers so x is read exactly once.
+kernel keeps each row in the registers of one warp (or, at C <= 128, of a
+half or a quarter of one) so x is read exactly once, and reads gamma and beta
+in their stored dtype (bf16 or f32), so no cast kernel runs per call. The
+same launch is the first stage of the attention front halves and of the MLP
+half-block.
 
 The gradient is the JAX package's custom VJP (layernorm.py:89-106): an f32
 recompute of the statistics in plain torch, as JAX computes it in XLA. It has
@@ -78,11 +82,12 @@ def layernorm_cuda(x, gamma, beta, eps: float = 1e-6) -> torch.Tensor:
             f"1.11")
     y = torch.empty_like(x)
     rows = x.numel() // C
-    g = gamma.float().contiguous()
-    b = beta.float().contiguous()
+    g, b = gamma.contiguous(), beta.contiguous()
+    flags = _build.param_flags(g, b)
+    _build.check_aligned("the LayerNorm kernel", x, g, b)
     _build.check(_build.lib().mtt_layernorm_bf16(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), rows, C,
-        float(eps), _build.stream()), "mtt_layernorm_bf16")
+        float(eps), flags, _build.stream()), "mtt_layernorm_bf16")
     return y
 
 

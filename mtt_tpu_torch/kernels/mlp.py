@@ -8,9 +8,12 @@ Port of mtt_tpu/kernels/mlp.py:
   * ``fused_mlp`` (``_mlp_kernel``), the MLP alone, which the training blocks
     with drop-path run after a separate LayerNorm;
 with the A&S erf GELU ``_erf_poly`` / ``_gelu_erf_poly``. On the H100 both are
-tensor-core work (138 GFLOP for the half-block at ViT-L eval shapes); the
-kernels keep the (rows, 4C) hidden activation out of device memory, see the
-source note in mlp.cu.
+tensor-core work (138 GFLOP for the half-block at ViT-L eval shapes). The
+half-block runs as three launches cut at its two bf16 rounding points: the
+LayerNorm kernel, then two hand-written wgmma GEMMs with fused epilogues
+(fc1 + b1 + GELU; fc2 + b2 + x), the hidden layer going through device
+memory; its plain version is the same three stages. The MLP alone keeps the
+hidden on chip (see the source note in mlp.cu).
 
 The gradients are the JAX package's hand-written backwards (mlp.py:201-222
 for ``fused_mlp``, :499-540 for ``fused_mlp_ln_res``), computed in plain torch
@@ -71,12 +74,26 @@ def _flat(x):
     return x.reshape(-1, x.shape[-1])
 
 
+def mlp_fc1_gelu_plain(x, w1, b1):
+    """The first GEMM's function: fc1 + b1 and the GELU in f32, rounded to
+    x's dtype once (mlp.py:96, :303)."""
+    h = F.linear(x.float(), w1.float()) + b1.float()
+    return gelu_erf_poly(h).to(x.dtype)
+
+
+def mlp_fc2_plain(h, w2, b2, res=None):
+    """The second GEMM's function: fc2 + b2 (+ res) summed in f32 in that
+    order, rounded to h's dtype once (mlp.py:105, :309-310)."""
+    out = F.linear(h.float(), w2.float()) + b2.float()
+    if res is not None:
+        out = out + res.float()
+    return out.to(h.dtype)
+
+
 def mlp_fc_plain(x, w1, b1, w2, b2):
     """Rounding points of ``_mlp_kernel``: fc1 + b1 and GELU in f32, cast to
     the dtype before fc2; fc2 + b2 in f32, cast once."""
-    h = F.linear(x.float(), w1.float()) + b1.float()
-    g = gelu_erf_poly(h).to(x.dtype)
-    return (F.linear(g.float(), w2.float()) + b2.float()).to(x.dtype)
+    return mlp_fc2_plain(mlp_fc1_gelu_plain(x, w1, b1), w2, b2)
 
 
 def mlp_fc_vjp(x, w1, b1, w2, g):
@@ -121,12 +138,11 @@ def mlp_ln_res_vjp(x, gamma, beta, w1, b1, w2, g, eps: float):
 
 def mlp_ln_res_plain(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
     """Rounding points of the TPU kernel: LN(x) cast to the dtype; fc1 and
-    GELU in f32, cast before fc2; fc2 + b2 + x in f32, cast once."""
+    GELU in f32, cast before fc2; fc2 + b2 + x in f32, cast once. Written as
+    the kernel's three launches, each stage the plain version of one."""
     xn = layernorm_plain(x, gamma, beta, eps)
-    h = F.linear(xn.float(), w1.float()) + b1.float()
-    g = gelu_erf_poly(h).to(x.dtype)
-    out = F.linear(g.float(), w2.float()) + b2.float() + x.float()
-    return out.to(x.dtype)
+    h = mlp_fc1_gelu_plain(xn, w1, b1)
+    return mlp_fc2_plain(h, w2, b2, res=x)
 
 
 def _check(x, w1, b1, w2, b2, gamma=None, beta=None):
@@ -150,33 +166,39 @@ def _check(x, w1, b1, w2, b2, gamma=None, beta=None):
         raise TypeError("w1/w2 must have the dtype of x")
 
 
-KERNEL_WIDTHS = (1024, 768, 576, 288, 144)   # instantiated in csrc/mlp.cu
-# the MLP alone also at the Swin-B stage widths
-FC_KERNEL_WIDTHS = KERNEL_WIDTHS + (512, 256, 128)
-
-
-def _check_widths(C: int, Hd: int, widths=KERNEL_WIDTHS) -> None:
-    if C not in widths or Hd % 16 or Hd < 16:
-        raise ValueError(
-            f"the MLP kernel takes C in {widths} (the ViT-L/B trunks, the "
-            f"InvPT decoder stages and, without LN, the Swin-B stages) and "
-            f"hidden % 16 == 0, got C={C}, hidden={Hd}; other widths are "
-            f"ROADMAP.md item 1.11")
+# instantiated in csrc/mlp.cu for the MLP alone: the ViT-L/B trunks, the
+# InvPT decoder stages and the Swin-B stages
+FC_KERNEL_WIDTHS = (1024, 768, 576, 288, 144, 512, 256, 128)
 
 
 def mlp_ln_res_cuda(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
+    """The LayerNorm launch and the two GEMMs; the scratch xn (rows, C) and
+    h (rows, hidden) come from torch.empty. Parameters are read in their
+    stored dtype (bf16 or f32): no cast is launched."""
     C = x.shape[-1]
     Hd = w1.shape[0]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the MLP kernel takes bfloat16, got {x.dtype}")
-    _check_widths(C, Hd)
+    if C % 8 or C > 4096 or Hd % 16 or Hd < 16:
+        raise ValueError(
+            f"the MLP-LN-residual kernels take C % 8 == 0 and C <= 4096 (a "
+            f"LayerNorm row in one warp's registers) and hidden % 16 == 0, "
+            f"got C={C}, hidden={Hd}; other widths are ROADMAP.md item 1.11")
+    M = x.numel() // C
     out = torch.empty_like(x)
-    f32 = [t.float().contiguous() for t in (gamma, beta, b1, b2)]
+    if M == 0:
+        return out
+    xn = torch.empty_like(x)
+    h = x.new_empty(M, Hd)
+    params = [t.contiguous() for t in (gamma, beta, b1, b2)]
+    flags = _build.param_flags(*params)
+    _build.check_aligned("the MLP-LN-residual kernels", x, w1, w2, *params)
+    g, b, bias1, bias2 = params
     _build.check(_build.lib().mtt_mlp_ln_res_bf16(
-        x.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(), w1.data_ptr(),
-        f32[2].data_ptr(), w2.data_ptr(), f32[3].data_ptr(), out.data_ptr(),
-        x.numel() // C, C, Hd, float(eps), _build.stream()),
-        "mtt_mlp_ln_res_bf16")
+        x.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(),
+        bias1.data_ptr(), w2.data_ptr(), bias2.data_ptr(), xn.data_ptr(),
+        h.data_ptr(), out.data_ptr(), M, C, Hd, float(eps), flags,
+        _build.stream()), "mtt_mlp_ln_res_bf16")
     return out
 
 
@@ -185,7 +207,12 @@ def mlp_fc_cuda(x, w1, b1, w2, b2):
     Hd = w1.shape[0]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the MLP kernel takes bfloat16, got {x.dtype}")
-    _check_widths(C, Hd, FC_KERNEL_WIDTHS)
+    if C not in FC_KERNEL_WIDTHS or Hd % 16 or Hd < 16:
+        raise ValueError(
+            f"the MLP kernel takes C in {FC_KERNEL_WIDTHS} (the ViT-L/B "
+            f"trunks, the InvPT decoder stages and the Swin-B stages) and "
+            f"hidden % 16 == 0, got C={C}, hidden={Hd}; other widths are "
+            f"ROADMAP.md item 1.11")
     out = torch.empty_like(x)
     bf1, bf2 = b1.float().contiguous(), b2.float().contiguous()
     _build.check(_build.lib().mtt_mlp_fc_bf16(

@@ -51,15 +51,20 @@ def _check(got, want, ulps=4):
         assert err <= tol, (err, tol)
 
 
+# ragged shapes, then the Swin-B stage widths over a few thousand rows
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 37, 1024), (5, 64), (2, 9, 1536),
                                    (2, 5, 7, 2880), (3, 11, 4096),
-                                   (2, 3, 4, 4, 144)])
-def test_layernorm_kernel(gen, shape):
+                                   (2, 3, 4, 4, 144), (3001, 128),
+                                   (2999, 256), (2049, 512), (1025, 1024),
+                                   (7, 8), (13, 40)])
+def test_layernorm_kernel(gen, shape, param_dtype):
+    """Parameters in f32 or bf16: read in their dtype, no cast launched."""
     from mtt_tpu_torch.kernels.layernorm import fused_layernorm
     C = shape[-1]
     x = _rnd(gen, *shape)
-    g = _rnd(gen, C, std=0.1, mean=1.0, dtype=torch.float32)
-    b = _rnd(gen, C, std=0.1, dtype=torch.float32)
+    g = _rnd(gen, C, std=0.1, mean=1.0, dtype=param_dtype)
+    b = _rnd(gen, C, std=0.1, dtype=param_dtype)
     _check(fused_layernorm(x, g, b), fused_layernorm(x, g, b, impl="plain"),
            ulps=1)
 
@@ -87,17 +92,50 @@ def test_attention_kernels(gen, need_qkv, safe, N):
                                   impl="plain"))
 
 
-@pytest.mark.parametrize("C,Hd", [(768, 384), (1024, 384), (576, 2304),
-                                  (144, 576)])
-def test_mlp_kernel(gen, C, Hd):
-    from mtt_tpu_torch.kernels.mlp import fused_mlp_ln_res
-    x = _rnd(gen, 3, 15, C)
-    g = _rnd(gen, C, std=0.1, mean=1.0, dtype=torch.float32)
-    b = _rnd(gen, C, std=0.1, dtype=torch.float32)
+# the five widths with their hidden sizes, and a hidden that is not a
+# multiple of the GEMMs' 64-wide K stage
+MLP_WIDTHS = [(1024, 4096), (768, 3072), (576, 2304), (288, 1152), (144, 576),
+              (1024, 1040)]
+
+
+def _mlp_args(gen, rows, C, Hd, param_dtype=torch.float32):
+    x = _rnd(gen, rows, C)
+    g = _rnd(gen, C, std=0.1, mean=1.0, dtype=param_dtype)
+    b = _rnd(gen, C, std=0.1, dtype=param_dtype)
     w1, b1 = _rnd(gen, Hd, C, std=C ** -0.5), _rnd(gen, Hd, std=0.1)
     w2, b2 = _rnd(gen, C, Hd, std=Hd ** -0.5), _rnd(gen, C, std=0.1)
-    args = (x, g, b, w1, b1, w2, b2)
+    return x, g, b, w1, b1, w2, b2
+
+
+# rows around the GEMMs' 128-row tile, and ViT-L's 8 x 1029
+@pytest.mark.parametrize("rows", [1, 127, 128, 129, 8232])
+@pytest.mark.parametrize("C,Hd", MLP_WIDTHS)
+def test_mlp_kernel(gen, C, Hd, rows):
+    from mtt_tpu_torch.kernels.mlp import fused_mlp_ln_res
+    args = _mlp_args(gen, rows, C, Hd)
     _check(fused_mlp_ln_res(*args), fused_mlp_ln_res(*args, impl="plain"))
+
+
+def test_mlp_kernel_bf16_params_and_repeat_bits(gen):
+    """LN and bias parameters in bf16 (read as stored), and two runs give
+    equal bits (no split-K, no atomics)."""
+    from mtt_tpu_torch.kernels.mlp import fused_mlp_ln_res
+    args = _mlp_args(gen, 1029, 1024, 4096, torch.bfloat16)
+    got = fused_mlp_ln_res(*args)
+    _check(got, fused_mlp_ln_res(*args, impl="plain"))
+    assert torch.equal(got, fused_mlp_ln_res(*args))
+
+
+def test_mlp_kernel_refuses_unaligned_views(gen):
+    """TMA reads 16-byte aligned data only: a view two bytes into its
+    storage raises and does not fall back."""
+    from mtt_tpu_torch.kernels.mlp import fused_mlp_ln_res
+    x, *rest = _mlp_args(gen, 64, 768, 3072)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    xv = buf[1:].view_as(x)
+    xv.copy_(x)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_mlp_ln_res(xv, *rest)
 
 
 @pytest.mark.parametrize("S,tar,fin", [(50, 300, 350), (64, 16, 40)])

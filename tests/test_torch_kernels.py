@@ -92,6 +92,39 @@ def test_mlp_ln_res_matches_pallas():
     _close(got, want)
 
 
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
+def test_mlp_ln_res_plain_stages_keep_the_one_piece_bits(param_dtype):
+    """The plain half-block as the kernel's three stages (LayerNorm, fc1 +
+    b1 + GELU, fc2 + b2 + x) gives the bits of the one-piece formula it
+    replaced, at ViT-T width (C 192, hidden 768) in bf16, with f32 and with
+    bf16 parameters; the plain MLP alone, as two of those stages, likewise."""
+    import torch.nn.functional as F
+
+    from mtt_tpu_torch.kernels.layernorm import layernorm_plain
+    from mtt_tpu_torch.kernels.mlp import (gelu_erf_poly, mlp_fc1_gelu_plain,
+                                           mlp_fc2_plain, mlp_fc_plain,
+                                           mlp_ln_res_plain)
+
+    rng = np.random.default_rng(7)
+    C, Hd, bf = 192, 768, torch.bfloat16
+    x, g, b = (_t(a) for a in _ln_inputs(rng, (2, 17, C)))
+    x, g, b = x.to(bf), g.to(param_dtype), b.to(param_dtype)
+    w1 = _t(rng.normal(size=(Hd, C)) * C ** -0.5).to(bf)
+    w2 = _t(rng.normal(size=(C, Hd)) * Hd ** -0.5).to(bf)
+    b1 = _t(rng.normal(size=(Hd,)) * 0.1).to(param_dtype)
+    b2 = _t(rng.normal(size=(C,)) * 0.1).to(param_dtype)
+
+    xn = layernorm_plain(x, g, b)
+    a = gelu_erf_poly(F.linear(xn.float(), w1.float()) + b1.float()).to(bf)
+    want = (F.linear(a.float(), w2.float()) + b2.float() + x.float()).to(bf)
+    stages = mlp_fc2_plain(mlp_fc1_gelu_plain(xn, w1, b1), w2, b2, res=x)
+    assert torch.equal(stages, want)
+    assert torch.equal(mlp_ln_res_plain(x, g, b, w1, b1, w2, b2), want)
+    a = gelu_erf_poly(F.linear(x.float(), w1.float()) + b1.float()).to(bf)
+    want_fc = (F.linear(a.float(), w2.float()) + b2.float()).to(bf)
+    assert torch.equal(mlp_fc_plain(x, w1, b1, w2, b2), want_fc)
+
+
 def test_task_decode_matches_pallas():
     """tar and final not multiples of 16, as the model's 300 / 350."""
     from mtt_tpu.kernels.task_decode import fused_task_decode as jax_dec

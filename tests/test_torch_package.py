@@ -119,6 +119,22 @@ def test_layernorm_and_mlp_wrappers_check_shapes():
                          torch.zeros(32), w2, torch.zeros(8))
 
 
+def test_kernel_parameter_flags_and_alignment():
+    """The row 3 and row 4 kernels read f32 or bf16 parameters as stored
+    (one flag bit each, no cast), refuse other dtypes, and refuse data that
+    does not start on a 16-byte boundary."""
+    from mtt_tpu_torch.kernels import _build
+    f32, bf = torch.ones(8), torch.ones(8, dtype=torch.bfloat16)
+    assert _build.param_flags(f32, bf, bf, f32) == 0b1001
+    assert _build.param_flags(bf, bf) == 0
+    with pytest.raises(TypeError):
+        _build.param_flags(f32, f32.double())
+    buf = torch.zeros(65, dtype=torch.bfloat16)
+    _build.check_aligned("x", buf[:64], buf[8:])
+    with pytest.raises(ValueError, match="aligned"):
+        _build.check_aligned("x", buf[1:])
+
+
 def test_task_decode_wrapper_checks_shapes():
     from mtt_tpu_torch.kernels.task_decode import fused_task_decode
     B, S, C, T, G, tar, F = 1, 4, 16, 2, 4, 6, 5

@@ -1,0 +1,247 @@
+"""Time the port's LayerNorm (row 3) and MLP-LN-residual (row 4) kernels of
+two checkouts in turns on one card.
+
+Run from the repository root on a machine with a CUDA card and nvcc:
+
+    mkdir -p build/parent && git archive <parent> mtt_tpu_torch | tar -x -C build/parent
+    python3 tools/torch_mlp_ab.py --parent build/parent
+
+Both checkouts' ``mtt_tpu_torch/csrc`` are built (each into its own
+``build/`` directory); each run loads one of the two libraries, in a process
+of its own (two kernel libraries in one process give wrong results: two
+static CUDA runtimes), and calls its exported functions on the same seeded
+inputs: row 3 (``mtt_layernorm_bf16``) at the ViT-L tap shape (8, 1029,
+1024) and at Swin-B's stage 0 (73,728 rows of 128, eps 1e-5), row 4
+(``mtt_mlp_ln_res_bf16``) at (8, 1029, 1024) with hidden 4096 and at ViT-B's
+(8, 1029, 768) with hidden 3072. The parameters are f32 for both checkouts
+(the parent reads nothing else); the change also runs row 3 and row 4 with
+bf16 parameters, as a bf16 model stores them. Each time is one of raw
+launches: CUDA events around ``--launches`` back-to-back launches, divided by
+their number, the median of ``--reps`` such runs; ``F.layer_norm`` and the
+library composition of row 4 (``x + fc2(gelu(fc1(F.layer_norm(x))))``) are
+timed the same way in every run, and the change's Python entry points
+(``fused_layernorm``, ``fused_mlp_ln_res``: argument checks and allocation on
+the host) beside them. The runs go parent, change, change, parent. Outputs
+are held to the plain versions (row 3 at 1 bf16 ulp, row 4 at 4 of the
+largest value) and each kernel runs twice to show equal bits. It prints the
+card's name and power limit, each kernel's ptxas registers and spills, the
+bound of each case (bytes at 3.35 TB/s or bf16 tensor-core operations at 989
+TFLOP/s), and one JSON line of the times; it fails when the change's kernels
+miss a tolerance or differ between two runs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
+
+from torch_attention_ab import load_build, ptxas_lines  # noqa: E402
+
+PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
+
+
+def raw_ms(fn, launches: int, reps: int) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``launches``
+    back-to-back calls, divided by ``launches``."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
+def run_one(checkout: Path, tag: str, launches: int, reps: int) -> dict:
+    """Errors, equal bits and times of one checkout's kernels."""
+    from mtt_tpu_torch.kernels.layernorm import (fused_layernorm,
+                                                 layernorm_plain)
+    from mtt_tpu_torch.kernels.mlp import fused_mlp_ln_res, mlp_ln_res_plain
+    bld = load_build(checkout, tag)
+    lib = bld.lib()
+    # the parent's entry points take f32 parameters and no scratch
+    new_abi = len(bld._SIGNATURES["mtt_layernorm_bf16"]) == 9
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rnd(*shape, std=1.0, mean=0.0, dtype=bf):
+        return (torch.randn(*shape, generator=gen, device=dev) * std
+                + mean).to(dtype)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    cases = {}
+    for name, (rows, C, eps) in {"layernorm": (8 * 1029, 1024, 1e-6),
+                                 "layernorm@swin0": (192 * 384, 128, 1e-5)
+                                 }.items():
+        x = rnd(rows, C)
+        g32 = rnd(C, std=0.1, mean=1.0, dtype=f32)
+        b32 = rnd(C, std=0.1, dtype=f32)
+        for pdt in (f32, bf) if new_abi else (f32,):
+            g, b = g32.to(pdt), b32.to(pdt)
+            y = torch.empty_like(x)
+
+            def call(x=x, g=g, b=b, y=y, rows=rows, C=C, eps=eps):
+                extra = ((1 if g.dtype == f32 else 0)
+                         | (2 if b.dtype == f32 else 0),) if new_abi else ()
+                bld.check(lib.mtt_layernorm_bf16(
+                    x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
+                    rows, C, eps, *extra, stream()), "mtt_layernorm_bf16")
+                return (y,)
+
+            gl, bl = g32.to(bf), b32.to(bf)
+            cases[name + ("" if pdt == f32 else "@bf16_params")] = dict(
+                call=call, want=(layernorm_plain(x, g, b, eps),), ulps=1,
+                library=lambda x=x, gl=gl, bl=bl, eps=eps: F.layer_norm(
+                    x, x.shape[-1:], gl, bl, eps),
+                wrapper=lambda x=x, g=g, b=b, eps=eps: fused_layernorm(
+                    x, g, b, eps),
+                bound_ms=2 * x.numel() * 2 / PEAK_BYTES * 1e3,
+                bound_by="bytes")
+
+    for name, (rows, C, Hd) in {"mlp_ln_res": (8 * 1029, 1024, 4096),
+                                "mlp_ln_res@vitb": (8 * 1029, 768, 3072)
+                                }.items():
+        x = rnd(rows, C)
+        g32 = rnd(C, std=0.1, mean=1.0, dtype=f32)
+        be32 = rnd(C, std=0.1, dtype=f32)
+        w1, b132 = rnd(Hd, C, std=C ** -0.5), rnd(Hd, std=0.1, dtype=f32)
+        w2, b232 = rnd(C, Hd, std=Hd ** -0.5), rnd(C, std=0.1, dtype=f32)
+        out = torch.empty_like(x)
+        xn, h = torch.empty_like(x), x.new_empty(rows, Hd)
+        for pdt in (f32, bf) if new_abi else (f32,):
+            p = [t.to(pdt) for t in (g32, be32, b132, b232)]
+
+            def call(x=x, p=p, w1=w1, w2=w2, out=out, xn=xn, h=h, C=C, Hd=Hd):
+                ptr = [t.data_ptr() for t in p]
+                if new_abi:
+                    flags = sum(1 << i for i, t in enumerate(p)
+                                if t.dtype == f32)
+                    args = (x.data_ptr(), ptr[0], ptr[1], w1.data_ptr(),
+                            ptr[2], w2.data_ptr(), ptr[3], xn.data_ptr(),
+                            h.data_ptr(), out.data_ptr(), x.shape[0], C, Hd,
+                            1e-6, flags, stream())
+                else:
+                    args = (x.data_ptr(), ptr[0], ptr[1], w1.data_ptr(),
+                            ptr[2], w2.data_ptr(), ptr[3], out.data_ptr(),
+                            x.shape[0], C, Hd, 1e-6, stream())
+                bld.check(lib.mtt_mlp_ln_res_bf16(*args),
+                          "mtt_mlp_ln_res_bf16")
+                return (out,)
+
+            pl = [t.to(bf) for t in (g32, be32, b132, b232)]
+
+            def comp(x=x, pl=pl, w1=w1, w2=w2, C=C):
+                xn_ = F.layer_norm(x, (C,), pl[0], pl[1], 1e-6)
+                return x + F.linear(F.gelu(F.linear(xn_, w1, pl[2])), w2,
+                                    pl[3])
+
+            cases[name + ("" if pdt == f32 else "@bf16_params")] = dict(
+                call=call, want=(mlp_ln_res_plain(x, *p[:2], w1, p[2], w2,
+                                                  p[3]),), ulps=4,
+                library=comp,
+                wrapper=lambda x=x, p=p, w1=w1, w2=w2: fused_mlp_ln_res(
+                    x, p[0], p[1], w1, p[2], w2, p[3]),
+                bound_ms=4.0 * rows * C * Hd / PEAK_BF16 * 1e3,
+                bound_by="operations")
+
+    result = {"ptxas": ptxas_lines(bld, ("ln_kernel", "gemm", "mlp_kernel"))}
+    for name, c in cases.items():
+        # the calls write into one output buffer: copy it between them
+        got = tuple(t.clone() for t in c["call"]())
+        again = c["call"]()
+        torch.cuda.synchronize()
+        errs, tols = [], []
+        for a, w in zip(got, c["want"]):
+            errs.append((a.float() - w.float()).abs().max().item())
+            tols.append(c["ulps"] * 2.0 ** -7 * w.float().abs().max().item())
+        result[name] = dict(
+            ms=raw_ms(c["call"], launches, reps),
+            library_ms=raw_ms(c["library"], launches, reps),
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+            max_abs_err=max(errs),
+            within_tol=all(e <= t for e, t in zip(errs, tols)) and all(
+                bool(torch.isfinite(a).all()) for a in got),
+            equal_bits=all(torch.equal(a, b) for a, b in zip(got, again)))
+        if checkout == ROOT:
+            result[name]["wrapper_ms"] = raw_ms(c["wrapper"], launches, reps)
+    return result
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True, type=Path,
+                    help="a checkout holding the parent's mtt_tpu_torch/")
+    ap.add_argument("--launches", type=int, default=20)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--one", choices=("parent", "change"),
+                    help="internal: one run of one checkout, as JSON")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_mlp_ab: no CUDA device", file=sys.stderr)
+        return 1
+    if args.one:
+        checkout = args.parent.resolve() if args.one == "parent" else ROOT
+        print(json.dumps(run_one(checkout, args.one, args.launches,
+                                 args.reps)))
+        return 0
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    runs = {"parent": [], "change": []}
+    for tag in ("parent", "change", "change", "parent"):
+        run = subprocess.run(
+            [sys.executable, __file__, "--parent", str(args.parent),
+             "--launches", str(args.launches), "--reps", str(args.reps),
+             "--one", tag], capture_output=True, text=True)
+        if run.returncode:
+            raise RuntimeError(f"{tag} run failed:\n{run.stderr[-4000:]}")
+        res = json.loads(run.stdout.strip().splitlines()[-1])
+        if not runs[tag]:
+            for line in res["ptxas"]:
+                print(f"[ptxas] {tag} {line}", flush=True)
+        runs[tag].append(res)
+    summary, ok = {}, True
+    for name in runs["change"][0]:
+        if name == "ptxas":
+            continue
+        row = {"bound_ms": runs["change"][0][name]["bound_ms"],
+               "bound_by": runs["change"][0][name]["bound_by"]}
+        for tag, rs in runs.items():
+            if name not in rs[0]:
+                continue
+            row[f"{tag}_ms"] = [r[name]["ms"] for r in rs]
+            row[f"{tag}_library_ms"] = [r[name]["library_ms"] for r in rs]
+            if tag == "change":
+                row["change_wrapper_ms"] = [r[name]["wrapper_ms"] for r in rs]
+            row[f"{tag}_max_abs_err"] = rs[0][name]["max_abs_err"]
+            row[f"{tag}_within_tol"] = all(r[name]["within_tol"] for r in rs)
+            row[f"{tag}_equal_bits"] = all(r[name]["equal_bits"] for r in rs)
+        ok = ok and row["change_within_tol"] and row["change_equal_bits"]
+        summary[name] = row
+        print(f"[ab] {name}: {json.dumps(row)}", flush=True)
+    print(json.dumps({"ab": summary, "device": torch.cuda.get_device_name(0)}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
