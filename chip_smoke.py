@@ -8,8 +8,10 @@ Phases, in order (the seconds each took are printed):
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from mtt_tpu_torch/csrc (seconds printed);
   3. each of the 15 kernel entry points (the 14 TPU kernels; the multi-scale
-     tail with and without its fused head) against its plain PyTorch version
-     at the ViT-L PASCAL shapes the main paths give it (row 13, attention over
+     tail with and without its fused head), and the qkv projection of rows
+     1-2 alone (one launch of the shared GEMM, against ``F.linear``), each
+     against its plain PyTorch version at the ViT-L PASCAL shapes the main
+     paths give it (row 13, attention over
      the packed qkv, fast and safe; row 14, attention over separate q, k, v,
      also at InvPT's cross shape with head dim 72; the up4 head also at
      NYUD's C = 768 for n = 1, 3, 40), the earlier kernels again
@@ -17,8 +19,9 @@ Phases, in order (the seconds each took are printed):
      widths 576, 288, 144; the tail on NYUD's non-square grid), and the Swin
      path's at its shapes (window attention and its backward at the four
      Swin-B stages with and without the shift mask, the backward's dbias
-     equal across two runs, as are rows 7, 13 and 14; LayerNorm rows of 128
-     to 2048 at eps 1e-5; MLP widths 128 to 1024, down to the 3 prompt rows),
+     equal across two runs, as are rows 7, 8, 13 and 14 and the projection;
+     LayerNorm rows of 128 to 2048 at eps 1e-5; MLP widths 128 to 1024, down
+     to the 3 prompt rows),
      and the safe softmax of rows 1, 2 and 13 (at least 99% of the outputs
      bit-equal to the plain version: the max over all keys):
      error, tolerance in bf16 ulps, CUDA-event times of the kernel, the
@@ -631,7 +634,9 @@ def kernel_phase():
     """Each kernel against its plain version on the same seeded inputs."""
     from mtt_tpu_torch.kernels.attention import (attn_core_bwd_cuda,
                                                  attn_core_bwd_plain,
-                                                 fused_attention_ln_qkv)
+                                                 fused_attention_ln_qkv,
+                                                 qkv_proj_cuda,
+                                                 qkv_proj_plain)
     from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
     from mtt_tpu_torch.kernels.layernorm import fused_layernorm
     from mtt_tpu_torch.kernels.mlp import fused_mlp, fused_mlp_ln_res
@@ -720,6 +725,8 @@ def kernel_phase():
         return tuple(v[..., i, :] for i in range(3))
 
     mmf = 2.0 * M  # rows x 2 flops per multiply-add
+    # the qkv projection of rows 1-2 alone, on LayerNormed rows
+    xn = F.layer_norm(x, (C,), gamma.to(bf), beta.to(bf), 1e-6)
     cases = {
         # name: (call, ulps, reason, library call or None, library
         #        composition or None, bytes, tensor-core flops, f32 flops)
@@ -745,6 +752,13 @@ def kernel_phase():
             None, attn_lib,
             _nbytes(x, gamma, beta, wqkv, bqkv, x, x) + M * 3 * C * 2,
             mmf * C * 3 * C + 4.0 * B * HEADS * N * N * D, 0.0),
+        "qkv_proj": (
+            lambda impl: (qkv_proj_cuda if impl == "cuda" else
+                          qkv_proj_plain)(xn, wqkv, bqkv),
+            1, "one product summed in f32 and rounded once on both sides; "
+               "a sum in another order can flip that rounding",
+            lambda: F.linear(xn, wqkv, bqkv), None,
+            _nbytes(xn, wqkv, bqkv) + M * 3 * C * 2, mmf * C * 3 * C, 0.0),
         "mlp_ln_res": (
             lambda impl: fused_mlp_ln_res(x, gamma, beta, w1, b1, w2, b2,
                                           impl=impl),
@@ -857,11 +871,12 @@ def kernel_phase():
               flush=True)
 
     # the window attention backward sums dbias over the windows in a fixed
-    # order, and rows 7, 13 and 14 sum without atomics: two runs give the
-    # same bits
+    # order, and rows 7, 13 and 14 and the shared GEMM (row 8, the qkv
+    # projection) sum without atomics: two runs give the same bits
     for name, case in cases.items():
         if name.startswith(("window_attention_bwd", "attention_bwd",
-                            "attention_generic", "attention_qkv")):
+                            "attention_generic", "attention_qkv", "mlp_fc",
+                            "qkv_proj")):
             a, b = case[0]("cuda"), case[0]("cuda")
             a = a if isinstance(a, tuple) else (a,)
             b = b if isinstance(b, tuple) else (b,)
@@ -869,9 +884,9 @@ def kernel_phase():
                 raise RuntimeError(f"{name}: two runs differ")
     print("[kernel] window_attention_bwd: dq, dk, dv and dbias equal across "
           "two runs at every stage, with and without the mask; "
-          "attention_bwd (dqkv), attention_generic (self and cross shapes) "
-          "and attention_qkv (fast and safe) equal across two runs",
-          flush=True)
+          "attention_bwd (dqkv), attention_generic (self and cross shapes), "
+          "attention_qkv (fast and safe), mlp_fc (every shape) and qkv_proj "
+          "equal across two runs", flush=True)
 
     # the safe softmax (every training forward) takes the max over ALL keys
     # before it rounds P to bf16, as the TPU kernels do: at least 99% of the
@@ -881,14 +896,19 @@ def kernel_phase():
     # and their core against the plain core on the qkv their own LN and
     # projection kernels made (those roundings move more bits than the
     # softmax)
-    from mtt_tpu_torch.kernels.attention import (attention_qkv_plain,
-                                                 qkv_proj_cuda)
+    from mtt_tpu_torch.kernels.attention import attention_qkv_plain
     from mtt_tpu_torch.kernels.layernorm import layernorm_cuda
 
     def share(got, want):
         return (got.view(torch.int16) == want.view(torch.int16)).float() \
             .mean().item()
 
+    # the shared GEMM's one rounding against the plain stage's
+    for name in ("qkv_proj", "mlp_fc"):
+        sh = share(cases[name][0]("cuda"), cases[name][0]("plain"))
+        results[name]["bit_equal_share"] = sh
+        print(f"[kernel] {name}: bit-equal share {sh:.6f} of the outputs",
+              flush=True)
     qkv_k = qkv_proj_cuda(layernorm_cuda(x, gamma, beta, 1e-6), wqkv, bqkv)
     core_want = attention_qkv_plain(qkv_k, HEADS, D ** -0.5, True)
     qkv_case = cases["attention_qkv_safe"][0]
@@ -1921,9 +1941,14 @@ def _train_run(tag, title, trainer, batches, expected, batch_size,
 
 
 # profile: kernel-name fragment -> group; anything else is library work
-PROFILE_GROUPS = (("mlp_kernel", "plain mlp (mlp.cu)"),
-                  # row 4's two GEMMs (its LayerNorm launch is ln_kernel)
-                  ("gemm_kernel", "mlp-ln-res GEMMs (mlp.cu)"),
+PROFILE_GROUPS = (# the shared GEMM (gemm.cu) by its epilogue: fc1 of rows 4
+                  # and 8; fc2 of row 4; fc2 of row 8 and rows 1-2's qkv
+                  # projection (row 4's LayerNorm launch is ln_kernel)
+                  ("gemm_kernel<0,", "GEMM + GELU (fc1, rows 4 and 8)"),
+                  ("gemm_kernel<1,", "GEMM + bias + residual (fc2, row 4)"),
+                  ("gemm_kernel<2,", "GEMM + bias (qkv of rows 1-2, fc2 of "
+                                     "row 8)"),
+                  ("gemm_kernel", "GEMM (gemm.cu)"),
                   ("wattn_bwd", "window attention backward"),
                   ("wattn_dbias", "window attention backward"),
                   ("attn_bwd", "attention backward"),
@@ -1932,7 +1957,6 @@ PROFILE_GROUPS = (("mlp_kernel", "plain mlp (mlp.cu)"),
                   ("attn_generic_kernel<64, 1>", "attention core"),
                   ("attn_generic_kernel<64, 2>", "attention core"),
                   ("attn_generic", "generic attention"),
-                  ("gemm_nt_bias", "qkv projection"),
                   ("ln_kernel", "layernorm"), ("task_decode", "task decode"),
                   ("head_up4", "up4 head"),
                   ("invpt_attention", "InvPT attention"),
@@ -1960,10 +1984,12 @@ def _profile(title: str, fn, top: int = 12) -> None:
         fn()
     wall = _wall_ms(fn)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # device rows, without the annotations that the profiler also puts on
     # the device's timeline (named like "Optimizer.step#Adam.step"); the
     # self device time attribute was renamed across torch versions
@@ -1973,9 +1999,12 @@ def _profile(title: str, fn, top: int = 12) -> None:
             t = getattr(e, "self_device_time_total", None)
             dev[e.key] = (e.count, e.self_cuda_time_total if t is None else t)
     total = sum(t for _, t in dev.values()) / 1e3
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key == "cudaLaunchKernel")
     print(f"[profile] {title}: wall {wall:.2f} ms (median of 5); device "
           f"time of all kernels {total:.2f} ms = "
-          f"{100 * total / wall:.1f}% of the wall time", flush=True)
+          f"{100 * total / wall:.1f}% of the wall time; {launches} "
+          f"cudaLaunchKernel calls; peak memory {peak:.3f} GiB", flush=True)
     if not dev:
         raise RuntimeError("the profiler trace holds no device time")
     groups = {}

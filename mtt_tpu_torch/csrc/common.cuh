@@ -43,20 +43,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Copies a ROWS x COLS bf16 tile (COLS % 8 == 0) of a row-major array with
-// leading dimension ldg into shared memory with leading dimension lds. Rows at
-// or past row_limit are zero-filled. All NT threads of the block take part.
-template <int ROWS, int COLS, int NT>
-__device__ __forceinline__ void load_tile_async(bf16* s, int lds, const bf16* g, size_t ldg,
-                                                int row_limit) {
-  constexpr int CH = COLS / 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
-    int r = i / CH, c = (i % CH) * 8;
-    bool ok = r < row_limit;
-    cp_async16(s + r * lds + c, ok ? g + r * ldg + c : g, ok);
-  }
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -91,21 +77,6 @@ __device__ __forceinline__ void frag_row8(const FragC& acc, float* scratch, int 
 #pragma unroll
   for (int k = 0; k < 8; ++k) out8[k] = p[k];
   __syncwarp();
-}
-
-// Abramowitz-Stegun 7.1.26 erf (|err| <= 1.5e-7) and the exact-form GELU built
-// on it, as mtt_tpu/kernels/mlp.py:_erf_poly/_gelu_erf_poly compute them.
-__device__ __forceinline__ float erf_poly(float z) {
-  float az = fabsf(z);
-  float t = 1.0f / (1.0f + 0.3275911f * az);
-  float poly =
-      t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  float r = 1.0f - poly * expf(-az * az);
-  return z > 0.f ? r : (z < 0.f ? -r : 0.f);
-}
-
-__device__ __forceinline__ float gelu_erf_poly(float h) {
-  return 0.5f * h * (1.0f + erf_poly(h * 0.70710678118654752f));
 }
 
 // The polynomial-only GELU of the up4 head (mtt_tpu/kernels/mlp.py:

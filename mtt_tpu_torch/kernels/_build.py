@@ -45,7 +45,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "mtt_layernorm_bf16": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
-    "mtt_qkv_proj_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "mtt_qkv_proj_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mtt_attn_core_bf16": (_P, _P, _I, _I, _I, _F, _F, _I, _P),
     "mtt_attn_generic_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_L] * 9,
                               _F, _P),
@@ -53,7 +53,7 @@ _SIGNATURES = {
     "mtt_task_decode_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _I, _I, _P),
     "mtt_attn_bwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
-    "mtt_mlp_fc_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "mtt_mlp_fc_bf16": (*[_P] * 7, _I, _I, _I, _I, _P),
     "mtt_head_up4_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _P),
     "mtt_invpt_attention_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -115,6 +115,17 @@ def check_aligned(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} needs 16-byte aligned data, got a "
                              f"tensor at offset {t.data_ptr() % 16} (a view "
                              f"into a larger tensor?)")
+
+
+def check_gemm_widths(name: str, **widths: int) -> None:
+    """Raises unless every named width is a positive multiple of 8: the
+    shared GEMM (csrc/gemm.cu) reads its operands with TMA, whose row pitch
+    must be a multiple of 16 bytes. The row count is free."""
+    for key, n in widths.items():
+        if n <= 0 or n % 8:
+            raise ValueError(f"{name}: {key} must be a positive multiple "
+                             f"of 8 (TMA reads rows whose pitch is a "
+                             f"multiple of 16 bytes), got {key}={n}")
 
 
 def _nvcc() -> str:

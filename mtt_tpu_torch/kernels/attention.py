@@ -8,11 +8,12 @@ Port of mtt_tpu/kernels/attention.py:
   ``_attn_ln_qkv_emit_pallas`` = ``_ln_kernel`` + ``_attn_ln_qkv_kernel(ln=False,
   emit=True)`` (tap blocks), with the softmax helpers ``_fast_exp2_probs``
   and ``_resolve_safe``. On the card the call is three hand-written
-  launches: LN rows, the qkv projection (tensor cores, bias added in f32 and
-  rounded once), and the attention core (``mtt_attn_core_bf16``), which
-  streams K/V tiles per (query tile, head, batch item) and keeps the scores
-  in registers. The safe softmax takes the max over all keys in a first
-  pass before P is rounded, as the TPU kernel does.
+  launches: LN rows, the qkv projection (the shared wgmma GEMM of
+  csrc/gemm.cu, bias added in f32 and rounded once), and the attention
+  core (``mtt_attn_core_bf16``), which streams K/V tiles per (query tile,
+  head, batch item) and keeps the scores in registers. The safe softmax
+  takes the max over all keys in a first pass before P is rounded, as the
+  TPU kernel does.
 - ``fused_attention_qkv`` (``_attn_qkv_kernel``): attention over a packed
   head-major qkv. It is the function of the attention core above, so on the
   card it launches the same core under its own count.
@@ -193,16 +194,21 @@ def _check(x, gamma, beta, w, b, heads):
 
 
 def qkv_proj_cuda(xn: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
-    M, K = xn.numel() // xn.shape[-1], xn.shape[-1]
-    N = w.shape[0]
-    if K % 32 or N % 128:
-        raise ValueError(f"the qkv kernel needs C % 32 == 0 and 3C % 128 == 0,"
-                         f" got C={K}, 3C={N}")
+    """One launch of the shared GEMM (csrc/gemm.cu) with its bias epilogue:
+    xn (..., C) . w^T + b, summed in f32 and rounded once, the bias read in
+    its stored dtype. Any row count; C and 3C multiples of 8."""
+    K, N = xn.shape[-1], w.shape[0]
+    if xn.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"the qkv projection takes bfloat16, got {xn.dtype} "
+                        f"and {w.dtype}")
+    _build.check_gemm_widths("the qkv projection", C=K, qkv_width=N)
+    M = xn.numel() // K
+    flags = _build.param_flags(b)
+    _build.check_aligned("the qkv projection", xn, w, b)
     qkv = torch.empty(*xn.shape[:-1], N, dtype=xn.dtype, device=xn.device)
-    bf = b.float().contiguous()
     _build.check(_build.lib().mtt_qkv_proj_bf16(
-        xn.data_ptr(), w.data_ptr(), bf.data_ptr(), qkv.data_ptr(), M, N, K,
-        _build.stream()), "mtt_qkv_proj_bf16")
+        xn.data_ptr(), w.data_ptr(), b.data_ptr(), qkv.data_ptr(), M, N, K,
+        flags, _build.stream()), "mtt_qkv_proj_bf16")
     return qkv
 
 

@@ -10,10 +10,12 @@ Port of mtt_tpu/kernels/mlp.py:
 with the A&S erf GELU ``_erf_poly`` / ``_gelu_erf_poly``. On the H100 both are
 tensor-core work (138 GFLOP for the half-block at ViT-L eval shapes). The
 half-block runs as three launches cut at its two bf16 rounding points: the
-LayerNorm kernel, then two hand-written wgmma GEMMs with fused epilogues
-(fc1 + b1 + GELU; fc2 + b2 + x), the hidden layer going through device
-memory; its plain version is the same three stages. The MLP alone keeps the
-hidden on chip (see the source note in mlp.cu).
+LayerNorm kernel, then two launches of the shared hand-written wgmma GEMM
+(csrc/gemm.cu) with fused epilogues (fc1 + b1 + GELU; fc2 + b2 + x), the
+hidden layer going through device memory; its plain version is the same
+three stages. The MLP alone is the last two of them, with fc2's epilogue
+adding b2 only (see the source note in mlp.cu). Both read their parameters
+as stored (bf16 or f32): no cast is launched.
 
 The gradients are the JAX package's hand-written backwards (mlp.py:201-222
 for ``fused_mlp``, :499-540 for ``fused_mlp_ln_res``), computed in plain torch
@@ -166,11 +168,6 @@ def _check(x, w1, b1, w2, b2, gamma=None, beta=None):
         raise TypeError("w1/w2 must have the dtype of x")
 
 
-# instantiated in csrc/mlp.cu for the MLP alone: the ViT-L/B trunks, the
-# InvPT decoder stages and the Swin-B stages
-FC_KERNEL_WIDTHS = (1024, 768, 576, 288, 144, 512, 256, 128)
-
-
 def mlp_ln_res_cuda(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
     """The LayerNorm launch and the two GEMMs; the scratch xn (rows, C) and
     h (rows, hidden) come from torch.empty. Parameters are read in their
@@ -179,11 +176,12 @@ def mlp_ln_res_cuda(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
     Hd = w1.shape[0]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the MLP kernel takes bfloat16, got {x.dtype}")
-    if C % 8 or C > 4096 or Hd % 16 or Hd < 16:
+    if C > 4096:
         raise ValueError(
-            f"the MLP-LN-residual kernels take C % 8 == 0 and C <= 4096 (a "
-            f"LayerNorm row in one warp's registers) and hidden % 16 == 0, "
-            f"got C={C}, hidden={Hd}; other widths are ROADMAP.md item 1.11")
+            f"the MLP-LN-residual kernels take C <= 4096 (a LayerNorm row in "
+            f"one warp's registers), got C={C}; wider rows are ROADMAP.md "
+            f"item 1.11")
+    _build.check_gemm_widths("the MLP-LN-residual kernels", C=C, hidden=Hd)
     M = x.numel() // C
     out = torch.empty_like(x)
     if M == 0:
@@ -203,21 +201,24 @@ def mlp_ln_res_cuda(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
 
 
 def mlp_fc_cuda(x, w1, b1, w2, b2):
+    """Two launches of the shared GEMM: fc1 + b1 + GELU into the scratch h
+    (rows, hidden) from torch.empty, then fc2 + b2. Any row count; C and
+    hidden multiples of 8; the biases read in their stored dtype."""
     C = x.shape[-1]
     Hd = w1.shape[0]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the MLP kernel takes bfloat16, got {x.dtype}")
-    if C not in FC_KERNEL_WIDTHS or Hd % 16 or Hd < 16:
-        raise ValueError(
-            f"the MLP kernel takes C in {FC_KERNEL_WIDTHS} (the ViT-L/B "
-            f"trunks, the InvPT decoder stages and the Swin-B stages) and "
-            f"hidden % 16 == 0, got C={C}, hidden={Hd}; other widths are "
-            f"ROADMAP.md item 1.11")
+    _build.check_gemm_widths("the MLP kernels", C=C, hidden=Hd)
+    M = x.numel() // C
     out = torch.empty_like(x)
-    bf1, bf2 = b1.float().contiguous(), b2.float().contiguous()
+    if M == 0:
+        return out
+    h = x.new_empty(M, Hd)
+    flags = _build.param_flags(b1, b2)
+    _build.check_aligned("the MLP kernels", x, w1, b1, w2, b2)
     _build.check(_build.lib().mtt_mlp_fc_bf16(
-        x.data_ptr(), w1.data_ptr(), bf1.data_ptr(), w2.data_ptr(),
-        bf2.data_ptr(), out.data_ptr(), x.numel() // C, C, Hd,
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), h.data_ptr(), out.data_ptr(), M, C, Hd, flags,
         _build.stream()), "mtt_mlp_fc_bf16")
     return out
 
@@ -264,7 +265,7 @@ def fused_mlp_ln_res(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6,
 def fused_mlp(x, w1, b1, w2, b2, impl: str | None = None):
     """Transformer MLP over (..., C): fc2(gelu(fc1(x))), no LN, no residual.
     The JAX wrapper zero-pads C and hidden to multiples of 128 for its
-    tiling; the port's kernel takes its shapes (C in ``FC_KERNEL_WIDTHS``,
-    hidden % 16) as they are and raises on others."""
+    tiling, which does not change the function; the port's kernels take the
+    shapes as they are (C and hidden multiples of 8) and raise on others."""
     _check(x, w1, b1, w2, b2)
     return _MlpFc.apply(x, w1, b1, w2, b2, _build.resolve_impl(impl, x))

@@ -416,18 +416,75 @@ def test_attention_modules_go_through_kernels(gen):
 @pytest.mark.parametrize("C,Hd,rows", [
     (768, 384, 45), (1024, 384, 45), (576, 2304, 45), (288, 1152, 45),
     (144, 576, 45), (144, 80, 45), (512, 2048, 45), (256, 1024, 45),
-    (128, 512, 45), (128, 512, 3), (1024, 4096, 3)])
+    (128, 512, 45), (128, 512, 3), (1024, 4096, 3),
+    (192, 768, 1), (192, 768, 127), (192, 768, 128), (192, 768, 129),
+    (384, 1536, 1), (384, 1536, 127), (384, 1536, 128), (384, 1536, 129),
+    (128, 512, 73728)])
 def test_mlp_fc_kernel(gen, C, Hd, rows):
     """The ViT widths, the three InvPT stage widths with their hidden sizes
-    (576 ends in half a 128-column chunk), a hidden width under one chunk,
-    and the Swin-B stage widths, also on the 3 prompt rows (one block, 29 of
-    its 32 rows past the end)."""
+    (576 ends inside a 128-column tile and a 64-deep K stage), a hidden
+    width under one tile, the Swin-B stage widths, also on the 3 prompt rows
+    and on stage 0's 73,728 rows, and ViT-T's and ViT-S's widths on rows
+    around the GEMM's 128-row tile."""
     from mtt_tpu_torch.kernels.mlp import fused_mlp
-    x = _rnd(gen, 3, rows // 3, C)
+    x = _rnd(gen, 3, rows // 3, C) if rows % 3 == 0 else _rnd(gen, rows, C)
     w1, b1 = _rnd(gen, Hd, C, std=C ** -0.5), _rnd(gen, Hd, std=0.1)
     w2, b2 = _rnd(gen, C, Hd, std=Hd ** -0.5), _rnd(gen, C, std=0.1)
     args = (x, w1, b1, w2, b2)
     _check(fused_mlp(*args), fused_mlp(*args, impl="plain"))
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+def test_mlp_fc_kernel_biases_as_stored_and_repeat_bits(gen, bias_dtype):
+    """Row 8's biases are read in their stored dtype (no cast launched), and
+    two runs give equal bits (no split-K, no atomics), at the ViT-L step's
+    shape (2 x 1029 rows, C 1024, hidden 4096)."""
+    from mtt_tpu_torch.kernels.mlp import fused_mlp
+    C, Hd = 1024, 4096
+    args = (_rnd(gen, 2, 1029, C), _rnd(gen, Hd, C, std=C ** -0.5),
+            _rnd(gen, Hd, std=0.1, dtype=bias_dtype),
+            _rnd(gen, C, Hd, std=Hd ** -0.5),
+            _rnd(gen, C, std=0.1, dtype=bias_dtype))
+    got = fused_mlp(*args)
+    _check(got, fused_mlp(*args, impl="plain"))
+    assert torch.equal(got, fused_mlp(*args))
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,C", [(8232, 1024), (8232, 768), (74, 192),
+                                    (2058, 328)])
+def test_qkv_proj_kernel(gen, rows, C, bias_dtype):
+    """The qkv projection of rows 1-2 (one launch of the shared GEMM, bias
+    epilogue) against its plain stage at ViT-L's eval shape, ViT-B's and
+    ViT-T's (3C = 576, which the old kernel refused), and on the ViT-L
+    step's 2058 rows with 3C = 984 (the half-tile schedule, ragged in rows
+    and columns), the bias read as stored: one rounding on both sides, so 1
+    bf16 ulp; two runs give equal bits."""
+    from mtt_tpu_torch.kernels.attention import qkv_proj_cuda, qkv_proj_plain
+    xn = _rnd(gen, rows, C)
+    w = _rnd(gen, 3 * C, C, std=C ** -0.5)
+    b = _rnd(gen, 3 * C, std=0.1, dtype=bias_dtype)
+    got = qkv_proj_cuda(xn, w, b)
+    _check(got, qkv_proj_plain(xn, w, b), ulps=1)
+    assert torch.equal(got, qkv_proj_cuda(xn, w, b))
+
+
+def test_gemm_wrappers_refuse_unaligned_views(gen):
+    """Row 8 and the qkv projection read with TMA, 16-byte aligned data
+    only: a view two bytes into its storage raises and does not fall
+    back."""
+    from mtt_tpu_torch.kernels.attention import qkv_proj_cuda
+    from mtt_tpu_torch.kernels.mlp import fused_mlp
+    x = _rnd(gen, 64, 768)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    xv = buf[1:].view_as(x)
+    xv.copy_(x)
+    w1, b1 = _rnd(gen, 3072, 768, std=768 ** -0.5), _rnd(gen, 3072, std=0.1)
+    w2, b2 = _rnd(gen, 768, 3072, std=3072 ** -0.5), _rnd(gen, 768, std=0.1)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_mlp(xv, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="aligned"):
+        qkv_proj_cuda(xv, _rnd(gen, 2304, 768), _rnd(gen, 2304))
 
 
 @pytest.mark.parametrize("need_qkv", [False, True])

@@ -125,6 +125,59 @@ def test_mlp_ln_res_plain_stages_keep_the_one_piece_bits(param_dtype):
     assert torch.equal(mlp_fc_plain(x, w1, b1, w2, b2), want_fc)
 
 
+def test_mlp_matches_pallas_at_vit_t_width():
+    """The plain MLP (row 8) at ViT-T's C = 192, hidden 768, a width its old
+    kernel refused (the JAX wrapper zero-pads both to multiples of 128 for
+    its tiling, which leaves the function as it is), on 3 x 37 rows."""
+    from mtt_tpu.kernels.mlp import fused_mlp as jax_mlp
+    from mtt_tpu_torch.kernels.mlp import fused_mlp
+
+    rng = np.random.default_rng(11)
+    C, Hd = 192, 768
+    x = rng.normal(size=(3, 37, C)).astype(np.float32)
+    w1 = (rng.normal(size=(C, Hd)) * C ** -0.5).astype(np.float32)
+    b1 = (rng.normal(size=(Hd,)) * 0.1).astype(np.float32)
+    w2 = (rng.normal(size=(Hd, C)) * Hd ** -0.5).astype(np.float32)
+    b2 = (rng.normal(size=(C,)) * 0.1).astype(np.float32)
+    want = jax_mlp(*map(jnp.asarray, (x, w1, b1, w2, b2)), impl="interpret")
+    _close(fused_mlp(_t(x), _t(w1.T), _t(b1), _t(w2.T), _t(b2)), want)
+
+
+def test_qkv_proj_plain_matches_the_emit_kernel_at_vit_t():
+    """The projection stage of rows 1-2 (``qkv_proj_plain``, the function of
+    the shared GEMM's bias launch) against the qkv that the JAX emit kernel
+    (``_attn_ln_qkv_kernel``, ln=False, emit=True) returns in interpret mode
+    at ViT-T: C = 192, 3 heads of 64, so 3C = 576, which the old CUDA
+    projection refused. The public JAX wrapper's Pallas gate wants C % 128
+    == 0 and an even head count, so the kernel is called with one head a
+    block. bf16 in and out; both sum the products in f32, add the bias and
+    round once, so they differ only where a sum in another order flips that
+    rounding: at most 1 bf16 ulp of the largest value."""
+    from mtt_tpu.kernels.attention import _attn_ln_qkv_pallas
+    from mtt_tpu_torch.kernels.attention import qkv_proj_plain
+
+    rng = np.random.default_rng(12)
+    B, N, H, D = 2, 37, 3, 64
+    C = H * D
+    bf = torch.bfloat16
+    xn = _t(rng.normal(size=(B, N, C)).astype(np.float32)).to(bf)
+    w = _t((rng.normal(size=(C, 3 * C)) * C ** -0.5).astype(np.float32)
+           ).to(bf)
+    b = _t((rng.normal(size=(3 * C,)) * 0.1).astype(np.float32)).to(bf)
+
+    def jx(t):
+        return jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16)
+
+    _, want = _attn_ln_qkv_pallas(jx(xn), jnp.ones(C), jnp.zeros(C), jx(w),
+                                  jx(b), H, D ** -0.5, 1e-6, hpb=1, ln=False,
+                                  emit=True, interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    got = qkv_proj_plain(xn, w.t().contiguous(), b)
+    assert got.dtype == bf and got.shape == want.shape
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 2.0 ** -7 * np.abs(want).max(), err
+
+
 def test_task_decode_matches_pallas():
     """tar and final not multiples of 16, as the model's 300 / 350."""
     from mtt_tpu.kernels.task_decode import fused_task_decode as jax_dec

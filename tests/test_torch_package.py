@@ -135,6 +135,32 @@ def test_kernel_parameter_flags_and_alignment():
         _build.check_aligned("x", buf[1:])
 
 
+@pytest.mark.parametrize("C,Hd", [(12, 48), (16, 36), (8, 4)])
+def test_gemm_wrappers_refuse_widths_and_unaligned_data(C, Hd):
+    """Row 8 and the qkv projection run on the shared GEMM, which reads its
+    operands with TMA: any row count, widths that are positive multiples of
+    8 and 16-byte aligned data, else a ValueError that names the limit,
+    raised on the CPU before any launch."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.attention import qkv_proj_cuda
+    from mtt_tpu_torch.kernels.mlp import mlp_fc_cuda
+    bf = torch.bfloat16
+    x = torch.zeros(5, C, dtype=bf)
+    w1, w2 = torch.zeros(Hd, C, dtype=bf), torch.zeros(C, Hd, dtype=bf)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        mlp_fc_cuda(x, w1, torch.zeros(Hd), w2, torch.zeros(C))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        qkv_proj_cuda(x, w1, torch.zeros(Hd))
+    _build.check_gemm_widths("the GEMM", C=8, hidden=4096)
+    buf = torch.zeros(5 * 16 + 1, dtype=bf)
+    xv = buf[1:].view(5, 16)
+    w1, w2 = torch.zeros(64, 16, dtype=bf), torch.zeros(16, 64, dtype=bf)
+    with pytest.raises(ValueError, match="aligned"):
+        mlp_fc_cuda(xv, w1, torch.zeros(64), w2, torch.zeros(16))
+    with pytest.raises(ValueError, match="aligned"):
+        qkv_proj_cuda(xv, w1, torch.zeros(64))
+
+
 def test_task_decode_wrapper_checks_shapes():
     from mtt_tpu_torch.kernels.task_decode import fused_task_decode
     B, S, C, T, G, tar, F = 1, 4, 16, 2, 4, 6, 5
@@ -168,7 +194,7 @@ def test_kernel_build_needs_no_card_to_import_and_hashes_sources():
     assert len(h) == 16 and h == _build.source_hash()
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "layernorm.cu", "attention.cu", "attention_generic.cu",
-        "attention_bwd.cu", "mlp.cu",
+        "attention_bwd.cu", "gemm.cu", "mlp.cu",
         "task_decode.cu", "head_up4.cu", "invpt_attention.cu",
         "invpt_tail.cu", "window_attention.cu", "window_attention_bwd.cu"}
 

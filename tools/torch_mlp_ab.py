@@ -1,5 +1,6 @@
-"""Time the port's LayerNorm (row 3) and MLP-LN-residual (row 4) kernels of
-two checkouts in turns on one card.
+"""Time the port's LayerNorm (row 3), MLP-LN-residual (row 4) and plain MLP
+(row 8) kernels and the qkv projection of rows 1-2 of two checkouts in turns
+on one card.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
@@ -13,17 +14,22 @@ static CUDA runtimes), and calls its exported functions on the same seeded
 inputs: row 3 (``mtt_layernorm_bf16``) at the ViT-L tap shape (8, 1029,
 1024) and at Swin-B's stage 0 (73,728 rows of 128, eps 1e-5), row 4
 (``mtt_mlp_ln_res_bf16``) at (8, 1029, 1024) with hidden 4096 and at ViT-B's
-(8, 1029, 768) with hidden 3072. The parameters are f32 for both checkouts
-(the parent reads nothing else); the change also runs row 3 and row 4 with
-bf16 parameters, as a bf16 model stores them. Each time is one of raw
+(8, 1029, 768) with hidden 3072, row 8 (``mtt_mlp_fc_bf16``) at the ViT-L
+step's (2, 1029, 1024) with hidden 4096 and at Swin-B's stage 2 (4,608 rows
+of 512, hidden 2048), and the projection (``mtt_qkv_proj_bf16``) at (8232,
+1024) -> 3072. The parameters are f32 for both checkouts (the parent's row 8
+and projection read nothing else); the change also runs them with bf16
+parameters, as a bf16 model stores them. Each time is one of raw
 launches: CUDA events around ``--launches`` back-to-back launches, divided by
-their number, the median of ``--reps`` such runs; ``F.layer_norm`` and the
-library composition of row 4 (``x + fc2(gelu(fc1(F.layer_norm(x))))``) are
-timed the same way in every run, and the change's Python entry points
-(``fused_layernorm``, ``fused_mlp_ln_res``: argument checks and allocation on
-the host) beside them. The runs go parent, change, change, parent. Outputs
-are held to the plain versions (row 3 at 1 bf16 ulp, row 4 at 4 of the
-largest value) and each kernel runs twice to show equal bits. It prints the
+their number, the median of ``--reps`` such runs; the library call or
+composition (``F.layer_norm``; ``x + fc2(gelu(fc1(F.layer_norm(x))))``;
+``fc2(gelu(fc1(x)))``; ``F.linear``) is timed the same way in every run, and
+the change's Python entry points (``fused_layernorm``, ``fused_mlp_ln_res``,
+``fused_mlp``, ``qkv_proj_cuda``: argument checks and allocation on the
+host) beside them. The runs go parent, change, change, parent. Outputs
+are held to the plain versions (rows 3 and the projection at 1 bf16 ulp,
+rows 4 and 8 at 4 of the largest value) and each kernel runs twice to show
+equal bits. It prints the
 card's name and power limit, each kernel's ptxas registers and spills, the
 bound of each case (bytes at 3.35 TB/s or bf16 tensor-core operations at 989
 TFLOP/s), and one JSON line of the times; it fails when the change's kernels
@@ -73,7 +79,9 @@ def run_one(checkout: Path, tag: str, launches: int, reps: int) -> dict:
     """Errors, equal bits and times of one checkout's kernels."""
     from mtt_tpu_torch.kernels.layernorm import (fused_layernorm,
                                                  layernorm_plain)
-    from mtt_tpu_torch.kernels.mlp import fused_mlp_ln_res, mlp_ln_res_plain
+    from mtt_tpu_torch.kernels.attention import qkv_proj_cuda, qkv_proj_plain
+    from mtt_tpu_torch.kernels.mlp import (fused_mlp, fused_mlp_ln_res,
+                                           mlp_fc_plain, mlp_ln_res_plain)
     bld = load_build(checkout, tag)
     lib = bld.lib()
     # the parent's entry points take f32 parameters and no scratch
@@ -163,6 +171,67 @@ def run_one(checkout: Path, tag: str, launches: int, reps: int) -> dict:
                     x, p[0], p[1], w1, p[2], w2, p[3]),
                 bound_ms=4.0 * rows * C * Hd / PEAK_BF16 * 1e3,
                 bound_by="operations")
+
+    # row 8: the parent's entry takes f32 biases and no hidden scratch
+    fc_abi = len(bld._SIGNATURES["mtt_mlp_fc_bf16"]) == 12
+    for name, (rows, C, Hd) in {"mlp_fc": (2 * 1029, 1024, 4096),
+                                "mlp_fc@swin2": (48 * 96, 512, 2048)
+                                }.items():
+        x = rnd(rows, C)
+        w1, b132 = rnd(Hd, C, std=C ** -0.5), rnd(Hd, std=0.1, dtype=f32)
+        w2, b232 = rnd(C, Hd, std=Hd ** -0.5), rnd(C, std=0.1, dtype=f32)
+        out, h = torch.empty_like(x), x.new_empty(rows, Hd)
+        for pdt in (f32, bf) if fc_abi else (f32,):
+            p = [t.to(pdt) for t in (b132, b232)]
+
+            def call(x=x, p=p, w1=w1, w2=w2, out=out, h=h, C=C, Hd=Hd):
+                if fc_abi:
+                    flags = sum(1 << i for i, t in enumerate(p)
+                                if t.dtype == f32)
+                    args = (x.data_ptr(), w1.data_ptr(), p[0].data_ptr(),
+                            w2.data_ptr(), p[1].data_ptr(), h.data_ptr(),
+                            out.data_ptr(), x.shape[0], C, Hd, flags,
+                            stream())
+                else:
+                    args = (x.data_ptr(), w1.data_ptr(), p[0].data_ptr(),
+                            w2.data_ptr(), p[1].data_ptr(), out.data_ptr(),
+                            x.shape[0], C, Hd, stream())
+                bld.check(lib.mtt_mlp_fc_bf16(*args), "mtt_mlp_fc_bf16")
+                return (out,)
+
+            pl = [t.to(bf) for t in (b132, b232)]
+            cases[name + ("" if pdt == f32 else "@bf16_params")] = dict(
+                call=call, want=(mlp_fc_plain(x, w1, p[0], w2, p[1]),),
+                ulps=4,
+                library=lambda x=x, pl=pl, w1=w1, w2=w2: F.linear(
+                    F.gelu(F.linear(x, w1, pl[0])), w2, pl[1]),
+                wrapper=lambda x=x, p=p, w1=w1, w2=w2: fused_mlp(
+                    x, w1, p[0], w2, p[1]),
+                bound_ms=4.0 * rows * C * Hd / PEAK_BF16 * 1e3,
+                bound_by="operations")
+
+    # the qkv projection of rows 1-2: the parent's entry takes an f32 bias
+    qkv_abi = len(bld._SIGNATURES["mtt_qkv_proj_bf16"]) == 9
+    rows, C = 8 * 1029, 1024
+    xn, w = rnd(rows, C), rnd(3 * C, C, std=C ** -0.5)
+    b32 = rnd(3 * C, std=0.1, dtype=f32)
+    qkv = xn.new_empty(rows, 3 * C)
+    for pdt in (f32, bf) if qkv_abi else (f32,):
+        b = b32.to(pdt)
+
+        def call(b=b, xn=xn, w=w, qkv=qkv, rows=rows, C=C):
+            extra = (int(b.dtype == f32),) if qkv_abi else ()
+            bld.check(lib.mtt_qkv_proj_bf16(
+                xn.data_ptr(), w.data_ptr(), b.data_ptr(), qkv.data_ptr(),
+                rows, 3 * C, C, *extra, stream()), "mtt_qkv_proj_bf16")
+            return (qkv,)
+
+        cases["qkv_proj" + ("" if pdt == f32 else "@bf16_params")] = dict(
+            call=call, want=(qkv_proj_plain(xn, w, b),), ulps=1,
+            library=lambda xn=xn, w=w, bl=b32.to(bf): F.linear(xn, w, bl),
+            wrapper=lambda b=b, xn=xn, w=w: qkv_proj_cuda(xn, w, b),
+            bound_ms=2.0 * rows * C * 3 * C / PEAK_BF16 * 1e3,
+            bound_by="operations")
 
     result = {"ptxas": ptxas_lines(bld, ("ln_kernel", "gemm", "mlp_kernel"))}
     for name, c in cases.items():
