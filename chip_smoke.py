@@ -13,8 +13,10 @@ Phases, in order (the seconds each took are printed):
      against its plain PyTorch version at the ViT-L PASCAL shapes the main
      paths give it (row 13, attention over
      the packed qkv, fast and safe; row 14, attention over separate q, k, v,
-     also at InvPT's cross shape with head dim 72; the up4 head also at
-     NYUD's C = 768 for n = 1, 3, 40), the earlier kernels again
+     also at InvPT's cross shape with head dim 72; the task decode and the
+     up4 head also at ViT-B's C = 768, the head also at NYUD's C = 768 for
+     n = 1, 3, 40; both equal across two runs, their bit-equal share to
+     the plain version printed), the earlier kernels again
      at the shapes the InvPT path adds (N = 1025, LayerNorm rows of 2880, MLP
      widths 576, 288, 144; the tail on NYUD's non-square grid), and the Swin
      path's at its shapes (window attention and its backward at the four
@@ -620,8 +622,9 @@ def _api_cases(rnd):
         cases[f"head_up4@nyud_n{n}"] = (
             lambda impl, kp=kp: fused_up4_head(xh, kc, inv, addv, kp,
                                                impl=impl),
-            4, "as head_up4; the kernel streams the input channels in "
-               "slices of 128 and sums Gm in the same order",
+            4, "as head_up4, at NYUD's width: the mix kernel walks slabs of "
+               "192 channels and adds each slab's logits to the first's in "
+               "f32",
             None, head_lib,
             _nbytes(xh, kc, inv, addv, kp) + B * 16 * gh * gw * n * 4,
             2.0 * B * gh * gw * cn * 9 * cn + 12.0 * B * gh * 3 * cn * 4 * gw
@@ -688,27 +691,56 @@ def kernel_phase():
                                            v.transpose(1, 2))
         return o.transpose(1, 2).reshape(B, N, C)
 
-    def decode_lib():
-        xt_ = xs[:, None]
-        f = torch.einsum("btsc,trc->btsr",
-                         xt_ * a.repeat_interleave(C // G, -1) + xt_, ws) \
-            + bs[None, :, None]
-        fc = torch.einsum("btsc,trc->btsr", xt_ * cw.to(bf)[:, :, None] + xt_,
-                          wc) + bc[None, :, None]
-        return torch.einsum("btsr,tfr->btsf", torch.cat([f, fc], -1), wf) \
-            + bfin[None, :, None]
-
     # the dense cuDNN head of the same function: upsample, conv3x3 (bias 0),
     # BN affine, GELU, 1x1
-    kc_oihw = kc.permute(3, 2, 0, 1).contiguous()
-    kp_oihw = kp.t()[:, :, None, None].contiguous()
+    def head_lib_of(xh, kc, inv, addv, kp):
+        kc_oihw = kc.permute(3, 2, 0, 1).contiguous()
+        kp_oihw = kp.t()[:, :, None, None].contiguous()
 
-    def head_lib():
-        up = F.interpolate(xh.permute(0, 3, 1, 2), scale_factor=4,
-                           mode="bilinear", align_corners=False)
-        y = F.conv2d(up, kc_oihw, padding=1)
-        y = F.gelu(y * inv.to(bf)[:, None, None] + addv.to(bf)[:, None, None])
-        return F.conv2d(y, kp_oihw)
+        def lib():
+            up = F.interpolate(xh.permute(0, 3, 1, 2), scale_factor=4,
+                               mode="bilinear", align_corners=False)
+            y = F.conv2d(up, kc_oihw, padding=1)
+            y = F.gelu(y * inv.to(bf)[:, None, None]
+                       + addv.to(bf)[:, None, None])
+            return F.conv2d(y, kp_oihw)
+        return lib
+
+    def head_bound(xh, kc, inv, addv, kp):
+        # bf16 x bf16 products on the tensor cores: Gm (9 taps), the width
+        # mix (6 nonzero taps of the shifted bilinear bands per output, as
+        # the TPU stencil counts them) and the 1x1; in f32: the height mix
+        # (6 nonzero taps) and the affine + GELU (~25 flops)
+        b_, gh, gw, cin = xh.shape
+        d, n = kp.shape
+        out_px = b_ * 16 * gh * gw
+        return (_nbytes(xh, kc, inv, addv, kp) + out_px * n * 4,
+                2.0 * b_ * gh * gw * cin * 9 * d + 12.0 * b_ * gh * 3 * d * 4 * gw
+                + 2.0 * out_px * d * n, (12.0 + 25.0) * out_px * d)
+
+    def decode_case(xs, a, cw, ws, bs, wc, bc, wf, bfin, reason):
+        b_, s_, c_ = xs.shape
+        t_, tar, _ = ws.shape
+        fin = wf.shape[1]
+        g_ = a.shape[-1]
+
+        def lib():
+            xt_ = xs[:, None]
+            f = torch.einsum("btsc,trc->btsr",
+                             xt_ * a.repeat_interleave(c_ // g_, -1) + xt_,
+                             ws) + bs[None, :, None]
+            fc = torch.einsum("btsc,trc->btsr",
+                              xt_ * cw.to(bf)[:, :, None] + xt_, wc) \
+                + bc[None, :, None]
+            return torch.einsum("btsr,tfr->btsf", torch.cat([f, fc], -1),
+                                wf) + bfin[None, :, None]
+
+        return (lambda impl: fused_task_decode(xs, a, cw, ws, bs, wc, bc, wf,
+                                               bfin, impl=impl),
+                4, reason, None, lib,
+                _nbytes(xs, a, cw, ws, bs, wc, bc, wf, bfin)
+                + b_ * s_ * t_ * fin * 2,
+                2.0 * b_ * t_ * s_ * (2 * c_ * tar + 2 * tar * fin), 0.0)
 
     # SDPA's backward on the same q, k, v and dOut
     q5 = qkv_t.view(BT, N, HEADS, 3, D)
@@ -769,30 +801,17 @@ def kernel_phase():
                 x, (C,), gamma.to(bf), beta.to(bf), 1e-6), w1, b1)), w2, b2),
             _nbytes(x, gamma, beta, w1, b1, w2, b2, x),
             2 * mmf * C * HIDDEN, 0.0),
-        "task_decode": (
-            lambda impl: fused_task_decode(xs, a, cw, ws, bs, wc, bc, wf,
-                                           bfin, impl=impl),
-            4, "x*a+x, f and fc are rounded to bf16 at the same points; "
-               "f32 sums in another order can flip a rounding",
-            None, decode_lib,
-            _nbytes(xs, a, cw, ws, bs, wc, bc, wf, bfin) + B * S * T * FIN * 2,
-            2.0 * B * T * S * (2 * C * TAR + 2 * TAR * FIN), 0.0),
+        "task_decode": decode_case(
+            xs, a, cw, ws, bs, wc, bc, wf, bfin,
+            "x*a+x, f and fc are rounded to bf16 at the same points; f32 "
+            "sums in another order can flip a rounding"),
         "head_up4": (
             lambda impl: fused_up4_head(xh, kc, inv, addv, kp, impl=impl),
             4, "Gm, the width mix and the GELU output are rounded to bf16 "
                "at the same points; f32 sums in another order can flip a "
                "rounding; the logits are f32 on both sides",
-            None, head_lib,
-            _nbytes(xh, kc, inv, addv, kp) + B * 16 * GRID * GRID * NLOG * 4,
-            # bf16 x bf16 products on the tensor cores: Gm (9 taps), the
-            # width mix (6 nonzero taps of the shifted bilinear bands per
-            # output, as the TPU stencil counts them; this kernel also
-            # multiplies the 3 zeros) and the 1x1; in f32: the height mix
-            # (6 nonzero taps) and the affine + GELU (~25 flops)
-            2.0 * B * GRID * GRID * FIN * 9 * FIN
-            + 12.0 * B * GRID * 3 * FIN * 4 * GRID
-            + 2.0 * B * 16 * GRID * GRID * FIN * NLOG,
-            (12.0 + 25.0) * B * 16 * GRID * GRID * FIN),
+            None, head_lib_of(xh, kc, inv, addv, kp),
+            *head_bound(xh, kc, inv, addv, kp)),
         "attention_bwd": (
             lambda impl: (attn_core_bwd_cuda if impl == "cuda"
                           else attn_core_bwd_plain)(qkv_t, g_t, HEADS,
@@ -828,6 +847,22 @@ def kernel_phase():
         lambda: xb + F.linear(F.gelu(F.linear(F.layer_norm(
             xb, (768,), pb[0], pb[1], 1e-6), w1b, pb[2])), w2b, pb[3]),
         _nbytes(xb, *pb, w1b, w2b, xb), 4.0 * M * 768 * 3072, 0.0)
+    # rows 5 and 6 at ViT-B's width (the decode's x (8, 1024, 768); the
+    # head's (8, 32, 32, 768), semseg's 21 logits)
+    xs_b = rnd(B, S, 768)
+    wsb, wcb = (rnd(T, TAR, 768, std=768 ** -0.5) for _ in range(2))
+    cases["task_decode@C768"] = decode_case(
+        xs_b, a, rnd(B, T, 768, dtype=torch.float32), wsb, bs, wcb, bc, wf,
+        bfin, "as task_decode, at ViT-B's width")
+    hb = (rnd(B, GRID, GRID, 768, std=0.5),
+          rnd(3, 3, 768, 768, std=(9 * 768) ** -0.5),
+          rnd(768, std=0.1, mean=1.0, dtype=torch.float32),
+          rnd(768, std=0.1, dtype=torch.float32),
+          rnd(768, NLOG, std=768 ** -0.5))
+    cases["head_up4@C768"] = (
+        lambda impl: fused_up4_head(*hb, impl=impl),
+        4, "as head_up4, at ViT-B's width (slabs of 192 channels)", None,
+        head_lib_of(*hb), *head_bound(*hb))
     cases.update(_invpt_cases(rnd))
     cases.update(_swin_cases(rnd))
     cases.update(_api_cases(rnd))
@@ -871,12 +906,13 @@ def kernel_phase():
               flush=True)
 
     # the window attention backward sums dbias over the windows in a fixed
-    # order, and rows 7, 13 and 14 and the shared GEMM (row 8, the qkv
+    # order, and rows 5, 7, 13 and 14, the up4 head (which adds its slabs'
+    # logits in a fixed order) and the shared GEMM (row 8, the qkv
     # projection) sum without atomics: two runs give the same bits
     for name, case in cases.items():
         if name.startswith(("window_attention_bwd", "attention_bwd",
                             "attention_generic", "attention_qkv", "mlp_fc",
-                            "qkv_proj")):
+                            "qkv_proj", "task_decode", "head_up4")):
             a, b = case[0]("cuda"), case[0]("cuda")
             a = a if isinstance(a, tuple) else (a,)
             b = b if isinstance(b, tuple) else (b,)
@@ -885,8 +921,9 @@ def kernel_phase():
     print("[kernel] window_attention_bwd: dq, dk, dv and dbias equal across "
           "two runs at every stage, with and without the mask; "
           "attention_bwd (dqkv), attention_generic (self and cross shapes), "
-          "attention_qkv (fast and safe), mlp_fc (every shape) and qkv_proj "
-          "equal across two runs", flush=True)
+          "attention_qkv (fast and safe), mlp_fc (every shape), qkv_proj, "
+          "task_decode and head_up4 (every shape) equal across two runs",
+          flush=True)
 
     # the safe softmax (every training forward) takes the max over ALL keys
     # before it rounds P to bf16, as the TPU kernels do: at least 99% of the
@@ -900,11 +937,12 @@ def kernel_phase():
     from mtt_tpu_torch.kernels.layernorm import layernorm_cuda
 
     def share(got, want):
-        return (got.view(torch.int16) == want.view(torch.int16)).float() \
-            .mean().item()
+        return (got == want).float().mean().item()
 
-    # the shared GEMM's one rounding against the plain stage's
-    for name in ("qkv_proj", "mlp_fc"):
+    # the shared GEMM's one rounding against the plain stage's; rows 5 and
+    # 6 (the head's logits are f32 sums, whose order differs)
+    for name in ("qkv_proj", "mlp_fc", "task_decode", "task_decode@C768",
+                 "head_up4", "head_up4@C768", "head_up4@nyud_n40"):
         sh = share(cases[name][0]("cuda"), cases[name][0]("plain"))
         results[name]["bit_equal_share"] = sh
         print(f"[kernel] {name}: bit-equal share {sh:.6f} of the outputs",
@@ -1943,11 +1981,14 @@ def _train_run(tag, title, trainer, batches, expected, batch_size,
 # profile: kernel-name fragment -> group; anything else is library work
 PROFILE_GROUPS = (# the shared GEMM (gemm.cu) by its epilogue: fc1 of rows 4
                   # and 8; fc2 of row 4; fc2 of row 8 and rows 1-2's qkv
-                  # projection (row 4's LayerNorm launch is ln_kernel)
+                  # projection; row 6's Gm (row 4's LayerNorm launch is
+                  # ln_kernel)
                   ("gemm_kernel<0,", "GEMM + GELU (fc1, rows 4 and 8)"),
                   ("gemm_kernel<1,", "GEMM + bias + residual (fc2, row 4)"),
                   ("gemm_kernel<2,", "GEMM + bias (qkv of rows 1-2, fc2 of "
                                      "row 8)"),
+                  # the up4 head's Gm launch, then its mix kernel below
+                  ("gemm_kernel<3,", "up4 head"),
                   ("gemm_kernel", "GEMM (gemm.cu)"),
                   ("wattn_bwd", "window attention backward"),
                   ("wattn_dbias", "window attention backward"),

@@ -9,6 +9,8 @@
 //   EPI_BIAS  acc + bias                 fc2 of row 8 (mlp.py:105) and the qkv
 //                                        projection of rows 1-2 (attention.py:
 //                                        433-436)
+//   EPI_NONE  acc                        the up4 head's Gm, x . kc over its 9
+//                                        taps (head_up4.py:168-190)
 // These products are the tensor-core work of their TPU kernels (138 GFLOP of
 // row 4 at ViT-L eval shapes, 52 GFLOP of one qkv projection), so the design
 // is about keeping the tensor cores fed. Warpgroup 0 produces: one thread
@@ -37,23 +39,18 @@
 // run while the warpgroup goes on to its next tile (at the qkv projection's
 // short K, stores from registers had cost 40% of the launch). No split-K and
 // no atomics: two runs give the same bits.
-#include <cuda.h>
-
-#include <atomic>
-
-#include "common.cuh"
 #include "gemm.cuh"
+#include "tma.cuh"
 
 using namespace mtt;
 
 namespace {
 
 constexpr int GBM = 128;       // rows of a tile, and of every TMA box
-constexpr int GBK = 64;        // K per stage: one 128-byte swizzle row
+constexpr int GBK = TMA_BK;    // K per stage: one 128-byte swizzle row
 constexpr int GTHREADS = 384;  // warpgroup 0 produces, 1 and 2 consume
 constexpr int GBOX = GBM * GBK * 2;
 constexpr int OBOX = 64 * 64 * 2;  // a 64 x 64 box of the output, bf16
-constexpr int MAX_DEVICES = 64;    // devices whose launch state is cached
 
 // The three schedules (gemm_kernel): ping-pong 128 x 128 tiles, one a
 // warpgroup; wide 128 x 256 tiles and half 64 x 256 tiles, shared by both.
@@ -74,117 +71,6 @@ struct GemmShape {
   // 1024-byte period, barriers
   static constexpr int SMEM = STAGES * STAGE + OUT + 1024 + (2 * STAGES + 2) * 8;
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// One TMA copy of a (rows, 64) box at (row, k) of a 2-D tensor map into
-// shared memory, completing on the barrier.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int k, int row,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row), "r"(bar)
-      : "memory");
-}
-
-// One TMA store of a 64 x 64 box from shared memory to (col, row) of a 2-D
-// tensor map; the parts past the tensor's edges are not written.
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int col,
-                                             int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(col), "r"(row), "r"(src)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// the stores committed so far have read their shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-// ... and written the tensor
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-// shared-memory writes of the threads made visible to the TMA unit
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// a barrier of one warpgroup's 128 threads
-__device__ __forceinline__ void warpgroup_bar(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-// wgmma's shared-memory matrix descriptor for a K-major tile written by TMA
-// with the 128-byte swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart
-// (SBO), the leading offset unused for this layout, layout type 1 (B128).
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// D (64 x 128, f32) += A (64 x 16) . B (128 x 16)^T, both from shared memory.
-// Lane l of warp w of the warpgroup holds, for the 8-column group j, rows
-// 16 w + l / 4 (registers 4 j, 4 j + 1) and 16 w + l / 4 + 8 (4 j + 2, 4 j + 3)
-// at columns 8 j + 2 (l % 4) and + 1.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 // The exact-form GELU on the Abramowitz-Stegun 7.1.26 erf (|err| <= 1.5e-7), as
 // mtt_tpu/kernels/mlp.py:_erf_poly/_gelu_erf_poly compute it, with the
@@ -240,7 +126,8 @@ __device__ __forceinline__ void gemm_epilogue(float (&d)[2][64], uint32_t boxes,
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int col = min(col0 + h * col_step + 8 * j, N - 2);
-      const float2 b = load_pair(bias + col);
+      float2 b = make_float2(0.f, 0.f);
+      if constexpr (EPI != EPI_NONE) b = load_pair(bias + col);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float& v0 = d[h][4 * j + 2 * r];
@@ -253,7 +140,7 @@ __device__ __forceinline__ void gemm_epilogue(float (&d)[2][64], uint32_t boxes,
           const float2 x = load_pair(res + (size_t)row * N + col);
           v0 = v0 + b.x + x.x;
           v1 = v1 + b.y + x.y;
-        } else {
+        } else if constexpr (EPI == EPI_BIAS) {
           v0 = v0 + b.x;
           v1 = v1 + b.y;
         }
@@ -398,55 +285,6 @@ __global__ void __launch_bounds__(GTHREADS, 1) gemm_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, reached through the runtime so the
-// library links no libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (rows, cols) row-major bf16 tensor as (box_rows, 64) boxes, 128-byte
-// swizzle, zero fill past its edges on loads.
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {GBK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The SM count of the current device, asked once per device: the launcher
-// runs twice a call of row 8 and once a call of rows 1-2, on forwards that
-// the host's launches already bound.
-cudaError_t sm_count(int dev, int* sms) {
-  static std::atomic<int> cached[MAX_DEVICES];
-  *sms = dev < MAX_DEVICES ? cached[dev].load(std::memory_order_relaxed) : 0;
-  if (*sms > 0) return cudaSuccess;
-  cudaError_t e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess && dev < MAX_DEVICES) cached[dev].store(*sms, std::memory_order_relaxed);
-  return e;
-}
-
 template <int EPI, int SCHED, typename BiasT>
 int launch_gemm_s(const void* a, const void* b, void* out, const void* bias, const void* res,
                   int M, int N, int K, int dev, int sms, cudaStream_t st) {
@@ -524,6 +362,7 @@ extern "C" int mtt_gemm_bf16(const void* a, const void* b, void* out, const void
     case EPI_GELU: return launch_gemm<EPI_GELU>(a, b, out, bias, bias_f32, res, M, N, K, st);
     case EPI_RES: return launch_gemm<EPI_RES>(a, b, out, bias, bias_f32, res, M, N, K, st);
     case EPI_BIAS: return launch_gemm<EPI_BIAS>(a, b, out, bias, bias_f32, res, M, N, K, st);
+    case EPI_NONE: return launch_gemm_t<EPI_NONE, float>(a, b, out, nullptr, nullptr, M, N, K, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,8 +1,9 @@
 // The port's one bf16 GEMM (gemm.cu): out[M, N] = epilogue(a[M, K] . b[N, K]^T),
 // a and b row-major with K contiguous (activations, and weights as nn.Linear
 // stores them), f32 accumulators, one bf16 rounding. Row 4's two products
-// (mlp.cu), row 8's two (mlp.cu) and the qkv projection of rows 1-2
-// (attention.cu) are each one launch of it.
+// (mlp.cu), row 8's two (mlp.cu), the qkv projection of rows 1-2
+// (attention.cu) and the up4 head's Gm (head_up4.cu) are each one launch of
+// it.
 #pragma once
 
 namespace mtt {
@@ -11,12 +12,13 @@ enum GemmEpilogue {
   EPI_GELU = 0,  // gelu_erf_poly(acc + bias)
   EPI_RES = 1,   // acc + bias + res, summed in that order
   EPI_BIAS = 2,  // acc + bias
+  EPI_NONE = 3,  // acc alone: no bias is read
 };
 
 }  // namespace mtt
 
-// bias (N,) is f32 when bias_f32, else bf16; res (M, N) bf16, read by EPI_RES
-// only. M >= 0 any; N and K positive multiples of 8 and every pointer 16-byte
+// bias (N,) is f32 when bias_f32, else bf16, and not read by EPI_NONE (it
+// may be null there); res (M, N) bf16, read by EPI_RES only. M >= 0 any; N and K positive multiples of 8 and every pointer 16-byte
 // aligned (TMA's rule: the row pitch and the base address); anything else
 // returns cudaErrorInvalidValue.
 extern "C" int mtt_gemm_bf16(const void* a, const void* b, void* out, const void* bias,

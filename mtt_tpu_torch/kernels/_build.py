@@ -50,12 +50,10 @@ _SIGNATURES = {
     "mtt_attn_generic_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_L] * 9,
                               _F, _P),
     "mtt_mlp_ln_res_bf16": (*[_P] * 10, _I, _I, _I, _F, _I, _P),
-    "mtt_task_decode_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _P),
+    "mtt_task_decode_bf16": (*[_P] * 10, *[_I] * 8, _P),
     "mtt_attn_bwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     "mtt_mlp_fc_bf16": (*[_P] * 7, _I, _I, _I, _I, _P),
-    "mtt_head_up4_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _P),
+    "mtt_head_up4_bf16": (*[_P] * 9, *[_I] * 8, _P),
     "mtt_invpt_attention_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _I, _F, _P),
     "mtt_invpt_tail_bf16": (*[_P] * 15, _I, _I, _I, _I, _I, _I, _I, _P),

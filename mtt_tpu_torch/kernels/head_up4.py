@@ -1,21 +1,26 @@
-"""Fused up4 ConvHead: the CUDA kernel (csrc/head_up4.cu) and its plain
-version.
+"""Fused up4 ConvHead: the CUDA kernels (csrc/head_up4.cu) and their plain
+versions.
 
 Port of mtt_tpu/kernels/head_up4.py ``fused_up4_head`` (``_head_kernel_stencil``,
 the default, whose function ``_head_kernel`` and ``_head_kernel_stencil2``
 share): conv3x3-SAME(bilinear_upsample4(x)) with the channel contraction at
 low resolution, the folded-BN affine, the fast polynomial GELU and the 1x1,
-with only the (B, 4gh, 4gw, n) f32 logits reaching device memory. The 1x1
-bias is the caller's, as in JAX.
+with the (B, 4gh, 4gw, n) f32 logits the only output. The 1x1 bias is the
+caller's, as in JAX.
 
-Rounding points, kept by the kernel and the plain version alike: Gm and the
+Rounding points, kept by the kernels and the plain versions alike: Gm and the
 width mix rounded to the activation dtype; the height mix, the affine and the
 GELU in f32; the GELU output rounded to the dtype; the 1x1 accumulated in f32.
 The TPU kernel sums its per-chunk logits in bf16 (a VMEM budget); the port
-keeps them in f32. The TPU wrapper zero-pads the output channels to its
-128-lane chunks (head_up4.py:361-374); the CUDA wrapper pads them to the
-kernel's 32-channel chunks, and the input channels to 16 for the tensor-core
-tiles, with zeros that add nothing.
+keeps them in f32.
+
+On the card the head is two launches cut at the first rounding: Gm (B gh gw,
+9 D) on the port's shared wgmma GEMM, into a scratch from ``torch.empty``,
+then the mix kernel from Gm to the logits. Their plain versions are
+``head_up4_gm_plain`` and ``head_up4_mix_plain``, whose composition is
+``head_up4_plain``. The wrapper pads the input and output channels to 8 (TMA
+reads rows whose pitch is a multiple of 16 bytes) and the logits to 16 for
+the tensor-core tiles, with zeros that add nothing.
 
 The gradient is torch autograd through ``head_up4_plain``, as the JAX custom
 VJP differentiates its XLA composition (head_up4.py:496-519); the training
@@ -33,21 +38,35 @@ import torch.nn.functional as F
 from mtt_tpu_torch.kernels import _build
 from mtt_tpu_torch.kernels.mlp import gelu_erf_poly_fast
 from mtt_tpu_torch.models.layers import (_up4_shift_stack_np, on_device,
-                                         up4_conv3x3_factored)
+                                         up4_conv3x3_factored, up4_conv3x3_gm,
+                                         up4_conv3x3_mix)
 
-_DC = 32     # output channels per kernel chunk (csrc/head_up4.cu)
-_NC = 32     # logits per kernel block
+MAX_LOGITS = 128   # the mix kernel keeps every logit of a pixel in registers
+
+
+def _affine_gelu_1x1(Y, inv, addv, kp, dt):
+    t = gelu_erf_poly_fast(Y * inv.float()[:, None, None]
+                           + addv.float()[:, None, None]).to(dt)
+    return torch.einsum("bdWH,dn->bHWn", t.float(), kp.to(dt).float())
 
 
 def head_up4_plain(x, kc, inv, addv, kp):
     """x (B, gh, gw, C); kc (3, 3, C, D) HWIO; inv/addv (D,) f32 folded BN;
     kp (D, n) -> (B, 4gh, 4gw, n) f32 logits without the 1x1 bias. The XLA
     twin ``_head_xla`` with the kernel's fast GELU."""
-    dt = x.dtype
-    Y = up4_conv3x3_factored(x, kc)                   # (B, D, W4, H4) f32
-    t = gelu_erf_poly_fast(Y * inv.float()[:, None, None]
-                           + addv.float()[:, None, None]).to(dt)
-    return torch.einsum("bdWH,dn->bHWn", t.float(), kp.to(dt).float())
+    return _affine_gelu_1x1(up4_conv3x3_factored(x, kc), inv, addv, kp,
+                            x.dtype)
+
+
+# the first launch's function: Gm = x . kc over the 9 taps, rounded to x's
+# dtype once; (B, gh, gw, 3, 3, D)
+head_up4_gm_plain = up4_conv3x3_gm
+
+
+def head_up4_mix_plain(gm, inv, addv, kp):
+    """The second launch's function, from Gm (B, gh, gw, 3, 3, D) to the f32
+    logits (B, 4gh, 4gw, n)."""
+    return _affine_gelu_1x1(up4_conv3x3_mix(gm), inv, addv, kp, gm.dtype)
 
 
 def _check(x, kc, inv, addv, kp):
@@ -67,6 +86,18 @@ def _check(x, kc, inv, addv, kp):
             raise ValueError("up4 head inputs must be on one device")
 
 
+def check_head_up4_shape(gh: int, gw: int, n: int) -> None:
+    """Raises unless the kernels take the head: the grids the JAX kernel
+    admits (head_up4.py:_ok), sides multiples of 4 and at least 8, square or
+    not (NYUD's 28x36), and at most MAX_LOGITS logits, at any width."""
+    if gh % 4 or gw % 4 or gh < 8 or gw < 8:
+        raise ValueError(f"the up4 head kernel takes grids with sides % 4 == "
+                         f"0 and >= 8, got {gh}x{gw}")
+    if n > MAX_LOGITS:
+        raise ValueError(f"the up4 head kernel takes at most {MAX_LOGITS} "
+                         f"logits, got {n}")
+
+
 @functools.lru_cache(maxsize=32)
 def _bands(g: int) -> np.ndarray:
     """(4g, 3, 3) band of the shifted upsample stack: [W, l, dw] is the
@@ -81,45 +112,44 @@ def _bands(g: int) -> np.ndarray:
     return out
 
 
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
 def head_up4_cuda(x, kc, inv, addv, kp):
-    """The kernel takes the grids the JAX kernel admits (head_up4.py:_ok):
-    sides multiples of 4 and at least 8, square or not (NYUD's 28x36), and
-    at most 128 logits, at any width (above C = 512 it streams the input
-    channels, see csrc/head_up4.cu). Anything else raises. Unlike the TPU,
-    which sends a head whose VMEM estimate fails ``_ok`` (NYUD's 40-class
-    semseg at C = 768) to the XLA composition, the card takes every width
-    here."""
+    """Two launches: Gm on the shared GEMM into a (B gh gw, 9 DP) bf16
+    scratch, then the mix kernel. Unlike the TPU, which sends a head whose
+    VMEM estimate fails ``_ok`` (NYUD's 40-class semseg at C = 768) to the
+    XLA composition, the card takes every width. Per call the wrapper lays
+    out what the kernels read: kc as (9 DP, CP), K-major for the GEMM, and
+    kp padded to (DP, NP); x is padded only where C % 8 != 0 (PASCAL's
+    350)."""
     B, gh, gw, C = x.shape
     D = kc.shape[-1]
     n = kp.shape[-1]
-    if gh % 4 or gw % 4 or gh < 8 or gw < 8:
-        raise ValueError(f"the up4 head kernel takes grids with sides % 4 == "
-                         f"0 and >= 8, got {gh}x{gw}")
-    if n > 128:
-        raise ValueError(f"the up4 head kernel takes at most 128 logits, got "
-                         f"{n}")
+    check_head_up4_shape(gh, gw, n)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the up4 head kernel takes bfloat16, got {x.dtype}")
     dt = x.dtype
-    CP = -(-C // 16) * 16
-    DP = -(-D // _DC) * _DC
-    NP = -(-n // _NC) * _NC
-    xp = F.pad(x, (0, CP - C)).contiguous()
-    # wf (DP/32, CP, 3, 3, 32): the kernel per chunk of 32 output channels
-    kcp = F.pad(kc.to(dt), (0, DP - D, 0, CP - C))
-    wf = kcp.reshape(3, 3, CP, DP // _DC, _DC).permute(3, 2, 0, 1, 4) \
-        .contiguous()
+    CP, DP, NP = _pad8(C), _pad8(D), -(-n // 16) * 16
+    xa = (x if CP == C else F.pad(x, (0, CP - C))).contiguous()
+    wg = kc.to(dt).permute(0, 1, 3, 2)                # (3, 3, D, C)
+    if CP != C or DP != D:
+        wg = F.pad(wg, (0, CP - C, 0, DP - D))
+    wg = wg.contiguous()
+    kpp = F.pad(kp.to(dt), (0, NP - n, 0, DP - D)).contiguous()
+    invf, addvf = inv.float().contiguous(), addv.float().contiguous()
     swb = on_device(_bands, gw, x.device)
     shb = on_device(_bands, gh, x.device)
-    invp = F.pad(inv.float(), (0, DP - D)).contiguous()
-    addvp = F.pad(addv.float(), (0, DP - D)).contiguous()
-    kpp = F.pad(kp.to(dt), (0, NP - n, 0, DP - D)).contiguous()
+    _build.check_aligned("the up4 head kernels", xa, wg, kpp, invf, addvf)
+    gm = x.new_empty(B * gh * gw, 9 * DP)
     out = torch.empty(B, 4 * gh, 4 * gw, n, dtype=torch.float32,
                       device=x.device)
     _build.check(_build.lib().mtt_head_up4_bf16(
-        xp.data_ptr(), wf.data_ptr(), swb.data_ptr(), shb.data_ptr(),
-        invp.data_ptr(), addvp.data_ptr(), kpp.data_ptr(), out.data_ptr(), B,
-        gh, gw, CP, DP, n, _build.stream()), "mtt_head_up4_bf16")
+        xa.data_ptr(), wg.data_ptr(), kpp.data_ptr(), invf.data_ptr(),
+        addvf.data_ptr(), swb.data_ptr(), shb.data_ptr(), gm.data_ptr(),
+        out.data_ptr(), B, gh, gw, CP, D, DP, n, NP, _build.stream()),
+        "mtt_head_up4_bf16")
     return out
 
 

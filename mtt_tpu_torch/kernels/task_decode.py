@@ -3,9 +3,9 @@ projection: the CUDA kernel (csrc/task_decode.cu) and its plain version.
 
 Port of mtt_tpu/kernels/task_decode.py ``fused_task_decode``
 (``_decode_kernel``), chan_nheads == 1. The TPU wrapper padded S to 128 for
-its tiling; the CUDA kernel masks its ragged row block instead. tar and F need
-not be multiples of 16: the wrapper pads the weight rows with zeros, so the
-padded f/fc columns are exactly 0, and the kernel masks the store of y.
+its tiling; the CUDA kernel reads x, ws, wc and wf with TMA, whose zero fill
+covers the ragged rows, tar, F and K, so nothing is padded per call, and it
+masks the store of y. a, cw and the biases are read as stored (f32 or bf16).
 
 Layouts follow the grouped 1x1 convs' torch weights viewed per task:
 x (B, S, C); a (B, T, S, G) head-major groups; cw (B, T, C);
@@ -25,7 +25,6 @@ CUDA tensor always runs the kernel.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from mtt_tpu_torch.kernels import _build
 
@@ -79,11 +78,26 @@ def _check(x, a, cw, ws, bs, wc, bc, wf, bf):
             raise ValueError("task-decode inputs must be on one device")
 
 
-def _pad16(n: int) -> int:
-    return -(-n // 16) * 16
+MAX_TAR, MAX_FIN = 304, 352   # two consumer warpgroups' wgmma widths
+
+
+def check_task_decode_widths(C: int, G: int, tar: int, fin: int) -> None:
+    """Raises unless the kernel takes the widths: C and C / G multiples of 8
+    (TMA rows of 16-byte pitch, whole 16-byte units of one head group), tar
+    a multiple of 4 up to MAX_TAR (wf's rows of 2 tar elements at a 16-byte
+    pitch) and F even up to MAX_FIN (the 4-byte stores of y)."""
+    if C % 8 or C % G or (C // G) % 8 or tar % 4 or tar > MAX_TAR \
+            or fin % 2 or fin > MAX_FIN:
+        raise ValueError(
+            f"the task-decode kernel needs C % 8 == 0, (C / G) % 8 == 0, "
+            f"tar % 4 == 0 and tar <= {MAX_TAR}, F % 2 == 0 and F <= "
+            f"{MAX_FIN}; got C={C}, G={G}, tar={tar}, F={fin}")
 
 
 def task_decode_cuda(x, a, cw, ws, bs, wc, bc, wf, bf):
+    """One launch; nothing is padded or cast per call: the weights are read
+    as the grouped convs store them, a, cw and the biases in their stored
+    dtype (the three biases share one)."""
     B, S, C = x.shape
     T, tar, _ = ws.shape
     fin = wf.shape[1]
@@ -91,27 +105,18 @@ def task_decode_cuda(x, a, cw, ws, bs, wc, bc, wf, bf):
     dt = torch.bfloat16
     if x.dtype != dt or ws.dtype != dt or wc.dtype != dt or wf.dtype != dt:
         raise TypeError("the task-decode kernel takes bfloat16 x and weights")
-    TP, FP = _pad16(tar), _pad16(fin)
-    if C % 16 or (C // G) % 8 or TP > 384 or FP > 384 or C > 1024:
-        raise ValueError(f"the task-decode kernel needs C % 16 == 0, "
-                         f"C <= 1024, (C / G) % 8 == 0, tar and F <= 384; "
-                         f"got C={C}, G={G}, tar={tar}, F={fin}")
-    # zero rows pad tar and F to 16; the [f; fc] halves of wf each to TP
-    wsp = F.pad(ws, (0, 0, 0, TP - tar))
-    wcp = F.pad(wc, (0, 0, 0, TP - tar))
-    wfp = torch.zeros(T, FP, 2 * TP, dtype=dt, device=x.device)
-    wfp[:, :fin, :tar] = wf[:, :, :tar]
-    wfp[:, :fin, TP:TP + tar] = wf[:, :, tar:]
-    bsp = F.pad(bs.float(), (0, TP - tar))
-    bcp = F.pad(bc.float(), (0, TP - tar))
-    bfp = F.pad(bf.float(), (0, FP - fin))
-    ab = a.to(dt).contiguous()
-    cwb = cw.to(dt).contiguous()
+    check_task_decode_widths(C, G, tar, fin)
+    if not bs.dtype == bc.dtype == bf.dtype:
+        raise TypeError(f"the task-decode biases must share a dtype, got "
+                        f"{bs.dtype}, {bc.dtype}, {bf.dtype}")
+    flags = _build.param_flags(a, cw, bs)
+    # TMA's operands; the biases are read in pairs
+    _build.check_aligned("the task-decode kernel", x, ws, wc, wf, bs, bc, bf)
     out = torch.empty(B, S, T * fin, dtype=dt, device=x.device)
     _build.check(_build.lib().mtt_task_decode_bf16(
-        x.data_ptr(), ab.data_ptr(), cwb.data_ptr(), wsp.data_ptr(),
-        bsp.data_ptr(), wcp.data_ptr(), bcp.data_ptr(), wfp.data_ptr(),
-        bfp.data_ptr(), out.data_ptr(), B, S, C, T, G, TP, fin, FP,
+        x.data_ptr(), a.data_ptr(), cw.data_ptr(), ws.data_ptr(),
+        bs.data_ptr(), wc.data_ptr(), bc.data_ptr(), wf.data_ptr(),
+        bf.data_ptr(), out.data_ptr(), B, S, C, T, G, tar, fin, flags,
         _build.stream()), "mtt_task_decode_bf16")
     return out
 

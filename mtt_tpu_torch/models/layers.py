@@ -294,6 +294,27 @@ def on_device(make, g, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(make(g)).to(device)
 
 
+def up4_conv3x3_gm(x, kernel):
+    """The channel contraction of the factored conv3x3(upsample4): Gm = x .
+    W[k, l] for the 9 taps, in x's dtype. x (B, gh, gw, C), kernel HWIO (3,
+    3, C, D) -> (B, gh, gw, 3, 3, D)."""
+    B, gh, gw, C = x.shape
+    D = kernel.shape[-1]
+    Wf = kernel.to(x.dtype).permute(2, 0, 1, 3).reshape(C, 9 * D)
+    return torch.matmul(x.reshape(-1, C), Wf).reshape(B, gh, gw, 3, 3, D)
+
+
+def up4_conv3x3_mix(G6):
+    """The width mix of Gm (B, gh, gw, 3, 3, D), rounded to its dtype, then
+    the height mix in f32, through the shifted upsample matrices; returns
+    channel-major (B, D, 4gw, 4gh) f32."""
+    gh, gw = G6.shape[1:3]
+    Sw = on_device(_up4_shift_stack_np, gw, G6.device).to(G6.dtype)
+    Sh = on_device(_up4_shift_stack_np, gh, G6.device)
+    M = torch.einsum("bhwkld,wlW->bhkdW", G6, Sw)
+    return torch.einsum("bhkdW,hkH->bdWH", M.float(), Sh)
+
+
 def up4_conv3x3_factored(x, kernel):
     """Exact conv3x3-SAME(bilinear_upsample4(x)) with the channel contraction
     at low resolution (mtt_tpu/models/layers.py:550-584): Gm = x . W[k, l]
@@ -302,15 +323,7 @@ def up4_conv3x3_factored(x, kernel):
     width mix to x's dtype, the height mix in f32. x (B, gh, gw, C), kernel
     HWIO (3, 3, C, D); returns channel-major (B, D, 4gw, 4gh) f32. A torch
     composition, as it is XLA in JAX; the training head runs it."""
-    B, gh, gw, C = x.shape
-    D = kernel.shape[-1]
-    dt = x.dtype
-    Wf = kernel.to(dt).permute(2, 0, 1, 3).reshape(C, 9 * D)
-    G6 = torch.matmul(x.reshape(-1, C), Wf).reshape(B, gh, gw, 3, 3, D)
-    Sw = on_device(_up4_shift_stack_np, gw, x.device).to(dt)
-    Sh = on_device(_up4_shift_stack_np, gh, x.device)
-    M = torch.einsum("bhwkld,wlW->bhkdW", G6, Sw)
-    return torch.einsum("bhkdW,hkH->bdWH", M.float(), Sh)
+    return up4_conv3x3_mix(up4_conv3x3_gm(x, kernel))
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

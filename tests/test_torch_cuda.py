@@ -138,17 +138,57 @@ def test_mlp_kernel_refuses_unaligned_views(gen):
         fused_mlp_ln_res(xv, *rest)
 
 
+def _decode_args(gen, B, S, C, T, G, tar, fin, cw_dtype=torch.float32,
+                 bias_dtype=torch.bfloat16, a_dtype=torch.bfloat16):
+    return (_rnd(gen, B, S, C), _rnd(gen, B, T, S, G, dtype=a_dtype),
+            _rnd(gen, B, T, C, dtype=cw_dtype),
+            _rnd(gen, T, tar, C, std=C ** -0.5),
+            _rnd(gen, T, tar, std=0.1, dtype=bias_dtype),
+            _rnd(gen, T, tar, C, std=C ** -0.5),
+            _rnd(gen, T, tar, std=0.1, dtype=bias_dtype),
+            _rnd(gen, T, fin, 2 * tar, std=(2 * tar) ** -0.5),
+            _rnd(gen, T, fin, std=0.1, dtype=bias_dtype))
+
+
 @pytest.mark.parametrize("S,tar,fin", [(50, 300, 350), (64, 16, 40)])
 def test_task_decode_kernel(gen, S, tar, fin):
     from mtt_tpu_torch.kernels.task_decode import fused_task_decode
-    B, C, T, G = 2, 256, 3, 4
-    args = (_rnd(gen, B, S, C), _rnd(gen, B, T, S, G),
-            _rnd(gen, B, T, C, dtype=torch.float32),
-            _rnd(gen, T, tar, C, std=C ** -0.5), _rnd(gen, T, tar, std=0.1),
-            _rnd(gen, T, tar, C, std=C ** -0.5), _rnd(gen, T, tar, std=0.1),
-            _rnd(gen, T, fin, 2 * tar, std=(2 * tar) ** -0.5),
-            _rnd(gen, T, fin, std=0.1))
+    args = _decode_args(gen, 2, S, 256, 3, 4, tar, fin)
     _check(fused_task_decode(*args), fused_task_decode(*args, impl="plain"))
+
+
+# the main path's (8, 1024, 1024), ViT-B's C = 768, ragged row counts (one
+# short of and one past the 64-row tile, and a lone row) and K past its last
+# 64-wide chunk (C = 200); a, cw and the biases in either dtype
+@pytest.mark.parametrize("B,S,C,G,dts", [
+    (8, 1024, 1024, 16, ("bf16", "f32", "bf16")),
+    (8, 1024, 768, 16, ("bf16", "f32", "bf16")),
+    (2, 63, 768, 16, ("f32", "bf16", "f32")),
+    (3, 65, 1024, 16, ("bf16", "bf16", "f32")),
+    (1, 1, 256, 4, ("f32", "f32", "bf16")),
+    (2, 77, 200, 25, ("bf16", "f32", "bf16"))])
+def test_task_decode_kernel_shapes_and_repeat_bits(gen, B, S, C, G, dts):
+    """Within 4 ulps of the plain version, and two runs give equal bits (no
+    split-K, no atomics)."""
+    from mtt_tpu_torch.kernels.task_decode import fused_task_decode
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    args = _decode_args(gen, B, S, C, 5, G, 300, 350, a_dtype=dt[dts[0]],
+                        cw_dtype=dt[dts[1]], bias_dtype=dt[dts[2]])
+    got = fused_task_decode(*args)
+    _check(got, fused_task_decode(*args, impl="plain"))
+    assert torch.equal(got, fused_task_decode(*args))
+
+
+def test_task_decode_kernel_refuses_unaligned_views(gen):
+    """TMA reads 16-byte aligned data only: an x two bytes into its storage
+    raises and does not fall back."""
+    from mtt_tpu_torch.kernels.task_decode import fused_task_decode
+    x, *rest = _decode_args(gen, 2, 64, 256, 3, 4, 16, 40)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    xv = buf[1:].view_as(x)
+    xv.copy_(x)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_task_decode(xv, *rest)
 
 
 def test_model_goes_through_kernels(gen):
@@ -193,15 +233,48 @@ def test_model_goes_through_kernels(gen):
 def test_head_up4_kernel(gen, gh, gw, n, C):
     """Main-path grid with the smallest and largest n, NYUD's 28x36, and
     NYUD's C = 768 with its n (depth and edge, normals, semseg), where the
-    kernel streams the input channels (from C = 528 on; 528 ends in a
-    partial slice)."""
+    mix kernel walks slabs of channels (C = 528 ends in a partial one)."""
     from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
-    args = (_rnd(gen, 2, gh, gw, C, std=0.3),
+    args = _head_args(gen, 2, gh, gw, C, n)
+    _check(fused_up4_head(*args), fused_up4_head(*args, impl="plain"))
+
+
+def _head_args(gen, B, gh, gw, C, n):
+    return (_rnd(gen, B, gh, gw, C, std=0.3),
             _rnd(gen, 3, 3, C, C, std=(9 * C) ** -0.5),
             _rnd(gen, C, std=0.1, mean=1.0, dtype=torch.float32),
             _rnd(gen, C, std=0.1, dtype=torch.float32),
             _rnd(gen, C, n, std=C ** -0.5))
-    _check(fused_up4_head(*args), fused_up4_head(*args, impl="plain"))
+
+
+# n = 128 (every logit in one pass); grids whose row ranges end short (28 or
+# 36 rows over few strips) and a lone strip (gw = 8, one image); NYUD's 28x36
+# at C = 768 with n = 40 (four slabs); D not a multiple of the 64-channel
+# step (C = 200)
+@pytest.mark.parametrize("B,gh,gw,C,n", [
+    (2, 8, 8, 48, 128), (2, 12, 8, 350, 128), (8, 28, 8, 48, 5),
+    (1, 36, 8, 64, 3), (8, 28, 36, 768, 40), (2, 16, 12, 200, 21)])
+def test_head_up4_kernel_shapes_and_repeat_bits(gen, B, gh, gw, C, n):
+    """Within 4 ulps of the plain version, and two runs give equal bits (the
+    later slabs' logits are added to the first's in a fixed order)."""
+    from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
+    args = _head_args(gen, B, gh, gw, C, n)
+    got = fused_up4_head(*args)
+    _check(got, fused_up4_head(*args, impl="plain"))
+    assert torch.equal(got, fused_up4_head(*args))
+
+
+def test_head_up4_kernel_refuses_unaligned_views(gen):
+    """The Gm launch reads x with TMA, 16-byte aligned data only: an x two
+    bytes into its storage raises and does not fall back (C % 8 == 0, so the
+    wrapper copies nothing)."""
+    from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
+    x, *rest = _head_args(gen, 1, 8, 8, 64, 5)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    xv = buf[1:].view_as(x)
+    xv.copy_(x)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_up4_head(xv, *rest)
 
 
 @pytest.mark.parametrize("N,H", [(1, 4), (16, 4), (64, 4), (65, 4), (77, 4),

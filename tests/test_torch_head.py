@@ -142,3 +142,47 @@ def test_factored_head_train_matches_jax():
                                   mut["batch_stats"]})
     for k in ("mt_proj.bn.running_mean", "mt_proj.bn.running_var"):
         close(port.state_dict()[k], stats[k])
+
+
+@pytest.mark.parametrize("n", [1, 5])
+@pytest.mark.parametrize("gh,gw", [(8, 8), (8, 12)])
+def test_head_up4_stage_plains_compose_to_the_head(gh, gw, n):
+    """The card runs the head as two launches, Gm on the shared GEMM and the
+    mix kernel; their plain versions, composed, give head_up4_plain's bits
+    in bf16 (C = 48), and Gm has the kernel's (B, gh, gw, 3, 3, D) layout."""
+    from mtt_tpu_torch.kernels.head_up4 import (head_up4_gm_plain,
+                                                head_up4_mix_plain,
+                                                head_up4_plain)
+
+    x, kc, inv, addv, kp = _head_inputs(gh, gw, 48, n, seed=6)
+    args = (_t(x, torch.bfloat16), _t(kc), _t(inv), _t(addv), _t(kp))
+    gm = head_up4_gm_plain(args[0], args[1])
+    assert gm.shape == (2, gh, gw, 3, 3, 48) and gm.dtype == torch.bfloat16
+    got = head_up4_mix_plain(gm, *args[2:])
+    want = head_up4_plain(*args)
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("g", [8, 12, 28, 32, 36])
+def test_up4_bands_have_two_taps_per_output(g):
+    """The mix kernel reads two of the three band entries of each output row
+    or column per conv tap (csrc/head_up4.cu: tap_base): for output 4 s + p
+    and tap k the upsampled position p + k - 1 lies between low-res s - 1
+    and s when it is at most 1, else between s and s + 1. The third entry
+    is exactly 0, at the map's borders too; away from them the two weights
+    are the bilinear eighths."""
+    from mtt_tpu_torch.kernels.head_up4 import _bands
+
+    band = _bands(g)                                   # (4g, tap, 3)
+    for W in range(4 * g):
+        for k in range(3):
+            base = 0 if (W % 4) + k - 1 <= 1 else 1
+            assert band[W, k, 2 - 2 * base] == 0.0, (W, k, band[W, k])
+            if 4 <= W < 4 * g - 4:
+                # away from the borders, the bilinear eighths the kernel
+                # uses as constants (csrc/head_up4.cu: tap_weight)
+                pos8 = 2 * ((W % 4) + k - 1) - 3
+                f8 = pos8 + 8 if pos8 < 0 else pos8
+                assert band[W, k, base] == (8 - f8) / 8, (W, k)
+                assert band[W, k, base + 1] == f8 / 8, (W, k)

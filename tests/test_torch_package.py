@@ -178,6 +178,61 @@ def test_task_decode_wrapper_checks_shapes():
             fused_task_decode(*broken)
 
 
+@pytest.mark.parametrize("C,G,tar,fin", [(12, 3, 8, 10), (64, 16, 8, 10),
+                                         (64, 4, 6, 10), (64, 4, 308, 10),
+                                         (64, 4, 8, 7), (64, 4, 8, 354)])
+def test_task_decode_kernel_refuses_widths_before_launch(C, G, tar, fin):
+    """The kernel reads x and the weights with TMA (16-byte row pitches) and
+    splits tar and F over two warpgroups' products: C and C / G multiples of
+    8, tar % 4 == 0 up to 304, F even up to 352, else a ValueError that
+    names the limits, raised on the CPU before any launch; so are data not
+    on a 16-byte boundary and biases of two dtypes."""
+    from mtt_tpu_torch.kernels.task_decode import (check_task_decode_widths,
+                                                   task_decode_cuda)
+    bf = torch.bfloat16
+    B, S, T = 1, 4, 2
+
+    def args(C, G, tar, fin):
+        return [torch.zeros(B, S, C, dtype=bf), torch.zeros(B, T, S, G),
+                torch.zeros(B, T, C), torch.zeros(T, tar, C, dtype=bf),
+                torch.zeros(T, tar), torch.zeros(T, tar, C, dtype=bf),
+                torch.zeros(T, tar), torch.zeros(T, fin, 2 * tar, dtype=bf),
+                torch.zeros(T, fin)]
+
+    with pytest.raises(ValueError, match="task-decode kernel needs"):
+        task_decode_cuda(*args(C, G, tar, fin))
+    check_task_decode_widths(1024, 16, 300, 350)
+    check_task_decode_widths(768, 16, 304, 352)
+    good = args(64, 4, 8, 10)
+    buf = torch.zeros(B * S * 64 + 1, dtype=bf)
+    unaligned = [buf[1:].view(B, S, 64), *good[1:]]
+    with pytest.raises(ValueError, match="aligned"):
+        task_decode_cuda(*unaligned)
+    good[4] = good[4].to(bf)
+    with pytest.raises(TypeError, match="share a dtype"):
+        task_decode_cuda(*good)
+
+
+def test_up4_head_kernel_checks_before_launch():
+    """The head's grid and logit limits in one function the CPU can call,
+    and data not on a 16-byte boundary raise before any launch (the Gm
+    launch reads x with TMA)."""
+    from mtt_tpu_torch.kernels.head_up4 import (MAX_LOGITS,
+                                                check_head_up4_shape,
+                                                head_up4_cuda)
+    check_head_up4_shape(32, 32, 21)
+    check_head_up4_shape(28, 36, MAX_LOGITS)
+    for gh, gw, n in ((4, 8, 1), (8, 10, 1), (8, 8, MAX_LOGITS + 1)):
+        with pytest.raises(ValueError, match="up4 head kernel"):
+            check_head_up4_shape(gh, gw, n)
+    bf = torch.bfloat16
+    buf = torch.zeros(8 * 8 * 16 + 1, dtype=bf)
+    xv = buf[1:].view(1, 8, 8, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        head_up4_cuda(xv, torch.zeros(3, 3, 16, 16, dtype=bf), torch.ones(16),
+                      torch.zeros(16), torch.zeros(16, 5, dtype=bf))
+
+
 def test_kernel_build_needs_no_card_to_import_and_hashes_sources():
     """Importing the build helper compiles nothing; the library path is
     keyed by the sources' hash."""
