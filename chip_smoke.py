@@ -16,12 +16,14 @@ Phases, in order (the seconds each took are printed):
      also at InvPT's cross shape with head dim 72; the task decode and the
      up4 head also at ViT-B's C = 768, the head also at NYUD's C = 768 for
      n = 1, 3, 40; both equal across two runs, their bit-equal share to
-     the plain version printed), the earlier kernels again
+     the plain version printed, as for the multi-scale tail and the window
+     attention), the earlier kernels again
      at the shapes the InvPT path adds (N = 1025, LayerNorm rows of 2880, MLP
      widths 576, 288, 144; the tail on NYUD's non-square grid), and the Swin
      path's at its shapes (window attention and its backward at the four
-     Swin-B stages with and without the shift mask, the backward's dbias
-     equal across two runs, as are rows 7, 8, 13 and 14 and the projection;
+     Swin-B stages with and without the shift mask, both equal across two
+     runs, the backward's dbias too, as are rows 7, 8, 10, 13 and 14 and
+     the projection;
      LayerNorm rows of 128 to 2048 at eps 1e-5; MLP widths 128 to 1024, down
      to the 3 prompt rows),
      and the safe softmax of rows 1, 2 and 13 (at least 99% of the outputs
@@ -906,13 +908,15 @@ def kernel_phase():
               flush=True)
 
     # the window attention backward sums dbias over the windows in a fixed
-    # order, and rows 5, 7, 13 and 14, the up4 head (which adds its slabs'
-    # logits in a fixed order) and the shared GEMM (row 8, the qkv
-    # projection) sum without atomics: two runs give the same bits
+    # order, and rows 5, 7, 11, 13 and 14, the up4 head and the InvPT tail
+    # (which add their slabs' logits in a fixed order) and the shared GEMM
+    # (row 8, the qkv projection) sum without atomics: two runs give the
+    # same bits
     for name, case in cases.items():
-        if name.startswith(("window_attention_bwd", "attention_bwd",
+        if name.startswith(("window_attention", "attention_bwd",
                             "attention_generic", "attention_qkv", "mlp_fc",
-                            "qkv_proj", "task_decode", "head_up4")):
+                            "qkv_proj", "task_decode", "head_up4",
+                            "invpt_tail")):
             a, b = case[0]("cuda"), case[0]("cuda")
             a = a if isinstance(a, tuple) else (a,)
             b = b if isinstance(b, tuple) else (b,)
@@ -922,7 +926,9 @@ def kernel_phase():
           "two runs at every stage, with and without the mask; "
           "attention_bwd (dqkv), attention_generic (self and cross shapes), "
           "attention_qkv (fast and safe), mlp_fc (every shape), qkv_proj, "
-          "task_decode and head_up4 (every shape) equal across two runs",
+          "task_decode, head_up4, invpt_tail (both forms, PASCAL and NYUD) "
+          "and window_attention (every stage, with and without the mask) "
+          "equal across two runs",
           flush=True)
 
     # the safe softmax (every training forward) takes the max over ALL keys
@@ -939,10 +945,13 @@ def kernel_phase():
     def share(got, want):
         return (got == want).float().mean().item()
 
-    # the shared GEMM's one rounding against the plain stage's; rows 5 and
-    # 6 (the head's logits are f32 sums, whose order differs)
+    # the shared GEMM's one rounding against the plain stage's; rows 5, 6
+    # and 10 (the heads' logits are f32 sums, whose order differs) and 11
     for name in ("qkv_proj", "mlp_fc", "task_decode", "task_decode@C768",
-                 "head_up4", "head_up4@C768", "head_up4@nyud_n40"):
+                 "head_up4", "head_up4@C768", "head_up4@nyud_n40",
+                 "invpt_tail", "invpt_tail_head", "invpt_tail@nyud",
+                 "invpt_tail_head@nyud", "window_attention",
+                 "window_attention@stage0", "window_attention@stage0+mask"):
         sh = share(cases[name][0]("cuda"), cases[name][0]("plain"))
         results[name]["bit_equal_share"] = sh
         print(f"[kernel] {name}: bit-equal share {sh:.6f} of the outputs",
@@ -1987,16 +1996,20 @@ PROFILE_GROUPS = (# the shared GEMM (gemm.cu) by its epilogue: fc1 of rows 4
                   ("gemm_kernel<1,", "GEMM + bias + residual (fc2, row 4)"),
                   ("gemm_kernel<2,", "GEMM + bias (qkv of rows 1-2, fc2 of "
                                      "row 8)"),
-                  # the up4 head's Gm launch, then its mix kernel below
+                  # the up4 head's Gm launch, then its mix kernel below;
+                  # the InvPT tail's three Gm launches, then its mix kernel
                   ("gemm_kernel<3,", "up4 head"),
+                  ("gemm_kernel<4,", "InvPT tail"),
                   ("gemm_kernel", "GEMM (gemm.cu)"),
                   ("wattn_bwd", "window attention backward"),
                   ("wattn_dbias", "window attention backward"),
                   ("attn_bwd", "attention backward"),
                   # rows 1, 2 and 13: attn_generic_kernel under its fast
-                  # (1) and safe (2) softmax policies
+                  # (1) and safe (2) softmax policies; row 11 past 160
+                  # tokens a window under its window policy (3)
                   ("attn_generic_kernel<64, 1>", "attention core"),
                   ("attn_generic_kernel<64, 2>", "attention core"),
+                  ("attn_generic_kernel<32, 3>", "window attention"),
                   ("attn_generic", "generic attention"),
                   ("ln_kernel", "layernorm"), ("task_decode", "task decode"),
                   ("head_up4", "up4 head"),

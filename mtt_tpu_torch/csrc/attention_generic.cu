@@ -1,20 +1,28 @@
-// Softmax attention core for Hopper, one kernel template over three softmax
+// Softmax attention core for Hopper, one kernel template over four softmax
 // policies:
 //   Generic, row 14: out = softmax(q k^T * scale) v over separate (B, Nq, H,
 //     D) q and (B, Nk, H, D) k, v, max-subtracted.
 //   Fast and Safe, rows 1-2's third launch and row 13: attention over the
 //     head-major packed qkv (B, N, H*3*64), fast exp2 or exact-max softmax.
+//   Window, row 11 past 160 tokens a window: Swin window attention over the
+//     packed (BW, M, 3, H, 32) qkv with a per-head bias and a per-window
+//     mask, max-subtracted.
 //
 // Replaces mtt_tpu/kernels/attention.py:_attn_kernel (pallas_call at :165,
-// wrapper fused_attention at :984) and _attn_qkv_kernel (:230, pallas_call
+// wrapper fused_attention at :984), _attn_qkv_kernel (:230, pallas_call
 // at :257; the same core inside _attn_ln_qkv_cached_kernel :423 and
-// _attn_ln_qkv_kernel :393). Rounding points, kept by the plain versions
-// (kernels/attention.py: attention_generic_plain, attention_qkv_plain):
+// _attn_ln_qkv_kernel :393) and _wattn_kernel (:778, pallas_call at :820).
+// Rounding points, kept by the plain versions (kernels/attention.py:
+// attention_generic_plain, attention_qkv_plain; kernels/window_attention.py:
+// window_attention_plain):
 //   Generic: q' = bf16(q * bf16(scale))      (the JAX wrapper folds the scale)
 //            p  = exp(s - max_k s)           (f32, the row max over ALL keys)
 //   Fast:    q' = bf16(q * s2), s2 = bf16(scale * log2 e)
 //            p  = exp2(clamp(s, -120, hi)), hi = 126 - ceil(log2 N), no max
 //   Safe:    q' as Fast, p = exp2(s - max_k s) over ALL keys
+//   Window:  q' = q; l = s * scale + bias[h, q, k] + mask[w % nW, q, k] in
+//            f32 (the scale multiplies the f32 logits, it is not folded
+//            into q), p = exp(l - max_k l) over ALL keys, the accurate expf
 //   all:     s = q' k^T in f32 (bf16 tensor cores, f32 accumulate),
 //            o = bf16(p) v / sum_k p  (the sum unrounded, the division after
 //            P.V, rounded once)
@@ -22,12 +30,14 @@
 // keys to a multiple of 128 behind a -1e30 bias row; this kernel reads the
 // (B, N, H) strides directly and masks the ragged key tile, which is the same
 // function. Rows 1, 2 and 13 read q, k and v as strided views of the packed
-// qkv: strides (N*3C, 3C, 3*64), bases qkv + 0, 64, 128.
+// qkv: strides (N*3C, 3C, 3*64), bases qkv + 0, 64, 128; row 11 the same
+// way from the Swin block's (BW, M, 3, H, 32) projection, writing (BW, M, H *
+// 32), which the output projection takes: no transpose is launched.
 //
 // What bounds it on the H100: at a ViT-L self-attention shape (B=8, N=1029,
 // H=16, D=64) it is 35 GFLOP on the tensor cores against 34 MB of q, k, v and
 // out, so the operations bound it; at InvPT's cross shape (q 5120 rows, k/v
-// 320 rows, D=72) the bytes do.
+// 320 rows, D=72) the bytes do, and for Swin windows too.
 //
 // Design: every product is an mma.sync m16n8k16 (bf16, f32 accumulate) whose
 // operands come from registers or ldmatrix; the scores never touch shared
@@ -68,6 +78,13 @@
 // (shared memory allows 3 blocks an SM): 1,280 blocks, 3.23 waves.
 // One m16 tile a warp at head dims up to 64 (4 blocks an SM) measured the
 // same within the run-to-run spread; so did a third ring buffer.
+//
+// The Window policy (row 11 past 160 tokens a window; window_attention.cu
+// takes the shorter ones in one pass, faster at Swin-B's 147): query tiles of
+// 64 rows (one m16 tile a warp). The scores get the logit scale, the head's
+// bias row and the window's mask row in f32 in both passes, so the max of
+// pass 1 is over the values that pass 2 exponentiates; bias and mask are
+// read where they lie, one float a load, through the read-only cache.
 #include "common.cuh"
 
 using namespace mtt;
@@ -80,15 +97,16 @@ constexpr int STAGES = 2;     // ring buffers of K and V
 constexpr float kLog2e = 1.4426950408889634f;
 
 // softmax policies (see the head of this file)
-enum Policy { kGeneric, kFast, kSafe };
+enum Policy { kGeneric, kFast, kSafe, kWindow };
 
 // Query m16 tiles per warp and blocks per SM for each head-dim tile: two m16
 // tiles share every K and V fragment (half the shared-memory reads per
-// product) where the registers allow it.
-template <int DT>
+// product) where the registers allow it; one for the Window policy, whose
+// 147-row windows waste less in 64-row blocks.
+template <int DT, int POL>
 struct GenTile {
-  static constexpr int MT = DT <= 64 ? 2 : 1;
-  static constexpr int MIN_BLOCKS = DT <= 64 ? 2 : (DT <= 80 ? 3 : 2);
+  static constexpr int MT = POL == kWindow ? 1 : (DT <= 64 ? 2 : 1);
+  static constexpr int MIN_BLOCKS = POL == kWindow ? 3 : (DT <= 64 ? 2 : (DT <= 80 ? 3 : 2));
   static constexpr int LD = DT + 8;
   static constexpr int ROWS = 64 * MT;
   static constexpr int STAGE = 2 * GK * LD;  // K tile then V tile (elements)
@@ -138,9 +156,37 @@ __device__ __forceinline__ void row_max64(const float (&sc)[MT][8][4], int kvt, 
         if (!MASK || j * 8 + (e & 1) < kvt) m[mt][e >> 1] = fmaxf(m[mt][e >> 1], sc[mt][j][e]);
 }
 
+// The Window policy's logits over 64 keys from k0, in place: s * scale +
+// bias[q, key] + mask[q, key] (mask may be null) in f32, rounded after each
+// operation as the plain version rounds, for the warp's MT m16 tiles of query
+// rows from q0. Rows past N and keys past N read row or key N - 1: their
+// values are never used.
+template <int MT>
+__device__ __forceinline__ void window_logits64(float (&sc)[MT][8][4], const float* __restrict__ bias,
+                                                const float* __restrict__ mask, int q0, int k0, int N,
+                                                float scale, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const size_t row = (size_t)min(q0 + mt * 16 + g + 8 * r, N - 1) * N;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int key = min(k0 + j * 8 + 2 * t + c, N - 1);
+          float& x = sc[mt][j][2 * r + c];
+          x = __fadd_rn(__fmul_rn(x, scale), __ldg(bias + row + key));
+          if (mask) x = __fadd_rn(x, __ldg(mask + row + key));
+        }
+    }
+}
+
 // p in f32 over 64 scores, in place, by the policy: Generic exp(s - m) =
 // exp2(s log2(e) - m log2(e)) (mlog = m log2(e)); Safe exp2(s - m) (the
-// scores and m already in log2 units); Fast exp2(clamp(s, -120, hi)).
+// scores and m already in log2 units); Window exp(s - m), the accurate expf
+// (mlog = m); Fast exp2(clamp(s, -120, hi)).
 // l += p unrounded. Keys at or past kvt get p = 0 where MASK.
 template <bool MASK, int MT, int POL>
 __device__ __forceinline__ void probs64(float (&sc)[MT][8][4], const float (&mlog)[MT][2], int kvt,
@@ -152,9 +198,10 @@ __device__ __forceinline__ void probs64(float (&sc)[MT][8][4], const float (&mlo
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float x = sc[mt][j][e];
-        float p = POL == kGeneric ? exp2f(fmaf(x, kLog2e, -mlog[mt][e >> 1]))
-                  : POL == kSafe  ? exp2f(x - mlog[mt][e >> 1])
-                                  : exp2f(fminf(fmaxf(x, -120.f), hi));
+        float p = POL == kGeneric  ? exp2f(fmaf(x, kLog2e, -mlog[mt][e >> 1]))
+                  : POL == kSafe   ? exp2f(x - mlog[mt][e >> 1])
+                  : POL == kWindow ? expf(x - mlog[mt][e >> 1])
+                                   : exp2f(fminf(fmaxf(x, -120.f), hi));
         if (MASK && j * 8 + (e & 1) >= kvt) p = 0.f;
         l[mt][e >> 1] += p;
         sc[mt][j][e] = p;
@@ -162,14 +209,17 @@ __device__ __forceinline__ void probs64(float (&sc)[MT][8][4], const float (&mlo
 }
 
 // scale: the factor q is multiplied by before its bf16 rounding (Generic
-// bf16(scale), Fast and Safe s2); hi: the Fast policy's upper clamp.
+// bf16(scale), Fast and Safe s2, Window 1); hi: the Fast policy's upper
+// clamp. Window: bias (H, N, N) and mask (nW, N, N) or null, f32, window b
+// taking mask b % nW; lscale multiplies the f32 logits.
 template <int DT, int POL>
-__global__ void __launch_bounds__(GTH, GenTile<DT>::MIN_BLOCKS) attn_generic_kernel(
+__global__ void __launch_bounds__(GTH, GenTile<DT, POL>::MIN_BLOCKS) attn_generic_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ out, int Nq, int Nk, int H, int D, long long sqb, long long sqn,
     long long sqh, long long skb, long long skn, long long skh, long long svb, long long svn,
-    long long svh, float scale, float hi) {
-  using T = GenTile<DT>;
+    long long svh, float scale, float hi, const float* __restrict__ bias,
+    const float* __restrict__ mask, int nW, float lscale) {
+  using T = GenTile<DT, POL>;
   constexpr int MT = T::MT, LD = T::LD, ROWS = T::ROWS, KS = DT / 16, NT = DT / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -181,6 +231,9 @@ __global__ void __launch_bounds__(GTH, GenTile<DT>::MIN_BLOCKS) attn_generic_ker
   const bf16* qb = q + b * sqb + h * sqh;
   const bf16* kb = k + b * skb + h * skh;
   const bf16* vb = v + b * svb + h * svh;
+  // Window: the head's bias rows and the window's mask rows
+  const float* wbias = POL == kWindow ? bias + (size_t)h * Nk * Nk : nullptr;
+  const float* wmask = POL == kWindow && mask ? mask + (size_t)(b % nW) * Nk * Nk : nullptr;
 
   // ring steps: n1 pass-1 tiles of 2 * GK keys (K only; none for the Fast
   // policy, which takes no max), then n2 pass-2 tiles of GK keys (K and V)
@@ -251,6 +304,9 @@ __global__ void __launch_bounds__(GTH, GenTile<DT>::MIN_BLOCKS) attn_generic_ker
         const int kv = Nk - s * 2 * GK - half * GK;  // valid keys from this half on
         if (kv <= 0) break;
         scores64<DT, MT>(qa, st + half * GK * LD, lane, sc);
+        if constexpr (POL == kWindow)
+          window_logits64<MT>(sc, wbias, wmask, q0 + wrow, s * 2 * GK + half * GK, Nk, lscale,
+                              lane);
         if (kv >= GK)
           row_max64<false, MT>(sc, 0, m);
         else
@@ -260,7 +316,8 @@ __global__ void __launch_bounds__(GTH, GenTile<DT>::MIN_BLOCKS) attn_generic_ker
     }
     if (POL != kFast && s == n1) {
       // the row max over all keys, in log2 units for exp2 (Safe: the scores
-      // are in log2 units already, q carrying log2(e) in s2)
+      // are in log2 units already, q carrying log2(e) in s2; Window: expf
+      // takes it as it is)
       const float to_log2 = POL == kGeneric ? kLog2e : 1.f;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
@@ -271,6 +328,8 @@ __global__ void __launch_bounds__(GTH, GenTile<DT>::MIN_BLOCKS) attn_generic_ker
     // pass 2: p in f32 by the policy, l += p, O += bf16(p) V
     const int kv = Nk - (s - n1) * GK;
     scores64<DT, MT>(qa, st, lane, sc);
+    if constexpr (POL == kWindow)
+      window_logits64<MT>(sc, wbias, wmask, q0 + wrow, (s - n1) * GK, Nk, lscale, lane);
     if (kv >= GK)
       probs64<false, MT, POL>(sc, m, 0, hi, l);
     else
@@ -323,8 +382,10 @@ __global__ void __launch_bounds__(GTH, GenTile<DT>::MIN_BLOCKS) attn_generic_ker
 
 template <int DT, int POL>
 int launch_generic(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int Nq, int Nk,
-                   int H, int D, const long long* st, float scale, float hi, cudaStream_t stream) {
-  using T = GenTile<DT>;
+                   int H, int D, const long long* st, float scale, float hi, cudaStream_t stream,
+                   const float* bias = nullptr, const float* mask = nullptr, int nW = 1,
+                   float lscale = 1.f) {
+  using T = GenTile<DT, POL>;
   const auto kernel = attn_generic_kernel<DT, POL>;
   // set on every launch: the attribute belongs to the current device's context
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
@@ -336,7 +397,8 @@ int launch_generic(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B
   // active warps, are dispatched last and fill the final wave's gaps
   dim3 grid(H, B, (Nq + T::ROWS - 1) / T::ROWS);
   kernel<<<grid, GTH, T::SMEM, stream>>>(q, k, v, out, Nq, Nk, H, D, st[0], st[1], st[2], st[3],
-                                         st[4], st[5], st[6], st[7], st[8], scale, hi);
+                                         st[4], st[5], st[6], st[7], st[8], scale, hi, bias,
+                                         mask, nW, lscale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -382,4 +444,27 @@ extern "C" int mtt_attn_core_bf16(const void* qkv, void* out, int B, int N, int 
                                           hi, s)
               : launch_generic<64, kFast>(base, base + AD, base + 2 * AD, op, B, N, N, H, AD, st, s2,
                                           hi, s);
+}
+
+// Row 11 past 160 tokens a window (window_attention.cu takes the shorter
+// ones in one pass): q, k, v (BW, M, H, 32) bf16 views that share their
+// strides in elements: sb between windows, sm between tokens, sh between
+// heads, 1 along the head dim (every stride % 8 == 0, the bases 16-byte
+// aligned); bias (H, M, M) f32; mask (nW, M, M) f32 or null, window w taking
+// mask w % nW -> out (BW, M, H * 32) bf16, contiguous. scale multiplies the
+// f32 logits.
+extern "C" int mtt_window_attention_streamed_bf16(const void* q, const void* k, const void* v,
+                                                  const void* bias, const void* mask, void* out,
+                                                  int BW, int M, int H, int nW, long long sb,
+                                                  long long sm, long long sh, float scale,
+                                                  void* stream) {
+  constexpr int WD = 32;
+  if (BW < 1 || BW > 65535 || M < 1 || H < 1 || (mask && (nW < 1 || BW % nW)) || sb % 8 ||
+      sm % 8 || sh % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long st[9] = {sb, sm, sh, sb, sm, sh, sb, sm, sh};
+  return launch_generic<WD, kWindow>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), BW, M, M, H, WD, st, 1.f, 0.f, static_cast<cudaStream_t>(stream),
+      static_cast<const float*>(bias), static_cast<const float*>(mask), mask ? nW : 1, scale);
 }

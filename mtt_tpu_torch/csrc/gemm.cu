@@ -11,6 +11,8 @@
 //                                        433-436)
 //   EPI_NONE  acc                        the up4 head's Gm, x . kc over its 9
 //                                        taps (head_up4.py:168-190)
+//   EPI_TAIL  acc                        the InvPT tail's Gm, one launch a
+//                                        scale (invpt_tail.py:297-330)
 // These products are the tensor-core work of their TPU kernels (138 GFLOP of
 // row 4 at ViT-L eval shapes, 52 GFLOP of one qkv projection), so the design
 // is about keeping the tensor cores fed. Warpgroup 0 produces: one thread
@@ -127,7 +129,7 @@ __device__ __forceinline__ void gemm_epilogue(float (&d)[2][64], uint32_t boxes,
     for (int j = 0; j < 16; ++j) {
       const int col = min(col0 + h * col_step + 8 * j, N - 2);
       float2 b = make_float2(0.f, 0.f);
-      if constexpr (EPI != EPI_NONE) b = load_pair(bias + col);
+      if constexpr (epi_reads_bias(EPI)) b = load_pair(bias + col);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float& v0 = d[h][4 * j + 2 * r];
@@ -363,6 +365,7 @@ extern "C" int mtt_gemm_bf16(const void* a, const void* b, void* out, const void
     case EPI_RES: return launch_gemm<EPI_RES>(a, b, out, bias, bias_f32, res, M, N, K, st);
     case EPI_BIAS: return launch_gemm<EPI_BIAS>(a, b, out, bias, bias_f32, res, M, N, K, st);
     case EPI_NONE: return launch_gemm_t<EPI_NONE, float>(a, b, out, nullptr, nullptr, M, N, K, st);
+    case EPI_TAIL: return launch_gemm_t<EPI_TAIL, float>(a, b, out, nullptr, nullptr, M, N, K, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

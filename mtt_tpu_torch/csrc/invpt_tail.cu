@@ -21,348 +21,419 @@
 // maps and the f32 conv output of the dense composition, and with the head the
 // feature map itself.
 //
-// Design (csrc/head_up4.cu with three scales): one block owns 8 output rows x
-// 32 output columns of one image and walks the output channels in chunks of
-// 32. Per chunk it stages the low-res rows and columns it needs with a halo
-// of one (18, 40 and 108 pixels of the three scales) in shared memory, takes
-// their Gm with wmma (the chunk's weights straight from L2, the two small
-// scales in one pass and the large one in a second, which is staged while the
-// first is mixed), and mixes width then height on the CUDA cores: each thread
-// owns 4 (column, channel) pairs and keeps their 8 output rows in f32 registers
-// across the three scales. Then the affine and the ReLU; without the head the chunk is stored, with it the chunk is rounded
-// to bf16 and its 1x1 product added into f32 wmma fragments that live through
-// the whole walk (a CUDA block cannot carry a sum to another block, so one
-// block owns its pixels for all channels, where the TPU kernel accumulates
-// over a sequential grid axis). The halo makes neighbouring blocks recompute
-// Gm rows: 2.1x the minimal contraction at these shapes, padding included.
+// Design: two stages, cut at the TPU kernel's first bf16 rounding, as the up4
+// head (head_up4.cu) is cut.
+//  1. Gm, once, on the port's shared wgmma/TMA GEMM (gemm.cu, EPI_TAIL: no
+//     bias, its own instantiation so that a profile counts it here): one
+//     launch a scale, x_s (B gh gw, CP) . kc^T (9 DP, CP) -> Gm_s (B gh gw,
+//     9 DP) bf16, the columns (k, l, d), into one scratch from the wrapper
+//     (446 MB at PASCAL, 439 MB at NYUD, alive only inside the call). No
+//     halo is formed twice: 257 GFLOP, the minimal contraction.
+//  2. invpt_tail_mix_kernel, from the three Gm to the output. A block owns a
+//     strip of 8 output columns (no ragged strip: tw % 8 == 0) of one image
+//     and a slab of 64 channels, and walks the strip down a range of output
+//     rows, two rows a step (rows 2i and 2i + 1 draw on the same low-res rows
+//     of every scale). A thread owns one column and a channel pair, and per
+//     scale it keeps the last three width-mixed low-res rows M_s of them in
+//     registers (only it forms and reads them): scale 2's advance every step,
+//     scale 1's every second and scale 0's every fourth, so each M value is
+//     formed once (the first two rows of a range are formed by the range
+//     above too), from Gm rows staged by cp.async two steps ahead. Each
+//     output row or column draws on 2 of the 3 band entries per conv tap
+//     (tap_base), and away from the borders the height weights are constant
+//     multiples of 1/(2f), so with the row pair's place in the group of 8
+//     rows unrolled they are immediates. Then the three scales' sum in f32,
+//     the affine and the ReLU, one bf16 rounding; the feature map leaves in
+//     16-byte stores, or the head's 1x1 adds the slab's 64 channels to the
+//     16 pixels' logits on mma.sync (every n <= 128 logits in registers).
+//     Without the head the slabs run side by side over the grid; with it a
+//     block owns all D channels of its pixels (no atomics: equal bits from
+//     run to run) and walks its rows once per slab, the later slabs' logits
+//     added to the first's in device memory by the same thread, which costs
+//     a read and a write of the f32 logits per slab after the first.
 #include "common.cuh"
+#include "gemm.cuh"
 
 using namespace mtt;
 
 namespace {
 
-constexpr int TT = 256;               // 8 warps
-constexpr int TDC = 32;               // output channels per chunk
-constexpr int TNC = 32;               // logits per block
-constexpr int TRS = 8;                // output rows per block
-constexpr int TWS = 32;               // output columns per block
-constexpr int TGROWS = 112;           // staged pixels, padded to 16-row tiles
-constexpr int TGCOLS = 9 * TDC;       // (k, l, d) columns of one chunk's Gm
-constexpr int TGLDS = TGCOLS + 8;
-constexpr int TPIX = TRS * TWS;       // 256 output pixels per block
-constexpr int TTLD = TDC + 8;
-constexpr int TKLD = TNC + 8;
-constexpr int TSH = TRS * 3 * 6;      // dense height table of one scale
+constexpr int XT = 256;          // 8 warps: thread (column W0 + warp, channel pair lane)
+constexpr int WS = 8;            // output columns per strip
+constexpr int DCH = 64;          // channels per step
+constexpr int NBUF = 3;          // staged steps: two in flight
+constexpr int TLD = DCH + 8;     // row pitch of the 16-pixel activation tile
+constexpr int kSmemMax = 232448;
 
-__host__ __device__ constexpr int tail_ts_bytes(bool head) {
-  return head ? TPIX * TTLD * 2 : (TT / 32) * 256 * 4;
+// Scale s has factor 8 >> s. A strip's staged Gm columns of scale f are
+// W0 / f - 1 .. (W0 + WS) / f; one step stages a row of them for 64 channels.
+__host__ __device__ constexpr int scale_cols(int s) { return WS / (8 >> s) + 2; }
+__host__ __device__ constexpr int tile_elems(int s) { return scale_cols(s) * 9 * DCH; }
+__host__ __device__ constexpr int tile_off(int s) {
+  return s == 0 ? 0 : (s == 1 ? tile_elems(0) : tile_elems(0) + tile_elems(1));
+}
+constexpr int STAGE = tile_off(2) + tile_elems(2);  // bf16 elements of one staged step
+
+// Per scale, column of the strip and conv tap l: the two width weights and
+// the offset of the first staged column in the scale's tile (16 bytes).
+constexpr int TAPS = 3 * WS * 3;
+
+// staged steps, the 16-pixel tile, the width taps, the head's kp rows of the
+// slab
+__host__ __device__ constexpr int mix_smem(int NP, bool head) {
+  return NBUF * STAGE * 2 + 16 * TLD * 2 + TAPS * 16 + (head ? DCH * (NP + 8) * 2 : 0);
 }
 
-__host__ __device__ constexpr int tail_smem(int CP, bool head) {
-  return TGROWS * (CP + 8) * 2 + TGROWS * TGLDS * 2 + tail_ts_bytes(head) + TDC * TKLD * 2 +
-         (3 * TWS * 9 + 3 * TSH + 2 * TDC) * 4;
+// The two low-res rows (or columns) that output row (column) f s + p draws on
+// through conv tap k (or l): upsampled position u = p + k - 1 relative to f s
+// lies at (2u + 1 - f) / (2f) low-res rows from s, between rows s - 1 and s
+// when that is negative, else between s and s + 1. So of the band entries dh
+// (dw) = 0, 1, 2 only base, base + 1 can be nonzero (tests/
+// test_torch_invpt_kernels.py holds the bands to this).
+__host__ __device__ constexpr int tap_base(int f, int p, int k) { return 2 * (p + k - 1) + 1 < f ? 0 : 1; }
+
+// Away from the map's borders the two weights are the bilinear ones: 1 - a,
+// a over rows base, base + 1 with a the fractional part of the position
+// above, an exact multiple of 1 / (2f); equal to the bands' entries there.
+__host__ __device__ constexpr float tap_weight(int f, int p, int k, int e) {
+  const int pos = 2 * (p + k - 1) + 1 - f, a = pos < 0 ? pos + 2 * f : pos;
+  return (e ? a : 2 * f - a) / (2.0f * f);
 }
 
-// Geometry of one scale's staged pixels: the low-res rows and columns the
-// block's 8 x 32 outputs draw on, with a halo of one.
-template <int F>
-struct Halo {
-  static constexpr int R = TRS / F + 2;    // staged rows
-  static constexpr int CN = TWS / F + 2;   // staged columns
-  static constexpr int PX = R * CN;
+__device__ __forceinline__ float2 bf2f(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+template <int V>
+struct Int {
+  static constexpr int value = V;
 };
-constexpr int TPX01 = Halo<8>::PX + Halo<4>::PX;   // scales 0 and 1 share a pass
 
-// Stages scale F's pixels (rows q0-1.., columns c0-1..) into Xs from row
-// `base`; zero outside the map. The caller commits and waits.
-template <int F>
-__device__ __forceinline__ void stage_scale(const bf16* __restrict__ x, int gh, int gw, int CP,
-                                            int b, int strip, int seg, bf16* Xs, int base) {
-  using G = Halo<F>;
-  const int XLD = CP + 8, CH = CP / 8;
-  const int q0 = strip * (TRS / F), c0 = seg * (TWS / F);
-  for (int i = threadIdx.x; i < G::PX * CH; i += TT) {
-    const int row = i / CH, c = (i % CH) * 8;
-    const int hh = q0 + row / G::CN - 1, ww = c0 + row % G::CN - 1;
-    const bool ok = hh >= 0 && hh < gh && ww >= 0 && ww < gw;
-    cp_async16(Xs + (base + row) * XLD + c,
-               ok ? x + (((size_t)b * gh + hh) * gw + ww) * CP + c : x, ok);
+struct TailArgs {
+  const bf16* gm[3];    // Gm_s (B, th / f, tw / f, 9 DP) bf16
+  const float* sw[3];   // (tw, 3, 3) width bands
+  const float* sh[3];   // (th, 3, 3) height bands
+  const bf16* kp;       // head: (DP, NP) bf16, zero-padded
+  const float* bh;      // head: (n,) f32
+  const float* inv;     // (D,) f32
+  const float* addv;    // (D,) f32
+  void* out;            // (B, th, tw, D) bf16, or the head's (B, th, tw, n) f32
+  int th, tw, D, DP, n, NP, R;
+};
+
+// Grid (tw / 8 strips, row ranges of R, B x DP / 64 slabs of channels).
+// With the head grid.z is B and a block walks the slabs in turn.
+template <bool HEAD>
+__global__ void __launch_bounds__(XT, 2) invpt_tail_mix_kernel(const __grid_constant__ TailArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int KLD = a.NP + 8;
+  bf16* Gs = reinterpret_cast<bf16*>(smem);
+  bf16* Ts = Gs + NBUF * STAGE;
+  float4* taps = reinterpret_cast<float4*>(Ts + 16 * TLD);
+  bf16* Ks = reinterpret_cast<bf16*>(taps + TAPS);
+
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int Wl = warp, dp = lane;  // this thread's output column in the strip, channel pair
+  const int W0 = blockIdx.x * WS;
+  const int H0 = blockIdx.y * a.R, H1 = min(a.th, H0 + a.R);
+  const int nsb = (a.DP + DCH - 1) / DCH;
+  const int b = HEAD ? blockIdx.z : blockIdx.z / nsb;
+  const int sl_begin = HEAD ? 0 : blockIdx.z % nsb, sl_end = HEAD ? nsb : sl_begin + 1;
+  const int nsteps = 2 + (H1 - H0) / 2;
+
+  // the width taps of each column of the strip, per scale and l: the staged
+  // columns Wl / f + base + {0, 1} (the offset of the first in the scale's
+  // staged tile; the second is one column, 9 DCH elements, on) and their
+  // weights. A warp reads its column's as one broadcast: kept in registers,
+  // they spilled.
+  if (t < TAPS) {
+    const int s = t / (3 * WS), c = (t / 3) % WS, l = t % 3, f = 8 >> s;
+    const int dw = tap_base(f, c % f, l);
+    const float* w = a.sw[s] + (size_t)(W0 + c) * 9 + l * 3 + dw;
+    taps[t] = make_float4(w[0], w[1],
+                          __int_as_float(tile_off(s) + ((c / f + dw) * 9 + l) * DCH), 0.f);
   }
-}
 
-// Zero-fills the staged rows [from, to): the padding up to whole 16-row tiles.
-__device__ __forceinline__ void stage_zero(bf16* Xs, int CP, int from, int to) {
-  const int XLD = CP + 8, CH = CP / 8;
-  for (int i = threadIdx.x; i < (to - from) * CH; i += TT)
-    *reinterpret_cast<uint4*>(Xs + (from + i / CH) * XLD + (i % CH) * 8) = make_uint4(0, 0, 0, 0);
-}
+  for (int sl = sl_begin; sl < sl_end; ++sl) {
+    const int d0 = sl * DCH, d = d0 + 2 * dp;  // the slab's first channel, the pair's
+    const float iv0 = d < a.D ? a.inv[d] : 0.f, iv1 = d + 1 < a.D ? a.inv[d + 1] : 0.f;
+    const float ad0 = d < a.D ? a.addv[d] : 0.f, ad1 = d + 1 < a.D ? a.addv[d + 1] : 0.f;
+    __syncthreads();  // the previous slab's last step has read the stages, the tile and Ks
+    if (HEAD) {
+      // the slab's kp rows, zero past DP; they land with step 0's group
+      const int pieces = a.NP / 8;
+      for (int e = t; e < DCH * pieces; e += XT) {
+        const int r = e / pieces, cc = (e % pieces) * 8;
+        const bool ok = d0 + r < a.DP;
+        cp_async16(Ks + r * KLD + cc, ok ? a.kp + (size_t)(d0 + r) * a.NP + cc : a.kp, ok);
+      }
+    }
 
-// Gm of the RT*16 staged pixel rows for this chunk: (RT*16 x CP) @ (CP x 9*TDC),
-// rounded to bf16 into Gs. The chunk's weights come straight from L2, stored
-// (column, c) so that a fragment's pairs along c are single 32-bit loads,
-// four k-steps' fragments in flight at a time to cover the latency.
-template <int RT>
-__device__ __forceinline__ void gm_pass(const bf16* __restrict__ wj, int CP, const bf16* Xs,
-                                        bf16* Gs, float* scratch) {
-  constexpr int KU = 4;
-  const int XLD = CP + 8;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int ct = warp; ct < TGCOLS / 16; ct += TT / 32) {
-    FragC gm[RT];
+    // Step i's Gm rows: steps 0 and 1 form rows H0 / f - 1 and H0 / f of
+    // every scale, then the step of output rows H, H + 1 forms row H / f + 1
+    // of each scale whose f divides H. Zero where the row, the column or the
+    // channel is off the map.
+    auto stage = [&](int i) {
+      if (i < nsteps) {
+        bf16* g = Gs + (i % NBUF) * STAGE;
 #pragma unroll
-    for (int rt = 0; rt < RT; ++rt) wmma::fill_fragment(gm[rt], 0.f);
-    for (int k0 = 0; k0 < CP; k0 += 16 * KU) {
-      FragBt bw[KU];
-#pragma unroll
-      for (int u = 0; u < KU; ++u)
-        if (k0 + 16 * u < CP)
-          wmma::load_matrix_sync(bw[u], wj + (size_t)(ct * 16) * CP + k0 + 16 * u, CP);
-#pragma unroll
-      for (int u = 0; u < KU; ++u)
-        if (k0 + 16 * u < CP) {
-#pragma unroll
-          for (int rt = 0; rt < RT; ++rt) {
-            FragA a;
-            wmma::load_matrix_sync(a, Xs + rt * 16 * XLD + k0 + 16 * u, XLD);
-            wmma::mma_sync(gm[rt], a, bw[u], gm[rt]);
+        for (int s = 0; s < 3; ++s) {
+          const int f = 8 >> s;
+          const int H = H0 + 2 * (i - 2);
+          if (i >= 2 && H % f) continue;
+          const int r = i < 2 ? H0 / f - 1 + i : H / f + 1;
+          const int gh = a.th / f, gw = a.tw / f;
+          const bool rok = r >= 0 && r < gh;
+          const bf16* grow = a.gm[s] + (rok ? ((size_t)b * gh + r) * gw * 9 * a.DP + d0 : 0);
+          const int c0 = W0 / f - 1;
+          for (int e = t; e < scale_cols(s) * 9 * (DCH / 8); e += XT) {
+            const int j = e / (9 * (DCH / 8)), kl = (e / (DCH / 8)) % 9, dd = (e % (DCH / 8)) * 8;
+            const int w = c0 + j;
+            const bool ok = rok && w >= 0 && w < gw && d0 + dd < a.DP;
+            cp_async16(g + tile_off(s) + (j * 9 + kl) * DCH + dd,
+                       ok ? grow + ((size_t)w * 9 + kl) * a.DP + dd : a.gm[s], ok);
           }
         }
-    }
-#pragma unroll
-    for (int rt = 0; rt < RT; ++rt) {
-      float v[8];
-      frag_row8(gm[rt], scratch, lane, v);
-      *reinterpret_cast<uint4*>(Gs + (rt * 16 + (lane >> 1)) * TGLDS + ct * 16 + (lane & 1) * 8) =
-          pack8(v);
-    }
-  }
-}
+      }
+      cp_async_commit();  // possibly empty: keeps the wait count uniform
+    };
 
-// Scale F's width mix (rounded to bf16) and height mix (into the f32
-// registers) from its Gm rows, which start at row `base` of Gs.
-template <int F>
-__device__ __forceinline__ void mix_scale(const bf16* Gs, int base, int seg, const float* SWs,
-                                          const float* SHs, float (&y)[4][TRS]) {
-  using G = Halo<F>;
-  const int warp = threadIdx.x >> 5, d = threadIdx.x & 31;   // TDC == 32
-  const int c0 = seg * (TWS / F);
+    // The width-mixed rows of the thread's column and channel pair, per scale
+    // the last three (low-res rows hq - 1, hq, hq + 1 of the current output
+    // rows), three taps k each, as bf16 pairs: a ring in registers, as only
+    // this thread forms and reads its entries.
+    uint32_t ring[3][3][3] = {};
+    // width mix of scale s's staged row (3 taps k, the 6 nonzero of 9 (l,
+    // dw)), rounded to bf16, pushed into the ring
+    auto form = [&](auto S, const bf16* g) {
+      constexpr int s = decltype(S)::value;
+      float4 tp[3];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int Wl = warp + j * (TT / 32);
-    float sw[9];                          // [l][dw], dw = column W/F - 1, W/F, W/F + 1
-#pragma unroll
-    for (int i = 0; i < 9; ++i) sw[i] = SWs[Wl * 9 + i];
-    const int cs = (seg * TWS + Wl) / F - c0;
-#pragma unroll
-    for (int r = 0; r < G::R; ++r) {
-      const bf16* gr = Gs + (base + r * G::CN + cs) * TGLDS + d;
+      for (int l = 0; l < 3; ++l) tp[l] = taps[(s * WS + Wl) * 3 + l];
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        float m = 0.f;
+        float m0 = 0.f, m1 = 0.f;
 #pragma unroll
         for (int l = 0; l < 3; ++l)
 #pragma unroll
-          for (int dw = 0; dw < 3; ++dw)
-            m += sw[l * 3 + dw] * __bfloat162float(gr[dw * TGLDS + (k * 3 + l) * TDC]);
-        m = __bfloat162float(__float2bfloat16(m));
-#pragma unroll
-        for (int p = 0; p < TRS; ++p) y[j][p] += SHs[(p * 3 + k) * 6 + r] * m;
+          for (int e = 0; e < 2; ++e) {
+            const float w = e ? tp[l].y : tp[l].x;
+            const float2 v = bf2f(*reinterpret_cast<const uint32_t*>(
+                g + __float_as_int(tp[l].z) + 2 * dp + (e * 9 + k * 3) * DCH));
+            m0 = fmaf(w, v.x, m0);
+            m1 = fmaf(w, v.y, m1);
+          }
+        ring[s][0][k] = ring[s][1][k];
+        ring[s][1][k] = ring[s][2][k];
+        ring[s][2][k] = pack_bf16x2(m0, m1);
       }
-    }
-  }
-}
+    };
 
-template <bool HEAD>
-__global__ void __launch_bounds__(TT, 1) invpt_tail_kernel(
-    const bf16* __restrict__ x0, const bf16* __restrict__ x1, const bf16* __restrict__ x2,
-    const bf16* __restrict__ wf, const float* __restrict__ sw0, const float* __restrict__ sh0,
-    const float* __restrict__ sw1, const float* __restrict__ sh1, const float* __restrict__ sw2,
-    const float* __restrict__ sh2, const float* __restrict__ inv, const float* __restrict__ addv,
-    const bf16* __restrict__ wh, const float* __restrict__ bh, void* __restrict__ out_, int th,
-    int tw, int CP, int DP, int D, int n, int NP) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int XLD = CP + 8;
-  bf16* Xs = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = Xs + TGROWS * XLD;
-  bf16* Ts = Gs + TGROWS * TGLDS;
-  bf16* Ks = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(Ts) + tail_ts_bytes(HEAD));
-  float* SWs = reinterpret_cast<float*>(Ks + TDC * TKLD);   // [scale][Wl][l][dw]
-  float* SHs = SWs + 3 * TWS * 9;                            // [scale][p][k][r]
-  float* IVs = SHs + 3 * TSH;
-  float* ADs = IVs + TDC;
-
-  const int nchunks = HEAD ? NP / TNC : 1;
-  const int seg = blockIdx.x, strip = blockIdx.y;
-  const int b = blockIdx.z / nchunks, nc = blockIdx.z % nchunks;
-  const int W0 = seg * TWS, H0 = strip * TRS;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  // the block's slices of the three scales' width bands and dense height tables
-  for (int i = threadIdx.x; i < 3 * TWS * 9; i += TT) {
-    const int s = i / (TWS * 9), W = W0 + (i / 9) % TWS;
-    const float* swb = s == 0 ? sw0 : (s == 1 ? sw1 : sw2);
-    SWs[i] = W < tw ? swb[(size_t)W * 9 + i % 9] : 0.f;
-  }
-  for (int i = threadIdx.x; i < 3 * TSH; i += TT) {
-    const int s = i / TSH, p = (i / 18) % TRS, k = (i / 6) % 3, r = i % 6;
-    const int f = 8 >> s;
-    const float* shb = s == 0 ? sh0 : (s == 1 ? sh1 : sh2);
-    const int H = H0 + p;
-    const int dr = r - (H / f - strip * (TRS / f));   // staged row r is low-res row q0 - 1 + r
-    SHs[i] = (dr >= 0 && dr < 3) ? shb[((size_t)H * 3 + k) * 3 + dr] : 0.f;
-  }
-  __syncthreads();
-
-  FragC acc[2][2];
-  if (HEAD) {
+    // height mix of scale s into output rows H = Hg + 2J, H + 1 (Hg % 8 == 0)
+    auto mix = [&](auto S, auto J, int Hg, float (&y)[2][2]) {
+      constexpr int s = decltype(S)::value, f = 8 >> s;
+      constexpr int p0 = (2 * decltype(J)::value) % f;  // H % f; H + 1 has p0 + 1 < f
+      const int H = Hg + 2 * decltype(J)::value, hq = H / f;
+      const bool border = hq == 0 || hq == a.th / f - 1;  // uniform over the block
+      const float* sh = a.sh[s] + (size_t)H * 9;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      wmma::fill_fragment(acc[i][0], 0.f);
-      wmma::fill_fragment(acc[i][1], 0.f);
-    }
-  }
-  float* scratch = reinterpret_cast<float*>(Ts) + warp * 256;
+      for (int pp = 0; pp < 2; ++pp)
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int dh = tap_base(f, p0 + pp, k) + e;
+            const float w = border ? __ldg(sh + pp * 9 + k * 3 + dh) : tap_weight(f, p0 + pp, k, e);
+            const float2 m = bf2f(ring[s][dh][k]);
+            y[pp][0] = fmaf(w, m.x, y[pp][0]);
+            y[pp][1] = fmaf(w, m.y, y[pp][1]);
+          }
+    };
 
-  for (int d0 = 0; d0 < DP; d0 += TDC) {
-    const bf16* wj = wf + (size_t)(d0 / TDC) * CP * TGCOLS;
-    if (threadIdx.x < TDC) {
-      IVs[threadIdx.x] = inv[d0 + threadIdx.x];
-      ADs[threadIdx.x] = addv[d0 + threadIdx.x];
-    }
-    if (HEAD) {
-      for (int i = threadIdx.x; i < TDC * TNC / 8; i += TT) {
-        const int r = i / (TNC / 8), c = (i % (TNC / 8)) * 8;
-        *reinterpret_cast<uint4*>(Ks + r * TKLD + c) =
-            *reinterpret_cast<const uint4*>(wh + (size_t)(d0 + r) * NP + nc * TNC + c);
+    auto pair_step = [&](auto J, int Hg, int i) {
+      constexpr int j = decltype(J)::value;
+      const int H = Hg + 2 * j;
+      const bf16* g = Gs + (i % NBUF) * STAGE;
+      // head: the earlier slabs' logits of this thread's outputs, loaded
+      // ahead of the step's work (this thread wrote them a slab ago)
+      [[maybe_unused]] float old[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      [[maybe_unused]] float* lo = nullptr;
+      if constexpr (HEAD) {
+        lo = static_cast<float*>(a.out) + (((size_t)b * a.th + H) * a.tw + W0 + (lane >> 2)) * a.n;
+        if (sl > 0 && warp < a.NP / 16)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int jn = warp * 16 + h * 8 + 2 * (lane & 3) + (e & 1);
+              if (jn < a.n) old[h][e] = lo[(size_t)(e >> 1) * a.tw * a.n + jn];
+            }
       }
-    }
-    float y[4][TRS];
+      // new rows: scale 2 every step, scale 1 every second, scale 0 every
+      // fourth (H % 8 == 2 j)
+      form(Int<2>{}, g);
+      if constexpr (j % 2 == 0) form(Int<1>{}, g);
+      if constexpr (j == 0) form(Int<0>{}, g);
+      float y[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+      mix(Int<0>{}, J, Hg, y);
+      mix(Int<1>{}, J, Hg, y);
+      mix(Int<2>{}, J, Hg, y);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int p = 0; p < TRS; ++p) y[j][p] = 0.f;
-
-    // scales 0 and 1 in one pass over the chunk's weights, scale 2 in a second
-    stage_scale<8>(x0, th / 8, tw / 8, CP, b, strip, seg, Xs, 0);
-    stage_scale<4>(x1, th / 4, tw / 4, CP, b, strip, seg, Xs, Halo<8>::PX);
-    cp_async_commit();
-    stage_zero(Xs, CP, TPX01, (TPX01 + 15) / 16 * 16);
-    cp_async_wait<0>();
-    __syncthreads();
-    gm_pass<(TPX01 + 15) / 16>(wj, CP, Xs, Gs, scratch);
-    __syncthreads();
-    stage_scale<2>(x2, th / 2, tw / 2, CP, b, strip, seg, Xs, 0);   // in flight under the mix
-    cp_async_commit();
-    stage_zero(Xs, CP, Halo<2>::PX, TGROWS);
-    mix_scale<8>(Gs, 0, seg, SWs, SHs, y);
-    mix_scale<4>(Gs, Halo<8>::PX, seg, SWs + TWS * 9, SHs + TSH, y);
-    cp_async_wait<0>();
-    __syncthreads();
-    gm_pass<TGROWS / 16>(wj, CP, Xs, Gs, scratch);
-    __syncthreads();
-    mix_scale<2>(Gs, 0, seg, SWs + 2 * TWS * 9, SHs + 2 * TSH, y);
-    __syncthreads();
-
-    // affine and ReLU in f32, one bf16 rounding
-    const int d = lane;
-    const float iv = IVs[d], ad = ADs[d];
-    if (HEAD) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int Wl = warp + j * (TT / 32);
-#pragma unroll
-        for (int p = 0; p < TRS; ++p)
-          Ts[(p * TWS + Wl) * TTLD + d] = __float2bfloat16(fmaxf(y[j][p] * iv + ad, 0.f));
-      }
-      __syncthreads();
-      // 1x1: the warp's output row (32 pixels) x TNC logits += T @ wh chunk
-#pragma unroll
-      for (int kk = 0; kk < TDC; kk += 16) {
-        FragB bk0, bk1;
-        wmma::load_matrix_sync(bk0, Ks + kk * TKLD, TKLD);
-        wmma::load_matrix_sync(bk1, Ks + kk * TKLD + 16, TKLD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          FragA a;
-          wmma::load_matrix_sync(a, Ts + (warp * 32 + i * 16) * TTLD + kk, TTLD);
-          wmma::mma_sync(acc[i][0], a, bk0, acc[i][0]);
-          wmma::mma_sync(acc[i][1], a, bk1, acc[i][1]);
-        }
-      }
-      __syncthreads();
-    } else {
-      bf16* out = static_cast<bf16*>(out_);
-      if (d0 + d < D) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int W = W0 + warp + j * (TT / 32);
-          if (W < tw) {
-#pragma unroll
-            for (int p = 0; p < TRS; ++p)
-              out[(((size_t)b * th + H0 + p) * tw + W) * D + d0 + d] =
-                  __float2bfloat16(fmaxf(y[j][p] * iv + ad, 0.f));
+      for (int pp = 0; pp < 2; ++pp)
+        *reinterpret_cast<uint32_t*>(Ts + (pp * WS + Wl) * TLD + 2 * dp) = pack_bf16x2(
+            fmaxf(y[pp][0] * iv0 + ad0, 0.f), fmaxf(y[pp][1] * iv1 + ad1, 0.f));
+      if constexpr (!HEAD) {
+        // the warp's two pixels (its column in rows H, H + 1): 16-byte stores
+        __syncwarp();
+        if (lane < 16) {
+          const int pp = lane >> 3, dd = d0 + (lane & 7) * 8;
+          bf16* out =
+              static_cast<bf16*>(a.out) + (((size_t)b * a.th + H + pp) * a.tw + W0 + Wl) * a.D + dd;
+          const bf16* src = Ts + (pp * WS + Wl) * TLD + (lane & 7) * 8;
+          if (a.D % 8 == 0) {
+            if (dd < a.D) *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(src);
+          } else {
+            for (int k = 0; k < 8 && dd + k < a.D; ++k) out[k] = src[k];
           }
         }
-      }
-      __syncthreads();   // IVs/ADs are rewritten by the next chunk
-    }
-  }
-
-  if (HEAD) {
-    // f32 logits + bias; columns past tw and logits past n masked
-    float* out = static_cast<float*>(out_);
+        __syncwarp();
+      } else {
+        // the 16 pixels' logits: t (16 x 64) . kp (64 x NP), warp w logits
+        // 16 w .. 16 w + 15, added to the earlier slabs' in device memory
+        __syncthreads();
+        if (warp < a.NP / 16) {
+          float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+          for (int kk = 0; kk < DCH; kk += 16) {
+            uint32_t af[4], bfr[4];
+            ldsm_x4(af, Ts + kk + ldsm_a_off(lane, TLD));
+            ldsm_x4_trans(bfr, Ks + kk * KLD + warp * 16 + ldsm_b_off(lane, KLD));
+            mma_16816(acc[0], af, bfr[0], bfr[1]);
+            mma_16816(acc[1], af, bfr[2], bfr[3]);
+          }
+          const bool last = sl + 1 == nsb;
 #pragma unroll
-      for (int jt = 0; jt < 2; ++jt) {
-        float v[8];
-        frag_row8(acc[i][jt], scratch, lane, v);
-        const int W = W0 + i * 16 + (lane >> 1);
-        const int j0 = nc * TNC + jt * 16 + (lane & 1) * 8;
-        if (W < tw) {
-          float* dst = out + (((size_t)b * th + H0 + warp) * tw + W) * n;
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int k = 0; k < 8; ++k)
-            if (j0 + k < n) dst[j0 + k] = v[k] + bh[j0 + k];
+            for (int e = 0; e < 4; ++e) {
+              const int jn = warp * 16 + h * 8 + 2 * (lane & 3) + (e & 1);
+              if (jn < a.n) {
+                float v = old[h][e] + acc[h][e];
+                if (last) v += a.bh[jn];
+                lo[(size_t)(e >> 1) * a.tw * a.n + jn] = v;
+              }
+            }
         }
       }
+    };
+
+    stage(0);
+    stage(1);
+    int i = 0;
+    auto begin = [&]() {
+      cp_async_wait<1>();
+      __syncthreads();  // step i landed; step i - 1's buffer and tile are read
+      stage(i + 2);
+    };
+    // warm-up: rows H0 / f - 1 and H0 / f of every scale
+    for (; i < 2; ++i) {
+      begin();
+      const bf16* g = Gs + (i % NBUF) * STAGE;
+      form(Int<0>{}, g);
+      form(Int<1>{}, g);
+      form(Int<2>{}, g);
+    }
+    for (int Hg = H0; Hg < H1; Hg += 8) {
+      begin();
+      pair_step(Int<0>{}, Hg, i++);
+      begin();
+      pair_step(Int<1>{}, Hg, i++);
+      begin();
+      pair_step(Int<2>{}, Hg, i++);
+      begin();
+      pair_step(Int<3>{}, Hg, i++);
+    }
   }
 }
 
 }  // namespace
 
-// x0, x1, x2 (B, th/f, tw/f, CP) bf16 for f = 8, 4, 2 with the channels
-// zero-padded to CP (% 16); wf (DP/32, 3, 3, 32, CP) bf16: the conv kernel
-// kc[k, l, c, d] per chunk of 32 output channels d, zero-padded to DP; sw_s
-// (tw, 3, 3), sh_s (th, 3, 3) f32: the bands of each scale's shifted upsample
-// matrices; inv, addv (DP,) f32. With n == 0: out (B, th, tw, D) bf16. With
-// n > 0: wh (DP, NP) bf16, bh (NP,) f32, NP % 32 == 0 -> out (B, th, tw, n) f32.
-extern "C" int mtt_invpt_tail_bf16(const void* x0, const void* x1, const void* x2, const void* wf,
-                                   const void* sw0, const void* sh0, const void* sw1,
-                                   const void* sh1, const void* sw2, const void* sh2,
-                                   const void* inv, const void* addv, const void* wh,
-                                   const void* bh, void* out, int B, int th, int tw, int CP, int DP,
-                                   int D, int n, void* stream) {
-  if (CP % 16 || DP % TDC || th % 8 || tw % 8 || n < 0 || D > DP)
-    return static_cast<int>(cudaErrorInvalidValue);
+// x0, x1, x2 (B, th/f, tw/f, CP) bf16 for f = 8, 4, 2 (the input channels
+// zero-padded to CP % 8 == 0); wg (9 DP, CP) bf16: the conv kernel kc[k, l, c,
+// d] at row (3 k + l) DP + d, zero-padded (DP % 8 == 0); sw_s (tw, 3, 3), sh_s
+// (th, 3, 3) f32: the bands of each scale's shifted upsample matrices; inv,
+// addv (D,) f32; gm: a bf16 scratch of B (th tw / 64 + th tw / 16 + th tw / 4)
+// rows of 9 DP. With n == 0: out (B, th, tw, D) bf16. With 0 < n <= NP: kp
+// (DP, NP) bf16 zero-padded, NP % 16 == 0 and <= 128, bh (n,) f32 -> out (B,
+// th, tw, n) f32. th and tw multiples of 8; every pointer 16-byte aligned.
+// Four launches: the shared GEMM once a scale (Gm), then the mix kernel.
+extern "C" int mtt_invpt_tail_bf16(const void* x0, const void* x1, const void* x2, const void* wg,
+                                   const void* kp, const void* bh, const void* sw0,
+                                   const void* sh0, const void* sw1, const void* sh1,
+                                   const void* sw2, const void* sh2, const void* inv,
+                                   const void* addv, void* gm, void* out, int B, int th, int tw,
+                                   int CP, int D, int DP, int n, int NP, void* stream) {
   const bool head = n > 0;
-  const int NP = (n + TNC - 1) / TNC * TNC;
-  const int smem = tail_smem(CP, head);
+  if (B < 1 || th < 8 || tw < 8 || th % 8 || tw % 8 || CP % 8 || DP % 8 || D < 1 || D > DP ||
+      n < 0 || (head && (NP % 16 || NP > 128 || n > NP)))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  dim3 grid((tw + TWS - 1) / TWS, th / TRS, B * (head ? NP / TNC : 1));
-  auto launch = [&](auto kernel) {
-    // set on every launch: the attribute belongs to the current device's context
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<grid, TT, smem, st>>>(
-        static_cast<const bf16*>(x0), static_cast<const bf16*>(x1), static_cast<const bf16*>(x2),
-        static_cast<const bf16*>(wf), static_cast<const float*>(sw0),
-        static_cast<const float*>(sh0), static_cast<const float*>(sw1),
-        static_cast<const float*>(sh1), static_cast<const float*>(sw2),
-        static_cast<const float*>(sh2), static_cast<const float*>(inv),
-        static_cast<const float*>(addv), static_cast<const bf16*>(wh),
-        static_cast<const float*>(bh), out, th, tw, CP, DP, D, n, NP);
-    return static_cast<int>(cudaGetLastError());
-  };
-  return head ? launch(invpt_tail_kernel<true>) : launch(invpt_tail_kernel<false>);
+  TailArgs a{};
+  const void* xs[3] = {x0, x1, x2};
+  const float* bands[6] = {static_cast<const float*>(sw0), static_cast<const float*>(sh0),
+                           static_cast<const float*>(sw1), static_cast<const float*>(sh1),
+                           static_cast<const float*>(sw2), static_cast<const float*>(sh2)};
+  size_t row0 = 0;
+  for (int s = 0; s < 3; ++s) {
+    const int f = 8 >> s, rows = B * (th / f) * (tw / f);
+    bf16* g = static_cast<bf16*>(gm) + row0 * 9 * DP;
+    const int e = mtt_gemm_bf16(xs[s], wg, g, nullptr, 0, nullptr, rows, 9 * DP, CP, EPI_TAIL, stream);
+    if (e) return e;
+    a.gm[s] = g;
+    a.sw[s] = bands[2 * s];
+    a.sh[s] = bands[2 * s + 1];
+    row0 += rows;
+  }
+  a.kp = static_cast<const bf16*>(kp);
+  a.bh = static_cast<const float*>(bh);
+  a.inv = static_cast<const float*>(inv);
+  a.addv = static_cast<const float*>(addv);
+  a.out = out;
+  a.th = th;
+  a.tw = tw;
+  a.D = D;
+  a.DP = DP;
+  a.n = n;
+  a.NP = head ? NP : 0;
+  const int smem = mix_smem(a.NP, head);
+  auto kernel = head ? invpt_tail_mix_kernel<true> : invpt_tail_mix_kernel<false>;
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, XT, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the strips and slabs of all images side by side; the rows split into
+  // ranges of whole 8-row groups where that takes fewer steps in all: the
+  // rounds of blocks over the card times the steps of a range (its row
+  // pairs and two steps of warm-up)
+  const int strips = tw / WS, cblocks = head ? 1 : (DP + DCH - 1) / DCH;
+  const int groups = th / 8, slots = sms * max(occ, 1);
+  const long long per_range = (long long)strips * cblocks * B;
+  long long best = -1;
+  int ranges = 1;
+  for (int r = 1; r <= groups; ++r) {
+    const int rg = (groups + r - 1) / r, used = (groups + rg - 1) / rg;
+    const long long cost = (per_range * used + slots - 1) / slots * (4 * rg + 2);
+    if (best < 0 || cost < best) {
+      best = cost;
+      ranges = used;
+      a.R = rg * 8;
+    }
+  }
+  if ((long long)B * cblocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(strips, ranges, B * cblocks);
+  kernel<<<grid, XT, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

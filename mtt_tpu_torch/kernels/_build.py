@@ -56,7 +56,7 @@ _SIGNATURES = {
     "mtt_head_up4_bf16": (*[_P] * 9, *[_I] * 8, _P),
     "mtt_invpt_attention_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _I, _F, _P),
-    "mtt_invpt_tail_bf16": (*[_P] * 15, _I, _I, _I, _I, _I, _I, _I, _P),
+    "mtt_invpt_tail_bf16": (*[_P] * 16, *[_I] * 8, _P),
     "mtt_window_attention_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
                                   _L, _L, _F, _P),
     "mtt_window_attention_bwd_bf16": (*[_P] * 9, _I, _I, _I, _I, *[_L] * 6,

@@ -1,5 +1,5 @@
 """InvPT multi-scale tail, with and without the fused 1x1 head: the CUDA
-kernel (csrc/invpt_tail.cu) and its plain versions.
+kernels (csrc/invpt_tail.cu) and their plain versions.
 
 Port of mtt_tpu/kernels/invpt_tail.py ``fused_ms_tail`` and
 ``fused_ms_tail_head`` (``_tail_kernel_st``, the default, and ``_tail_kernel``,
@@ -11,12 +11,18 @@ mixes expand it, and the scales are summed before the folded-BN affine. The
 three upsampled (B, th, tw, C) maps never exist; with the head, neither does
 the (B, th, tw, D) feature map: only the logits reach device memory.
 
-Rounding points, kept by the kernel and the plain versions alike: Gm and the
+Rounding points, kept by the kernels and the plain versions alike: Gm and the
 width mix rounded to the activation dtype; the height mix, the sum over
 scales, the affine and the ReLU in f32; the activation rounded to the dtype
 (before the head product too); the 1x1 accumulated in f32 with the bias added
 in f32. The kernel hands the logits over in f32 and ``fused_ms_tail_head``
 rounds them to the activation dtype, as the TPU kernel's output is.
+
+On the card the tail is cut at the first rounding: Gm_s (B gh gw, 9 D) of
+each scale on the port's shared wgmma GEMM, into one scratch from
+``torch.empty``, then the mix kernel from the three Gm to the output. Their
+plain versions are ``ms_tail_gm_plain`` and ``ms_tail_mix_plain``, whose
+composition is ``ms_tail_plain`` (and, with the head, ``ms_tail_head_plain``).
 
 The gradient of ``fused_ms_tail`` is torch autograd through the dense
 composition ``ms_tail_dense`` (upsample, sum, conv3x3, affine, ReLU), as the
@@ -36,10 +42,8 @@ from mtt_tpu_torch.kernels import _build
 from mtt_tpu_torch.models.layers import (_upf_shift_stack_np, interpolate,
                                          on_device, to_nchw, to_nhwc)
 
-FACTORS = (8, 4, 2)  # the kernel's scales: InvPT's stages against the output
-_DC = 32             # output channels per kernel chunk (csrc/invpt_tail.cu)
-_NC = 32             # logits per kernel block
-_C_MAX = 576         # input channels whose staged rows fit in shared memory
+FACTORS = (8, 4, 2)  # the kernels' scales: InvPT's stages against the output
+MAX_LOGITS = 128     # the mix kernel keeps every logit of a pixel in registers
 
 
 def _shift_stack(key) -> np.ndarray:
@@ -102,46 +106,58 @@ def _check(xs, kc, inv, addv, th, tw, wh=None, bh=None):
         if wh.shape != (D, n) or bh.shape != (n,):
             raise ValueError(f"wh must be ({D}, n) and bh (n,), got "
                              f"{tuple(wh.shape)} and {tuple(bh.shape)}")
-        if n > 128:
-            raise ValueError(f"the head-fused tail takes at most 128 logits, "
-                             f"got {n}")
+        if n > MAX_LOGITS:
+            raise ValueError(f"the head-fused tail takes at most {MAX_LOGITS}"
+                             f" logits, got {n}")
     for t in (*xs, kc, inv, addv, wh, bh):
         if t is not None and t.device != xs[0].device:
             raise ValueError("multi-scale tail inputs must be on one device")
     return _factors(xs, th, tw)
 
 
-def _act_factored(xs, kc, inv, addv, th, tw):
-    """relu(affine(conv3x3(sum of upsamples))) in f32, (B, th, tw, D), by
-    the factored form with the kernel's rounding points."""
+def ms_tail_gm_plain(xs, kc):
+    """The first stage's function (one GEMM a scale on the card): Gm_s = x_s
+    . kc over the 9 taps, rounded to the maps' dtype once; a (B, gh, gw, 3,
+    3, D) tensor per scale."""
     dt = xs[0].dtype
-    dev = xs[0].device
     C, D = kc.shape[2], kc.shape[3]
     Wf = kc.to(dt).permute(2, 0, 1, 3).reshape(C, 9 * D)
+    return tuple(torch.matmul(x.reshape(-1, C), Wf).reshape(*x.shape[:3], 3,
+                                                            3, D)
+                 for x in xs)
+
+
+def ms_tail_mix_plain(gms, inv, addv, th: int, tw: int, wh=None, bh=None):
+    """The second stage's function, from the three Gm to the output: each
+    scale's width mix rounded to the dtype, the height mixes summed over the
+    scales in f32, affine and ReLU, rounded to the dtype -> (B, th, tw, D);
+    with ``wh`` (D, n) and ``bh`` (n,) the (B, th, tw, n) f32 logits."""
+    dt, dev = gms[0].dtype, gms[0].device
     Y = None
-    for x, f in zip(xs, _factors(xs, th, tw)):
-        B, gh, gw, _ = x.shape
-        G6 = torch.matmul(x.reshape(-1, C), Wf).reshape(B, gh, gw, 3, 3, D)
+    for G6, f in zip(gms, _factors(gms, th, tw)):
+        gh, gw = G6.shape[1:3]
         Sw = on_device(_shift_stack, (gw, f), dev).to(dt)
         Sh = on_device(_shift_stack, (gh, f), dev)
         M = torch.einsum("bhwkld,wlW->bhkWd", G6, Sw)
         y = torch.einsum("bhkWd,hkH->bHWd", M.float(), Sh)
         Y = y if Y is None else Y + y
-    return torch.relu(Y * inv.float() + addv.float())
+    act = torch.relu(Y * inv.float() + addv.float()).to(dt)
+    if wh is None:
+        return act
+    return torch.matmul(act.float(), wh.to(dt).float()) + bh.float()
 
 
 def ms_tail_plain(xs, kc, inv, addv, th: int, tw: int):
     """xs: NHWC maps at (th / f, tw / f); kc (3, 3, C, D) HWIO; inv, addv (D,)
     f32 -> (B, th, tw, D) in the input dtype."""
-    return _act_factored(xs, kc, inv, addv, th, tw).to(xs[0].dtype)
+    return ms_tail_mix_plain(ms_tail_gm_plain(xs, kc), inv, addv, th, tw)
 
 
 def ms_tail_head_plain(xs, kc, inv, addv, wh, bh, th: int, tw: int):
     """The same with the 1x1 head: wh (D, n), bh (n,) -> (B, th, tw, n) f32
     logits."""
-    dt = xs[0].dtype
-    act = _act_factored(xs, kc, inv, addv, th, tw).to(dt)
-    return torch.matmul(act.float(), wh.to(dt).float()) + bh.float()
+    return ms_tail_mix_plain(ms_tail_gm_plain(xs, kc), inv, addv, th, tw, wh,
+                             bh)
 
 
 def ms_tail_dense(xs, kc, inv, addv, th: int, tw: int):
@@ -157,11 +173,33 @@ def ms_tail_dense(xs, kc, inv, addv, th: int, tw: int):
     return torch.relu(y).to(dt)
 
 
+def check_ms_tail_shape(fs, n: int = 0) -> None:
+    """Raises unless the kernels take the tail: the factors (8, 4, 2) of
+    InvPT's stages (so both output sides are multiples of 8) and at most
+    MAX_LOGITS logits. Any channel counts: the wrapper pads them to 8 (TMA
+    reads rows whose pitch is a multiple of 16 bytes)."""
+    if tuple(fs) != FACTORS:
+        raise ValueError(
+            f"the multi-scale tail kernel takes the factors {FACTORS} (the "
+            f"InvPT stages), got {tuple(fs)}; other factors are ROADMAP.md "
+            f"item 1.11")
+    if n > MAX_LOGITS:
+        raise ValueError(f"the head-fused tail kernel takes at most "
+                         f"{MAX_LOGITS} logits, got {n}")
+
+
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
 def ms_tail_cuda(xs, kc, inv, addv, th: int, tw: int, wh=None, bh=None):
-    """Launches the kernel: (B, th, tw, D) in bf16, or with ``wh`` and ``bh``
-    the (B, th, tw, n) f32 logits. It takes bfloat16 maps at the factors
-    (8, 4, 2) with at most 576 input channels (InvPT's D on every config);
-    anything else raises."""
+    """Four launches: Gm of each scale on the shared GEMM into one (B (th tw
+    / 64 + th tw / 16 + th tw / 4), 9 DP) bf16 scratch, then the mix kernel
+    -> (B, th, tw, D) in bf16, or with ``wh`` and ``bh`` the (B, th, tw, n)
+    f32 logits. It takes bfloat16 maps at the factors (8, 4, 2); anything
+    else raises. Per call the wrapper lays out what the kernels read: kc as
+    (9 DP, CP), K-major for the GEMM, and with the head wh padded to (DP,
+    NP); the maps are padded only where C % 8 != 0."""
     fs = _factors(xs, th, tw)
     x0 = xs[0]
     B, _, _, C = x0.shape
@@ -170,46 +208,38 @@ def ms_tail_cuda(xs, kc, inv, addv, th: int, tw: int, wh=None, bh=None):
     if dt != torch.bfloat16:
         raise TypeError(f"the multi-scale tail kernel takes bfloat16, got "
                         f"{dt}")
-    if fs != FACTORS:
-        raise ValueError(
-            f"the multi-scale tail kernel takes the factors {FACTORS} (the "
-            f"InvPT stages), got {fs}; other factors are ROADMAP.md item "
-            f"1.11")
-    CP = -(-C // 16) * 16
-    if CP > _C_MAX:
-        raise ValueError(f"the multi-scale tail kernel takes C <= {_C_MAX} "
-                         f"(its staged rows must fit in shared memory), got "
-                         f"{C}; wider maps are ROADMAP.md item 1.11")
-    DP = -(-D // _DC) * _DC
-    xp = [F.pad(x, (0, CP - C)).contiguous() for x in xs]
-    # wf (DP/32, 3, 3, 32, CP): the conv kernel per chunk of 32 output
-    # channels, the input channel innermost
-    kcp = F.pad(kc.to(dt), (0, DP - D, 0, CP - C))
-    wf = kcp.reshape(3, 3, CP, DP // _DC, _DC).permute(3, 0, 1, 4, 2) \
-        .contiguous()
+    n = 0 if wh is None else wh.shape[-1]
+    check_ms_tail_shape(fs, n)
+    CP, DP = _pad8(C), _pad8(D)
+    xa = [(x if CP == C else F.pad(x, (0, CP - C))).contiguous() for x in xs]
+    wg = kc.to(dt).permute(0, 1, 3, 2)                # (3, 3, D, C)
+    if CP != C or DP != D:
+        wg = F.pad(wg, (0, CP - C, 0, DP - D))
+    wg = wg.contiguous()
     bands = []
     for x, f in zip(xs, fs):
         bands.append(on_device(_bands, (x.shape[2], f), x0.device))   # width
         bands.append(on_device(_bands, (x.shape[1], f), x0.device))   # height
-    invp = F.pad(inv.float(), (0, DP - D)).contiguous()
-    addvp = F.pad(addv.float(), (0, DP - D)).contiguous()
-    if wh is None:
-        n = 0
-        out = torch.empty(B, th, tw, D, dtype=dt, device=x0.device)
-        whp = bhp = None
-    else:
-        n = wh.shape[-1]
-        NP = -(-n // _NC) * _NC
+    invf, addvf = inv.float().contiguous(), addv.float().contiguous()
+    if n:
+        NP = -(-n // 16) * 16
+        kpp = F.pad(wh.to(dt), (0, NP - n, 0, DP - D)).contiguous()
+        bhf = bh.float().contiguous()
         out = torch.empty(B, th, tw, n, dtype=torch.float32,
                           device=x0.device)
-        whp = F.pad(wh.to(dt), (0, NP - n, 0, DP - D)).contiguous()
-        bhp = F.pad(bh.float(), (0, NP - n)).contiguous()
+        extra = (kpp, bhf)
+    else:
+        NP, kpp, bhf, extra = 0, None, None, ()
+        out = torch.empty(B, th, tw, D, dtype=dt, device=x0.device)
+    _build.check_aligned("the multi-scale tail kernels", *xa, wg, invf,
+                         addvf, *extra)
+    gm = x0.new_empty(B * sum((th // f) * (tw // f) for f in fs), 9 * DP)
     _build.check(_build.lib().mtt_invpt_tail_bf16(
-        xp[0].data_ptr(), xp[1].data_ptr(), xp[2].data_ptr(), wf.data_ptr(),
-        *[t.data_ptr() for t in bands], invp.data_ptr(), addvp.data_ptr(),
-        whp.data_ptr() if n else None, bhp.data_ptr() if n else None,
-        out.data_ptr(), B, th, tw, CP, DP, D, n, _build.stream()),
-        "mtt_invpt_tail_bf16")
+        *[x.data_ptr() for x in xa], wg.data_ptr(),
+        kpp.data_ptr() if n else None, bhf.data_ptr() if n else None,
+        *[t.data_ptr() for t in bands], invf.data_ptr(), addvf.data_ptr(),
+        gm.data_ptr(), out.data_ptr(), B, th, tw, CP, D, DP, n, NP,
+        _build.stream()), "mtt_invpt_tail_bf16")
     return out
 
 

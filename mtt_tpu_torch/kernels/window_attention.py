@@ -1,5 +1,6 @@
 """Swin window attention with a per-head bias and a per-window mask: the CUDA
-kernel (csrc/window_attention.cu) and its plain version.
+kernel (csrc/window_attention.cu; past 160 tokens a window the Window policy
+of csrc/attention_generic.cu) and its plain version.
 
 Port of mtt_tpu/kernels/attention.py ``fused_window_attention``
 (``_wattn_kernel``): per (window, head)
@@ -19,7 +20,11 @@ On the H100 the op is bound by device memory (q, k, v and the output, 19 MB
 each at stage 0 of Swin-B on a 768x1536 input and half as much at each later
 stage, against 6 GFLOP). The kernel reads q, k and v as strided views of the
 packed qkv projection and writes (BW, M, H * D), ready for the output
-projection: none of the four transposes of the TPU wrapper is launched.
+projection: none of the four transposes of the TPU wrapper is launched. Its
+scores, probabilities and output stay in registers (mma.sync) and the row
+max is taken over all keys before any exponential: in one pass for windows
+of up to 160 tokens (Swin-B's 147), in two over streamed keys for longer
+ones, so it takes any token count.
 
 The gradient ports the JAX custom VJP (``_wattn_bwd``) and its backward
 kernel ``_wattn_bwd_kernel`` (csrc/window_attention_bwd.cu, plain twin
@@ -42,7 +47,6 @@ import torch
 from mtt_tpu_torch.kernels import _build
 
 HEAD_DIM = 32          # every Swin-B stage: C / heads = 32
-_SMEM_MAX = 232448
 BWD_MAX_TOKENS = 160   # the backward's window, padded to 16s
 
 
@@ -81,6 +85,26 @@ def _check(q, k, v, bias, mask, nW):
             raise ValueError("window attention inputs must be on one device")
 
 
+def check_window_attention_shape(M: int, D: int, backward: bool = False
+                                 ) -> None:
+    """Raises unless the kernels take the windows: head dim 32 (every
+    Swin-B stage); any token count forward (the keys stream through the
+    kernel), at most BWD_MAX_TOKENS backward (a window's tiles sit in shared
+    memory)."""
+    what = "backward kernel" if backward else "kernel"
+    if D != HEAD_DIM:
+        raise ValueError(f"the window attention {what} takes head dim "
+                         f"{HEAD_DIM} (every Swin-B stage), got {D}")
+    if M < 1:
+        raise ValueError(f"the window attention {what} needs tokens, got "
+                         f"M={M}")
+    if backward and -(-M // 16) * 16 > BWD_MAX_TOKENS:
+        raise ValueError(f"the window attention backward kernel keeps a "
+                         f"window's q, k, v, g, probabilities and gradients "
+                         f"in shared memory; M={M} tokens do not fit (at "
+                         f"most {BWD_MAX_TOKENS}; Swin-B's window is 147)")
+
+
 def _strided(t):
     """True if the kernel can read ``t`` (BW, M, H, D) where it lies: unit
     stride along D, every row 16-byte aligned."""
@@ -97,16 +121,7 @@ def window_attention_cuda(q, k, v, bias, mask, scale: float, nW: int):
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the window attention kernel takes bfloat16, got "
                         f"{q.dtype}")
-    if D != HEAD_DIM:
-        raise ValueError(f"the window attention kernel takes head dim "
-                         f"{HEAD_DIM} (every Swin-B stage), got {D}")
-    MP = -(-M // 16) * 16
-    smem = 2 * MP * (D + 8) * 2 + 5 * 16 * max(MP + 8, D + 8) * 6
-    if smem > _SMEM_MAX or MP > 352:
-        raise ValueError(f"the window attention kernel keeps a window's K, V "
-                         f"and score strips in shared memory; M={M} tokens "
-                         f"do not fit (Swin-B's 12x12 window with 3 prompts "
-                         f"is 147)")
+    check_window_attention_shape(M, D)
     if not (all(_strided(t) for t in (q, k, v))
             and q.stride() == k.stride() == v.stride()):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -164,15 +179,7 @@ def window_attention_bwd_cuda(q, k, v, bias, mask, g, scale: float, nW: int):
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the window attention backward kernel takes "
                         f"bfloat16, got {q.dtype}")
-    if D != HEAD_DIM:
-        raise ValueError(f"the window attention backward kernel takes head "
-                         f"dim {HEAD_DIM}, got {D}")
-    MP = -(-M // 16) * 16
-    if MP > BWD_MAX_TOKENS:
-        raise ValueError(f"the window attention backward kernel keeps a "
-                         f"window's q, k, v, g, probabilities and gradients "
-                         f"in shared memory; M={M} tokens do not fit (at "
-                         f"most {BWD_MAX_TOKENS}; Swin-B's window is 147)")
+    check_window_attention_shape(M, D, backward=True)
     if not (all(_strided(t) for t in (q, k, v))
             and q.stride() == k.stride() == v.stride()):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

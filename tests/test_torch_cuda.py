@@ -676,6 +676,70 @@ def test_invpt_tail_kernels(gen, h0, w0, C, D, n):
                               impl="plain"))
 
 
+@pytest.mark.parametrize("n", [0, 40, 128])
+@pytest.mark.parametrize("h0,w0", [(16, 16), (14, 18)])
+def test_invpt_tail_kernels_shapes_and_repeat_bits(gen, h0, w0, n):
+    """The tail at PASCAL's grid and NYUD's 14x18 at C = D = 576 (batch 2),
+    without the head (n = 0) and with 40 and 128 logits (the widest the mix
+    kernel keeps in registers, which takes the shallowest slab): within 4
+    bf16 ulps of the plain version, and two runs give the same bits (Gm on
+    the shared GEMM without split-K, the mix kernel's slabs added in a fixed
+    order, no atomics)."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.invpt_tail import (fused_ms_tail,
+                                                  fused_ms_tail_head)
+    C = D = 576
+    xs = tuple(_rnd(gen, 2, h0 * m, w0 * m, C, std=0.5) for m in (1, 2, 4))
+    kc = _rnd(gen, 3, 3, C, D, std=(9 * C) ** -0.5)
+    inv = _rnd(gen, D, std=0.1, mean=1.0, dtype=torch.float32)
+    addv = _rnd(gen, D, std=0.1, dtype=torch.float32)
+    th, tw = 8 * h0, 8 * w0
+    if n:
+        wh = _rnd(gen, D, n, std=D ** -0.5)
+        bh = _rnd(gen, n, std=0.1, dtype=torch.float32)
+
+        def run(impl=None):
+            return fused_ms_tail_head(xs, kc, inv, addv, wh, bh, th, tw,
+                                      impl=impl)
+    else:
+        def run(impl=None):
+            return fused_ms_tail(xs, kc, inv, addv, th, tw, impl=impl)
+    _build.reset_counts()
+    first = run()
+    assert _build.COUNTS == _counts(
+        **{"invpt_tail_head" if n else "invpt_tail": 1})
+    second = run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _check(first, run("plain"))
+
+
+def test_invpt_tail_and_window_kernels_refuse_before_launch(gen):
+    """Row 10 refuses a map that is not on a 16-byte boundary (its Gm
+    launch reads the maps with TMA) and factors other than (8, 4, 2); row 11
+    a head dim other than 32; nothing launches."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.invpt_tail import fused_ms_tail
+    from mtt_tpu_torch.kernels.window_attention import fused_window_attention
+    kc = _rnd(gen, 3, 3, 16, 24)
+    inv, addv = torch.ones(24, device="cuda"), torch.zeros(24, device="cuda")
+    xs = [_rnd(gen, 1, 2 * m, 2 * m, 16) for m in (1, 2, 4)]
+    xs[0] = _rnd(gen, 4 * 16 + 1)[1:].view(1, 2, 2, 16)
+    _build.reset_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        fused_ms_tail(xs, kc, inv, addv, 16, 16)
+    xs = [_rnd(gen, 1, 2 * m, 2 * m, 16) for m in (1, 2, 4)]
+    with pytest.raises(ValueError, match="factors"):
+        fused_ms_tail(xs, kc, inv, addv, 32, 32)
+    q = _rnd(gen, 2, 19, 2, 64)
+    with pytest.raises(ValueError, match="head dim 32"):
+        fused_window_attention(q, q, q, _rnd(gen, 2, 19, 19,
+                                             dtype=torch.float32), None,
+                               0.125, 2)
+    torch.cuda.synchronize()
+    assert _build.COUNTS == _counts()
+
+
 @pytest.mark.parametrize("tail_head", [False, True])
 def test_invpt_model_goes_through_kernels(gen, tail_head):
     """InvPT on ViT-B (C = 768, head dim 64) at the full decoder width (576,
@@ -752,6 +816,32 @@ def test_window_attention_kernel(gen, BW, M, H, nW, with_mask):
            got, ulps=0)
 
 
+@pytest.mark.parametrize("M", [147, 200])
+@pytest.mark.parametrize("with_mask", [True, False])
+@pytest.mark.parametrize("BW,H", [(512, 4), (32, 16)])
+def test_window_attention_kernel_stages_and_repeat_bits(gen, BW, H, with_mask,
+                                                        M):
+    """Row 11 at Swin-B's stages 0 and 2, with and without the shift mask,
+    at its 147 tokens and at 200 (past the 160 of the old kernel's padded
+    window): within 2 bf16 ulps of the plain version, and two runs give the
+    same bits."""
+    from mtt_tpu_torch.kernels.window_attention import \
+        fused_window_attention_qkv
+    qkv = _rnd(gen, BW, M, 3, H, 32)
+    bias = _rnd(gen, H, M, M, dtype=torch.float32)
+    mask = None
+    if with_mask:
+        mask = torch.where(torch.rand(BW, M, M, generator=gen,
+                                      device="cuda") < 0.3, -100.0, 0.0)
+        mask.diagonal(dim1=1, dim2=2).zero_()
+    first, second = (fused_window_attention_qkv(qkv, bias, mask, 32 ** -0.5,
+                                                BW) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _check(first, fused_window_attention_qkv(qkv, bias, mask, 32 ** -0.5, BW,
+                                             impl="plain"), ulps=2)
+
+
 @pytest.mark.parametrize("BW,M,H,nW", WATTN_CASES[:-1])
 @pytest.mark.parametrize("with_mask", [True, False])
 def test_window_attention_bwd_kernel(gen, BW, M, H, nW, with_mask):
@@ -825,7 +915,7 @@ def test_window_attention_bwd_kernel_ragged(gen, M, with_mask, BW, nW):
 
 def test_window_attention_bwd_kernel_refusals(gen):
     """Past 160 tokens the backward's tiles do not fit: it raises, while the
-    forward takes up to 352."""
+    forward takes any token count."""
     from mtt_tpu_torch.kernels.window_attention import (
         window_attention_bwd_cuda, window_attention_cuda)
     q, k, v = _rnd(gen, 2, 161, 3, 1, 32).unbind(2)

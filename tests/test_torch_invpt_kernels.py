@@ -209,6 +209,76 @@ def test_ms_tail_head_plain_matches_pallas_interpret(h0, w0):
     _close(got, np.asarray(want.astype(jnp.float32)), 4 * 2.0 ** -7)
 
 
+@pytest.mark.parametrize("head", [False, True])
+@pytest.mark.parametrize("h0,w0", GRIDS)
+def test_ms_tail_stage_plains_compose_to_the_tail(h0, w0, head):
+    """The card runs the tail as Gm on the shared GEMM (one launch a scale)
+    and the mix kernel; their plain versions, composed, give the bits in
+    bf16 of the one-piece factored tail (each scale's Gm, width and height
+    mixes in turn, summed), written out here, with and without the head;
+    each Gm has the (B, gh, gw, 3, 3, D) layout the mix kernel reads."""
+    from mtt_tpu_torch.kernels.invpt_tail import (_shift_stack,
+                                                  ms_tail_gm_plain,
+                                                  ms_tail_head_plain,
+                                                  ms_tail_mix_plain,
+                                                  ms_tail_plain)
+
+    xs, kc, inv, addv, wh, bh = _tail_inputs(h0, w0, 24, 40, 5, seed=5)
+    bf = torch.bfloat16
+    xs = tuple(_t(x, bf) for x in xs)
+    kc, inv, addv, wh, bh = map(_t, (kc, inv, addv, wh, bh))
+    th, tw = 8 * h0, 8 * w0
+    gms = ms_tail_gm_plain(xs, kc)
+    for x, gm in zip(xs, gms):
+        assert gm.shape == (*x.shape[:3], 3, 3, 40) and gm.dtype == bf
+    Wf = kc.to(bf).permute(2, 0, 1, 3).reshape(24, 9 * 40)
+    Y = 0.0
+    for x, f in zip(xs, (8, 4, 2)):
+        b_, gh, gw, _ = x.shape
+        G6 = torch.matmul(x.reshape(-1, 24), Wf).reshape(b_, gh, gw, 3, 3,
+                                                         40)
+        M = torch.einsum("bhwkld,wlW->bhkWd", G6,
+                         torch.from_numpy(_shift_stack((gw, f))).to(bf))
+        Y = Y + torch.einsum("bhkWd,hkH->bHWd", M.float(),
+                             torch.from_numpy(_shift_stack((gh, f))))
+    act = torch.relu(Y * inv + addv).to(bf)
+    if head:
+        want = torch.matmul(act.float(), wh.to(bf).float()) + bh
+        got = ms_tail_mix_plain(gms, inv, addv, th, tw, wh, bh)
+        assert torch.equal(ms_tail_head_plain(xs, kc, inv, addv, wh, bh, th,
+                                              tw), want)
+    else:
+        want = act
+        got = ms_tail_mix_plain(gms, inv, addv, th, tw)
+        assert torch.equal(ms_tail_plain(xs, kc, inv, addv, th, tw), want)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("g,f", [(2, 8), (14, 8), (16, 8), (18, 8), (28, 4),
+                                 (32, 4), (56, 2), (64, 2)])
+def test_ms_tail_bands_have_two_taps_per_output(g, f):
+    """The mix kernel reads two of the three band entries of each output row
+    or column per conv tap (csrc/invpt_tail.cu: tap_base): for output f s +
+    p and tap k the upsampled position p + k - 1 lies (2 (p + k - 1) + 1 -
+    f) / (2 f) low-res rows from s, between s - 1 and s when negative, else
+    between s and s + 1. The third entry is exactly 0, at the map's borders
+    too; away from them (1 <= s <= g - 2) the two weights are the bilinear
+    multiples of 1 / (2 f) the kernel uses as constants (tap_weight)."""
+    from mtt_tpu_torch.kernels.invpt_tail import _bands
+
+    band = _bands((g, f))                              # (f g, tap, 3)
+    for W in range(f * g):
+        p = W % f
+        for k in range(3):
+            pos = 2 * (p + k - 1) + 1 - f
+            base = 0 if pos < 0 else 1
+            assert band[W, k, 2 - 2 * base] == 0.0, (W, k, band[W, k])
+            if 1 <= W // f <= g - 2:
+                a = pos + 2 * f if pos < 0 else pos
+                assert band[W, k, base] == (2 * f - a) / (2 * f), (W, k)
+                assert band[W, k, base + 1] == a / (2 * f), (W, k)
+
+
 def test_ms_tail_backward_matches_jax_grad():
     """The tail's backward (autograd through the dense twin) against
     ``jax.grad`` of ``fused_ms_tail``, f32, non-square grid: the gradients of

@@ -233,6 +233,39 @@ def test_up4_head_kernel_checks_before_launch():
                       torch.zeros(16), torch.zeros(16, 5, dtype=bf))
 
 
+def test_tail_and_window_kernels_check_before_launch():
+    """The limits of rows 10 and 11 in functions the CPU can call, and data
+    not on a 16-byte boundary raise before any launch (the tail's Gm launch
+    reads the maps with TMA)."""
+    from mtt_tpu_torch.kernels.invpt_tail import (MAX_LOGITS,
+                                                  check_ms_tail_shape,
+                                                  ms_tail_cuda)
+    from mtt_tpu_torch.kernels.window_attention import (
+        BWD_MAX_TOKENS, check_window_attention_shape)
+    check_ms_tail_shape((8, 4, 2))
+    check_ms_tail_shape((8, 4, 2), MAX_LOGITS)
+    with pytest.raises(ValueError, match="factors"):
+        check_ms_tail_shape((4, 2, 1))
+    with pytest.raises(ValueError, match="at most 128 logits"):
+        check_ms_tail_shape((8, 4, 2), MAX_LOGITS + 1)
+    for m in (1, 147, 160, 400):
+        check_window_attention_shape(m, 32)
+    check_window_attention_shape(BWD_MAX_TOKENS, 32, backward=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        check_window_attention_shape(BWD_MAX_TOKENS + 1, 32, backward=True)
+    with pytest.raises(ValueError, match="head dim 32"):
+        check_window_attention_shape(147, 64)
+    with pytest.raises(ValueError, match="needs tokens"):
+        check_window_attention_shape(0, 32)
+    bf = torch.bfloat16
+    xs = [torch.zeros(1, 2 * m, 2 * m, 16, dtype=bf) for m in (1, 2, 4)]
+    buf = torch.zeros(4 * 16 + 1, dtype=bf)
+    xs[0] = buf[1:].view(1, 2, 2, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        ms_tail_cuda(xs, torch.zeros(3, 3, 16, 24, dtype=bf),
+                     torch.ones(24), torch.zeros(24), 16, 16)
+
+
 def test_kernel_build_needs_no_card_to_import_and_hashes_sources():
     """Importing the build helper compiles nothing; the library path is
     keyed by the sources' hash."""

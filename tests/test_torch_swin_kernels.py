@@ -114,7 +114,8 @@ def test_window_attention_reads_packed_qkv_views():
 
 def test_window_attention_refusals():
     from mtt_tpu_torch.kernels.window_attention import (
-        fused_window_attention, window_attention_cuda)
+        check_window_attention_shape, fused_window_attention,
+        window_attention_bwd_cuda, window_attention_cuda)
     BW, M, H, D, nW = 4, 19, 2, 32, 2
     q, k, v, bias, mask = (_t(a) for a in _inputs(0, BW, M, H, D, nW))
     with pytest.raises(ValueError, match="CUDA"):      # no card behind it
@@ -135,10 +136,14 @@ def test_window_attention_refusals():
     q64 = torch.zeros(BW, M, H, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim 32"):
         window_attention_cuda(q64, q64, q64, bias, mask, 0.2, nW)
+    # the forward takes any token count (past 160 a window over streamed
+    # keys); the backward keeps a window in shared memory and refuses past
+    # 160 before a launch
     big = torch.zeros(1, 400, 1, 32, dtype=torch.bfloat16)
+    check_window_attention_shape(400, 32)
     with pytest.raises(ValueError, match="shared memory"):
-        window_attention_cuda(big, big, big, torch.zeros(1, 400, 400), None,
-                              0.2, 1)
+        window_attention_bwd_cuda(big, big, big, torch.zeros(1, 400, 400),
+                                  None, big, 0.2, 1)
 
 
 def test_window_attention_plain_is_differentiable():

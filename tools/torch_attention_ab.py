@@ -12,17 +12,19 @@ the shapes ``chip_smoke.py`` times: row 14 (``mtt_attn_generic_bf16``) at
 (8, 1029, 16, 64) and at InvPT's cross shape (q (8, 5120, 2, 72), k/v (8,
 320, 2, 72)), row 7 (``mtt_attn_bwd_bf16``) at qkv (2, 1029, 3072), row 13
 and rows 1-2's core (``mtt_attn_core_bf16``, fast and safe softmax) at qkv
-(8, 1029, 3072), and row 12 (``mtt_window_attention_bwd_bf16``) at Swin-B's
-stage 2 (32 windows of 147 tokens, 16 heads, with the shift mask) and stage 0
-(512 windows, 4 heads) with and without the mask. Each time is the median of
-CUDA-event times of ``--reps`` calls; the runs go parent, change, change,
-parent, and SDPA (forward and backward; for row 12 its backward with the
-bias and mask merged into one float mask that requires grad, plus that
-mask's gradient summed over the windows) is timed in each run beside the
-kernels. Outputs are held to the plain versions at 4 bf16 ulps of the
-largest value (row 12's dbias to 1e-4 of its largest value), the safe
+(8, 1029, 3072), and rows 11 and 12 (``mtt_window_attention_bf16``,
+``mtt_window_attention_bwd_bf16``) at Swin-B's stage 2 (32 windows of 147
+tokens, 16 heads, with the shift mask) and stage 0 (512 windows, 4 heads)
+with and without the mask. Each time is the median of CUDA-event times of
+``--reps`` calls; the runs go parent, change, change, parent, and SDPA
+(forward and backward; for rows 11 and 12 with the bias and mask merged into
+one float mask, row 12's backward with that mask requiring grad, plus its
+gradient summed over the windows) is timed in each run beside the kernels.
+Outputs are held to the plain versions at 4 bf16 ulps of the largest value
+(row 11 at 2, row 12's dbias to 1e-4 of its largest value), the safe
 softmax of row 13 to at least 99% of its outputs bit-equal to the plain
-version, and each kernel runs twice to show equal bits. It prints the card's
+version (rows 11's shares printed), and each kernel runs twice to show
+equal bits. It prints the card's
 name and power limit, each kernel's ptxas registers and spills, and one JSON
 line of the times; it fails when the change's kernels miss a tolerance or
 differ between two runs.
@@ -114,7 +116,8 @@ def run_one(checkout: Path, tag: str, reps: int) -> dict:
                                                  fused_attention_qkv,
                                                  scaled_log2e)
     from mtt_tpu_torch.kernels.window_attention import (
-        window_attention_bwd_cuda, window_attention_bwd_plain)
+        fused_window_attention_qkv, window_attention_bwd_cuda,
+        window_attention_bwd_plain, window_attention_plain)
     bld = load_build(checkout, tag)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -217,6 +220,31 @@ def run_one(checkout: Path, tag: str, reps: int) -> dict:
         wpc = window_chunks(checkout, tag, bw, hw)
         nchunk = -(-bw // wpc)
 
+        # row 11 on the same windows: the forward of the same attention
+        def wf_call(qkvw=qkvw, bias=bias, mask=mask, bw=bw, hw=hw,
+                    entry="mtt_window_attention_bf16"):
+            q_, k_, v_ = qkvw.unbind(2)
+            out = torch.empty(bw, wm, hw * 32, dtype=bf, device=dev)
+            fn = getattr(bld.lib(), entry)
+            fn.argtypes = bld._SIGNATURES["mtt_window_attention_bf16"]
+            bld.check(fn(
+                q_.data_ptr(), k_.data_ptr(), v_.data_ptr(), bias.data_ptr(),
+                mask.data_ptr() if mask is not None else None,
+                out.data_ptr(), bw, wm, hw, bw if mask is not None else 1,
+                *q_.stride()[:3], 32 ** -0.5, stream()), entry)
+            return (out.view(bw, wm, hw, 32),)
+
+        fmerged = (bias[None] + (0.0 if mask is None else mask[:, None])
+                   ).to(bf)
+        fq, fk, fv = (t.transpose(1, 2) for t in (q, k, v))
+        cases[name.replace("_bwd", "")] = (
+            wf_call, (window_attention_plain(q, k, v, bias, mask, 32 ** -0.5,
+                                             bw),),
+            lambda a=(fq, fk, fv, fmerged): F.scaled_dot_product_attention(
+                a[0], a[1], a[2], attn_mask=a[3]),
+            lambda qkvw=qkvw, bias=bias, mask=mask, bw=bw:
+                fused_window_attention_qkv(qkvw, bias, mask, 32 ** -0.5, bw))
+
         def wb_call(q=q, k=k, v=v, gw=gw, bias=bias, mask=mask, bw=bw, hw=hw,
                     wpc=wpc, nchunk=nchunk):
             dqkv = torch.empty(bw, wm, 3, hw, 32, dtype=bf, device=dev)
@@ -257,15 +285,19 @@ def run_one(checkout: Path, tag: str, reps: int) -> dict:
                                           32 ** -0.5, bw))
 
     result = {"ptxas": ptxas_lines(bld, ("attn_generic", "attn_bwd",
-                                         "attn_core", "wattn_bwd"))}
+                                         "attn_core", "wattn_bwd",
+                                         "wattn_kernel"))}
     for name, (call, want, lib, wrapper) in cases.items():
         got, again = call(), call()
         torch.cuda.synchronize()
         errs, tols = [], []
         for a, w in zip(got, want):
             errs.append((a.float() - w.float()).abs().max().item())
-            # row 12's dbias (f32 on both sides): 1e-4 of its largest value
-            rel = 1e-4 if a.dtype == torch.float32 else 4 * 2.0 ** -7
+            # row 12's dbias (f32 on both sides): 1e-4 of its largest value;
+            # row 11: 2 ulps, as tests/test_torch_cuda.py holds it
+            rel = 1e-4 if a.dtype == torch.float32 else (
+                2 if name.startswith("window_attention@") or
+                name == "window_attention" else 4) * 2.0 ** -7
             tols.append(rel * w.float().abs().max().item())
         result[name] = dict(
             ms=time_ms(call, reps), library_ms=time_ms(lib, reps)
@@ -273,16 +305,27 @@ def run_one(checkout: Path, tag: str, reps: int) -> dict:
             within_tol=all(e <= t for e, t in zip(errs, tols)) and all(
                 bool(torch.isfinite(a).all()) for a in got),
             equal_bits=all(torch.equal(a, b) for a, b in zip(got, again)))
-        if name == "attention_qkv_safe":
-            # the exact max over all keys: the share of bit-equal outputs
+        if name == "attention_qkv_safe" or name.startswith(
+                ("window_attention@", "window_attention")) and "bwd" not in \
+                name:
+            # the share of bit-equal outputs; the safe softmax takes the
+            # exact max over all keys, so at least 99% of them
             share = (got[0].view(torch.int16) == want[0].view(torch.int16)
                      ).float().mean().item()
             result[name]["bit_equal_share"] = share
-            result[name]["within_tol"] &= share >= 0.99
+            if name == "attention_qkv_safe":
+                result[name]["within_tol"] &= share >= 0.99
         if checkout == ROOT:
             # the same launch through the port's Python entry point, whose
             # argument checks run on the host while the card waits
             result[name]["wrapper_ms"] = time_ms(wrapper, reps)
+            if name.startswith("window_attention") and "bwd" not in name:
+                # row 11's streamed two-pass form (the Window policy of the
+                # attention template), which takes windows past 160 tokens,
+                # on the same windows
+                result[name]["streamed_ms"] = time_ms(
+                    lambda: call(entry="mtt_window_attention_streamed_bf16"),
+                    reps)
     return result
 
 
@@ -327,6 +370,9 @@ def main(argv=None):
             row[f"{tag}_library_ms"] = [r[name]["library_ms"] for r in rs]
             if tag == "change":
                 row["change_wrapper_ms"] = [r[name]["wrapper_ms"] for r in rs]
+                if "streamed_ms" in rs[0][name]:
+                    row["change_streamed_ms"] = [r[name]["streamed_ms"]
+                                                 for r in rs]
             row[f"{tag}_max_abs_err"] = rs[0][name]["max_abs_err"]
             row[f"{tag}_within_tol"] = all(r[name]["within_tol"] for r in rs)
             row[f"{tag}_equal_bits"] = all(r[name]["equal_bits"] for r in rs)
