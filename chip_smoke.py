@@ -19,7 +19,10 @@ Phases, in order (the seconds each took are printed):
      the plain version printed, as for the multi-scale tail and the window
      attention), the earlier kernels again
      at the shapes the InvPT path adds (N = 1025, LayerNorm rows of 2880, MLP
-     widths 576, 288, 144; the tail on NYUD's non-square grid), and the Swin
+     widths 576, 288, 144; the tail on NYUD's non-square grid; row 9 at the
+     three PASCAL stages and NYUD's last, on the model's strided head
+     views, equal across two runs, the bit-equal share of its out printed),
+     and the Swin
      path's at its shapes (window attention and its backward at the four
      Swin-B stages with and without the shift mask, both equal across two
      runs, the backward's dbias too, as are rows 7, 8, 10, 13 and 14 and
@@ -243,12 +246,19 @@ def _invpt_cases(rnd):
     f32 = torch.float32
     cases = {}
 
-    # row 9 at the three stages; the first has no message
-    for i, (g, dim) in enumerate(INV_STAGES):
-        Lq, Dh = T * g * g, dim // INV_H
-        q = rnd(B, INV_H, Lq, Dh)
-        k, v = rnd(B, INV_H, INV_LK, Dh), rnd(B, INV_H, INV_LK, Dh)
-        msg = rnd(B, INV_H, Lq, INV_LK, dtype=f32) if i else None
+    # row 9 at the three PASCAL stages (the first has no message) and at
+    # NYUD's last (4 tasks x 28 x 36 query rows, 4 x 7 x 9 = 252 keys), on
+    # the model's (B, L, H, D) head views
+    stages = [(T * g * g, dim, INV_LK, f"@stage{i}" if i < 2 else "")
+              for i, (g, dim) in enumerate(INV_STAGES)]
+    stages.append((NYUD_T * NYUD_GH * NYUD_GW, INV_STAGES[2][1],
+                   NYUD_T * (NYUD_GH // 4) * (NYUD_GW // 4), "@nyud2"))
+    for i, (Lq, dim, Lk, label) in enumerate(stages):
+        Dh = dim // INV_H
+        q = rnd(B, Lq, INV_H, Dh).transpose(1, 2)
+        k = rnd(B, Lk, INV_H, Dh).transpose(1, 2)
+        v = rnd(B, Lk, INV_H, Dh).transpose(1, 2)
+        msg = rnd(B, INV_H, Lq, Lk, dtype=f32) if i else None
         w = rnd(INV_H, 2 * INV_H, std=0.5, dtype=f32) if i else None
         b = rnd(INV_H, std=0.1, dtype=f32) if i else None
 
@@ -264,9 +274,8 @@ def _invpt_cases(rnd):
                     + b_[None, :, None, None]
             return torch.matmul(torch.softmax(fused, -1).to(bf), v_), fused
 
-        nel = B * INV_H * Lq * INV_LK
-        name = "invpt_attention" if i == 2 else f"invpt_attention@stage{i}"
-        cases[name] = (
+        nel = B * INV_H * Lq * Lk
+        cases[f"invpt_attention{label}"] = (
             call, (4, 0.01),
             "out: scores, mix and softmax in f32 and p rounded to bf16 at the "
             "same point, f32 sums in another order can flip that rounding; "
@@ -916,7 +925,7 @@ def kernel_phase():
         if name.startswith(("window_attention", "attention_bwd",
                             "attention_generic", "attention_qkv", "mlp_fc",
                             "qkv_proj", "task_decode", "head_up4",
-                            "invpt_tail")):
+                            "invpt_tail", "invpt_attention")):
             a, b = case[0]("cuda"), case[0]("cuda")
             a = a if isinstance(a, tuple) else (a,)
             b = b if isinstance(b, tuple) else (b,)
@@ -926,8 +935,9 @@ def kernel_phase():
           "two runs at every stage, with and without the mask; "
           "attention_bwd (dqkv), attention_generic (self and cross shapes), "
           "attention_qkv (fast and safe), mlp_fc (every shape), qkv_proj, "
-          "task_decode, head_up4, invpt_tail (both forms, PASCAL and NYUD) "
-          "and window_attention (every stage, with and without the mask) "
+          "task_decode, head_up4, invpt_tail (both forms, PASCAL and NYUD), "
+          "invpt_attention (out and fused, every stage) and "
+          "window_attention (every stage, with and without the mask) "
           "equal across two runs",
           flush=True)
 
@@ -955,6 +965,13 @@ def kernel_phase():
         sh = share(cases[name][0]("cuda"), cases[name][0]("plain"))
         results[name]["bit_equal_share"] = sh
         print(f"[kernel] {name}: bit-equal share {sh:.6f} of the outputs",
+              flush=True)
+    # row 9's out (p rounded against the max over all keys)
+    for name in ("invpt_attention@stage0", "invpt_attention@stage1",
+                 "invpt_attention", "invpt_attention@nyud2"):
+        sh = share(cases[name][0]("cuda")[0], cases[name][0]("plain")[0])
+        results[name]["bit_equal_share"] = sh
+        print(f"[kernel] {name}: bit-equal share {sh:.6f} of out",
               flush=True)
     qkv_k = qkv_proj_cuda(layernorm_cuda(x, gamma, beta, 1e-6), wqkv, bqkv)
     core_want = attention_qkv_plain(qkv_k, HEADS, D ** -0.5, True)

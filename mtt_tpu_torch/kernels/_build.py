@@ -54,8 +54,9 @@ _SIGNATURES = {
     "mtt_attn_bwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     "mtt_mlp_fc_bf16": (*[_P] * 7, _I, _I, _I, _I, _P),
     "mtt_head_up4_bf16": (*[_P] * 9, *[_I] * 8, _P),
-    "mtt_invpt_attention_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _I, _F, _P),
+    "mtt_invpt_attention_bf16": (*[_P] * 8, *[_I] * 5, *[_L] * 12, _P, _F,
+                                 _P),
+    "mtt_invpt_attention_plan": (*[_I] * 5, _P),
     "mtt_invpt_tail_bf16": (*[_P] * 16, *[_I] * 8, _P),
     "mtt_window_attention_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
                                   _L, _L, _F, _P),

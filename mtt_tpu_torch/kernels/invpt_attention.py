@@ -16,10 +16,11 @@ dtype before p.v; that product accumulated in f32 and rounded once.
 
 On the H100 the op is bound by device memory: the f32 message in and the f32
 ``fused`` out are the largest operands (105 MB each at stage 2 of the PASCAL
-ViT-L forward). The kernel reads the message and writes ``fused`` once each;
-raw scores and probabilities stay in shared memory. The kv length is constant
-across stages (an 8x8 grid per task), so a whole score row fits on chip and no
-online softmax is needed.
+ViT-L forward; bytes per launch in ``invpt_attention_cuda``). The kernel
+reads the message and writes ``fused`` once each and keeps a block's fused
+rows in shared memory from the score product to p.v. The kv length is
+constant across stages (an 8x8 grid per task), so a whole fused row fits on
+chip and no online softmax is needed.
 
 The gradient is the JAX custom VJP (invpt_attention.py:124-164) in plain
 torch, as JAX computes it in XLA: an f32 recompute, with the cotangent that
@@ -28,13 +29,11 @@ arrives through the ``fused`` output and dmsg, dw, db.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
-import torch.nn.functional as F
 
 from mtt_tpu_torch.kernels import _build
-
-_QT = 32             # query rows per kernel block (csrc/invpt_attention.cu)
-_SMEM_MAX = 232448
 
 
 def invpt_attention_plain(q, k, v, msg, w, b, scale: float):
@@ -114,50 +113,101 @@ def _check(q, k, v, msg, w, b):
             raise ValueError("InvPT attention inputs must be on one device")
 
 
-def invpt_attention_cuda(q, k, v, msg, w, b, scale: float):
+_MAXK = 320      # keys a block's fused tile holds (csrc/invpt_attention.cu)
+
+
+def check_invpt_attention_shape(H: int, Lk: int, D: int) -> None:
+    """Raises where the kernel does not reach: 2 heads, a kv length of at
+    most 320 (a block keeps its rows' fused scores for every key in shared
+    memory; InvPT's kv length is 320 on PASCAL and 252 on NYUD) and a head
+    dim that is a multiple of 8 up to 480 (16-byte rows, at most two TMA
+    boxes a row)."""
+    if H != 2:
+        raise ValueError(f"the InvPT attention kernel takes 2 heads (every "
+                         f"InvPT config), got {H}")
+    if not 1 <= Lk <= _MAXK:
+        raise ValueError(f"the InvPT attention kernel keeps whole fused rows "
+                         f"on chip, at most {_MAXK} keys (InvPT's kv length "
+                         f"is 320 on PASCAL and 252 on NYUD); got Lk={Lk}; "
+                         f"longer rows are ROADMAP.md item 1.11")
+    if D < 8 or D % 8 or D > 480:
+        raise ValueError(f"the InvPT attention kernel reads 16-byte rows in "
+                         f"at most two TMA boxes: the head dim must be a "
+                         f"multiple of 8 up to 480, got {D}")
+
+
+def invpt_attention_plan(B: int, Lq: int, Lk: int, D: int, has_msg: bool,
+                         plan=None) -> tuple[int, int, int, int]:
+    """(row tiles of 16 query rows a block, ring slots, grid, shared-memory
+    bytes) of one launch on the current card, as the kernel's own module
+    chooses them (csrc/invpt_attention.cu: plan_launch); the entries of
+    ``plan`` (rt, stages, grid) that are > 0 are kept. Raises ValueError
+    where that plan does not fit."""
+    p = (ctypes.c_int * 4)(*(plan or (0, 0, 0)), 0)
+    if _build.lib().mtt_invpt_attention_plan(B, Lq, Lk, D, int(has_msg), p):
+        raise ValueError(f"no InvPT attention plan {plan} fits B={B}, "
+                         f"Lq={Lq}, Lk={Lk}, D={D}")
+    return tuple(p)
+
+
+def invpt_attention_cuda(q, k, v, msg, w, b, scale: float, plan=None):
     """The kernel takes bfloat16 q/k/v with 2 heads (both heads of a query
     tile sit in one block, because each fused head reads every head's scores
-    and message) and a kv length whose score rows fit in shared memory. The
-    head dim and the K/V rows are zero-padded to multiples of 16 for the
-    tensor-core tiles (InvPT's stage 2 has head dim 72, NYUD a kv length of
-    252): zeros add nothing to q.k^T, the kernel gives the padded keys no
-    probability, and the padded output columns are cut."""
+    and message), at most 320 keys and a head dim that is a multiple of 8 up
+    to 480. It reads q, k and v where they lie: (B, H, L, D) views with unit
+    stride along D and strides that are multiples of 8 (the model's head
+    splits of its projections are such views), so nothing is copied or
+    padded on the host: the kernel's TMA boxes read zeros past the head dim
+    (InvPT's stage 2 has head dim 72) and it gives the keys past Lk (NYUD's
+    252) no probability. out is written as (B, Lq, H, D) and returned as its
+    (B, H, Lq, D) view, so the caller's merge of the heads is a view too. One
+    launch a call. Only a kv length that is not a multiple of 4 (no InvPT
+    shape) pads the message's rows to 16 bytes, and gets ``fused`` as a view
+    of rows so padded. ``plan``: (rt, stages, grid) in place of the kernel's
+    own choice (``invpt_attention_plan``), which computes the same bits.
+
+    What bounds it on the H100 is bytes: the f32 message in and ``fused``
+    out, 105 MB each at the PASCAL forward's stage 2 (235 MB in all, 70 us
+    at 3.35 TB/s; stage 1 67 MB, 20 us; stage 0 18 MB, 5.5 us; NYUD's
+    stages 13, 44 and 150 MB). The kernel brings the message by TMA into a
+    block's fused tile half a tile ahead, q, K and V through a TMA ring, and
+    sends fused out of the tile by bulk copies (the note at the head of
+    csrc/invpt_attention.cu)."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the InvPT attention kernel takes bfloat16, got "
                         f"{q.dtype}")
-    if H != 2:
-        raise ValueError(f"the InvPT attention kernel takes 2 heads (every "
-                         f"InvPT config), got {H}")
-    DP = -(-D // 16) * 16
-    LkP = -(-Lk // 16) * 16
-    smem = H * _QT * ((DP + 8) * 2 + max(LkP + 8, 32) * 4 + (LkP + 8) * 2)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"the InvPT attention kernel keeps whole score rows "
-                         f"in shared memory (the kv length is 320 on PASCAL "
-                         f"and 252 on NYUD at every stage); Lk={Lk} with "
-                         f"D={D} does not fit; streaming the keys is "
-                         f"ROADMAP.md item 1.11")
-    qp = F.pad(q, (0, DP - D)).contiguous()
-    kp = F.pad(k, (0, DP - D, 0, LkP - Lk)).contiguous()
-    # v transposed to (B, H, DP, LkP): the kernel's p.v fragments then read
-    # pairs of keys as single 32-bit words
-    vp = F.pad(v, (0, DP - D, 0, LkP - Lk)).transpose(-1, -2).contiguous()
-    out = torch.empty(B, H, Lq, DP, dtype=q.dtype, device=q.device)
-    fused = torch.empty(B, H, Lq, Lk, dtype=torch.float32, device=q.device)
+    check_invpt_attention_shape(H, Lk, D)
+
+    def rows(t):   # unit stride along D, 16-byte rows
+        return t if t.stride(-1) == 1 and all(
+            s % 8 == 0 for s in t.stride()[:3]) else t.contiguous()
+
+    q, k, v = rows(q), rows(k), rows(v)
+    ldk = -(-Lk // 4) * 4   # the message's and fused's row pitch
+    fused = torch.empty(B, H, Lq, ldk, dtype=torch.float32, device=q.device)
     if msg is not None:
         msg = msg.float().contiguous()
+        if ldk != Lk:
+            msg = torch.nn.functional.pad(msg, (0, ldk - Lk))
         w = w.float().contiguous()
         b = b.float().contiguous()
+    _build.check_aligned("the InvPT attention kernel", q, k, v,
+                         *([msg] if msg is not None else []))
+    out = torch.empty(B, Lq, H, D, dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
     _build.check(_build.lib().mtt_invpt_attention_bf16(
-        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
         msg.data_ptr() if msg is not None else None,
         w.data_ptr() if msg is not None else None,
         b.data_ptr() if msg is not None else None,
-        out.data_ptr(), fused.data_ptr(), B, Lq, Lk, LkP, DP, float(scale),
-        _build.stream()), "mtt_invpt_attention_bf16")
-    return out[..., :D], fused
+        out.data_ptr(), fused.data_ptr(), B, Lq, Lk, ldk, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        None if plan is None else (ctypes.c_int * 3)(*plan), float(scale),
+        _build.stream()),
+        "mtt_invpt_attention_bf16")
+    return out, fused if ldk == Lk else fused[..., :Lk]
 
 
 class _InvPTAttention(torch.autograd.Function):

@@ -628,29 +628,177 @@ def test_train_step_goes_through_kernels(gen):
                zip(before, trainer.master, grads) if g.abs().sum() > 0)
 
 
-@pytest.mark.parametrize("Lq,Lk,D,with_msg", [
-    (150, 320, 72, True), (150, 320, 72, False), (64, 320, 144, True),
-    (33, 320, 288, False), (100, 252, 72, True), (40, 10, 144, True)])
-def test_invpt_attention_kernel(gen, Lq, Lk, D, with_msg):
-    """Head dims 72 (padded to 80), 144 and 288, query counts that are not
-    tile multiples, NYUD's kv length of 252 and a tiny one (both padded to
-    16-key tiles), with and without a message. out: 4 bf16 ulps (p is rounded
-    to bf16 at the same point; f32 sums in another order can flip it); fused
-    (f32 on both sides, exact bf16 products): 0.01 ulps = 8e-5 of its
-    scale."""
-    from mtt_tpu_torch.kernels.invpt_attention import invpt_fused_attention
-    B, H = 2, 2
-    q = _rnd(gen, B, H, Lq, D)
-    k, v = _rnd(gen, B, H, Lk, D), _rnd(gen, B, H, Lk, D)
+def _invpt_inputs(gen, B, Lq, Lk, D, with_msg, heads_last=False, std=1.0):
+    """q, k, v (as (B, L, H, D) transposed to (B, H, L, D) views when
+    ``heads_last``, the model's head split), and msg, w, b or None."""
+    H = 2
+
+    def qkv(L):
+        if heads_last:
+            return _rnd(gen, B, L, H, D, std=std).transpose(1, 2)
+        return _rnd(gen, B, H, L, D, std=std)
+
+    q, k, v = qkv(Lq), qkv(Lk), qkv(Lk)
     msg = w = b = None
     if with_msg:
         msg = _rnd(gen, B, H, Lq, Lk, dtype=torch.float32)
         w = _rnd(gen, H, 2 * H, std=0.5, dtype=torch.float32)
         b = _rnd(gen, H, std=0.1, dtype=torch.float32)
+    return q, k, v, msg, w, b
+
+
+# The bit-equal share of out against the plain version that the former
+# kernel (32-row blocks, scores and p in shared memory, the head dim padded on
+# the host) reached on these inputs, measured once on an H100 80GB HBM3 at
+# 700 W (tools/torch_attention_ab.py --rows invpt, which draws the same
+# inputs and holds the two kernels to each other in one run). The kernel must
+# reach as much, less INVPT_SHARE_SLACK: room for another build of the
+# plain version's matmul and softmax to move a few of its bits, far under
+# the ~0.3 that rounding p against a running max costs.
+INVPT_PARENT_SHARE = {"pascal0": 0.9989067912101746,
+                      "pascal1": 0.999409019947052,
+                      "pascal2": 0.9993362426757812,
+                      "nyud0": 0.9986376166343689,
+                      "nyud1": 0.9994703531265259,
+                      "nyud2": 0.9995439648628235}
+INVPT_SHARE_SLACK = 1e-4
+
+
+@pytest.mark.parametrize("Lq,Lk,D,with_msg,B,tag", [
+    (150, 320, 72, True, 2, None), (150, 320, 72, False, 2, None),
+    (64, 320, 144, True, 2, None), (33, 320, 288, False, 2, None),
+    (100, 252, 72, True, 2, None), (40, 10, 144, True, 2, None),
+    (40, 10, 144, False, 2, None), (5000, 320, 72, True, 8, None),
+    (320, 320, 288, False, 8, "pascal0"), (1280, 320, 144, True, 8, "pascal1"),
+    (5120, 320, 72, True, 8, "pascal2"), (252, 252, 288, False, 8, "nyud0"),
+    (1008, 252, 144, True, 8, "nyud1"), (4032, 252, 72, True, 8, "nyud2")])
+def test_invpt_attention_kernel(gen, Lq, Lk, D, with_msg, B, tag):
+    """Head dims 72 (its last k step zero-filled on chip), 144 and 288, query
+    counts that are not tile multiples (150 and 33 against 16-row tiles,
+    5000 against 64), NYUD's kv length of 252 and a tiny one of 10 (neither
+    a multiple of the 16-key step; 10 also leaves the message's rows off the
+    16-byte grid, so the wrapper pads them and returns fused as a view), with
+    and without a message; and the six launches of the
+    PASCAL and NYUD InvPT-ViT-L forwards at batch 8, on the model's strided
+    (B, L, H, D) head views. out: 4 bf16 ulps (p is rounded to bf16 at the
+    same point; f32 sums in another order can flip it); fused (f32 on both
+    sides, exact bf16 products): 0.01 ulps = 8e-5 of its scale. Two runs
+    give the same bits (no atomics), and at the forwards' shapes at least as
+    many outputs are bit-equal to the plain version as the parent kernel's
+    (``INVPT_PARENT_SHARE``, less ``INVPT_SHARE_SLACK``)."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.invpt_attention import invpt_fused_attention
+    args = _invpt_inputs(gen, B, Lq, Lk, D, with_msg, heads_last=B == 8)
     scale = (2 * D) ** -0.5
-    _check(invpt_fused_attention(q, k, v, msg, w, b, scale),
-           invpt_fused_attention(q, k, v, msg, w, b, scale, impl="plain"),
-           ulps=(4, 0.01))
+    _build.reset_counts()
+    got = invpt_fused_attention(*args, scale)
+    assert _build.COUNTS == _counts(invpt_attention=1)
+    want = invpt_fused_attention(*args, scale, impl="plain")
+    _check(got, want, ulps=(4, 0.01))
+    again = invpt_fused_attention(*args, scale)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if tag:
+        assert _bit_share(got[0], want[0]) >= \
+            INVPT_PARENT_SHARE[tag] - INVPT_SHARE_SLACK
+
+
+@pytest.mark.parametrize("with_msg", [False, True])
+@pytest.mark.parametrize("D", [72, 144, 288])
+def test_invpt_attention_plans_give_equal_bits(gen, D, with_msg):
+    """Every block shape (1-4 row tiles of 16 query rows), ring depth and
+    grid, persistent blocks that walk tiles included, computes each row the
+    same way: all give the bits of the planned launch, which is within
+    tolerance of the plain version. 300 query rows: the last tile is
+    partial at every tile height."""
+    from mtt_tpu_torch.kernels import invpt_attention as mod
+    B, Lq, Lk = 2, 300, 320
+    args = _invpt_inputs(gen, B, Lq, Lk, D, with_msg)
+    scale = (2 * D) ** -0.5
+    ref = mod.invpt_attention_cuda(*args, scale)
+    _check(ref, mod.invpt_attention_plain(*args, scale), ulps=(4, 0.01))
+    for rt in (1, 2, 3, 4):
+        tiles = B * -(-Lq // (16 * rt))
+        for stages in (2, 5):
+            for grid in (tiles, 3):
+                try:
+                    mod.invpt_attention_plan(B, Lq, Lk, D, with_msg,
+                                             (rt, stages, grid))
+                except ValueError:
+                    continue      # that many slots do not fit
+                got = mod.invpt_attention_cuda(*args, scale,
+                                               plan=(rt, stages, grid))
+                torch.cuda.synchronize()
+                assert all(torch.equal(x, y) for x, y in zip(got, ref)), \
+                    (rt, stages, grid)
+
+
+# the six launches of the InvPT-ViT-L forwards at batch 8 (PASCAL and NYUD
+# stages 0-2): (Lq, Lk, head dim, with a message) -> the plan's row tiles on
+# an H100's 132 SMs
+INVPT_FORWARD_PLANS = [
+    ((320, 320, 288, False), 2), ((1280, 320, 144, True), 3),
+    ((5120, 320, 72, True), 4), ((252, 252, 288, False), 1),
+    ((1008, 252, 144, True), 4), ((4032, 252, 72, True), 4)]
+INVPT_SMEM_BLOCK = 232448   # dynamic shared memory a block may use on sm_90
+
+
+@pytest.mark.parametrize("shape,rt_want", INVPT_FORWARD_PLANS)
+def test_invpt_attention_plan_fits_and_fills_the_card(gen, shape, rt_want):
+    """Each forward launch gets a plan that fits a block's shared memory,
+    a ring of 2-8 slots, blocks on at least half the SMs, and (on 132 SMs)
+    the row tiles a block that the kernel's cost model picks."""
+    from mtt_tpu_torch.kernels.invpt_attention import invpt_attention_plan
+    Lq, Lk, D, msg = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rt, stages, grid, smem = invpt_attention_plan(8, Lq, Lk, D, msg)
+    if sms == 132:
+        assert rt == rt_want
+    assert smem <= INVPT_SMEM_BLOCK and 2 <= stages <= 8
+    tiles = 8 * -(-Lq // (16 * rt))
+    assert min(tiles, sms // 2) <= grid <= tiles
+
+
+@pytest.mark.parametrize("B,Lq,Lk,D,msg", [
+    (1, 1, 1, 8, False), (2, 33, 10, 144, True), (3, 700, 320, 480, True),
+    (2, 5000, 64, 16, False), (1, 40, 252, 72, True)])
+def test_invpt_attention_plan_edges(gen, B, Lq, Lk, D, msg):
+    """Tiny and odd shapes plan too: one query row, one key, the widest head
+    dim (two TMA boxes a row), a grid that never exceeds the tiles, and
+    persistent blocks that walk tiles only with a ring no deeper than a
+    tile's P.V steps; the plan chosen is one the kernel takes back as given."""
+    from mtt_tpu_torch.kernels.invpt_attention import invpt_attention_plan
+    rt, stages, grid, smem = invpt_attention_plan(B, Lq, Lk, D, msg)
+    tiles = B * -(-Lq // (16 * rt))
+    assert 1 <= grid <= tiles and smem <= INVPT_SMEM_BLOCK
+    passes = -(-(D // 8) // (9 if D <= 72 else 18))
+    if grid < tiles:
+        assert stages - 1 <= passes * -(-Lk // (32 if msg else 64))
+    assert invpt_attention_plan(B, Lq, Lk, D, msg, (rt, stages, grid)) == \
+        (rt, stages, grid, smem)
+
+
+@pytest.mark.parametrize("with_msg", [False, True])
+def test_invpt_attention_takes_the_max_over_all_keys(gen, with_msg):
+    """fused spreads past 30 along each row, the keys growing toward the
+    end of the row so that the max mostly sits in a late 16-key step: p is
+    rounded against the max over ALL keys, as the TPU kernel does, so at
+    least 99% of the outputs are bit-equal to the plain version (a running
+    max would round p against partial maxima and fall well short)."""
+    from mtt_tpu_torch.kernels.invpt_attention import (
+        invpt_attention_cuda, invpt_attention_plain)
+    B, Lq, Lk, D = 2, 256, 320, 72
+    q, k, v, msg, w, b = _invpt_inputs(gen, B, Lq, Lk, D, with_msg, std=5.0)
+    ramp = torch.linspace(0.2, 1.0, Lk, device="cuda")[None, None, :, None]
+    k = (k.float() * ramp).to(torch.bfloat16)
+    if with_msg:
+        msg = msg * 8.0
+    scale = (2 * D) ** -0.5
+    got = invpt_attention_cuda(q, k, v, msg, w, b, scale)
+    want = invpt_attention_plain(q, k, v, msg, w, b, scale)
+    _check(got, want, ulps=(4, 0.01))
+    spread = want[1].amax(-1) - want[1].amin(-1)
+    assert spread.median().item() > 30, spread.median().item()
+    assert _bit_share(got[0], want[0]) >= 0.99
 
 
 @pytest.mark.parametrize("h0,w0,C,D,n", [(16, 16, 576, 576, 21),

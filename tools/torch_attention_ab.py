@@ -4,6 +4,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     git archive <parent> mtt_tpu_torch | tar -x -C build/parent
     python3 tools/torch_attention_ab.py --parent build/parent
+    python3 tools/torch_attention_ab.py --parent build/parent --rows invpt
 
 Both checkouts' ``mtt_tpu_torch/csrc`` are built (each into its own
 ``build/`` directory). Each run loads one of the two libraries, in a process
@@ -15,13 +16,19 @@ and rows 1-2's core (``mtt_attn_core_bf16``, fast and safe softmax) at qkv
 (8, 1029, 3072), and rows 11 and 12 (``mtt_window_attention_bf16``,
 ``mtt_window_attention_bwd_bf16``) at Swin-B's stage 2 (32 windows of 147
 tokens, 16 heads, with the shift mask) and stage 0 (512 windows, 4 heads)
-with and without the mask. Each time is the median of CUDA-event times of
-``--reps`` calls; the runs go parent, change, change, parent, and SDPA
+with and without the mask, and row 9 (``mtt_invpt_attention_bf16``) at the
+six launches of the InvPT-ViT-L forwards at batch 8 (PASCAL and NYUD stages
+0-2, on the model's strided head views; the parent's host pads are made once
+outside its timing; ``--rows invpt`` runs row 9 alone). Each time is the
+median of CUDA-event times of ``--reps`` calls (row 9: of 20 back-to-back
+calls, over 20, beside the library composition of ``chip_smoke.py``
+timed the same way); the runs go parent, change, change, parent, and SDPA
 (forward and backward; for rows 11 and 12 with the bias and mask merged into
 one float mask, row 12's backward with that mask requiring grad, plus its
 gradient summed over the windows) is timed in each run beside the kernels.
 Outputs are held to the plain versions at 4 bf16 ulps of the largest value
-(row 11 at 2, row 12's dbias to 1e-4 of its largest value), the safe
+(row 11 at 2, row 12's dbias to 1e-4 of its largest value, row 9's fused to
+0.01 ulps, its bit-equal share of out to at least the parent's), the safe
 softmax of row 13 to at least 99% of its outputs bit-equal to the plain
 version (rows 11's shares printed), and each kernel runs twice to show
 equal bits. It prints the card's
@@ -33,6 +40,7 @@ differ between two runs.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import inspect
 import json
@@ -105,7 +113,124 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def run_one(checkout: Path, tag: str, reps: int) -> dict:
+def time_b2b(fn, reps: int, n: int = 20) -> float:
+    """Median over ``reps`` of CUDA-event time of ``n`` back-to-back calls,
+    divided by ``n``."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+# row 9 at the six launches of the InvPT-ViT-L forwards at batch 8: PASCAL
+# and NYUD stages 0-2, (Lq, Lk, head dim, with a message)
+INVPT_SHAPES = {
+    "invpt_attention@pascal0": (320, 320, 288, False),
+    "invpt_attention@pascal1": (1280, 320, 144, True),
+    "invpt_attention@pascal2": (5120, 320, 72, True),
+    "invpt_attention@nyud0": (252, 252, 288, False),
+    "invpt_attention@nyud1": (1008, 252, 144, True),
+    "invpt_attention@nyud2": (4032, 252, 72, True)}
+
+
+def invpt_cases(checkout: Path, bld, gen, stream) -> dict:
+    """Row 9's cases on the model's strided (B, L, H, D) head views: the
+    checkout's raw launch (the parent's on its host-padded q, k and a
+    transposed v, made once outside the timing), the plain version, the
+    library composition of ``chip_smoke.py: _invpt_cases`` and this tree's
+    wrapper."""
+    from mtt_tpu_torch.kernels.invpt_attention import (invpt_attention_cuda,
+                                                       invpt_attention_plain)
+    bf, dev = torch.bfloat16, torch.device("cuda")
+    lib = bld.lib()
+    strided = len(bld._SIGNATURES["mtt_invpt_attention_bf16"]) > 15
+    cases = {}
+    for name, (lq, lk, d, with_msg) in INVPT_SHAPES.items():
+        # the inputs of tests/test_torch_cuda.py::test_invpt_attention_kernel
+        # at the same shape (a fresh seed 0, the same draws)
+        gen.manual_seed(0)
+        B, H = 8, 2
+        q, k, v = (torch.randn(B, L, H, d, generator=gen, device=dev).to(bf)
+                   .transpose(1, 2) for L in (lq, lk, lk))
+        msg = w = b = None
+        if with_msg:
+            msg = torch.randn(B, H, lq, lk, generator=gen, device=dev)
+            w = torch.randn(H, 2 * H, generator=gen, device=dev) * 0.5
+            b = torch.randn(H, generator=gen, device=dev) * 0.1
+        scale = (H * d) ** -0.5
+        ptrs = [t.data_ptr() if t is not None else None for t in (msg, w, b)]
+        fused = torch.empty(B, H, lq, lk, device=dev)
+        if strided:
+            out = torch.empty(B, lq, H, d, dtype=bf, device=dev).transpose(
+                1, 2)
+            sargs = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                     *out.stride()[:3])
+
+            def call(a=(q, k, v, out, fused, ptrs, sargs, lq, lk, d),
+                     plan=None):
+                q_, k_, v_, o_, f_, p_, s_, lq_, lk_, d_ = a
+                bld.check(lib.mtt_invpt_attention_bf16(
+                    q_.data_ptr(), k_.data_ptr(), v_.data_ptr(), *p_,
+                    o_.data_ptr(), f_.data_ptr(), B, lq_, lk_, lk_, d_, *s_,
+                    plan, (H * d_) ** -0.5, stream()),
+                    "mtt_invpt_attention_bf16")
+                return o_, f_
+        else:
+            dp, lkp = -(-d // 16) * 16, -(-lk // 16) * 16
+            qp = F.pad(q, (0, dp - d)).contiguous()
+            kp = F.pad(k, (0, dp - d, 0, lkp - lk)).contiguous()
+            vp = F.pad(v, (0, dp - d, 0, lkp - lk)).transpose(-1, -2) \
+                .contiguous()
+            out = torch.empty(B, H, lq, dp, dtype=bf, device=dev)
+
+            def call(a=(qp, kp, vp, out, fused, ptrs, lq, lk, lkp, d, dp)):
+                q_, k_, v_, o_, f_, p_, lq_, lk_, lkp_, d_, dp_ = a
+                bld.check(lib.mtt_invpt_attention_bf16(
+                    q_.data_ptr(), k_.data_ptr(), v_.data_ptr(), *p_,
+                    o_.data_ptr(), f_.data_ptr(), B, lq_, lk_, lkp_, dp_,
+                    (H * d_) ** -0.5, stream()), "mtt_invpt_attention_bf16")
+                return o_[..., :d_], f_
+
+        def comp(a=(q, k, v, msg, w, b, scale)):
+            q_, k_, v_, m_, w_, b_, sc = a
+            fu = torch.matmul(q_, k_.transpose(-1, -2)).float() * sc
+            if m_ is not None:
+                fu = torch.einsum("hc,bcqk->bhqk", w_, torch.cat([fu, m_], 1)
+                                  ) + b_[None, :, None, None]
+            return torch.matmul(torch.softmax(fu, -1).to(bf), v_), fu
+
+        cases[name] = (
+            call, invpt_attention_plain(q, k, v, msg, w, b, scale), comp,
+            lambda a=(q, k, v, msg, w, b, scale): invpt_attention_cuda(*a)
+            if checkout == ROOT else None)
+    return cases
+
+
+def invpt_plan_times(cases: dict, reps: int) -> dict:
+    """Row 9 at PASCAL's stage 2 under each block height the kernel takes
+    (1-4 row tiles of 16 query rows; the ring depth and grid then chosen as
+    the kernel's plan chooses them): plan -> back-to-back ms. One row tile
+    is the only block small enough for two blocks an SM."""
+    from mtt_tpu_torch.kernels.invpt_attention import invpt_attention_plan
+    call = cases["invpt_attention@pascal2"][0]
+    lq, lk, d, with_msg = INVPT_SHAPES["invpt_attention@pascal2"]
+    times = {}
+    for rt in (1, 2, 3, 4):
+        plan = invpt_attention_plan(8, lq, lk, d, with_msg, (rt, 0, 0))
+        arg = (ctypes.c_int * 3)(*plan[:3])
+        times[str(plan)] = time_b2b(lambda arg=arg: call(plan=arg), reps)
+    return times
+
+
+def run_one(checkout: Path, tag: str, reps: int, rows: str) -> dict:
     """Errors, equal bits and times of one checkout's kernels."""
     from mtt_tpu_torch.kernels.attention import (attention_generic_plain,
                                                  attention_qkv_plain,
@@ -129,6 +254,12 @@ def run_one(checkout: Path, tag: str, reps: int) -> dict:
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
+    if rows == "invpt":
+        cases = invpt_cases(checkout, bld, gen, stream)
+        result = measure(checkout, bld, reps, cases)
+        if checkout == ROOT:
+            result["plans"] = invpt_plan_times(cases, reps)
+        return result
     cases = {}
     for name, (nq, nk, h, d) in {
             "attention_generic": (1029, 1029, 16, 64),
@@ -283,29 +414,42 @@ def run_one(checkout: Path, tag: str, reps: int) -> dict:
             lambda q=q, k=k, v=v, bias=bias, mask=mask, gw=gw, bw=bw:
                 window_attention_bwd_cuda(q, k, v, bias, mask, gw,
                                           32 ** -0.5, bw))
+    cases.update(invpt_cases(checkout, bld, gen, stream))
+    return measure(checkout, bld, reps, cases)
 
+
+def measure(checkout: Path, bld, reps: int, cases: dict) -> dict:
+    """Errors, equal bits and times of ``cases``: name -> (raw call, the
+    plain version's outputs, the library call or None, the wrapper call)."""
     result = {"ptxas": ptxas_lines(bld, ("attn_generic", "attn_bwd",
                                          "attn_core", "wattn_bwd",
-                                         "wattn_kernel"))}
+                                         "wattn_kernel",
+                                         "invpt_attention"))}
     for name, (call, want, lib, wrapper) in cases.items():
-        got, again = call(), call()
+        row9 = name.startswith("invpt_attention")
+        # row 9's raw calls write into the same buffers each time
+        got, again = tuple(x.clone() for x in call()), call()
         torch.cuda.synchronize()
         errs, tols = [], []
         for a, w in zip(got, want):
             errs.append((a.float() - w.float()).abs().max().item())
             # row 12's dbias (f32 on both sides): 1e-4 of its largest value;
-            # row 11: 2 ulps, as tests/test_torch_cuda.py holds it
-            rel = 1e-4 if a.dtype == torch.float32 else (
-                2 if name.startswith("window_attention@") or
-                name == "window_attention" else 4) * 2.0 ** -7
+            # row 11: 2 ulps, as tests/test_torch_cuda.py holds it; row 9's
+            # fused 0.01 ulps and out 4, as the test holds them
+            rel = (0.01 * 2.0 ** -7 if row9 else 1e-4) \
+                if a.dtype == torch.float32 else (
+                    2 if name.startswith("window_attention@") or
+                    name == "window_attention" else 4) * 2.0 ** -7
             tols.append(rel * w.float().abs().max().item())
+        # row 9: raw back-to-back launches, the form of its targets in PERF.md
+        timer = time_b2b if row9 else time_ms
         result[name] = dict(
-            ms=time_ms(call, reps), library_ms=time_ms(lib, reps)
+            ms=timer(call, reps), library_ms=timer(lib, reps)
             if lib else None, max_abs_err=max(errs),
             within_tol=all(e <= t for e, t in zip(errs, tols)) and all(
                 bool(torch.isfinite(a).all()) for a in got),
             equal_bits=all(torch.equal(a, b) for a, b in zip(got, again)))
-        if name == "attention_qkv_safe" or name.startswith(
+        if row9 or name == "attention_qkv_safe" or name.startswith(
                 ("window_attention@", "window_attention")) and "bwd" not in \
                 name:
             # the share of bit-equal outputs; the safe softmax takes the
@@ -318,7 +462,7 @@ def run_one(checkout: Path, tag: str, reps: int) -> dict:
         if checkout == ROOT:
             # the same launch through the port's Python entry point, whose
             # argument checks run on the host while the card waits
-            result[name]["wrapper_ms"] = time_ms(wrapper, reps)
+            result[name]["wrapper_ms"] = timer(wrapper, reps)
             if name.startswith("window_attention") and "bwd" not in name:
                 # row 11's streamed two-pass form (the Window policy of the
                 # attention template), which takes windows past 160 tokens,
@@ -334,6 +478,8 @@ def main(argv=None):
     ap.add_argument("--parent", required=True, type=Path,
                     help="a checkout holding the parent's mtt_tpu_torch/")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--rows", choices=("all", "invpt"), default="all",
+                    help="every row, or row 9 alone")
     ap.add_argument("--one", choices=("parent", "change"),
                     help="internal: one run of one checkout, as JSON")
     args = ap.parse_args(argv)
@@ -342,7 +488,7 @@ def main(argv=None):
         return 1
     if args.one:
         checkout = args.parent.resolve() if args.one == "parent" else ROOT
-        print(json.dumps(run_one(checkout, args.one, args.reps)))
+        print(json.dumps(run_one(checkout, args.one, args.reps, args.rows)))
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -351,7 +497,7 @@ def main(argv=None):
     for tag in ("parent", "change", "change", "parent"):
         run = subprocess.run(
             [sys.executable, __file__, "--parent", str(args.parent),
-             "--reps", str(args.reps), "--one", tag],
+             "--reps", str(args.reps), "--rows", args.rows, "--one", tag],
             capture_output=True, text=True)
         if run.returncode:
             raise RuntimeError(f"{tag} run failed:\n{run.stderr[-4000:]}")
@@ -362,7 +508,13 @@ def main(argv=None):
         runs[tag].append(res)
     summary, ok = {}, True
     for name in runs["change"][0]:
-        if name == "ptxas":
+        if name == "plans":
+            # row 9 at stage 2 under each block height: (rt, stages, grid,
+            # shared memory) -> ms in each change run
+            print("[ab] invpt_attention@pascal2 plans: " + json.dumps(
+                {p: [r["plans"][p] for r in runs["change"]]
+                 for p in runs["change"][0]["plans"]}), flush=True)
+        if name in ("ptxas", "plans"):
             continue
         row = {}
         for tag, rs in runs.items():
@@ -380,6 +532,11 @@ def main(argv=None):
                 row[f"{tag}_bit_equal_share"] = [r[name]["bit_equal_share"]
                                                  for r in rs]
         ok = ok and row["change_within_tol"] and row["change_equal_bits"]
+        if name.startswith("invpt_attention"):
+            # row 9's share of bit-equal outputs may not fall below the
+            # parent kernel's
+            ok = ok and min(row["change_bit_equal_share"]) >= min(
+                row["parent_bit_equal_share"])
         summary[name] = row
         print(f"[ab] {name}: {json.dumps(row)}", flush=True)
     print(json.dumps({"ab": summary, "device": torch.cuda.get_device_name(0)}))
