@@ -72,21 +72,33 @@ Phases, in order (the seconds each took are printed):
      drop-path 0.1, bf16 with f32 master weights, seeded synthetic batches):
      the same checks as phase 9, every detection loss component finite,
      and each window attention backward launch of the step against the
-     plain backward on its own inputs.
+     plain backward on its own inputs;
+  11. ``invpt_train``: InvPT-ViT-L training with intermediate supervision
+     (every ``inter_<task>`` loss checked finite), drop-path on, on PASCAL
+     (5 tasks, 512x512) and NYUD-v2 (4 tasks, 448x576), batch 2: the
+     checks of phase 9;
+  12. ``nyud_train``: NYUD-v2 TaskPrompter-ViT-L training (16 channel
+     windows, no CTR, 768-wide heads) at batch 2 and 448x576: the checks
+     of phase 9;
+  13. ``evaluate``: ``test_phase`` over 2 seeded synthetic batches of 8
+     through the InvPT-ViT-L PASCAL eval model: launch counts, finite
+     scores, the meter states on the card against the port's meters on
+     the CPU, imgs/s.
 The line before the last is the kernels JSON; the last line is the device JSON.
 
 ``python3 chip_smoke.py --profile`` runs none of these phases: after the
-build it traces one eval forward of each model and one training step with
-``torch.profiler`` and prints their wall time and device time by kernel group
-(with ``--phases``, only those models').
+build it traces one eval forward of each model and one training step of
+each training path with ``torch.profiler`` and prints their wall time and
+device time by kernel group (with ``--phases``, only those paths').
 ``python3 chip_smoke.py --grad-diag`` runs none of them either: it prints how
 far the Swin-B training step's bf16 gradients move between two runs on equal
 inputs, and how far they sit from the f32 step's when both run free, by loss
 part, at the two bf16 paths' forward points, and at the outputs of the
 decodes and the detection head (``grad_diag``).
 ``--phases kernels,invpt`` (any subset of kernels, attention_api, eval,
-invpt, swin, nyud, train, swin_train) runs only those phases and prints no
-result lines: a quick look, not the check.
+invpt, swin, nyud, train, swin_train, invpt_train, nyud_train, evaluate)
+runs only those phases and prints no result lines: a quick look, not the
+check.
 """
 
 from __future__ import annotations
@@ -95,6 +107,7 @@ import argparse
 import contextlib
 import copy
 import json
+import math
 import os
 import re
 import statistics
@@ -1025,6 +1038,27 @@ def expected_train() -> dict:
                      mlp_fc=23, task_decode=4)
 
 
+def expected_nyud_train() -> dict:
+    """One NYUD TaskPrompter-ViT-L training step: the PASCAL step's blocks
+    and LayerNorms (the 4 tap blocks' emit path included); no task decode
+    launch (16 channel windows take the windowed torch composition)."""
+    return {**expected_train(), "task_decode": 0}
+
+
+def expected_invpt_train() -> dict:
+    """One InvPT-ViT-L training step (PASCAL or NYUD): the 24 ViT blocks'
+    attention (the cached kernel: no block emits its qkv) and its 24
+    backwards; block 0 (drop-path rate 0) the fused MLP half-block, blocks
+    1..23 LayerNorm + the plain MLP under drop-path; LayerNorm = those 23 +
+    the ViT's final norm + norm1 and norm2 of the 3 decoder stages + their 3
+    task-merged stage norms; the 3 decoder MLPs; one message-passing
+    attention a stage (its backward is torch); the tail trains on the dense
+    composition (no tail kernel) and the 1x1 heads are torch."""
+    return _expected(layernorm=23 + 1 + 6 + 3, attention_cached=24,
+                     attention_bwd=24, mlp_ln_res=1, mlp_fc=23 + 3,
+                     invpt_attention=3)
+
+
 def expected_invpt(tail_head: bool, tasks: int = T) -> dict:
     """One InvPT eval forward: 24 ViT blocks (attention + MLP half-block);
     LayerNorm = the ViT's final norm + norm1 and norm2 of the 3 decoder
@@ -1666,6 +1700,48 @@ class _ForwardPoint:
         return self._hooked(model, held)
 
 
+class _DropPathMasks(torch.overrides.TorchFunctionMode):
+    """Within it, the drop-path keep masks that each InvPT decoder block of
+    ``model`` draws (``layers.drop_path``: one ``torch.rand`` over the batch
+    from the generator a branch): ``masks[block]`` lists the attention
+    branch's mask and the MLP branch's, a bool a sample."""
+
+    def __init__(self, model):
+        from mtt_tpu_torch.models.invpt import InvPTBlock
+        super().__init__()
+        self.masks, self._block, self._handles = {}, None, []
+        for name, mod in model.named_modules():
+            if isinstance(mod, InvPTBlock):
+                self._handles += [
+                    mod.register_forward_pre_hook(
+                        lambda mod, args, name=name: self._enter(name, mod)),
+                    mod.register_forward_hook(
+                        lambda *_: setattr(self, "_block", None))]
+
+    def _enter(self, name, mod):
+        self._block = (name, mod.drop_path)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if (func is torch.rand and self._block is not None
+                and kwargs.get("generator") is not None):
+            name, rate = self._block
+            self.masks.setdefault(name, []).append(
+                (out < 1.0 - rate).tolist())
+        return out
+
+    def __exit__(self, *exc):
+        for h in self._handles:
+            h.remove()
+        return super().__exit__(*exc)
+
+    def dead(self):
+        """The branches that every sample drops."""
+        return [f"{name} {branch}" for name, ms in self.masks.items()
+                for branch, m in zip(("attention", "MLP"), ms) if not any(m)]
+
+
 class _Terms(torch.overrides.TorchFunctionMode):
     """Within it, for each of ``params`` (by name) that an ``F.linear`` or
     ``F.conv2d`` call takes as its bias, or an ``F.linear`` call as its
@@ -1839,14 +1915,156 @@ def swin_train_phase():
         wa.window_attention_bwd_cuda = real
 
 
+def _train_paths():
+    """(tag, title, training config, seed, expected launches, loss names) of
+    the InvPT and NYUD TaskPrompter training steps (``invpt_train_phase``,
+    ``nyud_train_phase``)."""
+    from mtt_tpu_torch.models.wrappers import task_table
+    from mtt_tpu_torch.train import (NYUD_INVPT_VITL_TRAIN, NYUD_VITL,
+                                     INVPT_PASCAL_VITL_TRAIN)
+
+    def keys(p):
+        tasks, _ = task_table(p["train_db_name"], p["task_dictionary"])
+        inter = p.get("intermediate_supervision", False)
+        return {*tasks, "total", *(f"inter_{t}" for t in tasks if inter)}
+
+    return (("invpt_train_pascal", f"InvPT-ViT-L PASCAL (5 tasks, "
+             f"intermediate supervision), batch {BT} at {IMG}x{IMG}",
+             INVPT_PASCAL_VITL_TRAIN, 16, expected_invpt_train(),
+             keys(INVPT_PASCAL_VITL_TRAIN)),
+            ("invpt_train_nyud", f"InvPT-ViT-L NYUD-v2 (4 tasks, "
+             f"intermediate supervision), batch {BT} at {NYUD_IMG[0]}x"
+             f"{NYUD_IMG[1]}", NYUD_INVPT_VITL_TRAIN, 9,
+             expected_invpt_train(), keys(NYUD_INVPT_VITL_TRAIN)),
+            ("nyud_train", f"TaskPrompter-ViT-L NYUD-v2 (16 channel windows, "
+             f"no CTR, 768-wide heads), batch {BT} at {NYUD_IMG[0]}x"
+             f"{NYUD_IMG[1]}", NYUD_VITL, 10, expected_nyud_train(),
+             keys(NYUD_VITL)))
+
+
+def _run_train_paths(tags) -> dict:
+    """The ``_train_paths`` steps named in ``tags`` through ``_train_run``,
+    each at the config's batch of 2 on seeded synthetic batches; returns
+    their launch counts by tag."""
+    from mtt_tpu_torch.train import make_trainer
+    from mtt_tpu_torch.utils.train_utils import to_device
+
+    dev = torch.device("cuda")
+    counts = {}
+    for tag, title, p, seed, want, keys in _train_paths():
+        if tag not in tags:
+            continue
+        trainer, data = make_trainer(p, seed=seed, device=dev)
+        batches = [to_device(data.batch(i * BT, BT), dev)
+                   for i in range(TRAIN_STEPS)]
+        counts[tag] = _train_run(tag, title, trainer, batches, want, BT,
+                                 loss_keys=keys)
+        del trainer, data, batches
+        torch.cuda.empty_cache()
+    return counts
+
+
+def invpt_train_phase():
+    """InvPT-ViT-L training steps with intermediate supervision on PASCAL
+    and NYUD through the kernels; returns the launch counts of each."""
+    return _run_train_paths(("invpt_train_pascal", "invpt_train_nyud"))
+
+
+def nyud_train_phase():
+    """NYUD TaskPrompter-ViT-L training steps through the kernels; returns
+    the launch counts of one step."""
+    return _run_train_paths(("nyud_train",))["nyud_train"]
+
+
+EVAL_BATCHES = 2
+
+
+def evaluate_phase():
+    """``test_phase`` over 2 seeded synthetic batches of 8 at 512x512
+    through the InvPT-ViT-L PASCAL eval model (bf16, the fused tail): the
+    launch counts of the two forwards, finite scores for every task, the
+    meter states on the card against the port's meters run on the CPU on
+    the same predictions and labels (counts equal, float sums within 1e-6
+    of themselves), and imgs/s of the whole loop (forward, post-processing,
+    meter update; the scores read once). Returns the launch counts."""
+    from mtt_tpu_torch.data.synthetic import SyntheticMT
+    from mtt_tpu_torch.evaluation.meters import PerformanceMeter
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.models.wrappers import task_table
+    from mtt_tpu_torch.train import INVPT_PASCAL_VITL_TRAIN as p
+    from mtt_tpu_torch.utils.train_utils import (eval_step, test_phase,
+                                                 to_device)
+
+    dev = torch.device("cuda")
+    model, _ = _invpt_model()
+    tasks, num_out = task_table(p["train_db_name"], p["task_dictionary"])
+    data = SyntheticMT(tasks, num_out, (IMG, IMG), seed=11)
+    batches = [to_device(data.batch(i * B, B), dev)
+               for i in range(EVAL_BATCHES)]
+    meter = PerformanceMeter(p, tasks, dev)
+
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    scores = test_phase(p, model, batches, meter=meter)
+    counts = dict(_build.COUNTS)
+    want = {k: EVAL_BATCHES * v for k, v in expected_invpt(False).items()}
+    print(f"[evaluate] test_phase, InvPT-ViT-L PASCAL, {EVAL_BATCHES} "
+          f"batches of {B} at {IMG}x{IMG} bf16; launches {counts}",
+          flush=True)
+    if counts != want:
+        raise RuntimeError(f"evaluate launch counts {counts} != {want}")
+    print(f"[evaluate] scores {json.dumps(scores)}", flush=True)
+    if set(scores) != set(tasks) or not all(
+            math.isfinite(v) for s in scores.values() for v in s.values()):
+        raise RuntimeError(f"evaluate: scores of {sorted(scores)} not all "
+                           f"finite, or not every task")
+    # the eval steps that test_phase takes, with their predictions kept,
+    # and the CPU meters fed the same predictions and labels
+    meter.reset()
+    states, cpu = meter.states, PerformanceMeter(p, tasks, "cpu")
+    for batch in batches:
+        processed, states = eval_step(model, meter, batch, states)
+        cpu.update({t: v.cpu() for t, v in processed.items()},
+                   {t: batch[t].cpu() for t in tasks})
+    meter.states = states
+    worst = 0.0
+    for t in tasks:
+        for k, v in meter.states[t].items():
+            w = cpu.states[t][k]
+            if v.device.type != "cuda" or v.dtype != w.dtype:
+                raise RuntimeError(f"evaluate: {t}.{k} is {v.dtype} on "
+                                   f"{v.device}")
+            if w.dtype == torch.int64:
+                if not torch.equal(v.cpu(), w):
+                    raise RuntimeError(f"evaluate: {t}.{k} counts differ "
+                                       f"from the CPU's")
+                continue
+            rel = ((v.cpu().double() - w.double()).abs()
+                   / w.double().abs().clamp_min(1e-30)).max().item()
+            worst = max(worst, rel)
+            if not rel <= 1e-6:
+                raise RuntimeError(f"evaluate: {t}.{k} {rel:.3g} from the "
+                                   f"CPU's, over 1e-6")
+    print(f"[evaluate] meter states on the card against the CPU meters on "
+          f"the same predictions: counts equal, float sums within {worst:.3g}"
+          f" of themselves (tol 1e-6)", flush=True)
+    del cpu
+    ms = _wall_ms(lambda: test_phase(p, model, batches, meter=meter),
+                  reps=3)
+    print(f"[evaluate] test_phase {ms:.2f} ms for {EVAL_BATCHES * B} images "
+          f"= {EVAL_BATCHES * B / ms * 1e3:.2f} imgs/s (median of 3, host "
+          f"clock; batches already on the card)", flush=True)
+    return counts
+
+
 def _train_run(tag, title, trainer, batches, expected, batch_size,
-               after_backward=None):
+               after_backward=None, loss_keys=None):
     """One checked training step on batches[0] (launch counts, gradients
     against the f32 reference of the same weights, batch and drop-path masks,
     in all and per tensor; see GRAD_RMS_TOL), then the other batches timed;
-    finite losses, moving parameters and BN statistics. ``after_backward``
-    runs right after the checked step's backward. Returns the step's launch
-    counts."""
+    finite losses (with ``loss_keys``, exactly those), moving parameters and
+    BN statistics. ``after_backward`` runs right after the checked step's
+    backward. Returns the step's launch counts."""
     from mtt_tpu_torch.kernels import _build
 
     model = trainer.model
@@ -1864,10 +2082,10 @@ def _train_run(tag, title, trainer, batches, expected, batch_size,
     # and convolutions in f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    point = _ForwardPoint()
+    point, masks = _ForwardPoint(), _DropPathMasks(model)
     torch.cuda.synchronize()
     _build.reset_counts()
-    with point.record(model), _deterministic():
+    with point.record(model), _deterministic(), masks:
         losses = trainer.backward(batches[0])
     torch.cuda.synchronize()
     counts = dict(_build.COUNTS)
@@ -1879,6 +2097,15 @@ def _train_run(tag, title, trainer, batches, expected, batch_size,
           f"one step {counts}", flush=True)
     if counts != expected:
         raise RuntimeError(f"{tag} launch counts {counts} != {expected}")
+    # a decoder branch that every sample drops has no gradient to check
+    if masks.masks:
+        print(f"[{tag}] drop-path keep masks of the decoder blocks in the "
+              f"checked step (attention branch, MLP branch; a bool a "
+              f"sample): {masks.masks}", flush=True)
+    if masks.dead():
+        raise RuntimeError(f"{tag}: the checked step drops {masks.dead()} "
+                           f"for every sample, so their gradients go "
+                           f"unchecked; choose another seed")
     g_ref = _grads(ref_model, batches[0], criterion, state, "plain",
                    point.pin(ref_model), _deterministic())
     rms_k = _rel_rms(g_kernel, g_ref)
@@ -1984,6 +2211,10 @@ def _train_run(tag, title, trainer, batches, expected, batch_size,
     if not all(torch.isfinite(v).all() for ls in all_losses
                for v in ls.values()):
         raise RuntimeError(f"{tag}: non-finite training loss")
+    if loss_keys is not None and any(set(ls) != set(loss_keys)
+                                     for ls in all_losses):
+        raise RuntimeError(f"{tag}: losses {sorted(losses)} != "
+                           f"{sorted(loss_keys)}")
     names = [n for n, _ in model.named_parameters()]
     still = [n for n, a, b in zip(names, master0, trainer.master)
              if torch.equal(a, b.detach().cpu())]
@@ -2104,9 +2335,11 @@ def _profile(title: str, fn, top: int = 12) -> None:
 
 def profile_phase(wanted):
     """``--profile``: the device-time breakdown of one eval forward of each
-    model (the eval phases' models and batches) and of one training step (the
-    training phase's trainer and first batch), for the phases in ``wanted``."""
+    model (the eval phases' models and batches) and of one training step of
+    each training path (the training phases' trainers and first batches), for
+    the phases in ``wanted``."""
     from mtt_tpu_torch.inference import predict
+    from mtt_tpu_torch.train import make_trainer
     from mtt_tpu_torch.utils.train_utils import to_device
     if "eval" in wanted:
         model, x = _eval_model()
@@ -2140,6 +2373,18 @@ def profile_phase(wanted):
         batch = to_device(data.batch(0, 1), torch.device("cuda"))
         _profile("Swin-B Cityscapes-3D training step, 1 image",
                  lambda: trainer.step(batch), top=24)
+        del trainer, data, batch
+    for tag, title, p, seed, *_ in _train_paths():
+        phase = "invpt_train" if tag.startswith("invpt_train") else tag
+        if phase not in wanted:
+            continue
+        trainer, data = make_trainer(p, seed=seed,
+                                     device=torch.device("cuda"))
+        batch = to_device(data.batch(0, BT), torch.device("cuda"))
+        _profile(f"{title} training step", lambda: trainer.step(batch),
+                 top=16)
+        del trainer, data, batch
+        torch.cuda.empty_cache()
 
 
 def grad_diag() -> None:
@@ -2299,7 +2544,8 @@ def _kernel_name(mangled: str) -> str:
 PHASES = {"kernels": kernel_phase, "attention_api": attention_api_phase,
           "eval": eval_phase, "invpt": invpt_phase, "swin": swin_phase,
           "nyud": nyud_phase, "train": train_phase,
-          "swin_train": swin_train_phase}
+          "swin_train": swin_train_phase, "invpt_train": invpt_train_phase,
+          "nyud_train": nyud_train_phase, "evaluate": evaluate_phase}
 
 
 def main(argv=None):
@@ -2365,6 +2611,9 @@ def main(argv=None):
     invpt_counts, train_counts = outcome["invpt"], outcome["train"]
     swin_counts, swin_train_counts = outcome["swin"], outcome["swin_train"]
     api_counts, serve_counts = outcome["attention_api"], outcome["nyud"]
+    path_counts = {**outcome["invpt_train"],
+                   "nyud_train": outcome["nyud_train"],
+                   "evaluate": outcome["evaluate"]}
 
     rows = []
     for name, (src, replaces, counter, path) in KERNEL_ROWS.items():
@@ -2377,7 +2626,8 @@ def main(argv=None):
                    "swin": swin_counts[counter],
                    "swin_train": swin_train_counts[counter],
                    "attention_api": api_counts[counter],
-                   **{tag: c[counter] for tag, c in serve_counts.items()}}
+                   **{tag: c[counter] for tag, c in serve_counts.items()},
+                   **{tag: c[counter] for tag, c in path_counts.items()}}
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=by_path[{"eval": "eval_factored", "train": "train_step",

@@ -1,7 +1,10 @@
 """The training step (port of mtt_tpu/utils/train_utils.py:59-82,
 ``make_train_step``): forward in train mode, the multi-task criterion,
 backward, gradient clipping, Adam with L2 decay, the poly schedule, and the
-BatchNorm running statistics (updated by the forward).
+BatchNorm running statistics (updated by the forward). The eval step and
+``test_phase`` (train_utils.py:85-98, 296-337): an eval-mode forward, each
+task's post-processing and the meters' update, all on the device, with the
+scores read once at the end.
 
 Precision: the model computes in its parameters' dtype (bf16 for training on
 the card; the kernels take bf16) while the trainer keeps an f32 master copy
@@ -14,14 +17,16 @@ model's own parameters, and nothing is copied.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from mtt_tpu_torch.evaluation.meters import PerformanceMeter
 from mtt_tpu_torch.inference import preprocess
 from mtt_tpu_torch.losses.loss_schemes import build_criterion
 from mtt_tpu_torch.utils.optim import build_optimizer, clip_gradients
+from mtt_tpu_torch.utils.postprocess import get_output
 
 
 class Trainer:
@@ -89,3 +94,46 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     out = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     out["image"] = preprocess(out["image"])
     return out
+
+
+@torch.no_grad()
+def eval_step(model, meter: PerformanceMeter, batch: Dict[str, torch.Tensor],
+              states):
+    """(model, meter, batch, meter states) -> (post-processed predictions,
+    new meter states): an eval-mode forward in the model's dtype, then
+    ``get_output`` and the meter update for each of the meter's tasks.
+    InvPT's ``inter_preds`` are not scored."""
+    dtype = next(model.parameters()).dtype
+    out = model(batch["image"].to(dtype), train=False)
+    processed = {t: get_output(out[t], t) for t in meter.tasks}
+    return processed, meter.update_states(states, processed, batch)
+
+
+def test_phase(p: dict, model, batches: Iterable[Dict],
+               meter: Optional[PerformanceMeter] = None,
+               save_tasks: Optional[Sequence[str]] = None) -> Dict:
+    """The scores of ``model`` over ``batches`` (an iterable of batches:
+    numpy ones as ``SyntheticMT.batch`` makes them go through ``to_device``,
+    tensor ones are taken as normalised and on the model's device), with the
+    meter states on the model's device until the end. ``meter`` defaults to
+    a ``PerformanceMeter`` of ``p`` over the model's tasks; it is reset
+    first and holds the final states after. Saving predictions
+    (``save_tasks``) and the 3D detection evaluation are ROADMAP.md item
+    1.7 and raise."""
+    if save_tasks:
+        raise NotImplementedError("saving task predictions is not ported "
+                                  "yet (ROADMAP.md item 1.7)")
+    if "3ddet" in model.tasks:
+        raise NotImplementedError("the 3D detection evaluation is not "
+                                  "ported yet (ROADMAP.md item 1.7)")
+    device = next(model.parameters()).device
+    if meter is None:
+        meter = PerformanceMeter(p, model.tasks, device)
+    meter.reset()
+    states = meter.states
+    for batch in batches:
+        if not torch.is_tensor(batch["image"]):
+            batch = to_device(batch, device)
+        _, states = eval_step(model, meter, batch, states)
+    meter.states = states
+    return meter.get_score(verbose=False)

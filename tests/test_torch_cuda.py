@@ -1161,3 +1161,57 @@ def test_swin_train_step_goes_through_kernels(gen):
     trainer.update()
     assert all(not torch.equal(a, b) for a, b, g in
                zip(before, trainer.master, grads) if g.abs().sum() > 0)
+
+
+def _meter_batch(gen, tasks, num_out, shape):
+    """Seeded post-processed predictions and labels on the card, ignore
+    pixels included."""
+    def u(*s):
+        return torch.rand(*s, generator=gen, device="cuda")
+
+    pred, gt = {}, {}
+    for t in tasks:
+        ign = u(*shape, 1) < 0.1
+        if t in ("semseg", "human_parts"):
+            pred[t] = (u(*shape) * num_out[t]).long()
+            lab = (u(*shape, 1) * num_out[t]).floor()
+        elif t == "normals":
+            pred[t] = u(*shape, 3) * 255
+            lab = u(*shape, 3) * 2 - 1
+        elif t == "depth":
+            pred[t] = u(*shape) * 10
+            lab = u(*shape, 1) * 10
+        else:
+            pred[t] = u(*shape) * 255
+            lab = (u(*shape, 1) < 0.3).float()
+        gt[t] = torch.where(ign, 255.0, lab)
+    return pred, gt
+
+
+@pytest.mark.parametrize("db", ["PASCALContext", "NYUD"])
+def test_meter_states_on_the_card_equal_the_cpu(gen, db):
+    """Two ``PerformanceMeter`` updates of seeded predictions at 8 x 448 x
+    576 on the card (NYUD: 40 classes) against the same meters on the CPU:
+    counts equal, float sums within 1e-6 of themselves."""
+    from mtt_tpu_torch.evaluation.meters import PerformanceMeter
+    from mtt_tpu_torch.models.wrappers import (INVPT_PASCAL_VITL,
+                                               NYUD_INVPT_VITL, task_table)
+
+    p = {"PASCALContext": INVPT_PASCAL_VITL, "NYUD": NYUD_INVPT_VITL}[db]
+    tasks, num_out = task_table(db, p["task_dictionary"])
+    card = PerformanceMeter(p, tasks, device="cuda")
+    cpu = PerformanceMeter(p, tasks, device="cpu")
+    for _ in range(2):
+        pred, gt = _meter_batch(gen, tasks, num_out, (8, 448, 576))
+        card.update(pred, gt)
+        cpu.update({t: v.cpu() for t, v in pred.items()},
+                   {t: v.cpu() for t, v in gt.items()})
+    for t in tasks:
+        for k, v in card.states[t].items():
+            assert v.device.type == "cuda"
+            w = cpu.states[t][k]
+            if w.dtype == torch.int64:
+                assert torch.equal(v.cpu(), w), (t, k)
+            else:
+                torch.testing.assert_close(v.cpu(), w, rtol=1e-6, atol=0.0)
+    assert card.get_score().keys() == cpu.get_score().keys()

@@ -256,7 +256,18 @@ def test_invpt_decoder_matches_jax():
 def test_invpt_decoder_train_branch_runs_and_updates_bn():
     """The dense training tail (batch statistics, running averages) and the
     per-sample drop-path: finite outputs of the eval shapes, and the tail's
-    running statistics move. (Its parity with JAX is the next slice's.)"""
+    running statistics move. Then the train branch against the JAX decoder
+    in train mode on the same weights and taps, drop-path off on both sides
+    (the JAX ``DropPath`` patched to a pass-through, the port's blocks at
+    rate 0): the task features, the intermediate predictions and every
+    running statistic after the forward (flax's fast variance in the
+    grouped and depthwise conv BNs and the preamble, the tail's centred
+    variance, momentum 0.9), to 1e-5 of each output's largest value."""
+    from flax import linen as fnn
+
+    import mtt_tpu.models.invpt as jinvpt
+    from mtt_tpu.models.invpt import InvPTDecoder as JDec
+    from mtt_tpu_torch.models.convert_jax import state_dict_from_flax
     from mtt_tpu_torch.models.invpt import InvPTDecoder
     from mtt_tpu_torch.models.layers import init_weights
 
@@ -271,6 +282,43 @@ def test_invpt_decoder_train_branch_runs_and_updates_bn():
     assert feats["semseg"].shape == (2, 16, 16, 24)
     assert all(torch.isfinite(f).all() for f in feats.values())
     assert not torch.equal(before, port.mt_proj_semseg.bn.running_mean)
+
+    class NoDropPath(fnn.Module):
+        rate: float = 0.0
+
+        @fnn.compact
+        def __call__(self, x, *, deterministic: bool = True):
+            return x
+
+    # an 8x8 grid: at 4x4 the first stage's query grid is 1x1 and its BN
+    # normalises 2 values a channel
+    grid = (8, 8)
+    taps = [_rand(10 + i, 2, 64, Cb) for i in range(4)]
+    jm = JDec(tasks=TASKS[:2], num_outputs=NUM_OUT, embed_dim=16, pred_out=8,
+              backbone_dim=Cb)
+    holder = type("M", (), {"init": lambda s, k, a: jm.init(k, a, grid)})()
+    v = random_variables(holder, [jnp.asarray(t) for t in taps], seed=6)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jinvpt, "DropPath", NoDropPath)
+        (want_f, want_ip), new = jax.jit(lambda v, taps: jm.apply(
+            v, taps, grid, train=True, mutable=["batch_stats"]))(
+                v, [jnp.asarray(t) for t in taps])
+    port = InvPTDecoder(TASKS[:2], NUM_OUT, embed_dim=16, pred_out=8,
+                        backbone_dim=Cb, device="cpu")
+    port.load_state_dict(state_dict_from_flax(v), strict=True)
+    for i in range(3):
+        getattr(port, f"stage_{i}").drop_path = 0.0
+    with torch.no_grad():
+        feats, ips = port([_t(t) for t in taps], grid, train=True)
+    for t in TASKS[:2]:
+        _close(feats[t], want_f[t], what=f"features {t}")
+        _close(ips[t], want_ip[t], what=f"inter {t}")
+    want_bs = state_dict_from_flax({"params": {},
+                                    "batch_stats": new["batch_stats"]})
+    got_bs = {k: b for k, b in port.state_dict().items() if "running" in k}
+    assert got_bs.keys() == {k for k in want_bs if "running" in k}
+    for k, b in got_bs.items():
+        _close(b, want_bs[k], what=k)
 
 
 def test_convert_jax_flips_transposed_conv_and_keeps_groups():
