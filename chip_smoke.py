@@ -83,7 +83,21 @@ Phases, in order (the seconds each took are printed):
   13. ``evaluate``: ``test_phase`` over 2 seeded synthetic batches of 8
      through the InvPT-ViT-L PASCAL eval model: launch counts, finite
      scores, the meter states on the card against the port's meters on
-     the CPU, imgs/s.
+     the CPU, imgs/s;
+  14. ``loop``: the training loop as ``python -m mtt_tpu_torch.main`` runs
+     it, in a temporary working directory, at full width and depth
+     (TaskPrompter-ViT-L PASCAL from configs/pascal/taskprompter_vitLp16.yml,
+     512x512, batch 2, drop-path 0.15, bf16, synthetic samples through the
+     training transforms, the 64-image val set in 11 batches of 6): what
+     ``main`` builds, then ``train_phase`` for 4 iterations with an eval
+     and a checkpoint every 2 (launch counts, finite losses and scores, 64
+     edge PNGs and none for the pad samples, the checkpoints, the
+     TensorBoard rows, the log file; a trainer restored from step 4 and the
+     loop's own take one step on one batch to equal bits); then ``main``
+     itself with ``--max_iter 6``, which resumes from step 4. Prints imgs/s
+     from the log lines, the loader's ms per batch beside the bare step's
+     (phase 9), the checkpoint's size and its save and restore seconds, and
+     peak memory.
 The line before the last is the kernels JSON; the last line is the device JSON.
 
 ``python3 chip_smoke.py --profile`` runs none of these phases: after the
@@ -96,7 +110,8 @@ inputs, and how far they sit from the f32 step's when both run free, by loss
 part, at the two bf16 paths' forward points, and at the outputs of the
 decodes and the detection head (``grad_diag``).
 ``--phases kernels,invpt`` (any subset of kernels, attention_api, eval,
-invpt, swin, nyud, train, swin_train, invpt_train, nyud_train, evaluate)
+invpt, swin, nyud, train, swin_train, invpt_train, nyud_train, evaluate,
+loop)
 runs only those phases and prints no result lines: a quick look, not the
 check.
 """
@@ -111,8 +126,11 @@ import math
 import os
 import re
 import statistics
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -2057,6 +2075,279 @@ def evaluate_phase():
     return counts
 
 
+LOOP_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "pascal", "taskprompter_vitLp16.yml")
+LOOP_ITERS, LOOP_VAL, LOOP_MAIN_ITERS = 4, 2, 6
+LOOP_VAL_BATCHES = 11            # 64 val images in batches of 6
+STEP_MS = {}                     # median ms per step of the training phases
+
+
+def _tf_records(path: str) -> int:
+    """The number of TFRecord frames of a TensorBoard event file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos = n = 0
+    while pos < len(data):
+        length, = struct.unpack("<Q", data[pos:pos + 8])
+        pos += 8 + 4 + length + 4
+        n += 1
+    if pos != len(data):
+        raise RuntimeError(f"loop: {path} ends inside a record")
+    return n
+
+
+def _finite_scores(path: str, tasks) -> dict:
+    with open(path) as f:
+        scores = json.load(f)
+    if set(scores) != set(tasks) or not all(
+            math.isfinite(v) for s in scores.values() for v in s.values()):
+        raise RuntimeError(f"loop: {path} holds {scores}, not finite scores "
+                           f"of {sorted(tasks)}")
+    return scores
+
+
+def loop_phase():
+    """The training loop of ``python -m mtt_tpu_torch.main`` on the
+    TaskPrompter-ViT-L PASCAL experiment, at full width and depth, in a
+    temporary working directory (removed after): what ``main`` builds, then
+    ``train_phase`` for 4 iterations with an eval and a checkpoint every 2,
+    then ``main`` with ``--max_iter 6``, resumed from step 4 (see the module
+    docstring). Returns the launch counts of the loop."""
+    from mtt_tpu_torch import main as port_main
+    from mtt_tpu_torch.config import create_config
+    from mtt_tpu_torch.data.loader import prefetch_to_device
+    from mtt_tpu_torch.evaluation import save_preds
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import build_model
+    from mtt_tpu_torch.utils import common_config as cc
+    from mtt_tpu_torch.utils.logger import install
+    from mtt_tpu_torch.utils.tb_writer import flatten_scores
+    from mtt_tpu_torch.utils import train_utils
+    from mtt_tpu_torch.utils.train_utils import Trainer, train_phase
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cwd, stdout = os.getcwd(), sys.stdout
+    real_png, real_eval = save_preds.write_png, train_utils.test_phase
+    work = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    written = []
+
+    def counted_png(path, img):
+        written.append(os.path.basename(path))
+        real_png(path, img)
+
+    def build(seed):
+        """The model and trainer of ``main``: seeded weights, bf16 with an
+        f32 master."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        model = build_model(p, img_size=tuple(p.TRAIN.SCALE), device=dev,
+                            dtype=torch.float32)
+        init_weights(model, gen)
+        return Trainer(model, p, p.TASKS.NAMES, torch.bfloat16, gen,
+                       log_fn=lambda line: (lines.append(line), print(line)))
+
+    def restore_stdout():
+        if sys.stdout is not stdout:
+            sys.stdout.close()
+            sys.stdout = stdout
+
+    os.chdir(work)
+    save_preds.write_png = counted_png
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # 1. what main builds, and the loop
+        p = create_config(LOOP_CONFIG, {"run_mode": "train"})
+        install(os.path.join(p["output_dir"], "log_file.txt"))
+        lines = []
+        trainer = build(5)
+        train_tf, val_tf = cc.get_transformations(p)
+        train_ds = cc.get_dataset(p, "train", train_tf)
+        train_loader = cc.get_train_dataloader(p, train_ds)
+        val_loader = cc.get_test_dataloader(p, cc.get_dataset(p, "val",
+                                                              val_tf))
+        tasks = p.TASKS.NAMES
+        # the loader alone: ms per batch of trBatch samples through the
+        # transforms, from the pool's start
+        t = time.perf_counter()
+        for i, _ in enumerate(train_loader):
+            if i == 3:
+                break
+        loader_ms = (time.perf_counter() - t) * 1e3 / 4
+        bare = STEP_MS.get("train")
+        print(f"[loop] loader {loader_ms:.1f} ms per batch of "
+              f"{p['trBatch']} (4 batches, {p.get('nworkers', 2)} threads, "
+              f"from the pool's start, the card idle) beside the bare step "
+              f"{'%.2f ms (phase 9)' % bare if bare else 'not run'}",
+              flush=True)
+        save_s, eval_s = [], []
+        real_save = trainer.save_checkpoint
+
+        def timed_save(ckpt_dir):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            path = real_save(ckpt_dir)
+            save_s.append(time.perf_counter() - t)
+            return path
+
+        def timed_eval(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_eval(*args, **kw)
+            torch.cuda.synchronize()
+            eval_s.append(time.perf_counter() - t)
+            return out
+
+        trainer.save_checkpoint = timed_save
+        train_utils.test_phase = timed_eval
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t = time.perf_counter()
+        history = train_phase(p, trainer, train_loader, val_loader,
+                              max_iter=LOOP_ITERS, val_interval=LOOP_VAL,
+                              log_every=1)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+        counts = dict(_build.COUNTS)
+        train_utils.test_phase = real_eval
+        restore_stdout()
+        evals = LOOP_ITERS // LOOP_VAL
+        want = {k: LOOP_ITERS * v + evals * LOOP_VAL_BATCHES
+                * expected_eval("factored")[k]
+                for k, v in expected_train().items()}
+        print(f"[loop] train_phase, TaskPrompter-ViT-L PASCAL from "
+              f"{os.path.relpath(LOOP_CONFIG, cwd)}, {LOOP_ITERS} iterations "
+              f"of batch {p['trBatch']} at {p.TRAIN.SCALE}, eval and "
+              f"checkpoint every {LOOP_VAL} over {LOOP_VAL_BATCHES} batches "
+              f"of {p['valBatch']}: {loop_s:.2f} s; launches {counts}",
+              flush=True)
+        if counts != want:
+            raise RuntimeError(f"loop launch counts {counts} != {want}")
+        if [h["iter"] for h in history] != list(range(1, LOOP_ITERS + 1)) \
+                or not all(math.isfinite(v) for h in history
+                           for k, v in h.items() if k != "iter"):
+            raise RuntimeError(f"loop: history {history} is not "
+                               f"{LOOP_ITERS} iterations of finite losses")
+        rates = [float(m.group(1)) for m in (
+            re.search(r"\(([0-9.]+) imgs/s\)", ln) for ln in lines) if m]
+        print(f"[loop] losses per iteration "
+              f"{[round(h['total'], 5) for h in history]}; imgs/s from the "
+              f"log lines {rates} (the first with the loader's start)",
+              flush=True)
+        scores = [_finite_scores(os.path.join(
+            p["save_dir"], f"results_iter{it}.json"), tasks)
+            for it in range(LOOP_VAL, LOOP_ITERS + 1, LOOP_VAL)]
+        print(f"[loop] scores at iteration {LOOP_ITERS} "
+              f"{json.dumps(scores[-1])}", flush=True)
+        names = {f"synth_{i:06d}.png" for i in range(64)}
+        on_disk = set(os.listdir(os.path.join(p["save_dir"], "edge")))
+        if on_disk != names or sorted(written) != sorted(list(names) * evals):
+            raise RuntimeError(f"loop: {len(written)} edge PNG writes of "
+                               f"{len(set(written))} names, {len(on_disk)} "
+                               f"files; want {evals} x 64, none for the pad "
+                               f"samples")
+        ck = p["checkpoint"]
+        with open(os.path.join(ck, "latest.txt")) as f:
+            latest = f.read()
+        step_files = sorted(f for f in os.listdir(ck) if f.endswith(".pt"))
+        if latest != str(LOOP_ITERS) or step_files != [
+                f"step_{it}.pt" for it in range(LOOP_VAL, LOOP_ITERS + 1,
+                                                 LOOP_VAL)]:
+            raise RuntimeError(f"loop: checkpoints {step_files}, latest "
+                               f"{latest!r}")
+        tb_dir = os.path.join(p["save_dir"], "tb")
+        events = [f for f in os.listdir(tb_dir)
+                  if f.startswith("events.out.tfevents.")]
+        rows = sum(len(h) - 1 + 2 for h in history) + sum(
+            len(flatten_scores(sc)) for sc in scores)
+        with open(os.path.join(tb_dir, "scalars.csv")) as f:
+            csv_rows = len(f.read().splitlines()) - 1
+        if len(events) != 1 or csv_rows != rows or \
+                _tf_records(os.path.join(tb_dir, events[0])) != rows + 1:
+            raise RuntimeError(f"loop: TensorBoard files {events} with "
+                               f"{csv_rows} CSV rows, want {rows}")
+        if not os.path.isfile(os.path.join(p["output_dir"], "log_file.txt")):
+            raise RuntimeError("loop: no log_file.txt")
+        ck_bytes = os.path.getsize(os.path.join(ck, f"step_{LOOP_ITERS}.pt"))
+
+        # a trainer restored from step 4 and the loop's own, one step each
+        restored = build(6)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step = restored.restore_checkpoint(ck)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        if step != LOOP_ITERS:
+            raise RuntimeError(f"loop: restored step {step}")
+        fixed = next(iter(prefetch_to_device(train_loader, dev)))
+        with _deterministic():
+            la, lb = trainer.step(fixed), restored.step(fixed)
+            torch.cuda.synchronize()
+        diff = []
+        for (n, _), a, b in zip(trainer.model.named_parameters(),
+                                trainer.master, restored.master):
+            sa, sb = trainer.optimizer.state[a], restored.optimizer.state[b]
+            if not torch.equal(a, b) or any(not torch.equal(sa[k], sb[k])
+                                            for k in sa):
+                diff.append(n)
+        diff += [n for (n, a), (_, b) in zip(trainer.model.named_buffers(),
+                                             restored.model.named_buffers())
+                 if not torch.equal(a, b)]
+        if diff or any(not torch.equal(la[k], lb[k]) for k in la):
+            raise RuntimeError(f"loop: the restored trainer's step differs "
+                               f"from the loop's in {diff[:8]} ({len(diff)})")
+        print(f"[loop] a trainer restored from step {LOOP_ITERS} and the "
+              f"loop's own took one step on one batch under deterministic "
+              f"algorithms: {len(trainer.master)} master weights, their Adam "
+              f"moments, {sum(1 for _ in trainer.model.buffers())} buffers "
+              f"and the losses equal to the bit", flush=True)
+        print(f"[loop] checkpoint step_{LOOP_ITERS}.pt "
+              f"{ck_bytes / 2 ** 30:.3f} GiB; save {[round(v, 2) for v in save_s]} s, restore "
+              f"{restore_s:.2f} s (file cache warm)", flush=True)
+        print(f"[loop] test_phase {[round(v, 2) for v in eval_s]} s for 64 "
+              f"images each (forwards, meters, 64 edge PNGs)", flush=True)
+        del trainer, restored, fixed, la, lb
+        os.remove(os.path.join(ck, f"step_{LOOP_VAL}.pt"))   # disk room
+        torch.cuda.empty_cache()
+
+        # 2. the CLI itself, in the same directory: resumes from step 4
+        _build.reset_counts()
+        rc = port_main.main(["--config_exp", LOOP_CONFIG, "--max_iter",
+                             str(LOOP_MAIN_ITERS)])
+        torch.cuda.synchronize()
+        main_counts = dict(_build.COUNTS)
+        restore_stdout()
+        steps = LOOP_MAIN_ITERS - LOOP_ITERS
+        want = {k: steps * v + LOOP_VAL_BATCHES * expected_eval(
+            "factored")[k] for k, v in expected_train().items()}
+        with open(os.path.join(p["output_dir"], "log_file.txt")) as f:
+            log = f.read()
+        _finite_scores(os.path.join(
+            p["save_dir"], f"results_iter{LOOP_MAIN_ITERS}.json"), tasks)
+        if rc != 0 or f"resumed from step {LOOP_ITERS}" not in log or \
+                not os.path.isfile(os.path.join(
+                    ck, f"step_{LOOP_MAIN_ITERS}.pt")) or \
+                main_counts != want:
+            raise RuntimeError(f"loop: main returned {rc}, launches "
+                               f"{main_counts} (want {want}), or did not "
+                               f"resume from step {LOOP_ITERS} and write "
+                               f"step_{LOOP_MAIN_ITERS}")
+        print(f"[loop] main --max_iter {LOOP_MAIN_ITERS}: resumed from step "
+              f"{LOOP_ITERS}, {steps} steps, results_iter{LOOP_MAIN_ITERS}"
+              f".json and step_{LOOP_MAIN_ITERS}.pt written; launches as "
+              f"expected", flush=True)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[loop] peak memory {peak:.2f} GiB; phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        return counts
+    finally:
+        restore_stdout()
+        save_preds.write_png = real_png
+        train_utils.test_phase = real_eval
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _train_run(tag, title, trainer, batches, expected, batch_size,
                after_backward=None, loss_keys=None):
     """One checked training step on batches[0] (launch counts, gradients
@@ -2228,6 +2519,7 @@ def _train_run(tag, title, trainer, batches, expected, batch_size,
         raise RuntimeError(f"parameters with a gradient that did not move "
                            f"{stuck}, or BN statistics that did not move")
     ms = statistics.median(step_ms)
+    STEP_MS[tag] = ms
     print(f"[{tag}] {ms:.2f} ms per step (median of {len(step_ms)}; "
           f"{[round(v, 2) for v in step_ms]}) = {batch_size / ms * 1e3:.2f} "
           f"imgs/s; peak memory of steps 2-{len(batches)} {peak_gib:.2f} GiB",
@@ -2545,7 +2837,8 @@ PHASES = {"kernels": kernel_phase, "attention_api": attention_api_phase,
           "eval": eval_phase, "invpt": invpt_phase, "swin": swin_phase,
           "nyud": nyud_phase, "train": train_phase,
           "swin_train": swin_train_phase, "invpt_train": invpt_train_phase,
-          "nyud_train": nyud_train_phase, "evaluate": evaluate_phase}
+          "nyud_train": nyud_train_phase, "evaluate": evaluate_phase,
+          "loop": loop_phase}
 
 
 def main(argv=None):
@@ -2613,7 +2906,7 @@ def main(argv=None):
     api_counts, serve_counts = outcome["attention_api"], outcome["nyud"]
     path_counts = {**outcome["invpt_train"],
                    "nyud_train": outcome["nyud_train"],
-                   "evaluate": outcome["evaluate"]}
+                   "evaluate": outcome["evaluate"], "loop": outcome["loop"]}
 
     rows = []
     for name, (src, replaces, counter, path) in KERNEL_ROWS.items():

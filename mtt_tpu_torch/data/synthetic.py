@@ -9,9 +9,15 @@ image in ``max_boxes`` padded slots (``det_bboxes2d``, ``det_labels``,
 ``det_boxes3d``, ``det_centers2d``, ``det_depths``, ``det_valid``). With
 ``label_size`` the 2D labels are resampled to it by nearest neighbour (the
 source pixel floor(i * size / label_size), as cv2.INTER_NEAREST picks it):
-the Cityscapes-3D configs supervise at ``dd_label_map_size``. The camera
-metadata of the JAX samples is not made: training does not read it. Stands
-in for the datasets, which are not in the repository.
+the Cityscapes-3D configs supervise at ``dd_label_map_size``. Stands in for
+the datasets, which are not in the repository.
+
+As a dataset (the JAX contract): ``len`` is ``length``, and
+``ds[idx]`` / ``ds.__getitem__(idx, rng)`` is one sample with its ``meta``
+(``img_name``, ``img_size``; under ``3ddet`` also the camera), passed
+through ``transform(sample, rng)`` when there is one (``rng`` defaults to
+``np.random.default_rng(idx)``). ``batch`` stacks the untransformed arrays of
+consecutive samples, without ``meta``.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ class SyntheticMT:
     def __init__(self, tasks: Sequence[str], num_outputs: Dict[str, int],
                  size: Tuple[int, int] = (512, 512), seed: int = 0,
                  max_boxes: int = 64,
-                 label_size: Optional[Tuple[int, int]] = None):
+                 label_size: Optional[Tuple[int, int]] = None,
+                 length: int = 64, transform=None):
         unknown = set(tasks) - {"semseg", "human_parts", "sal", "edge",
                                 "normals", "depth", "3ddet"}
         if unknown:
@@ -36,6 +43,11 @@ class SyntheticMT:
         self.seed = seed
         self.max_boxes = max_boxes
         self.label_size = tuple(label_size) if label_size else None
+        self.length = length
+        self.transform = transform
+
+    def __len__(self) -> int:
+        return self.length
 
     def _resample(self, lab: np.ndarray) -> np.ndarray:
         if self.label_size is None or self.label_size == self.size:
@@ -45,7 +57,27 @@ class SyntheticMT:
         ix = np.floor(np.arange(lw) * (w / lw)).astype(np.int64)
         return lab[iy][:, ix]
 
-    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+    def __getitem__(self, idx: int, rng: Optional[np.random.Generator] = None
+                    ) -> Dict:
+        """The sample's arrays with its ``meta``, through
+        ``transform``."""
+        sample = self._arrays(idx)
+        h, w = self.size
+        sample["meta"] = {"img_name": f"synth_{idx:06d}", "img_size": (h, w)}
+        if "3ddet" in self.tasks:
+            sample["meta"]["K_matrix"] = np.array(
+                [[1000.0, 0, w / 2], [0, 1000.0, h / 2], [0, 0, 1]],
+                np.float32)
+            sample["meta"]["camera"] = {
+                "fx": 1000.0, "fy": 1000.0, "u0": w / 2.0, "v0": h / 2.0,
+                "sensor_T_ISO_8855": [[1, 0, 0, 0], [0, 1, 0, 0],
+                                      [0, 0, 1, 0]]}
+        if self.transform is not None:
+            sample = self.transform(sample,
+                                    rng or np.random.default_rng(idx))
+        return sample
+
+    def _arrays(self, idx: int) -> Dict[str, np.ndarray]:
         """{"image": (H, W, 3) float32 RGB in [0, 255], task: (h, w, c)} and
         under ``3ddet`` the ``det_*`` arrays."""
         g = np.random.default_rng(self.seed * 100003 + idx)
@@ -110,6 +142,7 @@ class SyntheticMT:
         return det
 
     def batch(self, start: int, size: int) -> Dict[str, np.ndarray]:
-        """Samples start .. start + size - 1 stacked along a batch axis."""
-        items = [self[start + i] for i in range(size)]
+        """The arrays of samples start .. start + size - 1 stacked along a
+        batch axis."""
+        items = [self._arrays(start + i) for i in range(size)]
         return {k: np.stack([s[k] for s in items]) for k in items[0]}

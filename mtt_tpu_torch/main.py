@@ -1,0 +1,110 @@
+"""Training and full-eval CLI of the port (the JAX package's main.py).
+
+    python -m mtt_tpu_torch.main \\
+        --config_exp configs/pascal/taskprompter_vitLp16.yml \\
+        --run_mode train [--overfit] [--max_iter N] [--val_interval N]
+
+``create_config`` reads the YAML experiment; ``common_config`` builds the
+transforms, the (synthetic) datasets and the loaders; the model is built
+with seeded random weights (no pretrained backbone is in the repository) and
+trained by ``train_phase``, which evaluates and checkpoints every
+``val_interval`` iterations under ``work_dirs/<version_name>``. A restart
+resumes from the checkpoint ``latest.txt`` names; ``--run_mode infer``
+scores the restored model with ``test_phase``. Batches are ``trBatch`` and
+``valBatch`` for one card. The compute dtype defaults to bf16 (the kernels
+take bf16 only; an f32 run on the card is refused), with f32 master weights.
+``main(argv, device=None)`` runs on the card unless the caller passes
+another device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import torch
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description="multi-task training")
+    ap.add_argument("--config_exp", required=True)
+    ap.add_argument("--run_mode", choices=["train", "infer"], default="train")
+    ap.add_argument("--overfit", action="store_true",
+                    help="64-image overfit sanity mode")
+    ap.add_argument("--max_iter", type=int, default=None)
+    ap.add_argument("--val_interval", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", choices=["float32", "bfloat16"],
+                    default="bfloat16",
+                    help="compute dtype (the master weights stay f32); the "
+                         "card's kernels take bf16 only")
+    ap.add_argument("--debug_eval", action="store_true",
+                    help="run a full eval pass before training")
+    ap.add_argument("--vis", action="store_true",
+                    help="save per-task visualisations in infer mode (not "
+                         "ported yet)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None, device=None) -> int:
+    args = parse_args(argv)
+    if args.vis:
+        raise NotImplementedError("--vis: the visualisations are not ported "
+                                  "yet (ROADMAP.md item 1.9)")
+    from mtt_tpu_torch.config import create_config
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import build_model, default_device
+    from mtt_tpu_torch.utils import common_config as cc
+    from mtt_tpu_torch.utils.logger import install
+    from mtt_tpu_torch.utils.train_utils import (Trainer, test_phase,
+                                                 train_phase)
+
+    device = default_device(device)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    if device.type == "cuda" and dtype != torch.bfloat16:
+        raise ValueError("--dtype float32 on the card: the kernels take "
+                         "bf16 only (the master weights are f32 either way)")
+    p = create_config(args.config_exp, {"run_mode": args.run_mode})
+    if args.max_iter:
+        p["max_iter"] = args.max_iter
+    if args.val_interval:
+        p["val_interval"] = args.val_interval
+    if args.run_mode != "infer":
+        install(os.path.join(p["output_dir"], "log_file.txt"))
+    print(f"[main] config {args.config_exp} tasks={p.TASKS.NAMES} "
+          f"device={device} dtype={args.dtype}", flush=True)
+
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = build_model(p, img_size=tuple(p.TRAIN.SCALE), device=device,
+                        dtype=torch.float32)
+    init_weights(model, gen)
+    p["trBatch"] = int(p["trBatch"])        # one card
+    p["valBatch"] = int(p["valBatch"])
+    train_tf, val_tf = cc.get_transformations(p)
+    train_ds = cc.get_dataset(p, "train", train_tf, overfit=args.overfit)
+    val_ds = cc.get_dataset(p, "val", val_tf, overfit=args.overfit)
+    train_loader = cc.get_train_dataloader(p, train_ds)
+    val_loader = cc.get_test_dataloader(p, val_ds)
+    trainer = Trainer(model, p, p.TASKS.NAMES, dtype, gen)
+
+    restored = trainer.restore_checkpoint(p["checkpoint"])
+    if restored is not None:
+        print(f"[main] resumed from step {restored}", flush=True)
+
+    if args.run_mode == "train":
+        if args.debug_eval:
+            print("[main] debug smoke eval before training")
+            print(json.dumps(test_phase(p, model, val_loader)), flush=True)
+        t0 = time.time()
+        train_phase(p, trainer, train_loader, val_loader)
+        print(f"[main] training done in {time.time() - t0:.1f}s", flush=True)
+    else:
+        scores = test_phase(p, model, val_loader)
+        print(json.dumps(scores, indent=2), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -12,6 +12,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from mtt_tpu_torch.config.config import DB_SCALES, task_table
 from mtt_tpu_torch.detection.det_params import default_det_params
 from mtt_tpu_torch.detection.fcos3d_head import DetectionHead
 from mtt_tpu_torch.models.heads import HEADS, ConvHead, MLPHead
@@ -22,10 +23,6 @@ from mtt_tpu_torch.models.taskprompter import (TASKPROMPTER_VIT_SPECS,
 from mtt_tpu_torch.models.taskprompter_swin import TaskPrompterSwin
 from mtt_tpu_torch.models.vit import VIT_SPECS, VisionTransformer
 
-# task table of mtt_tpu/config/config.py:parse_task_dictionary, in its order
-_SEMSEG_CLASSES = {"PASCALContext": 21, "NYUD": 40, "Cityscapes3D": 19}
-_TASK_OUTPUTS = (("semseg", None), ("depth", 1), ("human_parts", 7),
-                 ("sal", 2), ("normals", 3), ("edge", 1), ("3ddet", 12 + 6))
 # configs/pascal/invpt_vitLp16.yml, the keys the port reads
 INVPT_PASCAL_VITL = {
     "model": "TransformerNet", "backbone": "vitL", "head": "mlp",
@@ -76,9 +73,6 @@ TASKPROMPTER_SWIN_SPECS = {
     "TaskPrompter_swinB": dict(embed_dim=128, depths=(2, 2, 18, 2),
                                num_heads=(4, 8, 16, 32), window_size=12),
 }
-# test scales per database (height, width), mtt_tpu/config/config.py:71-75
-DB_SCALES = {"PASCALContext": (512, 512), "NYUD": (448, 576),
-             "Cityscapes3D": (1024, 2048)}
 
 
 def default_device(device=None) -> torch.device:
@@ -269,30 +263,19 @@ class TaskPrompterSwinNet(nn.Module):
         return out
 
 
-def task_table(db_name: str, task_dictionary: dict):
-    """(task names, {task: output channels}) from a config's
-    ``task_dictionary`` block."""
-    names, num_out = [], {}
-    for name, n in _TASK_OUTPUTS:
-        if task_dictionary.get(f"include_{name}", False):
-            names.append(name)
-            num_out[name] = _SEMSEG_CLASSES[db_name] if n is None else n
-    return tuple(names), num_out
-
-
 def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
                 tail_head: bool = False, device=None, dtype=None):
     """Config dict (the keys of configs/pascal/taskprompter_vitLp16.yml or
     taskprompter_vitBp16.yml, configs/pascal/invpt_vitLp16.yml,
     configs/nyud/taskprompter_vitLp16.yml or invpt_vitLp16.yml, or
-    configs/cityscapes3d/taskprompter_swinB.yml) -> model. ``img_size``
-    defaults to the database's test scale; ``tail_head`` is
-    ``TransformerNet``'s."""
+    configs/cityscapes3d/taskprompter_swinB.yml, or a ``create_config``
+    of one) -> model. ``img_size`` defaults to the database's test scale
+    (``config.DB_SCALES``); ``tail_head`` is ``TransformerNet``'s."""
     tasks, num_outputs = task_table(p["train_db_name"], p["task_dictionary"])
     if p["model"] == "TransformerNet":
         return TransformerNet(
             tasks=tasks, num_outputs=num_outputs,
-            img_size=img_size or DB_SCALES[p["val_db_name"]],
+            img_size=img_size or DB_SCALES[p["val_db_name"]][1],
             backbone_name=p["backbone"], head_name=p["head"],
             embed_dim=p["embed_dim"], pred_out=p["PRED_OUT_NUM_CONSTANT"],
             mtt_downsample=p["mtt_resolution_downsample_rate"],
@@ -304,7 +287,7 @@ def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
     if "swin" in p["backbone"].lower():
         return TaskPrompterSwinNet(
             tasks=tasks, num_outputs=num_outputs,
-            img_size=img_size or DB_SCALES[p["val_db_name"]],
+            img_size=img_size or DB_SCALES[p["val_db_name"]][1],
             head_name=p["head"], tar_dim=p.get("level_embed_dim", 256),
             final_dim=p["final_embed_dim"], prompt_len=p["prompt_len"],
             chan_embed_dim=p.get("chan_embed_dim", 256),
@@ -317,7 +300,7 @@ def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
             dtype=dtype)
     return TaskPrompterNet(
         tasks=tasks, num_outputs=num_outputs,
-        img_size=img_size or DB_SCALES[p["val_db_name"]],
+        img_size=img_size or DB_SCALES[p["val_db_name"]][1],
         backbone_name=p["backbone"], head_name=p["head"],
         tar_dim=p["embed_dim"], final_dim=p["final_embed_dim"],
         prompt_len=p["prompt_len"], chan_nheads=p["chan_nheads"],

@@ -15,8 +15,9 @@ f32 master weights, returning the losses of each step (InvPT: with the
 ``inter_<task>`` terms; Cityscapes-3D: with the detection loss's
 components); ``train_and_score`` then scores the trained model. They run on
 the card unless the caller passes another device.
-Checkpoints, real data loaders and multi-card training are not ported yet
-(ROADMAP.md).
+The training loop with its YAML configs, transforms, loaders, periodic eval
+and checkpoints is ``python -m mtt_tpu_torch.main``; multi-card training is
+not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -104,7 +105,7 @@ def make_trainer(p: dict, seed: int = 0, device=None):
     labels at ``dd_label_map_size`` where the config has one."""
     device = default_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    size = DB_SCALES[p["train_db_name"]]
+    size = DB_SCALES[p["train_db_name"]][0]
     model = build_model(p, img_size=size, device=device,
                         dtype=torch.float32)
     init_weights(model, gen)
@@ -144,8 +145,9 @@ def train_and_score(p: dict, steps: int, batch_size: int,
     trainer, data = make_trainer(p, seed, device)
     losses = _take_steps(trainer, data, steps, batch_size)
     n, start = p["valBatch"], steps * batch_size
+    dev = next(trainer.model.parameters()).device
     return losses, test_phase(p, trainer.model,
-                              (data.batch(start + j * n, n)
+                              (to_device(data.batch(start + j * n, n), dev)
                                for j in range(eval_batches)))
 
 

@@ -1,10 +1,13 @@
 """Optimizer and learning-rate schedule (port of mtt_tpu/utils/optim.py:16-49).
 
 The optax chain there is: clip by global norm, add the L2 weight decay to the
-gradient, Adam, then scale by the learning rate of the poly schedule counted
-from step 0. In torch that is ``clip_grad_norm_`` on the gradients, then
-``torch.optim.Adam(weight_decay=...)`` (which adds wd * param to the clipped
-gradient before its moments, as ``add_decayed_weights`` does), then a
+gradient, Adam (or SGD's momentum trace), then scale by the learning rate of
+the poly schedule counted from step 0. In torch that is the clip on the
+gradients, then ``torch.optim.Adam(weight_decay=...)`` (which adds wd * param
+to the clipped gradient before its moments, as ``add_decayed_weights`` does)
+or ``torch.optim.SGD(momentum, nesterov, weight_decay, dampening=0)``, whose
+buffer starts at the first gradient as optax's ``trace`` does from zero and
+whose nesterov update g + momentum * buffer is optax's, then a
 ``LambdaLR`` whose factor for the k-th update (k from 0) is
 (1 - k / max_iter) ** 0.9, as optax's count starts at 0. The clip is
 optax's ``clip_by_global_norm`` written out: where the global norm g of all
@@ -38,12 +41,19 @@ def grad_clip_norm(p: dict) -> Optional[float]:
 def build_optimizer(params: Iterable[torch.Tensor], p: dict):
     """(optimizer, scheduler) over ``params``; call ``clip_gradients`` before
     ``optimizer.step()`` and ``scheduler.step()`` after it."""
-    if p.get("optimizer", "adam") != "adam":
-        raise NotImplementedError(f"optimizer {p['optimizer']!r} is not "
-                                  f"ported yet")
     kwargs = p.get("optimizer_kwargs", {})
-    opt = torch.optim.Adam(params, lr=float(kwargs.get("lr", 1e-4)),
-                           weight_decay=float(kwargs.get("weight_decay", 0.0)))
+    lr = float(kwargs.get("lr", 1e-4))
+    wd = float(kwargs.get("weight_decay", 0.0))
+    name = p.get("optimizer", "adam")
+    if name == "adam":
+        opt = torch.optim.Adam(params, lr=lr, weight_decay=wd)
+    elif name == "sgd":
+        opt = torch.optim.SGD(params, lr=lr,
+                              momentum=float(kwargs.get("momentum", 0.9)),
+                              nesterov=bool(kwargs.get("nesterov", False)),
+                              weight_decay=wd, dampening=0.0)
+    else:
+        raise NotImplementedError(f"optimizer {name!r}")
     factor = poly_factor(int(p.get("max_iter", 40000))) \
         if p.get("scheduler") == "poly" else (lambda step: 1.0)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)

@@ -1,10 +1,14 @@
 """The training step (port of mtt_tpu/utils/train_utils.py:59-82,
 ``make_train_step``): forward in train mode, the multi-task criterion,
-backward, gradient clipping, Adam with L2 decay, the poly schedule, and the
-BatchNorm running statistics (updated by the forward). The eval step and
-``test_phase`` (train_utils.py:85-98, 296-337): an eval-mode forward, each
-task's post-processing and the meters' update, all on the device, with the
-scores read once at the end.
+backward, gradient clipping, Adam (or SGD) with L2 decay, the poly schedule,
+and the BatchNorm running statistics (updated by the forward). The eval step
+and ``test_phase`` (train_utils.py:85-98, 296-337): an eval-mode forward,
+each task's post-processing and the meters' update, all on the device, with
+the scores read once at the end, and the edge maps written for the external
+evaluation. The loop ``train_phase`` (train_utils.py:167-248) with its log
+lines, TensorBoard scalars, periodic eval and checkpoints
+(``Trainer.save_checkpoint`` / ``restore_checkpoint``, train_utils.py:
+143-165), and ``StepProfiler`` (:340-358).
 
 Precision: the model computes in its parameters' dtype (bf16 for training on
 the card; the kernels take bf16) while the trainer keeps an f32 master copy
@@ -17,12 +21,17 @@ model's own parameters, and nothing is copied.
 
 from __future__ import annotations
 
+import json
+import os
+import time
 from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from mtt_tpu_torch.data.loader import device_put_batch, prefetch_to_device
 from mtt_tpu_torch.evaluation.meters import PerformanceMeter
+from mtt_tpu_torch.evaluation.save_preds import save_task_predictions
 from mtt_tpu_torch.inference import preprocess
 from mtt_tpu_torch.losses.loss_schemes import build_criterion
 from mtt_tpu_torch.utils.optim import build_optimizer, clip_gradients
@@ -32,13 +41,17 @@ from mtt_tpu_torch.utils.postprocess import get_output
 class Trainer:
     """Owns the optimizer state of one model. ``step(batch)`` is one
     training step; ``backward`` and ``update`` are its two halves.
-    ``generator`` draws the drop-path masks."""
+    ``generator`` draws the drop-path masks. ``step_count`` counts the
+    updates (the JAX ``state.step``); ``log`` takes the loop's lines."""
 
     def __init__(self, model: torch.nn.Module, p: dict, tasks: Sequence[str],
-                 dtype: torch.dtype, generator: torch.Generator):
+                 dtype: torch.dtype, generator: torch.Generator,
+                 log_fn=print):
         self.model = model
         self.p = p
         self.dtype = dtype
+        self.log = log_fn
+        self.step_count = 0
         self.criterion = build_criterion(p, tasks)
         self.generator = generator
         params = list(model.parameters())
@@ -77,6 +90,7 @@ class Trainer:
         clip_gradients(self.master, self.p)
         self.optimizer.step()
         self.scheduler.step()
+        self.step_count += 1
         if self._own_master:
             for m, w in zip(self.master, params):
                 w.copy_(m)
@@ -85,6 +99,71 @@ class Trainer:
         losses = self.backward(batch)
         self.update()
         return losses
+
+    @property
+    def device(self) -> torch.device:
+        return self.master[0].device
+
+    def save_checkpoint(self, ckpt_dir: str) -> str:
+        """``<ckpt_dir>/step_<n>.pt``, then ``latest.txt`` naming it: the
+        step, the f32 master weights by parameter name (a bf16 model is
+        rounded from them on restore), the optimizer and scheduler states,
+        the model's buffers (the BN running statistics) and the drop-path
+        generator's state. Returns the file's path."""
+        os.makedirs(ckpt_dir, exist_ok=True)
+        names = [n for n, _ in self.model.named_parameters()]
+        state = {"step": self.step_count,
+                 "master": {n: m.detach() for n, m in zip(names,
+                                                          self.master)},
+                 "optimizer": self.optimizer.state_dict(),
+                 "scheduler": self.scheduler.state_dict(),
+                 "buffers": dict(self.model.named_buffers()),
+                 "generator": self.generator.get_state()}
+        path = os.path.join(ckpt_dir, f"step_{self.step_count}.pt")
+        torch.save(state, path)
+        with open(os.path.join(ckpt_dir, "latest.txt"), "w") as f:
+            f.write(str(self.step_count))
+        return path
+
+    def restore_checkpoint(self, ckpt_dir: str) -> Optional[int]:
+        """Loads the checkpoint ``latest.txt`` names onto the trainer's
+        device and returns its step; None without ``latest.txt``."""
+        latest = os.path.join(ckpt_dir, "latest.txt")
+        if not os.path.isfile(latest):
+            return None
+        with open(latest) as f:
+            step = int(f.read().strip())
+        dev = self.device
+
+        def place(storage, location):
+            # the optimizer's step counts and the generator state stay on
+            # the host, where they were saved; the rest goes to the device
+            if location == "cpu":
+                return storage
+            return storage.cpu() if dev.type == "cpu" else \
+                storage.cuda(dev.index)
+
+        state = torch.load(os.path.join(ckpt_dir, f"step_{step}.pt"),
+                           map_location=place, weights_only=True)
+        names = [n for n, _ in self.model.named_parameters()]
+        buffers = dict(self.model.named_buffers())
+        if set(state["master"]) != set(names) or \
+                set(state["buffers"]) != set(buffers):
+            raise ValueError(f"checkpoint step_{step}.pt does not match the "
+                             f"model's parameters and buffers")
+        with torch.no_grad():
+            for n, m in zip(names, self.master):
+                m.copy_(state["master"][n])
+            if self._own_master:
+                for m, w in zip(self.master, self.model.parameters()):
+                    w.copy_(m)
+            for n, b in buffers.items():
+                b.copy_(state["buffers"][n])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        self.generator.set_state(state["generator"])
+        self.step_count = int(state["step"])
+        return self.step_count
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -112,17 +191,16 @@ def eval_step(model, meter: PerformanceMeter, batch: Dict[str, torch.Tensor],
 def test_phase(p: dict, model, batches: Iterable[Dict],
                meter: Optional[PerformanceMeter] = None,
                save_tasks: Optional[Sequence[str]] = None) -> Dict:
-    """The scores of ``model`` over ``batches`` (an iterable of batches:
-    numpy ones as ``SyntheticMT.batch`` makes them go through ``to_device``,
-    tensor ones are taken as normalised and on the model's device), with the
-    meter states on the model's device until the end. ``meter`` defaults to
-    a ``PerformanceMeter`` of ``p`` over the model's tasks; it is reset
-    first and holds the final states after. Saving predictions
-    (``save_tasks``) and the 3D detection evaluation are ROADMAP.md item
-    1.7 and raise."""
-    if save_tasks:
-        raise NotImplementedError("saving task predictions is not ported "
-                                  "yet (ROADMAP.md item 1.7)")
+    """The scores of ``model`` over ``batches`` (a loader, or any iterable
+    of batches: numpy ones as the loader gives them, normalised by the
+    transforms, go through ``device_put_batch``; tensor ones are taken as on
+    the model's device; raw ``SyntheticMT.batch`` arrays go through
+    ``to_device`` first), with the meter states on the model's device until
+    the end. ``meter`` defaults to a ``PerformanceMeter`` of ``p`` over the
+    model's tasks; it is reset first and holds the final states after. The
+    post-processed maps of ``save_tasks`` are written under
+    ``p["save_dir"]`` by the batches' ``meta``, pad samples left out. The
+    3D detection evaluation is ROADMAP.md item 1.7 and raises."""
     if "3ddet" in model.tasks:
         raise NotImplementedError("the 3D detection evaluation is not "
                                   "ported yet (ROADMAP.md item 1.7)")
@@ -133,7 +211,116 @@ def test_phase(p: dict, model, batches: Iterable[Dict],
     states = meter.states
     for batch in batches:
         if not torch.is_tensor(batch["image"]):
-            batch = to_device(batch, device)
-        _, states = eval_step(model, meter, batch, states)
+            batch = device_put_batch(batch, device)
+        processed, states = eval_step(model, meter, batch, states)
+        for t in save_tasks or ():
+            if t in processed and "meta" in batch:
+                save_task_predictions(p["save_dir"], t,
+                                      processed[t].float().cpu().numpy(),
+                                      batch["meta"])
     meter.states = states
     return meter.get_score(verbose=False)
+
+
+def train_phase(p: dict, trainer: Trainer, train_loader, val_loader=None,
+                max_iter: Optional[int] = None,
+                val_interval: Optional[int] = None, log_every: int = 50
+                ) -> list:
+    """The iteration loop from ``trainer.step_count`` to ``max_iter``
+    (default ``p["max_iter"]``) over the epochs of ``train_loader``, each
+    batch's copy queued ahead on the trainer's device: every ``log_every``
+    iterations a log line with the losses and imgs/s, a history entry and
+    the TensorBoard scalars (``loss/<name>``, ``lr``, ``imgs_per_sec``);
+    every ``val_interval`` iterations and at ``max_iter``, ``test_phase``
+    over ``val_loader`` with the edge maps saved (when edge is a task),
+    ``results_iter<it>.json`` and ``perf/`` scalars, and a checkpoint in
+    ``p["checkpoint"]``. Returns the history. A resumed loop starts again
+    at epoch 0's first batch, as the JAX loop does."""
+    if "3ddet" in trainer.model.tasks and "save_dir" in p:
+        raise NotImplementedError("the training loop's 3D detection "
+                                  "visualisation and evaluation are not "
+                                  "ported yet (ROADMAP.md item 1.7)")
+    from mtt_tpu_torch.utils.tb_writer import SummaryWriter, flatten_scores
+    max_iter = max_iter or int(p.get("max_iter", 40000))
+    val_interval = val_interval or int(p.get("val_interval", 1000))
+    it = trainer.step_count
+    epoch = 0
+    history = []
+    profiler = StepProfiler()
+    tb = SummaryWriter(os.path.join(p["save_dir"], "tb")) \
+        if "save_dir" in p else None
+    save_tasks = ("edge",) if "edge" in trainer.model.tasks else None
+    t0 = time.time()
+    try:
+        while it < max_iter:
+            train_loader.set_epoch(epoch)
+            for batch in prefetch_to_device(train_loader, trainer.device):
+                profiler.maybe_start(it)
+                losses = trainer.step(batch)
+                profiler.maybe_stop(it)
+                it += 1
+                if it % log_every == 0:
+                    host = {k: float(v) for k, v in losses.items()}
+                    rate = log_every * batch["image"].shape[0] / (
+                        time.time() - t0)
+                    t0 = time.time()
+                    trainer.log(f"iter {it} total {host['total']:.4f} "
+                                f"({rate:.2f} imgs/s) " +
+                                " ".join(f"{k}={v:.4f}" for k, v in
+                                         host.items() if k != "total"))
+                    history.append({"iter": it, **host})
+                    if tb is not None:
+                        tb.add_scalars(host, it, prefix="loss/")
+                        tb.add_scalar("lr", trainer.optimizer.param_groups[
+                            0]["lr"], it)
+                        tb.add_scalar("imgs_per_sec", rate, it)
+                        tb.flush()
+                if it % val_interval == 0 or it >= max_iter:
+                    if val_loader is not None:
+                        scores = test_phase(p, trainer.model, val_loader,
+                                            save_tasks=save_tasks)
+                        trainer.log(f"eval@{it}: {json.dumps(scores)}")
+                        with open(os.path.join(
+                                p["save_dir"], f"results_iter{it}.json"),
+                                "w") as f:
+                            json.dump(scores, f)
+                        if tb is not None:
+                            tb.add_scalars(flatten_scores(scores), it,
+                                           prefix="perf/")
+                            tb.flush()
+                    trainer.save_checkpoint(p["checkpoint"])
+                    if it >= max_iter:
+                        return history
+            epoch += 1
+        return history
+    finally:
+        if tb is not None:
+            tb.close()
+
+
+class StepProfiler:
+    """A ``torch.profiler`` trace of steps ``start_at`` .. ``start_at +
+    steps`` when MTT_PROFILE_DIR names a directory: the Chrome trace lands
+    there as ``trace_steps<a>-<b>.json`` (CUDA activity included on the
+    card)."""
+
+    def __init__(self):
+        self.dir = os.environ.get("MTT_PROFILE_DIR")
+        self._prof = None
+
+    def maybe_start(self, step: int, start_at: int = 10, steps: int = 5):
+        if self.dir and self._prof is None and step == start_at:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.start()
+            self._start, self._stop_at = step, step + steps
+
+    def maybe_stop(self, step: int):
+        if self._prof is not None and step >= self._stop_at:
+            self._prof.stop()
+            os.makedirs(self.dir, exist_ok=True)
+            self._prof.export_chrome_trace(os.path.join(
+                self.dir, f"trace_steps{self._start}-{step}.json"))
+            self._prof = None

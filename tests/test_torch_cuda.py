@@ -1215,3 +1215,135 @@ def test_meter_states_on_the_card_equal_the_cpu(gen, db):
             else:
                 torch.testing.assert_close(v.cpu(), w, rtol=1e-6, atol=0.0)
     assert card.get_score().keys() == cpu.get_score().keys()
+
+
+def test_prefetch_to_device_equals_the_host_batches(gen):
+    """``prefetch_to_device`` over loader batches (ViT-T-sized synthetic
+    samples through ``TrainTransforms``): every array on the card equals
+    the host batch's, ``meta`` passes through, and the copies came from
+    pinned memory without blocking."""
+    from mtt_tpu_torch.data.loader import MultiTaskLoader, prefetch_to_device
+    from mtt_tpu_torch.data.synthetic import SyntheticMT
+    from mtt_tpu_torch.data.transforms import TrainTransforms
+
+    tasks = ("semseg", "sal", "normals", "edge")
+    num_out = {"semseg": 21, "sal": 2, "normals": 3, "edge": 1}
+    ds = SyntheticMT(tasks, num_out, (64, 80), length=7,
+                     transform=TrainTransforms((64, 80)))
+    loader = MultiTaskLoader(ds, 2, seed=1)
+    host = list(loader)
+    dev = list(prefetch_to_device(loader, "cuda"))
+    torch.cuda.synchronize()
+    assert len(dev) == len(host) == 3
+    for d, h in zip(dev, host):
+        assert d["meta"] == h["meta"]
+        for k, v in h.items():
+            if k != "meta":
+                assert d[k].device.type == "cuda"
+                assert torch.equal(d[k].cpu(), torch.from_numpy(v)), k
+
+
+def test_checkpoint_restore_on_the_card_is_bit_equal(gen, tmp_path):
+    """A ViT-B trainer (bf16 model, f32 master, drop-path on) takes a step,
+    saves, takes another; a second trainer restored from the checkpoint
+    takes the same step: under deterministic algorithms every master
+    weight, Adam moment, BN statistic and loss is equal to the bit."""
+    import os
+    from mtt_tpu_torch.data.synthetic import SyntheticMT
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import TaskPrompterNet
+    from mtt_tpu_torch.train import PASCAL_VITL
+    from mtt_tpu_torch.utils.train_utils import Trainer, to_device
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    tasks = ("semseg", "human_parts", "sal", "normals", "edge")
+    num_out = {"semseg": 21, "human_parts": 7, "sal": 2, "normals": 3,
+               "edge": 1}
+
+    def trainer(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        model = TaskPrompterNet(tasks, num_out, (64, 64),
+                                "TaskPrompter_vitB", device="cuda")
+        init_weights(model, g)
+        return Trainer(model, PASCAL_VITL, tasks, torch.bfloat16, g)
+
+    data = SyntheticMT(tasks, num_out, (64, 64))
+    batches = [to_device(data.batch(2 * i, 2), "cuda") for i in range(2)]
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        a = trainer(3)
+        a.step(batches[0])
+        a.save_checkpoint(str(tmp_path))
+        b = trainer(4)
+        assert b.restore_checkpoint(str(tmp_path)) == 1
+        la, lb = a.step(batches[1]), b.step(batches[1])
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert all(torch.equal(la[k], lb[k]) for k in la)
+    for ma, mb in zip(a.master, b.master):
+        assert torch.equal(ma, mb)
+        sa, sb = a.optimizer.state[ma], b.optimizer.state[mb]
+        assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    for (n, x), (_, y) in zip(a.model.named_buffers(),
+                              b.model.named_buffers()):
+        assert torch.equal(x, y), n
+
+
+def _read_png(path):
+    """A plain decoder of the unfiltered 8-bit grey / RGB PNGs that
+    ``write_png`` makes (the card's machine has no cv2)."""
+    import struct
+    import zlib
+    import numpy as np
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert zlib.crc32(kind + body) & 0xFFFFFFFF == crc
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, colour = hdr[:4]
+    assert depth == 8 and colour in (0, 2)
+    c = 3 if colour == 2 else 1
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    assert (raw[:, 0] == 0).all()
+    img = raw[:, 1:].reshape(h, w, c)
+    return img[..., 0] if c == 1 else img
+
+
+def test_png_encoder_decodes_to_the_array(tmp_path):
+    """``write_png`` of seeded uint8 grey and RGB maps (odd sizes, 0 and
+    255 included) decodes to the same arrays."""
+    import numpy as np
+    from mtt_tpu_torch.evaluation.save_preds import write_png
+    rng = np.random.default_rng(0)
+    for shape in ((37, 53), (5, 7, 3), (64, 64, 1)):
+        a = rng.integers(0, 256, shape).astype(np.uint8)
+        a.flat[0], a.flat[-1] = 0, 255
+        write_png(str(tmp_path / "x.png"), a)
+        got = _read_png(str(tmp_path / "x.png"))
+        assert np.array_equal(got, a[..., 0] if a.ndim == 3 and
+                              a.shape[2] == 1 else a)
+
+
+def test_main_refuses_float32_on_the_card(tmp_path, monkeypatch):
+    """``--dtype float32`` on the card raises before anything is built:
+    the kernels take bf16 only."""
+    import os
+    from mtt_tpu_torch.main import main
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.chdir(tmp_path)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with pytest.raises(ValueError, match="bf16 only"):
+        main(["--config_exp", os.path.join(
+            root, "configs/pascal/taskprompter_vitBp16.yml"),
+            "--dtype", "float32"])
+    assert not os.listdir(tmp_path)

@@ -19,6 +19,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_threads import torch_threads  # noqa: F401
+
 
 def _close(got, want, rtol=1e-4, floor=1e-5):
     got = got.detach().numpy() if torch.is_tensor(got) else np.asarray(got)

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 
 from test_torch_model import random_variables
+from torch_threads import torch_threads  # noqa: F401
 
 
 def _t(a, dtype=torch.float32):

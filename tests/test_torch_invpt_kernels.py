@@ -14,6 +14,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_threads import torch_threads  # noqa: F401
+
 
 def _t(a, dtype=torch.float32):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)

@@ -10,6 +10,8 @@ import torch
 from mtt_tpu_torch.kernels.invpt_attention import (
     check_invpt_attention_shape, invpt_attention_cuda)
 
+from torch_threads import torch_threads  # noqa: F401
+
 
 @pytest.mark.parametrize("H,Lk,D,match", [
     (4, 320, 72, "2 heads"), (2, 321, 72, "at most 320"),

@@ -48,6 +48,7 @@ import optax
 from flax import linen as nn
 
 from test_torch_model import random_variables
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 TASKS = ("semseg", "depth", "normals", "edge")
@@ -437,7 +438,8 @@ def test_train_steps_invpt_entry_point_on_the_cpu(monkeypatch):
     the total, and finite scores of every task."""
     from mtt_tpu_torch.models.wrappers import DB_SCALES
     from mtt_tpu_torch.train import INVPT_PASCAL_VITL_TRAIN, train_and_score
-    monkeypatch.setitem(DB_SCALES, "PASCALContext", (128, 128))
+    monkeypatch.setitem(DB_SCALES, "PASCALContext",
+                        ((128, 128), (128, 128)))
     p = dict(INVPT_PASCAL_VITL_TRAIN, backbone="vitT", embed_dim=32,
              PRED_OUT_NUM_CONSTANT=16, valBatch=1)
     (losses,), scores = train_and_score(p, 1, 1, 1, seed=0, device="cpu")

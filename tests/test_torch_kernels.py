@@ -15,6 +15,8 @@ import torch
 
 import jax.numpy as jnp
 
+from torch_threads import torch_threads  # noqa: F401
+
 
 def _close(got, want, rtol=1e-5):
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)

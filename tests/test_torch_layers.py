@@ -12,6 +12,7 @@ import torch
 import jax.numpy as jnp
 
 from test_torch_model import random_variables
+from torch_threads import torch_threads  # noqa: F401
 
 
 def _close(got, want):

@@ -10,9 +10,13 @@ PASCAL tasks, 64x64) over 2 batches and is held to the JAX
 ``PerformanceMeter`` fed the port's own predictions (no JAX model).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
+
+from torch_threads import torch_threads  # noqa: F401
 
 B, H, W = 2, 13, 17
 
@@ -244,7 +248,8 @@ def test_test_phase_matches_jax_meters_on_the_port_predictions():
         t: torch.zeros(1, 2, 2) for t in ("sal", "edge")} | {
         "normals": torch.zeros(1, 2, 2, 3)}, {
         t: torch.zeros(1, 2, 2, 3 if t == "normals" else 1) for t in TASKS})
-    scores = test_phase(P, model, batches, meter=meter)
+    dev = [to_device(b, "cpu") for b in batches]
+    scores = test_phase(P, model, dev, meter=meter)
     assert set(scores) == set(TASKS)
 
     jpm = JPM(_jax_p("PASCALContext", P["task_dictionary"]), TASKS)
@@ -259,10 +264,11 @@ def test_test_phase_matches_jax_meters_on_the_port_predictions():
     want = jpm.get_score()
     for t in TASKS:
         _same_scores(scores[t], want[t], t)
-    # the same scores from the default meter, and from tensor batches
-    assert test_phase(P, model, iter(batches)) == scores
-    assert test_phase(P, model, [to_device(b, "cpu") for b in batches]) \
-        == scores
+    # the same scores from the default meter, and from numpy batches as the
+    # loader gives them (normalised by the transforms)
+    assert test_phase(P, model, iter(dev)) == scores
+    assert test_phase(P, model, [{k: v.numpy() for k, v in b.items()}
+                                 for b in dev]) == scores
 
 
 def test_eval_step_is_pure_and_skips_inter_preds():
@@ -285,15 +291,22 @@ def test_eval_step_is_pure_and_skips_inter_preds():
         int((b["semseg"] != 255).sum())
 
 
-def test_test_phase_refuses_saving_and_3ddet():
-    """Saving predictions and the 3D detection evaluation are ROADMAP.md
-    item 1.7: ``test_phase`` raises and names it."""
-    from mtt_tpu_torch.utils.train_utils import test_phase
+def test_test_phase_refuses_saving_and_3ddet(tmp_path):
+    """The 3D detection evaluation is ROADMAP.md item 1.7: ``test_phase``
+    raises and names it. Saving predictions is no longer refused: the edge
+    maps of the samples in ``meta`` are written, a pad sample's not."""
+    from mtt_tpu_torch.data.synthetic import SyntheticMT
+    from mtt_tpu_torch.utils.train_utils import test_phase, to_device
 
     model = _invpt_vit_t()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.7"):
-        test_phase(P, model, [], save_tasks=("edge",))
     det = torch.nn.Linear(1, 1)
     det.tasks = ("semseg", "3ddet")
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.7"):
         test_phase({"train_db_name": "Cityscapes3D"}, det, [])
+    b = to_device(SyntheticMT(TASKS, NUM_OUT, (64, 64), seed=4).batch(0, 2),
+                  "cpu")
+    b["meta"] = [{"img_name": "a", "img_size": (64, 64)},
+                 {"img_name": "b", "img_size": (64, 64), "pad": True}]
+    test_phase(dict(P, save_dir=str(tmp_path)), model, [b],
+               save_tasks=("edge",))
+    assert sorted(os.listdir(tmp_path / "edge")) == ["a.png"]

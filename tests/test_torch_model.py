@@ -26,6 +26,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_threads import torch_threads  # noqa: F401
+
 TASKS = ("semseg", "human_parts", "sal", "normals", "edge")
 NUM_OUT = {"semseg": 21, "human_parts": 7, "sal": 2, "normals": 3, "edge": 1}
 TAR, FIN = 24, 28

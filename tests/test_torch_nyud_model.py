@@ -25,6 +25,7 @@ import torch
 import jax.numpy as jnp
 
 from test_torch_model import _gelu_poly_slack, random_variables
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 TASKS = ("semseg", "depth", "normals", "edge")

@@ -10,6 +10,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from torch_threads import torch_threads  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 
 

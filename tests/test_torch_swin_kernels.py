@@ -17,6 +17,8 @@ import torch
 
 import jax.numpy as jnp
 
+from torch_threads import torch_threads  # noqa: F401
+
 BF16_ULP = 2.0 ** -7
 
 

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 
 from test_torch_detection import _close, _load, _rand, _t, tiny_det_cfg
 from test_torch_model import random_variables
+from torch_threads import torch_threads  # noqa: F401
 
 TASKS = ("semseg", "depth", "3ddet")
 NUM_OUT = {"semseg": 5, "depth": 1, "3ddet": 18}

@@ -33,6 +33,7 @@ import optax
 from flax import linen as nn
 
 from test_torch_swin_model import TINY, _fill
+from torch_threads import torch_threads  # noqa: F401
 
 TINY = dict(TINY, depths=(2, 2, 3, 2))
 TASKS = ("semseg", "depth", "3ddet")
@@ -266,7 +267,11 @@ def test_synthetic_3ddet_sample_matches_jax(idx):
     from mtt_tpu_torch.data.synthetic import SyntheticMT
     want = JSynth(list(TASKS), NUM_OUT, IMG, seed=5, max_boxes=8)[idx]
     full = SyntheticMT(TASKS, NUM_OUT, IMG, seed=5, max_boxes=8)[idx]
-    assert set(full) == set(want) - {"meta"}
+    assert set(full) == set(want)
+    meta, want_meta = full.pop("meta"), want["meta"]
+    assert meta.keys() == want_meta.keys()
+    assert np.array_equal(meta.pop("K_matrix"), want_meta["K_matrix"])
+    assert all(meta[k] == want_meta[k] for k in meta)
     for k, v in full.items():
         assert v.dtype == want[k].dtype and np.array_equal(v, want[k]), k
     assert 1 <= want["det_valid"].sum() <= 5
