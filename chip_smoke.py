@@ -98,6 +98,26 @@ Phases, in order (the seconds each took are printed):
      from the log lines, the loader's ms per batch beside the bare step's
      (phase 9), the checkpoint's size and its save and restore seconds, and
      peak memory.
+  15. ``detect``: the Cityscapes-3D evaluation and the inference CLI as a
+     user runs them, at full width and depth (TaskPrompter-Swin-B from
+     configs/cityscapes3d/taskprompter_swinB.yml, bf16, seeded weights with
+     the class bias at prior 0.5 so that 200 boxes an image pass the
+     decode; the synthetic val set cut to 8 images, 2 batches of 4 at
+     1024x2048, through the Cityscapes-3D transforms), in a temporary
+     working directory: ``test_phase`` (launch counts, finite 2D scores,
+     mDS and mAP in [0, 1], 8 JSON files, the card's records against the
+     CPU's decode and export of the same head outputs, imgs/s, the decode's
+     ms and the scoring's seconds); ``main --run_mode infer --vis`` (its
+     scores with 3ddet, the vis_semseg, vis_depth and 3ddet files, drawn
+     from the scoring forwards);
+     ``train_phase`` for 2 iterations with an eval at 2 (the b0_ JSON and
+     wireframe PNG under train/3ddet, results_iter2.json with the 3ddet
+     mDS, launch counts); the inference CLI on TaskPrompter-ViT-L PASCAL
+     from a seeded trainer's checkpoint and a 375x500 PNG (five PNGs equal
+     to ``visualize`` of ``predict`` on the CLI's resized input) and on
+     Swin-B with a 1024x2048 PNG and the Stuttgart camera, each input's
+     scanlines in all five PNG filters (the host's ``read_png`` time of the
+     1024x2048 file beside a filter-0 one's).
 The line before the last is the kernels JSON; the last line is the device JSON.
 
 ``python3 chip_smoke.py --profile`` runs none of these phases: after the
@@ -111,7 +131,7 @@ part, at the two bf16 paths' forward points, and at the outputs of the
 decodes and the detection head (``grad_diag``).
 ``--phases kernels,invpt`` (any subset of kernels, attention_api, eval,
 invpt, swin, nyud, train, swin_train, invpt_train, nyud_train, evaluate,
-loop)
+loop, detect)
 runs only those phases and prints no result lines: a quick look, not the
 check.
 """
@@ -2041,7 +2061,7 @@ def evaluate_phase():
     meter.reset()
     states, cpu = meter.states, PerformanceMeter(p, tasks, "cpu")
     for batch in batches:
-        processed, states = eval_step(model, meter, batch, states)
+        processed, states, _ = eval_step(model, meter, batch, states)
         cpu.update({t: v.cpu() for t, v in processed.items()},
                    {t: batch[t].cpu() for t in tasks})
     meter.states = states
@@ -2344,6 +2364,468 @@ def loop_phase():
         restore_stdout()
         save_preds.write_png = real_png
         train_utils.test_phase = real_eval
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+CS3D_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "cityscapes3d", "taskprompter_swinB.yml")
+DET_IMAGES = 8                   # the val set cut to 2 batches of valBatch 4
+# the card's decode against the CPU's: scores and thresholds (f32 sigmoids
+# and exps of two libraries differ in the last bits), the records' fields
+# relative to their largest value in the image
+DET_SCORE_TOL, DET_IOU_TOL, DET_FIELD_TOL = 1e-5, 1e-5, 1e-4
+
+
+def _cs3d_trainer(run_mode: str, seed: int):
+    """``create_config`` of the Cityscapes-3D YAML and a seeded trainer of
+    Swin-B as ``main`` builds it (bf16, f32 master), the class bias at prior
+    0.5 so that the random weights' detections pass ``score_thr`` and the
+    decode, the export and the evaluator do their work on 200 boxes an
+    image."""
+    from mtt_tpu_torch.config import create_config
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import build_model
+    from mtt_tpu_torch.utils.train_utils import Trainer
+    dev = torch.device("cuda")
+    p = create_config(CS3D_CONFIG, {"run_mode": run_mode})
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = build_model(p, img_size=tuple(p.TRAIN.SCALE), device=dev,
+                        dtype=torch.float32)
+    init_weights(model, gen)
+    with torch.no_grad():
+        model.det_head.fcos3d.conv_cls.bias.zero_()
+    return p, Trainer(model, p, p.TASKS.NAMES, torch.bfloat16, gen)
+
+
+def _png_filtered(img) -> bytes:
+    """A PNG file of a uint8 (H, W, 3) image whose scanlines take the five
+    filters in turn (0 none, 1 sub, 2 up, 3 average, 4 Paeth; PNG spec,
+    section 9), as an encoder such as libpng mixes them in a photo: the
+    inference CLI's input, where ``write_png`` writes filter 0 only."""
+    import zlib
+
+    import numpy as np
+    h, w, bpp = img.shape
+    x = np.zeros((h + 1, (w + 1) * bpp), np.int16)
+    x[1:, bpp:] = img.reshape(h, w * bpp)
+    a, b, c = x[1:, :-bpp], x[:-1, bpp:], x[:-1, :-bpp]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    f = (np.arange(h, dtype=np.int16) % 5)[:, None]
+    pred = np.select([f == 1, f == 2, f == 3, f == 4],
+                     [a, b, (a + b) >> 1, paeth], 0)
+    raw = np.concatenate([f.astype(np.uint8), ((x[1:, bpp:] - pred) & 0xFF)
+                          .astype(np.uint8)], 1).tobytes()
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+@contextlib.contextmanager
+def _cut_val_set(cc):
+    """``common_config.get_dataset`` with the val split cut to
+    ``DET_IMAGES`` samples."""
+    real = cc.get_dataset
+
+    def cut(p, split, transforms=None, overfit=False):
+        ds = real(p, split, transforms, overfit)
+        if split != "train":
+            ds.length = DET_IMAGES
+        return ds
+    cc.get_dataset = cut
+    try:
+        yield
+    finally:
+        cc.get_dataset = real
+
+
+def _det_events(c, det_cfg) -> list:
+    """The decisions of one image's CPU decode (``decode_candidates``) that
+    lie within the tolerances of a threshold, where the card's last bits
+    may decide the other way: a candidate's score at ``score_thr``; a
+    candidate at ``nms_thr`` IoU with a box of its class that is kept and
+    scores higher, and no such box over the threshold by more than the
+    tolerance (which would suppress it on both devices); the kept scores at
+    the ``max_per_img`` cut."""
+    from mtt_tpu_torch.detection.iou3d import _greedy_nms_from_iou
+    t = det_cfg["test_cfg"]
+    s, iou = c["nms_scores"], c["iou"]
+    thr_s, thr_n = float(t["score_thr"]), float(t["nms_thr"])
+    valid = s > thr_s
+    keep = _greedy_nms_from_iou(iou, s, thr_n, valid)
+    events = []
+    if ((s - thr_s).abs() <= DET_SCORE_TOL).any():
+        events.append("score_thr")
+    order = torch.argsort(s, dim=1, descending=True, stable=True)
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(s.shape[1]).expand_as(order))
+    # before[c, i, j]: i kept and ahead of j in class c's sweep
+    before = keep[:, :, None] & (rank[:, :, None] < rank[:, None, :])
+    near = ((iou - thr_n).abs() <= DET_IOU_TOL)[None] & before
+    sure = (iou > thr_n + DET_IOU_TOL)[None] & before
+    if (valid & near.any(1) & ~sure.any(1)).any():
+        events.append("nms_thr")
+    kept = torch.sort(s[keep], descending=True).values
+    n = int(t["max_per_img"])
+    if len(kept) > n and kept[n - 1] - kept[n] <= DET_SCORE_TOL:
+        events.append("max_per_img")
+    return events
+
+
+def _flat_objects(objs):
+    """{field: (n, k) array} of official-format objects."""
+    import numpy as np
+    return {"score": np.array([[o["score"]] for o in objs]),
+            **{f"2d.{k}": np.array([o["2d"][k] for o in objs])
+               for k in ("modal", "amodal")},
+            **{f"3d.{k}": np.array([o["3d"][k] for o in objs])
+               for k in ("center", "dimensions", "rotation")}}
+
+
+def _records_check(records, captured, det_cfg) -> dict:
+    """The records ``test_phase`` made on the card against the port's CPU
+    decode and export of the same head outputs (copied to the host): per
+    image, when no decision of the CPU decode lies within the tolerances of
+    a threshold (``_det_events``), the same number of boxes, each card box
+    matched to the CPU box of its label nearest in 3D centre, its score
+    within DET_SCORE_TOL and every other field within DET_FIELD_TOL of the
+    field's largest value in the image; an image with such a decision has
+    only the boxes both keep compared, and is counted. Returns the worst
+    errors and counts."""
+    import numpy as np
+    from mtt_tpu_torch.detection.det_eval import DetRecordAccumulator
+    from mtt_tpu_torch.detection.det_model import decode_candidates
+    cpu = DetRecordAccumulator(det_cfg)
+    events = {}
+    for head, batch in captured:
+        host = tuple([t.cpu() for t in lvls] for lvls in head)
+        cpu.add_batch(host, batch)
+        for i, meta in enumerate(batch["meta"]):
+            if meta.get("pad"):
+                continue
+            c = decode_candidates(
+                tuple([t[i] for t in lvls] for lvls in host),
+                torch.from_numpy(np.asarray(meta["K_matrix"], np.float32)),
+                det_cfg, tuple(det_cfg["strides"]))
+            events[meta["img_name"]] = _det_events(c, det_cfg)
+    if [r[0] for r in records] != [r[0] for r in cpu.records]:
+        raise RuntimeError("detect: the card's and the CPU's records name "
+                           "other images")
+    worst = {"score": 0.0, "field": 0.0}
+    boxes = exempt = 0
+    for (name, gt, got), (_, cgt, want) in zip(records, cpu.records):
+        near = bool(events[name])
+        exempt += near
+        if gt != cgt:
+            raise RuntimeError(f"detect: {name}: ground truth differs")
+        if len(got) != len(want) and not near:
+            raise RuntimeError(f"detect: {name}: {len(got)} boxes on the "
+                               f"card, {len(want)} on the CPU")
+        if not got or not want:
+            continue
+        g, w = _flat_objects(got), _flat_objects(want)
+        scale = {k: max(np.abs(v).max(), 1e-30) for k, v in w.items()}
+        labels = np.array([o["label"] for o in want])
+        for j, o in enumerate(got):
+            same = np.nonzero(labels == o["label"])[0]
+            d = np.abs(w["3d.center"][same] - g["3d.center"][j]).max(1) \
+                / scale["3d.center"] if len(same) else np.array([np.inf])
+            if d.min() > DET_FIELD_TOL and near:
+                continue            # a box the other decode did not keep
+            if not len(same):
+                raise RuntimeError(f"detect: {name}: card box {j} "
+                                   f"({o['label']}) has no CPU box")
+            m = same[d.argmin()]
+            boxes += 1
+            worst["score"] = max(worst["score"], float(abs(
+                g["score"][j, 0] - w["score"][m, 0])))
+            for k in g:
+                if k != "score":
+                    worst["field"] = max(worst["field"], float(
+                        np.abs(g[k][j] - w[k][m]).max() / scale[k]))
+    if worst["score"] > DET_SCORE_TOL or worst["field"] > DET_FIELD_TOL:
+        raise RuntimeError(f"detect: the card's records differ from the "
+                           f"CPU's decode: {worst}")
+    return {"images": len(records), "boxes": boxes, "exempt": exempt,
+            "events": {k: v for k, v in events.items() if v}, **worst}
+
+
+def detect_phase():
+    """Phase 15: the Cityscapes-3D evaluation and the inference CLI as a
+    user runs them, on TaskPrompter-Swin-B (and ViT-L PASCAL for the CLI),
+    full width and depth, bf16, seeded weights, seeded synthetic data, in a
+    temporary working directory (see the module docstring). Returns the
+    launch counts of each part."""
+    import io
+
+    import numpy as np
+    from mtt_tpu_torch import inference
+    from mtt_tpu_torch import main as port_main
+    from mtt_tpu_torch.detection import det_eval
+    from mtt_tpu_torch.evaluation.save_preds import read_png, write_png
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.utils import common_config as cc
+    from mtt_tpu_torch.utils.train_utils import test_phase, train_phase
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cwd = os.getcwd()
+    work = tempfile.mkdtemp(prefix="chip_smoke_detect_")
+    real_add = det_eval.DetRecordAccumulator.add_batch
+    counts = {}
+    os.chdir(work)
+    try:
+        # a. test_phase over 2 batches of 4 through the val transforms
+        p, trainer = _cs3d_trainer("infer", 12)
+        p["save_dir"] = os.path.join(work, "a")
+        model = trainer.model
+        with _cut_val_set(cc):
+            _, val_tf = cc.get_transformations(p)
+            val = cc.get_test_dataloader(p, cc.get_dataset(p, "val", val_tf))
+        captured, accs = [], []
+
+        def capture(acc, head_out, batch):
+            captured.append((tuple([t.clone() for t in lvls]
+                                   for lvls in head_out), batch))
+            if acc not in accs:
+                accs.append(acc)
+            real_add(acc, head_out, batch)
+
+        det_eval.DetRecordAccumulator.add_batch = capture
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t = time.perf_counter()
+        scores = test_phase(p, model, val)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t
+        counts["detect_eval"] = dict(_build.COUNTS)
+        det_eval.DetRecordAccumulator.add_batch = real_add
+        want = {k: 2 * v for k, v in expected_swin().items()}
+        print(f"[detect] test_phase, TaskPrompter-Swin-B Cityscapes-3D from "
+              f"{os.path.relpath(CS3D_CONFIG, cwd)}, {DET_IMAGES} images "
+              f"in {len(captured)} batches of {p['valBatch']} at "
+              f"{p.TRAIN.SCALE} bf16: {eval_s:.2f} s = "
+              f"{DET_IMAGES / eval_s:.2f} imgs/s (forwards, meters, decode, "
+              f"export, scoring; the loader's samples made on the host); "
+              f"launches {counts['detect_eval']}", flush=True)
+        if counts["detect_eval"] != want:
+            raise RuntimeError(f"detect launch counts "
+                               f"{counts['detect_eval']} != {want}")
+        print(f"[detect] scores {json.dumps(scores)}", flush=True)
+        det = scores.get("3ddet", {})
+        if set(scores) != {"semseg", "depth", "3ddet"} or not all(
+                math.isfinite(v) for s in scores.values()
+                for v in s.values()) or set(det) != {"mDetection_Score",
+                                                     "mAP"} or not all(
+                0.0 <= v <= 1.0 for v in det.values()):
+            raise RuntimeError(f"detect: scores {scores}")
+        files = sorted(os.listdir(os.path.join(p["save_dir"], "3ddet")))
+        if len(files) != DET_IMAGES or len(accs) != 1:
+            raise RuntimeError(f"detect: {len(files)} JSON files, "
+                               f"{len(accs)} accumulators")
+        acc = accs[0]
+        check = _records_check(acc.records, captured, model.det_cfg)
+        print(f"[detect] the card's records against the CPU's decode and "
+              f"export of the same head outputs: {check['images']} images, "
+              f"{check['boxes']} boxes matched; worst score error "
+              f"{check['score']:.3g} (tol {DET_SCORE_TOL}), worst field "
+              f"error {check['field']:.3g} of its largest value (tol "
+              f"{DET_FIELD_TOL}); images with a decision within the "
+              f"tolerances of a threshold (common boxes compared only): "
+              f"{check['exempt']} {check['events']}", flush=True)
+        head, batch = captured[0]
+        K = torch.from_numpy(np.stack([m["K_matrix"] for m in
+                                       batch["meta"]])).to(dev)
+        dec_ms = _wall_ms(lambda: inference.decode_3ddet(
+            head, K, model.det_cfg), reps=3)
+        x = torch.from_numpy(batch["image"]).to(dev, torch.bfloat16)
+        fwd_ms = _wall_ms(torch.no_grad()(lambda: model(x, train=False)),
+                          reps=3)
+        t = time.perf_counter()
+        acc.evaluate()
+        score_s = time.perf_counter() - t
+        t = time.perf_counter()
+        n_loaded = sum(len(b["meta"]) for b in val)
+        loader_s = time.perf_counter() - t
+        n_boxes = sum(len(r[2]) for r in acc.records)
+        print(f"[detect] where test_phase's time goes: the loader alone "
+              f"{loader_s:.2f} s for {n_loaded} samples (the card idle); a "
+              f"forward of {len(batch['meta'])} {fwd_ms:.1f} ms, its decode "
+              f"{dec_ms:.2f} ms (wall, median of 3); scoring "
+              f"{len(acc.records)} images, {n_boxes} boxes {score_s:.2f} s "
+              f"(the evaluator on the host)", flush=True)
+        del trainer, model, captured, accs, acc, head, val, x
+        torch.cuda.empty_cache()
+
+        # b. main --run_mode infer --vis on the YAML
+        out = io.StringIO()
+        _build.reset_counts()
+        t = time.perf_counter()
+        with _cut_val_set(cc), contextlib.redirect_stdout(out):
+            rc = port_main.main(["--config_exp", CS3D_CONFIG, "--run_mode",
+                                 "infer", "--vis"])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        counts["detect_main"] = dict(_build.COUNTS)
+        text = out.getvalue()
+        scores = json.loads(text[text.index("\n{") + 1:])
+        res = os.path.join(work, "work_dirs", "TaskPrompter_CS_swinB",
+                           "results")
+        made = {d: len(os.listdir(os.path.join(res, d)))
+                for d in ("vis_semseg", "vis_depth", "3ddet")}
+        # the scoring forwards also render --vis's maps: no second pass
+        want = {k: 2 * v for k, v in expected_swin().items()}
+        print(f"[detect] main --run_mode infer --vis: rc {rc}, {main_s:.1f} "
+              f"s; scores {json.dumps(scores)}; files {made}; launches "
+              f"{counts['detect_main']}", flush=True)
+        if rc != 0 or "3ddet" not in scores or counts["detect_main"] != want \
+                or made != dict.fromkeys(made, DET_IMAGES):
+            raise RuntimeError(f"detect: main --vis returned {rc}, scores "
+                               f"{sorted(scores)}, files {made}, launches "
+                               f"(want {want})")
+        shape = read_png(os.path.join(res, "vis_semseg",
+                                      "synth_000000.png")).shape
+        if shape != (*SW_OUT, 3):
+            raise RuntimeError(f"detect: vis_semseg PNG of shape {shape}")
+
+        # c. train_phase for 2 iterations with a save_dir and an eval at 2
+        p, trainer = _cs3d_trainer("train", 13)
+        with _cut_val_set(cc):
+            train_tf, val_tf = cc.get_transformations(p)
+            train = cc.get_train_dataloader(p, cc.get_dataset(p, "train",
+                                                              train_tf))
+            val = cc.get_test_dataloader(p, cc.get_dataset(p, "val", val_tf))
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t = time.perf_counter()
+        history = train_phase(p, trainer, train, val, max_iter=2,
+                              val_interval=2, log_every=1)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        counts["detect_train"] = dict(_build.COUNTS)
+        forwards = 1 + DET_IMAGES // int(p["valBatch"])
+        want = {k: 2 * v + forwards * expected_swin()[k]
+                for k, v in expected_swin_train().items()}
+        vis_dir = os.path.join(p["save_dir"], "train", "3ddet")
+        vis = sorted(os.listdir(vis_dir))
+        with open(os.path.join(p["save_dir"], "results_iter2.json")) as f:
+            res2 = json.load(f)
+        print(f"[detect] train_phase, 2 iterations of batch {p['trBatch']}, "
+              f"eval at 2: {train_s:.1f} s; losses "
+              f"{[round(h['total'], 4) for h in history]}; train/3ddet "
+              f"{vis}; results_iter2 {json.dumps(res2)}; launches "
+              f"{counts['detect_train']}", flush=True)
+        if counts["detect_train"] != want:
+            raise RuntimeError(f"detect train launch counts "
+                               f"{counts['detect_train']} != {want}")
+        pngs = [v for v in vis if v.endswith(".png")]
+        if len(vis) != 2 or len(pngs) != 1 or \
+                not all(v.startswith("b0_synth_") for v in vis) or \
+                not 0.0 <= res2.get("3ddet", {}).get(
+                    "mDetection_Score", -1.0) <= 1.0:
+            raise RuntimeError(f"detect: train/3ddet {vis}, results "
+                               f"{res2}")
+        if read_png(os.path.join(vis_dir, pngs[0])).shape != (*SW_IMG, 3):
+            raise RuntimeError("detect: the wireframe PNG's shape")
+        del trainer, train, val
+        torch.cuda.empty_cache()
+
+        # d. the inference CLI: ViT-L PASCAL from a checkpoint, Swin-B
+        from mtt_tpu_torch.config import create_config
+        from mtt_tpu_torch.models.layers import init_weights
+        from mtt_tpu_torch.models.wrappers import build_model
+        from mtt_tpu_torch.utils.train_utils import Trainer
+        vp = create_config(LOOP_CONFIG, {"run_mode": "infer"})
+        gen = torch.Generator(device=dev).manual_seed(14)
+        vmodel = build_model(vp, img_size=tuple(vp.TEST.SCALE), device=dev,
+                             dtype=torch.float32)
+        init_weights(vmodel, gen)
+        vtrainer = Trainer(vmodel, vp, vp.TASKS.NAMES, torch.bfloat16, gen)
+        vtrainer.save_checkpoint(os.path.join(work, "ck_vitl"))
+        rng = np.random.default_rng(15)
+        yy, xx = np.mgrid[0:375, 0:500]
+        photo = np.stack([127 + 100 * np.sin(xx / (9.0 + 3 * c))
+                          * np.cos(yy / (7.0 + 2 * c)) for c in range(3)], -1)
+        photo = np.clip(photo + rng.normal(0, 8, photo.shape), 0,
+                        255).astype(np.uint8)
+        with open(os.path.join(work, "pascal.png"), "wb") as f:
+            f.write(_png_filtered(photo))
+        _build.reset_counts()
+        t = time.perf_counter()
+        rc = inference.main(["--config_exp", LOOP_CONFIG, "--image_path",
+                             os.path.join(work, "pascal.png"), "--ckpt_dir",
+                             os.path.join(work, "ck_vitl"), "--output_dir",
+                             os.path.join(work, "out_vitl")])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+        counts["detect_cli_vitl"] = dict(_build.COUNTS)
+        _, img = inference.load_image(os.path.join(work, "pascal.png"),
+                                      tuple(vp.TEST.SCALE))
+        x = inference.preprocess(torch.from_numpy(img[None]).to(dev))
+        _, preds = inference.predict(vmodel, x.to(torch.bfloat16))
+        outs = sorted(os.listdir(os.path.join(work, "out_vitl")))
+        same = [t for t in vp.TASKS.NAMES if np.array_equal(
+            read_png(os.path.join(work, "out_vitl", f"{t}.png")),
+            inference.visualize(t, preds[t][0].float().cpu().numpy()))]
+        print(f"[detect] inference CLI, TaskPrompter-ViT-L PASCAL from a "
+              f"checkpoint, a 375x500 PNG: rc {rc}, {cli_s:.1f} s (model "
+              f"build and restore included); wrote {outs}; equal to "
+              f"visualize(predict) of the resized input: {same}; launches "
+              f"{counts['detect_cli_vitl']}", flush=True)
+        if rc != 0 or counts["detect_cli_vitl"] != expected_eval("factored") \
+                or len(same) != len(vp.TASKS.NAMES) or len(outs) != 5:
+            raise RuntimeError(f"detect: the ViT-L CLI (launches want "
+                               f"{expected_eval('factored')})")
+        del vmodel, vtrainer, preds, x
+        torch.cuda.empty_cache()
+        cs_photo = photo[np.arange(SW_IMG[0]) % 375][
+            :, np.arange(SW_IMG[1]) % 500]
+        with open(os.path.join(work, "cs.png"), "wb") as f:
+            f.write(_png_filtered(cs_photo))
+        write_png(os.path.join(work, "cs_plain.png"), cs_photo)
+        read_ms = {}
+        for name in ("cs.png", "cs_plain.png"):
+            t = time.perf_counter()
+            got = read_png(os.path.join(work, name))
+            read_ms[name] = (time.perf_counter() - t) * 1e3
+            if not np.array_equal(got, cs_photo):
+                raise RuntimeError(f"detect: read_png of {name}")
+        print(f"[detect] read_png of the {SW_IMG[0]}x{SW_IMG[1]} RGB input "
+              f"on the host: scanline filters 0-4 in turn "
+              f"{read_ms['cs.png']:.1f} ms, filter 0 only (write_png) "
+              f"{read_ms['cs_plain.png']:.1f} ms; both equal to the image",
+              flush=True)
+        _build.reset_counts()
+        t = time.perf_counter()
+        rc = inference.main(["--config_exp", CS3D_CONFIG, "--image_path",
+                             os.path.join(work, "cs.png"), "--output_dir",
+                             os.path.join(work, "out_cs")])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+        counts["detect_cli_swin"] = dict(_build.COUNTS)
+        shapes = {f: read_png(os.path.join(work, "out_cs", f)).shape
+                  for f in sorted(os.listdir(os.path.join(work, "out_cs")))}
+        print(f"[detect] inference CLI, TaskPrompter-Swin-B Cityscapes-3D "
+              f"(random weights), a {SW_IMG[0]}x{SW_IMG[1]} PNG, the "
+              f"Stuttgart camera: rc {rc}, {cli_s:.1f} s; wrote {shapes}; "
+              f"launches {counts['detect_cli_swin']}", flush=True)
+        if rc != 0 or counts["detect_cli_swin"] != expected_swin() or \
+                shapes != {"3ddet.png": (*SW_IMG, 3),
+                           "depth.png": (*SW_OUT, 3),
+                           "semseg.png": (*SW_OUT, 3)}:
+            raise RuntimeError("detect: the Swin-B CLI")
+        print(f"[detect] peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        return counts
+    finally:
+        det_eval.DetRecordAccumulator.add_batch = real_add
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2838,7 +3320,7 @@ PHASES = {"kernels": kernel_phase, "attention_api": attention_api_phase,
           "nyud": nyud_phase, "train": train_phase,
           "swin_train": swin_train_phase, "invpt_train": invpt_train_phase,
           "nyud_train": nyud_train_phase, "evaluate": evaluate_phase,
-          "loop": loop_phase}
+          "loop": loop_phase, "detect": detect_phase}
 
 
 def main(argv=None):
@@ -2906,7 +3388,8 @@ def main(argv=None):
     api_counts, serve_counts = outcome["attention_api"], outcome["nyud"]
     path_counts = {**outcome["invpt_train"],
                    "nyud_train": outcome["nyud_train"],
-                   "evaluate": outcome["evaluate"], "loop": outcome["loop"]}
+                   "evaluate": outcome["evaluate"], "loop": outcome["loop"],
+                   **outcome["detect"]}
 
     rows = []
     for name, (src, replaces, counter, path) in KERNEL_ROWS.items():

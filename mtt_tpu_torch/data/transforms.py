@@ -18,7 +18,9 @@ what cv2 computes (checked against it on the CPU):
   the row indices only (cv2's float path, bit for bit).
 - ``resize`` cubic (a = -0.75): half-pixel centres, the four weights of the
   f64 fraction rounded to f32, the taps clamped at the borders; sums within
-  a few f32 ulps of cv2's (it takes the inference path only).
+  a few f32 ulps of cv2's. ``resize_cubic_u8``, the inference CLI's resize
+  of a uint8 image, rounds it to the nearest level, as cv2 5.0 does: at
+  most one level apart, a few pixels in a million.
 - ``rgb2hsv``: cv2's uint8 RGB2HSV with its fixed-point division tables
   (``sdiv_table``, ``hdiv_table180``, 12-bit shift), bit for bit.
 - ``hsv2rgb``: cv2's uint8 HSV2RGB through f32 (s, v scaled by 1/255, h by
@@ -102,6 +104,21 @@ def _cubic_pass(a: np.ndarray, axis: int, dst: int) -> np.ndarray:
     taps = [np.take(a, np.clip(base - 1 + k, 0, src - 1), axis)
             * w[:, k].reshape(shape) for k in range(4)]
     return (taps[0] + taps[1]) + (taps[2] + taps[3])
+
+
+def resize_cubic_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=cv2.INTER_CUBIC)`` of a uint8
+    (H, W) or (H, W, C) image, ``size`` = (width, height). cv2 5.0's uint8
+    result is its float cubic rounded to the nearest level (equal on every
+    pixel tested); this rounds the float cubic of ``resize``, which sits
+    within a few f32 ulps of cv2's, so a sum that close to a half level can
+    land one level apart (a few pixels in a million)."""
+    if img.dtype != np.uint8:
+        raise TypeError(f"resize_cubic_u8 takes uint8, got {img.dtype}")
+    if img.shape[:2] == (size[1], size[0]):
+        return img.copy()
+    out = resize(img.astype(_F32), size, "cubic")
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
 def resize(arr: np.ndarray, size: Tuple[int, int], mode: str) -> np.ndarray:

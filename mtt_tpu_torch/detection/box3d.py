@@ -1,6 +1,9 @@
-"""3D box geometry on tensors (port of the parts of mtt_tpu/detection/box3d.py
-that decoding runs). Box code: [x, y, z, l, w, h, rot0, rot1, yaw] in the
-camera frame, BEV footprint (x, z, w, l, yaw)."""
+"""3D box geometry on tensors (port of mtt_tpu/detection/box3d.py): period
+limiting, BEV footprints and their corners, the 2D box of FCOS distances,
+projection and unprojection between the image and the camera frame, Euler
+angles to quaternions and the 8 corners of a 3D box. Box code: [x, y, z, l,
+w, h, rot0, rot1, yaw] in the camera frame, BEV footprint (x, z, w, l,
+yaw)."""
 
 from __future__ import annotations
 
@@ -49,3 +52,38 @@ def points_img2cam(points, K):
     unnorm = torch.cat([points[:, :2] * points[:, 2:3], points[:, 2:3],
                         torch.ones_like(points[:, :1])], dim=1)
     return (unnorm @ inv)[:, :3]
+
+
+def points_cam2img(points_3d, K):
+    """Camera-frame 3D points (..., 3) -> pixel coordinates (..., 2), the
+    depth floored at 1e-6."""
+    pts = points_3d @ K.T
+    return pts[..., :2] / torch.clamp(pts[..., 2:3], min=1e-6)
+
+
+def euler_to_quaternion(yaw, pitch, roll):
+    """ZYX-convention Euler angles -> (..., 4) quaternions (w, x, y, z)."""
+    cy, sy = torch.cos(yaw / 2), torch.sin(yaw / 2)
+    cp, sp = torch.cos(pitch / 2), torch.sin(pitch / 2)
+    cr, sr = torch.cos(roll / 2), torch.sin(roll / 2)
+    w = cr * cp * cy + sr * sp * sy
+    x = sr * cp * cy - cr * sp * sy
+    y = cr * sp * cy + sr * cp * sy
+    z = cr * cp * sy - sr * sp * cy
+    return torch.stack([w, x, y, z], -1)
+
+
+def corners_3d(boxes):
+    """(N, 9) camera boxes -> (N, 8, 3) corners: the (w, h, l) half-extents
+    with every sign combination, rotated by the yaw about the camera's y
+    axis (the gravity axis), then moved to the centre; for the wireframes."""
+    signs = torch.tensor([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
+                          for sz in (-1, 1)], dtype=boxes.dtype,
+                         device=boxes.device)
+    local = signs[None] * boxes[:, None, [4, 5, 3]] / 2.0
+    c, s = torch.cos(boxes[:, 8]), torch.sin(boxes[:, 8])
+    zeros, ones = torch.zeros_like(c), torch.ones_like(c)
+    R = torch.stack([torch.stack([c, zeros, s], -1),
+                     torch.stack([zeros, ones, zeros], -1),
+                     torch.stack([-s, zeros, c], -1)], dim=1)
+    return torch.einsum("nij,nvj->nvi", R, local) + boxes[:, None, :3]

@@ -214,14 +214,12 @@ def _top_k(values, k: int):
 
 
 @torch.no_grad()
-def decode_bboxes_single(head_out_i, K, det_cfg: dict, strides,
-                         scale_factor=1.0) -> Dict[str, torch.Tensor]:
-    """Decode one image's detections with fixed output size.
-
-    head_out_i: per-level lists (cls (H, W, C), bbox (H, W, R), dir
-    (H, W, 6), ctr (H, W, 1)); K the camera matrix. Returns a dict with
-    boxes3d (n, 9), bboxes2d (n, 4), scores (n,), labels (n,), centers2d
-    (n, 3) and valid (n,), n = ``max_per_img``."""
+def decode_candidates(head_out_i, K, det_cfg: dict, strides,
+                      scale_factor=1.0) -> Dict[str, torch.Tensor]:
+    """The first half of ``decode_bboxes_single``: one image's top
+    ``nms_pre`` candidates, before the NMS. Returns boxes3d (k, 9), centers2d
+    (k, 3), bboxes2d (k, 4), nms_scores (C, k) (class score x centerness)
+    and iou (k, k), the BEV IoU matrix the NMS sweeps over."""
     cls_scores, bbox_preds, dir_preds, ctrs = head_out_i
     dev = cls_scores[0].device
     feat_sizes = tuple(tuple(c.shape[0:2]) for c in cls_scores)
@@ -262,13 +260,32 @@ def decode_bboxes_single(head_out_i, K, det_cfg: dict, strides,
     box3d = torch.cat([box3d[:, :6], rot + off + math.pi * dir_score], dim=1)
 
     bev = bbox_bev(box3d)
-    nms_scores = (scores * ctr[:, None]).T.contiguous()       # (nc, k)
-    score_thr = float(test_cfg["score_thr"])
     # the (k, k) BEV IoU matrix does not depend on the class: computed once,
     # and the nc greedy sweeps over it run as one
-    iou_mat = boxes_iou_bev(bev, bev) if test_cfg["use_rotate_nms"] \
-        else boxes_iou_aligned(bev)
-    keep = _greedy_nms_from_iou(iou_mat, nms_scores,
+    return {"boxes3d": box3d, "centers2d": c3,
+            "bboxes2d": (distance2bbox(pts, bbox[:, -4:])
+                         if det_cfg["pred_bbox2d"]
+                         else torch.zeros(k, 4, device=dev)),
+            "nms_scores": (scores * ctr[:, None]).T.contiguous(),  # (nc, k)
+            "iou": (boxes_iou_bev(bev, bev) if test_cfg["use_rotate_nms"]
+                    else boxes_iou_aligned(bev))}
+
+
+@torch.no_grad()
+def decode_bboxes_single(head_out_i, K, det_cfg: dict, strides,
+                         scale_factor=1.0) -> Dict[str, torch.Tensor]:
+    """Decode one image's detections with fixed output size.
+
+    head_out_i: per-level lists (cls (H, W, C), bbox (H, W, R), dir
+    (H, W, 6), ctr (H, W, 1)); K the camera matrix. Returns a dict with
+    boxes3d (n, 9), bboxes2d (n, 4), scores (n,), labels (n,), centers2d
+    (n, 3) and valid (n,), n = ``max_per_img``."""
+    c = decode_candidates(head_out_i, K, det_cfg, strides, scale_factor)
+    test_cfg = det_cfg["test_cfg"]
+    nms_scores = c["nms_scores"]
+    k = nms_scores.shape[1]
+    score_thr = float(test_cfg["score_thr"])
+    keep = _greedy_nms_from_iou(c["iou"], nms_scores,
                                 float(test_cfg["nms_thr"]),
                                 nms_scores > score_thr)
     sc_cat = torch.where(keep, nms_scores,
@@ -279,12 +296,10 @@ def decode_bboxes_single(head_out_i, K, det_cfg: dict, strides,
     top_sc, top_i = _top_k(sc_cat, kk)
     idx_in_k = top_i % k
     return {
-        "boxes3d": box3d[idx_in_k],
-        "bboxes2d": (distance2bbox(pts, bbox[:, -4:])[idx_in_k]
-                     if det_cfg["pred_bbox2d"]
-                     else torch.zeros(kk, 4, device=dev)),
+        "boxes3d": c["boxes3d"][idx_in_k],
+        "bboxes2d": c["bboxes2d"][idx_in_k],
         "scores": top_sc,
         "labels": top_i // k,
-        "centers2d": c3[idx_in_k],
+        "centers2d": c["centers2d"][idx_in_k],
         "valid": kp_cat[top_i] & (top_sc > score_thr),
     }

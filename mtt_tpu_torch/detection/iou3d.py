@@ -6,7 +6,9 @@ corners plus the 16 possible edge-edge intersections (a fixed set of 24
 candidates), sorted by angle around their centroid, shoelace area; written
 over a leading pair axis where JAX uses ``vmap``. All of it in f32. Greedy
 NMS gives the keep mask of JAX's fixed-trip sweep, for several score columns
-(classes) at once, in a few rounds over the whole mask.
+(classes) at once, in a few rounds over the whole mask: on the rotated IoU
+(``nms_bev``) or on the axis-aligned one of the footprints
+(``nms_normal_bev``).
 """
 
 from __future__ import annotations
@@ -144,3 +146,23 @@ def _greedy_nms_from_iou(iou, scores, iou_thr: float, valid):
         alive = new
     keep = torch.zeros_like(alive).scatter(1, order, alive)
     return keep[0] if single else keep
+
+
+def nms_bev(boxes, scores, iou_thr: float, valid=None):
+    """Rotated-BEV greedy NMS of boxes (N, 5) [cx, cy, w, h, yaw] by
+    ``scores`` (N,) or (C, N); returns the keep mask in the scores' shape.
+    ``valid`` (default: all) marks the boxes that take part."""
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool,
+                           device=scores.device)
+    return _greedy_nms_from_iou(boxes_iou_bev(boxes, boxes), scores, iou_thr,
+                                valid)
+
+
+def nms_normal_bev(boxes, scores, iou_thr: float, valid=None):
+    """``nms_bev`` on the axis-aligned IoU of the BEV footprints."""
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool,
+                           device=scores.device)
+    return _greedy_nms_from_iou(boxes_iou_aligned(boxes), scores, iou_thr,
+                                valid)

@@ -1,11 +1,28 @@
-"""Batch inference: normalisation, forward and per-task post-processing
-(the forward half of the JAX package's inference.py, with the decode of the
-3D detections)."""
+"""Inference: normalisation, forward and per-task post-processing of a
+batch (``predict``, with the decode of the 3D detections), and the
+single-image CLI of the repository's inference.py:
+
+    python -m mtt_tpu_torch.inference --config_exp CONFIG.yml \
+        --image_path img.png [--ckpt_dir DIR] --output_dir out/
+
+The PNG is resized to the config's ``TEST.SCALE`` (cv2's uint8 cubic,
+``data/transforms.py: resize_cubic_u8``) and normalised; the model (seeded
+random weights, or the checkpoint ``latest.txt`` names in ``--ckpt_dir``,
+read by ``Trainer.restore_checkpoint``) runs on the card unless the caller
+of ``main`` passes another device; each task's map is written as
+``<task>.png`` (``visualize``), and for Cityscapes-3D the boxes above score
+0.3 as wireframes on the original image (``3ddet.png``), decoded with the
+Stuttgart camera and the resize's ``scale_xy``. Input formats other than
+PNG raise (ROADMAP.md item 1.8).
+"""
 
 from __future__ import annotations
 
+import argparse
+import os
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from mtt_tpu_torch.utils.postprocess import get_output
@@ -74,3 +91,136 @@ def predict(model, images: torch.Tensor, impl: Optional[str] = None,
         else:
             preds[t] = get_output(v, t)
     return logits, preds
+
+
+def visualize(task: str, pred: np.ndarray) -> np.ndarray:
+    """A post-processed map -> RGB uint8, as the repository's inference.py
+    draws it (depth in grey from its min to its max)."""
+    from mtt_tpu_torch.utils.visualization import voc_colormap
+    if task in ("semseg", "human_parts"):
+        return voc_colormap()[pred.astype(np.int32) % 256]
+    if task in ("edge", "sal"):
+        return np.repeat(pred.astype(np.uint8)[..., None], 3, -1)
+    if task == "normals":
+        return pred.astype(np.uint8)
+    if task == "depth":
+        d = pred.astype(np.float32)
+        d = (255 * (d - d.min()) / max(d.max() - d.min(), 1e-6)).astype(
+            np.uint8)
+        return np.repeat(d[..., None], 3, -1)
+    raise ValueError(task)
+
+
+# Stuttgart camera calibration of the reference's single-image 3D detection
+# demo (public calibration constants), used when no camera accompanies the
+# image
+STUTTGART_CAMERA = {
+    "fx": 2262.52, "fy": 2265.3017905988554,
+    "u0": 1096.98, "v0": 513.137,
+    "sensor_T_ISO_8855": [
+        [0.9990881051503779, -0.01948468779721943,
+         -0.03799085532693703, -1.6501524664770573],
+        [0.019498764210995674, 0.9998098810245096, 0.0,
+         -0.1331288872611436],
+        [0.03798363254444427, -0.0007407747301939942,
+         0.9992780868764849, -1.2836173638418473]],
+}
+
+
+def stuttgart_K() -> np.ndarray:
+    cam = STUTTGART_CAMERA
+    return np.array([[cam["fx"], 0, cam["u0"]], [0, cam["fy"], cam["v0"]],
+                     [0, 0, 1]], np.float32)
+
+
+def infer_3ddet(dec: Dict[str, torch.Tensor], ori_img: np.ndarray,
+                output_dir: str) -> int:
+    """Wireframes of the decoded boxes (one image's ``decode_3ddet`` dict)
+    that are valid and score above 0.3 on the original image, written as
+    ``3ddet.png``; returns how many."""
+    from mtt_tpu_torch.evaluation.save_preds import write_png
+    from mtt_tpu_torch.utils.visualization import draw_boxes3d
+    dec = {k: v[0].cpu().numpy() for k, v in dec.items()}
+    keep = dec["valid"] & (dec["scores"] > 0.3)
+    path = os.path.join(output_dir, "3ddet.png")
+    write_png(path, draw_boxes3d(ori_img, dec["boxes3d"], stuttgart_K(),
+                                 valid=keep))
+    n = int(keep.sum())
+    print(f"[inference] wrote {path} ({n} boxes above score 0.3)")
+    return n
+
+
+def load_image(path: str, size: Tuple[int, int]
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """(the PNG as RGB uint8, it resized to ``size`` = (H, W)): grey is
+    repeated to three channels and alpha dropped, as ``cv2.imread`` does."""
+    from mtt_tpu_torch.data.transforms import resize_cubic_u8
+    from mtt_tpu_torch.evaluation.save_preds import read_png
+    img = read_png(path)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, -1)
+    img = np.ascontiguousarray(img[..., :3])
+    return img, resize_cubic_u8(img, (size[1], size[0]))
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description="single-image inference")
+    ap.add_argument("--config_exp", required=True)
+    ap.add_argument("--image_path", required=True)
+    ap.add_argument("--ckpt_dir", default=None)
+    ap.add_argument("--output_dir", default="inference_out")
+    ap.add_argument("--dtype", choices=["float32", "bfloat16"],
+                    default="bfloat16",
+                    help="compute dtype; the card's kernels take bf16 only")
+    return ap.parse_args(argv)
+
+
+def main(argv=None, device=None) -> int:
+    args = parse_args(argv)
+    from mtt_tpu_torch.config import create_config
+    from mtt_tpu_torch.evaluation.save_preds import write_png
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import build_model, default_device
+    from mtt_tpu_torch.utils.train_utils import Trainer
+
+    device = default_device(device)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    if device.type == "cuda" and dtype != torch.bfloat16:
+        raise ValueError("--dtype float32 on the card: the kernels take "
+                         "bf16 only")
+    p = create_config(args.config_exp, {"run_mode": "infer"})
+    size = tuple(p.TEST.SCALE)
+    ori_img, img = load_image(args.image_path, size)
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = build_model(p, img_size=size, device=device, dtype=torch.float32)
+    init_weights(model, gen)
+    trainer = Trainer(model, p, p.TASKS.NAMES, dtype, gen)
+    if args.ckpt_dir:
+        step = trainer.restore_checkpoint(args.ckpt_dir)
+        if step is not None:
+            print(f"[inference] loaded checkpoint step {step}")
+        else:
+            print(f"[inference] WARNING: no checkpoint found under "
+                  f"{args.ckpt_dir} — running with RANDOM weights")
+    else:
+        print("[inference] WARNING: --ckpt_dir not given — RANDOM weights")
+
+    x = preprocess(torch.from_numpy(img[None]).to(device)).to(dtype)
+    scale_xy = np.array([img.shape[1] / ori_img.shape[1],
+                         img.shape[0] / ori_img.shape[0]], np.float32)
+    cam_K = stuttgart_K() if "3ddet" in model.tasks else None
+    _, preds = predict(model, x, cam_K=cam_K, scale_factor=scale_xy)
+    os.makedirs(args.output_dir, exist_ok=True)
+    for t in p.TASKS.NAMES:
+        if t == "3ddet":
+            infer_3ddet(preds[t], ori_img, args.output_dir)
+            continue
+        path = os.path.join(args.output_dir, f"{t}.png")
+        write_png(path, visualize(t, preds[t][0].float().cpu().numpy()))
+        print(f"[inference] wrote {path}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -10,7 +10,9 @@ with seeded random weights (no pretrained backbone is in the repository) and
 trained by ``train_phase``, which evaluates and checkpoints every
 ``val_interval`` iterations under ``work_dirs/<version_name>``. A restart
 resumes from the checkpoint ``latest.txt`` names; ``--run_mode infer``
-scores the restored model with ``test_phase``. Batches are ``trBatch`` and
+scores the restored model with ``test_phase`` (with ``--vis``, from the
+same forward it also renders each 2D task's map of every val image under
+``save_dir/vis_<task>``). Batches are ``trBatch`` and
 ``valBatch`` for one card. The compute dtype defaults to bf16 (the kernels
 take bf16 only; an f32 run on the card is refused), with f32 master weights.
 ``main(argv, device=None)`` runs on the card unless the caller passes
@@ -43,16 +45,12 @@ def parse_args(argv=None):
     ap.add_argument("--debug_eval", action="store_true",
                     help="run a full eval pass before training")
     ap.add_argument("--vis", action="store_true",
-                    help="save per-task visualisations in infer mode (not "
-                         "ported yet)")
+                    help="save per-task visualisations in infer mode")
     return ap.parse_args(argv)
 
 
 def main(argv=None, device=None) -> int:
     args = parse_args(argv)
-    if args.vis:
-        raise NotImplementedError("--vis: the visualisations are not ported "
-                                  "yet (ROADMAP.md item 1.9)")
     from mtt_tpu_torch.config import create_config
     from mtt_tpu_torch.models.layers import init_weights
     from mtt_tpu_torch.models.wrappers import build_model, default_device
@@ -101,7 +99,8 @@ def main(argv=None, device=None) -> int:
         train_phase(p, trainer, train_loader, val_loader)
         print(f"[main] training done in {time.time() - t0:.1f}s", flush=True)
     else:
-        scores = test_phase(p, model, val_loader)
+        vis = [t for t in model.tasks if t != "3ddet"] if args.vis else None
+        scores = test_phase(p, model, val_loader, vis_tasks=vis)
         print(json.dumps(scores, indent=2), flush=True)
     return 0
 

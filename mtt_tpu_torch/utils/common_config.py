@@ -30,8 +30,9 @@ def get_transformations(p):
         return (TrainTransforms(p.TRAIN.SCALE, depth_ignore),
                 ValTransforms(p.TEST.SCALE, depth_ignore))
     if db == "Cityscapes3D":
-        raise NotImplementedError("the Cityscapes-3D transforms are not "
-                                  "ported yet (ROADMAP.md item 1.8)")
+        from mtt_tpu_torch.data.cityscapes3d import (CS3DTrainTransforms,
+                                                     CS3DValTransforms)
+        return CS3DTrainTransforms(p), CS3DValTransforms(p)
     return None, None
 
 

@@ -4,11 +4,13 @@ backward, gradient clipping, Adam (or SGD) with L2 decay, the poly schedule,
 and the BatchNorm running statistics (updated by the forward). The eval step
 and ``test_phase`` (train_utils.py:85-98, 296-337): an eval-mode forward,
 each task's post-processing and the meters' update, all on the device, with
-the scores read once at the end, and the edge maps written for the external
-evaluation. The loop ``train_phase`` (train_utils.py:167-248) with its log
-lines, TensorBoard scalars, periodic eval and checkpoints
-(``Trainer.save_checkpoint`` / ``restore_checkpoint``, train_utils.py:
-143-165), and ``StepProfiler`` (:340-358).
+the scores read once at the end, the edge maps written for the external
+evaluation, and the Cityscapes-3D detections of the same forward decoded,
+exported and scored (``detection/det_eval.py``). The loop ``train_phase``
+(train_utils.py:167-248) with its log lines, TensorBoard scalars, periodic
+eval and checkpoints (``Trainer.save_checkpoint`` / ``restore_checkpoint``,
+train_utils.py:143-165), the detections of each epoch's first training
+batch (``_train_det_vis``, :251-287), and ``StepProfiler`` (:340-358).
 
 Precision: the model computes in its parameters' dtype (bf16 for training on
 the card; the kernels take bf16) while the trainer keeps an f32 master copy
@@ -30,12 +32,16 @@ import numpy as np
 import torch
 
 from mtt_tpu_torch.data.loader import device_put_batch, prefetch_to_device
+from mtt_tpu_torch.detection.det_eval import DetRecordAccumulator
+from mtt_tpu_torch.detection.export import save_image_predictions
 from mtt_tpu_torch.evaluation.meters import PerformanceMeter
-from mtt_tpu_torch.evaluation.save_preds import save_task_predictions
+from mtt_tpu_torch.evaluation.save_preds import (save_task_predictions,
+                                                 write_png)
 from mtt_tpu_torch.inference import preprocess
 from mtt_tpu_torch.losses.loss_schemes import build_criterion
 from mtt_tpu_torch.utils.optim import build_optimizer, clip_gradients
 from mtt_tpu_torch.utils.postprocess import get_output
+from mtt_tpu_torch.utils.visualization import draw_boxes3d, save_visualizations
 
 
 class Trainer:
@@ -179,18 +185,21 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 def eval_step(model, meter: PerformanceMeter, batch: Dict[str, torch.Tensor],
               states):
     """(model, meter, batch, meter states) -> (post-processed predictions,
-    new meter states): an eval-mode forward in the model's dtype, then
-    ``get_output`` and the meter update for each of the meter's tasks.
-    InvPT's ``inter_preds`` are not scored."""
+    new meter states, the detection head's output or None): an eval-mode
+    forward in the model's dtype, then ``get_output`` and the meter update
+    for each of the meter's tasks. InvPT's ``inter_preds`` are not scored;
+    the ``3ddet`` head output is handed back for the caller to decode."""
     dtype = next(model.parameters()).dtype
     out = model(batch["image"].to(dtype), train=False)
     processed = {t: get_output(out[t], t) for t in meter.tasks}
-    return processed, meter.update_states(states, processed, batch)
+    return (processed, meter.update_states(states, processed, batch),
+            out.get("3ddet"))
 
 
 def test_phase(p: dict, model, batches: Iterable[Dict],
                meter: Optional[PerformanceMeter] = None,
-               save_tasks: Optional[Sequence[str]] = None) -> Dict:
+               save_tasks: Optional[Sequence[str]] = None,
+               vis_tasks: Optional[Sequence[str]] = None) -> Dict:
     """The scores of ``model`` over ``batches`` (a loader, or any iterable
     of batches: numpy ones as the loader gives them, normalised by the
     transforms, go through ``device_put_batch``; tensor ones are taken as on
@@ -199,27 +208,54 @@ def test_phase(p: dict, model, batches: Iterable[Dict],
     the end. ``meter`` defaults to a ``PerformanceMeter`` of ``p`` over the
     model's tasks; it is reset first and holds the final states after. The
     post-processed maps of ``save_tasks`` are written under
-    ``p["save_dir"]`` by the batches' ``meta``, pad samples left out. The
-    3D detection evaluation is ROADMAP.md item 1.7 and raises."""
-    if "3ddet" in model.tasks:
-        raise NotImplementedError("the 3D detection evaluation is not "
-                                  "ported yet (ROADMAP.md item 1.7)")
+    ``p["save_dir"]`` by the batches' ``meta``, pad samples left out, and
+    those of ``vis_tasks`` rendered (``render_task``, with the palette of
+    ``p["train_db_name"]``) under ``save_dir/vis_<task>``: from the same
+    forward as the scores.
+
+    A ``3ddet`` model (its ``det_cfg`` set) also scores its detections: each
+    batch's head output, from the forward the meters take, decodes on the
+    device with every image's ``K_matrix`` (the batches carry ``meta`` and
+    the ``det_*`` ground truth); with a ``save_dir`` in ``p`` each image's
+    official-format JSON goes under ``save_dir/3ddet``; ``scores["3ddet"]``
+    holds the evaluator's ``mDetection_Score`` and ``mAP``."""
     device = next(model.parameters()).device
     if meter is None:
         meter = PerformanceMeter(p, model.tasks, device)
+    det_acc = None
+    if "3ddet" in model.tasks:
+        det_cfg = getattr(model, "det_cfg", None)
+        if det_cfg is None:
+            raise ValueError("scoring the 3ddet task needs the model's "
+                             "det_cfg (the decode's settings)")
+        det_acc = DetRecordAccumulator(det_cfg, save_dir=p.get("save_dir"))
     meter.reset()
     states = meter.states
     for batch in batches:
+        host = batch
         if not torch.is_tensor(batch["image"]):
             batch = device_put_batch(batch, device)
-        processed, states = eval_step(model, meter, batch, states)
+        processed, states, det_out = eval_step(model, meter, batch, states)
+        if det_acc is not None:
+            det_acc.add_batch(det_out, host)
         for t in save_tasks or ():
             if t in processed and "meta" in batch:
                 save_task_predictions(p["save_dir"], t,
                                       processed[t].float().cpu().numpy(),
                                       batch["meta"])
+        for t in vis_tasks or ():
+            if t in processed and "meta" in batch:
+                save_visualizations(p["save_dir"], t,
+                                    processed[t].float().cpu().numpy(),
+                                    batch["meta"],
+                                    database=p["train_db_name"])
     meter.states = states
-    return meter.get_score(verbose=False)
+    scores = meter.get_score(verbose=False)
+    if det_acc is not None:
+        det = det_acc.evaluate()
+        scores["3ddet"] = {"mDetection_Score": det["mDetection_Score"],
+                           "mAP": det["mAP"]}
+    return scores
 
 
 def train_phase(p: dict, trainer: Trainer, train_loader, val_loader=None,
@@ -234,12 +270,11 @@ def train_phase(p: dict, trainer: Trainer, train_loader, val_loader=None,
     every ``val_interval`` iterations and at ``max_iter``, ``test_phase``
     over ``val_loader`` with the edge maps saved (when edge is a task),
     ``results_iter<it>.json`` and ``perf/`` scalars, and a checkpoint in
-    ``p["checkpoint"]``. Returns the history. A resumed loop starts again
-    at epoch 0's first batch, as the JAX loop does."""
-    if "3ddet" in trainer.model.tasks and "save_dir" in p:
-        raise NotImplementedError("the training loop's 3D detection "
-                                  "visualisation and evaluation are not "
-                                  "ported yet (ROADMAP.md item 1.7)")
+    ``p["checkpoint"]``. For a ``3ddet`` model with a ``save_dir`` (unless
+    ``p["train_vis_3ddet"]`` is false), the first batch of each epoch is
+    also decoded before its step (``_train_det_vis``). Returns the history.
+    A resumed loop starts again at epoch 0's first batch, as the JAX loop
+    does."""
     from mtt_tpu_torch.utils.tb_writer import SummaryWriter, flatten_scores
     max_iter = max_iter or int(p.get("max_iter", 40000))
     val_interval = val_interval or int(p.get("val_interval", 1000))
@@ -250,11 +285,18 @@ def train_phase(p: dict, trainer: Trainer, train_loader, val_loader=None,
     tb = SummaryWriter(os.path.join(p["save_dir"], "tb")) \
         if "save_dir" in p else None
     save_tasks = ("edge",) if "edge" in trainer.model.tasks else None
+    det_vis = ("3ddet" in trainer.model.tasks and "save_dir" in p
+               and p.get("train_vis_3ddet", True))
     t0 = time.time()
     try:
         while it < max_iter:
             train_loader.set_epoch(epoch)
+            first_in_epoch = det_vis
             for batch in prefetch_to_device(train_loader, trainer.device):
+                if first_in_epoch:
+                    # the weights before the step, as the reference draws
+                    _train_det_vis(p, trainer, batch, epoch)
+                    first_in_epoch = False
                 profiler.maybe_start(it)
                 losses = trainer.step(batch)
                 profiler.maybe_stop(it)
@@ -296,6 +338,38 @@ def train_phase(p: dict, trainer: Trainer, train_loader, val_loader=None,
     finally:
         if tb is not None:
             tb.close()
+
+
+@torch.no_grad()
+def _train_det_vis(p: dict, trainer: Trainer, batch: Dict, epoch: int):
+    """The detections of a training batch, under ``save_dir/train/3ddet``
+    with the prefix ``b<epoch>_``: each image's official-format JSON, and a
+    wireframe PNG (``<name>_<boxes>.png``) of each image with a box. An
+    eval-mode forward of the batch on the trainer's model; a batch without
+    camera intrinsics in ``meta`` is left alone."""
+    metas = batch.get("meta")
+    if not metas or "camera" not in metas[0] or "K_matrix" not in metas[0]:
+        return
+    out_dir = os.path.join(p["save_dir"], "train", "3ddet")
+    os.makedirs(out_dir, exist_ok=True)
+    model = trainer.model
+    out = model(batch["image"].to(trainer.dtype), train=False)
+    mean = np.array([0.485, 0.456, 0.406], np.float32)
+    std = np.array([0.229, 0.224, 0.225], np.float32)
+    images = None
+    for i, meta, dec, objs in DetRecordAccumulator(
+            model.det_cfg).decode_batch(out["3ddet"], batch):
+        fname = f"b{epoch}_{meta['img_name']}"
+        save_image_predictions(out_dir, fname, objs)
+        n_boxes = int(dec["valid"].sum())
+        if n_boxes > 0:
+            if images is None:
+                images = batch["image"].float().cpu().numpy()
+            img = np.clip((images[i] * std + mean) * 255.0, 0,
+                          255).astype(np.uint8)
+            vis = draw_boxes3d(img, dec["boxes3d"], meta["K_matrix"],
+                               valid=dec["valid"])
+            write_png(os.path.join(out_dir, f"{fname}_{n_boxes}.png"), vis)
 
 
 class StepProfiler:

@@ -382,8 +382,10 @@ def test_step_profiler_writes_a_trace(tmp_path, monkeypatch):
 def test_main_trains_then_resumes_in_infer(tmp_path, monkeypatch, capsys):
     """``main`` on the CPU at 32x32 (ViT-T): 2 iterations with an eval and a
     checkpoint at 2, the log file; then ``--run_mode infer`` resumes from
-    step 2 and prints finite scores of every task. ``--vis`` names its
-    ROADMAP item; without a card the default device raises."""
+    step 2 and prints finite scores of every task; with ``--vis`` it also
+    writes each task's map of the 64 val images under ``vis_<task>``, as
+    ``render_task`` draws them, from the forwards that give the same
+    scores. Without a card the default device raises."""
     from mtt_tpu_torch.config.config import DB_SCALES
     from mtt_tpu_torch.main import main
     monkeypatch.setitem(DB_SCALES, "PASCALContext", (IMG, IMG))
@@ -406,8 +408,14 @@ def test_main_trains_then_resumes_in_infer(tmp_path, monkeypatch, capsys):
     scores = json.loads(text[text.index("{"):])
     assert set(scores) == set(TASKS)
     assert all(np.isfinite(v) for s in scores.values() for v in s.values())
-    with pytest.raises(NotImplementedError, match="item 1.9"):
-        main(["--config_exp", yml, "--vis"], device="cpu")
+    assert main(["--config_exp", yml, "--run_mode", "infer", "--vis",
+                 "--dtype", "float32"], device="cpu") == 0
+    text = capsys.readouterr().out
+    assert json.loads(text[text.index("{"):]) == scores
+    vis = out / "results"
+    for t in TASKS:
+        names = sorted(os.listdir(vis / f"vis_{t}"))
+        assert names == [f"synth_{i:06d}.png" for i in range(64)], t
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--config_exp", yml])

@@ -273,7 +273,8 @@ def test_test_phase_matches_jax_meters_on_the_port_predictions():
 
 def test_eval_step_is_pure_and_skips_inter_preds():
     """``eval_step`` returns the post-processed maps of the meter's tasks
-    only (not ``inter_preds``) and new states, leaving the old ones."""
+    only (not ``inter_preds``), new states, leaving the old ones, and no
+    detection head output (the model has no ``3ddet``)."""
     from mtt_tpu_torch.data.synthetic import SyntheticMT
     from mtt_tpu_torch.evaluation.meters import PerformanceMeter
     from mtt_tpu_torch.utils.train_utils import eval_step, to_device
@@ -283,8 +284,8 @@ def test_eval_step_is_pure_and_skips_inter_preds():
     b = to_device(SyntheticMT(TASKS, NUM_OUT, (64, 64), seed=4).batch(0, 1),
                   "cpu")
     old = meter.states
-    processed, new = eval_step(model, meter, b, old)
-    assert set(processed) == set(TASKS)
+    processed, new, det = eval_step(model, meter, b, old)
+    assert set(processed) == set(TASKS) and det is None
     assert processed["semseg"].shape == (1, 64, 64)
     assert all(not v.any() for s in old.values() for v in s.values())
     assert int(new["semseg"]["tp"].sum() + new["semseg"]["fn"].sum()) == \
@@ -292,16 +293,17 @@ def test_eval_step_is_pure_and_skips_inter_preds():
 
 
 def test_test_phase_refuses_saving_and_3ddet(tmp_path):
-    """The 3D detection evaluation is ROADMAP.md item 1.7: ``test_phase``
-    raises and names it. Saving predictions is no longer refused: the edge
-    maps of the samples in ``meta`` are written, a pad sample's not."""
+    """``test_phase`` refuses a ``3ddet`` model without the decode's
+    ``det_cfg`` (tests/test_torch_det_eval.py scores one that has it).
+    Saving predictions is not refused: the edge maps of the samples in
+    ``meta`` are written, a pad sample's not."""
     from mtt_tpu_torch.data.synthetic import SyntheticMT
     from mtt_tpu_torch.utils.train_utils import test_phase, to_device
 
     model = _invpt_vit_t()
     det = torch.nn.Linear(1, 1)
     det.tasks = ("semseg", "3ddet")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.7"):
+    with pytest.raises(ValueError, match="det_cfg"):
         test_phase({"train_db_name": "Cityscapes3D"}, det, [])
     b = to_device(SyntheticMT(TASKS, NUM_OUT, (64, 64), seed=4).batch(0, 2),
                   "cpu")

@@ -16,8 +16,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def test_package_imports_no_jax():
-    """Importing every mtt_tpu_torch module leaves no jax, flax or mtt_tpu
-    in sys.modules (the card's machine has none of them)."""
+    """Importing every mtt_tpu_torch module leaves no jax, flax, mtt_tpu,
+    cv2 or PIL in sys.modules (the card's machine has none of them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mtt_tpu_torch\n"
@@ -25,7 +25,7 @@ def test_package_imports_no_jax():
         "    mtt_tpu_torch.__path__, 'mtt_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'mtt_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'mtt_tpu', 'cv2', 'PIL'))\n"
         "assert len(mods) >= 36, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
