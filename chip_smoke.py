@@ -118,6 +118,28 @@ Phases, in order (the seconds each took are printed):
      Swin-B with a 1024x2048 PNG and the Stuttgart camera, each input's
      scanlines in all five PNG filters (the host's ``read_png`` time of the
      1024x2048 file beside a filter-0 one's).
+  16. ``convert``: weight ingestion at full width and depth, in a temporary
+     directory: TaskPrompter-ViT-L PASCAL, InvPT-ViT-L PASCAL and
+     TaskPrompter-Swin-B Cityscapes-3D, each a seeded f32 model (every bias,
+     norm and BN statistic seeded too) written in the reference
+     repository's checkpoint layout by an inverse map of this script's own
+     (DDP ``module.`` keys in a ``{"model": ...}`` wrapper, (3, H, D) qkv
+     rows, per-task convs, the unused reference tensors) and converted by
+     ``python -m mtt_tpu_torch.convert_checkpoint --torch`` on the card:
+     the written checkpoint equal to the model bit for bit; then each
+     converted model through its eval entry point (``inference.main
+     --ckpt_dir`` on a 375x500 PNG for ViT-L and Swin-B, ``predict`` on 2
+     images for InvPT from a restored bf16 trainer): launch counts, every
+     map (and detection level, and intermediate prediction) within 0.1 of
+     the f32 forward of the same weights, the error's RMS over that of the
+     f32 map less its per-channel mean (so that the class prior's bias does
+     not hide an error in the detection logits), with the plain bf16
+     forward's distance printed beside it; and a Google
+     ViT-L/16 npz at the 384 pretraining grid through ``--npz`` into
+     TaskPrompter-ViT-L at 512: every backbone tensor equal to the npz's
+     (transposed as the layouts say), the position embedding within 1e-6
+     of ``resize_pos_embed``. Prints each conversion's seconds, the host's
+     peak RSS (sampled) and the checkpoint's GiB.
 The line before the last is the kernels JSON; the last line is the device JSON.
 
 ``python3 chip_smoke.py --profile`` runs none of these phases: after the
@@ -129,9 +151,12 @@ far the Swin-B training step's bf16 gradients move between two runs on equal
 inputs, and how far they sit from the f32 step's when both run free, by loss
 part, at the two bf16 paths' forward points, and at the outputs of the
 decodes and the detection head (``grad_diag``).
+``--convert-vary 0.1`` seeds the convert phase's biases, norms and BN
+statistics at 10% in place of 1% (``_vary``), to see how the forwards'
+bf16 error grows with them.
 ``--phases kernels,invpt`` (any subset of kernels, attention_api, eval,
 invpt, swin, nyud, train, swin_train, invpt_train, nyud_train, evaluate,
-loop, detect)
+loop, detect, convert)
 runs only those phases and prints no result lines: a quick look, not the
 check.
 """
@@ -141,6 +166,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -2830,6 +2856,549 @@ def detect_phase():
         shutil.rmtree(work, ignore_errors=True)
 
 
+INVPT_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "configs", "pascal", "invpt_vitLp16.yml")
+# (tag, title, config, seed) of the convert phase's three checkpoints
+CONVERT_PATHS = (
+    ("convert_vitl", "TaskPrompter-ViT-L PASCAL", LOOP_CONFIG, 21),
+    ("convert_invpt", "InvPT-ViT-L PASCAL", INVPT_CONFIG, 22),
+    ("convert_swin", "TaskPrompter-Swin-B Cityscapes-3D", CS3D_CONFIG, 23))
+NPZ_GRID = 24                    # ViT-L/16 pretrained at 384x384
+CONVERT_VARY = 0.01              # ``_vary``'s scale in the convert phase
+
+
+def _reference_rules(kind: str, tasks, heads: int, fpn_inputs: int):
+    """(port key pattern, fn(match, tensor) -> {reference key: tensor}) of
+    the inverse map of one model kind (the port model's class name): the
+    reference repository's module
+    tree (taskprompter.py, transformer_net.py, transformer_decoder.py,
+    invpt.py, taskprompter_swin.py, det_head.py, fpn.py), written here apart
+    from mtt_tpu_torch/models/convert_torch.py. The first pattern that
+    matches a key maps it; ``fpn_inputs`` counts the FPN's lateral convs
+    (the extra levels' convs follow them in the reference's list)."""
+    T = len(tasks)
+
+    def qkv(v):          # head-major (H, 3, D) rows -> (3, H, D)
+        rows = v.shape[0]
+        return v.reshape(heads, 3, rows // (3 * heads), *v.shape[1:]) \
+            .transpose(0, 1).reshape(v.shape).contiguous()
+
+    def per_task(fmt):   # a grouped tensor split over the tasks, task-major
+        return lambda m, v: {
+            fmt(m, ti, t): c for ti, (t, c) in enumerate(zip(
+                tasks, [v] * T if v.dim() == 0 else v.chunk(T, 0)))}
+
+    def one(fmt, fn=lambda v: v):
+        return lambda m, v: {fmt(m): fn(v)}
+
+    fuse = {"0": 0, "1": 1, "2": 4}
+    own = [(r"backbone\.(pos_embed|cls_token|task_prompts|norm\.\w+|"
+            r"patch_embed\.proj\.\w+)$", one(lambda m: m[0]))]
+    if kind == "TaskPrompterNet":
+        b = "backbone."
+        return [
+            (r"backbone\.blocks_(\d+)\.qkv\.(\w+)$",
+             one(lambda m: f"{b}blocks.{m[1]}.attn.qkv.{m[2]}", qkv)),
+            (r"backbone\.blocks_(\d+)\.(proj|token_trans1?)\.(\w+)$",
+             one(lambda m: f"{b}blocks.{m[1]}.attn.{m[2]}.{m[3]}")),
+            (r"backbone\.blocks_(\d+)\.(.+)$",
+             one(lambda m: f"{b}blocks.{m[1]}.{m[2]}")),
+            (r"backbone\.decode_(\d)\.(spa|chan)_\d\.(\w+)$", per_task(
+                lambda m, ti, t: f"{b}fea_decode_{m[2]}.{m[1]}.{t}.0.{m[3]}")),
+            (r"backbone\.decode_(\d)\.fuse(\d)_\d\.(\w+)$", per_task(
+                lambda m, ti, t:
+                f"{b}fea_fuse.{m[1]}.{t}.{fuse[m[2]]}.{m[3]}")),
+            (r"backbone\.decode_(\d)\.fuse_bn_\d\.(\w+)$", per_task(
+                lambda m, ti, t: f"{b}fea_fuse.{m[1]}.{t}.2.{m[2]}")),
+            (r"backbone\.decode_(\d)\.ctr_\d_(\w+)_(\d)\.(\w+)$", one(
+                lambda m: f"{b}ctr_attn_conv.{m[1]}.{m[2]}."
+                          f"{2 * int(m[3])}.{m[4]}",
+                lambda v: v[:, :, None, None] if v.dim() == 2 else v)),
+            (r"head_(\w+)\.mt_proj\.conv\.(\w+)$",
+             one(lambda m: f"heads.{m[1]}.mt_proj.0.{m[2]}")),
+            (r"head_(\w+)\.mt_proj\.bn\.(\w+)$",
+             one(lambda m: f"heads.{m[1]}.mt_proj.1.{m[2]}")),
+            (r"head_(\w+)\.linear_pred\.(\w+)$",
+             one(lambda m: f"heads.{m[1]}.linear_pred.{m[2]}"))] + own
+    if kind == "TransformerNet":
+        d, s = "multi_task_decoder.", "multi_task_decoder.invpt."
+        st = s + "invpt_stages."
+
+        def mt_proj(m, v):
+            return {f"{s}mt_proj.{m[1]}.0.weight": v,
+                    f"{s}mt_proj.{m[1]}.0.bias": torch.zeros(v.shape[0])}
+        return [
+            (r"backbone\.blocks_(\d+)\.attn\.qkv\.(\w+)$",
+             one(lambda m: f"backbone.blocks.{m[1]}.attn.qkv.{m[2]}", qkv)),
+            (r"backbone\.blocks_(\d+)\.(.+)$",
+             one(lambda m: f"backbone.blocks.{m[1]}.{m[2]}")),
+            (r"decoder\.scale_embed_(\d)\.(\w+)$",
+             one(lambda m: f"{d}scale_embed.{m[1]}.{m[2]}")),
+            (r"decoder\.prelim_(\w+)_(\d)\.conv\.(\w+)$",
+             one(lambda m: f"{d}preliminary_decoder.{m[1]}.{m[2]}.conv."
+                           f"{m[3]}")),
+            (r"decoder\.prelim_(\w+)_(\d)\.bn\.(\w+)$",
+             one(lambda m: f"{d}preliminary_decoder.{m[1]}.{m[2]}.bn1."
+                           f"{m[3]}")),
+            (r"decoder\.inter_head_(\w+)\.(\w+)$",
+             one(lambda m: f"{d}intermediate_head.{m[1]}.{m[2]}")),
+            (r"decoder\.mix_proj_(\w+)\.(\w+)$",
+             one(lambda m: f"{s}mix_proj.{m[1]}.0.{m[2]}")),
+            (r"decoder\.mt_proj_(\w+)\.conv\.weight$", mt_proj),
+            (r"decoder\.mt_proj_(\w+)\.bn\.(\w+)$",
+             one(lambda m: f"{s}mt_proj.{m[1]}.1.{m[2]}")),
+            (r"decoder\.up_embed_(\d)\.proj(\d)\.(conv|bn)\.(\w+)$", per_task(
+                lambda m, ti, t: f"{st}{m[1]}.patch_embed.{ti}.proj."
+                f"{(1 if m[2] == '1' else 4) + (m[3] == 'bn')}.{m[4]}")),
+            (r"decoder\.stage_(\d)\.attn\.conv_proj_q\.(conv|bn)\.(\w+)$",
+             per_task(lambda m, ti, t: f"{st}{m[1]}.blocks.0.attn."
+                      f"conv_proj_q.{ti}.{m[2]}.{m[3]}")),
+            (r"decoder\.stage_(\d)\.attn\.fuse_attn_kernel$",
+             one(lambda m: f"{st}{m[1]}.blocks.0.attn.fuse_attn.weight",
+                 lambda v: v[:, :, None, None])),
+            (r"decoder\.stage_(\d)\.attn\.fuse_attn_bias$",
+             one(lambda m: f"{st}{m[1]}.blocks.0.attn.fuse_attn.bias")),
+            (r"decoder\.stage_(\d)\.(.+)$",
+             one(lambda m: f"{st}{m[1]}.blocks.0.{m[2]}")),
+            (r"decoder\.norm_mt_(\d)\.(\w+)$",
+             one(lambda m: f"{s}norm_mts.{m[1]}.{m[2]}")),
+            (r"decoder\.redu_chan_(\d)_(\w+)\.(\w+)$",
+             one(lambda m: f"{s}redu_chan.{m[1]}.{tasks.index(m[2])}."
+                           f"{m[3]}")),
+            (r"head_(\w+)\.linear_pred\.(\w+)$",
+             one(lambda m: f"heads.{m[1]}.linear_pred.{m[2]}"))] + own
+    b, h = "backbone.", "heads.3ddet."
+    f = r"det_head\.fcos3d\."
+
+    def dcn(v):          # (O, kh*kw*C) tap-major -> (O, C, 3, 3)
+        return v.reshape(v.shape[0], 3, 3, -1).permute(0, 3, 1, 2) \
+            .contiguous()
+
+    def scales(m, v):
+        return {f"{h}scales.{lvl}.{j}.scale": v[lvl, j].clone()
+                for lvl in range(v.shape[0]) for j in range(v.shape[1])}
+    deconv = {"deconv": 0, "bn1": 1, "conv": 3, "bn2": 4}
+    return [
+        (r"backbone\.patch_embed\.(\w+)$",
+         one(lambda m: f"{b}patch_embed.proj.{m[1]}")),
+        (r"backbone\.patch_norm\.(\w+)$",
+         one(lambda m: f"{b}patch_embed.norm.{m[1]}")),
+        (r"backbone\.layer(\d)_block(\d+)\.(qkv|proj|"
+         r"relative_position_bias_table)(.*)$",
+         one(lambda m: f"{b}layers.{m[1]}.blocks.{m[2]}.attn.{m[3]}{m[4]}")),
+        (r"backbone\.layer(\d)_block(\d+)\.(.+)$",
+         one(lambda m: f"{b}layers.{m[1]}.blocks.{m[2]}.{m[3]}")),
+        (r"backbone\.merge_(\d)\.(.+)$",
+         one(lambda m: f"{b}layers.{m[1]}.downsample.{m[2]}")),
+        (r"backbone\.decode_(\d)\.fea_decode_(spa|chan)_\d_(\w+)\.(\w+)$",
+         one(lambda m: f"{b}fea_decode_{m[2]}.{m[1]}.{m[3]}.0.{m[4]}")),
+        (r"backbone\.decode_(\d)\.fea_fuse_\d_(\w+)_bn\.(\w+)$",
+         one(lambda m: f"{b}fea_fuse.{m[1]}.{m[2]}.2.{m[3]}")),
+        (r"backbone\.decode_(\d)\.fea_fuse_\d_(\w+)_(\d)\.(\w+)$",
+         one(lambda m: f"{b}fea_fuse.{m[1]}.{m[2]}.{fuse[m[3]]}.{m[4]}")),
+        (r"backbone\.multi_scale_fuse_(\w+)\.(\w+)$",
+         one(lambda m: f"{b}multi_scale_fuse.{m[1]}.{m[2]}")),
+        (r"head_(\w+)\.(deconv|bn1|conv|bn2)\.(\w+)$",
+         one(lambda m: f"heads.{m[1]}.mt_proj.{deconv[m[2]]}.{m[3]}")),
+        (r"head_(\w+)\.linear_pred\.(\w+)$",
+         one(lambda m: f"heads.{m[1]}.linear_pred.{m[2]}")),
+        (r"det_head\.fpn\.lateral_(\d)\.(\w+)$",
+         one(lambda m: f"{h}neck.lateral_convs.{m[1]}.conv.{m[2]}")),
+        (r"det_head\.fpn\.fpn_conv_(\d)\.(\w+)$",
+         one(lambda m: f"{h}neck.fpn_convs.{m[1]}.conv.{m[2]}")),
+        (r"det_head\.fpn\.extra_conv_(\d)\.(\w+)$",
+         one(lambda m: f"{h}neck.fpn_convs.{fpn_inputs + int(m[1])}.conv."
+                       f"{m[2]}")),
+        (f + r"(cls|reg)_tower_(\d)\.dcn\.weight$",
+         one(lambda m: f"{h}{m[1]}_convs.{m[2]}.conv.weight", dcn)),
+        (f + r"(cls|reg)_tower_(\d)\.dcn\.bias$",
+         one(lambda m: f"{h}{m[1]}_convs.{m[2]}.conv.bias")),
+        (f + r"(cls|reg)_tower_(\d)\.dcn\.offset_mask\.(\w+)$",
+         one(lambda m: f"{h}{m[1]}_convs.{m[2]}.conv.conv_offset.{m[3]}")),
+        (f + r"(cls|reg)_tower_(\d)\.(.+)$",
+         one(lambda m: f"{h}{m[1]}_convs.{m[2]}.{m[3]}")),
+        (f + r"cls_branch\.conv_(\d)\.(.+)$",
+         one(lambda m: f"{h}conv_cls_prev.{m[1]}.{m[2]}")),
+        (f + r"reg_branch_(\d)\.conv_(\d)\.(.+)$",
+         one(lambda m: f"{h}conv_reg_prevs.{m[1]}.{m[2]}.{m[3]}")),
+        (f + r"dir_branch\.conv_(\d)\.(.+)$",
+         one(lambda m: f"{h}conv_dir_cls_prev.{m[1]}.{m[2]}")),
+        (f + r"ctr_branch\.conv_(\d)\.(.+)$",
+         one(lambda m: f"{h}conv_centerness_prev.{m[1]}.{m[2]}")),
+        (f + r"conv_reg_(\d)\.(\w+)$",
+         one(lambda m: f"{h}conv_regs.{m[1]}.{m[2]}")),
+        (f + r"(conv_cls|conv_dir_cls|conv_centerness)\.(\w+)$",
+         one(lambda m: f"{h}{m[1]}.{m[2]}")),
+        (f + r"scales$", scales)] + own
+
+
+def _reference_layout(kind: str, state: dict, tasks, heads: int) -> dict:
+    """A port state dict (CPU tensors) in the reference checkpoint's layout
+    (``_reference_rules``), with the tensors the reference creates and the
+    port drops (InvPT's ``scale_embed.2``, stage 0's ``fuse_attn`` and
+    ``redu_chan``, ``norm_mt``) as seeded noise."""
+    laterals = sum(k.startswith("det_head.fpn.lateral_") and
+                   k.endswith(".weight") for k in state)
+    rules = [(re.compile(p), fn) for p, fn in
+             _reference_rules(kind, tuple(tasks), heads, laterals)]
+    ref = {}
+    for key, v in state.items():
+        for pat, fn in rules:
+            m = pat.match(key)
+            if m:
+                ref.update(fn(m, v))
+                break
+        else:
+            raise RuntimeError(f"convert: no reference key for {key}")
+    if kind == "TransformerNet":
+        gen = torch.Generator().manual_seed(0)
+        s = "multi_task_decoder.invpt."
+        d0 = state["decoder.stage_0.norm1.weight"].shape[0]
+        fuse = state["decoder.stage_1.attn.fuse_attn_kernel"].shape
+        for key, shape in (
+                ("multi_task_decoder.scale_embed.2.weight",
+                 (d0, state["backbone.norm.weight"].shape[0], 3, 3)),
+                ("multi_task_decoder.scale_embed.2.bias", (d0,)),
+                (s + "invpt_stages.0.blocks.0.attn.fuse_attn.weight",
+                 (*fuse, 1, 1)),
+                (s + "invpt_stages.0.blocks.0.attn.fuse_attn.bias",
+                 fuse[:1]),
+                (s + "norm_mt.weight", state["decoder.norm_mt_2.weight"].shape),
+                (s + "norm_mt.bias", state["decoder.norm_mt_2.bias"].shape),
+                *[(s + f"redu_chan.0.{ti}.{leaf}", shape)
+                  for ti in range(len(tasks))
+                  for leaf, shape in (("weight", (d0, d0, 1, 1)),
+                                      ("bias", (d0,)))]):
+            ref[key] = torch.randn(shape, generator=gen)
+    return ref
+
+
+def _vary(model, gen, scale: float = CONVERT_VARY) -> None:
+    """Seeded values in the tensors ``init_weights`` leaves constant (biases,
+    LN, BN and GN scales, BN statistics, the FCOS3D scales, the deformable
+    convs' offset convs), so that a round trip that drops or swaps one of
+    them shows: ``scale`` times a normal sample added to each bias and BN
+    mean, each variance, scale and 1-D weight times 1 + ``scale`` times its
+    magnitude (the offsets as ``swin_phase`` sets them)."""
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if not t.is_floating_point():
+                continue
+            leaf = name.rsplit(".", 1)[-1]
+            n = torch.randn(t.shape, generator=gen, device=t.device)
+            if name.endswith("offset_mask.weight"):
+                t.copy_(n * 0.3 * t[0].numel() ** -0.5)
+            elif leaf.endswith("bias") or leaf == "running_mean":
+                t.add_(scale * n)
+            elif leaf in ("running_var", "scales") or (
+                    leaf == "weight" and t.dim() == 1):
+                t.mul_(1.0 + scale * n.abs())
+
+
+class _PeakRSS:
+    """The process's resident set sampled every 5 ms from /proc/self/statm
+    while the block runs: ``before`` and ``peak``, in GiB. The C heap's free
+    memory goes back to the system first (``malloc_trim``), so that what the
+    block allocates shows as a rise over ``before``."""
+
+    def __enter__(self):
+        import ctypes
+        import threading
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.before = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self) -> float:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page / 2 ** 30
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def _convert_cli(tag, argv) -> dict:
+    """``convert_checkpoint.main(argv)``, timed, with the host's peak RSS
+    and the written checkpoint's size; returns them and the file's state
+    (master weights and buffers) as read back."""
+    from mtt_tpu_torch import convert_checkpoint
+    out = argv[argv.index("--out") + 1]
+    with _PeakRSS() as rss:
+        t = time.perf_counter()
+        rc = convert_checkpoint.main(argv)
+        secs = time.perf_counter() - t
+    if rc != 0:
+        raise RuntimeError(f"{tag}: convert_checkpoint returned {rc}")
+    path = os.path.join(out, "step_0.pt")
+    gib = os.path.getsize(path) / 2 ** 30
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    print(f"[{tag}] convert_checkpoint {' '.join(argv[:4])}: {secs:.2f} s; "
+          f"host RSS {rss.before:.2f} GiB before, peak {rss.peak:.2f} GiB "
+          f"(+{rss.peak - rss.before:.2f}); checkpoint {gib:.3f} GiB",
+          flush=True)
+    return {"seconds": secs, "rss_rise_gib": rss.peak - rss.before,
+            "gib": gib, "state": {**state["master"], **state["buffers"]}}
+
+
+def _centred_rms(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """||got - ref|| over ||ref - its per-channel mean|| (channels last): the
+    error against the map's spread, so that a constant in the map (such as
+    the class prior's bias in the detection logits) does not hide it."""
+    ref = ref.float()
+    spread = ref - ref.mean(dim=tuple(range(ref.dim() - 1)), keepdim=True)
+    return ((got.float() - ref).norm() / spread.norm()).item()
+
+
+def _forward_rms(tag, what, got: dict, plain: dict, ref: dict) -> None:
+    """Each map of the kernels' bf16 forward against the f32 forward of the
+    same weights, as ``_centred_rms``, at most FORWARD_RMS_TOL; beside it
+    the plain bf16 forward's distance, the witness of what bf16 alone
+    costs, and the kernels' relative RMS over the map's norm. Every map is
+    printed before a failure is raised."""
+    over = []
+    for k, r in ref.items():
+        g = got[k]
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            raise RuntimeError(f"{tag} {k}: {tuple(g.shape)} or non-finite")
+        rms = _centred_rms(g, r)
+        by_norm = ((g.float() - r.float()).norm() / r.float().norm()).item()
+        print(f"[{tag}] {what} {k}: bf16 vs f32, error over the centred "
+              f"map: kernels {rms:.5g} (tol {FORWARD_RMS_TOL}), plain bf16 "
+              f"{_centred_rms(plain[k], r):.5g}; kernels over the map's "
+              f"norm {by_norm:.5g}", flush=True)
+        if not rms <= FORWARD_RMS_TOL:
+            over.append(f"{k} {rms:.4g}")
+    if over:
+        raise RuntimeError(f"{tag}: from the f32 forward over "
+                           f"{FORWARD_RMS_TOL}: {over}")
+
+
+def _maps(out) -> dict:
+    """{name: tensor} of a forward's task maps and detection levels."""
+    maps = {t: v for t, v in out.items() if t not in ("3ddet", "inter_preds")}
+    maps.update({f"inter_preds.{t}": v
+                 for t, v in out.get("inter_preds", {}).items()})
+    if "3ddet" in out:
+        maps.update(_det_levels(out["3ddet"]))
+    return maps
+
+
+def convert_phase(vary: float = CONVERT_VARY):
+    """Phase 16: weight ingestion at full width (see the module docstring),
+    the models seeded by ``_vary`` at ``vary``. Returns the launch counts of
+    each converted model's eval forward."""
+    import numpy as np
+    from mtt_tpu_torch import inference
+    from mtt_tpu_torch.config import create_config
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.taskprompter import TASKPROMPTER_VIT_SPECS
+    from mtt_tpu_torch.models.vit import VIT_SPECS, resize_pos_embed
+    from mtt_tpu_torch.models.wrappers import build_model
+    from mtt_tpu_torch.utils.train_utils import Trainer
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_convert_")
+    specs = {**VIT_SPECS, **TASKPROMPTER_VIT_SPECS}
+    counts, real_predict = {}, inference.predict
+    try:
+        rng = np.random.default_rng(24)
+        photo = rng.integers(0, 256, (375, 500, 3), dtype=np.uint8)
+        with open(os.path.join(work, "in.png"), "wb") as f:
+            f.write(_png_filtered(photo))
+        for tag, title, config, seed in CONVERT_PATHS:
+            p = create_config(config, {"run_mode": "infer"})
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            model = build_model(p, img_size=tuple(p.TEST.SCALE), device=dev,
+                                dtype=torch.float32)
+            kind = type(model).__name__
+            init_weights(model, gen)
+            _vary(model, gen, vary)
+            src = {k: v.cpu() for k, v in model.state_dict().items()}
+            del model
+            ref = _reference_layout(kind, src, p.TASKS.NAMES,
+                                    specs.get(p["backbone"], {}).get(
+                                        "num_heads", 0))
+            path = os.path.join(work, f"{tag}.pth.tar")
+            torch.save({"model": {"module." + k: v for k, v in ref.items()},
+                        "epoch": 0}, path)
+            del ref
+            ck = os.path.join(work, f"ck_{tag}")
+            got = _convert_cli(tag, ["--config_exp", config, "--torch", path,
+                                     "--out", ck])
+            os.remove(path)
+            # the checkpoint's buffers also hold the Swin blocks'
+            # non-persistent index and mask, which no state dict carries
+            diff = sorted(k for k in src if k not in got["state"] or not
+                          torch.equal(got["state"][k], src[k]))
+            extra = {k.rsplit(".", 1)[-1] for k in got["state"]} - {
+                k.rsplit(".", 1)[-1] for k in src}
+            if diff or not extra <= {"rel_index", "attn_mask"}:
+                raise RuntimeError(f"{tag}: the round trip changed "
+                                   f"{len(diff)} tensors: {diff[:10]}, "
+                                   f"extra {extra}")
+            print(f"[{tag}] {title}: {len(src)} tensors, "
+                  f"{sum(v.numel() for v in src.values()) / 1e6:.1f} M "
+                  f"values, equal bit for bit after the reference layout "
+                  f"and the CLI", flush=True)
+            del got, src
+
+            # the converted model through its eval entry point
+            seen = {}
+
+            def spy(model, images, **kw):
+                logits, preds = real_predict(model, images, **kw)
+                seen.update(model=model, x=images, logits=logits)
+                return logits, preds
+            _build.reset_counts()
+            if kind == "TransformerNet":
+                gen = torch.Generator(device=dev).manual_seed(0)
+                model = build_model(p, img_size=tuple(p.TEST.SCALE),
+                                    device=dev, dtype=torch.float32)
+                trainer = Trainer(model, p, p.TASKS.NAMES, torch.bfloat16,
+                                  gen, log_fn=lambda s: None)
+                if trainer.restore_checkpoint(ck) != 0:
+                    raise RuntimeError(f"{tag}: restore")
+                _build.reset_counts()
+                rgb = torch.randint(0, 256, (2, *p.TEST.SCALE, 3),
+                                    generator=gen, device=dev)
+                x = inference.preprocess(rgb).to(torch.bfloat16)
+                logits, _ = inference.predict(model, x)
+                seen.update(model=model, x=x, logits=logits)
+                entry = "predict on 2 images"
+                del trainer
+            else:
+                inference.predict = spy
+                try:
+                    rc = inference.main(["--config_exp", config,
+                                         "--image_path",
+                                         os.path.join(work, "in.png"),
+                                         "--ckpt_dir", ck, "--output_dir",
+                                         os.path.join(work, f"out_{tag}")])
+                finally:
+                    inference.predict = real_predict
+                if rc != 0:
+                    raise RuntimeError(f"{tag}: inference.main rc {rc}")
+                entry = "inference.main --ckpt_dir on a 375x500 PNG"
+            torch.cuda.synchronize()
+            counts[tag] = dict(_build.COUNTS)
+            want = {"TaskPrompterNet": expected_eval("factored"),
+                    "TransformerNet": expected_invpt(False),
+                    "TaskPrompterSwinNet": expected_swin()}[kind]
+            print(f"[{tag}] {entry}: launches {counts[tag]}", flush=True)
+            if counts[tag] != want:
+                raise RuntimeError(f"{tag}: launches {counts[tag]} != {want}")
+            ref_model = copy.deepcopy(seen["model"]).float()
+            with torch.no_grad():
+                plain = seen["model"](seen["x"], impl="plain")
+                ref = ref_model(seen["x"].float(), impl="plain")
+            _forward_rms(tag, title, _maps(seen["logits"]), _maps(plain),
+                         _maps(ref))
+            del ref_model, ref, plain, seen
+            shutil.rmtree(ck)
+            torch.cuda.empty_cache()
+
+        # a Google ViT-L/16 npz at the 384 pretraining grid into
+        # TaskPrompter-ViT-L at 512 (32x32)
+        p = create_config(LOOP_CONFIG, {"run_mode": "infer"})
+        spec = specs[p["backbone"]]
+        C, H, depth = spec["embed_dim"], spec["num_heads"], spec["depth"]
+        gen = torch.Generator(device=dev).manual_seed(25)
+
+        def rnd(*shape):
+            return (0.02 * torch.randn(shape, generator=gen, device=dev)) \
+                .cpu().numpy()
+        npz = {"embedding/kernel": rnd(16, 16, 3, C), "embedding/bias": rnd(C),
+               "cls": rnd(1, 1, C),
+               "Transformer/posembed_input/pos_embedding":
+                   rnd(1, 1 + NPZ_GRID ** 2, C),
+               "Transformer/encoder_norm/scale": 1 + rnd(C),
+               "Transformer/encoder_norm/bias": rnd(C)}
+        for i in range(depth):
+            bp = f"Transformer/encoderblock_{i}/"
+            mh = bp + "MultiHeadDotProductAttention_1/"
+            for ln in ("LayerNorm_0", "LayerNorm_2"):
+                npz[bp + ln + "/scale"] = 1 + rnd(C)
+                npz[bp + ln + "/bias"] = rnd(C)
+            for n in ("query", "key", "value"):
+                npz[mh + n + "/kernel"] = rnd(C, H, C // H)
+                npz[mh + n + "/bias"] = rnd(H, C // H)
+            npz[mh + "out/kernel"] = rnd(H, C // H, C)
+            npz[mh + "out/bias"] = rnd(C)
+            for j, shape in ((0, (C, 4 * C)), (1, (4 * C, C))):
+                npz[bp + f"MlpBlock_3/Dense_{j}/kernel"] = rnd(*shape)
+                npz[bp + f"MlpBlock_3/Dense_{j}/bias"] = rnd(shape[1])
+        npz_path = os.path.join(work, "ViT-L_16.npz")
+        np.savez(npz_path, **npz)
+        got = _convert_cli("convert_npz", [
+            "--config_exp", LOOP_CONFIG, "--npz", npz_path, "--out",
+            os.path.join(work, "ck_npz")])["state"]
+        want = {"backbone.patch_embed.proj.weight":
+                npz["embedding/kernel"].transpose(3, 2, 0, 1),
+                "backbone.patch_embed.proj.bias": npz["embedding/bias"],
+                "backbone.norm.weight": npz["Transformer/encoder_norm/scale"],
+                "backbone.norm.bias": npz["Transformer/encoder_norm/bias"]}
+        for i in range(depth):
+            bp = f"Transformer/encoderblock_{i}/"
+            mh = bp + "MultiHeadDotProductAttention_1/"
+            pb = f"backbone.blocks_{i}."
+            for dst, ln in (("norm1", "LayerNorm_0"), ("norm2", "LayerNorm_2")):
+                want[pb + dst + ".weight"] = npz[bp + ln + "/scale"]
+                want[pb + dst + ".bias"] = npz[bp + ln + "/bias"]
+            # row (h, j, d) of the head-major qkv = column (h, d) of q/k/v
+            want[pb + "qkv.weight"] = np.stack(
+                [npz[mh + n + "/kernel"] for n in ("query", "key", "value")],
+                1).transpose(2, 1, 3, 0).reshape(3 * C, C)
+            want[pb + "qkv.bias"] = np.stack(
+                [npz[mh + n + "/bias"] for n in ("query", "key", "value")],
+                1).reshape(3 * C)
+            want[pb + "proj.weight"] = npz[mh + "out/kernel"].reshape(C, C).T
+            want[pb + "proj.bias"] = npz[mh + "out/bias"]
+            for j in (0, 1):
+                want[pb + f"mlp.fc{j + 1}.weight"] = \
+                    npz[bp + f"MlpBlock_3/Dense_{j}/kernel"].T
+                want[pb + f"mlp.fc{j + 1}.bias"] = \
+                    npz[bp + f"MlpBlock_3/Dense_{j}/bias"]
+        bad = [k for k, w in want.items()
+               if not np.array_equal(got[k].numpy(), w)]
+        grid = (p.TEST.SCALE[0] // 16, p.TEST.SCALE[1] // 16)
+        pos = resize_pos_embed(torch.from_numpy(
+            npz["Transformer/posembed_input/pos_embedding"]).to(dev), grid)
+        pos_err = (got["backbone.pos_embed"].to(dev) - pos).abs().max() \
+            .item() / pos.abs().max().item()
+        backbone = [k for k in got if k.startswith("backbone.") and
+                    "decode_" not in k and "task_prompts" not in k and
+                    "token_trans" not in k]
+        print(f"[convert_npz] ViT-L/16 npz ({NPZ_GRID}x{NPZ_GRID} + cls) into "
+              f"TaskPrompter-ViT-L at {grid[0]}x{grid[1]}: {len(want)} "
+              f"backbone tensors equal to the npz's, {len(bad)} not; the "
+              f"position embedding {tuple(got['backbone.pos_embed'].shape)} "
+              f"within {pos_err:.3g} (relative) of the cubic resample",
+              flush=True)
+        if bad or pos_err > 1e-6 or set(backbone) != set(want) | {
+                "backbone.pos_embed"}:
+            raise RuntimeError(f"convert_npz: {bad[:10]}, pos {pos_err}, "
+                               f"{sorted(set(backbone) ^ set(want))[:10]}")
+        print(f"[convert] phase {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+        return counts
+    finally:
+        inference.predict = real_predict
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _train_run(tag, title, trainer, batches, expected, batch_size,
                after_backward=None, loss_keys=None):
     """One checked training step on batches[0] (launch counts, gradients
@@ -3320,7 +3889,8 @@ PHASES = {"kernels": kernel_phase, "attention_api": attention_api_phase,
           "nyud": nyud_phase, "train": train_phase,
           "swin_train": swin_train_phase, "invpt_train": invpt_train_phase,
           "nyud_train": nyud_train_phase, "evaluate": evaluate_phase,
-          "loop": loop_phase, "detect": detect_phase}
+          "loop": loop_phase, "detect": detect_phase,
+          "convert": convert_phase}
 
 
 def main(argv=None):
@@ -3332,6 +3902,9 @@ def main(argv=None):
                     help="only print how far the Swin-B training step's "
                          "bf16 gradients sit from the f32 step's, run free "
                          "(see grad_diag)")
+    ap.add_argument("--convert-vary", type=float, default=CONVERT_VARY,
+                    help="the convert phase's seeded variation of biases, "
+                         "norms and BN statistics (see _vary)")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ", ".join(PHASES)
                          + "; a subset prints no result lines")
@@ -3371,7 +3944,9 @@ def main(argv=None):
         return 0
 
     phases, outcome = {}, {}
-    for name, run in PHASES.items():
+    runs = {**PHASES, "convert": functools.partial(convert_phase,
+                                                   args.convert_vary)}
+    for name, run in runs.items():
         if name in wanted:
             t = time.perf_counter()
             outcome[name] = run()
@@ -3389,7 +3964,7 @@ def main(argv=None):
     path_counts = {**outcome["invpt_train"],
                    "nyud_train": outcome["nyud_train"],
                    "evaluate": outcome["evaluate"], "loop": outcome["loop"],
-                   **outcome["detect"]}
+                   **outcome["detect"], **outcome["convert"]}
 
     rows = []
     for name, (src, replaces, counter, path) in KERNEL_ROWS.items():

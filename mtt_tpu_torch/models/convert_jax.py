@@ -20,9 +20,10 @@ over the flax tree that renames leaves and changes layouts:
 
 The qkv weight stays head-major (H, 3, D): only its transpose changes. Flax
 BatchNorm momentum 0.9 is torch's 0.1 and eps 1e-5 on both sides (set by the
-modules). A checkpoint of the reference PyTorch repo loads by composition:
-``mtt_tpu.models.convert_torch.convert_full_checkpoint`` then this function.
-``trainer_state_from_jax`` carries a whole JAX ``TrainState`` (weights, BN
+modules). A checkpoint of the reference PyTorch repo loads through the
+port's own ``models/convert_torch.py: convert_full_checkpoint``, which the
+tests hold bit for bit to the JAX package's converter followed by this
+function. ``trainer_state_from_jax`` carries a whole JAX ``TrainState`` (weights, BN
 statistics, Adam's moments and the step) into the port's ``Trainer``.
 """
 

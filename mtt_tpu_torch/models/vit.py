@@ -20,19 +20,23 @@ from mtt_tpu_torch.models.layers import FusedLN, PatchEmbed, ViTBlock
 
 def _cubic_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
     """(n_out, n_in) weights of ``jax.image.resize(method="cubic")`` along one
-    axis: the Keys kernel with a = -0.5 at half-pixel centres, widened by the
-    scale when shrinking (antialias), each row normalised to sum 1."""
-    scale = n_out / n_in
-    kscale = max(1.0 / scale, 1.0)
-    sample = (np.arange(n_out) + 0.5) / scale - 0.5
-    x = np.abs(sample[:, None] - np.arange(n_in)[None, :]) / kscale
-    w = np.where(x < 1.0, ((1.5 * x - 2.5) * x) * x + 1.0,
-                 np.where(x < 2.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0,
-                          0.0))
-    total = w.sum(1, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(total != 0, total, 1.0), 0.0)
-    return w.astype(np.float32)
+    axis, in f32 as ``jax._src.image.scale.compute_weight_mat`` forms them:
+    the Keys kernel with a = -0.5 at half-pixel centres, widened by the scale
+    when shrinking (antialias), each row normalised to sum 1, zero for a
+    sample outside [-0.5, n_in - 0.5]."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kscale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[:, None] - np.arange(n_in, dtype=f32)[None, :]) / kscale
+    w = np.where(x < 1.0, ((f32(1.5) * x - f32(2.5)) * x) * x + f32(1.0),
+                 np.where(x < 2.0, ((f32(-0.5) * x + f32(2.5)) * x - f32(4.0))
+                          * x + f32(2.0), f32(0.0)))
+    total = w.sum(1, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[:, None], w, f32(0.0)).astype(f32)
 
 
 def resize_pos_embed(pos_embed: torch.Tensor, new_grid: Tuple[int, int],

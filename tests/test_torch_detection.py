@@ -142,7 +142,7 @@ def test_fcos3d_head_matches_jax():
           enumerate([(6, 8), (3, 4), (2, 2)])]
     jm = JHead(**kw)
     v = random_variables(jm, [jnp.asarray(x) for x in xs], seed=1)
-    want = jm.apply(v, [jnp.asarray(x) for x in xs])
+    want = jax.jit(jm.apply)(v, [jnp.asarray(x) for x in xs])
     port = _load(FCOS3DHead(in_channels=16, **kw), v)
     assert port.cls_tower_1.use_dcn and not port.cls_tower_0.use_dcn
     _head_outputs_close(port([_t(x) for x in xs]), want)
@@ -157,7 +157,7 @@ def test_detection_head_matches_jax():
           enumerate([(8, 16), (4, 8), (2, 4), (2, 4)])]
     jm = JDet(det_cfg=tiny_det_cfg(jmake))
     v = random_variables(jm, [jnp.asarray(x) for x in xs], seed=1)
-    want = jm.apply(v, [jnp.asarray(x) for x in xs])
+    want = jax.jit(jm.apply)(v, [jnp.asarray(x) for x in xs])
     port = _load(DetectionHead(tiny_det_cfg(default_det_params), (20,) * 4),
                  v)
     got = port([_t(x) for x in xs])

@@ -195,13 +195,17 @@ def _net_case(size):
         x = _rand(0, 2, *size, 3)
         jm = _jax_net()
         v = random_variables(jm, jnp.asarray(x), seed=1)
-        want = {False: jm.apply(v, jnp.asarray(x))}
+        # jitted, one trace each (the wrapper reads MTT_TAIL_HEAD while it
+        # traces): the eager forward compiles op by op, 3-4x slower
+        want = {False: jax.jit(lambda v, x: jm.apply(v, x))(
+            v, jnp.asarray(x))}
         want[True] = want[False]
         if size[0] == size[1]:
             old = os.environ.get("MTT_TAIL_HEAD")
             os.environ["MTT_TAIL_HEAD"] = "1"
             try:
-                want[True] = jm.apply(v, jnp.asarray(x))
+                want[True] = jax.jit(lambda v, x: jm.apply(v, x))(
+                    v, jnp.asarray(x))
             finally:
                 if old is None:
                     del os.environ["MTT_TAIL_HEAD"]

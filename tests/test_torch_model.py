@@ -141,7 +141,9 @@ def test_forward_matches_jax(head_impl, variables, image, port_model,
     1e-5 of the output scale, the factored one within that plus the fast
     GELU's slack (module docstring)."""
     monkeypatch.setenv("MTT_HEAD_IMPL", head_impl)
-    want = _jax_net().apply(variables, jnp.asarray(image), train=False)
+    jnet = _jax_net()
+    want = jax.jit(lambda v, x: jnet.apply(v, x, train=False))(
+        variables, jnp.asarray(image))
     if head_impl == "factored":
         _compare(port_out, want, NUM_OUT,
                  _gelu_poly_slack(port_model, image))
@@ -166,7 +168,7 @@ def test_reference_checkpoint_loads_by_composition(image):
         sd, dict(random_variables(jnet, x, seed=3)), "TaskPrompter",
         list(REF_TASKS), DEPTH, heads=HEADS, use_ctr=True)
     variables = {k: variables[k] for k in ("params", "batch_stats")}
-    want = jnet.apply(variables, x, train=False)
+    want = jax.jit(lambda v, x: jnet.apply(v, x, train=False))(variables, x)
 
     # the dense head: the JAX factored head on the CPU runs the exact-GELU
     # composition, which the port's dense head computes

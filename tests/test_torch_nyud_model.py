@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from test_torch_model import _gelu_poly_slack, random_variables
@@ -104,7 +105,8 @@ def test_nyud_taskprompter_matches_jax(chan_nheads, monkeypatch):
     x = _rand(4, 2, *IMG, 3)
     jm = _jax_taskprompter(chan_nheads)
     v = random_variables(jm, jnp.asarray(x), seed=5)
-    want = jm.apply(v, jnp.asarray(x), train=False)
+    want = jax.jit(lambda v, x: jm.apply(v, x, train=False))(
+        v, jnp.asarray(x))
     port = _load(TaskPrompterNet(TASKS, NUM_OUT, IMG, "TaskPrompter_vitT",
                                  tar_dim=TAR, final_dim=FIN, use_ctr=False,
                                  chan_nheads=chan_nheads, device="cpu"), v)
@@ -129,7 +131,7 @@ def test_nyud_invpt_matches_jax():
     jm = JNet(tasks=TASKS, num_outputs=NUM_OUT, backbone_name="vitT",
               embed_dim=32, pred_out=8)
     v = random_variables(jm, jnp.asarray(x), seed=7)
-    want = jm.apply(v, jnp.asarray(x))
+    want = jax.jit(jm.apply)(v, jnp.asarray(x))
     port = _load(TransformerNet(TASKS, NUM_OUT, size, "vitT", embed_dim=32,
                                 pred_out=8, device="cpu"), v)
     with torch.no_grad():
