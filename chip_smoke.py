@@ -140,6 +140,23 @@ Phases, in order (the seconds each took are printed):
      (transposed as the layouts say), the position embedding within 1e-6
      of ``resize_pos_embed``. Prints each conversion's seconds, the host's
      peak RSS (sampled) and the checkpoint's GiB.
+  17. ``parallel``: data-parallel training and evaluation in 2 ranks, one
+     process each, started by this script with torchrun's environment
+     (``--dp-rank``): gloo on this card when it is the only one (the two
+     ranks share it; NCCL needs a card a rank, and runs where there are
+     two), NCCL on a card a rank otherwise. The TaskPrompter-ViT-L PASCAL
+     step at batch 2 a rank (drop-path 0.15, the up4 head's batch BN, bf16,
+     the kernels, deterministic library algorithms) against the 1-rank step
+     of batch 4 on the same global batch and seed: gradients, losses and BN
+     batch moments within DP_BOUND times the 1-rank step's own distance to
+     f32, the drop-path draws equal, the ranks' parameters, master weights
+     and buffers equal to the bit after the update; the step's wall ms at 1
+     and 2 ranks, ``all_reduce_grads``'s ms (CUDA events) and each rank's
+     peak memory. Then Swin-B Cityscapes-3D ``test_phase`` over phase 15's
+     cut val set of 8 images, one batch of 4 a rank: the merged 2D scores
+     and ``mDetection_Score`` / ``mAP`` against the 1-rank run's
+     (DP_SCORE_TOL). The launches of both ranks' checked step and eval are
+     the kernels line's ``dp`` path.
 The line before the last is the kernels JSON; the last line is the device JSON.
 
 ``python3 chip_smoke.py --profile`` runs none of these phases: after the
@@ -156,7 +173,7 @@ statistics at 10% in place of 1% (``_vary``), to see how the forwards'
 bf16 error grows with them.
 ``--phases kernels,invpt`` (any subset of kernels, attention_api, eval,
 invpt, swin, nyud, train, swin_train, invpt_train, nyud_train, evaluate,
-loop, detect, convert)
+loop, detect, convert, parallel)
 runs only those phases and prints no result lines: a quick look, not the
 check.
 """
@@ -3578,6 +3595,405 @@ def _train_run(tag, title, trainer, batches, expected, batch_size,
     return counts
 
 
+DP_WORLD = 2                     # ranks of the parallel phase
+DP_BATCH = 2                     # trBatch a rank: a global batch of 4
+DP_STEPS = 3                     # one checked step, two timed
+DP_JOIN_S = 900                  # the ranks' time in all, then they are killed
+# The 2-rank step against the 1-rank step on the same global batch and seed,
+# both in bf16 through the kernels: each is a bf16 evaluation of the same
+# function, so if the 2-rank step rounds no worse than the 1-rank one, each
+# lies within about d of the f32 backward at the 1-rank step's forward point
+# (d: the 1-rank step's own relative RMS distance to it, as phase 9 measures
+# it), and the two within 2 d of each other. The same rule holds the losses
+# (relative RMS over the loss terms) and the BN running statistics (the
+# batch moments' relative RMS), against the free-running f32 forward's
+# distance. A per-rank mean, a missing all-reduce or a doubled sum moves
+# them by tenths to wholes.
+DP_BOUND = 2.0
+# The merged scores against the 1-rank run's, relative. The 1-rank run takes
+# the ranks' batches in turn (the same images in the same batches of 4), so
+# that both score the same predictions: the meters then sum them in f32 in
+# another grouping, and the evaluator averages over the images in another
+# order. In the loader's own batches ([0..3], [4..7] against the ranks'
+# [0, 2, 4, 6] and [1, 3, 5, 7]) the bf16 forward of a sample differs in its
+# last bits with its batch, and with seeded random weights enough semseg
+# argmaxes sit on a tie that mIoU moved by 2.7e-4 of itself on an H100;
+# that distance is printed, not bounded.
+DP_SCORE_TOL = 1e-5
+
+
+class _Draws(torch.overrides.TorchFunctionMode):
+    """Within it, every ``torch.rand`` drawn from a generator (the drop-path
+    masks' draws, one a branch and block, over the global batch)."""
+
+    def __init__(self):
+        super().__init__()
+        self.draws = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func is torch.rand and kwargs.get("generator") is not None:
+            self.draws.append(out.detach().cpu())
+        return out
+
+
+def _running(model) -> dict:
+    return {n: b.detach().float().clone() for n, b in model.named_buffers()
+            if "running" in n}
+
+
+def _moments(after: dict, before: dict) -> dict:
+    """The batch moments that moved the running statistics: (after - 0.9
+    before) / 0.1 (flax's momentum)."""
+    return {k: (after[k] - 0.9 * before[k]) / 0.1 for k in after}
+
+
+def _loss_vec(losses: dict) -> torch.Tensor:
+    return torch.stack([losses[k].float().reshape(()) for k in
+                        sorted(losses)])
+
+
+def _dp_reference(work: str) -> dict:
+    """The 1-rank ViT-L step on the global batch (kernels, bf16, f32
+    master) with its distances to f32 (see DP_BOUND), two timed steps, and
+    the 1-rank Swin-B ``test_phase`` over the cut val set; saved to
+    ``work/ref.pt`` for the ranks. Returns the launch counts and times."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.utils import common_config as cc
+    from mtt_tpu_torch.utils.train_utils import test_phase, to_device
+    dev = torch.device("cuda")
+    gb = DP_WORLD * DP_BATCH
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    trainer, data = _vitl_trainer()
+    model, criterion = trainer.model, trainer.criterion
+    batches = [to_device(data.batch(i * gb, gb), dev)
+               for i in range(DP_STEPS)]
+    state = trainer.generator.get_state()
+    ref_model = copy.deepcopy(model).float()
+    free_model = copy.deepcopy(model).float()
+    before = _running(model)
+    point, draws = _ForwardPoint(), _Draws()
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    with point.record(model), _deterministic(), draws:
+        losses = trainer.backward(batches[0])
+    torch.cuda.synchronize()
+    counts = dict(_build.COUNTS)
+    if counts != expected_train():
+        raise RuntimeError(f"parallel: 1-rank launch counts {counts} != "
+                           f"{expected_train()}")
+    grads = {n: w.grad.detach().clone() for n, w in model.named_parameters()}
+    moments = _moments(_running(model), before)
+    g_ref = _grads(ref_model, batches[0], criterion, state, "plain",
+                   point.pin(ref_model), _deterministic())
+    d_grad = _rel_rms(grads, g_ref)
+    del point, g_ref, ref_model
+    gen = torch.Generator(device=dev)
+    gen.set_state(state)
+    with torch.no_grad(), _deterministic():
+        out = free_model(batches[0]["image"].float(), train=True,
+                         generator=gen, impl="plain")
+        free_losses = criterion(out, batches[0])
+    del out
+    d_loss = ((_loss_vec(losses) - _loss_vec(free_losses)).norm()
+              / _loss_vec(free_losses).norm()).item()
+    d_bn = _rel_rms(moments, _moments(_running(free_model), before))
+    del free_model
+    trainer.update()
+    step_ms = []
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[parallel] 1 rank, TaskPrompter-ViT-L PASCAL at batch {gb}: "
+          f"launches {counts}; distance to f32 (relative RMS): gradients "
+          f"{d_grad:.5g} (at the step's forward point), losses {d_loss:.5g}, "
+          f"BN batch moments {d_bn:.5g} (free-running); step wall ms "
+          f"{[round(v, 2) for v in step_ms]}; peak {peak:.2f} GiB",
+          flush=True)
+    ref = {"grads": {n: g.cpu() for n, g in grads.items()},
+           "losses": {k: v.cpu() for k, v in losses.items()},
+           "moments": {k: v.cpu() for k, v in moments.items()},
+           "draws": draws.draws, "d_grad": d_grad, "d_loss": d_loss,
+           "d_bn": d_bn}
+    del trainer, model, grads, batches
+    torch.cuda.empty_cache()
+
+    p, trainer = _cs3d_trainer("infer", 12)
+    with _cut_val_set(cc):
+        _, val_tf = cc.get_transformations(p)
+        ds = cc.get_dataset(p, "val", val_tf)
+        val = cc.get_test_dataloader(p, ds)
+        # the ranks' batches, in turn (see DP_SCORE_TOL)
+        turns = [b for r in range(DP_WORLD) for b in
+                 cc.get_test_dataloader(p, ds, DP_WORLD, r)]
+    with _deterministic():
+        ref["scores"] = test_phase(p, trainer.model, turns)
+        own = test_phase(p, trainer.model, val)
+    print(f"[parallel] 1 rank, Swin-B Cityscapes-3D test_phase over "
+          f"{DET_IMAGES} images in the ranks' batches: "
+          f"{json.dumps(ref['scores'])}; in the loader's own batches of "
+          f"{p['valBatch']} the largest relative difference to that "
+          f"{_scores_close(own, ref['scores']):.3g} (bf16 forwards of a "
+          f"sample in other batches; not bounded)", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    torch.save(ref, os.path.join(work, "ref.pt"))
+    return {"step_ms": statistics.median(step_ms), "peak_gib": peak}
+
+
+def _equal_on_ranks(tensors) -> bool:
+    """Whether rank 1's ``tensors`` equal rank 0's to the bit (on rank 0;
+    True elsewhere): each one's bytes broadcast from rank 1 and
+    compared."""
+    import torch.distributed as dist
+    same = True
+    for t in tensors:
+        x = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        y = x.clone()
+        dist.broadcast(y, src=1)
+        same = same and torch.equal(x, y)
+    return same
+
+
+def dp_rank(work: str) -> None:
+    """One rank of the parallel phase (``--dp-rank``), torchrun's
+    environment set by ``parallel_phase``: the ViT-L step on the rank's
+    half of each global batch against the 1-rank reference, the ranks'
+    parameters after the update, two timed steps with the all-reduce timed
+    by CUDA events, then the Swin-B ``test_phase`` on the rank's shard;
+    the results to ``work/rank<r>.json``."""
+    import torch.distributed as dist
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.parallel.mesh import init_distributed
+    from mtt_tpu_torch.utils import common_config as cc
+    from mtt_tpu_torch.utils import train_utils
+    from mtt_tpu_torch.utils.train_utils import test_phase, to_device
+
+    world = int(os.environ["WORLD_SIZE"])
+    nccl = torch.cuda.device_count() >= world
+    dev = init_distributed() if nccl else init_distributed(
+        device="cuda:0", backend="gloo")
+    rank = dist.get_rank()
+    _build.lib()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"rank": rank, "backend": dist.get_backend(), "device": str(dev)}
+    ar_ms, timing = [], [False]
+    real = train_utils.all_reduce_grads
+
+    def timed(params):
+        if not timing[0]:
+            return real(params)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        real(params)
+        e1.record()
+        e1.synchronize()
+        ar_ms.append(e0.elapsed_time(e1))
+    train_utils.all_reduce_grads = timed
+
+    trainer, data = _vitl_trainer()
+    model = trainer.model
+    gb = world * DP_BATCH
+    batches = [to_device(data.batch(i * gb + rank * DP_BATCH, DP_BATCH), dev)
+               for i in range(DP_STEPS)]
+    before = _running(model)
+    draws = _Draws()
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    with _deterministic(), draws:
+        losses = trainer.backward(batches[0])
+    torch.cuda.synchronize()
+    res["train_counts"] = dict(_build.COUNTS)
+    if rank == 0:
+        ref = torch.load(os.path.join(work, "ref.pt"), weights_only=False)
+        g1 = {n: g.to(dev) for n, g in ref["grads"].items()}
+        g2 = {n: w.grad.detach() for n, w in model.named_parameters()}
+        res["grad_rms"] = _rel_rms(g2, g1)
+        err2 = {k: ((g2[k].float() - g1[k].float()) ** 2).sum().item()
+                for k in g1}
+        res["grad_worst"] = sorted(err2, key=lambda k: -err2[k])[:3]
+        del g1
+        l1 = _loss_vec(ref["losses"])
+        res["loss_rms"] = ((_loss_vec({k: v.cpu() for k, v in
+                                       losses.items()}) - l1).norm()
+                           / l1.norm()).item()
+        res["bn_rms"] = _rel_rms(
+            {k: v.cpu() for k, v in _moments(_running(model),
+                                             before).items()},
+            ref["moments"])
+        res["draws_equal"] = len(draws.draws) == len(ref["draws"]) and all(
+            torch.equal(a, b) for a, b in zip(draws.draws, ref["draws"]))
+        res["n_draws"] = len(draws.draws)
+        res["bounds"] = {k: DP_BOUND * ref[k] for k in
+                         ("d_grad", "d_loss", "d_bn")}
+        res["ref_scores"] = ref["scores"]
+        del ref
+    trainer.update()
+    torch.cuda.synchronize()
+    res["params_equal"] = _equal_on_ranks(
+        list(trainer.master) + list(model.parameters())
+        + list(model.buffers()))
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    timing[0] = True
+    for batch in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    res["step_ms"] = step_ms
+    res["allreduce_ms"] = ar_ms
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del trainer, model, batches
+    torch.cuda.empty_cache()
+
+    p, trainer = _cs3d_trainer("infer", 12)
+    with _cut_val_set(cc):
+        _, val_tf = cc.get_transformations(p)
+        val = cc.get_test_dataloader(p, cc.get_dataset(p, "val", val_tf),
+                                     world, rank)
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    with _deterministic():
+        res["scores"] = test_phase(p, trainer.model, val)
+    res["eval_s"] = time.perf_counter() - t0
+    res["eval_counts"] = dict(_build.COUNTS)
+    res["eval_batches"] = len(val)
+    dist.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _scores_close(got: dict, want: dict) -> float:
+    """The largest relative difference of two score dicts (the same keys
+    required)."""
+    if got.keys() != want.keys():
+        return math.inf
+    worst = 0.0
+    for t, s in want.items():
+        if got[t].keys() != s.keys():
+            return math.inf
+        for k, v in s.items():
+            worst = max(worst, abs(got[t][k] - v) / max(abs(v), 1e-12))
+    return worst
+
+
+def parallel_phase():
+    """Data-parallel training and evaluation in ``DP_WORLD`` ranks, one
+    process each (gloo on this one card when it is the only one, NCCL on a
+    card a rank otherwise): the TaskPrompter-ViT-L PASCAL step (batch 2 a
+    rank, drop-path 0.15, bf16, the kernels) against the 1-rank step of
+    batch 4 on the same global batch and seed (gradients, losses, BN
+    statistics within DP_BOUND times the 1-rank step's own distance to f32,
+    drop-path draws equal), the ranks' parameters equal to the bit after
+    the update, the step's wall ms at 1 and 2 ranks and the all-reduce's ms;
+    then Swin-B Cityscapes-3D ``test_phase`` over the cut val set of 8
+    images, 4 a rank, whose merged scores equal the 1-rank run's. Returns
+    the launches of both ranks' checked step and eval."""
+    import subprocess
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        one = _dp_reference(work)
+        import socket
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        procs, logs = [], []
+        for r in range(DP_WORLD):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DP_WORLD),
+                       LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port))
+            logs.append(open(os.path.join(work, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank",
+                 work], env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        end = time.monotonic() + DP_JOIN_S
+        failed = []
+        for r, proc in enumerate(procs):
+            try:
+                proc.wait(timeout=max(end - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                failed.append(r)
+            if proc.returncode != 0:
+                failed.append(r)
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+        if failed:
+            for r in sorted(set(failed)):
+                with open(os.path.join(work, f"rank{r}.log")) as f:
+                    print(f"[parallel] rank {r} failed:\n{f.read()[-6000:]}",
+                          flush=True)
+            raise RuntimeError(f"parallel: ranks {sorted(set(failed))} "
+                               f"failed or timed out")
+        res = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    r0 = res[0]
+    print(f"[parallel] {DP_WORLD} ranks over {r0['backend']} on "
+          f"{[r['device'] for r in res]}"
+          + (" (one card shared: gloo through the host; NCCL needs a card a "
+             "rank)" if r0["backend"] == "gloo" else ""), flush=True)
+    for r in res:
+        print(f"[parallel] rank {r['rank']}: step launches "
+              f"{r['train_counts']}; step wall ms "
+              f"{[round(v, 2) for v in r['step_ms']]}, of it all_reduce_grads "
+              f"{[round(v, 2) for v in r['allreduce_ms']]} ms (CUDA events); "
+              f"peak {r['peak_gib']:.2f} GiB; eval {r['eval_batches']} "
+              f"batch(es) in {r['eval_s']:.2f} s, launches "
+              f"{r['eval_counts']}", flush=True)
+    b = r0["bounds"]
+    print(f"[parallel] 2 ranks against 1 (relative RMS): gradients "
+          f"{r0['grad_rms']:.5g} (bound {b['d_grad']:.5g}; largest "
+          f"{r0['grad_worst']}), losses {r0['loss_rms']:.5g} (bound "
+          f"{b['d_loss']:.5g}), BN batch moments {r0['bn_rms']:.5g} (bound "
+          f"{b['d_bn']:.5g}); {r0['n_draws']} drop-path draws equal "
+          f"{r0['draws_equal']}; parameters equal to the bit after the "
+          f"update {r0['params_equal']}", flush=True)
+    step2 = statistics.median([v for r in res for v in r["step_ms"]])
+    print(f"[parallel] step wall ms, global batch {DP_WORLD * DP_BATCH}: 1 "
+          f"rank {one['step_ms']:.2f}, {DP_WORLD} ranks {step2:.2f}; peak "
+          f"GiB 1 rank {one['peak_gib']:.2f}, per rank "
+          f"{[round(r['peak_gib'], 2) for r in res]}", flush=True)
+    worst = max(_scores_close(r["scores"], r0["ref_scores"]) for r in res)
+    print(f"[parallel] Swin-B test_phase merged over {DP_WORLD} ranks: "
+          f"{json.dumps(r0['scores'])}; largest relative difference to 1 "
+          f"rank {worst:.3g} (tol {DP_SCORE_TOL})", flush=True)
+    want_eval = {k: v * r0["eval_batches"] for k, v in expected_swin().items()}
+    bad = [f"rank {r['rank']}" for r in res
+           if r["train_counts"] != expected_train()
+           or r["eval_counts"] != want_eval]
+    if bad:
+        raise RuntimeError(f"parallel: launch counts of {bad} != "
+                           f"{expected_train()} / {want_eval}")
+    if not (r0["grad_rms"] <= b["d_grad"] and r0["loss_rms"] <= b["d_loss"]
+            and r0["bn_rms"] <= b["d_bn"]):
+        raise RuntimeError("parallel: the 2-rank step is over its bound")
+    if not (r0["draws_equal"] and r0["n_draws"] > 0 and r0["params_equal"]):
+        raise RuntimeError("parallel: drop-path draws or the ranks' "
+                           "parameters differ")
+    if not worst <= DP_SCORE_TOL:
+        raise RuntimeError("parallel: merged scores differ from 1 rank's")
+    counts = {k: sum(r["train_counts"][k] + r["eval_counts"][k] for r in res)
+              for k in r0["train_counts"]}
+    return {"dp": counts}
+
+
 # profile: kernel-name fragment -> group; anything else is library work
 PROFILE_GROUPS = (# the shared GEMM (gemm.cu) by its epilogue: fc1 of rows 4
                   # and 8; fc2 of row 4; fc2 of row 8 and rows 1-2's qkv
@@ -3890,7 +4306,7 @@ PHASES = {"kernels": kernel_phase, "attention_api": attention_api_phase,
           "swin_train": swin_train_phase, "invpt_train": invpt_train_phase,
           "nyud_train": nyud_train_phase, "evaluate": evaluate_phase,
           "loop": loop_phase, "detect": detect_phase,
-          "convert": convert_phase}
+          "convert": convert_phase, "parallel": parallel_phase}
 
 
 def main(argv=None):
@@ -3908,6 +4324,7 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ", ".join(PHASES)
                          + "; a subset prints no result lines")
+    ap.add_argument("--dp-rank", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     profile_only = args.profile
     wanted = args.phases.split(",")
@@ -3918,6 +4335,9 @@ def main(argv=None):
         return 1
     # before cuBLAS starts: its deterministic mode for the checked steps
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if args.dp_rank:
+        dp_rank(args.dp_rank)        # one rank of the parallel phase
+        return 0
     from mtt_tpu_torch.kernels import _build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3964,7 +4384,8 @@ def main(argv=None):
     path_counts = {**outcome["invpt_train"],
                    "nyud_train": outcome["nyud_train"],
                    "evaluate": outcome["evaluate"], "loop": outcome["loop"],
-                   **outcome["detect"], **outcome["convert"]}
+                   **outcome["detect"], **outcome["convert"],
+                   **outcome["parallel"]}
 
     rows = []
     for name, (src, replaces, counter, path) in KERNEL_ROWS.items():

@@ -14,7 +14,9 @@ threaded loading, fixed-shape batches, and the copy to the card.
   forever).
 - ``device_put_batch``: the arrays from pinned host memory to one device
   with ``non_blocking`` copies; ``prefetch_to_device`` keeps the next
-  batches' copies queued while the current step runs.
+  batches' copies queued while the current step runs. Over several ranks
+  each rank's loader reads its own shard (``num_shards``, ``shard_index``
+  from ``parallel.mesh.data_shard_info``) and copies to its own device.
 """
 
 from __future__ import annotations

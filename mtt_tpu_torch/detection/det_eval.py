@@ -9,9 +9,11 @@ to the host in one copy; each image's detections become official-format
 JSON objects (written under ``save_dir/3ddet`` when one is given), its
 ground truth is rebuilt from the padded ``det_*`` arrays, and
 ``evaluate`` scores all records with ``Box3dEvaluator``. Batch-padding
-samples (``meta["pad"]``) are left out. One process holds every record:
-JAX's merge across processes goes with multi-card work (ROADMAP.md item
-1.10).
+samples (``meta["pad"]``) are left out. Over several ranks, ``evaluate``
+gathers every rank's records on rank 0 in rank order (no shared directory,
+where JAX merges per-rank files), scores them there once, and every rank
+returns rank 0's scores, the whole dict (JAX's other processes get mDS and
+mAP alone).
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mtt_tpu_torch.detection.cs_geometry import (EVAL_LABELS, box_s_to_v,
                                                  euler_zxy_to_quat_s)
 from mtt_tpu_torch.detection.eval3d import Box3dEvaluator
 from mtt_tpu_torch.detection.export import (bbox_to_json_objects,
                                             save_image_predictions)
+from mtt_tpu_torch.parallel.mesh import data_shard_info
 
 # the decoded fields in the order of the one host copy, and their widths
 _FIELDS = (("boxes3d", 9), ("bboxes2d", 4), ("centers2d", 3), ("scores", 0),
@@ -126,8 +130,21 @@ class DetRecordAccumulator:
                 (meta["img_name"], _gt_objects_from_batch(gt, i), objs))
 
     def evaluate(self) -> Dict:
+        """The evaluator's scores of every rank's records."""
+        world, rank = data_shard_info()
+        if world == 1:
+            return self._score(self.records)
+        shards = [None] * world if rank == 0 else None
+        dist.gather_object(self.records, shards, dst=0)
+        out = [self._score([r for s in shards for r in s])
+               if rank == 0 else None]
+        dist.broadcast_object_list(out, src=0)
+        return out[0]
+
+    @staticmethod
+    def _score(records) -> Dict:
         ev = Box3dEvaluator(EVAL_LABELS, min_iou=0.7)
-        for name, gt, pred in self.records:
+        for name, gt, pred in records:
             ev.add_image(name, gt, pred)
         return ev.evaluate()
 

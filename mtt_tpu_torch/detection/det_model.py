@@ -10,7 +10,8 @@ sampling, per-level regress ranges, the nearest centre wins; focal loss on
 the classes, smooth-L1 on offset, depth, size, sin-encoded rotation and 2D
 box with code weights, softmax CE on the 2-bin directions, BCE on the
 centerness. Images without a labelled box drop out of the class loss and of
-its average factor, as the reference removes them from the batch.
+its average factor, as the reference removes them from the batch. The
+average factors (positives and labelled images) count every rank's batch.
 
 Serving: top-k candidates before NMS, offset -> projected centre, image ->
 camera unprojection, yaw from the 2-bin direction classes, per-class
@@ -33,6 +34,7 @@ from mtt_tpu_torch.detection.box3d import (bbox_bev, distance2bbox,
 from mtt_tpu_torch.detection.det_params import INF
 from mtt_tpu_torch.detection.iou3d import (_greedy_nms_from_iou,
                                            boxes_iou_aligned, boxes_iou_bev)
+from mtt_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 @functools.lru_cache(maxsize=16)
@@ -153,9 +155,12 @@ def detection_loss(head_out, batch, det_cfg: dict, strides
 
     posf = ((labels_f >= 0) & (labels_f < nc)).float()
     # the reference's average factor is num_pos + num_imgs after it removed
-    # the images without a labelled box: count only images with one
+    # the images without a labelled box: count only images with one. Both
+    # counts are summed over the ranks, as every normaliser of the loss
     labelled = (batch["det_valid"] > 0).any(1)
-    avg = torch.clamp_min(posf.sum() + labelled.float().sum(), 1.0)
+    n_pos, n_img = all_reduce_sum(torch.stack(
+        [posf.sum(), labelled.float().sum()])).unbind()
+    avg = torch.clamp_min(n_pos + n_img, 1.0)
 
     out = {}
     # a label-less image's points leave the class loss entirely
@@ -167,7 +172,7 @@ def detection_loss(head_out, batch, det_cfg: dict, strides
 
     cw = torch.tensor(det_cfg["code_weight"], dtype=torch.float32,
                       device=dev)
-    eq_sum = torch.clamp_min(posf.sum(), 1e-6)
+    eq_sum = torch.clamp_min(n_pos, 1e-6)
     beta = det_cfg["loss_bbox"]["beta"]
 
     # sin-difference encoding of the rotations, channels 6:9

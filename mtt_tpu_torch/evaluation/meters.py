@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from mtt_tpu_torch.losses.loss_functions import balanced_bce_loss
+from mtt_tpu_torch.parallel.mesh import all_reduce_
 
 
 def _squeeze_label(pred, gt):
@@ -227,7 +228,8 @@ class EdgeMeter:
         label = torch.where(valid, gt.float(), 255.0)
         loss = balanced_bce_loss(logits[..., None], label[..., None],
                                  self.ignore_index,
-                                 pos_weight=self.pos_weight)
+                                 pos_weight=self.pos_weight,
+                                 across_ranks=False)
         n = _count(valid)
         return {"loss": state["loss"] + loss.float() * n.float(),
                 "n": state["n"] + n}
@@ -286,6 +288,12 @@ class PerformanceMeter:
         are."""
         return {t: self.meters[t].update(states[t], pred[t], gt[t])
                 for t in self.tasks}
+
+    def all_reduce_(self) -> None:
+        """Sums every state over the ranks in place (one flattened
+        reduction per dtype: the f32 sums and the int64 counts), so that
+        every rank scores the whole eval set; nothing on one rank."""
+        all_reduce_([v for t in self.tasks for v in self.states[t].values()])
 
     def get_score(self, verbose: bool = False):
         out = {t: self.meters[t].score(self.states[t]) for t in self.tasks}

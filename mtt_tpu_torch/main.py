@@ -17,6 +17,18 @@ same forward it also renders each 2D task's map of every val image under
 take bf16 only; an f32 run on the card is refused), with f32 master weights.
 ``main(argv, device=None)`` runs on the card unless the caller passes
 another device.
+
+Data-parallel over N cards, one process each (``parallel/mesh.py``)::
+
+    torchrun --nproc_per_node N -m mtt_tpu_torch.main --multihost \
+        --config_exp configs/pascal/taskprompter_vitLp16.yml
+
+``--multihost`` joins torchrun's process group (NCCL, rank r on
+``cuda:LOCAL_RANK``; ``main(argv, device="cpu")`` takes gloo); each rank
+loads its shard of every split (``data_shard_info``), ``trBatch`` and
+``valBatch`` stay per card (a step's global batch is ``trBatch`` x N, as
+JAX reads them per device), and rank 0 alone writes the log file, the
+results and the checkpoints. Without torchrun's environment it raises.
 """
 
 from __future__ import annotations
@@ -46,6 +58,9 @@ def parse_args(argv=None):
                     help="run a full eval pass before training")
     ap.add_argument("--vis", action="store_true",
                     help="save per-task visualisations in infer mode")
+    ap.add_argument("--multihost", action="store_true",
+                    help="data-parallel under torchrun: join its process "
+                         "group, one card a rank")
     return ap.parse_args(argv)
 
 
@@ -54,12 +69,17 @@ def main(argv=None, device=None) -> int:
     from mtt_tpu_torch.config import create_config
     from mtt_tpu_torch.models.layers import init_weights
     from mtt_tpu_torch.models.wrappers import build_model, default_device
+    from mtt_tpu_torch.parallel.mesh import data_shard_info, init_distributed
     from mtt_tpu_torch.utils import common_config as cc
     from mtt_tpu_torch.utils.logger import install
     from mtt_tpu_torch.utils.train_utils import (Trainer, test_phase,
                                                  train_phase)
 
-    device = default_device(device)
+    # a process group of this call's own is left again at its end
+    own_group = args.multihost and not torch.distributed.is_initialized()
+    device = init_distributed(device) if args.multihost \
+        else default_device(device)
+    nshards, shard = data_shard_info()
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     if device.type == "cuda" and dtype != torch.bfloat16:
         raise ValueError("--dtype float32 on the card: the kernels take "
@@ -69,22 +89,23 @@ def main(argv=None, device=None) -> int:
         p["max_iter"] = args.max_iter
     if args.val_interval:
         p["val_interval"] = args.val_interval
-    if args.run_mode != "infer":
+    if args.run_mode != "infer" and shard == 0:
         install(os.path.join(p["output_dir"], "log_file.txt"))
     print(f"[main] config {args.config_exp} tasks={p.TASKS.NAMES} "
-          f"device={device} dtype={args.dtype}", flush=True)
+          f"device={device} dtype={args.dtype} rank {shard} of {nshards}",
+          flush=True)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = build_model(p, img_size=tuple(p.TRAIN.SCALE), device=device,
                         dtype=torch.float32)
     init_weights(model, gen)
-    p["trBatch"] = int(p["trBatch"])        # one card
+    p["trBatch"] = int(p["trBatch"])        # one card, one process
     p["valBatch"] = int(p["valBatch"])
     train_tf, val_tf = cc.get_transformations(p)
     train_ds = cc.get_dataset(p, "train", train_tf, overfit=args.overfit)
     val_ds = cc.get_dataset(p, "val", val_tf, overfit=args.overfit)
-    train_loader = cc.get_train_dataloader(p, train_ds)
-    val_loader = cc.get_test_dataloader(p, val_ds)
+    train_loader = cc.get_train_dataloader(p, train_ds, nshards, shard)
+    val_loader = cc.get_test_dataloader(p, val_ds, nshards, shard)
     trainer = Trainer(model, p, p.TASKS.NAMES, dtype, gen)
 
     restored = trainer.restore_checkpoint(p["checkpoint"])
@@ -93,15 +114,20 @@ def main(argv=None, device=None) -> int:
 
     if args.run_mode == "train":
         if args.debug_eval:
-            print("[main] debug smoke eval before training")
-            print(json.dumps(test_phase(p, model, val_loader)), flush=True)
+            scores = test_phase(p, model, val_loader)
+            if shard == 0:
+                print(f"[main] debug smoke eval before training\n"
+                      f"{json.dumps(scores)}", flush=True)
         t0 = time.time()
         train_phase(p, trainer, train_loader, val_loader)
         print(f"[main] training done in {time.time() - t0:.1f}s", flush=True)
     else:
         vis = [t for t in model.tasks if t != "3ddet"] if args.vis else None
         scores = test_phase(p, model, val_loader, vis_tasks=vis)
-        print(json.dumps(scores, indent=2), flush=True)
+        if shard == 0:
+            print(json.dumps(scores, indent=2), flush=True)
+    if own_group:
+        torch.distributed.destroy_process_group()
     return 0
 
 

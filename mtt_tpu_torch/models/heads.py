@@ -33,9 +33,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
-from mtt_tpu_torch.models.layers import (ConvBNAct, batch_norm, conv1x1,
-                                         to_nchw, to_nhwc,
-                                         up4_conv3x3_factored,
+from mtt_tpu_torch.models.layers import (ConvBNAct, batch_moments,
+                                         batch_norm, conv1x1, to_nchw,
+                                         to_nhwc, up4_conv3x3_factored,
                                          update_running_stats)
 
 UP4_MODES = ("factored", "dense")
@@ -96,9 +96,7 @@ class ConvHead(nn.Module):
         # centred variance, running averages, exact GELU, 1x1 in f32
         Y = up4_conv3x3_factored(x, kc).to(dt)               # (B, C, W4, H4)
         yf = (Y + conv.bias.to(dt)[None, :, None, None]).float()
-        m = yf.mean((0, 2, 3))
-        xc = yf - m[None, :, None, None]
-        v = (xc * xc).mean((0, 2, 3))
+        m, v = batch_moments(yf, (0, 2, 3), centred=True)
         update_running_stats(bn, m, v)
         inv, addv = folded(m, v)
         y = F.gelu(Y * inv.to(dt)[None, :, None, None]

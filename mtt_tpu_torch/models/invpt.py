@@ -25,8 +25,8 @@ from torch import nn
 from mtt_tpu_torch.kernels.invpt_attention import invpt_fused_attention
 from mtt_tpu_torch.kernels.invpt_tail import (fused_ms_tail,
                                               fused_ms_tail_head)
-from mtt_tpu_torch.models.layers import (ConvBNAct, FusedLN, Mlp, batch_norm,
-                                         conv1x1, drop_path, interpolate,
+from mtt_tpu_torch.models.layers import (ConvBNAct, FusedLN, Mlp,
+                                         batch_moments, batch_norm, conv1x1, drop_path, interpolate,
                                          to_nchw, to_nhwc, upsample2x,
                                          update_running_stats)
 
@@ -254,8 +254,7 @@ class InvPTDecoder(nn.Module):
         for tx in stage_tx:
             acc = acc + interpolate(tx, (th, tw))
         xf = to_nhwc(conv(to_nchw(acc.to(dt)))).float()
-        m = xf.mean((0, 1, 2))
-        v = ((xf - m) ** 2).mean((0, 1, 2))
+        m, v = batch_moments(xf, (0, 1, 2), centred=True)
         update_running_stats(bn, m, v)
         inv = torch.rsqrt(v + bn.eps) * bn.weight.float()
         return F.relu(xf * inv + (bn.bias.float() - m * inv)).to(dt)

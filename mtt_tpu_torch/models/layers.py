@@ -28,6 +28,7 @@ from mtt_tpu_torch.kernels.attention import (fused_attention,
                                              fused_attention_qkv)
 from mtt_tpu_torch.kernels.layernorm import fused_layernorm
 from mtt_tpu_torch.kernels.mlp import fused_mlp, fused_mlp_ln_res
+from mtt_tpu_torch.parallel.mesh import all_reduce_sum, data_shard_info
 
 BN_MOMENTUM = 0.9     # flax's: running = 0.9 running + 0.1 batch (torch 0.1)
 
@@ -90,16 +91,28 @@ class PatchEmbed(nn.Module):
         return y.flatten(2).transpose(1, 2), (gh, gw)
 
 
+def sample_uniform(B: int, generator: torch.Generator, *shape):
+    """U(0, 1) draws (B, *shape) for this rank's B samples: ``generator``
+    draws them for the global batch (every rank's batch the same size,
+    every rank's generator in the same state) and the rank keeps its own
+    rows, so that a step over ranks draws the masks of one process on the
+    whole batch, as JAX draws them over its sharded batch."""
+    world, rank = data_shard_info()
+    u = torch.rand(world * B, *shape, generator=generator,
+                   device=generator.device)
+    return u[rank * B:(rank + 1) * B]
+
+
 def drop_path(x, rate: float, generator: Optional[torch.Generator]):
     """Stochastic depth per sample (``DropPath``): a kept sample is scaled by
-    1 / keep, a dropped one is zero. The draws come from ``generator``."""
+    1 / keep, a dropped one is zero. The draws come from ``generator``
+    (``sample_uniform``)."""
     if generator is None:
         raise ValueError("training with drop-path needs a torch.Generator "
                          "for its masks: pass generator=... (or build the "
                          "model with drop_path_rate=0)")
     keep = 1.0 - rate
-    mask = (torch.rand(x.shape[0], generator=generator,
-                       device=generator.device) < keep).to(x.device)
+    mask = (sample_uniform(x.shape[0], generator) < keep).to(x.device)
     return torch.where(mask.view(-1, *[1] * (x.dim() - 1)), x / keep,
                        torch.zeros_like(x))
 
@@ -188,14 +201,37 @@ def update_running_stats(bn: nn.BatchNorm2d, mean, var) -> None:
     bn.num_batches_tracked += 1
 
 
+def batch_moments(xf, dims: Tuple[int, ...], centred: bool):
+    """(mean, biased variance) of f32 ``xf`` over ``dims`` (the batch axis
+    among them) and over every rank's batch, the sums all-reduced
+    (``all_reduce_sum``): the fast variance E[x^2] - E[x]^2 clipped at 0 in
+    one reduction (flax's BatchNorm), or with ``centred`` the mean first and
+    then E[(x - mean)^2] (the up4 head's and the InvPT tail's training BN).
+    Differentiable through the reductions, so every rank's inputs get the
+    cotangent of the global statistics."""
+    ch = next(a for a in range(xf.dim()) if a not in dims)
+    C = xf.shape[ch]
+    n = xf.new_full((1,), xf.numel() // C)
+    if not centred:
+        s = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), n]))
+        mean = s[:C] / s[-1]
+        return mean, (s[C:2 * C] / s[-1] - mean * mean).clamp_min(0.0)
+    s = all_reduce_sum(torch.cat([xf.sum(dims), n]))
+    mean = s[:C] / s[-1]
+    shape = [1] * xf.dim()
+    shape[ch] = C
+    xc = xf - mean.view(shape)
+    return mean, all_reduce_sum((xc * xc).sum(dims)) / s[-1]
+
+
 def bn_train(x, bn: nn.BatchNorm2d):
     """Training BatchNorm as flax computes it, on an NCHW tensor: batch
     statistics in f32 with the fast variance E[x^2] - E[x]^2 clipped at 0
-    (flax ``_compute_stats``), normalised in f32, cast back to x's dtype;
-    the running statistics are updated as a side effect."""
+    (flax ``_compute_stats``), over every rank's batch
+    (``batch_moments``), normalised in f32, cast back to x's dtype; the
+    running statistics are updated as a side effect."""
     xf = x.float()
-    mean = xf.mean((0, 2, 3))
-    var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+    mean, var = batch_moments(xf, (0, 2, 3), centred=False)
     update_running_stats(bn, mean, var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
     y = (xf - mean[:, None, None]) * mul[:, None, None] \

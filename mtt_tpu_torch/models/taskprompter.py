@@ -27,7 +27,8 @@ from mtt_tpu_torch.kernels.attention import fused_attention_ln_qkv
 from mtt_tpu_torch.kernels.layernorm import layernorm_plain
 from mtt_tpu_torch.kernels.task_decode import fused_task_decode
 from mtt_tpu_torch.models.layers import (FusedLN, Mlp, PatchEmbed, batch_norm,
-                                         interpolate, to_nchw, to_nhwc)
+                                         interpolate, sample_uniform,
+                                         to_nchw, to_nhwc)
 
 TASKPROMPTER_VIT_SPECS = {
     "TaskPrompter_vitL": dict(patch_size=16, embed_dim=1024, depth=24,
@@ -52,14 +53,15 @@ def row_drop(branch, num_prompts: int, rate: float,
              generator: torch.Generator):
     """Stochastic depth with independent per-sample masks for the prompt rows
     and the patch rows (taskprompter.py:65-80): each kept group is scaled by
-    1 / keep, each dropped group is zero. The draws come from ``generator``."""
+    1 / keep, each dropped group is zero. The draws come from ``generator``
+    (``layers.sample_uniform``)."""
     if generator is None:
         raise ValueError("training with drop-path needs a torch.Generator "
                          "for its masks: pass generator=... (or build the "
                          "model with drop_path_rate=0)")
     keep = 1.0 - rate
     B = branch.shape[0]
-    mask = (torch.rand(B, 2, generator=generator, device=generator.device)
+    mask = (sample_uniform(B, generator, 2)
             < keep).to(branch.device, torch.float32) / keep
     rows = torch.ones(branch.shape[1], dtype=torch.long, device=branch.device)
     rows[:num_prompts] = 0

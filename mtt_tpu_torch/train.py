@@ -16,8 +16,8 @@ f32 master weights, returning the losses of each step (InvPT: with the
 components); ``train_and_score`` then scores the trained model. They run on
 the card unless the caller passes another device.
 The training loop with its YAML configs, transforms, loaders, periodic eval
-and checkpoints is ``python -m mtt_tpu_torch.main``; multi-card training is
-not ported yet (ROADMAP.md).
+and checkpoints is ``python -m mtt_tpu_torch.main`` (over several cards:
+``torchrun ... -m mtt_tpu_torch.main --multihost``).
 """
 
 from __future__ import annotations

@@ -19,6 +19,17 @@ package keeps f32 parameters and casts them to ``--dtype bfloat16`` at use.
 After each update the master is rounded into the model. BatchNorm running
 statistics stay f32 in the model. With an f32 model the master is the
 model's own parameters, and nothing is copied.
+
+Over several ranks (``parallel/mesh.py``; one process a card, no DDP
+wrapper), the trainer broadcasts rank 0's parameters, buffers and drop-path
+generator at construction; the forward takes global BatchNorm moments and
+the losses global normalisers, so each rank's loss is its share of the
+global one; after the backward ``all_reduce_grads`` sums the gradients,
+before the master copy and the clip, and the logged losses are summed too.
+Every rank then takes the same update, and the ranks' parameters stay equal
+to the bit. Rank 0 alone writes the log lines, TensorBoard, the results and
+the checkpoints; ``test_phase`` sums the meter states and merges the
+detection records of every rank.
 """
 
 from __future__ import annotations
@@ -39,6 +50,8 @@ from mtt_tpu_torch.evaluation.save_preds import (save_task_predictions,
                                                  write_png)
 from mtt_tpu_torch.inference import preprocess
 from mtt_tpu_torch.losses.loss_schemes import build_criterion
+from mtt_tpu_torch.parallel.mesh import (all_reduce_, all_reduce_grads,
+                                         barrier, broadcast_, data_shard_info)
 from mtt_tpu_torch.utils.optim import build_optimizer, clip_gradients
 from mtt_tpu_torch.utils.postprocess import get_output
 from mtt_tpu_torch.utils.visualization import draw_boxes3d, save_visualizations
@@ -48,7 +61,10 @@ class Trainer:
     """Owns the optimizer state of one model. ``step(batch)`` is one
     training step; ``backward`` and ``update`` are its two halves.
     ``generator`` draws the drop-path masks. ``step_count`` counts the
-    updates (the JAX ``state.step``); ``log`` takes the loop's lines."""
+    updates (the JAX ``state.step``); ``log`` takes the loop's lines. In a
+    process group, every rank builds one over its own copy of the model,
+    and rank 0's parameters, buffers and generator state are copied into
+    every rank's."""
 
     def __init__(self, model: torch.nn.Module, p: dict, tasks: Sequence[str],
                  dtype: torch.dtype, generator: torch.Generator,
@@ -61,6 +77,10 @@ class Trainer:
         self.criterion = build_criterion(p, tasks)
         self.generator = generator
         params = list(model.parameters())
+        if data_shard_info()[0] > 1:
+            state = generator.get_state().to(params[0].device)
+            broadcast_(params + list(model.buffers()) + [state])
+            generator.set_state(state.cpu())
         self._own_master = dtype != torch.float32
         if not self._own_master:
             self.master = params
@@ -77,13 +97,17 @@ class Trainer:
     def backward(self, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
         """Forward in train mode and backward; the gradients land on the
-        model's parameters. Returns the detached losses."""
+        model's parameters, summed over the ranks. Returns the detached
+        losses, summed over the ranks (each rank's is its share)."""
         self.model.zero_grad(set_to_none=True)
         out = self.model(batch["image"].to(self.dtype), train=True,
                          generator=self.generator)
         losses = self.criterion(out, batch)
         losses["total"].backward()
-        return {k: v.detach() for k, v in losses.items()}
+        all_reduce_grads(self.model.parameters())
+        losses = {k: v.detach() for k, v in losses.items()}
+        all_reduce_(list(losses.values()))
+        return losses
 
     @torch.no_grad()
     def update(self) -> None:
@@ -115,7 +139,15 @@ class Trainer:
         step, the f32 master weights by parameter name (a bf16 model is
         rounded from them on restore), the optimizer and scheduler states,
         the model's buffers (the BN running statistics) and the drop-path
-        generator's state. Returns the file's path."""
+        generator's state. Rank 0 writes it (every rank holds the same
+        state), and every rank waits for it. Returns the file's path."""
+        path = os.path.join(ckpt_dir, f"step_{self.step_count}.pt")
+        if data_shard_info()[1] == 0:
+            self._write_checkpoint(ckpt_dir, path)
+        barrier()
+        return path
+
+    def _write_checkpoint(self, ckpt_dir: str, path: str) -> None:
         os.makedirs(ckpt_dir, exist_ok=True)
         names = [n for n, _ in self.model.named_parameters()]
         state = {"step": self.step_count,
@@ -125,15 +157,14 @@ class Trainer:
                  "scheduler": self.scheduler.state_dict(),
                  "buffers": dict(self.model.named_buffers()),
                  "generator": self.generator.get_state()}
-        path = os.path.join(ckpt_dir, f"step_{self.step_count}.pt")
         torch.save(state, path)
         with open(os.path.join(ckpt_dir, "latest.txt"), "w") as f:
             f.write(str(self.step_count))
-        return path
 
     def restore_checkpoint(self, ckpt_dir: str) -> Optional[int]:
         """Loads the checkpoint ``latest.txt`` names onto the trainer's
-        device and returns its step; None without ``latest.txt``."""
+        device (each rank onto its own) and returns its step; None without
+        ``latest.txt``."""
         latest = os.path.join(ckpt_dir, "latest.txt")
         if not os.path.isfile(latest):
             return None
@@ -218,7 +249,13 @@ def test_phase(p: dict, model, batches: Iterable[Dict],
     device with every image's ``K_matrix`` (the batches carry ``meta`` and
     the ``det_*`` ground truth); with a ``save_dir`` in ``p`` each image's
     official-format JSON goes under ``save_dir/3ddet``; ``scores["3ddet"]``
-    holds the evaluator's ``mDetection_Score`` and ``mAP``."""
+    holds the evaluator's ``mDetection_Score`` and ``mAP``.
+
+    Over several ranks each rank runs its own shard of the eval set (the
+    sampler pads the short shards with samples no meter counts) and writes
+    its own images' files; the meter states are summed over the ranks and
+    the detection records merged, so every rank returns the scores of the
+    whole set."""
     device = next(model.parameters()).device
     if meter is None:
         meter = PerformanceMeter(p, model.tasks, device)
@@ -250,6 +287,7 @@ def test_phase(p: dict, model, batches: Iterable[Dict],
                                     batch["meta"],
                                     database=p["train_db_name"])
     meter.states = states
+    meter.all_reduce_()
     scores = meter.get_score(verbose=False)
     if det_acc is not None:
         det = det_acc.evaluate()
@@ -274,19 +312,22 @@ def train_phase(p: dict, trainer: Trainer, train_loader, val_loader=None,
     ``p["train_vis_3ddet"]`` is false), the first batch of each epoch is
     also decoded before its step (``_train_det_vis``). Returns the history.
     A resumed loop starts again at epoch 0's first batch, as the JAX loop
-    does."""
-    from mtt_tpu_torch.utils.tb_writer import SummaryWriter, flatten_scores
+    does. Over several ranks every rank steps on its own shard and
+    evaluates; rank 0 alone logs (imgs/s of the global batch), writes
+    TensorBoard, the results and the detections, and the checkpoints."""
+    from mtt_tpu_torch.utils.tb_writer import SummaryWriter
     max_iter = max_iter or int(p.get("max_iter", 40000))
     val_interval = val_interval or int(p.get("val_interval", 1000))
     it = trainer.step_count
     epoch = 0
     history = []
     profiler = StepProfiler()
+    world, rank = data_shard_info()
     tb = SummaryWriter(os.path.join(p["save_dir"], "tb")) \
-        if "save_dir" in p else None
+        if "save_dir" in p and rank == 0 else None
     save_tasks = ("edge",) if "edge" in trainer.model.tasks else None
     det_vis = ("3ddet" in trainer.model.tasks and "save_dir" in p
-               and p.get("train_vis_3ddet", True))
+               and p.get("train_vis_3ddet", True) and rank == 0)
     t0 = time.time()
     try:
         while it < max_iter:
@@ -301,9 +342,9 @@ def train_phase(p: dict, trainer: Trainer, train_loader, val_loader=None,
                 losses = trainer.step(batch)
                 profiler.maybe_stop(it)
                 it += 1
-                if it % log_every == 0:
+                if it % log_every == 0 and rank == 0:
                     host = {k: float(v) for k, v in losses.items()}
-                    rate = log_every * batch["image"].shape[0] / (
+                    rate = log_every * world * batch["image"].shape[0] / (
                         time.time() - t0)
                     t0 = time.time()
                     trainer.log(f"iter {it} total {host['total']:.4f} "
@@ -321,15 +362,8 @@ def train_phase(p: dict, trainer: Trainer, train_loader, val_loader=None,
                     if val_loader is not None:
                         scores = test_phase(p, trainer.model, val_loader,
                                             save_tasks=save_tasks)
-                        trainer.log(f"eval@{it}: {json.dumps(scores)}")
-                        with open(os.path.join(
-                                p["save_dir"], f"results_iter{it}.json"),
-                                "w") as f:
-                            json.dump(scores, f)
-                        if tb is not None:
-                            tb.add_scalars(flatten_scores(scores), it,
-                                           prefix="perf/")
-                            tb.flush()
+                        if rank == 0:
+                            _log_scores(p, trainer, tb, scores, it)
                     trainer.save_checkpoint(p["checkpoint"])
                     if it >= max_iter:
                         return history
@@ -338,6 +372,19 @@ def train_phase(p: dict, trainer: Trainer, train_loader, val_loader=None,
     finally:
         if tb is not None:
             tb.close()
+
+
+def _log_scores(p: dict, trainer: Trainer, tb, scores: Dict, it: int):
+    """The eval's log line, ``results_iter<it>.json`` and ``perf/``
+    scalars."""
+    from mtt_tpu_torch.utils.tb_writer import flatten_scores
+    trainer.log(f"eval@{it}: {json.dumps(scores)}")
+    with open(os.path.join(p["save_dir"], f"results_iter{it}.json"),
+              "w") as f:
+        json.dump(scores, f)
+    if tb is not None:
+        tb.add_scalars(flatten_scores(scores), it, prefix="perf/")
+        tb.flush()
 
 
 @torch.no_grad()

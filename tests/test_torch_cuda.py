@@ -1347,3 +1347,22 @@ def test_main_refuses_float32_on_the_card(tmp_path, monkeypatch):
             root, "configs/pascal/taskprompter_vitBp16.yml"),
             "--dtype", "float32"])
     assert not os.listdir(tmp_path)
+
+
+def test_collectives_on_the_card(gen, tmp_path):
+    """Two ranks on the card (gloo on one card shared, NCCL on a card each):
+    ``all_reduce_sum``'s forward and summed-cotangent gradient, and
+    ``all_reduce_grads`` with a gradient that rank 1 lacks (summed as zeros,
+    its bf16 kept) and one that no rank has (left None), as the CPU test
+    ``tests/test_torch_parallel.py`` holds them."""
+    import torch_dist_worker as W
+    procs = W.launch([dict(name="collectives")], str(tmp_path),
+                     device="cuda")
+    for ranks in W.join(procs, str(tmp_path), timeout=240):
+        c = ranks[0]
+        assert torch.equal(c["y"], 2 * torch.arange(4.0) + 3)
+        assert torch.equal(c["x_grad"], torch.full((4,), 3.0))
+        assert torch.equal(c["a"], torch.full((3,), 3.0))
+        assert c["b_dtype"] == torch.bfloat16
+        assert torch.equal(c["b"], torch.ones(2, dtype=torch.bfloat16))
+        assert c["c"] is None
