@@ -157,6 +157,27 @@ Phases, in order (the seconds each took are printed):
      and ``mDetection_Score`` / ``mAP`` against the 1-rank run's
      (DP_SCORE_TOL). The launches of both ranks' checked step and eval are
      the kernels line's ``dp`` path.
+  18. ``datasets``: the dataset readers from data roots on disk, in a
+     temporary directory: the committed JPEG fixtures (tests/data/jpeg)
+     decoded by this host's g++ build of the decoder to the SHA-256 of
+     PIL's and cv2's pixels (``pixels.json``); trees in each dataset's own
+     layout (PASCAL-Context: 16 train and 8 val ids, the fixtures as their
+     images at VOC sizes, .mat label maps and human-parts structs, palette
+     semseg PNGs, RGB normals, grey saliency, the db_info JSONs;
+     Cityscapes-3D: 4 val frames at 1024x2048, RGB, labelIds and 16-bit
+     disparity PNGs with mixed scanline filters, gtBbox3d JSONs; NYUD-v2:
+     4 val ids at 448x576); ``main --max_iter 4 --val_interval 2`` with
+     ``MTT_DATA_ROOT`` at the PASCAL tree on the ViT-L YAML at full width
+     and depth (launch counts of 4 steps and 2 evals of 2 batches, finite
+     losses and scores, one edge PNG per val image at its own size);
+     Swin-B ``test_phase`` over the Cityscapes frames through
+     ``get_dataset`` and the CS3D val transforms (launch counts, finite 2D
+     scores, mDS and mAP in [0, 1]); one NYUD TaskPrompter-ViT-L eval
+     batch from disk. Prints, on the host: ms to decode a 500x375 JPEG, ms
+     per 1024x2048 PNG with the library's unfilter and numpy's, ms per
+     PASCAL sample and the share of the edge thinning, the loader's ms per
+     batch from disk, imgs/s from ``main``'s log lines. Its launches are
+     the kernels line's ``data`` path.
 The line before the last is the kernels JSON; the last line is the device JSON.
 
 ``python3 chip_smoke.py --profile`` runs none of these phases: after the
@@ -173,7 +194,7 @@ statistics at 10% in place of 1% (``_vary``), to see how the forwards'
 bf16 error grows with them.
 ``--phases kernels,invpt`` (any subset of kernels, attention_api, eval,
 invpt, swin, nyud, train, swin_train, invpt_train, nyud_train, evaluate,
-loop, detect, convert, parallel)
+loop, detect, convert, parallel, datasets)
 runs only those phases and prints no result lines: a quick look, not the
 check.
 """
@@ -2441,34 +2462,6 @@ def _cs3d_trainer(run_mode: str, seed: int):
     return p, Trainer(model, p, p.TASKS.NAMES, torch.bfloat16, gen)
 
 
-def _png_filtered(img) -> bytes:
-    """A PNG file of a uint8 (H, W, 3) image whose scanlines take the five
-    filters in turn (0 none, 1 sub, 2 up, 3 average, 4 Paeth; PNG spec,
-    section 9), as an encoder such as libpng mixes them in a photo: the
-    inference CLI's input, where ``write_png`` writes filter 0 only."""
-    import zlib
-
-    import numpy as np
-    h, w, bpp = img.shape
-    x = np.zeros((h + 1, (w + 1) * bpp), np.int16)
-    x[1:, bpp:] = img.reshape(h, w * bpp)
-    a, b, c = x[1:, :-bpp], x[:-1, bpp:], x[:-1, :-bpp]
-    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
-    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-    f = (np.arange(h, dtype=np.int16) % 5)[:, None]
-    pred = np.select([f == 1, f == 2, f == 3, f == 4],
-                     [a, b, (a + b) >> 1, paeth], 0)
-    raw = np.concatenate([f.astype(np.uint8), ((x[1:, bpp:] - pred) & 0xFF)
-                          .astype(np.uint8)], 1).tobytes()
-
-    def chunk(kind, data):
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
-
-
 @contextlib.contextmanager
 def _cut_val_set(cc):
     """``common_config.get_dataset`` with the val split cut to
@@ -2798,7 +2791,7 @@ def detect_phase():
         photo = np.clip(photo + rng.normal(0, 8, photo.shape), 0,
                         255).astype(np.uint8)
         with open(os.path.join(work, "pascal.png"), "wb") as f:
-            f.write(_png_filtered(photo))
+            f.write(_png_encode(photo))
         _build.reset_counts()
         t = time.perf_counter()
         rc = inference.main(["--config_exp", LOOP_CONFIG, "--image_path",
@@ -2830,7 +2823,7 @@ def detect_phase():
         cs_photo = photo[np.arange(SW_IMG[0]) % 375][
             :, np.arange(SW_IMG[1]) % 500]
         with open(os.path.join(work, "cs.png"), "wb") as f:
-            f.write(_png_filtered(cs_photo))
+            f.write(_png_encode(cs_photo))
         write_png(os.path.join(work, "cs_plain.png"), cs_photo)
         read_ms = {}
         for name in ("cs.png", "cs_plain.png"):
@@ -3234,7 +3227,7 @@ def convert_phase(vary: float = CONVERT_VARY):
         rng = np.random.default_rng(24)
         photo = rng.integers(0, 256, (375, 500, 3), dtype=np.uint8)
         with open(os.path.join(work, "in.png"), "wb") as f:
-            f.write(_png_filtered(photo))
+            f.write(_png_encode(photo))
         for tag, title, config, seed in CONVERT_PATHS:
             p = create_config(config, {"run_mode": "infer"})
             gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3994,6 +3987,472 @@ def parallel_phase():
     return {"dp": counts}
 
 
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "jpeg")
+DATA_TRAIN, DATA_VAL = 16, 8     # PASCAL ids of phase 18's tree
+DATA_ITERS, DATA_VAL_EVERY = 4, 2
+DATA_VAL_BATCHES = 2             # 8 val images in batches of 6
+DATA_CS_FRAMES, DATA_NYUD = 4, 4
+NYUD_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "nyud", "taskprompter_vitLp16.yml")
+# PASCAL-Context classes of the tree's label maps: NYU-compatible ones, a
+# tvmonitor, a person (the human-parts category), others
+DATA_NYU = ["wall", "floor", "bed", "chair", "unknown"]
+DATA_CONTEXT = {"unknown": 0, "wall": 3, "floor": 4, "bed": 5, "chair": 9,
+                "sky": 6, "tvmonitor": 7, "person": 15, "dog": 12}
+DATA_PARTS = ("head", "torso", "luarm", "rlleg", "hair", "lhand", "ruleg")
+
+
+def _png_encode(img, palette=None) -> bytes:
+    """A PNG file of a uint8 or uint16 (H, W) grey image (palette indices
+    with ``palette``, (n, 3) uint8) or (H, W, 3) RGB one, whose scanlines
+    take the five filters in turn (0 none, 1 sub, 2 up, 3 average, 4 Paeth;
+    PNG spec, section 9), as an encoder such as libpng mixes them in a
+    photo."""
+    import zlib
+
+    import numpy as np
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    depth = 16 if img.dtype == np.uint16 else 8
+    colour = 3 if palette is not None else {1: 0, 3: 2}[ch]
+    bpp = ch * depth // 8
+    data = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img)
+    x = np.zeros((h + 1, (w + 1) * bpp), np.int16)
+    x[1:, bpp:] = data.view(np.uint8).reshape(h, w * bpp)
+    a, b, c = x[1:, :-bpp], x[:-1, bpp:], x[:-1, :-bpp]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    f = (np.arange(h, dtype=np.int16) % 5)[:, None]
+    pred = np.select([f == 1, f == 2, f == 3, f == 4],
+                     [a, b, (a + b) >> 1, paeth], 0)
+    raw = np.concatenate([f.astype(np.uint8), ((x[1:, bpp:] - pred) & 0xFF)
+                          .astype(np.uint8)], 1).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+    head = chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0,
+                                      0))
+    if palette is not None:
+        head += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return (b"\x89PNG\r\n\x1a\n" + head
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def _write(path, data: bytes) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def _data_photo(rng, h, w):
+    """A seeded smooth RGB image with noise."""
+    import numpy as np
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([127 + 90 * np.sin(xx / (37.0 + 9 * c))
+                    * np.cos(yy / (23.0 + 5 * c)) for c in range(3)], -1)
+    return np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(
+        np.uint8)
+
+
+def _data_blocks(rng, h, w, values, dtype):
+    """A label map of rectangles of ``values`` over the first."""
+    import numpy as np
+    out = np.full((h, w), values[0], dtype)
+    for v in values[1:]:
+        y, x = int(rng.integers(0, h - 8)), int(rng.integers(0, w - 8))
+        out[y:y + int(rng.integers(8, h // 2)),
+            x:x + int(rng.integers(8, w // 2))] = v
+    return out
+
+
+def _pascal_tree(root, rng):
+    """PASCAL-Context in its own layout: 16 train and 8 val ids whose
+    images are the JPEG fixtures in turn (VOC's 500x375, 375x500, 500x333
+    and 400x300, baseline 4:2:0, 4:4:4 with restarts, grey, progressive
+    4:2:2, EXIF-rotated), the .mat label maps and human-parts ``anno``
+    structs (``scipy.io.savemat``), palette semseg PNGs, RGB normals, grey
+    saliency and the ``db_info`` JSONs. Returns {split: [(id, (h, w))]}."""
+    import numpy as np
+    import scipy.io as sio
+
+    from mtt_tpu_torch.data.image_io import read_image
+    jpegs = sorted(f for f in os.listdir(FIXTURES) if f.endswith(".jpg"))
+    os.makedirs(os.path.join(root, "db_info"))
+    with open(os.path.join(root, "db_info", "nyu_classes.json"), "w") as f:
+        json.dump(DATA_NYU, f)
+    with open(os.path.join(root, "db_info", "context_classes.json"),
+              "w") as f:
+        json.dump(DATA_CONTEXT, f)
+    palette = rng.integers(0, 256, (256, 3)).astype(np.uint8)
+    ids, k = {}, 0
+    part_dt = [("part_name", "O"), ("mask", "O")]
+    obj_dt = [("class", "O"), ("class_ind", "O"), ("mask", "O"),
+              ("parts", "O")]
+    for split, n in (("train", DATA_TRAIN), ("val", DATA_VAL)):
+        ids[split] = []
+        for i in range(n):
+            name = f"200{8 + (split == 'val')}_{i:06d}"
+            src = os.path.join(FIXTURES, jpegs[k % len(jpegs)])
+            k += 1
+            with open(src, "rb") as f:
+                _write(os.path.join(root, "JPEGImages", name + ".jpg"),
+                       f.read())
+            h, w = read_image(src, "pil_rgb").shape[:2]
+            ids[split].append((name, (h, w)))
+            lbl = _data_blocks(rng, h, w, list(DATA_CONTEXT.values()),
+                               np.uint16)
+            os.makedirs(os.path.join(root, "pascal-context", "trainval"),
+                        exist_ok=True)
+            sio.savemat(os.path.join(root, "pascal-context", "trainval",
+                                     name + ".mat"), {"LabelMap": lbl})
+            objs = [("chair", np.array([[9]], np.uint8), lbl == 9,
+                     np.zeros((0, 0)))]
+            if i % 2 == 0:
+                parts = np.zeros((1, 4), part_dt)
+                for j in range(4):
+                    m = np.zeros((h, w), np.uint8)
+                    y, x = int(rng.integers(0, h - 40)), \
+                        int(rng.integers(0, w - 40))
+                    m[y:y + 40, x:x + 40] = 1
+                    parts[0, j] = (DATA_PARTS[(i + j) % len(DATA_PARTS)], m)
+                objs.append(("person", np.array([[15]], np.uint8),
+                             (lbl == 15).astype(np.uint8), parts))
+            arr = np.zeros((1, len(objs)), obj_dt)
+            for j, o in enumerate(objs):
+                arr[0, j] = o
+            anno = np.zeros((1, 1), [("imname", "O"), ("objects", "O")])
+            anno[0, 0] = (name, arr)
+            os.makedirs(os.path.join(root, "human_parts"), exist_ok=True)
+            sio.savemat(os.path.join(root, "human_parts", name + ".mat"),
+                        {"anno": anno})
+            sem = _data_blocks(rng, h, w, [0, 15, 7, 9, 12, 255], np.uint8)
+            _write(os.path.join(root, "semseg", "VOC12", name + ".png"),
+                   _png_encode(sem, palette))
+            _write(os.path.join(root, "normals_distill", name + ".png"),
+                   _png_encode(_data_photo(rng, h, w)))
+            _write(os.path.join(root, "sal_distill", name + ".png"),
+                   _png_encode(_data_photo(rng, h, w)[..., 1]))
+        os.makedirs(os.path.join(root, "ImageSets", "Context"), exist_ok=True)
+        with open(os.path.join(root, "ImageSets", "Context",
+                               split + ".txt"), "w") as f:
+            f.write("\n".join(n for n, _ in ids[split]) + "\n")
+    return ids
+
+
+def _cityscapes_tree(root, rng):
+    """Cityscapes-3D's val split in its own layout: 4 frames at 1024x2048,
+    each an RGB PNG with mixed filters, a labelIds PNG, a 16-bit disparity
+    PNG (zeros where invalid) and a gtBbox3d JSON with boxes of the
+    evaluated classes and one that is not."""
+    import numpy as np
+
+    from mtt_tpu_torch.detection.cs_geometry import EVAL_LABELS
+    h, w = SW_IMG
+    frames = []
+    for i in range(DATA_CS_FRAMES):
+        city = ("frankfurt", "lindau", "munster")[i % 3]
+        base = f"{city}_000000_{i:06d}_"
+
+        def at(kind, suffix):
+            return os.path.join(root, kind, "val", city, base + suffix)
+        img_path = at("leftImg8bit", "leftImg8bit.png")
+        frames.append(img_path)
+        _write(img_path, _png_encode(_data_photo(rng, h, w)))
+        lbl = _data_blocks(rng, h, w, [7, 8, 10, 11, 13, 21, 23, 24, 26, 0],
+                           np.uint8)
+        _write(at("gtFine", "gtFine_labelIds.png"), _png_encode(lbl))
+        disp = rng.integers(1, 30000, (h, w)).astype(np.uint16)
+        disp[rng.random((h, w)) < 0.2] = 0
+        _write(at("disparity", "disparity.png"), _png_encode(disp))
+        objs = []
+        for j, label in enumerate(list(EVAL_LABELS) + ["person"]):
+            q = rng.normal(size=4)
+            x0, y0 = rng.uniform(0, w - 300), rng.uniform(300, h - 300)
+            objs.append({
+                "label": label,
+                "2d": {"modal": [x0, y0, 200.0, 150.0],
+                       "amodal": [x0 - 5, y0 - 5, 210.0, 160.0]},
+                "3d": {"center": [float(rng.uniform(8, 60)),
+                                  float(rng.uniform(-10, 10)),
+                                  float(rng.uniform(0, 1.5))],
+                       "dimensions": [float(v) for v in
+                                      rng.uniform(1, 5, 3)],
+                       "rotation": [float(v) for v in
+                                    q / np.linalg.norm(q)]}})
+        sensor = {"fx": SW_CAM_K[0][0], "fy": SW_CAM_K[1][1],
+                  "u0": SW_CAM_K[0][2], "v0": SW_CAM_K[1][2],
+                  "sensor_T_ISO_8855": [[0.999, -0.0195, -0.038, -1.65],
+                                        [0.0195, 0.9998, 0.0, -0.133],
+                                        [0.038, -0.0007, 0.9993, -1.284]]}
+        os.makedirs(os.path.dirname(at("gtBbox3d", "")), exist_ok=True)
+        with open(at("gtBbox3d", "gtBbox3d.json"), "w") as f:
+            json.dump({"sensor": sensor, "objects": objs}, f)
+    return frames
+
+
+def _nyud_tree(root, rng):
+    """NYUD-v2's val split in its own layout: 4 ids at 448x576, RGB image,
+    edge, 40-class segmentation and normals PNGs, depth .npy."""
+    import numpy as np
+    h, w = NYUD_IMG
+    names = [f"{i:04d}" for i in range(DATA_NYUD)]
+    os.makedirs(os.path.join(root, "gt_sets"))
+    for split in ("train", "val"):
+        with open(os.path.join(root, "gt_sets", split + ".txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    os.makedirs(os.path.join(root, "depth"))
+    for name in names:
+        _write(os.path.join(root, "images", name + ".png"),
+               _png_encode(_data_photo(rng, h, w)))
+        _write(os.path.join(root, "edge", name + ".png"), _png_encode(
+            (rng.random((h, w)) < 0.05).astype(np.uint8) * 255))
+        _write(os.path.join(root, "segmentation", name + ".png"),
+               _png_encode(_data_blocks(rng, h, w, list(range(0, 41, 4)),
+                                        np.uint8)))
+        _write(os.path.join(root, "normals", name + ".png"),
+               _png_encode(_data_photo(rng, h, w)))
+        np.save(os.path.join(root, "depth", name + ".npy"),
+                rng.uniform(0.5, 10, (h, w)).astype(np.float32))
+
+
+def datasets_phase():
+    """Phase 18: the dataset readers from data roots on disk, in a
+    temporary directory on the card's host (see the module docstring).
+    Returns the launch counts of the ``data`` path: ``main``'s steps and
+    evals, the Swin-B ``test_phase`` and the NYUD eval batch."""
+    import hashlib
+
+    import numpy as np
+    from mtt_tpu_torch import main as port_main
+    from mtt_tpu_torch.config import create_config
+    from mtt_tpu_torch.data import image_io
+    from mtt_tpu_torch.data.datasets import laplacian, zhang_suen_thin
+    from mtt_tpu_torch.evaluation import save_preds
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import build_model
+    from mtt_tpu_torch.utils import common_config as cc
+    from mtt_tpu_torch.utils import train_utils
+    from mtt_tpu_torch.utils.train_utils import test_phase
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cwd, stdout = os.getcwd(), sys.stdout
+    env_root = os.environ.get("MTT_DATA_ROOT")
+    real_train = train_utils.train_phase
+    work = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    rng = np.random.default_rng(18)
+    counts = {}
+
+    def restore_stdout():
+        if sys.stdout is not stdout:
+            sys.stdout.close()
+            sys.stdout = stdout
+
+    os.chdir(work)
+    try:
+        # a. the committed JPEG fixtures against PIL's and cv2's digests
+        with open(os.path.join(FIXTURES, "pixels.json")) as f:
+            table = json.load(f)
+        for name, entry in sorted(table.items()):
+            for key, mode in (("pil", "pil"), ("cv2", "cv2_color")):
+                a = np.ascontiguousarray(image_io.read_image(
+                    os.path.join(FIXTURES, name), mode))
+                if list(a.shape) != entry[key]["shape"] or hashlib.sha256(
+                        a.tobytes()).hexdigest() != entry[key]["sha256"]:
+                    raise RuntimeError(f"datasets: {name} in mode {mode} "
+                                       f"decodes to other pixels than "
+                                       f"{key}'s")
+        print(f"[datasets] {len(table)} JPEG fixtures decoded by this "
+              f"host's g++ build to PIL's and cv2's pixels (SHA-256 equal, "
+              f"EXIF orientation as cv2 applies it)", flush=True)
+
+        # b. the trees
+        t = time.perf_counter()
+        pascal_root = os.path.join(work, "PASCALContext")
+        ids = _pascal_tree(pascal_root, rng)
+        cs_root = os.path.join(work, "Cityscapes3D")
+        frames = _cityscapes_tree(cs_root, rng)
+        nyud_root = os.path.join(work, "NYUD_MT")
+        _nyud_tree(nyud_root, rng)
+        print(f"[datasets] trees written in {time.perf_counter() - t:.1f} s:"
+              f" PASCAL-Context {DATA_TRAIN} train + {DATA_VAL} val ids at "
+              f"{sorted({s for v in ids.values() for _, s in v})}, "
+              f"Cityscapes-3D {DATA_CS_FRAMES} val frames at {SW_IMG}, "
+              f"NYUD-v2 {DATA_NYUD} val ids at {NYUD_IMG}", flush=True)
+
+        # c. main on the PASCAL tree: ViT-L, 4 iterations, an eval every 2,
+        # a log line every iteration (main's train_phase logs every 50)
+        os.environ["MTT_DATA_ROOT"] = pascal_root
+        train_utils.train_phase = functools.partial(real_train, log_every=1)
+        _build.reset_counts()
+        t = time.perf_counter()
+        rc = port_main.main(["--config_exp", LOOP_CONFIG, "--max_iter",
+                             str(DATA_ITERS), "--val_interval",
+                             str(DATA_VAL_EVERY)])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        train_utils.train_phase = real_train
+        counts["main"] = dict(_build.COUNTS)
+        restore_stdout()
+        p = create_config(LOOP_CONFIG, {"run_mode": "infer"})
+        evals = DATA_ITERS // DATA_VAL_EVERY
+        want = {k: DATA_ITERS * v + evals * DATA_VAL_BATCHES
+                * expected_eval("factored")[k]
+                for k, v in expected_train().items()}
+        with open(os.path.join(p["output_dir"], "log_file.txt")) as f:
+            log = f.read()
+        steps = re.findall(r"iter (\d+) total (\S+) \(([0-9.]+) imgs/s\)",
+                           log)
+        print(f"[datasets] main --max_iter {DATA_ITERS} --val_interval "
+              f"{DATA_VAL_EVERY} on {os.path.relpath(LOOP_CONFIG, cwd)} with "
+              f"MTT_DATA_ROOT at the PASCAL tree: rc {rc}, {main_s:.1f} s; "
+              f"losses {[float(s[1]) for s in steps]}; imgs/s from the log "
+              f"lines {[float(s[2]) for s in steps]} (the first with the "
+              f"loader's start); launches {counts['main']}", flush=True)
+        if rc != 0 or counts["main"] != want:
+            raise RuntimeError(f"datasets: main returned {rc}, launches "
+                               f"{counts['main']} != {want}")
+        if [int(s[0]) for s in steps] != list(range(1, DATA_ITERS + 1)) or \
+                not all(math.isfinite(float(s[1])) for s in steps):
+            raise RuntimeError(f"datasets: log lines {steps}")
+        tasks = p.TASKS.NAMES
+        scores = [_finite_scores(os.path.join(
+            p["save_dir"], f"results_iter{it}.json"), tasks)
+            for it in range(DATA_VAL_EVERY, DATA_ITERS + 1, DATA_VAL_EVERY)]
+        print(f"[datasets] scores at iteration {DATA_ITERS} "
+              f"{json.dumps(scores[-1])}", flush=True)
+        edge_dir = os.path.join(p["save_dir"], "edge")
+        shapes = {n[:-4]: save_preds.read_png(os.path.join(edge_dir, n))
+                  .shape for n in os.listdir(edge_dir)}
+        if shapes != {n: s for n, s in ids["val"]}:
+            raise RuntimeError(f"datasets: edge PNGs {shapes}, want one a "
+                               f"val image at its size {ids['val']}")
+        print(f"[datasets] {len(shapes)} edge PNGs, each at its val "
+              f"image's own size (crop_padding of the 512x512 pad)",
+              flush=True)
+
+        # d. Swin-B test_phase over the Cityscapes tree
+        os.environ["MTT_DATA_ROOT"] = cs_root
+        p, trainer = _cs3d_trainer("infer", 18)
+        p["save_dir"] = os.path.join(work, "cs")
+        _, val_tf = cc.get_transformations(p)
+        ds = cc.get_dataset(p, "val", val_tf)
+        if type(ds).__name__ != "Cityscapes3D" or len(ds) != DATA_CS_FRAMES:
+            raise RuntimeError(f"datasets: {type(ds).__name__} of {len(ds)}")
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t = time.perf_counter()
+        cs_scores = test_phase(p, trainer.model, cc.get_test_dataloader(p,
+                                                                        ds))
+        torch.cuda.synchronize()
+        cs_s = time.perf_counter() - t
+        counts["cs3d"] = dict(_build.COUNTS)
+        print(f"[datasets] Swin-B test_phase over the {DATA_CS_FRAMES} "
+              f"Cityscapes-3D frames from disk (get_dataset, CS3D val "
+              f"transforms): {cs_s:.2f} s; scores {json.dumps(cs_scores)}; "
+              f"launches {counts['cs3d']}", flush=True)
+        det = cs_scores.get("3ddet", {})
+        if counts["cs3d"] != expected_swin() or set(cs_scores) != {
+                "semseg", "depth", "3ddet"} or not all(
+                math.isfinite(v) for s in cs_scores.values()
+                for v in s.values()) or set(det) != {
+                "mDetection_Score", "mAP"} or not all(
+                0.0 <= v <= 1.0 for v in det.values()):
+            raise RuntimeError(f"datasets: Cityscapes-3D launches "
+                               f"{counts['cs3d']} (want {expected_swin()}) "
+                               f"or scores {cs_scores}")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # e. one NYUD TaskPrompter-ViT-L eval batch from disk
+        os.environ["MTT_DATA_ROOT"] = nyud_root
+        p = create_config(NYUD_CONFIG, {"run_mode": "infer"})
+        gen = torch.Generator(device=dev).manual_seed(19)
+        model = build_model(p, img_size=tuple(p.TEST.SCALE), device=dev,
+                            dtype=torch.bfloat16).eval()
+        init_weights(model, gen)
+        _, val_tf = cc.get_transformations(p)
+        ds = cc.get_dataset(p, "val", val_tf)
+        loader = cc.get_test_dataloader(p, ds)
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        ny_scores = test_phase(p, model, loader)
+        torch.cuda.synchronize()
+        counts["nyud"] = dict(_build.COUNTS)
+        print(f"[datasets] NYUD TaskPrompter-ViT-L test_phase over "
+              f"{len(ds)} images from disk ({len(loader)} batch of "
+              f"{p['valBatch']}): scores {json.dumps(ny_scores)}; launches "
+              f"{counts['nyud']}", flush=True)
+        if type(ds).__name__ != "NYUD_MT" or len(loader) != 1 or \
+                counts["nyud"] != expected_nyud_taskprompter() or \
+                set(ny_scores) != set(p.TASKS.NAMES) or not all(
+                math.isfinite(v) for s in ny_scores.values()
+                for v in s.values()):
+            raise RuntimeError(f"datasets: NYUD launches {counts['nyud']} "
+                               f"(want {expected_nyud_taskprompter()}) or "
+                               f"scores {ny_scores}")
+        del model
+        torch.cuda.empty_cache()
+
+        # f. the host's share: decoders, a PASCAL sample, the loader
+        with open(os.path.join(FIXTURES, "baseline_420.jpg"), "rb") as f:
+            jpg = f.read()
+        jpeg_ms = _wall_ms(lambda: image_io.read_jpeg(jpg), 20)
+        png_ms = _wall_ms(lambda: image_io.read_png(frames[0]), 5)
+        png_plain_ms = _wall_ms(lambda: image_io.read_png(frames[0],
+                                                          impl="plain"), 3)
+        if not np.array_equal(image_io.read_png(frames[0]),
+                              image_io.read_png(frames[0], impl="plain")):
+            raise RuntimeError("datasets: the PNG unfilters disagree")
+        print(f"[datasets] host decode: a 500x375 4:2:0 JPEG "
+              f"{jpeg_ms:.2f} ms (median of 20); a 1024x2048 RGB PNG with "
+              f"mixed filters {png_ms:.1f} ms native, {png_plain_ms:.1f} ms "
+              f"with the numpy unfilter (medians of 5 and 3, zlib included)",
+              flush=True)
+        os.environ["MTT_DATA_ROOT"] = pascal_root
+        p = create_config(LOOP_CONFIG, {"run_mode": "infer"})
+        train_tf, _ = cc.get_transformations(p)
+        raw = cc.get_dataset(p, "train")
+        sample_ms = _wall_ms(lambda: [raw[i] for i in range(len(raw))], 3) \
+            / len(raw)
+        import scipy.io as sio
+        maps = [sio.loadmat(raw.edges[i])["LabelMap"]
+                for i in range(len(raw))]
+        thin_ms = _wall_ms(lambda: [zhang_suen_thin(np.abs(laplacian(m)) > 0)
+                                    for m in maps], 3) / len(raw)
+        loader = cc.get_train_dataloader(p, cc.get_dataset(p, "train",
+                                                           train_tf))
+        t = time.perf_counter()
+        for i, _ in enumerate(loader):
+            if i == 3:
+                break
+        loader_ms = (time.perf_counter() - t) * 1e3 / 4
+        print(f"[datasets] a PASCAL sample from disk (5 tasks, no "
+              f"transforms) {sample_ms:.1f} ms, of it the edge's Laplacian "
+              f"and zhang_suen_thin {thin_ms:.1f} ms "
+              f"({100 * thin_ms / sample_ms:.0f}%); the loader "
+              f"{loader_ms:.1f} ms per batch of {p['trBatch']} through the "
+              f"training transforms ({p.get('nworkers', 2)} threads, 4 "
+              f"batches from the pool's start; phase 14 times the synthetic "
+              f"batches)", flush=True)
+        print(f"[datasets] phase {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+        return {"data": {k: sum(c[k] for c in counts.values())
+                         for k in _build.COUNTS}}
+    finally:
+        restore_stdout()
+        train_utils.train_phase = real_train
+        if env_root is None:
+            os.environ.pop("MTT_DATA_ROOT", None)
+        else:
+            os.environ["MTT_DATA_ROOT"] = env_root
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # profile: kernel-name fragment -> group; anything else is library work
 PROFILE_GROUPS = (# the shared GEMM (gemm.cu) by its epilogue: fc1 of rows 4
                   # and 8; fc2 of row 4; fc2 of row 8 and rows 1-2's qkv
@@ -4306,7 +4765,8 @@ PHASES = {"kernels": kernel_phase, "attention_api": attention_api_phase,
           "swin_train": swin_train_phase, "invpt_train": invpt_train_phase,
           "nyud_train": nyud_train_phase, "evaluate": evaluate_phase,
           "loop": loop_phase, "detect": detect_phase,
-          "convert": convert_phase, "parallel": parallel_phase}
+          "convert": convert_phase, "parallel": parallel_phase,
+          "datasets": datasets_phase}
 
 
 def main(argv=None):
@@ -4385,7 +4845,7 @@ def main(argv=None):
                    "nyud_train": outcome["nyud_train"],
                    "evaluate": outcome["evaluate"], "loop": outcome["loop"],
                    **outcome["detect"], **outcome["convert"],
-                   **outcome["parallel"]}
+                   **outcome["parallel"], **outcome["datasets"]}
 
     rows = []
     for name, (src, replaces, counter, path) in KERNEL_ROWS.items():

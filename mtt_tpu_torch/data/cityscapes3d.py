@@ -1,20 +1,25 @@
-"""Cityscapes-3D sample helpers and transforms on the host, in numpy (port of
-mtt_tpu/data/cityscapes3d.py): the gtFine label ids encoded to the 19 train
-classes, a gtBbox3d.json turned into padded S-frame ground-truth arrays,
-and the transforms (the image to ``TRAIN.SCALE`` by cv2's linear resize and
-ImageNet-normalised, semseg and depth to ``dd_label_map_size`` by nearest
-neighbour, both with ``data/transforms.py: resize``, cv2's float path bit
-for bit). The dataset reader, which decodes the images, is ROADMAP.md item
-1.8: ``common_config.get_dataset`` raises with a data root on disk.
+"""The Cityscapes-3D dataset on the host, in numpy (port of
+mtt_tpu/data/cityscapes3d.py): the reader of a data root on disk
+(``Cityscapes3D``: leftImg8bit images, gtFine label ids encoded to the 19
+train classes, disparity (d - 1) / 256 with -1 where invalid and 0 on sky,
+the camera of each frame's gtBbox3d.json, its boxes as padded S-frame
+ground-truth arrays), and the transforms (the image to ``TRAIN.SCALE`` by
+cv2's linear resize and ImageNet-normalised, semseg and depth to
+``dd_label_map_size`` by nearest neighbour, both with ``data/transforms.py:
+resize``, cv2's float path bit for bit). The PNGs are decoded by
+``data/image_io.read_image`` in the mode of the cv2 call the JAX reader
+makes.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict, Tuple
+import os
+from typing import Dict, List, Tuple
 
 import numpy as np
 
+from mtt_tpu_torch.data.image_io import read_image
 from mtt_tpu_torch.data.transforms import resize
 from mtt_tpu_torch.detection.cs_geometry import (EVAL_LABELS, LABEL_TO_ID,
                                                  box_v_to_s, projection_matrix,
@@ -91,6 +96,92 @@ def load_det_json(det_path: str, max_boxes: int
     return out, K, {"fx": sensor["fx"], "fy": sensor["fy"],
                     "u0": sensor["u0"], "v0": sensor["v0"],
                     "sensor_T_ISO_8855": sensor["sensor_T_ISO_8855"]}
+
+
+class Cityscapes3D:
+    """Frames of one split under ``root`` (the official layout:
+    ``leftImg8bit``, ``gtFine``, ``disparity``, ``gtBbox3d``); the training
+    split keeps only frames with boxes of the evaluated classes, and
+    ``overfit`` keeps 16 frames."""
+
+    def __init__(self, root: str, split: str = "train", p=None,
+                 transform=None, overfit: bool = False,
+                 max_boxes: int = 64, ignore_index: int = 255):
+        self.root = root
+        self.split = split
+        self.p = p
+        self.transform = transform
+        self.ignore_index = ignore_index
+        self.max_boxes = (p.det_cfg.get("max_boxes", max_boxes)
+                          if p is not None and "det_cfg" in p else max_boxes)
+        self.dd_label_map_size = (tuple(p["dd_label_map_size"]) if p
+                                  else (512, 1024))
+
+        img_base = os.path.join(root, "leftImg8bit", split)
+        self.files: List[str] = []
+        for dirpath, _, names in os.walk(img_base):
+            for nm in sorted(names):
+                if nm.endswith(".png"):
+                    self.files.append(os.path.join(dirpath, nm))
+        self.files.sort()
+
+        if split == "train":
+            self.files = [f for f in self.files if self._has_boxes(f)]
+        if overfit:
+            self.files = self.files[:16]
+
+    def _paths(self, img_path: str) -> Dict[str, str]:
+        city = img_path.split(os.sep)[-2]
+        base = os.path.basename(img_path)[:-len("leftImg8bit.png")]
+        return {
+            "semseg": os.path.join(self.root, "gtFine", self.split, city,
+                                   base + "gtFine_labelIds.png"),
+            "depth": os.path.join(self.root, "disparity", self.split, city,
+                                  base + "disparity.png"),
+            "det": os.path.join(self.root, "gtBbox3d", self.split, city,
+                                base + "gtBbox3d.json"),
+        }
+
+    def _has_boxes(self, img_path: str) -> bool:
+        det = self._paths(img_path)["det"]
+        if not os.path.isfile(det):
+            return False
+        with open(det) as f:
+            bj = json.load(f)
+        return any(o["label"] in EVAL_LABELS for o in bj["objects"])
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, idx, rng=None):
+        img_path = self.files[idx]
+        paths = self._paths(img_path)
+        img = read_image(img_path, "cv2_color").astype(np.float32)
+        H, W = img.shape[:2]
+        sample: Dict = {"image": img}
+
+        lbl = read_image(paths["semseg"], "cv2_unchanged")
+        sample["semseg"] = encode_segmap(lbl.astype(np.int32),
+                                         self.ignore_index).astype(np.float32)
+
+        disp = read_image(paths["depth"], "cv2_unchanged").astype(np.float32)
+        disp[disp > 0] = (disp[disp > 0] - 1) / 256.0
+        disp[disp == 0] = -1.0
+        disp[lbl == 10] = 0.0  # sky: disparity 0
+        sample["depth"] = disp
+
+        det, K, cam = load_det_json(paths["det"], self.max_boxes)
+        sample.update(det)
+        sample["meta"] = {
+            "img_name": os.path.basename(img_path)[:-4],
+            "img_size": (H, W),
+            "K_matrix": K,
+            "camera": cam,
+            "scale_factor": np.array([1.0, 1.0], np.float32),
+        }
+        if self.transform is not None:
+            sample = self.transform(sample, rng or np.random.default_rng())
+        return sample
 
 
 class CS3DValTransforms:

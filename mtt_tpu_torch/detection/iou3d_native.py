@@ -7,78 +7,42 @@ are not bound, as the port's decode runs its own on the device
 
 At first use the library is compiled by ``g++`` from the checkout's
 ``native/iou3d.cpp`` into ``build/mtt_tpu_torch/<hash>/libiou3d.so`` (the
-hash of the source, the flags and the compiler's version), as the CUDA
-kernels are built (``kernels/_build.py``); ``native/`` is never written. A
-build or load that fails raises: no caller falls back to the plain version.
+hash of the source, the flags and the compiler's version) by
+``utils/native_build.py``; ``native/`` is never written. A build or load
+that fails raises: no caller falls back to the plain version.
 ``impl="plain"`` asks for the plain version, in numpy.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import platform
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
 
+from mtt_tpu_torch.utils import native_build
+
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "iou3d.cpp"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "mtt_tpu_torch"
+BUILD_ROOT = native_build.BUILD_ROOT
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-
-_lock = threading.Lock()
-_lib = None
-
-
-def _compiler() -> str:
-    cxx = shutil.which(os.environ.get("CXX", "g++"))
-    if cxx is None:
-        raise RuntimeError("no C++ compiler (g++ or $CXX) on PATH: "
-                           "native/iou3d.cpp cannot be built")
-    return cxx
 
 
 def build() -> Path:
     """Compiles ``native/iou3d.cpp`` unless a library of the same source,
     flags and compiler exists; returns its path."""
-    cxx = _compiler()
-    version = subprocess.run([cxx, "-dumpfullversion", "-dumpversion"],
-                             capture_output=True, text=True,
-                             check=True).stdout.strip()
-    h = hashlib.sha256(" ".join((cxx, version, platform.machine(),
-                                 *CXX_FLAGS)).encode())
-    h.update(SOURCE.read_bytes())
-    out_dir = BUILD_ROOT / h.hexdigest()[:16]
-    lib = out_dir / "libiou3d.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    # a per-process name, then an atomic rename: concurrent first uses
-    tmp = out_dir / f"libiou3d.so.{os.getpid()}.tmp"
-    run = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    if run.returncode != 0:
-        raise RuntimeError(f"building {SOURCE} failed:\n{run.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    return native_build.build(SOURCE, "iou3d", CXX_FLAGS, BUILD_ROOT)
+
+
+def _bind(handle: ctypes.CDLL) -> None:
+    dp = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    n = ctypes.c_int64
+    handle.iou_matrix_2d.argtypes = [dp, n, dp, n, dp]
+    handle.iou_matrix_2d.restype = None
 
 
 def lib() -> ctypes.CDLL:
     """The loaded library, built at first use."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            dp = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
-            n = ctypes.c_int64
-            handle.iou_matrix_2d.argtypes = [dp, n, dp, n, dp]
-            handle.iou_matrix_2d.restype = None
-            _lib = handle
-    return _lib
+    return native_build.load("iou3d", build, _bind)
 
 
 def _rows(a, width: int) -> np.ndarray:

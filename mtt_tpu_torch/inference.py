@@ -3,17 +3,18 @@ batch (``predict``, with the decode of the 3D detections), and the
 single-image CLI of the repository's inference.py:
 
     python -m mtt_tpu_torch.inference --config_exp CONFIG.yml \
-        --image_path img.png [--ckpt_dir DIR] --output_dir out/
+        --image_path img.jpg [--ckpt_dir DIR] --output_dir out/
 
-The PNG is resized to the config's ``TEST.SCALE`` (cv2's uint8 cubic,
+The image (any JPEG or PNG that ``data/image_io.py`` decodes, read as
+``cv2.imread`` reads it: RGB, a JPEG's EXIF orientation applied) is resized to the config's ``TEST.SCALE`` (cv2's uint8 cubic,
 ``data/transforms.py: resize_cubic_u8``) and normalised; the model (seeded
 random weights, or the checkpoint ``latest.txt`` names in ``--ckpt_dir``,
 read by ``Trainer.restore_checkpoint``) runs on the card unless the caller
 of ``main`` passes another device; each task's map is written as
 ``<task>.png`` (``visualize``), and for Cityscapes-3D the boxes above score
 0.3 as wireframes on the original image (``3ddet.png``), decoded with the
-Stuttgart camera and the resize's ``scale_xy``. Input formats other than
-PNG raise (ROADMAP.md item 1.8).
+Stuttgart camera and the resize's ``scale_xy``. Other formats raise
+(ROADMAP.md item 1.13).
 """
 
 from __future__ import annotations
@@ -152,14 +153,12 @@ def infer_3ddet(dec: Dict[str, torch.Tensor], ori_img: np.ndarray,
 
 def load_image(path: str, size: Tuple[int, int]
                ) -> Tuple[np.ndarray, np.ndarray]:
-    """(the PNG as RGB uint8, it resized to ``size`` = (H, W)): grey is
-    repeated to three channels and alpha dropped, as ``cv2.imread`` does."""
+    """(the image as RGB uint8, it resized to ``size`` = (H, W)), as the
+    repository's inference.py reads it with ``cv2.imread``: grey repeated to
+    three channels, alpha dropped, a JPEG's EXIF orientation applied."""
+    from mtt_tpu_torch.data.image_io import read_image
     from mtt_tpu_torch.data.transforms import resize_cubic_u8
-    from mtt_tpu_torch.evaluation.save_preds import read_png
-    img = read_png(path)
-    if img.ndim == 2:
-        img = np.repeat(img[..., None], 3, -1)
-    img = np.ascontiguousarray(img[..., :3])
+    img = read_image(path, "cv2_color")
     return img, resize_cubic_u8(img, (size[1], size[0]))
 
 

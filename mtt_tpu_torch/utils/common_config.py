@@ -1,11 +1,12 @@
 """Transforms, datasets and loaders from a config (port of
 mtt_tpu/utils/common_config.py).
 
-The dataset readers are not ported (ROADMAP.md item 1.8): without a data
-root (``db_paths`` or ``MTT_DATA_ROOT``) the datasets are ``SyntheticMT``
-through the real transforms, 256 training and 64 eval samples (64 and 64
-with ``overfit``), as in the JAX package; with a root on disk
-``get_dataset`` raises rather than fall back to synthetic data.
+With a data root on disk (the config's ``db_paths`` entry of the database,
+else ``MTT_DATA_ROOT``) the dataset is its reader (``data/datasets.py:
+PASCALContext``, ``NYUD_MT``; ``data/cityscapes3d.py: Cityscapes3D``);
+without one it is ``SyntheticMT`` through the real transforms, 256
+training and 64 eval samples (64 and 64 with ``overfit``), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -45,19 +46,37 @@ def _db_root(p, db: str) -> Optional[str]:
 
 
 def get_dataset(p, split: str, transforms=None, overfit: bool = False):
-    """The synthetic stand-in of the config's database and split."""
+    """The reader of the config's database and split under its data root,
+    or the synthetic stand-in when no root is on disk."""
     db = p["train_db_name"]
-    root = _db_root(p, _DB_DIRS.get(db, db))
-    if root is not None:
-        raise NotImplementedError(
-            f"a {db} data root is on disk ({root}), but the dataset readers "
-            f"are not ported yet (ROADMAP.md item 1.8)")
     tasks = p.TASKS.NAMES
-    num_out = {t: p.TASKS.NUM_OUTPUT[t] for t in tasks}
-    size = p.TRAIN.SCALE if split == "train" else p.TEST.SCALE
-    return SyntheticMT(tasks, num_out, size=tuple(size),
-                       length=64 if (overfit or split != "train") else 256,
-                       transform=transforms)
+    root = _db_root(p, _DB_DIRS.get(db, db))
+    if root is None:
+        num_out = {t: p.TASKS.NUM_OUTPUT[t] for t in tasks}
+        size = p.TRAIN.SCALE if split == "train" else p.TEST.SCALE
+        return SyntheticMT(tasks, num_out, size=tuple(size),
+                           length=64 if (overfit or split != "train")
+                           else 256, transform=transforms)
+    if db == "PASCALContext":
+        from mtt_tpu_torch.data.datasets import PASCALContext
+        return PASCALContext(
+            root, split=["train"] if split == "train" else "val",
+            transform=transforms, overfit=overfit,
+            do_semseg="semseg" in tasks, do_edge="edge" in tasks,
+            do_normals="normals" in tasks, do_sal="sal" in tasks,
+            do_human_parts="human_parts" in tasks)
+    if db == "NYUD":
+        from mtt_tpu_torch.data.datasets import NYUD_MT
+        return NYUD_MT(root, split=split, transform=transforms,
+                       overfit=overfit, do_edge="edge" in tasks,
+                       do_semseg="semseg" in tasks,
+                       do_normals="normals" in tasks,
+                       do_depth="depth" in tasks)
+    if db == "Cityscapes3D":
+        from mtt_tpu_torch.data.cityscapes3d import Cityscapes3D
+        return Cityscapes3D(root, split=split, p=p, transform=transforms,
+                            overfit=overfit)
+    raise NotImplementedError(db)
 
 
 def get_train_dataloader(p, dataset, num_shards: int = 1,

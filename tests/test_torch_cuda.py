@@ -1366,3 +1366,27 @@ def test_collectives_on_the_card(gen, tmp_path):
         assert c["b_dtype"] == torch.bfloat16
         assert torch.equal(c["b"], torch.ones(2, dtype=torch.bfloat16))
         assert c["c"] is None
+
+
+def test_jpeg_fixtures_decode_to_pixels_json(gen):
+    """On the card's machine (no PIL, no cv2): its g++ builds the JPEG
+    decoder, which decodes the committed fixtures (tests/data/jpeg) to the
+    pixels whose SHA-256 ``pixels.json`` records from PIL (``pil`` mode)
+    and cv2 (``cv2_color``, EXIF orientation applied)."""
+    import hashlib
+    import json
+    import os
+    import numpy as np
+    from mtt_tpu_torch.data.image_io import read_image
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "jpeg")
+    with open(os.path.join(root, "pixels.json")) as f:
+        table = json.load(f)
+    assert len(table) == 5
+    for name, entry in table.items():
+        for key, mode in (("pil", "pil"), ("cv2", "cv2_color")):
+            a = np.ascontiguousarray(read_image(os.path.join(root, name),
+                                                mode))
+            assert list(a.shape) == entry[key]["shape"], (name, key)
+            assert hashlib.sha256(a.tobytes()).hexdigest() == \
+                entry[key]["sha256"], (name, key)

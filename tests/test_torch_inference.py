@@ -165,13 +165,20 @@ def test_resize_cubic_u8_within_a_level_of_cv2():
 
 
 def test_cli_refuses_what_is_not_a_png(tmp_path):
-    """A JPEG input raises and names ROADMAP item 1.8 (its decoder comes
-    with the dataset readers)."""
+    """A file that is neither PNG nor JPEG raises and names ROADMAP item
+    1.13; a JPEG loads as ``cv2.imread`` reads it (RGB order), a grey PNG
+    repeated to three channels."""
     from mtt_tpu_torch.inference import load_image
+    bmp = tmp_path / "x.bmp"
+    cv2.imwrite(str(bmp), _photo(20, 30, 5))
+    with pytest.raises(NotImplementedError, match="item 1.13"):
+        load_image(str(bmp), (32, 32))
     path = tmp_path / "x.jpg"
     cv2.imwrite(str(path), _photo(20, 30, 5))
-    with pytest.raises(NotImplementedError, match="item 1.8"):
-        load_image(str(path), (32, 32))
+    ori, img = load_image(str(path), (32, 32))
+    assert np.array_equal(ori, cv2.cvtColor(cv2.imread(str(path)),
+                                            cv2.COLOR_BGR2RGB))
+    assert img.shape == (32, 32, 3)
     grey = tmp_path / "g.png"
     cv2.imwrite(str(grey), _photo(20, 30, 5)[..., 0])
     ori, img = load_image(str(grey), (40, 60))

@@ -140,8 +140,9 @@ def test_read_png_matches_cv2(tmp_path):
     """``read_png`` equals ``cv2.imread`` (IMREAD_UNCHANGED, channels to
     RGB order) on grey, RGB and RGBA PNGs, wide, tall and one pixel wide,
     written by cv2, by a test encoder that uses each of the five scanline
-    filters, and by ``write_png``; a
-    16-bit PNG and a JPEG raise and name ROADMAP item 1.8."""
+    filters, and by ``write_png``; a 16-bit PNG gives cv2's uint16 samples
+    (``data/image_io.py`` reads every bit depth), and a JPEG is refused
+    (``read_png`` reads PNG only; ``read_image`` takes both)."""
     from mtt_tpu_torch.evaluation.save_preds import read_png, write_png
     rng = np.random.default_rng(2)
     yy, xx = np.mgrid[0:37, 0:53]
@@ -181,11 +182,12 @@ def test_read_png_matches_cv2(tmp_path):
             assert np.array_equal(read_png(str(path)), cv2_rgb(path))
     deep = tmp_path / "deep.png"
     cv2.imwrite(str(deep), (imgs["grey"].astype(np.uint16) * 257))
-    with pytest.raises(NotImplementedError, match="item 1.8"):
-        read_png(str(deep))
+    got = read_png(str(deep))
+    assert got.dtype == np.uint16 and np.array_equal(
+        got, cv2.imread(str(deep), cv2.IMREAD_UNCHANGED))
     jpg = tmp_path / "x.jpg"
     cv2.imwrite(str(jpg), imgs["rgb"])
-    with pytest.raises(NotImplementedError, match="item 1.8"):
+    with pytest.raises(ValueError, match="not a PNG"):
         read_png(str(jpg))
 
 

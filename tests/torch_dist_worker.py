@@ -292,9 +292,12 @@ def main_multihost(tmp: str) -> dict:
                      ("embed_dim: 300", "embed_dim: 24"),
                      ("final_embed_dim: 350", "final_embed_dim: 28")):
         text = text.replace(old, new)
+    # both ranks write the file: each writes its own copy and renames it in
+    # place, so that neither reads the file while the other truncates it
     yml = os.path.join(tmp, "exp.yml")
-    with open(yml, "w") as f:
+    with open(f"{yml}.{os.getpid()}", "w") as f:
         f.write(text)
+    os.replace(f"{yml}.{os.getpid()}", yml)
     DB_SCALES["PASCALContext"] = ((32, 32), (32, 32))
     real_dataset = cc.get_dataset
 
