@@ -178,11 +178,25 @@ Phases, in order (the seconds each took are printed):
      PASCAL sample and the share of the edge thinning, the loader's ms per
      batch from disk, imgs/s from ``main``'s log lines. Its launches are
      the kernels line's ``data`` path.
+  19. ``options``: the model options: the InvPT-ViT-L PASCAL step at
+     batch 2 and the Swin-B Cityscapes-3D step at batch 1, each with
+     ``remat`` off and on from one state and one generator, on
+     deterministic library algorithms: the rematted step's losses,
+     gradients, BN running statistics and generator state equal to the
+     plain step's bits, the launch counts of each (the rematted blocks'
+     forward launches twice), each step's own peak memory and ms per step;
+     then eval forwards at batch 8 of TaskPrompter-ViT-L PASCAL with the
+     phase up4 head, the mlp and the deconv head, InvPT-ViT-L PASCAL with
+     the conv and the deconv head (through ``predict``: the checks of phase
+     5) and Swin-B Cityscapes-3D with the conv head (launch counts, every
+     2D map and detection level against an f32 run). Its launches are the
+     kernels line's ``options_*`` paths.
 The line before the last is the kernels JSON; the last line is the device JSON.
 
 ``python3 chip_smoke.py --profile`` runs none of these phases: after the
 build it traces one eval forward of each model and one training step of
-each training path with ``torch.profiler`` and prints their wall time and
+each training path (for ``options``: the InvPT-ViT-L and Swin-B steps with
+remat off and on) with ``torch.profiler`` and prints their wall time and
 device time by kernel group (with ``--phases``, only those paths').
 ``python3 chip_smoke.py --grad-diag`` runs none of them either: it prints how
 far the Swin-B training step's bf16 gradients move between two runs on equal
@@ -194,7 +208,7 @@ statistics at 10% in place of 1% (``_vary``), to see how the forwards'
 bf16 error grows with them.
 ``--phases kernels,invpt`` (any subset of kernels, attention_api, eval,
 invpt, swin, nyud, train, swin_train, invpt_train, nyud_train, evaluate,
-loop, detect, convert, parallel, datasets)
+loop, detect, convert, parallel, datasets, options)
 runs only those phases and prints no result lines: a quick look, not the
 check.
 """
@@ -4453,6 +4467,239 @@ def datasets_phase():
         shutil.rmtree(work, ignore_errors=True)
 
 
+OPT_TIMED_STEPS = 3              # timed steps a trainer, plain and remat in turns
+
+
+def expected_invpt_train_remat() -> dict:
+    """The InvPT-ViT-L step with ``remat``: every ViT block runs again in
+    the backward, so its forward launches count twice: the attention
+    (cached kernel) of all 24, LayerNorm + the plain MLP of blocks 1..23,
+    the fused half-block of block 0. The decoder is not rematted."""
+    base = expected_invpt_train()
+    return {**base, "attention_cached": 24 + 24,
+            "layernorm": base["layernorm"] + 23,
+            "mlp_ln_res": base["mlp_ln_res"] + 1,
+            "mlp_fc": base["mlp_fc"] + 23}
+
+
+def expected_swin_train_remat() -> dict:
+    """The Swin-B step with ``remat``: every Swin block runs again in the
+    backward (20 window attentions, the 47 MLPs and 95 LayerNorms of the
+    blocks); the 2D heads and the detection head, rematted too, are torch.
+    The patch norm, the merges' and the final norm are not rematted."""
+    base = expected_swin_train()
+    blocks = sum((2, 2, 18, 2))
+    return {**base, "window_attention": 2 * (blocks - 4),
+            "mlp_fc": 2 * (2 * blocks - 1),
+            "layernorm": base["layernorm"] + 4 * blocks - 1}
+
+
+def _remat_pair(tag, title, p, seed, batch_size, want, want_remat):
+    """The step of config ``p`` with ``remat`` off and on, from one state
+    and one generator (``make_trainer`` twice on ``seed``), under
+    deterministic library algorithms: the rematted step's losses, every
+    gradient, every BN running statistic and the drop-path generator's
+    state after the step equal the plain step's bits; the launch counts of
+    each; the step's own peak memory (over what was allocated when it
+    began); after one untimed step each, ms per step (host clock),
+    OPT_TIMED_STEPS steps each, in turns. Returns the counts of each."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.train import make_trainer
+    from mtt_tpu_torch.utils.train_utils import to_device
+
+    dev = torch.device("cuda")
+    runs = {}
+    for remat in (False, True):
+        trainer, data = make_trainer(dict(p, remat=remat), seed=seed,
+                                     device=dev)
+        runs[remat] = {"trainer": trainer}
+    batches = [to_device(data.batch(i * batch_size, batch_size), dev)
+               for i in range(1 + OPT_TIMED_STEPS)]
+    for remat, run in runs.items():
+        trainer = run["trainer"]
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        with _deterministic():
+            losses = trainer.backward(batches[0])
+        torch.cuda.synchronize()
+        run.update(counts=dict(_build.COUNTS), losses=losses,
+                   peak=(torch.cuda.max_memory_allocated() - start) / 2 ** 30,
+                   grads={n: w.grad for n, w in
+                          trainer.model.named_parameters()},
+                   buffers=dict(trainer.model.named_buffers()),
+                   gen=trainer.generator.get_state())
+        print(f"[options] {tag} remat {'on' if remat else 'off'}: {title}; "
+              f"launches of one step {run['counts']}", flush=True)
+    plain, rem = runs[False], runs[True]
+    for counts, expected in ((plain["counts"], want),
+                             (rem["counts"], want_remat)):
+        if counts != expected:
+            raise RuntimeError(f"options {tag} launch counts {counts} != "
+                               f"{expected}")
+    differ = [k for k in plain["losses"]
+              if not torch.equal(plain["losses"][k], rem["losses"][k])]
+    differ += [n for n, g in plain["grads"].items()
+               if (g is None) != (rem["grads"][n] is None)
+               or (g is not None and not torch.equal(g, rem["grads"][n]))]
+    differ += [n for n, b in plain["buffers"].items()
+               if not torch.equal(b, rem["buffers"][n])]
+    if not torch.equal(plain["gen"], rem["gen"]):
+        differ.append("the drop-path generator's state")
+    n_grads = sum(g is not None for g in plain["grads"].values())
+    if differ or not all(torch.isfinite(v) for v in plain["losses"].values()):
+        raise RuntimeError(f"options {tag}: the rematted step differs from "
+                           f"the plain one in {differ[:8]} ({len(differ)} "
+                           f"in all), or a loss is not finite")
+    print(f"[options] {tag}: the rematted step equals the plain one to the "
+          f"bit: {len(plain['losses'])} losses, {n_grads} gradients, "
+          f"{len(plain['buffers'])} buffers, the generator state", flush=True)
+    for run in runs.values():
+        for k in ("losses", "grads", "buffers"):
+            del run[k]
+    for run in runs.values():     # untimed: Adam's state is made here
+        run["trainer"].step(batches[1])
+    ms = {False: [], True: []}
+    for batch in batches[1:]:
+        for remat, run in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run["trainer"].step(batch)
+            torch.cuda.synchronize()
+            ms[remat].append((time.perf_counter() - t0) * 1e3)
+    med = {r: statistics.median(v) for r, v in ms.items()}
+    print(f"[options] {tag}: peak memory of the checked step over its start "
+          f"remat off {plain['peak']:.3f} GiB, on {rem['peak']:.3f} GiB "
+          f"({rem['peak'] / plain['peak']:.3f}x); ms per step (median of "
+          f"{OPT_TIMED_STEPS}, in turns) off {med[False]:.2f} "
+          f"{[round(v, 2) for v in ms[False]]}, on {med[True]:.2f} "
+          f"{[round(v, 2) for v in ms[True]]} ({med[True] / med[False]:.3f}"
+          f"x)", flush=True)
+    if not rem["peak"] < plain["peak"]:
+        raise RuntimeError(f"options {tag}: remat did not lower the step's "
+                           f"peak memory")
+    return {f"{tag}_step": plain["counts"],
+            f"{tag}_step_remat": rem["counts"]}
+
+
+def _swin_conv_check(batch: int = B) -> dict:
+    """TaskPrompter-Swin-B Cityscapes-3D with the ``conv`` head (JAX's dense
+    ConvHead on the fused map) at ``batch`` images of 1024x2048 through
+    ``predict``: launch counts, shapes, finiteness, every 2D map and
+    detection level within FORWARD_RMS_TOL of an f32 run of the same
+    weights. Returns the launch counts."""
+    from mtt_tpu_torch.inference import preprocess, predict
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import CS3D_SWINB, build_model
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    model = build_model(dict(CS3D_SWINB, head="conv"), device=dev,
+                        dtype=torch.bfloat16).eval()
+    init_weights(model, gen)
+    x = preprocess(torch.randint(0, 256, (batch, *SW_IMG, 3), generator=gen,
+                                 device=dev))
+    K = torch.tensor(SW_CAM_K, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    logits, preds = predict(model, x, cam_K=K)
+    torch.cuda.synchronize()
+    counts = dict(_build.COUNTS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[options] swin_conv: TaskPrompter-Swin-B Cityscapes-3D with the "
+          f"conv head, batch {batch} at {SW_IMG[0]}x{SW_IMG[1]} bf16; "
+          f"launches {counts}", flush=True)
+    if counts != expected_swin():
+        raise RuntimeError(f"options swin_conv launch counts {counts} != "
+                           f"{expected_swin()}")
+    for t, n in {"semseg": 19, "depth": 1}.items():
+        if logits[t].shape != (batch, *SW_OUT, n) or \
+                not torch.isfinite(logits[t]).all() or \
+                preds[t].shape != (batch, *SW_OUT):
+            raise RuntimeError(f"options swin_conv {t}: logits "
+                               f"{tuple(logits[t].shape)} or non-finite")
+    if preds["3ddet"]["scores"].shape[0] != batch:
+        raise RuntimeError("options swin_conv: no decode for every image")
+    forward = torch.no_grad()(lambda m, impl=None: m(x, impl=impl))
+    plain = forward(model, "plain")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref_model = copy.deepcopy(model).float()
+    ref = forward(ref_model, "plain")
+    del ref_model
+    maps = {t: (logits[t], plain[t], ref[t]) for t in ("semseg", "depth")}
+    levels = [_det_levels(o["3ddet"]) for o in (logits, plain, ref)]
+    maps.update({k: (v, levels[1][k], levels[2][k])
+                 for k, v in levels[0].items()})
+    for name, (k, p, r) in maps.items():
+        if not torch.isfinite(k).all():
+            raise RuntimeError(f"options swin_conv {name}: non-finite")
+        k, p, r = k.float(), p.float(), r.float()
+        rms_k = ((k - r).norm() / r.norm()).item()
+        rms_p = ((p - r).norm() / r.norm()).item()
+        print(f"[options] swin_conv {name}: vs the f32 run: relative RMS "
+              f"error kernels {rms_k:.5g} (tol {FORWARD_RMS_TOL}), plain "
+              f"bf16 {rms_p:.5g}", flush=True)
+        if not rms_k <= FORWARD_RMS_TOL:
+            raise RuntimeError(f"options swin_conv {name}: kernel forward "
+                               f"is {rms_k:.4g} from the f32 run, over "
+                               f"{FORWARD_RMS_TOL}")
+    del maps, levels, logits, preds, plain, ref
+    ms = _time_ms(lambda: forward(model), reps=3, warmup=1)
+    print(f"[options] swin_conv: forward {ms:.2f} ms = {batch / ms * 1e3:.2f}"
+          f" imgs/s through the kernels; peak memory of the first predict "
+          f"{peak_gib:.2f} GiB", flush=True)
+    return counts
+
+
+def options_phase():
+    """The model options: the InvPT-ViT-L PASCAL step at batch 2
+    and the Swin-B Cityscapes-3D step at batch 1, each with ``remat`` off
+    and on (``_remat_pair``); then eval forwards at batch 8 of the head
+    pairs that no shipped config uses, each held to its launch counts (the
+    up4 head kernel at 0) and to an f32 run: TaskPrompter-ViT-L PASCAL with
+    the phase, mlp and deconv heads, InvPT-ViT-L PASCAL with the conv and
+    deconv heads (``_serve_check``), Swin-B with the conv head
+    (``_swin_conv_check``). Returns the launch counts by path."""
+    from mtt_tpu_torch.models.wrappers import INVPT_PASCAL_VITL
+    from mtt_tpu_torch.train import (CS3D_SWINB_TRAIN,
+                                     INVPT_PASCAL_VITL_TRAIN, PASCAL_VITL)
+
+    counts = {}
+    counts.update(_remat_pair(
+        "invpt", f"InvPT-ViT-L PASCAL, batch {BT} at {IMG}x{IMG}",
+        INVPT_PASCAL_VITL_TRAIN, 16, BT, expected_invpt_train(),
+        expected_invpt_train_remat()))
+    torch.cuda.empty_cache()
+    counts.update(_remat_pair(
+        "swin", f"TaskPrompter-Swin-B Cityscapes-3D, 1 image at "
+        f"{SW_IMG[0]}x{SW_IMG[1]}", CS3D_SWINB_TRAIN, 6, 1,
+        expected_swin_train(), expected_swin_train_remat()))
+    torch.cuda.empty_cache()
+    heads = (("tp_phase", "TaskPrompter-ViT-L PASCAL, phase up4 head",
+              PASCAL_VITL, {"head_up4": "phase"}, expected_eval("dense")),
+             ("tp_mlp", "TaskPrompter-ViT-L PASCAL, mlp head",
+              dict(PASCAL_VITL, head="mlp"), {}, expected_eval("dense")),
+             ("tp_deconv", "TaskPrompter-ViT-L PASCAL, deconv head",
+              dict(PASCAL_VITL, head="deconv"), {}, expected_eval("dense")),
+             ("invpt_conv", "InvPT-ViT-L PASCAL, conv head",
+              dict(INVPT_PASCAL_VITL, head="conv"), {},
+              expected_invpt(False)),
+             ("invpt_deconv", "InvPT-ViT-L PASCAL, deconv head",
+              dict(INVPT_PASCAL_VITL, head="deconv"), {},
+              expected_invpt(False)))
+    for i, (tag, title, p, kw, want) in enumerate(heads):
+        model, x = _serve_model(p, 20 + i, (IMG, IMG), **kw)
+        counts[tag] = _serve_check(f"options {tag}", title, model, x, want)
+        del model, x
+        torch.cuda.empty_cache()
+    counts["swin_conv"] = _swin_conv_check()
+    return counts
+
+
 # profile: kernel-name fragment -> group; anything else is library work
 PROFILE_GROUPS = (# the shared GEMM (gemm.cu) by its epilogue: fc1 of rows 4
                   # and 8; fc2 of row 4; fc2 of row 8 and rows 1-2's qkv
@@ -4592,6 +4839,21 @@ def profile_phase(wanted):
         _profile("Swin-B Cityscapes-3D training step, 1 image",
                  lambda: trainer.step(batch), top=24)
         del trainer, data, batch
+    if "options" in wanted:
+        from mtt_tpu_torch.train import (CS3D_SWINB_TRAIN,
+                                         INVPT_PASCAL_VITL_TRAIN)
+        for title, p, seed, bs in (
+                ("InvPT-ViT-L PASCAL", INVPT_PASCAL_VITL_TRAIN, 16, BT),
+                ("Swin-B Cityscapes-3D", CS3D_SWINB_TRAIN, 6, 1)):
+            for remat in (False, True):
+                trainer, data = make_trainer(dict(p, remat=remat), seed=seed,
+                                             device=torch.device("cuda"))
+                batch = to_device(data.batch(0, bs), torch.device("cuda"))
+                _profile(f"{title} training step, batch {bs}, remat "
+                         f"{'on' if remat else 'off'}",
+                         lambda: trainer.step(batch), top=8)
+                del trainer, data, batch
+                torch.cuda.empty_cache()
     for tag, title, p, seed, *_ in _train_paths():
         phase = "invpt_train" if tag.startswith("invpt_train") else tag
         if phase not in wanted:
@@ -4766,7 +5028,7 @@ PHASES = {"kernels": kernel_phase, "attention_api": attention_api_phase,
           "nyud_train": nyud_train_phase, "evaluate": evaluate_phase,
           "loop": loop_phase, "detect": detect_phase,
           "convert": convert_phase, "parallel": parallel_phase,
-          "datasets": datasets_phase}
+          "datasets": datasets_phase, "options": options_phase}
 
 
 def main(argv=None):
@@ -4845,7 +5107,9 @@ def main(argv=None):
                    "nyud_train": outcome["nyud_train"],
                    "evaluate": outcome["evaluate"], "loop": outcome["loop"],
                    **outcome["detect"], **outcome["convert"],
-                   **outcome["parallel"], **outcome["datasets"]}
+                   **outcome["parallel"], **outcome["datasets"],
+                   **{f"options_{k}": c
+                      for k, c in outcome["options"].items()}}
 
     rows = []
     for name, (src, replaces, counter, path) in KERNEL_ROWS.items():

@@ -7,7 +7,7 @@ module and one tree for both forms).
 
 ``ConvHead``:
 
-3x3 conv + BN + exact GELU -> 1x1 logits. Two modes with one parameter tree:
+3x3 conv + BN + exact GELU -> 1x1 logits. Three modes with one parameter tree:
 
 - ``up4="factored"`` (the default, as on the JAX wrapper): the input is the
   patch-grid feature map and the head computes conv3x3(upsample4(x)) without
@@ -15,11 +15,16 @@ module and one tree for both forms).
   affine and runs the fused up4 head kernel (kernels/head_up4.py); training
   runs the factored composition ``up4_conv3x3_factored`` with batch
   statistics (heads.py:93-131).
-- ``up4="dense"``: the input is already upsampled 4x and the head runs
-  ``ConvBNAct`` and a 1x1 conv on it (cuDNN), as the JAX package does under
-  MTT_HEAD_IMPL=dense.
-
-``phase`` raises until it is ported (ROADMAP.md item 1.11).
+- ``up4="phase"``: the same function from a patch-grid input through the 16
+  phase convs at low resolution with exact border strips
+  (``layers.up4_conv3x3_main`` and ``up4_conv3x3_borders``;
+  heads.py:133-189), plain torch as it is XLA in JAX. Eval folds BN and the
+  conv bias into one affine, runs the per-phase 1x1 and scatters the border
+  strips, pushed through the same epilogue, into the logits; training fixes
+  the borders on the conv output before it takes the batch moments.
+- ``up4="dense"``: the input is already upsampled 4x (or, on the InvPT and
+  Swin wrappers, is the feature map itself) and the head runs ``ConvBNAct``
+  and a 1x1 conv on it (cuDNN), the JAX ``ConvHead``'s default.
 
 ``DEConvHead`` is the Cityscapes-3D head: a 2x2 stride-2 transposed conv, BN,
 GELU, a 3x3 conv, BN, GELU and the 1x1 logits (cuDNN, as it is XLA in the JAX
@@ -34,11 +39,14 @@ from torch import nn
 
 from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
 from mtt_tpu_torch.models.layers import (ConvBNAct, batch_moments,
-                                         batch_norm, conv1x1, to_nchw,
-                                         to_nhwc, up4_conv3x3_factored,
+                                         batch_norm, conv1x1, depth_to_space4,
+                                         scatter_up4_borders, to_nchw,
+                                         to_nhwc, up4_conv3x3_borders,
+                                         up4_conv3x3_factored,
+                                         up4_conv3x3_main,
                                          update_running_stats)
 
-UP4_MODES = ("factored", "dense")
+UP4_MODES = ("factored", "phase", "dense")
 
 
 class MLPHead(nn.Module):
@@ -65,9 +73,7 @@ class ConvHead(nn.Module):
                  *, device=None, dtype=None):
         super().__init__()
         if up4 not in UP4_MODES:
-            raise NotImplementedError(
-                f"ConvHead up4={up4!r} is not ported yet (ROADMAP.md item "
-                f"1.11: the phase up4 head); use one of {UP4_MODES}")
+            raise ValueError(f"ConvHead up4={up4!r}: one of {UP4_MODES}")
         self.up4 = up4
         self.mt_proj = ConvBNAct(in_dim, in_dim, 3, use_bias=True,
                                  act=F.gelu, device=device, dtype=dtype)
@@ -88,6 +94,8 @@ class ConvHead(nn.Module):
             inv = torch.rsqrt(v + bn.eps) * bn.weight.float()
             return inv, bn.bias.float() - m * inv + conv.bias.float() * inv
 
+        if self.up4 == "phase":
+            return self._phase(x, kc, kp, bp, folded, train)
         if not train:
             inv, addv = folded(bn.running_mean.float(), bn.running_var.float())
             logits = fused_up4_head(x, kc, inv, addv, kp, impl=impl)
@@ -103,6 +111,49 @@ class ConvHead(nn.Module):
                    + addv.to(dt)[None, :, None, None])
         logits = torch.einsum("bcwh,cn->bwhn", y.float(), kp.to(dt).float())
         return (logits + bp).to(dt).transpose(1, 2)          # (B, H4, W4, n)
+
+    def _phase(self, x, kc, kp, bp, folded, train: bool):
+        """The phase form (heads.py:133-189): (B, gh, gw, C) ->
+        (B, 4gh, 4gw, n)."""
+        dt = x.dtype
+        B, gh, gw, C = x.shape
+        n = kp.shape[1]
+        conv, bn = self.mt_proj.conv, self.mt_proj.bn
+        kpd = kp.to(dt).float()
+
+        def logits(y):
+            """The 1x1 of every phase on the flat phase channels, in f32."""
+            z = torch.einsum("bhwpc,cn->bhwpn", y.reshape(B, gh, gw, 16, C)
+                             .float(), kpd)
+            return (z + bp).to(dt).reshape(B, gh, gw, 16 * n)
+
+        main = up4_conv3x3_main(x, kc)                       # (B,gh,gw,16C)
+        borders = up4_conv3x3_borders(x, kc)
+        if train:
+            # the borders fixed on the conv output first, so that the batch
+            # moments are those of the whole high-res map
+            y = scatter_up4_borders(main, *borders, C) \
+                + conv.bias.to(dt).repeat(16)
+            m, v = batch_moments(y.float().reshape(B, gh, gw, 16, C),
+                                 (0, 1, 2, 3), centred=True)
+            update_running_stats(bn, m, v)
+            inv = torch.rsqrt(v + bn.eps) * bn.weight.float()
+            y = y * inv.repeat(16).to(dt) \
+                + (bn.bias.float() - m * inv).repeat(16).to(dt)
+            return depth_to_space4(logits(F.gelu(y)), n)
+        # eval: BN and the conv bias one affine, the same pointwise epilogue
+        # on the main map and on the border strips, the strips scattered
+        # into the logits
+        inv, addv = folded(bn.running_mean.float(), bn.running_var.float())
+        y = logits(F.gelu(main * inv.repeat(16).to(dt)
+                          + addv.repeat(16).to(dt)))
+
+        def epilogue(strip):                                 # (B, L, C)
+            s = F.gelu(strip * inv.to(dt) + addv.to(dt))
+            return s @ kp.to(dt) + bp.to(dt)
+
+        y = scatter_up4_borders(y, *[epilogue(s) for s in borders], n)
+        return depth_to_space4(y, n)
 
 
 class DEConvHead(nn.Module):

@@ -5,8 +5,12 @@ InvPT forwards run in eval and in training: ``FusedLN``, ``Mlp`` (its ``ln=``
 path and the plain MLP of the drop-path blocks), ``PatchEmbed``,
 ``dot_product_attention``, ``Attention`` (with and without its fused
 pre-norm) and ``ViTBlock`` with per-sample ``drop_path``, ``ConvBNAct``,
-``interpolate`` and ``upsample2x``, the flax BatchNorm in both modes, and the
-factored conv3x3(upsample4) of the up4 head with its shift matrices. Parameter names
+``interpolate`` and ``upsample2x``, the flax BatchNorm in both modes, the
+factored conv3x3(upsample4) of the up4 head with its shift matrices, and the
+phase form of the same conv (``up4_conv3x3_main``, ``up4_conv3x3_borders``,
+``scatter_up4_borders``, ``depth_to_space4``). ``remat_call`` is the port's
+``nn.remat``: activation checkpointing that recomputes a block in the
+backward to the same bits. Parameter names
 follow the JAX package's module tree; leaves use torch's names and layouts
 (nn.Linear (out, in), nn.Conv2d OIHW), so ``models/convert_jax.py`` maps one
 to the other.
@@ -14,14 +18,17 @@ to the other.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
 from mtt_tpu_torch.kernels.attention import (fused_attention,
                                              fused_attention_ln_qkv,
@@ -31,6 +38,57 @@ from mtt_tpu_torch.kernels.mlp import fused_mlp, fused_mlp_ln_res
 from mtt_tpu_torch.parallel.mesh import all_reduce_sum, data_shard_info
 
 BN_MOMENTUM = 0.9     # flax's: running = 0.9 running + 0.1 batch (torch 0.1)
+# per thread, > 0 while a rematted call runs again in the backward (in the
+# thread that runs the backward, which the recompute's forward runs in too)
+_RECOMPUTING = threading.local()
+
+
+@contextlib.contextmanager
+def _recompute(generator: Optional[torch.Generator], start):
+    """The context of a rematted call's second run: the drop-path generator
+    back at ``start``, its state when the call first ran, so that the second
+    run draws the same masks, and after it at the state it had before, so
+    that the run leaves no trace; ``update_running_stats`` idle. Both are
+    restored if the run raises."""
+    now = None if generator is None else generator.get_state()
+    if generator is not None:
+        generator.set_state(start)
+    _RECOMPUTING.depth = getattr(_RECOMPUTING, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _RECOMPUTING.depth -= 1
+        if generator is not None:
+            generator.set_state(now)
+
+
+def remat_call(fn, generator: Optional[torch.Generator], /, *args,
+               **kwargs):
+    """``fn(*args, **kwargs)`` under activation checkpointing, the JAX
+    package's ``nn.remat``: the call keeps only its inputs for the backward,
+    which runs it again to rebuild what its own backward reads. Non-reentrant
+    ``torch.utils.checkpoint``, so the backward walks the graph of the first
+    run and the recomputed tensors are equal to the first ones bit for bit:
+    the step's gradients are the plain step's. The second run runs whole (no
+    early stop), so every kernel of ``fn`` launches twice a step; it redraws
+    the drop-path masks from ``generator`` as the first run drew them, and
+    updates no BatchNorm running statistics (``_recompute``). The port draws
+    every random number from an explicit generator, so torch's own RNG state
+    is not saved. Without gradients (eval, ``torch.no_grad``) this is the
+    plain call. A BatchNorm under data parallelism all-reduces its moments
+    again in the second run, inside the backward, in the same order on every
+    rank, before ``all_reduce_grads``."""
+    if not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+
+    def contexts():
+        start = None if generator is None else generator.get_state()
+        return contextlib.nullcontext(), _recompute(generator, start)
+
+    with checkpoint.set_checkpoint_early_stop(False):
+        return checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                     preserve_rng_state=False,
+                                     context_fn=contexts, **kwargs)
 
 
 class FusedLN(nn.Module):
@@ -195,7 +253,11 @@ def bn_eval(x, bn: nn.BatchNorm2d):
 @torch.no_grad()
 def update_running_stats(bn: nn.BatchNorm2d, mean, var) -> None:
     """flax running averages (momentum 0.9) of the batch mean and the BIASED
-    batch variance; torch's own update would use the unbiased one."""
+    batch variance; torch's own update would use the unbiased one. Nothing
+    while a rematted call runs again (``remat_call``): the first run made
+    the step's update."""
+    if getattr(_RECOMPUTING, "depth", 0):
+        return
     bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
     bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
     bn.num_batches_tracked += 1
@@ -360,6 +422,96 @@ def up4_conv3x3_factored(x, kernel):
     HWIO (3, 3, C, D); returns channel-major (B, D, 4gw, 4gh) f32. A torch
     composition, as it is XLA in JAX; the training head runs it."""
     return up4_conv3x3_mix(up4_conv3x3_gm(x, kernel))
+
+
+# The phase form of conv3x3-SAME(bilinear_upsample4(x)) at low resolution
+# (mtt_tpu/models/layers.py:397-530): high-res row 4q + p reads upsampled
+# rows 4q + p - 1 .. 4q + p + 1, each a 2-tap mix of low-res rows q - 1 ..
+# q + 1, so each of the 16 output phases is a 3x3 conv over the low-res grid.
+# The channels are flat phase-major ((py * 4 + px) * Cout + d); the 1-pixel
+# high-res border, which reads the conv's zero padding, is computed apart
+# and scattered in.
+
+
+@functools.lru_cache(maxsize=1)
+def _up4_phase_matrix(_: int = 0) -> np.ndarray:
+    """M[p, k, d]: the weight of low-res row q + d - 1 in high-res conv tap k
+    of output row 4q + p, under the half-pixel 4x bilinear upsample (the
+    argument is ``on_device``'s key)."""
+    first = [-1, -1, 0, 0]
+    a0 = [0.375, 0.125, 0.875, 0.625]
+    M = np.zeros((4, 3, 3), np.float32)
+    for p in range(4):
+        for k in range(3):
+            m = p - 1 + k                       # high-res row offset 4q + m
+            qs, pp = m // 4, m % 4
+            d0 = qs + first[pp]
+            M[p, k, d0 + 1] += a0[pp]
+            M[p, k, d0 + 2] += 1.0 - a0[pp]
+    return M
+
+
+def up4_conv3x3_main(x, kernel):
+    """The 16 phase convs over the edge-padded low-res map, exact except on
+    the 1-pixel high-res border; no bias. x (B, gh, gw, C), kernel HWIO (3,
+    3, C, Cout), the phase kernels formed in f32 and rounded to x's dtype ->
+    (B, gh, gw, 16 Cout)."""
+    C, Cout = kernel.shape[2:]
+    M = on_device(_up4_phase_matrix, 0, x.device)
+    w_eff = torch.einsum("klcd,pki,qlj->pqdcij", kernel.float(), M, M)
+    w_eff = w_eff.reshape(16 * Cout, C, 3, 3).to(x.dtype)
+    xp = F.pad(to_nchw(x), (1, 1, 1, 1), mode="replicate")
+    return to_nhwc(F.conv2d(xp, w_eff))
+
+
+def up4_conv3x3_borders(x, kernel):
+    """The exact high-res border rows and columns of
+    conv3x3-SAME(upsample4(x)), no bias: strip convs over the clamped
+    upsample, whose neighbours across the border all equal the edge row or
+    column. Returns (row0, rowl, col0, coll): rows (B, 4gw, Cout), columns
+    (B, 4gh, Cout)."""
+    B, gh, gw, C = x.shape
+    w = kernel.to(x.dtype).permute(3, 2, 0, 1)          # OIHW
+
+    def strip(three, padding):
+        y = F.conv2d(to_nchw(three), w, padding=padding)
+        return y.flatten(2).transpose(1, 2)
+
+    u_top = interpolate(x[:, :1], (1, 4 * gw))           # U rows 0 and 1
+    u_bot = interpolate(x[:, -1:], (1, 4 * gw))          # U rows -2 and -1
+    zr = torch.zeros_like(u_top)
+    u_left = interpolate(x[:, :, :1], (4 * gh, 1))       # U cols 0 and 1
+    u_right = interpolate(x[:, :, -1:], (4 * gh, 1))
+    zc = torch.zeros_like(u_left)
+    return (strip(torch.cat([zr, u_top, u_top], 1), (0, 1)),
+            strip(torch.cat([u_bot, u_bot, zr], 1), (0, 1)),
+            strip(torch.cat([zc, u_left, u_left], 2), (1, 0)),
+            strip(torch.cat([u_right, u_right, zc], 2), (1, 0)))
+
+
+def scatter_up4_borders(main, row0, rowl, col0, coll, cout: int):
+    """``main`` (B, gh, gw, 16 Cout) with its flat phase-major border
+    entries replaced by the exact strips: row phase 0 of q = 0 is channels
+    [0, 4 Cout), row phase 3 of q = gh - 1 [12 Cout, 16 Cout); column phases
+    0 and 3 are Cout-wide blocks at a stride of 4 Cout."""
+    B, gh, gw, _ = main.shape
+    main = main.clone()
+    main[:, 0, :, :4 * cout] = row0.reshape(B, gw, 4 * cout).to(main.dtype)
+    main[:, -1, :, 12 * cout:] = rowl.reshape(B, gw, 4 * cout).to(main.dtype)
+    col0 = col0.reshape(B, gh, 4, cout).to(main.dtype)
+    coll = coll.reshape(B, gh, 4, cout).to(main.dtype)
+    for py in range(4):
+        main[:, :, 0, 4 * py * cout:(4 * py + 1) * cout] = col0[:, :, py]
+        main[:, :, -1, (4 * py + 3) * cout:(4 * py + 4) * cout] = \
+            coll[:, :, py]
+    return main
+
+
+def depth_to_space4(y, channels: int):
+    """(B, gh, gw, 16 C) flat phase-major -> (B, 4 gh, 4 gw, C)."""
+    B, gh, gw, _ = y.shape
+    y = y.reshape(B, gh, gw, 4, 4, channels).permute(0, 1, 3, 2, 4, 5)
+    return y.reshape(B, 4 * gh, 4 * gw, channels)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

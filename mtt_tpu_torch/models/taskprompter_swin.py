@@ -25,8 +25,9 @@ through its backward kernel, the tap blocks' composition through autograd.
 
 Unlike the JAX modules, which read the grid off their input, these are built
 for one input size: ``chan_kv`` contracts over a stage's token count, so the
-weights depend on it anyway. ``remat`` (which changes memory, not results) is
-not ported.
+weights depend on it anyway. With ``remat`` each block is checkpointed
+(``layers.remat_call``, the JAX ``nn.remat(SwinPromptBlock)``): the same
+results and gradients in less memory.
 """
 
 from __future__ import annotations
@@ -40,8 +41,8 @@ from torch import nn
 
 from mtt_tpu_torch.kernels.window_attention import fused_window_attention_qkv
 from mtt_tpu_torch.models.layers import (FusedLN, Mlp, batch_norm, conv1x1,
-                                         drop_path, interpolate, to_nchw,
-                                         to_nhwc)
+                                         drop_path, interpolate, remat_call,
+                                         to_nchw, to_nhwc)
 
 LN_EPS = 1e-5          # every Swin norm (1e-6 on the ViT side)
 
@@ -361,12 +362,13 @@ class TaskPrompterSwin(nn.Module):
                  window_size: int = 12, prompt_len: int = 1,
                  chan_embed_dim: int = 256, tar_dim: int = 256,
                  final_dim: int = 450, img_ds_ratio: float = 1.0,
-                 mlp_ratio: float = 4.0, drop_path_rate: float = 0.1, *,
-                 device=None, dtype=None):
+                 mlp_ratio: float = 4.0, drop_path_rate: float = 0.1,
+                 remat: bool = False, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.tasks = tuple(tasks)
         self.img_size = tuple(img_size)
+        self.remat = remat
         self.depths = tuple(depths)
         self.img_ds_ratio = img_ds_ratio
         self.in_size = self.img_size if img_ds_ratio == 1.0 else (
@@ -435,9 +437,11 @@ class TaskPrompterSwin(nn.Module):
         raw = None
         for il in range(n_layers):
             for d in range(self.depths[il]):
-                x, prompts, r = getattr(self, f"layer{il}_block{d}")(
-                    x, prompts, d == self.depths[il] - 1, impl=impl,
-                    train=train, generator=generator)
+                block = getattr(self, f"layer{il}_block{d}")
+                args = (x, prompts, d == self.depths[il] - 1)
+                kw = dict(impl=impl, train=train, generator=generator)
+                x, prompts, r = remat_call(block, generator, *args, **kw) \
+                    if self.remat else block(*args, **kw)
                 if r is not None:
                     raw = r
             if il < n_layers - 1:

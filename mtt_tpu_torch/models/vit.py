@@ -4,7 +4,8 @@ mtt_tpu/models/vit.py: ``VisionTransformer``, ``resize_pos_embed``,
 
 ViT-B/L with a cls token and a learned position embedding; tokens are tapped
 after the blocks in ``select_list`` and after the final norm, with the cls row
-stripped. Module names mirror the JAX tree.
+stripped. With ``remat`` each block is checkpointed (``layers.remat_call``,
+the JAX ``nn.remat(ViTBlock)``). Module names mirror the JAX tree.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from mtt_tpu_torch.models.layers import FusedLN, PatchEmbed, ViTBlock
+from mtt_tpu_torch.models.layers import (FusedLN, PatchEmbed, ViTBlock,
+                                         remat_call)
 
 
 def _cubic_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -63,11 +65,13 @@ class VisionTransformer(nn.Module):
     def __init__(self, img_size: Tuple[int, int], select_list: Sequence[int],
                  patch_size: int = 16, embed_dim: int = 1024, depth: int = 24,
                  num_heads: int = 16, mlp_ratio: float = 4.0,
-                 drop_path_rate: float = 0.0, *, device=None, dtype=None):
+                 drop_path_rate: float = 0.0, remat: bool = False, *,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.select_list = tuple(select_list)
         self.depth = depth
+        self.remat = remat
         gh, gw = img_size[0] // patch_size, img_size[1] // patch_size
         self.patch_embed = PatchEmbed(patch_size, embed_dim, **kw)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim, **kw))
@@ -87,8 +91,12 @@ class VisionTransformer(nn.Module):
                             tokens], 1) + self.pos_embed.to(tokens.dtype)
         taps: List[torch.Tensor] = []
         for i in range(self.depth):
-            tokens = getattr(self, f"blocks_{i}")(tokens, train, impl,
-                                                  generator)
+            block = getattr(self, f"blocks_{i}")
+            if self.remat:
+                tokens = remat_call(block, generator, tokens, train, impl,
+                                    generator)
+            else:
+                tokens = block(tokens, train, impl, generator)
             if (i + 1) in self.select_list:
                 taps.append(tokens[:, 1:])
         final = self.norm(tokens, impl=impl)[:, 1:]

@@ -2,6 +2,13 @@
 ``TaskPrompterNet``, ``TransformerNet``, ``TaskPrompterSwinNet`` and
 ``build_model``).
 
+Every wrapper takes every head of ``HEADS`` (``mlp``, ``conv``, ``deconv``),
+as the JAX wrappers do. ``remat`` (activation checkpointing, the JAX
+``nn.remat``) recomputes the ViT blocks of ``TransformerNet``, and the Swin
+blocks, the 2D heads and the detection head of ``TaskPrompterSwinNet``, in
+the backward; JAX's ``TaskPrompterNet`` has none, and ``build_model`` raises
+when a TaskPrompter-ViT config asks for it.
+
 The entry points build on the CUDA card unless the caller names another
 device; without a card they raise rather than build on the CPU unasked."""
 
@@ -15,9 +22,9 @@ from torch import nn
 from mtt_tpu_torch.config.config import DB_SCALES, task_table
 from mtt_tpu_torch.detection.det_params import default_det_params
 from mtt_tpu_torch.detection.fcos3d_head import DetectionHead
-from mtt_tpu_torch.models.heads import HEADS, ConvHead, MLPHead
+from mtt_tpu_torch.models.heads import HEADS, ConvHead
 from mtt_tpu_torch.models.invpt import InvPTDecoder
-from mtt_tpu_torch.models.layers import interpolate
+from mtt_tpu_torch.models.layers import interpolate, remat_call
 from mtt_tpu_torch.models.taskprompter import (TASKPROMPTER_VIT_SPECS,
                                                TaskPrompterViT)
 from mtt_tpu_torch.models.taskprompter_swin import TaskPrompterSwin
@@ -86,27 +93,42 @@ def default_device(device=None) -> torch.device:
     return device
 
 
-class TransformerNet(nn.Module):
-    """InvPT: ViT backbone + InvPT decoder + 1x1-conv heads. ``forward``
-    returns the per-task logits resized to the input plus ``inter_preds``, the
-    preamble's intermediate predictions resized the same way.
+def _head(name: str, in_dim: int, num_classes: int,
+          up4: str = "dense", **kw) -> nn.Module:
+    """``HEADS[name]``; a ConvHead in the mode ``up4`` (the JAX ConvHead's
+    default, dense, unless the caller fuses the upsample into it)."""
+    if name not in HEADS:
+        raise ValueError(f"head {name!r}: one of {tuple(HEADS)}")
+    if name == "conv":
+        return ConvHead(in_dim, num_classes, up4=up4, **kw)
+    return HEADS[name](in_dim, num_classes, **kw)
 
-    With ``tail_head`` an eval forward fuses each task's 1x1 head into the
-    decoder's tail kernel, so the per-task feature maps never reach device
-    memory; the parameter tree is the ``MLPHead`` one either way. (The JAX
-    wrapper reads MTT_TAIL_HEAD=1 from the environment for this.)"""
+
+class TransformerNet(nn.Module):
+    """InvPT: ViT backbone + InvPT decoder + per-task heads (``head_name``:
+    the 1x1 ``mlp`` of the InvPT configs, the dense ``conv`` head or
+    ``deconv``, on the decoder's (B, th, tw, embed_dim + pred_out)
+    features). ``forward`` returns the per-task logits resized to the input
+    plus ``inter_preds``, the preamble's intermediate predictions resized the
+    same way.
+
+    With ``tail_head`` (``mlp`` heads only) an eval forward fuses each task's
+    1x1 head into the decoder's tail kernel, so the per-task feature maps
+    never reach device memory; the parameter tree is the ``MLPHead`` one
+    either way. (The JAX wrapper reads MTT_TAIL_HEAD=1 from the environment
+    for this.) ``remat`` checkpoints each ViT block (``remat_call``)."""
 
     def __init__(self, tasks: Sequence[str], num_outputs: Dict[str, int],
                  img_size: Tuple[int, int], backbone_name: str = "vitL",
                  head_name: str = "mlp", embed_dim: int = 512,
                  pred_out: int = 64, mtt_downsample: int = 2,
-                 drop_path_rate: float = 0.15, tail_head: bool = False, *,
-                 device=None, dtype=None):
+                 drop_path_rate: float = 0.15, tail_head: bool = False,
+                 remat: bool = False, *, device=None, dtype=None):
         super().__init__()
-        if head_name != "mlp":
-            raise NotImplementedError(
-                f"TransformerNet head {head_name!r} is not ported; the InvPT "
-                f"configs use 'mlp'")
+        if tail_head and head_name != "mlp":
+            raise ValueError(f"tail_head fuses the 1x1 'mlp' head into the "
+                             f"tail kernel; this model's head is "
+                             f"{head_name!r}")
         device = default_device(device)
         spec = VIT_SPECS[backbone_name]
         self.tasks = tuple(tasks)
@@ -114,16 +136,16 @@ class TransformerNet(nn.Module):
         self.patch_size = spec["patch_size"]
         self.tail_head = tail_head
         self.backbone = VisionTransformer(
-            img_size=img_size, drop_path_rate=drop_path_rate, device=device,
-            dtype=dtype, **spec)
+            img_size=img_size, drop_path_rate=drop_path_rate, remat=remat,
+            device=device, dtype=dtype, **spec)
         self.decoder = InvPTDecoder(
             self.tasks, dict(num_outputs), embed_dim=embed_dim,
             pred_out=pred_out, backbone_dim=spec["embed_dim"],
             mtt_downsample=mtt_downsample, device=device, dtype=dtype)
         for t in self.tasks:
-            self.add_module(f"head_{t}", MLPHead(
-                embed_dim + pred_out, num_outputs[t], device=device,
-                dtype=dtype))
+            self.add_module(f"head_{t}", _head(
+                head_name, embed_dim + pred_out, num_outputs[t],
+                device=device, dtype=dtype))
 
     def forward(self, x, impl: Optional[str] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -154,12 +176,14 @@ class TransformerNet(nn.Module):
 
 
 class TaskPrompterNet(nn.Module):
-    """TaskPrompter: prompted ViT backbone + conv heads, NHWC logits at
-    ``target_size`` (default: the input size). With ``head_up4="factored"``
-    (the default, as in the JAX wrapper) the backbone returns patch-grid
-    features and each ConvHead fuses the 4x upsample into its conv; with
-    ``"dense"`` the backbone upsamples and the heads convolve the 4x maps, as
-    the JAX package does under MTT_HEAD_IMPL=dense. ``drop_path_rate`` is
+    """TaskPrompter: prompted ViT backbone + per-task heads, NHWC logits at
+    ``target_size`` (default: the input size). With the ``conv`` head and
+    ``head_up4="factored"`` (the default, as in the JAX wrapper) or
+    ``"phase"`` the backbone returns patch-grid features and each ConvHead
+    fuses the 4x upsample into its conv; with ``"dense"``, and for the
+    ``mlp`` and ``deconv`` heads, the backbone upsamples and the heads run on
+    the 4x maps, as the JAX package does under MTT_HEAD_IMPL=dense|phase
+    (its environment switch is this keyword here). ``drop_path_rate`` is
     the stochastic depth of the last block in training (0.15 in JAX)."""
 
     def __init__(self, tasks: Sequence[str], num_outputs: Dict[str, int],
@@ -169,11 +193,14 @@ class TaskPrompterNet(nn.Module):
                  final_dim: int = 350, prompt_len: int = 1,
                  chan_nheads: int = 1, use_ctr: bool = True,
                  target_size: Optional[Tuple[int, int]] = None,
-                 drop_path_rate: float = 0.15, head_up4: str = "factored", *,
-                 device=None, dtype=None):
+                 drop_path_rate: float = 0.15,
+                 head_up4: Optional[str] = None, *, device=None, dtype=None):
         super().__init__()
-        if head_name != "conv":
-            raise NotImplementedError(f"head {head_name!r} is not ported yet")
+        if head_up4 is not None and head_name != "conv":
+            raise ValueError(f"head_up4 is the conv head's; this model's "
+                             f"head is {head_name!r}")
+        head_up4 = head_up4 or "factored"
+        fused_up4 = head_name == "conv" and head_up4 != "dense"
         device = default_device(device)
         self.tasks = tuple(tasks)
         self.target_size = target_size
@@ -181,12 +208,12 @@ class TaskPrompterNet(nn.Module):
             tasks=self.tasks, img_size=img_size, chan_nheads=chan_nheads,
             prompt_len=prompt_len, tar_dim=tar_dim, final_dim=final_dim,
             use_ctr=use_ctr, drop_path_rate=drop_path_rate,
-            upsample_out=head_up4 == "dense", device=device, dtype=dtype,
+            upsample_out=not fused_up4, device=device, dtype=dtype,
             **TASKPROMPTER_VIT_SPECS[backbone_name])
         for t in self.tasks:
-            self.add_module(f"head_{t}", ConvHead(
-                final_dim, num_outputs[t], up4=head_up4, device=device,
-                dtype=dtype))
+            self.add_module(f"head_{t}", _head(
+                head_name, final_dim, num_outputs[t], up4=head_up4,
+                device=device, dtype=dtype))
 
     def forward(self, x, impl: Optional[str] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None
@@ -208,7 +235,10 @@ class TaskPrompterSwinNet(nn.Module):
     returns per-level lists (cls_scores, bbox_preds, dir_preds,
     centernesses). ``drop_path_rate`` is the backbone's stochastic depth in
     training (0.1 in JAX, which the wrapper leaves at the backbone's
-    default); ``remat`` is not ported (it changes memory, not results)."""
+    default). The ``conv`` head is the dense ConvHead on the fused feature
+    map, as in JAX. ``remat`` checkpoints each Swin block, each 2D head and
+    the detection head (``remat_call``; mtt_tpu/models/wrappers.py:191-203):
+    the same results and gradients in less memory."""
 
     def __init__(self, tasks: Sequence[str], num_outputs: Dict[str, int],
                  img_size: Tuple[int, int], head_name: str = "deconv",
@@ -219,19 +249,21 @@ class TaskPrompterSwinNet(nn.Module):
                  det_cfg: Optional[dict] = None, embed_dim: int = 128,
                  depths: Sequence[int] = (2, 2, 18, 2),
                  num_heads: Sequence[int] = (4, 8, 16, 32),
-                 window_size: int = 12, drop_path_rate: float = 0.1, *,
-                 device=None, dtype=None):
+                 window_size: int = 12, drop_path_rate: float = 0.1,
+                 remat: bool = False, *, device=None, dtype=None):
         super().__init__()
         device = default_device(device)
         self.tasks = tuple(tasks)
         self.target_size = target_size
         self.det_cfg = det_cfg
+        self.remat = remat
         self.backbone = TaskPrompterSwin(
             self.tasks, img_size, embed_dim=embed_dim, depths=depths,
             num_heads=num_heads, window_size=window_size,
             prompt_len=prompt_len, chan_embed_dim=chan_embed_dim,
             tar_dim=tar_dim, final_dim=final_dim, img_ds_ratio=img_ds_ratio,
-            drop_path_rate=drop_path_rate, device=device, dtype=dtype)
+            drop_path_rate=drop_path_rate, remat=remat, device=device,
+            dtype=dtype)
         for t in self.tasks:
             if t == "3ddet":
                 if det_cfg is None:
@@ -241,8 +273,9 @@ class TaskPrompterSwinNet(nn.Module):
                     det_cfg, (final_dim,) * len(depths), device=device,
                     dtype=dtype)
             else:
-                self.add_module(f"head_{t}", HEADS[head_name](
-                    final_dim, num_outputs[t], device=device, dtype=dtype))
+                self.add_module(f"head_{t}", _head(
+                    head_name, final_dim, num_outputs[t], up4="dense",
+                    device=device, dtype=dtype))
 
     def forward(self, x, impl: Optional[str] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -253,25 +286,42 @@ class TaskPrompterSwinNet(nn.Module):
         only and computes the same either way."""
         target = self.target_size or tuple(x.shape[1:3])
         feats = self.backbone(x, impl=impl, train=train, generator=generator)
+
+        def call(head, *args, **kw):
+            if not self.remat:
+                return head(*args, **kw)
+            return remat_call(head, None, *args, **kw)
+
         out = {}
         for t in self.tasks:
             if t == "3ddet":
-                out[t] = self.det_head(feats[t])
+                out[t] = call(self.det_head, feats[t])
             else:
-                out[t] = interpolate(getattr(self, f"head_{t}")(
-                    feats[t], train, impl=impl), target)
+                out[t] = interpolate(call(getattr(self, f"head_{t}"),
+                                          feats[t], train, impl=impl), target)
         return out
 
 
 def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
-                tail_head: bool = False, device=None, dtype=None):
+                tail_head: bool = False, head_up4: Optional[str] = None,
+                device=None, dtype=None):
     """Config dict (the keys of configs/pascal/taskprompter_vitLp16.yml or
     taskprompter_vitBp16.yml, configs/pascal/invpt_vitLp16.yml,
     configs/nyud/taskprompter_vitLp16.yml or invpt_vitLp16.yml, or
     configs/cityscapes3d/taskprompter_swinB.yml, or a ``create_config``
     of one) -> model. ``img_size`` defaults to the database's test scale
-    (``config.DB_SCALES``); ``tail_head`` is ``TransformerNet``'s."""
+    (``config.DB_SCALES``); ``tail_head`` is ``TransformerNet``'s and
+    ``head_up4`` (``factored``, ``phase`` or ``dense``) TaskPrompter-ViT's
+    conv heads'. The config's ``remat`` reaches ``TransformerNet`` and
+    TaskPrompter-Swin; JAX's TaskPrompter-ViT has no remat, so a
+    TaskPrompter-ViT config that sets it raises."""
     tasks, num_outputs = task_table(p["train_db_name"], p["task_dictionary"])
+    remat = bool(p.get("remat", False))
+    vit_taskprompter = p["model"] == "TaskPrompter" and \
+        "swin" not in p["backbone"].lower()
+    if head_up4 is not None and not vit_taskprompter:
+        raise ValueError(f"head_up4 is TaskPrompter-ViT's; this config "
+                         f"builds {p['model']} {p['backbone']}")
     if p["model"] == "TransformerNet":
         return TransformerNet(
             tasks=tasks, num_outputs=num_outputs,
@@ -279,7 +329,7 @@ def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
             backbone_name=p["backbone"], head_name=p["head"],
             embed_dim=p["embed_dim"], pred_out=p["PRED_OUT_NUM_CONSTANT"],
             mtt_downsample=p["mtt_resolution_downsample_rate"],
-            tail_head=tail_head, device=device, dtype=dtype)
+            tail_head=tail_head, remat=remat, device=device, dtype=dtype)
     if p["model"] != "TaskPrompter":
         raise NotImplementedError(
             f"only TaskPrompter and InvPT (TransformerNet) are ported, got "
@@ -296,8 +346,13 @@ def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
             if "dd_label_map_size" in p else None,
             det_cfg=(p.get("det_cfg") or default_det_params())
             if "3ddet" in tasks else None,
-            **TASKPROMPTER_SWIN_SPECS[p["backbone"]], device=device,
-            dtype=dtype)
+            remat=remat, **TASKPROMPTER_SWIN_SPECS[p["backbone"]],
+            device=device, dtype=dtype)
+    if remat:
+        raise ValueError(
+            "remat: the JAX package's TaskPrompter-ViT has no remat "
+            "(mtt_tpu/models/wrappers.py: build_model ignores the key "
+            "there); remove it from this TaskPrompter-ViT config")
     return TaskPrompterNet(
         tasks=tasks, num_outputs=num_outputs,
         img_size=img_size or DB_SCALES[p["val_db_name"]][1],
@@ -306,5 +361,5 @@ def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
         prompt_len=p["prompt_len"], chan_nheads=p["chan_nheads"],
         use_ctr=p.get("use_ctr", False),
         target_size=tuple(p["dd_label_map_size"])
-        if "dd_label_map_size" in p else None,
+        if "dd_label_map_size" in p else None, head_up4=head_up4,
         device=device, dtype=dtype)

@@ -12,8 +12,14 @@ bf16 ulps of the largest reference value, because kernel and plain version
 round at the same points but sum in another order, which can flip a rounding.
 """
 
+import os
+
 import pytest
 import torch
+
+# cuBLAS's deterministic mode, for the rematted steps held to the plain
+# steps' bits; it must be set before cuBLAS starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 pytestmark = pytest.mark.cuda
 
@@ -1390,3 +1396,129 @@ def test_jpeg_fixtures_decode_to_pixels_json(gen):
             assert list(a.shape) == entry[key]["shape"], (name, key)
             assert hashlib.sha256(a.tobytes()).hexdigest() == \
                 entry[key]["sha256"], (name, key)
+
+
+def _remat_small_net(kind, gen):
+    """(model, config, batch) on the card: InvPT on ViT-B (head dim 64) at
+    64x128, batch 2, or the small Swin of
+    ``test_swin_train_step_goes_through_kernels`` at 192x384, one image;
+    seeded weights, drop-path on."""
+    from mtt_tpu_torch.data.synthetic import SyntheticMT
+    from mtt_tpu_torch.detection.det_params import default_det_params
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import (INVPT_PASCAL_VITL,
+                                               TaskPrompterSwinNet,
+                                               build_model, task_table)
+    from mtt_tpu_torch.train import CS3D_SWINB_TRAIN, INVPT_PASCAL_VITL_TRAIN
+    from mtt_tpu_torch.utils.train_utils import to_device
+    if kind == "invpt":
+        p = dict(INVPT_PASCAL_VITL_TRAIN, backbone="vitB")
+        model = build_model(p, img_size=(64, 128), device="cuda")
+        tasks, num_out = task_table(p["train_db_name"], p["task_dictionary"])
+        data = SyntheticMT(tasks, num_out, (64, 128)).batch(0, 2)
+    else:
+        p = CS3D_SWINB_TRAIN
+        tasks = ("semseg", "depth", "3ddet")
+        num_out = {"semseg": 19, "depth": 1, "3ddet": 18}
+        model = TaskPrompterSwinNet(
+            tasks, num_out, (192, 384), target_size=(96, 192),
+            det_cfg=default_det_params(), embed_dim=128, depths=(2, 2, 4, 2),
+            num_heads=(4, 8, 16, 32), window_size=12, device="cuda")
+        data = SyntheticMT(tasks, num_out, (192, 384),
+                           label_size=(96, 192)).batch(0, 1)
+    init_weights(model, gen)
+    return model, p, tasks, to_device(data, "cuda")
+
+
+@pytest.mark.parametrize("kind", ["invpt", "swin"])
+def test_remat_step_on_the_kernels_equals_plain_bits(gen, kind):
+    """A rematted bf16 training step through the kernels, on deterministic
+    library algorithms, gives the plain step's losses, gradients, BN
+    running statistics and drop-path generator state to the bit; the
+    rematted blocks' forward launches count twice (InvPT on ViT-B: 12
+    blocks, block 0 the fused half-block; the small Swin: 10 blocks, 4 of
+    them tap blocks on the composition)."""
+    import copy
+
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.utils.train_utils import Trainer
+
+    model, p, tasks, batch = _remat_small_net(kind, gen)
+    runs = []
+    for remat in (False, True):
+        m = copy.deepcopy(model)
+        m.backbone.remat = remat
+        if kind == "swin":
+            m.remat = remat
+        g = torch.Generator(device="cuda").manual_seed(3)
+        trainer = Trainer(m, p, tasks, torch.bfloat16, generator=g)
+        _build.reset_counts()
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            losses = trainer.backward(batch)
+        finally:
+            torch.use_deterministic_algorithms(was)
+        torch.cuda.synchronize()
+        runs.append(dict(counts=dict(_build.COUNTS), losses=losses,
+                         gen=g.get_state(),
+                         grads={n: w.grad for n, w in m.named_parameters()},
+                         buffers=dict(m.named_buffers())))
+    plain, rem = runs
+    more = (_counts(attention_cached=12, layernorm=11, mlp_ln_res=1,
+                    mlp_fc=11) if kind == "invpt" else
+            _counts(window_attention=6, mlp_fc=19, layernorm=39))
+    assert {k: rem["counts"][k] - v for k, v in plain["counts"].items()} \
+        == more
+    assert plain["counts"]["attention_bwd" if kind == "invpt"
+                           else "window_attention_bwd"] > 0
+    for k, v in plain["losses"].items():
+        assert torch.isfinite(v) and torch.equal(v, rem["losses"][k]), k
+    for n, g in plain["grads"].items():
+        assert (g is None) == (rem["grads"][n] is None), n
+        assert g is None or torch.equal(g, rem["grads"][n]), n
+    for n, b in plain["buffers"].items():
+        assert torch.equal(b, rem["buffers"][n]), n
+    assert torch.equal(plain["gen"], rem["gen"])
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_phase_head_bf16_on_the_card_near_cpu_f32(gen, train):
+    """``ConvHead(up4="phase")`` at the PASCAL head's shapes ((8, 32, 32,
+    350) -> 21 logits) in bf16 on the card, eval and training, against the
+    same weights and input in f32 on the CPU: relative RMS error at most
+    0.03 (bf16 rounding at the conv output, the affine and the GELU, about
+    2^-9 of a value each; a wiring fault gives order 1). No kernel
+    launches: the phase head is torch, as it is XLA in JAX."""
+    import copy
+
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.models.heads import ConvHead
+    from mtt_tpu_torch.models.layers import init_weights
+
+    head = ConvHead(350, 21, up4="phase", device="cuda",
+                    dtype=torch.bfloat16)
+    init_weights(head, gen)
+    with torch.no_grad():
+        bn = head.mt_proj.bn
+        bn.running_mean.copy_(0.1 * torch.randn(350, generator=gen,
+                                                device="cuda"))
+        bn.running_var.copy_(1 + 0.1 * torch.randn(
+            350, generator=gen, device="cuda").abs())
+    ref = copy.deepcopy(head).float().cpu()
+    x = _rnd(gen, 8, 32, 32, 350)
+    _build.reset_counts()
+    with torch.no_grad():
+        got = head(x, train=train)
+        want = ref(x.float().cpu(), train=train)
+    torch.cuda.synchronize()
+    assert _build.COUNTS == _counts()
+    assert got.shape == want.shape == (8, 128, 128, 21)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    err = ((got.float().cpu() - want).norm() / want.norm()).item()
+    assert err <= 0.03, err
+    if train:
+        for name in ("running_mean", "running_var"):
+            a, b = getattr(head.mt_proj.bn, name), getattr(ref.mt_proj.bn,
+                                                          name)
+            assert ((a.float().cpu() - b).norm() / b.norm()).item() <= 0.01

@@ -348,7 +348,9 @@ def test_convert_jax_flips_transposed_conv_and_keeps_groups():
 
 def test_build_model_invpt_defaults_to_the_card(monkeypatch):
     """``build_model`` on the InvPT settings returns a ``TransformerNet``; it
-    builds on the card by default and raises without one."""
+    builds on the card by default and raises without one. Every head of
+    ``HEADS`` builds (the conv head dense, as JAX's); the head-fused tail
+    takes the 1x1 ``mlp`` head only."""
     from mtt_tpu_torch.models.wrappers import (INVPT_PASCAL_VITL,
                                                TransformerNet, build_model)
     p = dict(INVPT_PASCAL_VITL, backbone="vitT")
@@ -359,8 +361,10 @@ def test_build_model_invpt_defaults_to_the_card(monkeypatch):
     assert isinstance(model, TransformerNet) and model.tail_head
     assert model.tasks == ("semseg", "human_parts", "sal", "normals", "edge")
     assert model.decoder.dims == (576, 288, 144)
-    with pytest.raises(NotImplementedError, match="mlp"):
-        build_model(dict(p, head="conv"), device="meta")
+    conv = build_model(dict(p, head="conv"), device="meta")
+    assert conv.head_semseg.up4 == "dense"
+    with pytest.raises(ValueError, match="mlp"):
+        build_model(dict(p, head="conv"), tail_head=True, device="meta")
 
 
 def test_predict_accepts_transformer_net_output():

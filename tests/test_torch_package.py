@@ -44,17 +44,17 @@ def test_refuses_prompt_len_above_one():
 
 
 def test_refuses_windowed_channel_decode_and_other_heads():
-    """The windowed channel decode builds now (NYUD's chan_nheads 16); the
-    ``phase`` up4 head still raises with its ROADMAP item."""
+    """The windowed channel decode builds now (NYUD's chan_nheads 16); every
+    up4 mode of the JAX ConvHead builds (``phase`` too), another raises."""
     from mtt_tpu_torch.models.wrappers import TaskPrompterNet
     model = TaskPrompterNet(("semseg",), {"semseg": 5}, (32, 32),
                             "TaskPrompter_vitT", tar_dim=8, final_dim=8,
                             chan_nheads=4, device="meta")
     assert model.backbone.decode_0.chan_windows == (2, 2)
     from mtt_tpu_torch.models.heads import ConvHead
-    with pytest.raises(NotImplementedError, match="up4.*ROADMAP"):
-        ConvHead(8, 5, up4="phase", device="meta")
-    for mode in ("factored", "dense"):
+    with pytest.raises(ValueError, match="up4='stencil'"):
+        ConvHead(8, 5, up4="stencil", device="meta")
+    for mode in ("factored", "phase", "dense"):
         assert ConvHead(8, 5, up4=mode, device="meta").up4 == mode
 
 

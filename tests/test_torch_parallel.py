@@ -9,7 +9,9 @@ computes the one-rank references on the same inputs:
   everywhere in the decoder) and the tiny Swin with semseg, depth and the
   FCOS3D loss, each with drop-path on (0.3; InvPT's decoder 0.15), on a
   global batch of 4, two samples a rank, against the one-rank step on the
-  whole batch. Rank 1's images are three times rank 0's, 80% of its labels
+  whole batch; the Swin again with ``remat`` on (``swin_remat``), so that
+  the recompute's BN moment all-reduce runs inside the backward on both
+  ranks. Rank 1's images are three times rank 0's, 80% of its labels
   are ignored, it has fewer edge positives and boxes (an image without
   any): a per-rank BN moment, loss mean or average factor moves the
   gradients by whole percents. Tolerances are those of the one-process
@@ -51,7 +53,7 @@ import torch_dist_worker as W
 from torch_threads import torch_threads  # noqa: F401
 
 JOIN_S = 300
-TRAIN_KINDS = ("taskprompter", "invpt", "swin")
+TRAIN_KINDS = ("taskprompter", "invpt", "swin", "swin_remat")
 
 
 def _jax_step(variables, batch):
@@ -119,8 +121,7 @@ def runs(tmp_path_factory):
             p.wait()
         raise
     ranks = W.join(procs, str(tmp), JOIN_S)
-    names = ["taskprompter", "invpt", "swin", "jax", "eval", "collectives",
-             "main"]
+    names = [*TRAIN_KINDS, "jax", "eval", "collectives", "main"]
     two = [dict(zip(names, r)) for r in ranks]
     return one, two, jax_out
 
@@ -156,7 +157,7 @@ def test_two_rank_grads_equal_one_rank(runs, kind):
     one, two, _ = runs
     want = one[kind]["grads"]
     atol = None
-    if kind == "swin":
+    if kind.startswith("swin"):
         atol = 1e-4 * max(g.abs().max().item() for g in want.values())
     for r in two:
         got = r[kind]["grads"]

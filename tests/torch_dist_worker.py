@@ -85,12 +85,14 @@ KINDS = {
     "invpt": (NYUD, NYUD_OUT, (128, 128), None, INVPT_P),
     "swin": (CS3D, CS3D_OUT, SWIN_IMG, SWIN_LABELS, None),
 }
+KINDS["swin_remat"] = KINDS["swin"]     # the tiny Swin with remat on
 
 
-def build(kind: str, drop: float = DROP, seed: int = 0):
+def build(kind: str, drop: float = DROP, seed: int = 0, remat: bool = False):
     """The kind's ViT-T / tiny-Swin model on the CPU with seeded weights
     (``init_weights``), drop-path at ``drop`` (InvPT's decoder keeps its
-    0.15)."""
+    0.15); ``remat`` (InvPT and the Swin; on for ``swin_remat``) checkpoints
+    the blocks (and the Swin's heads)."""
     from mtt_tpu_torch.models.layers import init_weights
     from mtt_tpu_torch.models.wrappers import (TaskPrompterNet,
                                                TaskPrompterSwinNet,
@@ -103,10 +105,11 @@ def build(kind: str, drop: float = DROP, seed: int = 0):
     elif kind == "invpt":
         model = TransformerNet(tasks, out, img, "vitT", embed_dim=32,
                                pred_out=16, drop_path_rate=drop,
-                               device="cpu")
+                               remat=remat, device="cpu")
     else:
         model = TaskPrompterSwinNet(tasks, out, img, det_cfg=tiny_det_cfg(),
                                     target_size=labels, drop_path_rate=drop,
+                                    remat=remat or kind == "swin_remat",
                                     device="cpu", **SWIN)
     init_weights(model, torch.Generator().manual_seed(seed))
     with torch.no_grad():
@@ -131,7 +134,8 @@ def global_batch(kind: str, seed: int = 3) -> dict:
     from mtt_tpu_torch.data.synthetic import SyntheticMT
     from mtt_tpu_torch.utils.train_utils import to_device
     tasks, out, img, labels, _ = KINDS[kind]
-    kw = dict(max_boxes=8, label_size=labels) if kind == "swin" else {}
+    swin = labels is not None
+    kw = dict(max_boxes=8, label_size=labels) if swin else {}
     b = to_device(SyntheticMT(tasks, out, img, seed=seed, **kw)
                   .batch(0, GLOBAL_B), "cpu")
     half = GLOBAL_B // 2
@@ -146,7 +150,7 @@ def global_batch(kind: str, seed: int = 3) -> dict:
             lab[clear & (lab == 1)] = 0.0
         drop = torch.rand(lab.shape[:3], generator=gen) < 0.8
         lab[drop] = 255.0
-    if kind == "swin":
+    if swin:
         valid = b["det_valid"]
         first = valid[half].nonzero()[0, 0]
         valid[half] = 0.0
