@@ -30,7 +30,11 @@ Phases, in order (the seconds each took are printed):
      LayerNorm rows of 128 to 2048 at eps 1e-5; MLP widths 128 to 1024, down
      to the 3 prompt rows),
      and the safe softmax of rows 1, 2 and 13 (at least 99% of the outputs
-     bit-equal to the plain version: the max over all keys):
+     bit-equal to the plain version: the max over all keys), and the
+     ``limits`` phase's shapes (row 9 at Cityscapes-3D's three stages and at
+     head dim 544, row 3 at 5440 columns, the attention core at head dims
+     16, 32, 80 and 128, fast and safe, row 7 at 16 and 32; each one's
+     bit-equal share printed):
      error, tolerance in bf16 ulps, CUDA-event times of the kernel, the
      plain version, the library call or composition, and the bound of the
      card;
@@ -191,6 +195,23 @@ Phases, in order (the seconds each took are printed):
      5) and Swin-B Cityscapes-3D with the conv head (launch counts, every
      2D map and detection level against an f32 run). Its launches are the
      kernels line's ``options_*`` paths.
+  20. ``limits``: models that JAX's ``build_model`` builds from a YAML past
+     the shipped configs, each YAML a shipped one with its keys changed and
+     read by ``create_config`` (``_limit_configs``), seeded bf16 weights:
+     InvPT-ViT-L on Cityscapes-3D's 2D tasks (semseg with 19 classes, depth)
+     at 1024x2048, eval at batch 1 and one training step at batch 1 with
+     intermediate supervision (row 9 at 1024 keys, rows 1-2 and row 7 over
+     8,193 tokens); InvPT-ViT-L PASCAL at embed_dim 1024 (row 9 at head dim
+     544, row 3 at 5440 columns), eval at batch 8; InvPT-ViT-T and
+     TaskPrompter-ViT-T PASCAL (the attention core and row 7 at head dim 16),
+     eval at batch 8 with the card's f32 plain forward held to the CPU's
+     (LIMIT_CPU_TOL), and one step at batch 2. The checks of phases 5 and 9:
+     launch counts, every map within 0.1 of f32, the gradients against the
+     f32 backward at the step's forward point, finite losses, ms and peak
+     memory. Each step's seed is the first that keeps every InvPT decoder
+     branch for some sample (``_limit_trainer``). Its launches are the
+     kernels line's ``limits_*`` paths; phase 3 holds each of these kernels
+     at the new shapes to its plain version (``_limits_cases``).
 The line before the last is the kernels JSON; the last line is the device JSON.
 
 ``python3 chip_smoke.py --profile`` runs none of these phases: after the
@@ -208,7 +229,7 @@ statistics at 10% in place of 1% (``_vary``), to see how the forwards'
 bf16 error grows with them.
 ``--phases kernels,invpt`` (any subset of kernels, attention_api, eval,
 invpt, swin, nyud, train, swin_train, invpt_train, nyud_train, evaluate,
-loop, detect, convert, parallel, datasets, options)
+loop, detect, convert, parallel, datasets, options, limits)
 runs only those phases and prints no result lines: a quick look, not the
 check.
 """
@@ -270,6 +291,19 @@ SW_LEVELS = ((96, 192), (48, 96), (24, 48), (24, 48), (12, 24))
 # Stuttgart camera calibration of the Cityscapes demo (public constants)
 SW_CAM_K = ((2262.52, 0.0, 1096.98), (0.0, 2265.3017905988554, 513.137),
             (0.0, 0.0, 1.0))
+
+# The limits phase: models JAX's build_model builds from a YAML past the
+# shipped configs. InvPT-ViT-L on Cityscapes-3D's 2D tasks at 1024x2048: 2
+# tasks x 16 x 32 = 1024 keys at every stage, stage (query rows, head dim,
+# message) below; InvPT-ViT-L PASCAL at embed_dim 1024 (decoder width 1088);
+# the ViT-T models (4 heads of 16).
+CS3D_LK = 1024
+CS3D_INVPT_STAGES = ((1024, 288, False), (4096, 144, True),
+                     (16384, 72, True))
+WIDE_D = 1024 + 64
+LIMIT_CORE = ((4, 16), (16, 32), (12, 80), (8, 128))   # (heads, head dim)
+LIMIT_BWD = ((4, 16), (16, 32))
+LIMIT_CPU_TOL = 1e-4     # the card's f32 plain forward against the CPU's
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
 # outside them, HBM bandwidth
@@ -360,12 +394,50 @@ def _bound(nbytes: float, tc_flops: float, f32_flops: float = 0.0):
                                  else "operations")
 
 
+def _invpt_case(rnd, batch, Lq, Lk, Dh, with_msg):
+    """Row 9 on the model's (B, L, H, D) head views in ``kernel_phase``'s
+    format: q (batch, 2, Lq, Dh), k and v (batch, 2, Lk, Dh), a message
+    (f32) with its head mix where ``with_msg``; its composition (matmul,
+    the mix, softmax, matmul) as the library yardstick."""
+    from mtt_tpu_torch.kernels.invpt_attention import invpt_fused_attention
+
+    bf, f32 = torch.bfloat16, torch.float32
+    q = rnd(batch, Lq, INV_H, Dh).transpose(1, 2)
+    k = rnd(batch, Lk, INV_H, Dh).transpose(1, 2)
+    v = rnd(batch, Lk, INV_H, Dh).transpose(1, 2)
+    msg = rnd(batch, INV_H, Lq, Lk, dtype=f32) if with_msg else None
+    w = rnd(INV_H, 2 * INV_H, std=0.5, dtype=f32) if with_msg else None
+    b = rnd(INV_H, std=0.1, dtype=f32) if with_msg else None
+    sc = (INV_H * Dh) ** -0.5
+
+    def call(impl):
+        return invpt_fused_attention(q, k, v, msg, w, b, sc, impl=impl)
+
+    def comp():
+        fused = torch.matmul(q, k.transpose(-1, -2)).float() * sc
+        if msg is not None:
+            fused = torch.einsum("hc,bcqk->bhqk", w,
+                                 torch.cat([fused, msg], 1)) \
+                + b[None, :, None, None]
+        return torch.matmul(torch.softmax(fused, -1).to(bf), v), fused
+
+    nel = batch * INV_H * Lq * Lk
+    return (call, (4, 0.01),
+            "out: scores, mix and softmax in f32 and p rounded to bf16 at "
+            "the same point, f32 sums in another order can flip that "
+            "rounding; fused (f32 on both sides): exact bf16 products summed "
+            "in f32 in another order, 0.01 bf16 ulps = 8e-5 of max |fused|",
+            None, comp,
+            _nbytes(q, k, v, q) + nel * 4
+            + (_nbytes(msg, w, b) if with_msg else 0),
+            4.0 * nel * Dh, (8.0 if with_msg else 1.0) * nel + 5.0 * nel)
+
+
 def _invpt_cases(rnd):
     """The kernel cases the InvPT path adds, in ``kernel_phase``'s format:
     rows 9 and 10 at the PASCAL ViT-L shapes (and row 10 on NYUD's non-square
     grid), and rows 1, 3, 4 and 8 at the shapes this path gives them."""
     from mtt_tpu_torch.kernels.attention import fused_attention_ln_qkv
-    from mtt_tpu_torch.kernels.invpt_attention import invpt_fused_attention
     from mtt_tpu_torch.kernels.invpt_tail import (fused_ms_tail,
                                                   fused_ms_tail_head)
     from mtt_tpu_torch.kernels.layernorm import fused_layernorm
@@ -383,36 +455,8 @@ def _invpt_cases(rnd):
     stages.append((NYUD_T * NYUD_GH * NYUD_GW, INV_STAGES[2][1],
                    NYUD_T * (NYUD_GH // 4) * (NYUD_GW // 4), "@nyud2"))
     for i, (Lq, dim, Lk, label) in enumerate(stages):
-        Dh = dim // INV_H
-        q = rnd(B, Lq, INV_H, Dh).transpose(1, 2)
-        k = rnd(B, Lk, INV_H, Dh).transpose(1, 2)
-        v = rnd(B, Lk, INV_H, Dh).transpose(1, 2)
-        msg = rnd(B, INV_H, Lq, Lk, dtype=f32) if i else None
-        w = rnd(INV_H, 2 * INV_H, std=0.5, dtype=f32) if i else None
-        b = rnd(INV_H, std=0.1, dtype=f32) if i else None
-
-        def call(impl, a=(q, k, v, msg, w, b), sc=dim ** -0.5):
-            return invpt_fused_attention(*a, sc, impl=impl)
-
-        def comp(a=(q, k, v, msg, w, b), sc=dim ** -0.5):
-            q_, k_, v_, m_, w_, b_ = a
-            fused = torch.matmul(q_, k_.transpose(-1, -2)).float() * sc
-            if m_ is not None:
-                fused = torch.einsum("hc,bcqk->bhqk", w_,
-                                     torch.cat([fused, m_], 1)) \
-                    + b_[None, :, None, None]
-            return torch.matmul(torch.softmax(fused, -1).to(bf), v_), fused
-
-        nel = B * INV_H * Lq * Lk
-        cases[f"invpt_attention{label}"] = (
-            call, (4, 0.01),
-            "out: scores, mix and softmax in f32 and p rounded to bf16 at the "
-            "same point, f32 sums in another order can flip that rounding; "
-            "fused (f32 on both sides): exact bf16 products summed in f32 in "
-            "another order, 0.01 bf16 ulps = 8e-5 of max |fused|",
-            None, comp,
-            _nbytes(q, k, v, q) + nel * 4 + (_nbytes(msg, w, b) if i else 0),
-            4.0 * nel * Dh, (8.0 if i else 1.0) * nel + 5.0 * nel)
+        cases[f"invpt_attention{label}"] = _invpt_case(rnd, B, Lq, Lk,
+                                                       dim // INV_H, i > 0)
 
     # row 10, both forms, at the PASCAL grid and on NYUD's 14x18 grid
     def tail_case(batch, th, tw, n, label):
@@ -773,6 +817,81 @@ def _api_cases(rnd):
     return cases
 
 
+def _limits_cases(rnd):
+    """The kernel cases of the ``limits`` phase's shapes, in
+    ``kernel_phase``'s format: row 9 at the three InvPT stages of a
+    Cityscapes-3D frame (batch 1, 1024 keys) and at PASCAL's stage 0 at
+    embed_dim 1024 (q (8, 2, 320, 544)), both past the resident kernel's
+    reach (the streamed form); row 3 on that model's stage-0 norm (8, 16,
+    16, 5440); the attention core (row 13's entry) at head dims 16 (ViT-T,
+    4 heads), 32, 80 and 128 over 1025 tokens at batch 8, fast and safe;
+    row 7 at head dims 16 and 32 at the training batch of 2. Library
+    calls: F.layer_norm, SDPA on the packed qkv's strided views and SDPA's
+    backward; row 9's composition."""
+    from mtt_tpu_torch.kernels.attention import (attn_core_bwd_cuda,
+                                                 attn_core_bwd_plain,
+                                                 fused_attention_qkv)
+    from mtt_tpu_torch.kernels.layernorm import fused_layernorm
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = {}
+    for i, (Lq, dh, msg) in enumerate(CS3D_INVPT_STAGES):
+        cases[f"invpt_attention@cs3d_stage{i}"] = _invpt_case(
+            rnd, 1, Lq, CS3D_LK, dh, msg)
+    g0 = INV_STAGES[0][0]
+    cases[f"invpt_attention@D{WIDE_D // 2}"] = _invpt_case(
+        rnd, B, T * g0 * g0, INV_LK, WIDE_D // 2, False)
+    Cm = T * WIDE_D
+    xm = rnd(B, 2 * g0, 2 * g0, Cm)
+    gm_ = rnd(Cm, std=0.1, mean=1.0, dtype=f32)
+    bm_ = rnd(Cm, std=0.1, dtype=f32)
+    cases[f"layernorm@C{Cm}"] = (
+        lambda impl: fused_layernorm(xm, gm_, bm_, impl=impl),
+        1, "as layernorm, a row over the four warps of a block",
+        lambda: F.layer_norm(xm, (Cm,), gm_.to(bf), bm_.to(bf), 1e-6),
+        None, _nbytes(xm, gm_, bm_, xm), 0.0, 8.0 * xm.numel())
+
+    for h, d in LIMIT_CORE:
+        qkv = rnd(B, NV, h * 3 * d)
+
+        def sdpa(qkv=qkv, h=h, d=d):
+            q, k, v = (t.transpose(1, 2)
+                       for t in qkv.view(B, NV, h, 3, d).unbind(3))
+            o = F.scaled_dot_product_attention(q, k, v)
+            return o.transpose(1, 2).reshape(B, NV, h * d)
+
+        for safe in (False, True):
+            cases[f"attention_qkv@D{d}" + ("_safe" if safe else "")] = (
+                lambda impl, qkv=qkv, h=h, s=safe: fused_attention_qkv(
+                    qkv, h, impl=impl, safe=s),
+                4, f"as attention_qkv{'_safe' if safe else ''}, head dim "
+                   f"{d} (its tile padded with zeros past it)",
+                sdpa, None, _nbytes(qkv) + B * NV * h * d * 2,
+                4.0 * B * h * NV * NV * d, 0.0)
+
+    for h, d in LIMIT_BWD:
+        qkv, g = rnd(BT, NV, h * 3 * d), rnd(BT, NV, h * d)
+        q5 = qkv.view(BT, NV, h, 3, d)
+        sd_in = [q5[:, :, :, j].transpose(1, 2).detach().requires_grad_()
+                 for j in range(3)]
+        sd_out = F.scaled_dot_product_attention(*sd_in)
+        sd_g = g.view(BT, NV, h, d).transpose(1, 2)
+
+        def bwd_lib(o=sd_out, i=sd_in, gg=sd_g):
+            return torch.autograd.grad(o, i, gg, retain_graph=True)
+
+        def bwd(impl, qkv=qkv, g=g, h=h, d=d):
+            fn = attn_core_bwd_cuda if impl == "cuda" else attn_core_bwd_plain
+            v5 = fn(qkv, g, h, d ** -0.5).view(BT, NV, h, 3, d)
+            return tuple(v5[..., j, :] for j in range(3))
+
+        cases[f"attention_bwd@D{d}"] = (
+            bwd, 4, f"as attention_bwd, per q, k and v slot, head dim {d}",
+            bwd_lib, None, _nbytes(qkv, g, qkv),
+            10.0 * BT * h * NV * NV * d, 0.0)
+    return cases
+
+
 def kernel_phase():
     """Each kernel against its plain version on the same seeded inputs."""
     from mtt_tpu_torch.kernels.attention import (attn_core_bwd_cuda,
@@ -1006,6 +1125,8 @@ def kernel_phase():
     cases.update(_invpt_cases(rnd))
     cases.update(_swin_cases(rnd))
     cases.update(_api_cases(rnd))
+    limit_cases = _limits_cases(rnd)
+    cases.update(limit_cases)
     results = {}
     for name, (call, ulps, reason, lib, comp, nbytes, tcf, f32f) in \
             cases.items():
@@ -1101,6 +1222,19 @@ def kernel_phase():
         sh = share(cases[name][0]("cuda")[0], cases[name][0]("plain")[0])
         results[name]["bit_equal_share"] = sh
         print(f"[kernel] {name}: bit-equal share {sh:.6f} of out",
+              flush=True)
+    # the shapes past the shipped configs: out's share for row 9, every
+    # output's for the others
+    for name in limit_cases:
+        got, want = (t if isinstance(t, tuple) else (t,) for t in
+                     (cases[name][0]("cuda"), cases[name][0]("plain")))
+        if name.startswith("invpt_attention"):
+            got, want = got[:1], want[:1]
+        sh = sum((a == b).sum().item() for a, b in zip(got, want)) \
+            / sum(a.numel() for a in got)
+        results[name]["bit_equal_share"] = sh
+        print(f"[kernel] {name}: bit-equal share {sh:.6f} of "
+              f"{'out' if name.startswith('invpt') else 'the outputs'}",
               flush=True)
     qkv_k = qkv_proj_cuda(layernorm_cuda(x, gamma, beta, 1e-6), wqkv, bqkv)
     core_want = attention_qkv_plain(qkv_k, HEADS, D ** -0.5, True)
@@ -1435,10 +1569,10 @@ def attention_api_phase():
     return counts
 
 
-def _serve_model(p: dict, seed: int, size, **kw):
+def _serve_model(p: dict, seed: int, size, batch: int = B, **kw):
     """A model built by ``build_model`` from config dict ``p`` (bf16, seeded
     random weights, full width and depth; ``kw`` to ``build_model``) and a
-    seeded batch of 8 preprocessed images of ``size``."""
+    seeded batch of ``batch`` (8) preprocessed images of ``size``."""
     from mtt_tpu_torch.inference import preprocess
     from mtt_tpu_torch.models.layers import init_weights
     from mtt_tpu_torch.models.wrappers import build_model
@@ -1448,7 +1582,8 @@ def _serve_model(p: dict, seed: int, size, **kw):
     model = build_model(p, img_size=size, device=dev, dtype=torch.bfloat16,
                         **kw).eval()
     init_weights(model, gen)
-    rgb = torch.randint(0, 256, (B, *size, 3), generator=gen, device=dev)
+    rgb = torch.randint(0, 256, (batch, *size, 3), generator=gen,
+                        device=dev)
     return model, preprocess(rgb)
 
 
@@ -1460,7 +1595,7 @@ def _serve_check(tag: str, title: str, model, x, want: dict) -> dict:
     from mtt_tpu_torch.inference import predict
     from mtt_tpu_torch.kernels import _build
 
-    size = tuple(x.shape[1:3])
+    nb, size = x.shape[0], tuple(x.shape[1:3])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_counts()
@@ -1469,7 +1604,7 @@ def _serve_check(tag: str, title: str, model, x, want: dict) -> dict:
     counts = dict(_build.COUNTS)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[{tag}] {title}, {n_params / 1e6:.1f} M params, batch {B} at "
+    print(f"[{tag}] {title}, {n_params / 1e6:.1f} M params, batch {nb} at "
           f"{size[0]}x{size[1]} bf16; launches {counts}", flush=True)
     if counts != want:
         raise RuntimeError(f"{tag} launch counts {counts} != {want}")
@@ -1486,7 +1621,7 @@ def _serve_check(tag: str, title: str, model, x, want: dict) -> dict:
             maps.append((f"inter_preds.{t}", logits["inter_preds"][t],
                          ref["inter_preds"][t], plain["inter_preds"][t]))
         for what, k, r, p in maps:
-            if k.shape != (B, *size, n) or not torch.isfinite(k).all():
+            if k.shape != (nb, *size, n) or not torch.isfinite(k).all():
                 raise RuntimeError(f"{tag} {what}: logits {tuple(k.shape)} "
                                    f"or non-finite")
             r = r.float()
@@ -1505,7 +1640,7 @@ def _serve_check(tag: str, title: str, model, x, want: dict) -> dict:
                 raise RuntimeError(f"{tag} {what}: kernel forward is "
                                    f"{rms_k:.4g} (relative RMS) from the f32 "
                                    f"run, over {FORWARD_RMS_TOL}")
-        if preds[t].shape[:3] != (B, *size) or \
+        if preds[t].shape[:3] != (nb, *size) or \
                 not torch.isfinite(preds[t].float()).all():
             raise RuntimeError(f"{tag} {t}: bad prediction "
                                f"{tuple(preds[t].shape)}")
@@ -1513,9 +1648,9 @@ def _serve_check(tag: str, title: str, model, x, want: dict) -> dict:
     ms = _time_ms(lambda: predict(model, x), reps=5, warmup=1)
     plain_ms = _time_ms(lambda: predict(model, x, impl="plain"), reps=3,
                         warmup=1)
-    print(f"[{tag}] forward+postprocess {ms:.2f} ms = {B / ms * 1e3:.2f} "
+    print(f"[{tag}] forward+postprocess {ms:.2f} ms = {nb / ms * 1e3:.2f} "
           f"imgs/s through the kernels; plain versions {plain_ms:.2f} ms = "
-          f"{B / plain_ms * 1e3:.2f} imgs/s; peak memory of the first "
+          f"{nb / plain_ms * 1e3:.2f} imgs/s; peak memory of the first "
           f"forward {peak_gib:.2f} GiB", flush=True)
     return counts
 
@@ -3584,12 +3719,17 @@ def _train_run(tag, title, trainer, batches, expected, batch_size,
     names = [n for n, _ in model.named_parameters()]
     still = [n for n, a, b in zip(names, master0, trainer.master)
              if torch.equal(a, b.detach().cpu())]
-    stuck = [n for n, g in zip(names, has_grad) if g and n in still]
+    # a tensor whose f32 gradient is under 1e-6 of all (``tiny``: a bias
+    # ahead of batch-statistics BN, whose exact gradient is zero) may stay
+    # put: the per-tensor check leaves it out for the same reason
+    stuck = [n for n, g in zip(names, has_grad)
+             if g and n in still and n not in tiny]
     bn_moved = sum(not torch.equal(buffers0[n], b) for n, b in
                    model.named_buffers() if n in buffers0)
     print(f"[{tag}] parameters moved {len(names) - len(still)}/{len(names)} "
-          f"(unmoved, each with a zero f32 gradient: {still}); BN running "
-          f"statistics moved {bn_moved}/{len(buffers0)}", flush=True)
+          f"(unmoved, each with a zero f32 gradient or one under 1e-6 of "
+          f"all: {still}); BN running statistics moved "
+          f"{bn_moved}/{len(buffers0)}", flush=True)
     if stuck or bn_moved != len(buffers0):
         raise RuntimeError(f"parameters with a gradient that did not move "
                            f"{stuck}, or BN statistics that did not move")
@@ -4700,6 +4840,240 @@ def options_phase():
     return counts
 
 
+_PASCAL_TASKS = """  include_semseg: True
+  include_human_parts: True
+  include_sal: True
+  include_edge: True
+  include_normals: True
+  edge_w: 0.95"""
+_PASCAL_LOSSES = """    semseg: 1.0
+    human_parts: 2.0
+    sal: 5.0
+    edge: 50.0
+    normals: 10.0"""
+
+
+def _limit_configs(work: str) -> dict:
+    """The ``limits`` phase's experiments, each a shipped YAML with the
+    keys that JAX's ``build_model`` reads changed, written into ``work``
+    and read by ``create_config`` as ``main`` reads an experiment:
+    ``cs3d_invpt``, configs/pascal/invpt_vitLp16.yml on Cityscapes-3D's 2D
+    tasks (semseg and depth, the Cityscapes-3D YAML's loss weights, its
+    trBatch of 1; 1024x2048 frames); ``pascal_invpt_wide``, the same at
+    embed_dim 1024 (ViT-L's width; decoder width 1088); ``invpt_vitt``,
+    backbone vitT at embed_dim 64 (decoder width 128, a multiple of 64, so
+    row 9's head dims are 64, 32 and 16); ``tp_vitt``,
+    configs/pascal/taskprompter_vitLp16.yml with backbone
+    TaskPrompter_vitT and embed_dim and final_embed_dim 64 (every GEMM
+    width a multiple of 8, the task decode's C / G = 16). The ViT-T widths
+    are cut from the YAMLs' 512, 300 and 350 so that the CPU f32 forward
+    that the card's is held to takes seconds."""
+    from mtt_tpu_torch.config import create_config
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "pascal")
+    invpt, tp = "invpt_vitLp16.yml", "taskprompter_vitLp16.yml"
+    specs = {
+        "cs3d_invpt": (invpt, (
+            ("version_name: InvPT_pascal_vitLp16",
+             "version_name: InvPT_cs3d_vitLp16"),
+            ("train_db_name: PASCALContext", "train_db_name: Cityscapes3D"),
+            ("val_db_name: PASCALContext", "val_db_name: Cityscapes3D"),
+            ("trBatch: 2", "trBatch: 1"),
+            ("ignore_index: 255",
+             "ignore_index: 255\nignore_invalid_area_depth: True"),
+            (_PASCAL_TASKS, "  include_semseg: True\n  include_depth: True"),
+            (_PASCAL_LOSSES, "    semseg: 100.0\n    depth: 1.0"))),
+        "pascal_invpt_wide": (invpt, (("embed_dim: 512", "embed_dim: 1024"),)),
+        "invpt_vitt": (invpt, (("backbone: vitL", "backbone: vitT"),
+                               ("embed_dim: 512", "embed_dim: 64"))),
+        "tp_vitt": (tp, (("backbone: TaskPrompter_vitL",
+                          "backbone: TaskPrompter_vitT"),
+                         ("final_embed_dim: 350", "final_embed_dim: 64"),
+                         ("embed_dim: 300", "embed_dim: 64"))),
+    }
+    out = {}
+    for name, (src, subs) in specs.items():
+        with open(os.path.join(root, src)) as f:
+            text = f.read()
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"limits: {src} has {old!r} "
+                                   f"{text.count(old)} times, not once")
+            text = text.replace(old, new)
+        path = os.path.join(work, f"{name}.yml")
+        with open(path, "w") as f:
+            f.write(text)
+        out[name] = create_config(path, {"run_mode": "infer"})
+    return out
+
+
+def expected_limits_invpt(depth: int, tasks: int, train: bool) -> dict:
+    """InvPT on a ViT of ``depth`` blocks: the forward's launches as
+    ``expected_invpt`` (one tail launch a task), the step's as
+    ``expected_invpt_train`` (blocks 1.. under drop-path)."""
+    if train:
+        return _expected(layernorm=depth - 1 + 1 + 6 + 3,
+                         attention_cached=depth, attention_bwd=depth,
+                         mlp_ln_res=1, mlp_fc=depth - 1 + 3,
+                         invpt_attention=3)
+    return _expected(layernorm=1 + 6 + 3, attention_cached=depth,
+                     mlp_ln_res=depth, mlp_fc=3, invpt_attention=3,
+                     invpt_tail=tasks)
+
+
+def expected_limits_tp(depth: int, taps: int, train: bool) -> dict:
+    """TaskPrompter on a ViT of ``depth`` blocks with ``taps`` tap blocks
+    (the emit front half; ViT-T's four blocks all tap): the forward's
+    launches as ``expected_eval("factored")``, the step's as
+    ``expected_train``."""
+    if train:
+        return _expected(layernorm=depth - 1 + taps + 1,
+                         attention_cached=depth - taps,
+                         attention_emit=taps, attention_bwd=depth,
+                         mlp_ln_res=1, mlp_fc=depth - 1, task_decode=taps)
+    return _expected(layernorm=taps + 1, attention_cached=depth - taps,
+                     attention_emit=taps, mlp_ln_res=depth,
+                     task_decode=taps, head_up4=T)
+
+
+def _limit_trainer(tag, p, seeds, batch_size):
+    """A trainer of config ``p`` (``make_trainer``) and its first two
+    synthetic batches, from the first of ``seeds`` whose checked step keeps
+    every InvPT decoder branch for at least one sample: ``_train_run``
+    refuses a step that drops a branch for every sample (that branch's
+    gradient would go unchecked), and at batch 1 each of the six branches
+    is dropped at rate 0.15. One step a seed tried, printed."""
+    from mtt_tpu_torch.train import make_trainer
+    from mtt_tpu_torch.utils.train_utils import to_device
+
+    dev = torch.device("cuda")
+    for seed in seeds:
+        trainer, data = make_trainer(p, seed=seed, device=dev)
+        batches = [to_device(data.batch(i * batch_size, batch_size), dev)
+                   for i in range(2)]
+        masks = _DropPathMasks(trainer.model)
+        with masks:
+            trainer.backward(batches[0])
+        dead = masks.dead()
+        print(f"[{tag}] seed {seed}: decoder branches dropped for every "
+              f"sample {dead}", flush=True)
+        del trainer, data, masks
+        torch.cuda.empty_cache()
+        if not dead:
+            trainer, _ = make_trainer(p, seed=seed, device=dev)
+            return trainer, batches
+    raise RuntimeError(f"{tag}: every seed of {seeds} drops a decoder "
+                       f"branch for every sample")
+
+
+def _cpu_f32_check(tag, model, x) -> None:
+    """The card's f32 plain forward of ``model``'s weights against the
+    port's CPU f32 forward of the same weights on the first image (the CPU
+    tests hold the CPU path to JAX; ``_serve_check`` holds the kernels to
+    the card's f32 path): every map within LIMIT_CPU_TOL of the CPU map's
+    largest value, f32 products and convolutions in f32 (no TF32) on the
+    card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = copy.deepcopy(model).float()
+    host = copy.deepcopy(ref).to("cpu")
+    with torch.no_grad():
+        card = ref(x[:1], impl="plain")
+        cpu = host(x[:1].cpu(), impl="plain")
+    del ref, host
+    maps = {t: (card[t], cpu[t]) for t in model.tasks}
+    if "inter_preds" in cpu:
+        maps.update({f"inter_preds.{t}": (card["inter_preds"][t], v)
+                     for t, v in cpu["inter_preds"].items()})
+    worst = 0.0
+    for name, (c, h) in maps.items():
+        e = (c.float().cpu() - h.float()).abs().max().item() \
+            / h.float().abs().max().item()
+        worst = max(worst, e)
+        if not e <= LIMIT_CPU_TOL:
+            raise RuntimeError(f"{tag} {name}: the card's f32 forward is "
+                               f"{e:.3g} of its scale from the CPU's, over "
+                               f"{LIMIT_CPU_TOL}")
+    print(f"[{tag}] the card's f32 plain forward against the CPU's on the "
+          f"first image: every map within {worst:.3g} of its scale (tol "
+          f"{LIMIT_CPU_TOL}), {len(maps)} maps", flush=True)
+
+
+def limits_phase():
+    """Models JAX's ``build_model`` builds from a YAML past the shipped
+    configs (``_limit_configs``), through the kernels at the shapes that
+    lifted their limits: InvPT-ViT-L on Cityscapes-3D's 2D tasks at
+    1024x2048 (row 9 at 1024 keys, rows 1-2 over 8,193 tokens), eval at
+    batch 1 (``_serve_check``) and one training step at batch 1 with
+    intermediate supervision (``_train_run``); InvPT-ViT-L PASCAL at
+    embed_dim 1024 (row 9 at head dim 544, row 3 at 5440 columns), eval at
+    batch 8; InvPT-ViT-T and TaskPrompter-ViT-T PASCAL (the attention core
+    and row 7 at head dim 16), eval at batch 8, the card's f32 plain
+    forward held to the CPU's (``_cpu_f32_check``), and one step at the
+    YAMLs' batch of 2. Returns the launch counts by path."""
+    counts = {}
+    work = tempfile.mkdtemp(prefix="mtt_limits_")
+    try:
+        cfg = _limit_configs(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    def loss_keys(p):
+        inter = p.get("intermediate_supervision", False)
+        return {*p.TASKS.NAMES, "total",
+                *(f"inter_{t}" for t in p.TASKS.NAMES if inter)}
+
+    p = cfg["cs3d_invpt"]
+    size = tuple(p.TEST.SCALE)
+    title = (f"InvPT-ViT-L Cityscapes-3D 2D tasks (semseg, depth; "
+             f"{CS3D_LK} keys)")
+    model, x = _serve_model(p, 30, size, batch=1)
+    counts["limits_cs3d_invpt"] = _serve_check(
+        "limits cs3d_invpt", title, model, x,
+        expected_limits_invpt(24, 2, False))
+    del model, x
+    torch.cuda.empty_cache()
+    trainer, batches = _limit_trainer("limits cs3d_invpt_step", p,
+                                      range(31, 39), 1)
+    counts["limits_cs3d_invpt_step"] = _train_run(
+        "limits cs3d_invpt_step", f"{title}, 1 image at {size[0]}x{size[1]}",
+        trainer, batches, expected_limits_invpt(24, 2, True), 1,
+        loss_keys=loss_keys(p))
+    del trainer, batches
+    torch.cuda.empty_cache()
+
+    model, x = _serve_model(cfg["pascal_invpt_wide"], 40, (IMG, IMG))
+    counts["limits_invpt_wide"] = _serve_check(
+        "limits invpt_wide", f"InvPT-ViT-L PASCAL at embed_dim 1024 "
+        f"(decoder width {WIDE_D})", model, x, expected_invpt(False))
+    del model, x
+    torch.cuda.empty_cache()
+
+    for tag, title, want, seed in (
+            ("invpt_vitt", "InvPT-ViT-T PASCAL (4 heads of 16, decoder "
+             "width 128)", expected_limits_invpt, 50),
+            ("tp_vitt", "TaskPrompter-ViT-T PASCAL (4 heads of 16, widths "
+             "64)", expected_limits_tp, 60)):
+        p = cfg[tag]
+        kw = {"tasks": T} if want is expected_limits_invpt else {"taps": 4}
+        model, x = _serve_model(p, seed, (IMG, IMG))
+        counts[f"limits_{tag}"] = _serve_check(
+            f"limits {tag}", title, model, x, want(4, train=False, **kw))
+        _cpu_f32_check(f"limits {tag}", model, x)
+        del model, x
+        torch.cuda.empty_cache()
+        trainer, batches = _limit_trainer(f"limits {tag}_step", p,
+                                          range(seed + 1, seed + 9), BT)
+        counts[f"limits_{tag}_step"] = _train_run(
+            f"limits {tag}_step", f"{title}, batch {BT} at {IMG}x{IMG}",
+            trainer, batches, want(4, train=True, **kw), BT,
+            loss_keys=loss_keys(p))
+        del trainer, batches
+        torch.cuda.empty_cache()
+    return counts
+
+
 # profile: kernel-name fragment -> group; anything else is library work
 PROFILE_GROUPS = (# the shared GEMM (gemm.cu) by its epilogue: fc1 of rows 4
                   # and 8; fc2 of row 4; fc2 of row 8 and rows 1-2's qkv
@@ -5028,7 +5402,8 @@ PHASES = {"kernels": kernel_phase, "attention_api": attention_api_phase,
           "nyud_train": nyud_train_phase, "evaluate": evaluate_phase,
           "loop": loop_phase, "detect": detect_phase,
           "convert": convert_phase, "parallel": parallel_phase,
-          "datasets": datasets_phase, "options": options_phase}
+          "datasets": datasets_phase, "options": options_phase,
+          "limits": limits_phase}
 
 
 def main(argv=None):
@@ -5109,7 +5484,8 @@ def main(argv=None):
                    **outcome["detect"], **outcome["convert"],
                    **outcome["parallel"], **outcome["datasets"],
                    **{f"options_{k}": c
-                      for k, c in outcome["options"].items()}}
+                      for k, c in outcome["options"].items()},
+                   **outcome["limits"]}
 
     rows = []
     for name, (src, replaces, counter, path) in KERNEL_ROWS.items():

@@ -1,5 +1,6 @@
-// Attention-core backward: dqkv from the head-major qkv (B, N, H*3*64) and the
-// output cotangent dOut (B, N, H*64), bf16 in and out.
+// Attention-core backward: dqkv from the head-major qkv (B, N, H*3*D) and the
+// output cotangent dOut (B, N, H*D), bf16 in and out; D a multiple of 8 up to
+// 128 (ViT-L and ViT-B 64, ViT-T 16).
 //
 // Replaces mtt_tpu/kernels/attention.py:_attn_bwd_kernel (pallas_call at :655).
 // The function is the backward of softmax(q k^T * scale) v with the softmax
@@ -42,23 +43,39 @@
 // kernels form 9 N x N x D products (S and dP three times) against the 5 the
 // function needs: no dq sum crosses blocks. The ragged N is masked: rows past
 // N are zero-filled by cp.async and their p is 0.
+//
+// Head dims: the kernels are templates over the head-dim tile DT (16, 32, 64,
+// 80 or 128, the head dim rounded up), which sizes the Q, K, V and dOut tiles
+// and the dq, dk and dv accumulators; columns past D are zero-filled by
+// cp.async, add nothing to S or dP, and are not stored. The 64-row tiles, the
+// stats planes and the rounding points are the same at every DT. Blocks an SM
+// (__launch_bounds__): 4 up to DT 64 (128 registers), 3 at 80, 2 at 128,
+// whose accumulators (2 x 16 x 4 floats a lane in the dk/dv kernel) and Q and
+// dOut fragments (64 registers in the dq kernel) need up to 255 registers and
+// whose 6 tiles take 104 KB of shared memory.
 #include "common.cuh"
 
 using namespace mtt;
 
 namespace {
 
-constexpr int BD = 64;          // head dim
 constexpr int BR = 64;          // rows per tile (16 per warp)
 constexpr int KC = 32;          // keys (queries) per chunk of a tile
-constexpr int BLD = BD + 8;     // bf16 leading dim: conflict-free ldmatrix rows
 constexpr int BT = 128;         // 4 warps
-constexpr int kTile = BR * BLD;
 constexpr float kLog2e = 1.4426950408889634f;
-// Q and dOut tiles, then two ring buffers of (K, V)
-constexpr int kDqSmem = 6 * kTile * 2;
-// K and V tiles, two ring buffers of (Q, dOut), then two of (lse, r)
-constexpr int kDkdvSmem = 6 * kTile * 2 + 2 * 2 * BR * 4;
+
+// The tiles of head-dim tile DT: bf16 rows DT + 8 apart (conflict-free
+// ldmatrix rows); Q and dOut tiles then two ring buffers of (K, V) for the dq
+// kernel; K and V tiles, two ring buffers of (Q, dOut), then two of (lse, r)
+// for the dk/dv kernel.
+template <int DT>
+struct BwdTile {
+  static constexpr int LD = DT + 8;
+  static constexpr int TILE = BR * LD;
+  static constexpr int DQ_SMEM = 6 * TILE * 2;
+  static constexpr int DKDV_SMEM = 6 * TILE * 2 + 2 * 2 * BR * 4;
+  static constexpr int MIN_BLOCKS = DT <= 64 ? 4 : (DT <= 80 ? 3 : 2);
+};
 
 __device__ __forceinline__ void zero(float (&c)[4][4]) {
 #pragma unroll
@@ -68,18 +85,20 @@ __device__ __forceinline__ void zero(float (&c)[4][4]) {
 }
 
 // The warp's 16 rows against 32 rows of the row-major tiles X and Y (B = X^T,
-// Y^T): c = A X^T, d = B Y^T. A and B are 4 k16 fragments each, held in
-// registers (fa, fb) or, when As is not null, read step by step from the
+// Y^T): c = A X^T, d = B Y^T. A and B are DT / 16 k16 fragments each, held
+// in registers (fa, fb) or, when As is not null, read step by step from the
 // warp's 16 rows of the tiles As and Bs.
-__device__ __forceinline__ void two_products(const uint32_t (&fa)[4][4], const uint32_t (&fb)[4][4],
-                                             const bf16* As, const bf16* Bs, const bf16* X,
-                                             const bf16* Y, int lane, float (&c)[4][4],
-                                             float (&d)[4][4]) {
+template <int DT>
+__device__ __forceinline__ void two_products(const uint32_t (&fa)[DT / 16][4],
+                                             const uint32_t (&fb)[DT / 16][4], const bf16* As,
+                                             const bf16* Bs, const bf16* X, const bf16* Y, int lane,
+                                             float (&c)[4][4], float (&d)[4][4]) {
+  constexpr int LD = BwdTile<DT>::LD;
   zero(c);
   zero(d);
-  const int off = ldsm_bt_off(lane, BLD), aoff = ldsm_a_off(lane, BLD);
+  const int off = ldsm_bt_off(lane, LD), aoff = ldsm_a_off(lane, LD);
 #pragma unroll
-  for (int kk = 0; kk < BD / 16; ++kk) {
+  for (int kk = 0; kk < DT / 16; ++kk) {
     uint32_t a[4], b[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -93,8 +112,8 @@ __device__ __forceinline__ void two_products(const uint32_t (&fa)[4][4], const u
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
       uint32_t x[4], y[4];
-      ldsm_x4(x, X + jj * 16 * BLD + kk * 16 + off);
-      ldsm_x4(y, Y + jj * 16 * BLD + kk * 16 + off);
+      ldsm_x4(x, X + jj * 16 * LD + kk * 16 + off);
+      ldsm_x4(y, Y + jj * 16 * LD + kk * 16 + off);
       mma_16816(c[2 * jj], a, x[0], x[1]);
       mma_16816(c[2 * jj + 1], a, x[2], x[3]);
       mma_16816(d[2 * jj], b, y[0], y[1]);
@@ -103,36 +122,41 @@ __device__ __forceinline__ void two_products(const uint32_t (&fa)[4][4], const u
   }
 }
 
-// acc (16 x 64) += A (16 x 32, two k16 fragments) times 32 rows of the
-// row-major (32, 64) tile X (B = X, read by ldmatrix.trans).
+// acc (16 x DT) += A (16 x 32, two k16 fragments) times 32 rows of the
+// row-major (32, DT) tile X (B = X, read by ldmatrix.trans).
+template <int DT>
 __device__ __forceinline__ void product_acc(const uint32_t (&a)[2][4], const bf16* X, int lane,
-                                            float (&acc)[8][4]) {
-  const int off = ldsm_b_off(lane, BLD);
+                                            float (&acc)[DT / 8][4]) {
+  constexpr int LD = BwdTile<DT>::LD;
+  const int off = ldsm_b_off(lane, LD);
 #pragma unroll
   for (int kk = 0; kk < 2; ++kk) {
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int jj = 0; jj < DT / 16; ++jj) {
       uint32_t x[4];
-      ldsm_x4_trans(x, X + kk * 16 * BLD + jj * 16 + off);
+      ldsm_x4_trans(x, X + kk * 16 * LD + jj * 16 + off);
       mma_16816(acc[2 * jj], a[kk], x[0], x[1]);
       mma_16816(acc[2 * jj + 1], a[kk], x[2], x[3]);
     }
   }
 }
 
-// The warp's 16 x 64 accumulator, times mul and rounded to bf16 once, into
-// its rows of the tile T, then 16-byte stores of the valid rows to dst (row
-// stride ld elements).
-__device__ __forceinline__ void store_rows(const float (&acc)[8][4], float mul, bf16* T, int row0,
-                                           int valid, bf16* dst, size_t ld, int lane) {
-  bf16* rows = T + row0 * BLD;
+// The warp's 16 x DT accumulator, times mul and rounded to bf16 once, into
+// its rows of the tile T, then 16-byte stores of the valid rows' first D
+// columns to dst (row stride ld elements).
+template <int DT>
+__device__ __forceinline__ void store_rows(const float (&acc)[DT / 8][4], float mul, bf16* T,
+                                           int row0, int valid, int D, bf16* dst, size_t ld,
+                                           int lane) {
+  constexpr int LD = BwdTile<DT>::LD;
+  bf16* rows = T + row0 * LD;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) c_to_smem(acc[j], rows, BLD, j * 8, lane, mul);
+  for (int j = 0; j < DT / 8; ++j) c_to_smem(acc[j], rows, LD, j * 8, lane, mul);
   __syncwarp();
-  for (int i = lane; i < 16 * (BD / 8); i += 32) {
-    const int r = i / (BD / 8), c = (i % (BD / 8)) * 8;
-    if (r < valid)
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = *reinterpret_cast<const uint4*>(rows + r * BLD + c);
+  for (int i = lane; i < 16 * (DT / 8); i += 32) {
+    const int r = i / (DT / 8), c = (i % (DT / 8)) * 8;
+    if (r < valid && c < D)
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = *reinterpret_cast<const uint4*>(rows + r * LD + c);
   }
 }
 
@@ -187,21 +211,22 @@ __device__ __forceinline__ void dl_chunk(float (&sc)[4][4], const float (&dp)[4]
     }
 }
 
-__global__ void __launch_bounds__(BT, 4) attn_bwd_dq_kernel(const bf16* __restrict__ qkv,
-                                                            const bf16* __restrict__ g,
-                                                            bf16* __restrict__ dqkv,
-                                                            float* __restrict__ stats, int B,
-                                                            int N, int H, float scale) {
+template <int DT, bool FIXED>
+__global__ void __launch_bounds__(BT, BwdTile<DT>::MIN_BLOCKS) attn_bwd_dq_kernel(
+    const bf16* __restrict__ qkv, const bf16* __restrict__ g, bf16* __restrict__ dqkv,
+    float* __restrict__ stats, int B, int N, int H, int d_in, float scale) {
+  constexpr int BLD = BwdTile<DT>::LD, kTile = BwdTile<DT>::TILE, KS = DT / 16, NT = DT / 8;
+  const int D = FIXED ? DT : d_in;   // a head dim that fills its tile is a constant
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Gs = Qs + kTile;
   bf16* ring = Gs + kTile;   // buffer i: K at ring + 2 i kTile, V after it
 
   const int h = blockIdx.x, b = blockIdx.y, q0 = blockIdx.z * BR;
-  const int C = H * BD;
+  const int C = H * D;
   const size_t ld3 = 3 * (size_t)C;
-  const bf16* base = qkv + (size_t)b * N * ld3 + h * 3 * BD;
-  const bf16* gbase = g + (size_t)b * N * C + h * BD;
+  const bf16* base = qkv + (size_t)b * N * ld3 + h * 3 * D;
+  const bf16* gbase = g + (size_t)b * N * C + h * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = lane & 3, gq = lane >> 2;
   const int nkt = (N + BR - 1) / BR, nsteps = 2 * nkt;   // stats pass, then dq pass
@@ -209,22 +234,22 @@ __global__ void __launch_bounds__(BT, 4) attn_bwd_dq_kernel(const bf16* __restri
   auto issue = [&](int s) {
     const int k0 = (s % nkt) * BR;
     bf16* kt = ring + (s & 1) * 2 * kTile;
-    load_rows_async_fixed<BR, BD, BLD, BT>(kt, base + (size_t)k0 * ld3 + BD, ld3, N - k0, BD);
-    load_rows_async_fixed<BR, BD, BLD, BT>(kt + kTile, base + (size_t)k0 * ld3 + 2 * BD, ld3, N - k0, BD);
+    load_rows_async_fixed<BR, DT, BLD, BT>(kt, base + (size_t)k0 * ld3 + D, ld3, N - k0, D);
+    load_rows_async_fixed<BR, DT, BLD, BT>(kt + kTile, base + (size_t)k0 * ld3 + 2 * D, ld3, N - k0, D);
   };
-  load_rows_async_fixed<BR, BD, BLD, BT>(Qs, base + (size_t)q0 * ld3, ld3, N - q0, BD);
-  load_rows_async_fixed<BR, BD, BLD, BT>(Gs, gbase + (size_t)q0 * C, C, N - q0, BD);
+  load_rows_async_fixed<BR, DT, BLD, BT>(Qs, base + (size_t)q0 * ld3, ld3, N - q0, D);
+  load_rows_async_fixed<BR, DT, BLD, BT>(Gs, gbase + (size_t)q0 * C, C, N - q0, D);
   issue(0);
   cp_async_commit();
 
   const bool active = q0 + warp * 16 < N;
-  uint32_t qa[4][4], ga[4][4];
+  uint32_t qa[KS][4], ga[KS][4];
   const float c2 = scale * kLog2e;   // logits in log2 units: s * scale * log2(e)
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f}, rr_run[2] = {0.f, 0.f};
   float lse[2] = {0.f, 0.f}, rr[2] = {0.f, 0.f};
-  float dq[8][4];
+  float dq[NT][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
 
@@ -236,7 +261,7 @@ __global__ void __launch_bounds__(BT, 4) attn_bwd_dq_kernel(const bf16* __restri
     if (!active) continue;
     if (s == 0) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < KS; ++kk) {
         ldsm_x4(qa[kk], Qs + warp * 16 * BLD + kk * 16 + ldsm_a_off(lane, BLD));
         ldsm_x4(ga[kk], Gs + warp * 16 * BLD + kk * 16 + ldsm_a_off(lane, BLD));
       }
@@ -258,7 +283,7 @@ __global__ void __launch_bounds__(BT, 4) attn_bwd_dq_kernel(const bf16* __restri
     for (int kc = 0; kc < BR; kc += KC) {
       if (kc >= kv) break;
       float sc[4][4], dp[4][4];
-      two_products(qa, ga, nullptr, nullptr, Kt + kc * BLD, Vt + kc * BLD, lane, sc, dp);
+      two_products<DT>(qa, ga, nullptr, nullptr, Kt + kc * BLD, Vt + kc * BLD, lane, sc, dp);
       const int kvt = kv - kc - 2 * t;   // lane keys at or past kvt are masked
       if (s < nkt) {
         if (kv - kc >= KC)
@@ -274,7 +299,7 @@ __global__ void __launch_bounds__(BT, 4) attn_bwd_dq_kernel(const bf16* __restri
         uint32_t la[2][4];
         c_to_a(sc[0], sc[1], la[0]);
         c_to_a(sc[2], sc[3], la[1]);
-        product_acc(la, Kt + kc * BLD, lane, dq);
+        product_acc<DT>(la, Kt + kc * BLD, lane, dq);
       }
     }
   }
@@ -295,8 +320,8 @@ __global__ void __launch_bounds__(BT, 4) attn_bwd_dq_kernel(const bf16* __restri
   }
   // dq * scale, rounded once, into the q slot of the head's dqkv columns
   if (active)
-    store_rows(dq, scale, Qs, warp * 16, N - q0 - warp * 16,
-               dqkv + ((size_t)b * N + q0 + warp * 16) * ld3 + h * 3 * BD, ld3, lane);
+    store_rows<DT>(dq, scale, Qs, warp * 16, N - q0 - warp * 16, D,
+                   dqkv + ((size_t)b * N + q0 + warp * 16) * ld3 + h * 3 * D, ld3, lane);
 }
 
 // p^T and dl^T of one 32-query chunk in place of st = S^T and dpt = dP^T
@@ -322,11 +347,12 @@ __device__ __forceinline__ void p_dl_chunk(float (&st)[4][4], float (&dpt)[4][4]
   }
 }
 
-__global__ void __launch_bounds__(BT, 4) attn_bwd_dkdv_kernel(const bf16* __restrict__ qkv,
-                                                              const bf16* __restrict__ g,
-                                                              bf16* __restrict__ dqkv,
-                                                              const float* __restrict__ stats,
-                                                              int B, int N, int H, float scale) {
+template <int DT, bool FIXED>
+__global__ void __launch_bounds__(BT, BwdTile<DT>::MIN_BLOCKS) attn_bwd_dkdv_kernel(
+    const bf16* __restrict__ qkv, const bf16* __restrict__ g, bf16* __restrict__ dqkv,
+    const float* __restrict__ stats, int B, int N, int H, int d_in, float scale) {
+  constexpr int BLD = BwdTile<DT>::LD, kTile = BwdTile<DT>::TILE, KS = DT / 16, NT = DT / 8;
+  const int D = FIXED ? DT : d_in;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + kTile;
@@ -334,10 +360,10 @@ __global__ void __launch_bounds__(BT, 4) attn_bwd_dkdv_kernel(const bf16* __rest
   float* St = reinterpret_cast<float*>(ring + 4 * kTile);   // buffer i: lse, r at St + 2 i BR
 
   const int h = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BR;
-  const int C = H * BD;
+  const int C = H * D;
   const size_t ld3 = 3 * (size_t)C;
-  const bf16* base = qkv + (size_t)b * N * ld3 + h * 3 * BD;
-  const bf16* gbase = g + (size_t)b * N * C + h * BD;
+  const bf16* base = qkv + (size_t)b * N * ld3 + h * 3 * D;
+  const bf16* gbase = g + (size_t)b * N * C + h * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = lane & 3, gq = lane >> 2;
   const int nqt = (N + BR - 1) / BR, Np = nqt * BR;
@@ -347,15 +373,15 @@ __global__ void __launch_bounds__(BT, 4) attn_bwd_dkdv_kernel(const bf16* __rest
   auto issue = [&](int s) {
     const int q0 = s * BR;
     bf16* qt = ring + (s & 1) * 2 * kTile;
-    load_rows_async_fixed<BR, BD, BLD, BT>(qt, base + (size_t)q0 * ld3, ld3, N - q0, BD);
-    load_rows_async_fixed<BR, BD, BLD, BT>(qt + kTile, gbase + (size_t)q0 * C, C, N - q0, BD);
+    load_rows_async_fixed<BR, DT, BLD, BT>(qt, base + (size_t)q0 * ld3, ld3, N - q0, D);
+    load_rows_async_fixed<BR, DT, BLD, BT>(qt + kTile, gbase + (size_t)q0 * C, C, N - q0, D);
     if (threadIdx.x < 2 * BR / 4) {   // 32 x 16 bytes of lse and r
       const int a = threadIdx.x / (BR / 4), c = (threadIdx.x % (BR / 4)) * 4;
       cp_async16(St + (s & 1) * 2 * BR + a * BR + c, sbase + a * plane + q0 + c, true);
     }
   };
-  load_rows_async_fixed<BR, BD, BLD, BT>(Ks, base + (size_t)k0 * ld3 + BD, ld3, N - k0, BD);
-  load_rows_async_fixed<BR, BD, BLD, BT>(Vs, base + (size_t)k0 * ld3 + 2 * BD, ld3, N - k0, BD);
+  load_rows_async_fixed<BR, DT, BLD, BT>(Ks, base + (size_t)k0 * ld3 + D, ld3, N - k0, D);
+  load_rows_async_fixed<BR, DT, BLD, BT>(Vs, base + (size_t)k0 * ld3 + 2 * D, ld3, N - k0, D);
   issue(0);
   cp_async_commit();
 
@@ -364,12 +390,12 @@ __global__ void __launch_bounds__(BT, 4) attn_bwd_dkdv_kernel(const bf16* __rest
   // keys of the warp's fragment rows g and g + 8 past N get p = 0
   const bool key_ok[2] = {k0 + warp * 16 + gq < N, k0 + warp * 16 + gq + 8 < N};
   const float c2 = scale * kLog2e;
-  float dk[8][4], dv[8][4];
+  float dk[NT][4], dv[NT][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-  const uint32_t no_frag[4][4] = {};
+  const uint32_t no_frag[KS][4] = {};
 
   for (int s = 0; s < nqt; ++s) {
     cp_async_wait<0>();
@@ -387,7 +413,7 @@ __global__ void __launch_bounds__(BT, 4) attn_bwd_dkdv_kernel(const bf16* __rest
       // the warp's 16 keys against 32 queries: S^T = K Q^T, dP^T = V dOut^T,
       // the K and V fragments read from the resident tiles step by step
       float st[4][4], dpt[4][4];
-      two_products(no_frag, no_frag, Ks + warp * 16 * BLD, Vs + warp * 16 * BLD, Qt + qc * BLD,
+      two_products<DT>(no_frag, no_frag, Ks + warp * 16 * BLD, Vs + warp * 16 * BLD, Qt + qc * BLD,
                    Gt + qc * BLD, lane, st, dpt);
       if (keys_full && qv - qc >= KC)
         p_dl_chunk<false>(st, dpt, Sm + qc, c2, key_ok, qv - qc, t);
@@ -398,40 +424,31 @@ __global__ void __launch_bounds__(BT, 4) attn_bwd_dkdv_kernel(const bf16* __rest
       c_to_a(st[2], st[3], pa[1]);
       c_to_a(dpt[0], dpt[1], la[0]);
       c_to_a(dpt[2], dpt[3], la[1]);
-      product_acc(pa, Gt + qc * BLD, lane, dv);
-      product_acc(la, Qt + qc * BLD, lane, dk);
+      product_acc<DT>(pa, Gt + qc * BLD, lane, dv);
+      product_acc<DT>(la, Qt + qc * BLD, lane, dk);
     }
   }
   if (!active) return;
   // dk * scale and dv, rounded once, into the k and v slots
   const int valid = N - k0 - warp * 16;
-  bf16* dst = dqkv + ((size_t)b * N + k0 + warp * 16) * ld3 + h * 3 * BD + BD;
-  store_rows(dk, scale, Ks, warp * 16, valid, dst, ld3, lane);
-  store_rows(dv, 1.f, Vs, warp * 16, valid, dst + BD, ld3, lane);
+  bf16* dst = dqkv + ((size_t)b * N + k0 + warp * 16) * ld3 + h * 3 * D + D;
+  store_rows<DT>(dk, scale, Ks, warp * 16, valid, D, dst, ld3, lane);
+  store_rows<DT>(dv, 1.f, Vs, warp * 16, valid, D, dst + D, ld3, lane);
 }
 
-}  // namespace
-
-// qkv (B, N, H*3*64) head-major bf16, g (B, N, H*64) bf16 -> dqkv like qkv.
-// stats: f32 scratch of 2 * B * H * Np, Np = N rounded up to a multiple of 64
-// (log2 of each row's softmax denominator, r), written by the first kernel and
-// read by the second.
-extern "C" int mtt_attn_bwd_bf16(const void* qkv, const void* g, void* dqkv, void* stats, int B,
-                                 int N, int H, float scale, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  auto q = static_cast<const bf16*>(qkv);
-  auto gg = static_cast<const bf16*>(g);
-  auto d = static_cast<bf16*>(dqkv);
-  auto s = static_cast<float*>(stats);
+template <int DT, bool FIXED>
+int launch_bwd_as(const bf16* q, const bf16* gg, bf16* d, float* s, int B, int N, int H, int D,
+                  float scale, cudaStream_t st) {
+  using T = BwdTile<DT>;
+  const auto dq = attn_bwd_dq_kernel<DT, FIXED>;
+  const auto dkdv = attn_bwd_dkdv_kernel<DT, FIXED>;
   // set on every launch: the attribute belongs to the current device's context
-  cudaError_t e = cudaFuncSetAttribute(attn_bwd_dq_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+  cudaError_t e = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, T::DQ_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kDkdvSmem);
+  e = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, T::DKDV_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  // all of the SM's 228 KB as shared memory: four blocks of each kernel fit
-  const void* kernels[2] = {(const void*)attn_bwd_dq_kernel, (const void*)attn_bwd_dkdv_kernel};
+  // all of the SM's 228 KB as shared memory: MIN_BLOCKS blocks of each fit
+  const void* kernels[2] = {(const void*)dq, (const void*)dkdv};
   for (const void* f : kernels) {
     e = cudaFuncSetAttribute(f, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
@@ -440,9 +457,41 @@ extern "C" int mtt_attn_bwd_bf16(const void* qkv, const void* g, void* dqkv, voi
   // the row tile varies slowest: the ragged last tiles, which carry few
   // active warps, are dispatched last and fill the wave's gaps
   dim3 grid(H, B, (N + BR - 1) / BR);
-  attn_bwd_dq_kernel<<<grid, BT, kDqSmem, st>>>(q, gg, d, s, B, N, H, scale);
+  dq<<<grid, BT, T::DQ_SMEM, st>>>(q, gg, d, s, B, N, H, D, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  attn_bwd_dkdv_kernel<<<grid, BT, kDkdvSmem, st>>>(q, gg, d, s, B, N, H, scale);
+  dkdv<<<grid, BT, T::DKDV_SMEM, st>>>(q, gg, d, s, B, N, H, D, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// D in the tile DT: as a constant where it fills the tile (ViT-L's 64, ViT-T's
+// 16: the addressing folds as it did when the head dim was fixed), else read
+// at run time.
+template <int DT>
+int launch_bwd(const bf16* q, const bf16* gg, bf16* d, float* s, int B, int N, int H, int D,
+               float scale, cudaStream_t st) {
+  return D == DT ? launch_bwd_as<DT, true>(q, gg, d, s, B, N, H, D, scale, st)
+                 : launch_bwd_as<DT, false>(q, gg, d, s, B, N, H, D, scale, st);
+}
+
+}  // namespace
+
+// qkv (B, N, H*3*D) head-major bf16, g (B, N, H*D) bf16 -> dqkv like qkv; D
+// a multiple of 8 from 8 to 128, taken in the tile of 16, 32, 64, 80 or 128
+// columns that holds it. stats: f32 scratch of 2 * B * H * Np, Np = N rounded
+// up to a multiple of 64 (log2 of each row's softmax denominator, r), written
+// by the first kernel and read by the second.
+extern "C" int mtt_attn_bwd_bf16(const void* qkv, const void* g, void* dqkv, void* stats, int B,
+                                 int N, int H, int D, float scale, void* stream) {
+  if (D < 8 || D % 8 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto q = static_cast<const bf16*>(qkv);
+  auto gg = static_cast<const bf16*>(g);
+  auto d = static_cast<bf16*>(dqkv);
+  auto s = static_cast<float*>(stats);
+  if (D <= 16) return launch_bwd<16>(q, gg, d, s, B, N, H, D, scale, st);
+  if (D <= 32) return launch_bwd<32>(q, gg, d, s, B, N, H, D, scale, st);
+  if (D <= 64) return launch_bwd<64>(q, gg, d, s, B, N, H, D, scale, st);
+  if (D <= 80) return launch_bwd<80>(q, gg, d, s, B, N, H, D, scale, st);
+  return launch_bwd<128>(q, gg, d, s, B, N, H, D, scale, st);
 }

@@ -3,7 +3,8 @@
 //   Generic, row 14: out = softmax(q k^T * scale) v over separate (B, Nq, H,
 //     D) q and (B, Nk, H, D) k, v, max-subtracted.
 //   Fast and Safe, rows 1-2's third launch and row 13: attention over the
-//     head-major packed qkv (B, N, H*3*64), fast exp2 or exact-max softmax.
+//     head-major packed qkv (B, N, H*3*D), D a multiple of 8 up to 128 (ViT-L
+//     and ViT-B 64, ViT-T 16), fast exp2 or exact-max softmax.
 //   Window, row 11 past 160 tokens a window: Swin window attention over the
 //     packed (BW, M, 3, H, 32) qkv with a per-head bias and a per-window
 //     mask, max-subtracted.
@@ -30,7 +31,7 @@
 // keys to a multiple of 128 behind a -1e30 bias row; this kernel reads the
 // (B, N, H) strides directly and masks the ragged key tile, which is the same
 // function. Rows 1, 2 and 13 read q, k and v as strided views of the packed
-// qkv: strides (N*3C, 3C, 3*64), bases qkv + 0, 64, 128; row 11 the same
+// qkv: strides (N*3C, 3C, 3D), bases qkv + 0, D, 2D; row 11 the same
 // way from the Swin block's (BW, M, 3, H, 32) projection, writing (BW, M, H *
 // 32), which the output projection takes: no transpose is launched.
 //
@@ -85,6 +86,8 @@
 // bias row and the window's mask row in f32 in both passes, so the max of
 // pass 1 is over the values that pass 2 exponentiates; bias and mask are
 // read where they lie, one float a load, through the read-only cache.
+#include <type_traits>
+
 #include "common.cuh"
 
 using namespace mtt;
@@ -426,24 +429,30 @@ extern "C" int mtt_attn_generic_bf16(const void* q, const void* k, const void* v
   return launch_generic<128, kGeneric>(qp, kp, vp, op, B, Nq, Nk, H, D, st, scale, 0.f, s);
 }
 
-// The attention core of rows 1, 2 and 13: qkv (B, N, H*3*64) head-major bf16
-// (16-byte aligned) -> out (B, N, H*64) bf16, the head concat. s2 = bf16(scale
-// * log2 e); hi = 126 - ceil(log2 N), the fast softmax's upper clamp; safe
-// selects the exact-max softmax.
-extern "C" int mtt_attn_core_bf16(const void* qkv, void* out, int B, int N, int H, float s2, float hi,
-                                  int safe, void* stream) {
-  constexpr int AD = 64;
-  if (N < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long ld3 = 3LL * H * AD;
-  // q, k and v share the packed tensor's strides: (N * 3C, 3C, 3 * 64)
-  const long long st[9] = {N * ld3, ld3, 3 * AD, N * ld3, ld3, 3 * AD, N * ld3, ld3, 3 * AD};
-  auto base = static_cast<const bf16*>(qkv);
+// The attention core of rows 1, 2 and 13: qkv (B, N, H*3*D) head-major bf16
+// (16-byte aligned) -> out (B, N, H*D) bf16, the head concat; 8 <= D <= 128,
+// D % 8 == 0, in the tile DT of launch_generic (32, 64, 80 or 128; the head
+// dim's zero padding adds nothing). s2 = bf16(scale * log2 e); hi = 126 -
+// ceil(log2 N), the fast softmax's upper clamp; safe selects the exact-max
+// softmax.
+extern "C" int mtt_attn_core_bf16(const void* qkv, void* out, int B, int N, int H, int D,
+                                  float s2, float hi, int safe, void* stream) {
+  if (N < 1 || H < 1 || D < 8 || D % 8 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  const long long ld3 = 3LL * H * D;
+  // q, k and v share the packed tensor's strides: (N * 3C, 3C, 3D)
+  const long long st[9] = {N * ld3, ld3, 3LL * D, N * ld3, ld3, 3LL * D, N * ld3, ld3, 3LL * D};
+  auto q = static_cast<const bf16*>(qkv);
   auto op = static_cast<bf16*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  return safe ? launch_generic<64, kSafe>(base, base + AD, base + 2 * AD, op, B, N, N, H, AD, st, s2,
-                                          hi, s)
-              : launch_generic<64, kFast>(base, base + AD, base + 2 * AD, op, B, N, N, H, AD, st, s2,
-                                          hi, s);
+  auto launch = [&](auto tile) {
+    constexpr int DT = decltype(tile)::value;
+    return safe ? launch_generic<DT, kSafe>(q, q + D, q + 2 * D, op, B, N, N, H, D, st, s2, hi, s)
+                : launch_generic<DT, kFast>(q, q + D, q + 2 * D, op, B, N, N, H, D, st, s2, hi, s);
+  };
+  if (D <= 32) return launch(std::integral_constant<int, 32>());
+  if (D <= 64) return launch(std::integral_constant<int, 64>());
+  if (D <= 80) return launch(std::integral_constant<int, 80>());
+  return launch(std::integral_constant<int, 128>());
 }
 
 // Row 11 past 160 tokens a window (window_attention.cu takes the shorter

@@ -12,6 +12,14 @@
 // exact), so the wrappers launch no cast kernel. The same kernel is the first
 // stage of the attention front halves (attention.cu) and of the MLP half-block
 // (mlp.cu).
+//
+// Rows past 4096 columns (InvPT's task-merged stage norm at embed_dim 1024: 5
+// tasks x 1088 = 5440) would need more than 128 values a lane in one warp.
+// There a block of four warps takes a row (ln_wide_kernel), each lane keeping
+// up to VPL 16-byte chunks in registers, and the two sums meet across the
+// warps in shared memory; every load and store stays 16 bytes wide. That
+// gives one block a row, 2,048 blocks at the stage-0 norm of a PASCAL batch of
+// 8 (over 15 an SM), up to 16,384 columns.
 #include "common.cuh"
 
 using namespace mtt;
@@ -99,6 +107,81 @@ __global__ void __launch_bounds__(kThreads) ln_kernel(const bf16* __restrict__ x
   }
 }
 
+// Sum over the four warps of a block (every thread gets it): a warp's sum,
+// then the four in shared memory, read back in warp order.
+__device__ __forceinline__ float block4_sum(float v, float* red) {
+  v = warp_sum(v);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) red[warp] = v;
+  __syncthreads();
+  const float t = red[0] + red[1] + red[2] + red[3];
+  __syncthreads();   // red is reused by the next sum
+  return t;
+}
+
+// One row a block of kWideThreads (four warps), VPL 16-byte chunks a thread:
+// chunk j of thread i covers columns (j * kWideThreads + i) * 8 .. + 8. The
+// statistics as ln_kernel's: f32 mean, f32 variance of the centred values.
+constexpr int kWideThreads = 128;
+
+template <int VPL>
+__global__ void __launch_bounds__(kWideThreads) ln_wide_kernel(const bf16* __restrict__ x,
+                                                               const void* __restrict__ gamma,
+                                                               const void* __restrict__ beta,
+                                                               bf16* __restrict__ y, int C,
+                                                               float eps, bool gamma_f32,
+                                                               bool beta_f32) {
+  __shared__ float red[4];
+  const size_t row = blockIdx.x;
+  const bf16* xr = x + row * C;
+  float v[VPL][8];
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const int c = (j * kWideThreads + threadIdx.x) * 8;
+    if (c < C) {
+      unpack8(*reinterpret_cast<const uint4*>(xr + c), v[j]);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s += v[j][k];
+    }
+  }
+  const float mean = block4_sum(s, red) / C;
+  float q = 0.f;
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const int c = (j * kWideThreads + threadIdx.x) * 8;
+    if (c < C) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float d = v[j][k] - mean;
+        q += d * d;
+      }
+    }
+  }
+  const float rstd = rsqrtf(block4_sum(q, red) / C + eps);
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const int c = (j * kWideThreads + threadIdx.x) * 8;
+    if (c < C) {
+      float g[8], b[8], o[8];
+      load_param8(gamma, c, gamma_f32, g);
+      load_param8(beta, c, beta_f32, b);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) o[k] = (v[j][k] - mean) * rstd * g[k] + b[k];
+      *reinterpret_cast<uint4*>(y + row * C + c) = pack8(o);
+    }
+  }
+}
+
+template <int VPL>
+int launch_ln_wide(const void* x, const void* gamma, const void* beta, void* y, int rows, int C,
+                   float eps, int flags, cudaStream_t st) {
+  ln_wide_kernel<VPL><<<rows, kWideThreads, 0, st>>>(static_cast<const bf16*>(x), gamma, beta,
+                                                     static_cast<bf16*>(y), C, eps, flags & 1,
+                                                     (flags >> 1) & 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int VPL, int LPR>
 int launch_ln(const void* x, const void* gamma, const void* beta, void* y, int rows, int C,
               float eps, int flags, cudaStream_t st) {
@@ -112,7 +195,7 @@ int launch_ln(const void* x, const void* gamma, const void* beta, void* y, int r
 
 }  // namespace
 
-// x, y (rows, C) bf16, C % 8 == 0 and C <= 4096; gamma, beta (C,) f32 or bf16
+// x, y (rows, C) bf16, C % 8 == 0 and C <= 16384; gamma, beta (C,) f32 or bf16
 // (flags bit 0: gamma is f32, bit 1: beta is f32); every pointer 16-byte
 // aligned.
 extern "C" int mtt_layernorm_bf16(const void* x, const void* gamma, const void* beta, void* y,
@@ -129,6 +212,10 @@ extern "C" int mtt_layernorm_bf16(const void* x, const void* gamma, const void* 
   // the InvPT stage norm over T*C task-merged channels (2880)
   if (C <= 3072) return launch_ln<12, 32>(x, gamma, beta, y, rows, C, eps, flags, st);
   if (C <= 4096) return launch_ln<16, 32>(x, gamma, beta, y, rows, C, eps, flags, st);
+  // a block of four warps a row: the InvPT stage norm at embed_dim 1024 (5440)
+  if (C <= 6144) return launch_ln_wide<6>(x, gamma, beta, y, rows, C, eps, flags, st);
+  if (C <= 8192) return launch_ln_wide<8>(x, gamma, beta, y, rows, C, eps, flags, st);
+  if (C <= 16384) return launch_ln_wide<16>(x, gamma, beta, y, rows, C, eps, flags, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

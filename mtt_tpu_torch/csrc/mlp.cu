@@ -36,13 +36,14 @@ extern "C" int mtt_layernorm_bf16(const void* x, const void* gamma, const void* 
 // The half-block x + fc2(gelu(fc1(LN(x)))) as three launches. x (M, C) bf16;
 // w1 (Hd, C), w2 (C, Hd) bf16 as nn.Linear stores them; gamma, beta, b1, b2
 // (flags bits 0-3: f32, else bf16); xn (M, C) and h (M, Hd) bf16 scratch. C % 8
-// == 0 and C <= 4096, Hd % 8 == 0; every pointer 16-byte aligned (TMA's rule).
+// == 0 and C <= 16384 (the LayerNorm kernel's rows), Hd % 8 == 0; every
+// pointer 16-byte aligned (TMA's rule).
 extern "C" int mtt_mlp_ln_res_bf16(const void* x, const void* gamma, const void* beta,
                                    const void* w1, const void* b1, const void* w2, const void* b2,
                                    void* xn, void* h, void* out, int M, int C, int Hd, float eps,
                                    int flags, void* stream) {
   if (M <= 0) return 0;
-  if (C % 8 || C <= 0 || C > 4096 || Hd % 8 || Hd <= 0)
+  if (C % 8 || C <= 0 || C > 16384 || Hd % 8 || Hd <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int e = mtt_layernorm_bf16(x, gamma, beta, xn, M, C, eps, flags & 3, stream);
   if (e) return e;

@@ -150,13 +150,22 @@ def attn_core_bwd_plain(qkv, g, heads: int, scale: float):
         B, N, C3)
 
 
+def check_attn_head_dim(D: int, what: str) -> None:
+    """Raises unless the attention core (csrc/attention_generic.cu) and its
+    backward (csrc/attention_bwd.cu) take head dim ``D``: 16-byte rows of
+    whole mma.sync k steps once padded to the kernels' head-dim tiles (16 or
+    32, 64, 80, 128), at most 128 (the widest tile whose fragments fit the
+    registers). ViT-L and ViT-B have 64, ViT-T 16."""
+    if D < 8 or D % 8 or D > 128:
+        raise ValueError(f"{what} takes head dims that are a multiple of 8 "
+                         f"from 8 to 128, got {D}")
+
+
 def attn_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, heads: int,
                        scale: float):
     B, N, C3 = qkv.shape
     D = C3 // heads // 3
-    if D != 64:
-        raise ValueError(f"the attention backward kernel takes head dim 64, "
-                         f"got {D}")
+    check_attn_head_dim(D, "the attention backward kernel")
     if qkv.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
         raise TypeError("the attention backward kernel takes bfloat16")
     if g.shape != (B, N, heads * D) or not g.is_contiguous() \
@@ -170,7 +179,7 @@ def attn_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, heads: int,
                         device=qkv.device)
     _build.check(_build.lib().mtt_attn_bwd_bf16(
         qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B, N,
-        heads, float(scale), _build.stream()), "mtt_attn_bwd_bf16")
+        heads, D, float(scale), _build.stream()), "mtt_attn_bwd_bf16")
     return dqkv
 
 
@@ -214,12 +223,11 @@ def qkv_proj_cuda(xn: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
 
 def attn_core_cuda(qkv: torch.Tensor, heads: int, scale: float, safe: bool):
     """The attention core (``mtt_attn_core_bf16``: csrc/attention_generic.cu's
-    kernel under its Fast or Safe softmax policy): head dim 64, bf16, a
-    contiguous head-major (B, N, H*3*D) qkv."""
+    kernel under its Fast or Safe softmax policy): bf16, a contiguous
+    head-major (B, N, H*3*D) qkv, D a multiple of 8 up to 128."""
     B, N, C3 = qkv.shape
     D = C3 // heads // 3
-    if D != 64:
-        raise ValueError(f"the attention kernel takes head dim 64, got {D}")
+    check_attn_head_dim(D, "the attention kernel")
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"the attention kernel takes bfloat16, got "
                         f"{qkv.dtype}")
@@ -229,7 +237,7 @@ def attn_core_cuda(qkv: torch.Tensor, heads: int, scale: float, safe: bool):
     out = torch.empty(B, N, heads * D, dtype=qkv.dtype, device=qkv.device)
     s2 = float(scaled_log2e(scale, qkv.dtype))
     _build.check(_build.lib().mtt_attn_core_bf16(
-        qkv.data_ptr(), out.data_ptr(), B, N, heads, s2, exp2_clamp_hi(N),
+        qkv.data_ptr(), out.data_ptr(), B, N, heads, D, s2, exp2_clamp_hi(N),
         int(safe), _build.stream()), "mtt_attn_core_bf16")
     return out
 

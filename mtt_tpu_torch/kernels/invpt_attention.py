@@ -19,8 +19,11 @@ On the H100 the op is bound by device memory: the f32 message in and the f32
 ViT-L forward; bytes per launch in ``invpt_attention_cuda``). The kernel
 reads the message and writes ``fused`` once each and keeps a block's fused
 rows in shared memory from the score product to p.v. The kv length is
-constant across stages (an 8x8 grid per task), so a whole fused row fits on
-chip and no online softmax is needed.
+constant across stages (an 8x8 grid per task on PASCAL), so a whole fused row
+fits on chip and no online softmax is needed; past 320 keys or head dim 480
+(Cityscapes-3D at 1024x2048, embed_dim 1024) the streamed form writes fused
+to device memory and reads it back for the softmax, still with the exact max
+over all keys before p is rounded.
 
 The gradient is the JAX custom VJP (invpt_attention.py:124-164) in plain
 torch, as JAX computes it in XLA: an f32 recompute, with the cotangent that
@@ -113,36 +116,44 @@ def _check(q, k, v, msg, w, b):
             raise ValueError("InvPT attention inputs must be on one device")
 
 
-_MAXK = 320      # keys a block's fused tile holds (csrc/invpt_attention.cu)
+# The kernel's reach (csrc/invpt_attention.cu): the resident kernel up to
+# 320 keys and head dim 480 (a block keeps its rows' fused scores for every
+# key in shared memory, one TMA box a half-row, q and K rows in at most two
+# boxes), the streamed form past either, up to these.
+MAXK = 65536
+MAXD = 1024
 
 
 def check_invpt_attention_shape(H: int, Lk: int, D: int) -> None:
-    """Raises where the kernel does not reach: 2 heads, a kv length of at
-    most 320 (a block keeps its rows' fused scores for every key in shared
-    memory; InvPT's kv length is 320 on PASCAL and 252 on NYUD) and a head
-    dim that is a multiple of 8 up to 480 (16-byte rows, at most two TMA
-    boxes a row)."""
+    """Raises where the kernel does not reach: 2 heads, a kv length from 1
+    to 65536 and a head dim that is a multiple of 8 up to 1024 (16-byte
+    rows). InvPT's kv length is 320 on PASCAL, 252 on NYUD and 1024 on
+    Cityscapes-3D's 1024x2048 frames; its stage-0 head dim is (embed_dim +
+    64) / 2, 288 at embed_dim 512 and 544 at 1024. The resident kernel takes
+    up to 320 keys and head dim 480; longer or wider rows take the streamed
+    form (``invpt_attention_plan``)."""
     if H != 2:
         raise ValueError(f"the InvPT attention kernel takes 2 heads (every "
                          f"InvPT config), got {H}")
-    if not 1 <= Lk <= _MAXK:
-        raise ValueError(f"the InvPT attention kernel keeps whole fused rows "
-                         f"on chip, at most {_MAXK} keys (InvPT's kv length "
-                         f"is 320 on PASCAL and 252 on NYUD); got Lk={Lk}; "
-                         f"longer rows are ROADMAP.md item 1.11")
-    if D < 8 or D % 8 or D > 480:
-        raise ValueError(f"the InvPT attention kernel reads 16-byte rows in "
-                         f"at most two TMA boxes: the head dim must be a "
-                         f"multiple of 8 up to 480, got {D}")
+    if not 1 <= Lk <= MAXK:
+        raise ValueError(f"the InvPT attention kernel takes kv lengths from "
+                         f"1 to {MAXK} (InvPT's is 320 on PASCAL, 252 on "
+                         f"NYUD, 1024 on Cityscapes-3D); got Lk={Lk}")
+    if D < 8 or D % 8 or D > MAXD:
+        raise ValueError(f"the InvPT attention kernel reads 16-byte rows: "
+                         f"the head dim must be a multiple of 8 up to "
+                         f"{MAXD}, got {D}")
 
 
 def invpt_attention_plan(B: int, Lq: int, Lk: int, D: int, has_msg: bool,
                          plan=None) -> tuple[int, int, int, int]:
     """(row tiles of 16 query rows a block, ring slots, grid, shared-memory
-    bytes) of one launch on the current card, as the kernel's own module
-    chooses them (csrc/invpt_attention.cu: plan_launch); the entries of
-    ``plan`` (rt, stages, grid) that are > 0 are kept. Raises ValueError
-    where that plan does not fit."""
+    bytes) of one launch of the resident kernel on the current card, as the
+    kernel's own module chooses them (csrc/invpt_attention.cu: plan_launch);
+    the entries of ``plan`` (rt, stages, grid) that are > 0 are kept. Where
+    the resident kernel does not take the shape (past 320 keys or head dim
+    480) and no plan is given: (0, 0, blocks of the streamed form's first
+    launch, 0). Raises ValueError where the plan does not fit."""
     p = (ctypes.c_int * 4)(*(plan or (0, 0, 0)), 0)
     if _build.lib().mtt_invpt_attention_plan(B, Lq, Lk, D, int(has_msg), p):
         raise ValueError(f"no InvPT attention plan {plan} fits B={B}, "
@@ -153,26 +164,33 @@ def invpt_attention_plan(B: int, Lq: int, Lk: int, D: int, has_msg: bool,
 def invpt_attention_cuda(q, k, v, msg, w, b, scale: float, plan=None):
     """The kernel takes bfloat16 q/k/v with 2 heads (both heads of a query
     tile sit in one block, because each fused head reads every head's scores
-    and message), at most 320 keys and a head dim that is a multiple of 8 up
-    to 480. It reads q, k and v where they lie: (B, H, L, D) views with unit
-    stride along D and strides that are multiples of 8 (the model's head
-    splits of its projections are such views), so nothing is copied or
-    padded on the host: the kernel's TMA boxes read zeros past the head dim
-    (InvPT's stage 2 has head dim 72) and it gives the keys past Lk (NYUD's
-    252) no probability. out is written as (B, Lq, H, D) and returned as its
-    (B, H, Lq, D) view, so the caller's merge of the heads is a view too. One
-    launch a call. Only a kv length that is not a multiple of 4 (no InvPT
-    shape) pads the message's rows to 16 bytes, and gets ``fused`` as a view
-    of rows so padded. ``plan``: (rt, stages, grid) in place of the kernel's
-    own choice (``invpt_attention_plan``), which computes the same bits.
+    and message), kv lengths up to 65536 and a head dim that is a multiple
+    of 8 up to 1024. It reads q, k and v where they lie: (B, H, L, D) views
+    with unit stride along D and strides that are multiples of 8 (the
+    model's head splits of its projections are such views), so nothing is
+    copied or padded on the host: the kernel's loads read zeros past the
+    head dim (InvPT's stage 2 has head dim 72) and it gives the keys past Lk
+    (NYUD's 252) no probability. out is written as (B, Lq, H, D) and
+    returned as its (B, H, Lq, D) view, so the caller's merge of the heads
+    is a view too. Only a kv length that is not a multiple of 4 (no InvPT
+    shape) pads the message's rows to 16 bytes, and gets ``fused`` as a
+    view of rows so padded. ``plan``: (rt, stages, grid) in place of the
+    kernel's own choice (``invpt_attention_plan``), which computes the same
+    bits.
+
+    Up to 320 keys and head dim 480 (PASCAL and NYUD at any embed_dim up to
+    896) the call is one launch of the resident kernel; past either
+    (Cityscapes-3D's 1024 keys, head dim 544 at embed_dim 1024) it is the
+    streamed form's three launches, with a (B, H, Lq, Lk rounded up to 32)
+    bf16 scratch for p from torch.empty.
 
     What bounds it on the H100 is bytes: the f32 message in and ``fused``
     out, 105 MB each at the PASCAL forward's stage 2 (235 MB in all, 70 us
     at 3.35 TB/s; stage 1 67 MB, 20 us; stage 0 18 MB, 5.5 us; NYUD's
-    stages 13, 44 and 150 MB). The kernel brings the message by TMA into a
-    block's fused tile half a tile ahead, q, K and V through a TMA ring, and
-    sends fused out of the tile by bulk copies (the note at the head of
-    csrc/invpt_attention.cu)."""
+    stages 13, 44 and 150 MB). The resident kernel brings the message by
+    TMA into a block's fused tile half a tile ahead, q, K and V through a
+    TMA ring, and sends fused out of the tile by bulk copies (the note at
+    the head of csrc/invpt_attention.cu)."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     if q.dtype != torch.bfloat16:
@@ -197,12 +215,17 @@ def invpt_attention_cuda(q, k, v, msg, w, b, scale: float, plan=None):
                          *([msg] if msg is not None else []))
     out = torch.empty(B, Lq, H, D, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    streamed = invpt_attention_plan(B, Lq, Lk, D, msg is not None,
+                                    plan)[0] == 0
+    p = torch.empty(B, H, Lq, -(-Lk // 32) * 32, dtype=q.dtype,
+                    device=q.device) if streamed else None
     _build.check(_build.lib().mtt_invpt_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         msg.data_ptr() if msg is not None else None,
         w.data_ptr() if msg is not None else None,
         b.data_ptr() if msg is not None else None,
-        out.data_ptr(), fused.data_ptr(), B, Lq, Lk, ldk, D,
+        out.data_ptr(), fused.data_ptr(),
+        p.data_ptr() if streamed else None, B, Lq, Lk, ldk, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         None if plan is None else (ctypes.c_int * 3)(*plan), float(scale),
         _build.stream()),

@@ -4,8 +4,9 @@ Port of mtt_tpu/kernels/layernorm.py (``_ln_kernel``, ``fused_layernorm``).
 Statistics and affine run in f32; the result is cast to the input dtype once.
 On the H100 the op is bound by device memory (one read, one write of x); the
 kernel keeps each row in the registers of one warp (or, at C <= 128, of a
-half or a quarter of one) so x is read exactly once, and reads gamma and beta
-in their stored dtype (bf16 or f32), so no cast kernel runs per call. The
+half or a quarter of one; past 4096 columns, of a block of four warps) so x
+is read exactly once, and reads gamma and beta in their stored dtype (bf16
+or f32), so no cast kernel runs per call. The
 same launch is the first stage of the attention front halves and of the MLP
 half-block.
 
@@ -69,17 +70,27 @@ def _check(x, gamma, beta):
         raise ValueError("x, gamma and beta must be on one device")
 
 
+MAX_C = 16384    # the widest row the kernel takes (csrc/layernorm.cu)
+
+
+def check_layernorm_width(C: int) -> None:
+    """Raises unless the kernel takes rows of C columns: 16-byte chunks (C %
+    8 == 0), up to 4096 in one warp's registers, past that up to MAX_C in a
+    block of four warps (InvPT's task-merged stage norm is 2880 wide at
+    embed_dim 512, 5440 at 1024)."""
+    if C <= 0 or C % 8 or C > MAX_C:
+        raise ValueError(
+            f"the LayerNorm kernel takes C % 8 == 0 and C <= {MAX_C} (a row "
+            f"in one warp's registers up to 4096, in four warps' past it), "
+            f"got C={C}")
+
+
 def layernorm_cuda(x, gamma, beta, eps: float = 1e-6) -> torch.Tensor:
     """Launches the kernel; counts nothing (callers count)."""
     C = x.shape[-1]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the LayerNorm kernel takes bfloat16, got {x.dtype}")
-    if C % 8 or C > 4096:
-        raise ValueError(
-            f"the LayerNorm kernel takes C % 8 == 0 and C <= 4096 (a row "
-            f"lives in one warp's registers; InvPT's task-merged stage norm "
-            f"is 2880 wide), got C={C}; longer rows are ROADMAP.md item "
-            f"1.11")
+    check_layernorm_width(C)
     y = torch.empty_like(x)
     rows = x.numel() // C
     g, b = gamma.contiguous(), beta.contiguous()

@@ -31,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from mtt_tpu_torch.kernels import _build
-from mtt_tpu_torch.kernels.layernorm import (layernorm_plain, layernorm_vjp,
+from mtt_tpu_torch.kernels.layernorm import (check_layernorm_width,
+                                             layernorm_plain, layernorm_vjp,
                                              ln_f32)
 
 _INV_SQRT2PI = (2.0 * 3.141592653589793) ** -0.5
@@ -176,11 +177,7 @@ def mlp_ln_res_cuda(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
     Hd = w1.shape[0]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the MLP kernel takes bfloat16, got {x.dtype}")
-    if C > 4096:
-        raise ValueError(
-            f"the MLP-LN-residual kernels take C <= 4096 (a LayerNorm row in "
-            f"one warp's registers), got C={C}; wider rows are ROADMAP.md "
-            f"item 1.11")
+    check_layernorm_width(C)
     _build.check_gemm_widths("the MLP-LN-residual kernels", C=C, hidden=Hd)
     M = x.numel() // C
     out = torch.empty_like(x)

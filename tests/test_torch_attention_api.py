@@ -224,11 +224,13 @@ def test_dot_product_attention_matches_jax():
 
 def test_kernel_paths_refuse_what_the_kernels_do_not_take():
     """The card's entry points check before any launch, so the refusals show
-    on the CPU: row 13 takes bf16, a contiguous qkv and head dim 64; row 14
+    on the CPU: row 13 takes bf16, a contiguous qkv and head dims that are
+    multiples of 8 up to 128 (ViT-T has 16); row 14
     bf16, head dims that are multiples of 8 up to 128 and aligned strides;
     both raise on a request for the kernel with a CPU tensor."""
     from mtt_tpu_torch.kernels.attention import (attention_generic_cuda,
                                                  attn_core_cuda,
+                                                 check_attn_head_dim,
                                                  fused_attention,
                                                  fused_attention_qkv)
     bf = torch.bfloat16
@@ -237,8 +239,9 @@ def test_kernel_paths_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         attn_core_cuda(torch.zeros(1, 384, 5, dtype=bf).transpose(1, 2),
                            2, 0.125, False)
-    with pytest.raises(ValueError, match="head dim 64"):
-        attn_core_cuda(torch.zeros(1, 5, 192, dtype=bf), 2, 0.125, False)
+    check_attn_head_dim(32, "row 13")
+    with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
+        attn_core_cuda(torch.zeros(1, 5, 816, dtype=bf), 2, 0.125, False)
     with pytest.raises(ValueError, match="H\\*3\\*D"):
         fused_attention_qkv(torch.zeros(1, 5, 100), 3)
     q = torch.zeros(1, 5, 2, 72, dtype=bf)

@@ -1522,3 +1522,148 @@ def test_phase_head_bf16_on_the_card_near_cpu_f32(gen, train):
             a, b = getattr(head.mt_proj.bn, name), getattr(ref.mt_proj.bn,
                                                           name)
             assert ((a.float().cpu() - b).norm() / b.norm()).item() <= 0.01
+
+
+# ---- the kernels at the shapes past the shipped configs --------------------
+
+@pytest.mark.parametrize("safe", [False, True])
+@pytest.mark.parametrize("N", [77, 1029])
+@pytest.mark.parametrize("D", [8, 16, 24, 32, 72, 80, 96, 128])
+def test_attention_core_head_dims(gen, D, N, safe):
+    """The attention core (rows 1-2 and 13) at head dims other than 64: in
+    the 32, 64, 80 and 128 tiles, the columns past D zero; ViT-T's 16 among
+    them. 4 bf16 ulps, equal bits across two runs, and under the safe
+    softmax at least 99% of the outputs bit-equal to the plain version (the
+    max over all keys)."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.attention import fused_attention_qkv
+    B, H = 2, 4
+    qkv = _rnd(gen, B, N, H * 3 * D)
+    _build.reset_counts()
+    got = fused_attention_qkv(qkv, H, safe=safe)
+    assert _build.COUNTS == _counts(attention_qkv=1)
+    want = fused_attention_qkv(qkv, H, safe=safe, impl="plain")
+    _check(got, want)
+    assert torch.equal(got, fused_attention_qkv(qkv, H, safe=safe))
+    if safe:
+        assert _bit_share(got, want) >= 0.99
+
+
+@pytest.mark.parametrize("need_qkv", [False, True])
+def test_attention_front_half_vit_t(gen, need_qkv):
+    """Rows 1 and 2 at ViT-T's width (C 64, 4 heads of 16) over the 1025
+    tokens of a 512x512 image and its cls token: LN, the projection and the
+    core, each output within 4 ulps of the plain front half."""
+    from mtt_tpu_torch.kernels.attention import fused_attention_ln_qkv
+    B, N, C, H = 2, 1025, 64, 4
+    x = _rnd(gen, B, N, C)
+    g = _rnd(gen, C, std=0.1, mean=1.0, dtype=torch.float32)
+    b = _rnd(gen, C, std=0.1, dtype=torch.float32)
+    w = _rnd(gen, 3 * C, C, std=C ** -0.5)
+    bq = _rnd(gen, 3 * C, std=0.1)
+    got, want = (fused_attention_ln_qkv(x, g, b, w, bq, H, need_qkv=need_qkv,
+                                        impl=impl) for impl in (None, "plain"))
+    _check(got, want)
+
+
+@pytest.mark.parametrize("N", [1, 65, 77, 1025])
+@pytest.mark.parametrize("D", [8, 16, 32, 80, 128])
+def test_attention_bwd_kernel_head_dims(gen, D, N):
+    """Row 7 at head dims other than 64, in the 16, 32, 80 and 128 tiles (8
+    in the 16 tile, half of it zero): dq, dk and dv each within 4 bf16 ulps
+    of their own largest value, equal bits across two runs."""
+    from mtt_tpu_torch.kernels.attention import (attn_core_bwd_cuda,
+                                                 attn_core_bwd_plain)
+    B, H = 2, 4
+    qkv = _rnd(gen, B, N, H * 3 * D)
+    g = _rnd(gen, B, N, H * D)
+    got = attn_core_bwd_cuda(qkv, g, H, D ** -0.5)
+    assert torch.equal(got, attn_core_bwd_cuda(qkv, g, H, D ** -0.5))
+    got = got.view(B, N, H, 3, D)
+    want = attn_core_bwd_plain(qkv, g, H, D ** -0.5).view(B, N, H, 3, D)
+    _check(tuple(got[:, :, :, i] for i in range(3)),
+           tuple(want[:, :, :, i] for i in range(3)))
+
+
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 5, 4104), (3, 7, 5440), (2049, 5440),
+                                   (5, 6144), (3, 8192), (4, 12008),
+                                   (2, 16384)])
+def test_layernorm_kernel_wide(gen, shape, param_dtype):
+    """Row 3 past 4096 columns, a block of four warps a row: InvPT's
+    task-merged stage norm at embed_dim 1024 (5 x 1088 = 5440) and widths
+    that end inside a lane's chunks, up to the kernel's 16384. One bf16 ulp,
+    as the narrow rows."""
+    from mtt_tpu_torch.kernels.layernorm import fused_layernorm
+    C = shape[-1]
+    x = _rnd(gen, *shape)
+    g = _rnd(gen, C, std=0.1, mean=1.0, dtype=param_dtype)
+    b = _rnd(gen, C, std=0.1, dtype=param_dtype)
+    _check(fused_layernorm(x, g, b), fused_layernorm(x, g, b, impl="plain"),
+           ulps=1)
+
+
+@pytest.mark.parametrize("C,Hd,rows", [(4104, 1024, 77), (5440, 512, 129)])
+def test_mlp_ln_res_kernel_wide(gen, C, Hd, rows):
+    """Row 4 past 4096 columns: its LayerNorm stage the four-warp rows, its
+    GEMMs at any width that is a multiple of 8; within 4 ulps of the plain
+    stages."""
+    from mtt_tpu_torch.kernels.mlp import fused_mlp_ln_res
+    args = _mlp_args(gen, rows, C, Hd, torch.bfloat16)
+    _check(fused_mlp_ln_res(*args), fused_mlp_ln_res(*args, impl="plain"))
+
+
+@pytest.mark.parametrize("Lq,Lk,D,with_msg,B", [
+    (1024, 1024, 288, False, 1), (300, 1024, 144, True, 1),
+    (1000, 1024, 72, True, 1), (70, 338, 72, True, 2),
+    (33, 321, 16, False, 2), (150, 320, 544, False, 2),
+    (40, 320, 488, True, 2), (20, 2000, 136, True, 1),
+    (17, 10, 1024, True, 1), (9, 1023, 8, False, 2)])
+def test_invpt_attention_streamed(gen, Lq, Lk, D, with_msg, B):
+    """Row 9 past the resident kernel's 320 keys or head dim 480: the
+    streamed form (plan rt 0), one count a call. Cityscapes-3D's 1024 keys
+    at its three head dims, the smallest kv length past 320 on a square
+    grid (2 x 13 x 13), head dim 544 (embed_dim 1024) and 488, 2000 keys
+    (past torch's warp softmax), an odd kv length and head dims 8 and 1024.
+    out 4 ulps, fused 0.01 ulps, equal bits across two runs."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.invpt_attention import (invpt_attention_plan,
+                                                       invpt_fused_attention)
+    assert invpt_attention_plan(B, Lq, Lk, D, with_msg)[0] == 0
+    args = _invpt_inputs(gen, B, Lq, Lk, D, with_msg, heads_last=True)
+    scale = (2 * D) ** -0.5
+    _build.reset_counts()
+    got = invpt_fused_attention(*args, scale)
+    assert _build.COUNTS == _counts(invpt_attention=1)
+    want = invpt_fused_attention(*args, scale, impl="plain")
+    _check(got, want, ulps=(4, 0.01))
+    again = invpt_fused_attention(*args, scale)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("Lk", [1024, 2000])
+def test_invpt_attention_streamed_takes_the_max_over_all_keys(gen, Lk):
+    """The streamed form rounds p against the max over all keys, as the
+    resident kernel: with the max mostly in a late key (the ramp of
+    ``test_invpt_attention_takes_the_max_over_all_keys``) at least 99% of
+    out is bit-equal to the plain version."""
+    from mtt_tpu_torch.kernels.invpt_attention import (
+        invpt_attention_cuda, invpt_attention_plain)
+    B, Lq, D = 1, 256, 72
+    q, k, v, msg, w, b = _invpt_inputs(gen, B, Lq, Lk, D, True, std=5.0)
+    ramp = torch.linspace(0.2, 1.0, Lk, device="cuda")[None, None, :, None]
+    k = (k.float() * ramp).to(torch.bfloat16)
+    scale = (2 * D) ** -0.5
+    got = invpt_attention_cuda(q, k, v, msg * 8.0, w, b, scale)
+    want = invpt_attention_plain(q, k, v, msg * 8.0, w, b, scale)
+    _check(got, want, ulps=(4, 0.01))
+    assert _bit_share(got[0], want[0]) >= 0.99
+
+
+def test_invpt_attention_plan_refuses_a_resident_plan_past_its_reach(gen):
+    """A resident plan named for a shape only the streamed form takes is
+    refused; chosen by the kernel, the plan is the streamed form's."""
+    from mtt_tpu_torch.kernels.invpt_attention import invpt_attention_plan
+    with pytest.raises(ValueError, match="no InvPT attention plan"):
+        invpt_attention_plan(1, 100, 1024, 72, True, (1, 2, 4))
+    assert invpt_attention_plan(1, 100, 1024, 72, True) == (0, 0, 32, 0)

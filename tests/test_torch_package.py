@@ -320,11 +320,14 @@ def test_up4_head_kernel_refuses_other_grids(hw, n):
 
 
 def test_training_kernel_wrappers_check_arguments():
-    from mtt_tpu_torch.kernels.attention import attn_core_bwd_cuda
+    from mtt_tpu_torch.kernels.attention import (attn_core_bwd_cuda,
+                                                 check_attn_head_dim)
     from mtt_tpu_torch.kernels.mlp import fused_mlp
-    qkv = torch.zeros(2, 5, 3 * 2 * 32, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 64"):
-        attn_core_bwd_cuda(qkv, torch.zeros(2, 5, 64, dtype=torch.bfloat16),
+    for d in (8, 16, 32, 80, 128):      # head dims the backward takes
+        check_attn_head_dim(d, "the attention backward kernel")
+    qkv = torch.zeros(2, 5, 3 * 2 * 136, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
+        attn_core_bwd_cuda(qkv, torch.zeros(2, 5, 272, dtype=torch.bfloat16),
                            2, 0.125)
     x = torch.randn(2, 3, 8)
     w1, w2 = torch.randn(32, 8), torch.randn(8, 32)

@@ -152,6 +152,9 @@ def invpt_cases(checkout: Path, bld, gen, stream) -> dict:
     bf, dev = torch.bfloat16, torch.device("cuda")
     lib = bld.lib()
     strided = len(bld._SIGNATURES["mtt_invpt_attention_bf16"]) > 15
+    # the entry that takes the streamed form's p scratch (null: resident)
+    scratch = (None,) * (len(bld._SIGNATURES["mtt_invpt_attention_bf16"])
+                         > 28)
     cases = {}
     for name, (lq, lk, d, with_msg) in INVPT_SHAPES.items():
         # the inputs of tests/test_torch_cuda.py::test_invpt_attention_kernel
@@ -179,7 +182,8 @@ def invpt_cases(checkout: Path, bld, gen, stream) -> dict:
                 q_, k_, v_, o_, f_, p_, s_, lq_, lk_, d_ = a
                 bld.check(lib.mtt_invpt_attention_bf16(
                     q_.data_ptr(), k_.data_ptr(), v_.data_ptr(), *p_,
-                    o_.data_ptr(), f_.data_ptr(), B, lq_, lk_, lk_, d_, *s_,
+                    o_.data_ptr(), f_.data_ptr(), *scratch, B, lq_, lk_,
+                    lk_, d_, *s_,
                     plan, (H * d_) ** -0.5, stream()),
                     "mtt_invpt_attention_bf16")
                 return o_, f_
@@ -287,13 +291,16 @@ def run_one(checkout: Path, tag: str, reps: int, rows: str) -> dict:
     qkv, g = rnd(BT, N, 3 * H * D), rnd(BT, N, H * D)
     np_ = -(-N // 64) * 64
 
+    # entries that take the head dim (the parent's may fix it at 64)
+    hd = (D,) * (len(bld._SIGNATURES["mtt_attn_bwd_bf16"]) > 9)
+
     def bwd_call():
         dqkv = torch.empty_like(qkv)
         # the parent reads 3 planes of N rows, the change 2 of np_
         stats = torch.empty(3, BT, H, np_, dtype=torch.float32, device=dev)
         bld.check(bld.lib().mtt_attn_bwd_bf16(
             qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            BT, N, H, D ** -0.5, stream()), "mtt_attn_bwd_bf16")
+            BT, N, H, *hd, D ** -0.5, stream()), "mtt_attn_bwd_bf16")
         return tuple(dqkv.view(BT, N, H, 3, D).unbind(3))
 
     want = attn_core_bwd_plain(qkv, g, H, D ** -0.5).view(BT, N, H, 3, D)
@@ -316,11 +323,12 @@ def run_one(checkout: Path, tag: str, reps: int, rows: str) -> dict:
                    for t in qkv8.view(B, N, H, 3, D).unbind(3))
         return F.scaled_dot_product_attention(q, k, v)
 
+    hd = (D,) * (len(bld._SIGNATURES["mtt_attn_core_bf16"]) > 9)
     for safe in (False, True):
         def core_call(safe=safe):
             out = torch.empty(B, N, H * D, dtype=bf, device=dev)
             bld.check(bld.lib().mtt_attn_core_bf16(
-                qkv8.data_ptr(), out.data_ptr(), B, N, H, s2,
+                qkv8.data_ptr(), out.data_ptr(), B, N, H, *hd, s2,
                 exp2_clamp_hi(N), int(safe), stream()), "mtt_attn_core_bf16")
             return (out,)
 
