@@ -33,8 +33,10 @@ Phases, in order (the seconds each took are printed):
      bit-equal to the plain version: the max over all keys), and the
      ``limits`` phase's shapes (row 9 at Cityscapes-3D's three stages and at
      head dim 544, row 3 at 5440 columns, the attention core at head dims
-     16, 32, 80 and 128, fast and safe, row 7 at 16 and 32; each one's
-     bit-equal share printed):
+     16, 32, 80 and 128, fast and safe, row 7 at 16 and 32) and the
+     ``widths`` phase's (row 3 at 1660 and 830 columns, row 8 at 332 and
+     166, row 9 at head dim 83, row 5's split form at tar = F = 768; each
+     one's bit-equal share printed):
      error, tolerance in bf16 ulps, CUDA-event times of the kernel, the
      plain version, the library call or composition, and the bound of the
      card;
@@ -212,6 +214,20 @@ Phases, in order (the seconds each took are printed):
      branch for some sample (``_limit_trainer``). Its launches are the
      kernels line's ``limits_*`` paths; phase 3 holds each of these kernels
      at the new shapes to its plain version (``_limits_cases``).
+  21. ``widths``: every width a YAML gives JAX's models (``_width_configs``):
+     InvPT-ViT-L PASCAL at embed_dim 600 (rows 3, 8 and 9 at widths and
+     head dims that are not multiples of 8) and TaskPrompter-ViT-L PASCAL
+     at tar = F = 768 (row 5's split form), each eval at batch 8 and one
+     step at batch 2; the MTT_DEBUG_TINY TaskPrompter-Swin on
+     Cityscapes-3D (``build_model``'s ``debug_tiny``; every block of depth
+     1 is a tap block, so no window attention kernel runs, as in JAX), one
+     1024x2048 frame with its decode (every 2D map and detection level
+     within 0.1 of f32) and one step at batch 1;
+     InvPT-ViT-L PASCAL eval at batch 8 with ``factored_tail`` (no tail
+     kernel), held to f32 and to the kernel tail of the same weights. The
+     checks of phases 5 and 9; its launches are the kernels line's paths of
+     those names; phase 3 holds the kernels at the new shapes to their
+     plain versions (``_widths_cases``).
 The line before the last is the kernels JSON; the last line is the device JSON.
 
 ``python3 chip_smoke.py --profile`` runs none of these phases: after the
@@ -229,7 +245,7 @@ statistics at 10% in place of 1% (``_vary``), to see how the forwards'
 bf16 error grows with them.
 ``--phases kernels,invpt`` (any subset of kernels, attention_api, eval,
 invpt, swin, nyud, train, swin_train, invpt_train, nyud_train, evaluate,
-loop, detect, convert, parallel, datasets, options, limits)
+loop, detect, convert, parallel, datasets, options, limits, widths)
 runs only those phases and prints no result lines: a quick look, not the
 check.
 """
@@ -304,6 +320,20 @@ WIDE_D = 1024 + 64
 LIMIT_CORE = ((4, 16), (16, 32), (12, 80), (8, 128))   # (heads, head dim)
 LIMIT_BWD = ((4, 16), (16, 32))
 LIMIT_CPU_TOL = 1e-4     # the card's f32 plain forward against the CPU's
+
+# The widths phase: every width a YAML gives JAX's models. InvPT-ViT-L PASCAL
+# at embed_dim 600: decoder width 664, stage widths 664, 332 and 166 (head
+# dims 332, 166 and 83, task-merged norms 3320, 1660 and 830);
+# TaskPrompter-ViT-L PASCAL at embed_dim and final_embed_dim 768 (the task
+# decode's tar = F = 768, past the one launch); the MTT_DEBUG_TINY
+# TaskPrompter-Swin (embed 16, depths 1, 2 heads a stage) on Cityscapes-3D.
+W600_D = 600 + 64
+W600_STAGES = ((8, W600_D), (16, W600_D // 2), (32, W600_D // 4))
+W768 = 768
+# InvPT's factored eval tail against its kernel tail on the same weights
+# (relative RMS): both round Gm and the width mix at the same points, so
+# they differ by f32 sums in another order (about 1e-6 on the card)
+FACTORED_TAIL_TOL = 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
 # outside them, HBM bandwidth
@@ -892,6 +922,78 @@ def _limits_cases(rnd):
     return cases
 
 
+def _widths_cases(rnd):
+    """The kernel cases of the ``widths`` phase's shapes, in
+    ``kernel_phase``'s format: InvPT at embed_dim 600, row 3 on the
+    task-merged stage norms of 1660 and 830 columns (rows not whole 16-byte
+    chunks), row 8 at the stage widths 332 and 166 (zero-padded to 336 and
+    168), row 9 at stage 2's head dim 83 (padded to 88); row 5's split form
+    at TaskPrompter-ViT-L's tar = F = 768."""
+    from mtt_tpu_torch.kernels.layernorm import fused_layernorm
+    from mtt_tpu_torch.kernels.mlp import fused_mlp
+    from mtt_tpu_torch.kernels.task_decode import fused_task_decode
+
+    bf, f32 = torch.bfloat16, torch.float32
+    dev = torch.device("cuda")
+    cases = {}
+    for g, dim in W600_STAGES[1:]:
+        g, Cm = 2 * g, T * dim
+        xm = rnd(B, g, g, Cm)
+        gm_ = rnd(Cm, std=0.1, mean=1.0, dtype=f32)
+        bm_ = rnd(Cm, std=0.1, dtype=f32)
+        cases[f"layernorm@C{Cm}"] = (
+            lambda impl, a=(xm, gm_, bm_): fused_layernorm(*a, impl=impl),
+            1, "as layernorm, on rows that are not whole 16-byte chunks "
+               "(2-byte loads)",
+            lambda a=(xm, gm_, bm_): F.layer_norm(
+                a[0], a[0].shape[-1:], a[1].to(bf), a[2].to(bf), 1e-6),
+            None, _nbytes(xm, gm_, bm_, xm), 0.0, 8.0 * xm.numel())
+        hid = 4 * dim
+        xd = rnd(B, T, g, g, dim)
+        wa, ba = rnd(hid, dim, std=dim ** -0.5), rnd(hid, std=0.1)
+        wb, bb = rnd(dim, hid, std=hid ** -0.5), rnd(dim, std=0.1)
+        cases[f"mlp_fc@C{dim}"] = (
+            lambda impl, a=(xd, wa, ba, wb, bb): fused_mlp(*a, impl=impl),
+            4, "as mlp_fc, C and hidden zero-padded to multiples of 8", None,
+            lambda a=(xd, wa, ba, wb, bb): F.linear(
+                F.gelu(F.linear(a[0], a[1], a[2])), a[3], a[4]),
+            _nbytes(xd, wa, ba, wb, bb, xd), 4.0 * xd.numel() * hid, 0.0)
+    g2, dim2 = W600_STAGES[2]
+    cases[f"invpt_attention@D{dim2 // INV_H}"] = _invpt_case(
+        rnd, B, T * g2 * g2, INV_LK, dim2 // INV_H, True)
+
+    xs = rnd(B, S, C)
+    a = rnd(B, T, S, G)
+    cw = rnd(B, T, C, dtype=f32)
+    ws, wc = (rnd(T, W768, C, std=C ** -0.5) for _ in range(2))
+    bs, bc = (rnd(T, W768, std=0.1) for _ in range(2))
+    wf = rnd(T, W768, 2 * W768, std=(2 * W768) ** -0.5)
+    bfin = rnd(T, W768, std=0.1)
+
+    def decode_lib():
+        xt_ = xs[:, None]
+        f = torch.einsum("btsc,trc->btsr",
+                         xt_ * a.repeat_interleave(C // G, -1) + xt_, ws) \
+            + bs[None, :, None]
+        fc = torch.einsum("btsc,trc->btsr",
+                          xt_ * cw.to(bf)[:, :, None] + xt_, wc) \
+            + bc[None, :, None]
+        return torch.einsum("btsr,tfr->btsf", torch.cat([f, fc], -1),
+                            wf) + bfin[None, :, None]
+
+    cases[f"task_decode@tar{W768}"] = (
+        lambda impl: fused_task_decode(xs, a, cw, ws, bs, wc, bc, wf, bfin,
+                                       impl=impl),
+        4, "the split form: [f; fc] rounded to bf16 at the one launch's "
+           "point, through a scratch; f32 sums in another order can flip a "
+           "rounding",
+        None, decode_lib,
+        _nbytes(xs, a, cw, ws, bs, wc, bc, wf, bfin) + B * S * T * W768 * 2,
+        2.0 * B * T * S * (2 * C * W768 + 2 * W768 * W768), 0.0)
+
+    return cases
+
+
 def kernel_phase():
     """Each kernel against its plain version on the same seeded inputs."""
     from mtt_tpu_torch.kernels.attention import (attn_core_bwd_cuda,
@@ -1125,7 +1227,7 @@ def kernel_phase():
     cases.update(_invpt_cases(rnd))
     cases.update(_swin_cases(rnd))
     cases.update(_api_cases(rnd))
-    limit_cases = _limits_cases(rnd)
+    limit_cases = {**_limits_cases(rnd), **_widths_cases(rnd)}
     cases.update(limit_cases)
     results = {}
     for name, (call, ulps, reason, lib, comp, nbytes, tcf, f32f) in \
@@ -5074,6 +5176,225 @@ def limits_phase():
     return counts
 
 
+def _width_configs(work: str) -> dict:
+    """The ``widths`` phase's experiments, read by ``create_config`` as
+    ``main`` reads an experiment: ``invpt_w600``,
+    configs/pascal/invpt_vitLp16.yml at embed_dim 600 (decoder width 664;
+    stage widths 332 and 166 and head dims 332, 166 and 83 are not
+    multiples of 8, nor are the stage norms of 1660 and 830 columns);
+    ``tp_w768``, configs/pascal/taskprompter_vitLp16.yml at embed_dim and
+    final_embed_dim 768 with its chan_nheads of 1 (the task decode at tar =
+    F = 768, past the one launch); ``swin_tiny``,
+    configs/cityscapes3d/taskprompter_swinB.yml as shipped, which
+    ``build_model`` builds tiny under MTT_DEBUG_TINY (``debug_tiny``)."""
+    from mtt_tpu_torch.config import create_config
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs")
+    specs = {
+        "invpt_w600": ("pascal/invpt_vitLp16.yml",
+                       (("embed_dim: 512", "embed_dim: 600"),)),
+        "tp_w768": ("pascal/taskprompter_vitLp16.yml",
+                    (("final_embed_dim: 350", f"final_embed_dim: {W768}"),
+                     ("embed_dim: 300", f"embed_dim: {W768}"))),
+        "swin_tiny": ("cityscapes3d/taskprompter_swinB.yml", ()),
+    }
+    out = {}
+    for name, (src, subs) in specs.items():
+        with open(os.path.join(root, src)) as f:
+            text = f.read()
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"widths: {src} has {old!r} "
+                                   f"{text.count(old)} times, not once")
+            text = text.replace(old, new)
+        path = os.path.join(work, f"{name}.yml")
+        with open(path, "w") as f:
+            f.write(text)
+        out[name] = create_config(path, {"run_mode": "infer"})
+    return out
+
+
+def expected_swin_tiny(train: bool) -> dict:
+    """The ``MTT_DEBUG_TINY`` Swin (the launches of ``expected_swin``): its
+    one block a stage is a tap block and takes the composition, as JAX's
+    does, so no block reaches the window attention kernels."""
+    fwd = _expected(window_attention=0, mlp_fc=7, layernorm=20)
+    return {**fwd, "window_attention_bwd": 0} if train else fwd
+
+
+@contextlib.contextmanager
+def _tiny_swin():
+    """``MTT_DEBUG_TINY=1`` as a user sets it for ``main``."""
+    env = os.environ.get("MTT_DEBUG_TINY")
+    os.environ["MTT_DEBUG_TINY"] = "1"
+    try:
+        yield
+    finally:
+        if env is None:
+            os.environ.pop("MTT_DEBUG_TINY")
+        else:
+            os.environ["MTT_DEBUG_TINY"] = env
+
+
+def _swin_tiny_check(tag: str, title: str, p, seed: int) -> dict:
+    """The tiny Swin of ``p`` (``build_model`` under ``_tiny_swin``; bf16,
+    seeded random weights) on one seeded 1024x2048 frame through
+    ``predict`` with the fixed camera: launch counts, the 2D maps and every
+    detection level finite, of their shapes, and within FORWARD_RMS_TOL
+    (relative RMS) of an f32 run of the same weights, the decode's slots;
+    then one training step at batch 1 (``_train_run``). Returns the
+    forward's and the step's launch counts."""
+    from mtt_tpu_torch.inference import predict, preprocess
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import build_model
+    from mtt_tpu_torch.train import make_trainer
+    from mtt_tpu_torch.utils.train_utils import to_device
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with _tiny_swin():
+        model = build_model(p, device=dev, dtype=torch.bfloat16).eval()
+    init_weights(model, gen)
+    x = preprocess(torch.randint(0, 256, (1, *SW_IMG, 3), generator=gen,
+                                 device=dev))
+    K = torch.tensor(SW_CAM_K, device=dev)
+    n_params = sum(q.numel() for q in model.parameters())
+    _build.reset_counts()
+    logits, preds = predict(model, x, cam_K=K)
+    torch.cuda.synchronize()
+    counts = dict(_build.COUNTS)
+    print(f"[{tag}] {title}, {n_params / 1e6:.2f} M params, 1 image at "
+          f"{SW_IMG[0]}x{SW_IMG[1]} bf16; launches {counts}", flush=True)
+    want = expected_swin_tiny(False)
+    if counts != want:
+        raise RuntimeError(f"{tag} launch counts {counts} != {want}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref_model = copy.deepcopy(model).float()
+    ref, _ = predict(ref_model, x, impl="plain", cam_K=K)
+    del ref_model
+    maps = {t: (logits[t], ref[t]) for t in ("semseg", "depth")}
+    ref_levels = _det_levels(ref["3ddet"])
+    maps.update({k: (v, ref_levels[k])
+                 for k, v in _det_levels(logits["3ddet"]).items()})
+    widths = {"cls": 6, "bbox": 13, "dir": 6, "ctr": 1}
+    worst = 0.0
+    for name, (k, r) in maps.items():
+        if name.startswith("3ddet."):
+            lvl, kind = int(name[-1]), name.split(".")[1][:-1]
+            shape = (1, *SW_LEVELS[lvl], widths[kind])
+        else:
+            shape = (1, *SW_OUT, 19 if name == "semseg" else 1)
+        if k.shape != shape or not torch.isfinite(k).all():
+            raise RuntimeError(f"{tag} {name}: {tuple(k.shape)} (want "
+                               f"{shape}) or non-finite")
+        k, r = k.float(), r.float()
+        rms = ((k - r).norm() / r.norm()).item()
+        worst = max(worst, rms)
+        if not rms <= FORWARD_RMS_TOL:
+            raise RuntimeError(f"{tag} {name}: kernel forward is {rms:.4g} "
+                               f"(relative RMS) from the f32 run, over "
+                               f"{FORWARD_RMS_TOL}")
+    n_det = model.det_cfg["test_cfg"]["max_per_img"]
+    if preds["3ddet"]["boxes3d"].shape != (1, n_det, 9):
+        raise RuntimeError(f"{tag} decode: "
+                           f"{tuple(preds['3ddet']['boxes3d'].shape)}")
+    print(f"[{tag}] {len(maps)} maps (semseg, depth, 20 detection levels) "
+          f"finite and of their shapes, worst relative RMS against the f32 "
+          f"run {worst:.5g} (tol {FORWARD_RMS_TOL}); decode {n_det} slots",
+          flush=True)
+    del logits, preds, ref, maps
+    ms = _time_ms(lambda: predict(model, x, cam_K=K), reps=5, warmup=1)
+    print(f"[{tag}] predict {ms:.2f} ms", flush=True)
+    del model, x
+    torch.cuda.empty_cache()
+
+    with _tiny_swin():
+        trainer, data = make_trainer(p, seed=seed + 1, device=dev)
+    batches = [to_device(data.batch(i, 1), dev) for i in range(2)]
+    step = _train_run(f"{tag}_step", f"{title}, 1 image at "
+                      f"{SW_IMG[0]}x{SW_IMG[1]}", trainer, batches,
+                      expected_swin_tiny(True), 1)
+    del trainer, data, batches
+    torch.cuda.empty_cache()
+    return {tag: counts, f"{tag}_step": step}
+
+
+def widths_phase():
+    """Every width a YAML gives JAX's models, through the kernels
+    (``_width_configs``): InvPT-ViT-L PASCAL at embed_dim 600 (rows 3, 8
+    and 9 zero-padded or ragged), eval at batch 8 and one step at batch 2;
+    TaskPrompter-ViT-L PASCAL at tar = F = 768 (row 5's split form), eval
+    at batch 8 and one step at batch 2; the MTT_DEBUG_TINY TaskPrompter-Swin
+    on Cityscapes-3D (``debug_tiny``), one 1024x2048 frame with its 3D
+    decode and one step at batch 1; InvPT-ViT-L PASCAL eval at
+    batch 8 with ``factored_tail`` (the eval tail as torch products), held
+    to f32 and to the kernel tail of the same weights. Returns the launch
+    counts by path."""
+    counts = {}
+    work = tempfile.mkdtemp(prefix="mtt_widths_")
+    try:
+        cfg = _width_configs(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    def loss_keys(p):
+        inter = p.get("intermediate_supervision", False)
+        return {*p.TASKS.NAMES, "total",
+                *(f"inter_{t}" for t in p.TASKS.NAMES if inter)}
+
+    for tag, title, want, want_step, seed in (
+            ("invpt_w600", f"InvPT-ViT-L PASCAL at embed_dim 600 (decoder "
+             f"width {W600_D}, head dims 332, 166, 83)",
+             expected_invpt(False), expected_invpt_train(), 70),
+            ("tp_w768", f"TaskPrompter-ViT-L PASCAL at tar = F = {W768} "
+             f"(the task decode's split form)", expected_eval("factored"),
+             expected_train(), 80)):
+        p = cfg[tag]
+        model, x = _serve_model(p, seed, (IMG, IMG))
+        counts[tag] = _serve_check(tag, title, model, x, want)
+        del model, x
+        torch.cuda.empty_cache()
+        trainer, batches = _limit_trainer(f"{tag}_step", p,
+                                          range(seed + 1, seed + 9), BT)
+        counts[f"{tag}_step"] = _train_run(
+            f"{tag}_step", f"{title}, batch {BT} at {IMG}x{IMG}", trainer,
+            batches, want_step, BT, loss_keys=loss_keys(p))
+        del trainer, batches
+        torch.cuda.empty_cache()
+
+    counts.update(_swin_tiny_check(
+        "swin_tiny", "the MTT_DEBUG_TINY TaskPrompter-Swin Cityscapes-3D "
+        "(embed 16, 2 heads a stage, 4x4 windows)", cfg["swin_tiny"], 90))
+
+    from mtt_tpu_torch.inference import predict
+    from mtt_tpu_torch.models.wrappers import INVPT_PASCAL_VITL
+    model, x = _serve_model(INVPT_PASCAL_VITL, 100, (IMG, IMG),
+                            factored_tail=True)
+    counts["invpt_factored"] = _serve_check(
+        "invpt_factored", "InvPT-ViT-L PASCAL with factored_tail", model, x,
+        {**expected_invpt(False), "invpt_tail": 0})
+    model.decoder.factored_tail = False
+    with torch.no_grad():
+        kern = predict(model, x)[0]
+    model.decoder.factored_tail = True
+    with torch.no_grad():
+        fact = predict(model, x)[0]
+    worst = max(((fact[t].float() - kern[t].float()).norm()
+                 / kern[t].float().norm()).item() for t in model.tasks)
+    print(f"[invpt_factored] the factored tail against the kernel tail on "
+          f"the same weights: worst relative RMS over the tasks {worst:.5g} "
+          f"(tol {FACTORED_TAIL_TOL})", flush=True)
+    if not worst <= FACTORED_TAIL_TOL:
+        raise RuntimeError(f"invpt_factored: {worst:.4g} from the kernel "
+                           f"tail, over {FACTORED_TAIL_TOL}")
+    del model, x, kern, fact
+    torch.cuda.empty_cache()
+    return counts
+
+
 # profile: kernel-name fragment -> group; anything else is library work
 PROFILE_GROUPS = (# the shared GEMM (gemm.cu) by its epilogue: fc1 of rows 4
                   # and 8; fc2 of row 4; fc2 of row 8 and rows 1-2's qkv
@@ -5403,7 +5724,7 @@ PHASES = {"kernels": kernel_phase, "attention_api": attention_api_phase,
           "loop": loop_phase, "detect": detect_phase,
           "convert": convert_phase, "parallel": parallel_phase,
           "datasets": datasets_phase, "options": options_phase,
-          "limits": limits_phase}
+          "limits": limits_phase, "widths": widths_phase}
 
 
 def main(argv=None):
@@ -5485,7 +5806,7 @@ def main(argv=None):
                    **outcome["parallel"], **outcome["datasets"],
                    **{f"options_{k}": c
                       for k, c in outcome["options"].items()},
-                   **outcome["limits"]}
+                   **outcome["limits"], **outcome["widths"]}
 
     rows = []
     for name, (src, replaces, counter, path) in KERNEL_ROWS.items():

@@ -289,12 +289,16 @@ __global__ void __launch_bounds__(GTHREADS, 1) gemm_kernel(
 
 template <int EPI, int SCHED, typename BiasT>
 int launch_gemm_s(const void* a, const void* b, void* out, const void* bias, const void* res,
-                  int M, int N, int K, int dev, int sms, cudaStream_t st) {
+                  int M, int N, int K, long long lda, long long ldo, int dev, int sms,
+                  cudaStream_t st) {
   using G = GemmShape<SCHED>;
   CUtensorMap map_a, map_b, map_out;
-  if (!make_map(&map_a, a, M, K, G::BM) || !make_map(&map_b, b, N, K, GBM) ||
-      !make_map(&map_out, out, M, N, 64))
-    return static_cast<int>(cudaErrorInvalidValue);
+  // packed rows take the maps every other caller had before the strided entry
+  const bool ok = lda == K && ldo == N
+                      ? make_map(&map_a, a, M, K, G::BM) && make_map(&map_out, out, M, N, 64)
+                      : make_map_pitch(&map_a, a, M, K, lda, G::BM) &&
+                            make_map_pitch(&map_out, out, M, N, ldo, 64);
+  if (!ok || !make_map(&map_b, b, N, K, GBM)) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = gemm_kernel<EPI, SCHED, BiasT>;
   // the shared-memory allowance belongs to the device's context: set once per
   // device for this instantiation
@@ -323,32 +327,38 @@ int launch_gemm_s(const void* a, const void* b, void* out, const void* bias, con
 // card idle.
 template <int EPI, typename BiasT>
 int launch_gemm_t(const void* a, const void* b, void* out, const void* bias, const void* res,
-                  int M, int N, int K, cudaStream_t st) {
+                  int M, int N, int K, cudaStream_t st, long long lda = 0, long long ldo = 0) {
+  lda = lda ? lda : K;
+  ldo = ldo ? ldo : N;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = sm_count(dev, &sms);
   if (e != cudaSuccess) return static_cast<int>(e);
   if constexpr (EPI == EPI_GELU) {
-    return launch_gemm_s<EPI, SCHED_PINGPONG, BiasT>(a, b, out, bias, res, M, N, K, dev, sms, st);
+    return launch_gemm_s<EPI, SCHED_PINGPONG, BiasT>(a, b, out, bias, res, M, N, K, lda, ldo,
+                                                     dev, sms, st);
   } else {
     auto waves = [&](int bm, int bn) {
       return (((M + bm - 1) / bm) * ((N + bn - 1) / bn) + sms - 1) / sms;
     };
     const int narrow = 8 * waves(128, 128), wide = 14 * waves(128, 256), half = 9 * waves(64, 256);
     if (wide <= narrow && wide <= half)
-      return launch_gemm_s<EPI, SCHED_WIDE, BiasT>(a, b, out, bias, res, M, N, K, dev, sms, st);
+      return launch_gemm_s<EPI, SCHED_WIDE, BiasT>(a, b, out, bias, res, M, N, K, lda, ldo,
+                                                 dev, sms, st);
     if (narrow <= half)
-      return launch_gemm_s<EPI, SCHED_PINGPONG, BiasT>(a, b, out, bias, res, M, N, K, dev, sms,
-                                                      st);
-    return launch_gemm_s<EPI, SCHED_HALF, BiasT>(a, b, out, bias, res, M, N, K, dev, sms, st);
+      return launch_gemm_s<EPI, SCHED_PINGPONG, BiasT>(a, b, out, bias, res, M, N, K, lda, ldo,
+                                                      dev, sms, st);
+    return launch_gemm_s<EPI, SCHED_HALF, BiasT>(a, b, out, bias, res, M, N, K, lda, ldo,
+                                                 dev, sms, st);
   }
 }
 
 template <int EPI>
 int launch_gemm(const void* a, const void* b, void* out, const void* bias, bool bias_f32,
-                const void* res, int M, int N, int K, cudaStream_t st) {
-  return bias_f32 ? launch_gemm_t<EPI, float>(a, b, out, bias, res, M, N, K, st)
-                  : launch_gemm_t<EPI, bf16>(a, b, out, bias, res, M, N, K, st);
+                const void* res, int M, int N, int K, cudaStream_t st, long long lda = 0,
+                long long ldo = 0) {
+  return bias_f32 ? launch_gemm_t<EPI, float>(a, b, out, bias, res, M, N, K, st, lda, ldo)
+                  : launch_gemm_t<EPI, bf16>(a, b, out, bias, res, M, N, K, st, lda, ldo);
 }
 
 }  // namespace
@@ -368,4 +378,18 @@ extern "C" int mtt_gemm_bf16(const void* a, const void* b, void* out, const void
     case EPI_TAIL: return launch_gemm_t<EPI_TAIL, float>(a, b, out, nullptr, nullptr, M, N, K, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// EPI_BIAS with strided rows: a (M, K) at row pitch lda and out (M, N) at row
+// pitch ldo (both multiples of 8, at least K and N); the task decode's split
+// form runs one a task on column slices of its (rows, T, 2 tar) scratch and
+// its (rows, T F) output.
+extern "C" int mtt_gemm_bias_ld_bf16(const void* a, long long lda, const void* b, void* out,
+                                     long long ldo, const void* bias, int bias_f32, int M, int N,
+                                     int K, void* stream) {
+  if (M < 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || lda < K || ldo < N || lda % 8 || ldo % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  return launch_gemm<EPI_BIAS>(a, b, out, bias, bias_f32, nullptr, M, N, K,
+                               static_cast<cudaStream_t>(stream), lda, ldo);
 }

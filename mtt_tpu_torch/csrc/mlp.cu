@@ -32,24 +32,32 @@ using namespace mtt;
 
 extern "C" int mtt_layernorm_bf16(const void* x, const void* gamma, const void* beta, void* y,
                                   int rows, int C, float eps, int flags, void* stream);
+extern "C" int mtt_layernorm_ld_bf16(const void* x, const void* gamma, const void* beta, void* y,
+                                     int rows, int C, int ld, float eps, int flags, void* stream);
 
-// The half-block x + fc2(gelu(fc1(LN(x)))) as three launches. x (M, C) bf16;
-// w1 (Hd, C), w2 (C, Hd) bf16 as nn.Linear stores them; gamma, beta, b1, b2
-// (flags bits 0-3: f32, else bf16); xn (M, C) and h (M, Hd) bf16 scratch. C % 8
-// == 0 and C <= 16384 (the LayerNorm kernel's rows), Hd % 8 == 0; every
-// pointer 16-byte aligned (TMA's rule).
+// The half-block x + fc2(gelu(fc1(LN(x)))) as three launches. x (M, CP) bf16
+// with CP = C rounded up to a multiple of 8: the wrapper zero-pads the
+// columns past C (and w1's, w2's and b2's), so the LayerNorm launch counts
+// the first C columns and writes zeros past them, and the GEMMs run at CP,
+// where the zero columns add exact zeros. w1 (Hd, CP), w2 (CP, Hd) bf16 as
+// nn.Linear stores them; gamma, beta (C,), b1 (Hd,), b2 (CP,) (flags bits
+// 0-3: f32, else bf16); xn (M, CP) and h (M, Hd) bf16 scratch; out (M, CP).
+// C <= 16384 (the LayerNorm kernel's rows), Hd a positive multiple of 8;
+// every pointer 16-byte aligned (TMA's rule).
 extern "C" int mtt_mlp_ln_res_bf16(const void* x, const void* gamma, const void* beta,
                                    const void* w1, const void* b1, const void* w2, const void* b2,
                                    void* xn, void* h, void* out, int M, int C, int Hd, float eps,
                                    int flags, void* stream) {
   if (M <= 0) return 0;
-  if (C % 8 || C <= 0 || C > 16384 || Hd % 8 || Hd <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int e = mtt_layernorm_bf16(x, gamma, beta, xn, M, C, eps, flags & 3, stream);
+  const int CP = (C + 7) / 8 * 8;
+  if (C <= 0 || CP > 16384 || Hd % 8 || Hd <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  // whole 16-byte rows take the LayerNorm's packed entry; others its padded pitch
+  int e = CP == C ? mtt_layernorm_bf16(x, gamma, beta, xn, M, C, eps, flags & 3, stream)
+                  : mtt_layernorm_ld_bf16(x, gamma, beta, xn, M, C, CP, eps, flags & 3, stream);
   if (e) return e;
-  e = mtt_gemm_bf16(xn, w1, h, b1, (flags >> 2) & 1, nullptr, M, Hd, C, EPI_GELU, stream);
+  e = mtt_gemm_bf16(xn, w1, h, b1, (flags >> 2) & 1, nullptr, M, Hd, CP, EPI_GELU, stream);
   if (e) return e;
-  return mtt_gemm_bf16(h, w2, out, b2, (flags >> 3) & 1, x, M, C, Hd, EPI_RES, stream);
+  return mtt_gemm_bf16(h, w2, out, b2, (flags >> 3) & 1, x, M, CP, Hd, EPI_RES, stream);
 }
 
 // The plain MLP fc2(gelu(fc1(x))) as two launches. x (M, C) bf16; w1 (Hd, C),

@@ -36,6 +36,22 @@
 //    pitch, T F 2 = 3500 bytes, is not the 16 bytes a TMA store needs).
 // Each weight byte that reaches shared memory feeds the tile's 64 rows. No
 // split-K and no atomics: two runs give the same bits.
+//
+// The split form (mtt_task_decode_split_bf16) takes what the one launch does
+// not: tar past 304 or F past 352 (TaskPrompter-ViT-L NYUD at embed_dim 768,
+// tar = F = 768), and the tar and F that the wrapper zero-pads (tar % 4, odd
+// F). It is cut at the TPU kernel's own bf16 rounding of [f; fc]:
+//  1. this kernel with ffo set: phases F and FC only, over (tile, chunk)
+//     items, a chunk being 304 of the tar columns (ws and wc rows at the
+//     chunk's offset; x is read and scaled again for each chunk), the sums
+//     plus the bias rounded to bf16 and stored from the accumulators into the
+//     (B, S, T, 2 tar) scratch ffo, f at columns 0 .. tar - 1 and fc at tar
+//     .. 2 tar - 1 of each (row, task);
+//  2. one launch of the shared GEMM a task (gemm.cu, EPI_BIAS), y_t =
+//     [f_t; fc_t] . wf_t^T + bf_t, reading the scratch's task-t columns at
+//     its row pitch T 2 tar and writing the output's at T F.
+// At PASCAL's (8, 1024, 1024) with T = 5 and tar = F = 768 that is 0.23 TFLOP
+// (0.23 ms at the bf16 peak), and the scratch moves 126 MB each way.
 #include "tma.cuh"
 
 using namespace mtt;
@@ -86,19 +102,25 @@ __device__ __forceinline__ void ff_store(uint32_t ff, int row, int col, float v0
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(pack_bf16x2(v0, v1)) : "memory");
 }
 
-// flags: bit 0 a f32, bit 1 cw f32, bit 2 the biases f32 (else bf16).
+// flags: bit 0 a f32, bit 1 cw f32, bit 2 the biases f32 (else bf16). SPLIT:
+// the split form's first launch (phases F and FC into ffo); else the one
+// launch, whose code is the same as before the split form existed.
+template <bool SPLIT>
 __global__ void __launch_bounds__(DT, 1) task_decode_kernel(
     const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_ws,
     const __grid_constant__ CUtensorMap map_wc, const __grid_constant__ CUtensorMap map_wf,
     const void* __restrict__ a, const void* __restrict__ cw, const void* __restrict__ bs,
     const void* __restrict__ bc, const void* __restrict__ bfin, bf16* __restrict__ out, int B,
-    int S, int C, int T, int G, int tar, int F, int flags) {
+    int S, int C, int T, int G, int tar, int F, int flags, bf16* __restrict__ ffo) {
   const bool a32 = flags & 1, cw32 = flags & 2, b32 = flags & 4;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t ff = ring + STAGES * STAGE;
   const uint32_t full0 = ff + FF_BYTES, empty0 = full0 + STAGES * 8;
-  const int stiles = (S + BM - 1) / BM, tiles = T * B * stiles;
+  // the split form walks (tile, chunk of 2 NF tar columns) items; the one
+  // launch has one chunk
+  const int nch = SPLIT ? (tar + 2 * NF - 1) / (2 * NF) : 1;
+  const int stiles = (S + BM - 1) / BM, tiles = T * nch * B * stiles;
   const int nk = (C + TMA_BK - 1) / TMA_BK, ny = (2 * tar + TMA_BK - 1) / TMA_BK;
 
   if (threadIdx.x == 0) {
@@ -122,17 +144,19 @@ __global__ void __launch_bounds__(DT, 1) task_decode_kernel(
         return s;
       };
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int t = tile / (B * stiles), b = (tile / stiles) % B, s0 = (tile % stiles) * BM;
+        const int t = tile / (nch * B * stiles), ch = (tile / (B * stiles)) % nch;
+        const int b = (tile / stiles) % B, s0 = (tile % stiles) * BM;
         for (int ph = 0; ph < 2; ++ph) {
           const CUtensorMap* w = ph ? &map_wc : &map_ws;
           for (int kt = 0; kt < nk; ++kt) {
             const int s = next(XBOX + 2 * WFBOX);
             const uint32_t dst = ring + s * STAGE, bar = full0 + 8 * s;
             tma_load_3d(dst, &map_x, kt * TMA_BK, s0, b, bar);
-            tma_load_3d(dst + XBOX, w, kt * TMA_BK, 0, t, bar);
-            tma_load_3d(dst + XBOX + WFBOX, w, kt * TMA_BK, NF, t, bar);
+            tma_load_3d(dst + XBOX, w, kt * TMA_BK, ch * 2 * NF, t, bar);
+            tma_load_3d(dst + XBOX + WFBOX, w, kt * TMA_BK, ch * 2 * NF + NF, t, bar);
           }
         }
+        if (SPLIT) continue;  // no phase Y
         for (int ky = 0; ky < ny; ++ky) {
           const int s = next(2 * WYBOX);
           const uint32_t dst = ring + s * STAGE, bar = full0 + 8 * s;
@@ -161,7 +185,8 @@ __global__ void __launch_bounds__(DT, 1) task_decode_kernel(
   };
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int t = tile / (B * stiles), b = (tile / stiles) % B, s0 = (tile % stiles) * BM;
+    const int t = tile / (nch * B * stiles), ch = (tile / (B * stiles)) % nch;
+    const int b = (tile / stiles) % B, s0 = (tile % stiles) * BM;
     const size_t bt = (size_t)b * T + t;
 
     // ---- phases F and FC: scaled x (in place) . ws_t^T / wc_t^T ----
@@ -221,18 +246,31 @@ __global__ void __launch_bounds__(DT, 1) task_decode_kernel(
       }
       wgmma_wait<0>();
       release_prev();
-      // + bias, rounded to bf16, into FF at column ph tar + n
+      // + bias, rounded to bf16, into FF at column ph tar + n (the split
+      // form: into the scratch ffo, rows past S not stored)
       const void* bias = ph ? bc : bs;
 #pragma unroll
       for (int j = 0; j < NF / 8; ++j) {
-        const int n = wg * NF + 8 * j + c0;
+        const int n = ch * 2 * NF + wg * NF + 8 * j + c0;
         if (n < tar) {
           const float2 bv = ld_pair(bias, (size_t)t * tar + n, b32);
-          ff_store(ff, r0, ph * tar + n, acc[4 * j] + bv.x, acc[4 * j + 1] + bv.y);
-          ff_store(ff, r0 + 8, ph * tar + n, acc[4 * j + 2] + bv.x, acc[4 * j + 3] + bv.y);
+          if (SPLIT) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = s0 + r0 + 8 * h;
+              if (r < S)
+                *reinterpret_cast<uint32_t*>(
+                    ffo + (((size_t)b * S + r) * T + t) * 2 * tar + ph * tar + n) =
+                    pack_bf16x2(acc[4 * j + 2 * h] + bv.x, acc[4 * j + 2 * h + 1] + bv.y);
+            }
+          } else {
+            ff_store(ff, r0, ph * tar + n, acc[4 * j] + bv.x, acc[4 * j + 1] + bv.y);
+            ff_store(ff, r0 + 8, ph * tar + n, acc[4 * j + 2] + bv.x, acc[4 * j + 3] + bv.y);
+          }
         }
       }
     }
+    if (SPLIT) continue;
     fence_proxy_async();
     consumers_bar(1);
 
@@ -282,6 +320,46 @@ __global__ void __launch_bounds__(DT, 1) task_decode_kernel(
   }
 }
 
+// One launch of task_decode_kernel (ffo null: the whole decode into out; else
+// phases F and FC into ffo).
+int launch_decode(const void* x, const void* a, const void* cw, const void* ws, const void* bs,
+                  const void* wc, const void* bc, const void* wf, const void* bf, void* out,
+                  void* ffo, int B, int S, int C, int T, int G, int tar, int F, int flags,
+                  cudaStream_t st) {
+  CUtensorMap map_x, map_ws, map_wc, map_wf;
+  const long long dx[3] = {C, S, B}, dw[3] = {C, tar, T}, dy[3] = {2LL * tar, F, T};
+  if (!make_map_nd(&map_x, x, 3, dx, BM) || !make_map_nd(&map_ws, ws, 3, dw, NF) ||
+      !make_map_nd(&map_wc, wc, 3, dw, NF))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ffo) map_wf = map_ws;  // not read: the split form has no phase Y
+  else if (!make_map_nd(&map_wf, wf, 3, dy, NY)) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = sm_count(dev, &sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  auto kernel = ffo ? task_decode_kernel<true> : task_decode_kernel<false>;
+  // the shared-memory allowance belongs to the device's context: set once per
+  // device and instantiation
+  static std::atomic<bool> allowed[2][MAX_DEVICES];
+  std::atomic<bool>* set = allowed[ffo ? 1 : 0];
+  if (dev >= MAX_DEVICES || !set[dev].load(std::memory_order_relaxed)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < MAX_DEVICES) set[dev].store(true, std::memory_order_relaxed);
+  }
+  const int nch = ffo ? (tar + 2 * NF - 1) / (2 * NF) : 1;
+  const int tiles = T * nch * B * ((S + BM - 1) / BM);
+  kernel<<<tiles < sms ? tiles : sms, DT, SMEM, st>>>(
+      map_x, map_ws, map_wc, map_wf, a, cw, bs, bc, bf, static_cast<bf16*>(out), B, S, C, T, G,
+      tar, F, flags, static_cast<bf16*>(ffo));
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool widths_ok(int B, int S, int C, int T, int G) {
+  return B > 0 && S > 0 && T > 0 && G > 0 && C > 0 && C % 8 == 0 && C % G == 0 &&
+         (C / G) % 8 == 0;
+}
+
 }  // namespace
 
 // x (B, S, C) bf16; a (B, T, S, G), cw (B, T, C) (flags bit 0, 1: f32, else
@@ -294,31 +372,37 @@ extern "C" int mtt_task_decode_bf16(const void* x, const void* a, const void* cw
                                     const void* bs, const void* wc, const void* bc, const void* wf,
                                     const void* bf, void* out, int B, int S, int C, int T, int G,
                                     int tar, int F, int flags, void* stream) {
-  if (B <= 0 || S <= 0 || T <= 0 || G <= 0 || C % 8 || C <= 0 || C % G || (C / G) % 8 ||
-      tar % 4 || tar <= 0 || tar > 2 * NF || F % 2 || F <= 0 || F > 2 * NY)
+  if (!widths_ok(B, S, C, T, G) || tar % 4 || tar <= 0 || tar > 2 * NF || F % 2 || F <= 0 ||
+      F > 2 * NY)
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap map_x, map_ws, map_wc, map_wf;
-  const long long dx[3] = {C, S, B}, dw[3] = {C, tar, T}, dy[3] = {2LL * tar, F, T};
-  if (!make_map_nd(&map_x, x, 3, dx, BM) || !make_map_nd(&map_ws, ws, 3, dw, NF) ||
-      !make_map_nd(&map_wc, wc, 3, dw, NF) || !make_map_nd(&map_wf, wf, 3, dy, NY))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = sm_count(dev, &sms);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  auto kernel = task_decode_kernel;
-  // the shared-memory allowance belongs to the device's context: set once per
-  // device
-  static std::atomic<bool> allowed[MAX_DEVICES];
-  if (dev >= MAX_DEVICES || !allowed[dev].load(std::memory_order_relaxed)) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < MAX_DEVICES) allowed[dev].store(true, std::memory_order_relaxed);
-  }
-  const int tiles = T * B * ((S + BM - 1) / BM);
-  kernel<<<tiles < sms ? tiles : sms, DT, SMEM, static_cast<cudaStream_t>(stream)>>>(
-      map_x, map_ws, map_wc, map_wf, a, cw, bs, bc, bf, static_cast<bf16*>(out), B, S, C, T, G,
-      tar, F, flags);
-  return static_cast<int>(cudaGetLastError());
+  return launch_decode(x, a, cw, ws, bs, wc, bc, wf, bf, out, nullptr, B, S, C, T, G, tar, F,
+                       flags, static_cast<cudaStream_t>(stream));
 }
 
+extern "C" int mtt_gemm_bias_ld_bf16(const void* a, long long lda, const void* b, void* out,
+                                     long long ldo, const void* bias, int bias_f32, int M, int N,
+                                     int K, void* stream);
+
+// The split form, T + 1 launches: the arguments of mtt_task_decode_bf16 with
+// any tar % 4 == 0 and F % 8 == 0 (the wrapper zero-pads other widths), and
+// ff, a (B, S, T, 2 tar) bf16 scratch.
+extern "C" int mtt_task_decode_split_bf16(const void* x, const void* a, const void* cw,
+                                          const void* ws, const void* bs, const void* wc,
+                                          const void* bc, const void* wf, const void* bf,
+                                          void* ff, void* out, int B, int S, int C, int T, int G,
+                                          int tar, int F, int flags, void* stream) {
+  if (!widths_ok(B, S, C, T, G) || tar % 4 || tar <= 0 || F % 8 || F <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  int e = launch_decode(x, a, cw, ws, bs, wc, bc, wf, bf, out, ff, B, S, C, T, G, tar, F, flags,
+                        st);
+  const bool b32 = flags & 4;
+  for (int t = 0; t < T && !e; ++t)
+    e = mtt_gemm_bias_ld_bf16(
+        static_cast<const bf16*>(ff) + (size_t)t * 2 * tar, (long long)T * 2 * tar,
+        static_cast<const bf16*>(wf) + (size_t)t * F * 2 * tar,
+        static_cast<bf16*>(out) + (size_t)t * F,
+        (long long)T * F, static_cast<const char*>(bf) + (size_t)t * F * (b32 ? 4 : 2), b32,
+        B * S, F, 2 * tar, stream);
+  return e;
+}

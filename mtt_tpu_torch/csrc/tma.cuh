@@ -252,6 +252,21 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int 
   return make_map_nd(map, ptr, 2, dims, box_rows);
 }
 
+// A (rows, cols) bf16 tensor whose rows lie ld elements apart (ld >= cols,
+// ld % 8 == 0: TMA's 16-byte pitch) as (box_rows, 64) boxes; a column slice
+// of a wider tensor (the task decode's per-task operands).
+inline bool make_map_pitch(CUtensorMap* map, const void* ptr, int rows, int cols, long long ld,
+                           int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn || ld < cols || ld % 8) return false;
+  cuuint64_t d[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  cuuint32_t box[2] = {TMA_BK, static_cast<cuuint32_t>(box_rows)}, elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), d, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // The SM count of the current device, asked once per device: the launchers
 // run several times a forward, on forwards that the host's launches already
 // bound.

@@ -62,6 +62,7 @@ _SIGNATURES = {
                                   _L, _L, _F, _P),
     "mtt_window_attention_bwd_bf16": (*[_P] * 9, _I, _I, _I, _I, *[_L] * 6,
                                       _I, _F, _P),
+    "mtt_task_decode_split_bf16": (*[_P] * 11, *[_I] * 8, _P),
 }
 
 _lock = threading.Lock()
@@ -116,15 +117,38 @@ def check_aligned(name: str, *tensors: torch.Tensor) -> None:
                              f"into a larger tensor?)")
 
 
-def check_gemm_widths(name: str, **widths: int) -> None:
-    """Raises unless every named width is a positive multiple of 8: the
-    shared GEMM (csrc/gemm.cu) reads its operands with TMA, whose row pitch
-    must be a multiple of 16 bytes. The row count is free."""
-    for key, n in widths.items():
-        if n <= 0 or n % 8:
-            raise ValueError(f"{name}: {key} must be a positive multiple "
-                             f"of 8 (TMA reads rows whose pitch is a "
-                             f"multiple of 16 bytes), got {key}={n}")
+def round8(n: int) -> int:
+    """n rounded up to a multiple of 8: a row of 16-byte chunks of bf16, the
+    pitch TMA and the kernels' 16-byte loads need."""
+    return -(-n // 8) * 8
+
+
+def pad_to(t: torch.Tensor, *sizes: int) -> torch.Tensor:
+    """``t`` zero-padded at the end of its last ``len(sizes)`` axes to
+    ``sizes`` (``t`` itself where nothing is padded). A zero column of a
+    product's K adds an exact 0 to every f32 sum, and the output columns a
+    padded N adds are sliced off, so a kernel at the padded widths computes
+    the function at the true widths (mtt_tpu/kernels/mlp.py:246-252 pads
+    its MLP so)."""
+    pads = []
+    for have, want in zip(reversed(t.shape[-len(sizes):]), reversed(sizes)):
+        pads += [0, want - have]
+    return torch.nn.functional.pad(t, pads) if any(pads) else t
+
+
+def run_padded_head(run, D: int, args: tuple, pad, unpad):
+    """``run(*args)`` at the head dim ``D`` rounded up to ``DP``, a multiple
+    of 8: ``unpad(run(*pad(DP)), DP)``, or ``run(*args)`` itself where D is
+    one. ``pad`` gives the arguments with q, k and v (and the incoming
+    gradient) zero-padded to DP, ``unpad`` drops the output's padded
+    columns. A zero column adds an exact 0 to every score and product, so
+    the outputs keep the bits of the function at D; the scale stays the
+    caller's, for the true D. ``run`` is the kernel launch; the tests pass
+    the plain versions."""
+    DP = round8(D)
+    if DP == D:
+        return run(*args)
+    return unpad(run(*pad(DP)), DP)
 
 
 def _nvcc() -> str:

@@ -152,13 +152,57 @@ def attn_core_bwd_plain(qkv, g, heads: int, scale: float):
 
 def check_attn_head_dim(D: int, what: str) -> None:
     """Raises unless the attention core (csrc/attention_generic.cu) and its
-    backward (csrc/attention_bwd.cu) take head dim ``D``: 16-byte rows of
-    whole mma.sync k steps once padded to the kernels' head-dim tiles (16 or
-    32, 64, 80, 128), at most 128 (the widest tile whose fragments fit the
-    registers). ViT-L and ViT-B have 64, ViT-T 16."""
-    if D < 8 or D % 8 or D > 128:
-        raise ValueError(f"{what} takes head dims that are a multiple of 8 "
-                         f"from 8 to 128, got {D}")
+    backward (csrc/attention_bwd.cu) take head dim ``D``: at most 128 (the
+    widest tile whose fragments fit the registers). The kernels read
+    16-byte rows of whole mma.sync k steps, padded to their head-dim tiles
+    (16 or 32, 64, 80, 128); a head dim that is not a multiple of 8 is
+    zero-padded to one by the wrapper (``pad_heads``). ViT-L and ViT-B have
+    64, ViT-T 16."""
+    if D < 1 or D > 128:
+        raise ValueError(f"{what} takes head dims up to 128 (zero-padded to "
+                         f"a multiple of 8 from 8 to 128), got {D}")
+
+
+def pad_heads(t: torch.Tensor, heads: int, parts: int, D: int, DP: int):
+    """The head-major (B, N, heads * parts * D) tensor with each head's
+    ``parts`` slices of D (q, k, v: 3; the output: 1) zero-padded to DP."""
+    B, N = t.shape[:2]
+    return _build.pad_to(t.reshape(B, N, heads, parts, D), DP).reshape(
+        B, N, heads * parts * DP)
+
+
+def unpad_heads(t: torch.Tensor, heads: int, parts: int, D: int, DP: int):
+    """``pad_heads`` undone: the first D columns of each slice, contiguous."""
+    B, N = t.shape[:2]
+    return t.reshape(B, N, heads, parts, DP)[..., :D].reshape(
+        B, N, heads * parts * D)
+
+
+def attn_core_bwd_padded(qkv, g, heads: int, scale: float, run):
+    """``run(qkv, g, heads, scale)`` at the head dim rounded up to a
+    multiple of 8: q, k, v and dOut zero-padded, which adds exact zeros to
+    every score and product; the padded columns of dqkv are dropped. The
+    scale is the caller's, for the true head dim."""
+    D = qkv.shape[-1] // heads // 3
+    return _build.run_padded_head(
+        run, D, (qkv, g, heads, scale),
+        lambda DP: (pad_heads(qkv, heads, 3, D, DP),
+                    pad_heads(g, heads, 1, D, DP), heads, scale),
+        lambda dqkv, DP: unpad_heads(dqkv, heads, 3, D, DP))
+
+
+def _attn_core_bwd_launch(qkv, g, heads, scale):
+    B, N, C3 = qkv.shape
+    D = C3 // heads // 3
+    dqkv = torch.empty_like(qkv)
+    # per (batch, head, query row): log2 of the softmax denominator and
+    # r = sum(dp p), rows padded to a multiple of the kernels' 64-row tile
+    stats = torch.empty(2, B, heads, -(-N // 64) * 64, dtype=torch.float32,
+                        device=qkv.device)
+    _build.check(_build.lib().mtt_attn_bwd_bf16(
+        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B, N,
+        heads, D, float(scale), _build.stream()), "mtt_attn_bwd_bf16")
+    return dqkv
 
 
 def attn_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, heads: int,
@@ -172,15 +216,7 @@ def attn_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, heads: int,
             or not qkv.is_contiguous():
         raise ValueError(f"dOut must be contiguous (B, N, H*D) = "
                          f"{(B, N, heads * D)}, got {tuple(g.shape)}")
-    dqkv = torch.empty_like(qkv)
-    # per (batch, head, query row): log2 of the softmax denominator and
-    # r = sum(dp p), rows padded to a multiple of the kernels' 64-row tile
-    stats = torch.empty(2, B, heads, -(-N // 64) * 64, dtype=torch.float32,
-                        device=qkv.device)
-    _build.check(_build.lib().mtt_attn_bwd_bf16(
-        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B, N,
-        heads, D, float(scale), _build.stream()), "mtt_attn_bwd_bf16")
-    return dqkv
+    return attn_core_bwd_padded(qkv, g, heads, scale, _attn_core_bwd_launch)
 
 
 def _check(x, gamma, beta, w, b, heads):
@@ -202,15 +238,21 @@ def _check(x, gamma, beta, w, b, heads):
         raise TypeError(f"w dtype {w.dtype} differs from x dtype {x.dtype}")
 
 
-def qkv_proj_cuda(xn: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
-    """One launch of the shared GEMM (csrc/gemm.cu) with its bias epilogue:
-    xn (..., C) . w^T + b, summed in f32 and rounded once, the bias read in
-    its stored dtype. Any row count; C and 3C multiples of 8."""
+def qkv_proj_padded(xn, w, b, run):
+    """``run(xn, w, b)`` with C and the qkv width rounded up to multiples of
+    8, every operand zero-padded (nothing is copied where both are
+    multiples already); the output's first columns."""
     K, N = xn.shape[-1], w.shape[0]
-    if xn.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"the qkv projection takes bfloat16, got {xn.dtype} "
-                        f"and {w.dtype}")
-    _build.check_gemm_widths("the qkv projection", C=K, qkv_width=N)
+    KP, NP = _build.round8(K), _build.round8(N)
+    if (KP, NP) == (K, N):
+        return run(xn, w, b)
+    qkv = run(_build.pad_to(xn, KP), _build.pad_to(w, NP, KP),
+              _build.pad_to(b, NP))
+    return qkv if NP == N else qkv[..., :N].contiguous()
+
+
+def _qkv_proj_launch(xn, w, b):
+    K, N = xn.shape[-1], w.shape[0]
     M = xn.numel() // K
     flags = _build.param_flags(b)
     _build.check_aligned("the qkv projection", xn, w, b)
@@ -221,10 +263,45 @@ def qkv_proj_cuda(xn: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     return qkv
 
 
+def qkv_proj_cuda(xn: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """One launch of the shared GEMM (csrc/gemm.cu) with its bias epilogue:
+    xn (..., C) . w^T + b, summed in f32 and rounded once, the bias read in
+    its stored dtype. Any row count and widths (zero-padded to multiples of
+    8 where they are not: ``qkv_proj_padded``)."""
+    if xn.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"the qkv projection takes bfloat16, got {xn.dtype} "
+                        f"and {w.dtype}")
+    return qkv_proj_padded(xn, w, b, _qkv_proj_launch)
+
+
+def attn_core_padded(qkv, heads: int, scale: float, safe: bool, run):
+    """``run(qkv, heads, scale, safe)`` at the head dim rounded up to a
+    multiple of 8: each head's q, k and v zero-padded, which adds exact
+    zeros to every score and to P.V; the output's padded columns are
+    dropped. The scale is the caller's, for the true head dim."""
+    D = qkv.shape[-1] // heads // 3
+    return _build.run_padded_head(
+        run, D, (qkv, heads, scale, safe),
+        lambda DP: (pad_heads(qkv, heads, 3, D, DP), heads, scale, safe),
+        lambda out, DP: unpad_heads(out, heads, 1, D, DP))
+
+
+def _attn_core_launch(qkv, heads, scale, safe):
+    B, N, C3 = qkv.shape
+    D = C3 // heads // 3
+    out = torch.empty(B, N, heads * D, dtype=qkv.dtype, device=qkv.device)
+    s2 = float(scaled_log2e(scale, qkv.dtype))
+    _build.check(_build.lib().mtt_attn_core_bf16(
+        qkv.data_ptr(), out.data_ptr(), B, N, heads, D, s2, exp2_clamp_hi(N),
+        int(safe), _build.stream()), "mtt_attn_core_bf16")
+    return out
+
+
 def attn_core_cuda(qkv: torch.Tensor, heads: int, scale: float, safe: bool):
     """The attention core (``mtt_attn_core_bf16``: csrc/attention_generic.cu's
     kernel under its Fast or Safe softmax policy): bf16, a contiguous
-    head-major (B, N, H*3*D) qkv, D a multiple of 8 up to 128."""
+    head-major (B, N, H*3*D) qkv, D up to 128 (zero-padded to a multiple of
+    8 where it is not: ``attn_core_padded``)."""
     B, N, C3 = qkv.shape
     D = C3 // heads // 3
     check_attn_head_dim(D, "the attention kernel")
@@ -234,12 +311,7 @@ def attn_core_cuda(qkv: torch.Tensor, heads: int, scale: float, safe: bool):
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("the attention kernel takes a contiguous, 16-byte "
                          "aligned qkv")
-    out = torch.empty(B, N, heads * D, dtype=qkv.dtype, device=qkv.device)
-    s2 = float(scaled_log2e(scale, qkv.dtype))
-    _build.check(_build.lib().mtt_attn_core_bf16(
-        qkv.data_ptr(), out.data_ptr(), B, N, heads, D, s2, exp2_clamp_hi(N),
-        int(safe), _build.stream()), "mtt_attn_core_bf16")
-    return out
+    return attn_core_padded(qkv, heads, scale, safe, _attn_core_launch)
 
 
 class _AttentionLnQkv(torch.autograd.Function):
@@ -443,18 +515,20 @@ def _check_generic(q, k, v):
             raise ValueError("q, k, v must be on one device")
 
 
-def attention_generic_cuda(q, k, v, scale: float):
-    """The kernel reads q, k, v through their (B, N, H) strides: the last
-    axis contiguous, every stride and the base 16-byte aligned. It takes
-    bf16 and head dims that are multiples of 8 up to 128."""
+def attention_generic_padded(q, k, v, scale: float, run):
+    """``run(q, k, v, scale)`` at the head dim rounded up to a multiple of
+    8: q, k and v zero-padded (exact zeros in every score and product), the
+    output's padded columns dropped; the scale is the caller's."""
+    D = q.shape[-1]
+    return _build.run_padded_head(
+        run, D, (q, k, v, scale),
+        lambda DP: (*(_build.pad_to(t, DP) for t in (q, k, v)), scale),
+        lambda out, DP: out[..., :D].contiguous())
+
+
+def _attention_generic_launch(q, k, v, scale):
     B, Nq, H, D = q.shape
     Nk = k.shape[1]
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the generic attention kernel takes bfloat16, got "
-                        f"{q.dtype}")
-    if D % 8 or D > 128:
-        raise ValueError(f"the generic attention kernel takes head dims that "
-                         f"are multiples of 8 up to 128, got {D}")
     for t in (q, k, v):
         if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]) \
                 or t.data_ptr() % 16:
@@ -468,6 +542,22 @@ def attention_generic_cuda(q, k, v, scale: float):
         H, D, *sq, *sk, *sv, float(torch.tensor(scale, dtype=q.dtype)),
         _build.stream()), "mtt_attn_generic_bf16")
     return out
+
+
+def attention_generic_cuda(q, k, v, scale: float):
+    """The kernel reads q, k, v through their (B, N, H) strides: the last
+    axis contiguous, every stride and the base 16-byte aligned. It takes
+    bf16 and head dims up to 128; one that is not a multiple of 8 runs
+    zero-padded to one (``attention_generic_padded``)."""
+    D = q.shape[-1]
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the generic attention kernel takes bfloat16, got "
+                        f"{q.dtype}")
+    if D > 128:
+        raise ValueError(f"the generic attention kernel takes head dims up "
+                         f"to 128 (zero-padded to multiples of 8), got {D}")
+    return attention_generic_padded(q, k, v, scale,
+                                    _attention_generic_launch)
 
 
 class _AttentionGeneric(torch.autograd.Function):

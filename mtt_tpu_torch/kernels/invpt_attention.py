@@ -126,12 +126,14 @@ MAXD = 1024
 
 def check_invpt_attention_shape(H: int, Lk: int, D: int) -> None:
     """Raises where the kernel does not reach: 2 heads, a kv length from 1
-    to 65536 and a head dim that is a multiple of 8 up to 1024 (16-byte
-    rows). InvPT's kv length is 320 on PASCAL, 252 on NYUD and 1024 on
-    Cityscapes-3D's 1024x2048 frames; its stage-0 head dim is (embed_dim +
-    64) / 2, 288 at embed_dim 512 and 544 at 1024. The resident kernel takes
-    up to 320 keys and head dim 480; longer or wider rows take the streamed
-    form (``invpt_attention_plan``)."""
+    to 65536 and a head dim up to 1024 (the kernel reads 16-byte rows: a
+    head dim that is not a multiple of 8 is zero-padded to one by the
+    wrapper, ``invpt_attention_padded``). InvPT's kv length is 320 on
+    PASCAL, 252 on NYUD and 1024 on Cityscapes-3D's 1024x2048 frames; its
+    stage-0 head dim is (embed_dim + 64) / 2, 288 at embed_dim 512, 332 at
+    600 (stage 2: 83) and 544 at 1024. The resident kernel takes up to 320
+    keys and head dim 480; longer or wider rows take the streamed form
+    (``invpt_attention_plan``)."""
     if H != 2:
         raise ValueError(f"the InvPT attention kernel takes 2 heads (every "
                          f"InvPT config), got {H}")
@@ -139,10 +141,10 @@ def check_invpt_attention_shape(H: int, Lk: int, D: int) -> None:
         raise ValueError(f"the InvPT attention kernel takes kv lengths from "
                          f"1 to {MAXK} (InvPT's is 320 on PASCAL, 252 on "
                          f"NYUD, 1024 on Cityscapes-3D); got Lk={Lk}")
-    if D < 8 or D % 8 or D > MAXD:
-        raise ValueError(f"the InvPT attention kernel reads 16-byte rows: "
-                         f"the head dim must be a multiple of 8 up to "
-                         f"{MAXD}, got {D}")
+    if D < 1 or _build.round8(D) > MAXD:
+        raise ValueError(f"the InvPT attention kernel takes a head dim from "
+                         f"1 up to {MAXD} (zero-padded to a multiple of 8), "
+                         f"got {D}")
 
 
 def invpt_attention_plan(B: int, Lq: int, Lk: int, D: int, has_msg: bool,
@@ -161,42 +163,10 @@ def invpt_attention_plan(B: int, Lq: int, Lk: int, D: int, has_msg: bool,
     return tuple(p)
 
 
-def invpt_attention_cuda(q, k, v, msg, w, b, scale: float, plan=None):
-    """The kernel takes bfloat16 q/k/v with 2 heads (both heads of a query
-    tile sit in one block, because each fused head reads every head's scores
-    and message), kv lengths up to 65536 and a head dim that is a multiple
-    of 8 up to 1024. It reads q, k and v where they lie: (B, H, L, D) views
-    with unit stride along D and strides that are multiples of 8 (the
-    model's head splits of its projections are such views), so nothing is
-    copied or padded on the host: the kernel's loads read zeros past the
-    head dim (InvPT's stage 2 has head dim 72) and it gives the keys past Lk
-    (NYUD's 252) no probability. out is written as (B, Lq, H, D) and
-    returned as its (B, H, Lq, D) view, so the caller's merge of the heads
-    is a view too. Only a kv length that is not a multiple of 4 (no InvPT
-    shape) pads the message's rows to 16 bytes, and gets ``fused`` as a
-    view of rows so padded. ``plan``: (rt, stages, grid) in place of the
-    kernel's own choice (``invpt_attention_plan``), which computes the same
-    bits.
-
-    Up to 320 keys and head dim 480 (PASCAL and NYUD at any embed_dim up to
-    896) the call is one launch of the resident kernel; past either
-    (Cityscapes-3D's 1024 keys, head dim 544 at embed_dim 1024) it is the
-    streamed form's three launches, with a (B, H, Lq, Lk rounded up to 32)
-    bf16 scratch for p from torch.empty.
-
-    What bounds it on the H100 is bytes: the f32 message in and ``fused``
-    out, 105 MB each at the PASCAL forward's stage 2 (235 MB in all, 70 us
-    at 3.35 TB/s; stage 1 67 MB, 20 us; stage 0 18 MB, 5.5 us; NYUD's
-    stages 13, 44 and 150 MB). The resident kernel brings the message by
-    TMA into a block's fused tile half a tile ahead, q, K and V through a
-    TMA ring, and sends fused out of the tile by bulk copies (the note at
-    the head of csrc/invpt_attention.cu)."""
+def _invpt_attention_launch(q, k, v, msg, w, b, scale: float, plan=None):
+    """Rows of 16 bytes: D % 8 == 0."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the InvPT attention kernel takes bfloat16, got "
-                        f"{q.dtype}")
-    check_invpt_attention_shape(H, Lk, D)
 
     def rows(t):   # unit stride along D, 16-byte rows
         return t if t.stride(-1) == 1 and all(
@@ -231,6 +201,61 @@ def invpt_attention_cuda(q, k, v, msg, w, b, scale: float, plan=None):
         _build.stream()),
         "mtt_invpt_attention_bf16")
     return out, fused if ldk == Lk else fused[..., :Lk]
+
+
+def invpt_attention_padded(q, k, v, msg, w, b, scale: float, run):
+    """``run(q, k, v, msg, w, b, scale)`` at the head dim rounded up to a
+    multiple of 8: q, k and v zero-padded (exact zeros in every score and
+    product, so ``fused`` keeps its bits), the output's padded columns
+    dropped (a view); the scale is the caller's, for the true head dim
+    (InvPT's is D ** -0.5)."""
+    D = q.shape[-1]
+    return _build.run_padded_head(
+        run, D, (q, k, v, msg, w, b, scale),
+        lambda DP: (*(_build.pad_to(t, DP) for t in (q, k, v)), msg, w, b,
+                    scale),
+        lambda res, DP: (res[0][..., :D], res[1]))
+
+
+def invpt_attention_cuda(q, k, v, msg, w, b, scale: float, plan=None):
+    """The kernel takes bfloat16 q/k/v with 2 heads (both heads of a query
+    tile sit in one block, because each fused head reads every head's scores
+    and message), kv lengths up to 65536 and a head dim up to 1024 (one that
+    is not a multiple of 8 runs zero-padded: ``invpt_attention_padded``).
+    It reads q, k and v where they lie: (B, H, L, D) views with unit stride
+    along D and strides that are multiples of 8 (the
+    model's head splits of its projections are such views), so nothing is
+    copied or padded on the host: the kernel's loads read zeros past the
+    head dim (InvPT's stage 2 has head dim 72) and it gives the keys past Lk
+    (NYUD's 252) no probability. out is written as (B, Lq, H, D) and
+    returned as its (B, H, Lq, D) view, so the caller's merge of the heads
+    is a view too. Only a kv length that is not a multiple of 4 (no InvPT
+    shape) pads the message's rows to 16 bytes, and gets ``fused`` as a
+    view of rows so padded. ``plan``: (rt, stages, grid) in place of the
+    kernel's own choice (``invpt_attention_plan``), which computes the same
+    bits.
+
+    Up to 320 keys and head dim 480 (PASCAL and NYUD at any embed_dim up to
+    896) the call is one launch of the resident kernel; past either
+    (Cityscapes-3D's 1024 keys, head dim 544 at embed_dim 1024) it is the
+    streamed form's three launches, with a (B, H, Lq, Lk rounded up to 32)
+    bf16 scratch for p from torch.empty.
+
+    What bounds it on the H100 is bytes: the f32 message in and ``fused``
+    out, 105 MB each at the PASCAL forward's stage 2 (235 MB in all, 70 us
+    at 3.35 TB/s; stage 1 67 MB, 20 us; stage 0 18 MB, 5.5 us; NYUD's
+    stages 13, 44 and 150 MB). The resident kernel brings the message by
+    TMA into a block's fused tile half a tile ahead, q, K and V through a
+    TMA ring, and sends fused out of the tile by bulk copies (the note at
+    the head of csrc/invpt_attention.cu)."""
+    H, D = q.shape[1], q.shape[3]
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the InvPT attention kernel takes bfloat16, got "
+                        f"{q.dtype}")
+    check_invpt_attention_shape(H, k.shape[2], D)
+    return invpt_attention_padded(
+        q, k, v, msg, w, b, scale,
+        lambda *a: _invpt_attention_launch(*a, plan=plan))
 
 
 class _InvPTAttention(torch.autograd.Function):

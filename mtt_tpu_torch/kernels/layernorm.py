@@ -74,15 +74,17 @@ MAX_C = 16384    # the widest row the kernel takes (csrc/layernorm.cu)
 
 
 def check_layernorm_width(C: int) -> None:
-    """Raises unless the kernel takes rows of C columns: 16-byte chunks (C %
-    8 == 0), up to 4096 in one warp's registers, past that up to MAX_C in a
-    block of four warps (InvPT's task-merged stage norm is 2880 wide at
-    embed_dim 512, 5440 at 1024)."""
-    if C <= 0 or C % 8 or C > MAX_C:
+    """Raises unless the kernel takes rows of C columns: up to 4096 in one
+    warp's registers, past that up to MAX_C in a block of four warps
+    (InvPT's task-merged stage norm is 2880 wide at embed_dim 512, 5440 at
+    1024); C rounded up to a multiple of 8, as the MLP half-block pads it,
+    stays within MAX_C. Rows that are not whole 16-byte chunks (830 and 1660
+    at embed_dim 600) take 2-byte loads."""
+    if C <= 0 or _build.round8(C) > MAX_C:
         raise ValueError(
-            f"the LayerNorm kernel takes C % 8 == 0 and C <= {MAX_C} (a row "
-            f"in one warp's registers up to 4096, in four warps' past it), "
-            f"got C={C}")
+            f"the LayerNorm kernel takes 1 <= C <= {MAX_C} (a row in one "
+            f"warp's registers up to 4096, in four warps' past it), got "
+            f"C={C}")
 
 
 def layernorm_cuda(x, gamma, beta, eps: float = 1e-6) -> torch.Tensor:

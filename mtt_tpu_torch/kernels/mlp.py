@@ -169,17 +169,27 @@ def _check(x, w1, b1, w2, b2, gamma=None, beta=None):
         raise TypeError("w1/w2 must have the dtype of x")
 
 
-def mlp_ln_res_cuda(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
-    """The LayerNorm launch and the two GEMMs; the scratch xn (rows, C) and
-    h (rows, hidden) come from torch.empty. Parameters are read in their
-    stored dtype (bf16 or f32): no cast is launched."""
-    C = x.shape[-1]
-    Hd = w1.shape[0]
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the MLP kernel takes bfloat16, got {x.dtype}")
-    check_layernorm_width(C)
-    _build.check_gemm_widths("the MLP-LN-residual kernels", C=C, hidden=Hd)
-    M = x.numel() // C
+def mlp_ln_res_padded(x, gamma, beta, w1, b1, w2, b2, eps, run):
+    """``run(x, gamma, beta, w1, b1, w2, b2, eps, C)`` with C and hidden
+    rounded up to multiples of 8: x, w1, b1, w2 and b2 zero-padded
+    (``_build.pad_to``; nothing is copied where both are multiples already),
+    gamma and beta as they are, C the true width, over which ``run``
+    normalises; the output's first C columns. ``run`` is the kernel launch;
+    the tests pass the plain stages."""
+    C, Hd = x.shape[-1], w1.shape[0]
+    CP, HP = _build.round8(C), _build.round8(Hd)
+    if (CP, HP) == (C, Hd):
+        return run(x, gamma, beta, w1, b1, w2, b2, eps, C)
+    out = run(_build.pad_to(x, CP), gamma, beta, _build.pad_to(w1, HP, CP),
+              _build.pad_to(b1, HP), _build.pad_to(w2, CP, HP),
+              _build.pad_to(b2, CP), eps, C)
+    return out if CP == C else out[..., :C].contiguous()
+
+
+def _mlp_ln_res_launch(x, gamma, beta, w1, b1, w2, b2, eps, C):
+    """x (..., CP) with CP = C rounded up to 8, its columns past C zero."""
+    CP, Hd = x.shape[-1], w1.shape[0]
+    M = x.numel() // CP
     out = torch.empty_like(x)
     if M == 0:
         return out
@@ -197,15 +207,35 @@ def mlp_ln_res_cuda(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
     return out
 
 
-def mlp_fc_cuda(x, w1, b1, w2, b2):
-    """Two launches of the shared GEMM: fc1 + b1 + GELU into the scratch h
-    (rows, hidden) from torch.empty, then fc2 + b2. Any row count; C and
-    hidden multiples of 8; the biases read in their stored dtype."""
-    C = x.shape[-1]
-    Hd = w1.shape[0]
+def mlp_ln_res_cuda(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
+    """The LayerNorm launch and the two GEMMs; the scratch xn (rows, C) and
+    h (rows, hidden) come from torch.empty. Parameters are read in their
+    stored dtype (bf16 or f32): no cast is launched. Widths that are not
+    multiples of 8 run zero-padded (``mlp_ln_res_padded``): the LayerNorm
+    counts the true C and writes zeros past it."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the MLP kernel takes bfloat16, got {x.dtype}")
-    _build.check_gemm_widths("the MLP kernels", C=C, hidden=Hd)
+    check_layernorm_width(x.shape[-1])
+    return mlp_ln_res_padded(x, gamma, beta, w1, b1, w2, b2, eps,
+                             _mlp_ln_res_launch)
+
+
+def mlp_fc_padded(x, w1, b1, w2, b2, run):
+    """``run(x, w1, b1, w2, b2)`` with C and hidden rounded up to multiples
+    of 8, every operand zero-padded (nothing is copied where both are
+    multiples already); the output's first C columns."""
+    C, Hd = x.shape[-1], w1.shape[0]
+    CP, HP = _build.round8(C), _build.round8(Hd)
+    if (CP, HP) == (C, Hd):
+        return run(x, w1, b1, w2, b2)
+    out = run(_build.pad_to(x, CP), _build.pad_to(w1, HP, CP),
+              _build.pad_to(b1, HP), _build.pad_to(w2, CP, HP),
+              _build.pad_to(b2, CP))
+    return out if CP == C else out[..., :C].contiguous()
+
+
+def _mlp_fc_launch(x, w1, b1, w2, b2):
+    C, Hd = x.shape[-1], w1.shape[0]
     M = x.numel() // C
     out = torch.empty_like(x)
     if M == 0:
@@ -218,6 +248,16 @@ def mlp_fc_cuda(x, w1, b1, w2, b2):
         b2.data_ptr(), h.data_ptr(), out.data_ptr(), M, C, Hd, flags,
         _build.stream()), "mtt_mlp_fc_bf16")
     return out
+
+
+def mlp_fc_cuda(x, w1, b1, w2, b2):
+    """Two launches of the shared GEMM: fc1 + b1 + GELU into the scratch h
+    (rows, hidden) from torch.empty, then fc2 + b2. Any row count and
+    widths (zero-padded to multiples of 8 where they are not:
+    ``mlp_fc_padded``); the biases read in their stored dtype."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the MLP kernel takes bfloat16, got {x.dtype}")
+    return mlp_fc_padded(x, w1, b1, w2, b2, _mlp_fc_launch)
 
 
 class _MlpLnRes(torch.autograd.Function):
@@ -262,7 +302,7 @@ def fused_mlp_ln_res(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6,
 def fused_mlp(x, w1, b1, w2, b2, impl: str | None = None):
     """Transformer MLP over (..., C): fc2(gelu(fc1(x))), no LN, no residual.
     The JAX wrapper zero-pads C and hidden to multiples of 128 for its
-    tiling, which does not change the function; the port's kernels take the
-    shapes as they are (C and hidden multiples of 8) and raise on others."""
+    tiling, which does not change the function; the port's wrapper pads
+    them to multiples of 8 where they are not (the GEMM's TMA rows)."""
     _check(x, w1, b1, w2, b2)
     return _MlpFc.apply(x, w1, b1, w2, b2, _build.resolve_impl(impl, x))

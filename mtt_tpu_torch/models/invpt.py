@@ -26,9 +26,10 @@ from mtt_tpu_torch.kernels.invpt_attention import invpt_fused_attention
 from mtt_tpu_torch.kernels.invpt_tail import (fused_ms_tail,
                                               fused_ms_tail_head)
 from mtt_tpu_torch.models.layers import (ConvBNAct, FusedLN, Mlp,
-                                         batch_moments, batch_norm, conv1x1, drop_path, interpolate,
-                                         to_nchw, to_nhwc, upsample2x,
-                                         update_running_stats)
+                                         batch_moments, batch_norm, conv1x1,
+                                         drop_path, interpolate, to_nchw,
+                                         to_nhwc, update_running_stats,
+                                         upf_conv3x3_factored, upsample2x)
 
 
 def merge_tasks(x):
@@ -194,12 +195,13 @@ class InvPTDecoder(nn.Module):
     def __init__(self, tasks: Sequence[str], num_outputs: Dict[str, int],
                  embed_dim: int = 512, pred_out: int = 64,
                  backbone_dim: int = 1024, mtt_downsample: int = 2,
-                 num_heads: int = 2, drop_path: float = 0.15, *, device=None,
-                 dtype=None):
+                 num_heads: int = 2, drop_path: float = 0.15,
+                 factored_tail: bool = False, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.tasks = tuple(tasks)
         self.mtt_downsample = mtt_downsample
+        self.factored_tail = factored_tail
         T = len(self.tasks)
         D = embed_dim + pred_out
         self.dims = dims = (D, D // 2, D // 4)
@@ -235,7 +237,8 @@ class InvPTDecoder(nn.Module):
     def _tail(self, t, stage_tx, th, tw, train, head_params, impl):
         """The mt_proj tail of task ``t``: conv3x3 + BN + ReLU on the
         multi-scale sum. Eval runs the fused tail kernel (with the 1x1 head
-        when ``head_params`` is given); training the dense composition with
+        when ``head_params`` is given), or with ``factored_tail`` and no
+        head the factored composition; training the dense composition with
         batch statistics."""
         mt = getattr(self, f"mt_proj_{t}")
         conv, bn = mt.conv, mt.bn
@@ -248,6 +251,11 @@ class InvPTDecoder(nn.Module):
                 wh, bh = head_params[t]
                 return fused_ms_tail_head(stage_tx, kc, inv, addv, wh, bh,
                                           th, tw, impl=impl)
+            if self.factored_tail and all(
+                    th % x.shape[1] == 0 and tw % x.shape[2] == 0
+                    and th // x.shape[1] == tw // x.shape[2]
+                    for x in stage_tx):
+                return self._factored_tail(stage_tx, kc, inv, addv, th)
             return fused_ms_tail(stage_tx, kc, inv, addv, th, tw, impl=impl)
         dt = stage_tx[0].dtype
         acc = 0.0
@@ -258,6 +266,21 @@ class InvPTDecoder(nn.Module):
         update_running_stats(bn, m, v)
         inv = torch.rsqrt(v + bn.eps) * bn.weight.float()
         return F.relu(xf * inv + (bn.bias.float() - m * inv)).to(dt)
+
+    @staticmethod
+    def _factored_tail(stage_tx, kc, inv, addv, th):
+        """The eval tail as JAX's ``MTT_INVPT_FACTORED`` branch computes it
+        (mtt_tpu/models/invpt.py:378-388): the conv distributes over the
+        multi-scale sum, so each stage's map is contracted at its own
+        resolution (``upf_conv3x3_factored``, channel-major f32), the terms
+        summed in f32, then the folded-BN affine and ReLU, transposed back
+        and rounded once. No TPU kernel: torch products."""
+        Y = 0.0
+        for x in stage_tx:
+            Y = Y + upf_conv3x3_factored(x, kc, th // x.shape[1])
+        y = torch.relu(Y * inv[None, :, None, None]
+                       + addv[None, :, None, None])
+        return y.permute(0, 3, 2, 1).to(stage_tx[0].dtype)
 
     def forward(self, taps: List[torch.Tensor], grid: Tuple[int, int],
                 train: bool = False, head_params=None,

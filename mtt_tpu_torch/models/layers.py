@@ -384,6 +384,12 @@ def _up4_shift_stack_np(g: int) -> np.ndarray:
     return _upf_shift_stack_np(g, 4)
 
 
+def _upf_shift_stack_key(key) -> np.ndarray:
+    """``_upf_shift_stack_np(g, f)`` of ``key = (g, f)``: ``on_device``
+    passes one argument."""
+    return _upf_shift_stack_np(*key)
+
+
 @functools.lru_cache(maxsize=64)
 def on_device(make, g, device: torch.device) -> torch.Tensor:
     """``make(g)`` (a cached numpy table; ``g`` an int or a tuple) as a tensor
@@ -402,26 +408,35 @@ def up4_conv3x3_gm(x, kernel):
     return torch.matmul(x.reshape(-1, C), Wf).reshape(B, gh, gw, 3, 3, D)
 
 
-def up4_conv3x3_mix(G6):
+def upf_conv3x3_mix(G6, f: int = 4):
     """The width mix of Gm (B, gh, gw, 3, 3, D), rounded to its dtype, then
-    the height mix in f32, through the shifted upsample matrices; returns
-    channel-major (B, D, 4gw, 4gh) f32."""
+    the height mix in f32, through the shifted f-x upsample matrices;
+    returns channel-major (B, D, f gw, f gh) f32."""
     gh, gw = G6.shape[1:3]
-    Sw = on_device(_up4_shift_stack_np, gw, G6.device).to(G6.dtype)
-    Sh = on_device(_up4_shift_stack_np, gh, G6.device)
+    Sw = on_device(_upf_shift_stack_key, (gw, f), G6.device).to(G6.dtype)
+    Sh = on_device(_upf_shift_stack_key, (gh, f), G6.device)
     M = torch.einsum("bhwkld,wlW->bhkdW", G6, Sw)
     return torch.einsum("bhkdW,hkH->bdWH", M.float(), Sh)
 
 
+def up4_conv3x3_mix(G6):
+    return upf_conv3x3_mix(G6, 4)
+
+
+def upf_conv3x3_factored(x, kernel, f: int = 4):
+    """Exact conv3x3-SAME(bilinear_upsample_f(x)) with the channel
+    contraction at low resolution (mtt_tpu/models/layers.py:550-580): Gm =
+    x . W[k, l] for the 9 taps, then the width and height mixes through the
+    shifted f-x upsample matrices (f = 1 is a plain conv3x3). Rounds where
+    the JAX composition rounds: Gm and the width mix to x's dtype, the
+    height mix in f32. x (B, gh, gw, C), kernel HWIO (3, 3, C, D); returns
+    channel-major (B, D, f gw, f gh) f32. A torch composition, as it is XLA
+    in JAX: the up4 training head and InvPT's ``factored_tail`` run it."""
+    return upf_conv3x3_mix(up4_conv3x3_gm(x, kernel), f)
+
+
 def up4_conv3x3_factored(x, kernel):
-    """Exact conv3x3-SAME(bilinear_upsample4(x)) with the channel contraction
-    at low resolution (mtt_tpu/models/layers.py:550-584): Gm = x . W[k, l]
-    for the 9 taps, then the width and height mixes through the shifted
-    upsample matrices. Rounds where the JAX composition rounds: Gm and the
-    width mix to x's dtype, the height mix in f32. x (B, gh, gw, C), kernel
-    HWIO (3, 3, C, D); returns channel-major (B, D, 4gw, 4gh) f32. A torch
-    composition, as it is XLA in JAX; the training head runs it."""
-    return up4_conv3x3_mix(up4_conv3x3_gm(x, kernel))
+    return upf_conv3x3_factored(x, kernel, 4)
 
 
 # The phase form of conv3x3-SAME(bilinear_upsample4(x)) at low resolution

@@ -14,6 +14,8 @@ device; without a card they raise rather than build on the CPU unasked."""
 
 from __future__ import annotations
 
+import copy
+import os
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -80,6 +82,22 @@ TASKPROMPTER_SWIN_SPECS = {
     "TaskPrompter_swinB": dict(embed_dim=128, depths=(2, 2, 18, 2),
                                num_heads=(4, 8, 16, 32), window_size=12),
 }
+# JAX's build_model under MTT_DEBUG_TINY (mtt_tpu/models/wrappers.py:218-227):
+# the backbone, whatever the config names, and the detection head's widths
+TINY_SWIN_SPEC = dict(embed_dim=16, depths=(1, 1, 1, 1),
+                      num_heads=(2, 2, 2, 2), window_size=4)
+TINY_DET = dict(feat_channels=16, norm_groups=4, cls_branch=(16, 8),
+                dir_branch=(16,), reg_branch=((16,),) * 5,
+                centerness_branch=(16,))
+
+
+def tiny_det_cfg(det_cfg):
+    """A copy of ``det_cfg`` shrunk as JAX's ``build_model`` shrinks the
+    config's under MTT_DEBUG_TINY (the caller's dict is left as it is)."""
+    d = copy.deepcopy(det_cfg)
+    d.update(TINY_DET)
+    d["neck"]["out_channels"] = 16
+    return d
 
 
 def default_device(device=None) -> torch.device:
@@ -116,14 +134,18 @@ class TransformerNet(nn.Module):
     1x1 head into the decoder's tail kernel, so the per-task feature maps
     never reach device memory; the parameter tree is the ``MLPHead`` one
     either way. (The JAX wrapper reads MTT_TAIL_HEAD=1 from the environment
-    for this.) ``remat`` checkpoints each ViT block (``remat_call``)."""
+    for this.) ``remat`` checkpoints each ViT block (``remat_call``).
+    ``factored_tail`` (JAX: MTT_INVPT_FACTORED=1) runs an eval forward's
+    decoder tail as the factored composition in place of the tail kernel;
+    ``tail_head`` wins over it, and training takes the dense tail."""
 
     def __init__(self, tasks: Sequence[str], num_outputs: Dict[str, int],
                  img_size: Tuple[int, int], backbone_name: str = "vitL",
                  head_name: str = "mlp", embed_dim: int = 512,
                  pred_out: int = 64, mtt_downsample: int = 2,
                  drop_path_rate: float = 0.15, tail_head: bool = False,
-                 remat: bool = False, *, device=None, dtype=None):
+                 remat: bool = False, factored_tail: bool = False, *,
+                 device=None, dtype=None):
         super().__init__()
         if tail_head and head_name != "mlp":
             raise ValueError(f"tail_head fuses the 1x1 'mlp' head into the "
@@ -141,7 +163,8 @@ class TransformerNet(nn.Module):
         self.decoder = InvPTDecoder(
             self.tasks, dict(num_outputs), embed_dim=embed_dim,
             pred_out=pred_out, backbone_dim=spec["embed_dim"],
-            mtt_downsample=mtt_downsample, device=device, dtype=dtype)
+            mtt_downsample=mtt_downsample, factored_tail=factored_tail,
+            device=device, dtype=dtype)
         for t in self.tasks:
             self.add_module(f"head_{t}", _head(
                 head_name, embed_dim + pred_out, num_outputs[t],
@@ -304,7 +327,8 @@ class TaskPrompterSwinNet(nn.Module):
 
 def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
                 tail_head: bool = False, head_up4: Optional[str] = None,
-                device=None, dtype=None):
+                factored_tail: bool = False,
+                debug_tiny: Optional[bool] = None, device=None, dtype=None):
     """Config dict (the keys of configs/pascal/taskprompter_vitLp16.yml or
     taskprompter_vitBp16.yml, configs/pascal/invpt_vitLp16.yml,
     configs/nyud/taskprompter_vitLp16.yml or invpt_vitLp16.yml, or
@@ -314,7 +338,14 @@ def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
     ``head_up4`` (``factored``, ``phase`` or ``dense``) TaskPrompter-ViT's
     conv heads'. The config's ``remat`` reaches ``TransformerNet`` and
     TaskPrompter-Swin; JAX's TaskPrompter-ViT has no remat, so a
-    TaskPrompter-ViT config that sets it raises."""
+    TaskPrompter-ViT config that sets it raises. ``factored_tail`` is
+    ``TransformerNet``'s (JAX reads MTT_INVPT_FACTORED). ``debug_tiny``
+    builds a TaskPrompter-Swin config as JAX's ``build_model`` does under
+    MTT_DEBUG_TINY, which is its default here too: ``TINY_SWIN_SPEC`` and,
+    where the config has a ``det_cfg``, that config shrunk
+    (``tiny_det_cfg``); other models ignore it, as JAX's does."""
+    if debug_tiny is None:
+        debug_tiny = bool(os.environ.get("MTT_DEBUG_TINY"))
     tasks, num_outputs = task_table(p["train_db_name"], p["task_dictionary"])
     remat = bool(p.get("remat", False))
     vit_taskprompter = p["model"] == "TaskPrompter" and \
@@ -329,12 +360,18 @@ def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
             backbone_name=p["backbone"], head_name=p["head"],
             embed_dim=p["embed_dim"], pred_out=p["PRED_OUT_NUM_CONSTANT"],
             mtt_downsample=p["mtt_resolution_downsample_rate"],
-            tail_head=tail_head, remat=remat, device=device, dtype=dtype)
+            tail_head=tail_head, remat=remat, factored_tail=factored_tail,
+            device=device, dtype=dtype)
     if p["model"] != "TaskPrompter":
         raise NotImplementedError(
             f"only TaskPrompter and InvPT (TransformerNet) are ported, got "
             f"{p['model']}")
     if "swin" in p["backbone"].lower():
+        det_cfg = p.get("det_cfg")
+        if debug_tiny and det_cfg is not None:
+            det_cfg = tiny_det_cfg(det_cfg)
+        spec = TINY_SWIN_SPEC if debug_tiny else \
+            TASKPROMPTER_SWIN_SPECS[p["backbone"]]
         return TaskPrompterSwinNet(
             tasks=tasks, num_outputs=num_outputs,
             img_size=img_size or DB_SCALES[p["val_db_name"]][1],
@@ -344,10 +381,9 @@ def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
             img_ds_ratio=float(p.get("img_ds_ratio", 1.0)),
             target_size=tuple(p["dd_label_map_size"])
             if "dd_label_map_size" in p else None,
-            det_cfg=(p.get("det_cfg") or default_det_params())
+            det_cfg=(det_cfg or default_det_params())
             if "3ddet" in tasks else None,
-            remat=remat, **TASKPROMPTER_SWIN_SPECS[p["backbone"]],
-            device=device, dtype=dtype)
+            remat=remat, **spec, device=device, dtype=dtype)
     if remat:
         raise ValueError(
             "remat: the JAX package's TaskPrompter-ViT has no remat "

@@ -224,11 +224,12 @@ def test_dot_product_attention_matches_jax():
 
 def test_kernel_paths_refuse_what_the_kernels_do_not_take():
     """The card's entry points check before any launch, so the refusals show
-    on the CPU: row 13 takes bf16, a contiguous qkv and head dims that are
-    multiples of 8 up to 128 (ViT-T has 16); row 14
-    bf16, head dims that are multiples of 8 up to 128 and aligned strides;
-    both raise on a request for the kernel with a CPU tensor."""
+    on the CPU: row 13 takes bf16, a contiguous qkv and head dims up to 128
+    (ViT-T has 16); row 14 bf16, head dims up to 128 and aligned strides;
+    both raise on a request for the kernel with a CPU tensor. A head dim
+    that is not a multiple of 8 reaches the kernel zero-padded to one."""
     from mtt_tpu_torch.kernels.attention import (attention_generic_cuda,
+                                                 attention_generic_padded,
                                                  attn_core_cuda,
                                                  check_attn_head_dim,
                                                  fused_attention,
@@ -247,8 +248,15 @@ def test_kernel_paths_refuse_what_the_kernels_do_not_take():
     q = torch.zeros(1, 5, 2, 72, dtype=bf)
     with pytest.raises(TypeError, match="bfloat16"):
         attention_generic_cuda(q.float(), q.float(), q.float(), 0.1)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        attention_generic_cuda(q[..., :12], q[..., :12], q[..., :12], 0.1)
+    seen = []
+
+    def launch(q, k, v, scale):
+        seen.append((q.shape[-1], q.is_contiguous()))
+        return torch.zeros_like(q)
+
+    out = attention_generic_padded(q[..., :12], q[..., :12], q[..., :12],
+                                   0.1, launch)
+    assert out.shape == (1, 5, 2, 12) and seen == [(16, True)]
     with pytest.raises(ValueError, match="multiples of 8"):
         z = torch.zeros(1, 5, 2, 136, dtype=bf)
         attention_generic_cuda(z, z, z, 0.1)

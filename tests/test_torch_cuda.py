@@ -1667,3 +1667,98 @@ def test_invpt_attention_plan_refuses_a_resident_plan_past_its_reach(gen):
     with pytest.raises(ValueError, match="no InvPT attention plan"):
         invpt_attention_plan(1, 100, 1024, 72, True, (1, 2, 4))
     assert invpt_attention_plan(1, 100, 1024, 72, True) == (0, 0, 32, 0)
+    assert invpt_attention_plan(1, 100, 1024, 72, True) == (0, 0, 32, 0)
+
+
+# ---- the widths JAX's models reach from a YAML -------------------------------
+
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 32, 32, 1660), (2, 64, 64, 830),
+                                   (5, 7, 83), (3, 6), (4, 9, 4101),
+                                   (2, 3, 5441)])
+def test_layernorm_kernel_ragged_rows(gen, shape, param_dtype):
+    """Rows that are not whole 16-byte chunks (InvPT's stage norms at
+    embed_dim 600: 1660 and 830; odd widths in one warp and in four):
+    2-byte loads, the statistics over the true width; 1 bf16 ulp."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.layernorm import fused_layernorm
+    C = shape[-1]
+    x = _rnd(gen, *shape)
+    g = _rnd(gen, C, std=0.1, mean=1.0, dtype=param_dtype)
+    b = _rnd(gen, C, std=0.1, dtype=param_dtype)
+    _build.reset_counts()
+    got = fused_layernorm(x, g, b)
+    assert _build.COUNTS == _counts(layernorm=1)
+    _check(got, fused_layernorm(x, g, b, impl="plain"), ulps=1)
+
+
+@pytest.mark.parametrize("C,Hd,rows", [(332, 1328, 45), (166, 664, 45),
+                                       (83, 332, 129), (6, 24, 7)])
+def test_mlp_kernels_at_padded_widths(gen, C, Hd, rows):
+    """Rows 8 and 4 at widths that are not multiples of 8 (InvPT's stage
+    widths at embed_dim 600, 332 and 166), zero-padded to multiples of 8:
+    within 4 bf16 ulps of the plain version at the true widths, one launch
+    counted each, and two runs give equal bits."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.mlp import fused_mlp, fused_mlp_ln_res
+    x, g, b, w1, b1, w2, b2 = _mlp_args(gen, rows, C, Hd)
+    _build.reset_counts()
+    fc = fused_mlp(x, w1, b1, w2, b2)
+    half = fused_mlp_ln_res(x, g, b, w1, b1, w2, b2)
+    assert _build.COUNTS == _counts(mlp_fc=1, mlp_ln_res=1)
+    _check(fc, fused_mlp(x, w1, b1, w2, b2, impl="plain"))
+    _check(half, fused_mlp_ln_res(x, g, b, w1, b1, w2, b2, impl="plain"))
+    assert torch.equal(fc, fused_mlp(x, w1, b1, w2, b2))
+
+
+@pytest.mark.parametrize("D", [83, 166, 332, 6])
+def test_invpt_attention_at_padded_head_dims(gen, D):
+    """Row 9 at InvPT's head dims at embed_dim 600 (332, 166, 83) and at 6,
+    zero-padded to multiples of 8, on the model's strided head views: out
+    within 4 bf16 ulps, fused within 0.01 of the plain version."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.invpt_attention import invpt_fused_attention
+    args = _invpt_inputs(gen, 2, 150, 320, D, True, heads_last=True)
+    scale = (2 * D) ** -0.5
+    _build.reset_counts()
+    got = invpt_fused_attention(*args, scale)
+    assert _build.COUNTS == _counts(invpt_attention=1)
+    _check(got, invpt_fused_attention(*args, scale, impl="plain"),
+           ulps=(4, 0.01))
+
+
+@pytest.mark.parametrize("D", [6, 83])
+def test_attention_kernels_at_padded_head_dims(gen, D):
+    """Rows 1-2's core and row 13 (fast and safe), row 14 and row 7 at head
+    dims that are not multiples of 8, zero-padded: 4 bf16 ulps."""
+    from mtt_tpu_torch.kernels.attention import (attn_core_bwd_cuda,
+                                                 attn_core_bwd_plain,
+                                                 fused_attention,
+                                                 fused_attention_qkv)
+    H, N = 2, 77
+    qkv, g = _rnd(gen, 2, N, H * 3 * D), _rnd(gen, 2, N, H * D)
+    for safe in (False, True):
+        _check(fused_attention_qkv(qkv, H, safe=safe),
+               fused_attention_qkv(qkv, H, safe=safe, impl="plain"))
+    q, k, v = _rnd(gen, 2, N, H, D), _rnd(gen, 2, 40, H, D), \
+        _rnd(gen, 2, 40, H, D)
+    _check(fused_attention(q, k, v), fused_attention(q, k, v, impl="plain"))
+    _check(attn_core_bwd_cuda(qkv, g, H, D ** -0.5),
+           attn_core_bwd_plain(qkv, g, H, D ** -0.5))
+
+
+@pytest.mark.parametrize("tar,fin", [(768, 768), (13, 11), (320, 360),
+                                     (304, 353)])
+def test_task_decode_split_form(gen, tar, fin):
+    """Row 5 past the one launch (TaskPrompter-ViT-L at tar = F = 768) and
+    at tar and F it does not take (tar % 4, odd F): the split form, one
+    counted call, within 4 bf16 ulps of the plain version; two runs give
+    equal bits."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.task_decode import fused_task_decode
+    args = _decode_args(gen, 2, 77, 256, 3, 16, tar, fin)
+    _build.reset_counts()
+    got = fused_task_decode(*args)
+    assert _build.COUNTS == _counts(task_decode=1)
+    _check(got, fused_task_decode(*args, impl="plain"))
+    assert torch.equal(got, fused_task_decode(*args))

@@ -140,20 +140,32 @@ def test_kernel_parameter_flags_and_alignment():
 @pytest.mark.parametrize("C,Hd", [(12, 48), (16, 36), (8, 4)])
 def test_gemm_wrappers_refuse_widths_and_unaligned_data(C, Hd):
     """Row 8 and the qkv projection run on the shared GEMM, which reads its
-    operands with TMA: any row count, widths that are positive multiples of
-    8 and 16-byte aligned data, else a ValueError that names the limit,
-    raised on the CPU before any launch."""
+    operands with TMA (16-byte row pitches): any row count; widths that are
+    not multiples of 8 reach the launch zero-padded to the next multiple
+    (``mlp_fc_padded``, ``qkv_proj_padded``), and the caller gets the true
+    widths back; data not on a 16-byte boundary raise a ValueError on the
+    CPU before any launch."""
     from mtt_tpu_torch.kernels import _build
-    from mtt_tpu_torch.kernels.attention import qkv_proj_cuda
-    from mtt_tpu_torch.kernels.mlp import mlp_fc_cuda
+    from mtt_tpu_torch.kernels.attention import (qkv_proj_cuda,
+                                                 qkv_proj_padded)
+    from mtt_tpu_torch.kernels.mlp import mlp_fc_cuda, mlp_fc_padded
     bf = torch.bfloat16
     x = torch.zeros(5, C, dtype=bf)
     w1, w2 = torch.zeros(Hd, C, dtype=bf), torch.zeros(C, Hd, dtype=bf)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        mlp_fc_cuda(x, w1, torch.zeros(Hd), w2, torch.zeros(C))
-    with pytest.raises(ValueError, match="multiple of 8"):
-        qkv_proj_cuda(x, w1, torch.zeros(Hd))
-    _build.check_gemm_widths("the GEMM", C=8, hidden=4096)
+    seen = []
+
+    def launch(x, *ws):
+        seen.append([tuple(t.shape) for t in (x, *ws)])
+        n = x.shape[-1] if len(ws) == 4 else ws[0].shape[0]
+        return torch.zeros(*x.shape[:-1], n, dtype=x.dtype)
+
+    assert mlp_fc_padded(x, w1, torch.zeros(Hd), w2, torch.zeros(C),
+                         launch).shape == (5, C)
+    assert qkv_proj_padded(x, w1, torch.zeros(Hd), launch).shape == (5, Hd)
+    assert all(n % 8 == 0 for shapes in seen for s in shapes for n in s[-2:]
+               if n not in (5,)), seen
+    assert (_build.round8(C), _build.round8(Hd)) == \
+        (-(-C // 8) * 8, -(-Hd // 8) * 8)
     buf = torch.zeros(5 * 16 + 1, dtype=bf)
     xv = buf[1:].view(5, 16)
     w1, w2 = torch.zeros(64, 16, dtype=bf), torch.zeros(16, 64, dtype=bf)
@@ -184,13 +196,17 @@ def test_task_decode_wrapper_checks_shapes():
                                          (64, 4, 6, 10), (64, 4, 308, 10),
                                          (64, 4, 8, 7), (64, 4, 8, 354)])
 def test_task_decode_kernel_refuses_widths_before_launch(C, G, tar, fin):
-    """The kernel reads x and the weights with TMA (16-byte row pitches) and
-    splits tar and F over two warpgroups' products: C and C / G multiples of
-    8, tar % 4 == 0 up to 304, F even up to 352, else a ValueError that
-    names the limits, raised on the CPU before any launch; so are data not
-    on a 16-byte boundary and biases of two dtypes."""
+    """The kernels read x and the weights with TMA (16-byte row pitches):
+    C and C / G multiples of 8, else a ValueError that names the limits,
+    raised on the CPU before any launch; so are data not on a 16-byte
+    boundary and biases of two dtypes. The one launch splits tar and F over
+    two warpgroups' products (tar % 4 == 0 up to 304, F even up to 352);
+    other tar and F take the split form, whose route zero-pads both to
+    multiples of 8."""
     from mtt_tpu_torch.kernels.task_decode import (check_task_decode_widths,
-                                                   task_decode_cuda)
+                                                   task_decode_cuda,
+                                                   task_decode_one_launch,
+                                                   task_decode_split_padded)
     bf = torch.bfloat16
     B, S, T = 1, 4, 2
 
@@ -201,10 +217,26 @@ def test_task_decode_kernel_refuses_widths_before_launch(C, G, tar, fin):
                 torch.zeros(T, tar), torch.zeros(T, fin, 2 * tar, dtype=bf),
                 torch.zeros(T, fin)]
 
-    with pytest.raises(ValueError, match="task-decode kernel needs"):
-        task_decode_cuda(*args(C, G, tar, fin))
+    if C % 8 or (C // G) % 8:
+        with pytest.raises(ValueError, match="task-decode kernel needs"):
+            task_decode_cuda(*args(C, G, tar, fin))
+    else:
+        check_task_decode_widths(C, G, tar, fin)
+        assert not task_decode_one_launch(tar, fin)
+        seen = []
+
+        def launch(x, a, cw, ws, bs, wc, bc, wf, bf):
+            seen.append((ws.shape[1], wf.shape[1], wf.shape[2]))
+            return torch.zeros(B, S, T * wf.shape[1], dtype=x.dtype)
+
+        out = task_decode_split_padded(*args(C, G, tar, fin), launch)
+        assert out.shape == (B, S, T * fin)
+        tp, fp, k = seen[0]
+        assert tp % 8 == 0 and fp % 8 == 0 and k == 2 * tp and tp >= tar
     check_task_decode_widths(1024, 16, 300, 350)
     check_task_decode_widths(768, 16, 304, 352)
+    assert task_decode_one_launch(300, 350)
+    assert task_decode_one_launch(304, 352)
     good = args(64, 4, 8, 10)
     buf = torch.zeros(B * S * 64 + 1, dtype=bf)
     unaligned = [buf[1:].view(B, S, 64), *good[1:]]

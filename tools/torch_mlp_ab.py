@@ -26,7 +26,8 @@ composition (``F.layer_norm``; ``x + fc2(gelu(fc1(F.layer_norm(x))))``;
 ``fc2(gelu(fc1(x)))``; ``F.linear``) is timed the same way in every run, and
 the change's Python entry points (``fused_layernorm``, ``fused_mlp_ln_res``,
 ``fused_mlp``, ``qkv_proj_cuda``: argument checks and allocation on the
-host) beside them. The runs go parent, change, change, parent. Outputs
+host) beside them, timed after all the raw launches so that the two
+checkouts' raw times follow the same work. The runs go parent, change, change, parent. Outputs
 are held to the plain versions (rows 3 and the projection at 1 bf16 ulp,
 rows 4 and 8 at 4 of the largest value) and each kernel runs twice to show
 equal bits. It prints the
@@ -251,7 +252,10 @@ def run_one(checkout: Path, tag: str, launches: int, reps: int) -> dict:
             within_tol=all(e <= t for e, t in zip(errs, tols)) and all(
                 bool(torch.isfinite(a).all()) for a in got),
             equal_bits=all(torch.equal(a, b) for a, b in zip(got, again)))
-        if checkout == ROOT:
+    # the change's Python entry points after every raw launch is timed, so
+    # that both checkouts time their raw launches after the same work
+    if checkout == ROOT:
+        for name, c in cases.items():
             result[name]["wrapper_ms"] = raw_ms(c["wrapper"], launches, reps)
     return result
 
