@@ -228,6 +228,15 @@ Phases, in order (the seconds each took are printed):
      checks of phases 5 and 9; its launches are the kernels line's paths of
      those names; phase 3 holds the kernels at the new shapes to their
      plain versions (``_widths_cases``).
+  22. ``formats``: the image files beyond baseline JPEG and plain PNG
+     (``tests/data/images``: JPEG at sampling factors up to 4 and with 4
+     components, Adam7 PNG, a PNG's eXIf orientation, BMP, PNM, TIFF):
+     every fixture in every ``read_image`` mode against ``pixels.json``
+     (written by ``tools/make_image_fixtures.py`` from PIL and cv2), each
+     one's decode ms on the host beside phase 18's baseline JPEG, and the
+     inference CLI once over a JPEG, a PNG, a TIFF, a BMP and a PPM with
+     one TaskPrompter-ViT-L model; its launches are the kernels line's
+     ``formats`` path, one eval forward's a image.
 The line before the last is the kernels JSON; the last line is the device JSON.
 
 ``python3 chip_smoke.py --profile`` runs none of these phases: after the
@@ -245,7 +254,8 @@ statistics at 10% in place of 1% (``_vary``), to see how the forwards'
 bf16 error grows with them.
 ``--phases kernels,invpt`` (any subset of kernels, attention_api, eval,
 invpt, swin, nyud, train, swin_train, invpt_train, nyud_train, evaluate,
-loop, detect, convert, parallel, datasets, options, limits, widths)
+loop, detect, convert, parallel, datasets, options, limits, widths,
+formats)
 runs only those phases and prints no result lines: a quick look, not the
 check.
 """
@@ -5395,6 +5405,128 @@ def widths_phase():
     return counts
 
 
+FORMAT_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tests", "data", "images")
+# the inference CLI's images in the formats phase: a JPEG, a PNG and one
+# each of the other formats
+FORMAT_CLI = ("jpeg_411_500x375.jpg", "adam7_rgb.png", "orient3_lzw.tif",
+              "palette8.bmp", "rgb16.ppm")
+
+
+def formats_phase():
+    """Phase 22: the image files beyond baseline JPEG and plain PNG. Every
+    fixture of ``tests/data/images`` in every ``read_image`` mode against
+    ``pixels.json`` (PIL's and cv2's arrays, digested on a host that has
+    them; a mode they refuse must raise ValueError); each fixture's decode
+    ms on this host (``cv2_color``, the CLI's mode, the file read
+    included, warm), beside phase 18's baseline 4:2:0 JPEG in the same
+    loop; then the inference CLI (``inference.main``) once over
+    ``FORMAT_CLI``: one TaskPrompter-ViT-L PASCAL model of seeded random
+    weights, one eval forward an image. Returns the launch counts of the
+    ``formats`` path, which must be one eval forward's a image."""
+    import hashlib
+
+    import numpy as np
+    from mtt_tpu_torch import inference
+    from mtt_tpu_torch.data import image_io
+    from mtt_tpu_torch.evaluation.save_preds import read_png
+    from mtt_tpu_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(FORMAT_FIXTURES, "pixels.json")) as f:
+        table = json.load(f)
+    checked = refused = 0
+    for name, entry in sorted(table.items()):
+        path = os.path.join(FORMAT_FIXTURES, name)
+        for mode in image_io.MODES:
+            rec = entry["modes"][mode]
+            if rec is None:
+                try:
+                    image_io.read_image(path, mode)
+                except ValueError:
+                    refused += 1
+                    continue
+                raise RuntimeError(f"formats: {name} in mode {mode} decodes,"
+                                   f" where its reader refuses it")
+            a = np.ascontiguousarray(image_io.read_image(path, mode))
+            got = [list(a.shape), str(a.dtype),
+                   hashlib.sha256(a.tobytes()).hexdigest()]
+            if got != [rec["shape"], rec["dtype"], rec["sha256"]]:
+                raise RuntimeError(f"formats: {name} in mode {mode}: "
+                                   f"{got[:2]}, other pixels than "
+                                   f"pixels.json's {rec['shape']} "
+                                   f"{rec['dtype']}")
+            checked += 1
+    print(f"[formats] {len(table)} fixtures x {len(image_io.MODES)} modes: "
+          f"{checked} arrays equal to pixels.json's (shape, dtype, SHA-256 "
+          f"of PIL's or cv2's), {refused} refusals where the reader refuses",
+          flush=True)
+
+    base = os.path.join(FIXTURES, "baseline_420.jpg")
+    decode_ms = {}
+    for name in ["baseline_420.jpg (phase 18)", *sorted(table)]:
+        path = base if name.startswith("baseline") else os.path.join(
+            FORMAT_FIXTURES, name)
+        image_io.read_image(path, "cv2_color")          # the build, warm
+        decode_ms[name] = _wall_ms(
+            lambda: image_io.read_image(path, "cv2_color"), 21)
+    print(f"[formats] host decode ms (read_image cv2_color, file read "
+          f"included, warm; median of 21): "
+          f"{json.dumps({k: round(v, 4) for k, v in decode_ms.items()})}",
+          flush=True)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_formats_")
+    try:
+        paths = [os.path.join(FORMAT_FIXTURES, n) for n in FORMAT_CLI]
+        out = os.path.join(work, "out")
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t = time.perf_counter()
+        rc = inference.main(["--config_exp", LOOP_CONFIG, "--image_path",
+                             *paths, "--output_dir", out])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+        counts = dict(_build.COUNTS)
+        want = {k: len(paths) * v
+                for k, v in expected_eval("factored").items()}
+        tasks = ("semseg", "human_parts", "sal", "normals", "edge")
+        maps = {}
+        for n in FORMAT_CLI:
+            stem = os.path.splitext(n)[0]
+            for task in tasks:
+                a = read_png(os.path.join(out, stem, f"{task}.png"))
+                if a.shape != (IMG, IMG, 3) or a.dtype != np.uint8:
+                    raise RuntimeError(f"formats: {stem}/{task}.png is "
+                                       f"{a.shape} {a.dtype}")
+                maps[stem, task] = a
+        # neighbouring images whose pixels differ must give maps that do
+        stems = [os.path.splitext(n)[0] for n in FORMAT_CLI]
+        pixels = [image_io.read_image(x, "cv2_color") for x in paths]
+        pairs = [(a, b) for (a, pa), (b, pb) in zip(
+            zip(stems, pixels), zip(stems[1:], pixels[1:]))
+            if pa.shape != pb.shape or not np.array_equal(pa, pb)]
+        differ = sum(any(not np.array_equal(maps[a, t], maps[b, t])
+                         for t in tasks) for a, b in pairs)
+        print(f"[formats] inference CLI, TaskPrompter-ViT-L PASCAL (seeded "
+              f"random weights, one model) over {len(paths)} images "
+              f"{list(FORMAT_CLI)}: rc {rc}, {cli_s:.1f} s (model build "
+              f"included); {len(maps)} maps of {IMG}x{IMG}x3; neighbouring "
+              f"images of other pixels give other maps in {differ} of "
+              f"{len(pairs)} pairs; "
+              f"launches {counts} (want {len(paths)} x one eval forward's)",
+              flush=True)
+        if rc != 0 or counts != want or differ != len(pairs) or \
+                len(pairs) != len(paths) - 1:
+            raise RuntimeError(f"formats: the CLI returned {rc}, launches "
+                               f"{counts} (want {want}), {differ} differing "
+                               f"neighbours")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[formats] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"formats": counts}
+
+
 # profile: kernel-name fragment -> group; anything else is library work
 PROFILE_GROUPS = (# the shared GEMM (gemm.cu) by its epilogue: fc1 of rows 4
                   # and 8; fc2 of row 4; fc2 of row 8 and rows 1-2's qkv
@@ -5724,7 +5856,8 @@ PHASES = {"kernels": kernel_phase, "attention_api": attention_api_phase,
           "loop": loop_phase, "detect": detect_phase,
           "convert": convert_phase, "parallel": parallel_phase,
           "datasets": datasets_phase, "options": options_phase,
-          "limits": limits_phase, "widths": widths_phase}
+          "limits": limits_phase, "widths": widths_phase,
+          "formats": formats_phase}
 
 
 def main(argv=None):
@@ -5806,7 +5939,8 @@ def main(argv=None):
                    **outcome["parallel"], **outcome["datasets"],
                    **{f"options_{k}": c
                       for k, c in outcome["options"].items()},
-                   **outcome["limits"], **outcome["widths"]}
+                   **outcome["limits"], **outcome["widths"],
+                   **outcome["formats"]}
 
     rows = []
     for name, (src, replaces, counter, path) in KERNEL_ROWS.items():

@@ -1,19 +1,24 @@
-// Host image decoding for the dataset readers: a baseline and progressive
-// Huffman JPEG decoder that gives libjpeg-turbo's pixels bit for bit (its
-// default decompression: the JDCT_ISLOW integer IDCT of jidctint.c, the
-// "fancy" triangle upsampling of jdsample.c, the fixed-point YCbCr->RGB of
-// jdcolor.c), and PNG scanline unfiltering. Built with g++ at first use and
-// called through ctypes (data/image_io.py), which releases the GIL for the
-// call: the loader's threads decode in parallel.
+// Host image decoding for the dataset readers and the inference CLI: a
+// baseline and progressive Huffman JPEG decoder that gives libjpeg-turbo's
+// pixels bit for bit (its default decompression: the JDCT_ISLOW integer
+// IDCT of jidctint.c, the upsampling jinit_upsampler picks in jdsample.c,
+// the fixed-point YCbCr->RGB and YCCK->CMYK of jdcolor.c), PNG scanline
+// unfiltering, and TIFF's LZW and PackBits decoders. Built with g++ at
+// first use and called through ctypes (data/image_io.py, data/tiff.py),
+// which releases the GIL for the call: the loader's threads decode in
+// parallel.
 //
 // Integer arithmetic only, compiled as C++20 (shifts of negative values
 // are arithmetic) with -fwrapv (the signed overflow a corrupt file can
 // cause wraps): the result does not depend on the optimisation level or
 // the compiler.
 //
-// Forms the JPEG decoder refuses (the caller names the ROADMAP item):
-// arithmetic coding, lossless and hierarchical frames, 12-bit samples,
-// 2 or 4 components, sampling factors above 2.
+// JPEG: 1, 3 (YCbCr or RGB) or 4 (CMYK or YCCK, by the Adobe marker)
+// components, sampling factors 1-4 on each axis (an interleaved MCU of at
+// most 10 blocks, as libjpeg). Refused as forms (the caller names the
+// ROADMAP item): arithmetic coding, lossless and hierarchical frames,
+// 12-bit samples, 2 components. Refused as libjpeg refuses them: sampling
+// factors above 4, ratios that are not integral, MCUs of more blocks.
 
 #include <cstdint>
 #include <cstdio>
@@ -177,7 +182,7 @@ struct Decoder {
   int width = 0, height = 0, ncomp = 0;
   bool progressive = false, have_frame = false;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
-  Component comp[3];
+  Component comp[4];
   int qtab[4][64];  // natural order
   bool qdef[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
@@ -248,8 +253,8 @@ struct Decoder {
     ncomp = byte();
     if (precision != 8)
       fail(2, std::to_string(precision) + "-bit samples");
-    if (ncomp != 1 && ncomp != 3)
-      fail(2, std::to_string(ncomp) + " components");
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+      fail(ncomp == 2 ? 2 : 1, std::to_string(ncomp) + " components");
     if (width == 0 || height == 0) fail(1, "no image size (DNL)");
     if ((int64_t)width * height > kMaxPixels)
       fail(3, std::to_string(width) + "x" + std::to_string(height) +
@@ -262,13 +267,19 @@ struct Decoder {
       c.h = hv >> 4;
       c.v = hv & 15;
       c.tq = byte();
-      if (c.h < 1 || c.v < 1 || c.tq > 3) fail(1, "bad SOF");
-      if (c.h > 2 || c.v > 2)
-        fail(2, "sampling factors " + std::to_string(c.h) + "x" +
+      // libjpeg's MAX_SAMP_FACTOR is 4 (JERR_BAD_SAMPLING above it)
+      if (c.h < 1 || c.v < 1 || c.h > 4 || c.v > 4 || c.tq > 3)
+        fail(1, "bad SOF: sampling factors " + std::to_string(c.h) + "x" +
                     std::to_string(c.v));
       if (c.h > hmax) hmax = c.h;
       if (c.v > vmax) vmax = c.v;
     }
+    for (int i = 0; i < ncomp; i++)  // jdsample.c: JERR_FRACT_SAMPLE_NOTIMPL
+      if (hmax % comp[i].h || vmax % comp[i].v)
+        fail(3, "sampling factors " + std::to_string(comp[i].h) + "x" +
+                    std::to_string(comp[i].v) + " of a component against " +
+                    std::to_string(hmax) + "x" + std::to_string(vmax) +
+                    ": not an integral ratio (libjpeg refuses it too)");
     mcux = (width + 8 * hmax - 1) / (8 * hmax);
     mcuy = (height + 8 * vmax - 1) / (8 * vmax);
     for (int i = 0; i < ncomp; i++) {
@@ -316,7 +327,7 @@ struct Decoder {
     int len = word();
     int ns = byte();
     if (ns < 1 || ns > ncomp || len != 6 + 2 * ns) fail(1, "bad SOS");
-    Component* sc[3];
+    Component* sc[4];
     for (int i = 0; i < ns; i++) {
       int id = byte(), t = byte();
       Component* c = nullptr;
@@ -353,6 +364,11 @@ struct Decoder {
       c->dc_pred = 0;
     }
     eobrun = 0;
+    if (ns > 1) {  // jdinput.c: D_MAX_BLOCKS_IN_MCU (JERR_BAD_MCU_SIZE)
+      int blocks = 0;
+      for (int i = 0; i < ns; i++) blocks += sc[i]->h * sc[i]->v;
+      if (blocks > 10) fail(1, "an MCU of more than 10 blocks");
+    }
 
     BitReader br{data + pos, data + n};
     int mx, my;  // MCUs of the scan
@@ -556,6 +572,10 @@ struct Decoder {
     if (!scanned) fail(1, "no scan in JPEG");
   }
 
+  // libjpeg's default_decompress_parms for 4 components: YCCK when an
+  // Adobe marker says so (transform 2, or any but 0), else straight CMYK
+  bool ycck() const { return adobe && adobe_transform != 0; }
+
   bool rgb_colour() const {
     // libjpeg's default_decompress_parms for 3 components
     if (jfif) return false;
@@ -697,7 +717,10 @@ void idct_islow(const int16_t* in, const int* q, uint8_t* out, int stride) {
 // ---- jdsample.c: one component to the full grid --------------------------
 
 // plane: the component's samples, (c.height, c.width) valid, row pitch
-// `pitch`; out: (vmax/v * c.height, hmax/h * c.width) at pitch `opitch`
+// `pitch`; out: (vmax/v * c.height, hmax/h * c.width) at pitch `opitch`.
+// jinit_upsampler's choice: the fancy triangle filters for the ratios h2v1
+// and h2v2 (widths above 2) and h1v2, replication (int_upsample, or
+// h2v1_upsample / h2v2_upsample) for every other integral ratio
 void upsample(const Component& c, int hmax, int vmax, const uint8_t* plane,
               int pitch, uint8_t* out, int opitch, int out_rows) {
   const int w = c.width, hgt = c.height;
@@ -707,29 +730,30 @@ void upsample(const Component& c, int hmax, int vmax, const uint8_t* plane,
     if (y >= hgt) y = hgt - 1;
     return plane + (size_t)y * pitch;
   };
-  // libjpeg's fancy paths: h2v1 and h2v2 only for widths above 2
   const bool fancy_h = hr == 2 && w > 2;
+  const bool fancy_h2v1 = fancy_h && vr == 1;
+  const bool fancy_v = (hr == 1 || fancy_h) && vr == 2;  // h1v2, h2v2
   std::vector<int> colsum(w);
   for (int oy = 0; oy < out_rows; oy++) {
     uint8_t* o = out + (size_t)oy * opitch;
     int iy = oy / vr;
-    if (vr == 1) {
+    if (fancy_h2v1) {  // h2v1_fancy_upsample
       const uint8_t* in = row(iy);
-      if (hr == 1) {
-        std::memcpy(o, in, w);
-      } else if (fancy_h) {  // h2v1_fancy_upsample
-        o[0] = in[0];
-        o[1] = (uint8_t)((in[0] * 3 + in[1] + 2) >> 2);
-        for (int x = 1; x < w - 1; x++) {
-          int v = in[x] * 3;
-          o[2 * x] = (uint8_t)((v + in[x - 1] + 1) >> 2);
-          o[2 * x + 1] = (uint8_t)((v + in[x + 1] + 2) >> 2);
-        }
-        o[2 * w - 2] = (uint8_t)((in[w - 1] * 3 + in[w - 2] + 1) >> 2);
-        o[2 * w - 1] = in[w - 1];
-      } else {  // h2v1_upsample
-        for (int x = 0; x < w; x++) o[2 * x] = o[2 * x + 1] = in[x];
+      o[0] = in[0];
+      o[1] = (uint8_t)((in[0] * 3 + in[1] + 2) >> 2);
+      for (int x = 1; x < w - 1; x++) {
+        int v = in[x] * 3;
+        o[2 * x] = (uint8_t)((v + in[x - 1] + 1) >> 2);
+        o[2 * x + 1] = (uint8_t)((v + in[x + 1] + 2) >> 2);
       }
+      o[2 * w - 2] = (uint8_t)((in[w - 1] * 3 + in[w - 2] + 1) >> 2);
+      o[2 * w - 1] = in[w - 1];
+      continue;
+    }
+    if (!fancy_v) {  // replication, hr x vr
+      const uint8_t* in = row(iy);
+      for (int x = 0; x < w; x++)
+        for (int k = 0; k < hr; k++) o[x * hr + k] = in[x];
       continue;
     }
     // vr == 2: the nearer row and the next nearer (above for even rows)
@@ -740,22 +764,21 @@ void upsample(const Component& c, int hmax, int vmax, const uint8_t* plane,
       int bias = below ? 2 : 1;
       for (int x = 0; x < w; x++)
         o[x] = (uint8_t)((in0[x] * 3 + in1[x] + bias) >> 2);
-    } else if (fancy_h) {  // h2v2_fancy_upsample
-      for (int x = 0; x < w; x++) colsum[x] = in0[x] * 3 + in1[x];
-      int t = colsum[0];
-      o[0] = (uint8_t)((t * 4 + 8) >> 4);
-      o[1] = (uint8_t)((t * 3 + colsum[1] + 7) >> 4);
-      for (int x = 1; x < w - 1; x++) {
-        t = colsum[x];
-        o[2 * x] = (uint8_t)((t * 3 + colsum[x - 1] + 8) >> 4);
-        o[2 * x + 1] = (uint8_t)((t * 3 + colsum[x + 1] + 7) >> 4);
-      }
-      t = colsum[w - 1];
-      o[2 * w - 2] = (uint8_t)((t * 3 + colsum[w - 2] + 8) >> 4);
-      o[2 * w - 1] = (uint8_t)((t * 4 + 7) >> 4);
-    } else {  // h2v2_upsample: replication
-      for (int x = 0; x < w; x++) o[2 * x] = o[2 * x + 1] = in0[x];
+      continue;
     }
+    // h2v2_fancy_upsample
+    for (int x = 0; x < w; x++) colsum[x] = in0[x] * 3 + in1[x];
+    int t = colsum[0];
+    o[0] = (uint8_t)((t * 4 + 8) >> 4);
+    o[1] = (uint8_t)((t * 3 + colsum[1] + 7) >> 4);
+    for (int x = 1; x < w - 1; x++) {
+      t = colsum[x];
+      o[2 * x] = (uint8_t)((t * 3 + colsum[x - 1] + 8) >> 4);
+      o[2 * x + 1] = (uint8_t)((t * 3 + colsum[x + 1] + 7) >> 4);
+    }
+    t = colsum[w - 1];
+    o[2 * w - 2] = (uint8_t)((t * 3 + colsum[w - 2] + 8) >> 4);
+    o[2 * w - 1] = (uint8_t)((t * 4 + 7) >> 4);
   }
 }
 
@@ -801,8 +824,6 @@ void decode_pixels(Decoder& d, uint8_t* out) {
       full[ci].swap(plane);
       continue;
     }
-    if (d.hmax % c.h || d.vmax % c.v)
-      fail(2, "sampling ratio of a component");
     full[ci].assign((size_t)fw * fh, 0);
     int rows = c.height * (d.vmax / c.v);
     if (rows > fh) rows = fh;
@@ -820,6 +841,32 @@ void decode_pixels(Decoder& d, uint8_t* out) {
     return;
   }
   const int p0 = pitch_of(0), p1 = pitch_of(1), p2 = pitch_of(2);
+  if (d.ncomp == 4) {  // null_convert (CMYK) or ycck_cmyk_convert
+    const int p3 = pitch_of(3);
+    const bool ycck = d.ycck();
+    for (int y = 0; y < H; y++) {
+      const uint8_t* a = full[0].data() + (size_t)y * p0;
+      const uint8_t* b = full[1].data() + (size_t)y * p1;
+      const uint8_t* c = full[2].data() + (size_t)y * p2;
+      const uint8_t* k = full[3].data() + (size_t)y * p3;
+      uint8_t* o = out + (size_t)y * W * 4;
+      for (int x = 0; x < W; x++) {
+        if (ycck) {
+          int yy = a[x], cb = b[x], cr = c[x];
+          o[4 * x] = clamp255(255 - (yy + kYcc.cr_r[cr]));
+          o[4 * x + 1] = clamp255(
+              255 - (yy + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16)));
+          o[4 * x + 2] = clamp255(255 - (yy + kYcc.cb_b[cb]));
+        } else {
+          o[4 * x] = a[x];
+          o[4 * x + 1] = b[x];
+          o[4 * x + 2] = c[x];
+        }
+        o[4 * x + 3] = k[x];
+      }
+    }
+    return;
+  }
   const bool rgb = d.rgb_colour();
   for (int y = 0; y < H; y++) {
     const uint8_t* a = full[0].data() + (size_t)y * p0;
@@ -879,14 +926,16 @@ int mtt_jpeg_info(const uint8_t* data, int64_t n, int32_t* info, char* err,
   }
 }
 
-// out: (height, width) grey or (height, width, 3) RGB, as libjpeg-turbo's
-// default decompression gives them.
+// out: (height, width) grey, (height, width, 3) RGB or (height, width, 4)
+// CMYK (libjpeg's JCS_CMYK: as stored, or converted from YCCK), as
+// libjpeg-turbo's default decompression gives them.
 int mtt_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out,
                     int64_t out_size, char* err, int errlen) {
   try {
     Decoder d{data, (size_t)n};
     d.parse(false);
-    if ((int64_t)d.width * d.height * (d.ncomp == 1 ? 1 : 3) != out_size)
+    if ((int64_t)d.width * d.height * (d.ncomp == 1 ? 1 : d.ncomp) !=
+        out_size)
       fail(1, "output buffer size");
     decode_pixels(d, out);
     return 0;
@@ -943,6 +992,100 @@ int mtt_png_unfilter(const uint8_t* raw, int64_t h, int64_t stride,
     }
   }
   return 0;
+}
+
+// TIFF's LZW (libtiff tif_lzw.c LZWDecode: codes of 9 to 12 bits, most
+// significant bit first, the width growing one code early; 256 clears the
+// table, 257 ends the data). Decodes into out until EOI or out is full.
+// Returns the bytes written, or -1 for a code past the table, data that
+// ends before out is full or before an EOI (message in err).
+int64_t mtt_tiff_lzw_decode(const uint8_t* in, int64_t n, uint8_t* out,
+                            int64_t out_size, char* err, int errlen) {
+  constexpr int kClear = 256, kEoi = 257, kFirst = 258, kMax = 4096;
+  std::vector<int16_t> prefix(kMax);
+  std::vector<uint8_t> suffix(kMax), first(kMax);
+  std::vector<uint16_t> length(kMax);
+  std::vector<uint8_t> stack(kMax);
+  for (int i = 0; i < 256; i++) {
+    prefix[i] = -1;
+    suffix[i] = first[i] = (uint8_t)i;
+    length[i] = 1;
+  }
+  int64_t pos = 0, o = 0;
+  uint32_t acc = 0;
+  int bits = 0, width = 9, next = kFirst, old = -1;
+  auto bad = [&](const char* msg) {
+    if (err && errlen > 0) std::snprintf(err, errlen, "%s", msg);
+    return (int64_t)-1;
+  };
+  while (o < out_size) {
+    while (bits < width) {
+      if (pos >= n) return bad("LZW data ends before the strip is full");
+      acc = (acc << 8) | in[pos++];
+      bits += 8;
+    }
+    int code = (int)((acc >> (bits - width)) & ((1u << width) - 1));
+    bits -= width;
+    if (code == kEoi) break;
+    if (code == kClear) {
+      width = 9;
+      next = kFirst;
+      old = -1;
+      continue;
+    }
+    if (code > next || (code == next && old < 0) || next >= kMax)
+      return bad("LZW code past the table");
+    if (old >= 0) {  // the entry old + first byte of code (or of old: KwKwK)
+      prefix[next] = (int16_t)old;
+      suffix[next] = code == next ? first[old] : first[code];
+      first[next] = first[old];
+      length[next] = (uint16_t)(length[old] + 1);
+      next++;
+    }
+    int len = length[code];
+    int k = len, c = code;
+    while (c >= 0) {
+      stack[--k] = suffix[c];
+      c = prefix[c];
+    }
+    int64_t take = len < out_size - o ? len : out_size - o;
+    std::memcpy(out + o, stack.data(), (size_t)take);
+    o += take;
+    old = code;
+    // early change: the next code is wider once the table's next entry
+    // would need it (libtiff: free_ent > maxcode - 1)
+    if (next + 1 >= (1 << width) && width < 12) width++;
+  }
+  if (o < out_size) return bad("LZW data ends before the strip is full");
+  return o;
+}
+
+// TIFF's PackBits (libtiff tif_packbits.c PackBitsDecode): a count byte n,
+// then n + 1 literal bytes (n >= 0) or one byte repeated 1 - n times (n in
+// -127..-1); -128 is skipped. Runs past out are cut, as libtiff cuts them.
+// Returns the bytes written, or -1 for data that ends before out is full.
+int64_t mtt_tiff_packbits_decode(const uint8_t* in, int64_t n, uint8_t* out,
+                                 int64_t out_size) {
+  int64_t pos = 0, o = 0;
+  while (o < out_size && pos < n) {
+    int c = (int8_t)in[pos++];
+    if (c == -128) continue;
+    if (c < 0) {
+      if (pos >= n) break;
+      int64_t run = 1 - c;
+      if (run > out_size - o) run = out_size - o;
+      std::memset(out + o, in[pos++], (size_t)run);
+      o += run;
+    } else {
+      int64_t run = c + 1;
+      if (run > n - pos) break;
+      if (run > out_size - o) run = out_size - o;
+      std::memcpy(out + o, in + pos, (size_t)run);
+      pos += c + 1;
+      o += run;
+    }
+  }
+  return o < out_size ? -1 : o;
 }
 
 }  // extern "C"

@@ -1,32 +1,43 @@
-"""Image decoding on the host for the dataset readers and the inference CLI:
-JPEG and PNG, without PIL or cv2 (the card's machine has neither).
+"""Image decoding on the host for the dataset readers and the inference CLI,
+without PIL or cv2 (the card's machine has neither).
 
-- ``read_jpeg``: a baseline or progressive Huffman JPEG (1 or 3 components,
-  sampling factors up to 2x2, restart markers) decoded by the C++ library
-  ``data/csrc/image_decode.cpp`` to the pixels libjpeg-turbo gives by
-  default (its integer IDCT, "fancy" upsampling and YCbCr->RGB tables), bit
-  for bit, which are what both PIL and cv2 give.
+- ``read_jpeg``: a baseline or progressive Huffman JPEG (1, 3 or 4
+  components, sampling factors 1-4 on each axis, restart markers) decoded
+  by the C++ library ``data/csrc/image_decode.cpp`` to the pixels
+  libjpeg-turbo gives by default (its integer IDCT, its upsampling: the
+  "fancy" filters for the 2:1 ratios, replication for the other integral
+  ones, and its YCbCr->RGB and YCCK->CMYK tables), bit for bit, which are
+  what both PIL and cv2 give.
 - ``read_png``: the samples of a PNG of any bit depth (1-16) and colour type
-  (grey, RGB, palette, grey + alpha, RGBA), its scanlines unfiltered by the
-  same library; ancillary chunks are skipped.
+  (grey, RGB, palette, grey + alpha, RGBA), without interlace or Adam7, its
+  scanlines (each Adam7 pass on its own) unfiltered by the same library.
+- BMP, PNM and TIFF: ``data/image_formats.py`` and ``data/tiff.py``, which
+  list the forms they read.
 - ``read_image(path, mode)``: the array that one of the JAX package's four
   ways of opening a file gives, the format sniffed from the file's first
   bytes:
   - ``"pil"``: ``np.array(Image.open(p))``, its labels' reader. A palette
     PNG gives its indices, 16-bit grey uint16, 1-bit grey bool, 2- and 4-bit
     grey scaled to 8 bits, 16-bit colour its high bytes (16-bit grey +
-    alpha as RGBA), a JPEG its RGB or grey pixels. No EXIF orientation.
+    alpha as RGBA), a JPEG its RGB or grey pixels, a CMYK or YCCK JPEG
+    PIL's inverted CMYK.
   - ``"pil_rgb"``: ``Image.open(p).convert("RGB")``, its images' reader:
     grey repeated (16-bit grey clipped at 255), alpha dropped, the palette
-    expanded. No EXIF orientation.
+    expanded, CMYK through PIL's ``cmyk2rgb``.
   - ``"cv2_color"``: ``cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)``:
     (H, W, 3) uint8, 16-bit samples by their high bytes, palette expanded,
-    alpha dropped; a JPEG's EXIF orientation applied, as cv2 applies it.
+    alpha dropped, CMYK through cv2's ``icvCvt_CMYK2BGR_8u_C4C3R``.
   - ``"cv2_unchanged"``: ``cv2.imread(p, cv2.IMREAD_UNCHANGED)``, in cv2's
     BGR(A) channel order: grey (sub-byte depths scaled to 8 bits) stays
     (H, W), 16 bits stay uint16, a palette or grey + alpha becomes 3 or 4
-    channels, a palette or RGB ``tRNS`` chunk an alpha channel. No EXIF
-    orientation.
+    channels, a palette or RGB ``tRNS`` chunk an alpha channel, a
+    4-component JPEG 3 channels.
+
+  EXIF orientation: ``cv2_color`` turns a JPEG by its APP1 Exif block and a
+  PNG by its first ``eXIf`` chunk (before or after the image data), as
+  ``cv2.imread`` does; no other mode turns a JPEG or PNG. A TIFF's
+  Orientation tag turns it in every mode (PIL's ``exif_transpose`` on load,
+  libtiff's RGBA reader in cv2's), see ``data/tiff.py``.
 
 The library is built with g++ at first use (``utils/native_build.py``); a
 build that fails raises, and nothing falls back to numpy. ``impl="plain"``
@@ -34,10 +45,12 @@ unfilters PNG scanlines in numpy, the plain version the tests hold the
 library to. There is no plain JPEG decoder: PIL and cv2 are the CPU tests'
 reference. Forms the decoders refuse raise ``NotImplementedError`` naming
 ROADMAP.md item 1.13: arithmetic-coded, lossless, hierarchical and 12-bit
-JPEG, 2 or 4 components (CMYK, YCCK), sampling factors above 2; Adam7
-interlaced PNG; other formats. A corrupt JPEG, one that ends before its
-EOI marker (PIL and cv2 refuse both), and one whose frame has more than
-2^30 pixels (cv2's limit) raise ``ValueError``.
+JPEG, 2-component JPEG; WebP, GIF, JPEG 2000, AVIF, HDR, PFM, Sun raster and
+other formats; the BMP and TIFF forms their modules name. A corrupt JPEG,
+one that ends before its EOI marker (PIL and cv2 refuse both), one whose
+sampling factors are not integral ratios (libjpeg refuses it) and any image
+whose frame has more than 2^30 pixels (cv2's limit) raise ``ValueError``,
+as do corrupt files of the other formats.
 """
 
 from __future__ import annotations
@@ -50,19 +63,25 @@ from typing import Dict, Tuple, Union
 
 import numpy as np
 
+from mtt_tpu_torch.data import image_formats, tiff
 from mtt_tpu_torch.utils import native_build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "image_decode.cpp"
 # -fwrapv: signed overflow (only a corrupt file can cause one) wraps
 # rather than being undefined, so no optimisation changes a result
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++20", "-fwrapv")
-ITEM = "ROADMAP.md item 1.13"
+ITEM = image_formats.ITEM
 MODES = ("pil", "pil_rgb", "cv2_color", "cv2_unchanged")
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
+TIFF_SIGNATURES = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")  # + BigTIFF
 
 _ERR_LEN = 256
+MAX_PIXELS = image_formats.MAX_PIXELS
+# Adam7's passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def build() -> Path:
@@ -81,6 +100,10 @@ def _bind(handle: ctypes.CDLL) -> None:
     handle.mtt_jpeg_decode.restype = ctypes.c_int
     handle.mtt_png_unfilter.argtypes = [u8, i64, i64, i64, u8]
     handle.mtt_png_unfilter.restype = ctypes.c_int
+    handle.mtt_tiff_lzw_decode.argtypes = [u8, i64, u8, i64, buf, ctypes.c_int]
+    handle.mtt_tiff_lzw_decode.restype = i64
+    handle.mtt_tiff_packbits_decode.argtypes = [u8, i64, u8, i64]
+    handle.mtt_tiff_packbits_decode.restype = i64
 
 
 def lib() -> ctypes.CDLL:
@@ -107,18 +130,22 @@ def _jpeg_raise(code: int, err, name: str):
     if code == 2:
         raise NotImplementedError(
             f"{name}: {msg}: the port's JPEG decoder reads baseline and "
-            f"progressive Huffman JPEG of 8-bit samples, 1 or 3 components, "
-            f"sampling factors up to 2 ({ITEM})")
+            f"progressive Huffman JPEG of 8-bit samples, 1, 3 or 4 "
+            f"components ({ITEM})")
     if code == 3:
         raise ValueError(f"{name}: {msg}")
     raise ValueError(f"{name}: corrupt JPEG: {msg}")
 
 
 def read_jpeg(src: Union[str, Path, bytes]) -> np.ndarray:
-    """The pixels of a JPEG file (or its bytes): (H, W) uint8 grey or
-    (H, W, 3) uint8 RGB, libjpeg-turbo's default decompression bit for bit;
-    no EXIF orientation (``jpeg_orientation``)."""
-    data, name = _bytes(src)
+    """The pixels of a JPEG file (or its bytes): (H, W) uint8 grey, (H, W,
+    3) uint8 RGB or (H, W, 4) uint8 CMYK (libjpeg's ``JCS_CMYK``: Adobe's
+    stored samples, or converted from YCCK), libjpeg-turbo's default
+    decompression bit for bit; no EXIF orientation (``jpeg_orientation``)."""
+    return _decode_jpeg(*_bytes(src))
+
+
+def _decode_jpeg(data: bytes, name: str) -> np.ndarray:
     buf = np.frombuffer(data, np.uint8)
     handle = lib()
     info = np.zeros(4, np.int32)
@@ -127,7 +154,7 @@ def read_jpeg(src: Union[str, Path, bytes]) -> np.ndarray:
     if code:
         _jpeg_raise(code, err, name)
     w, h, ncomp = int(info[0]), int(info[1]), int(info[2])
-    out = np.empty((h, w) if ncomp == 1 else (h, w, 3), np.uint8)
+    out = np.empty((h, w) if ncomp == 1 else (h, w, ncomp), np.uint8)
     code = handle.mtt_jpeg_decode(buf, buf.size, out.reshape(-1), out.size,
                                   err, _ERR_LEN)
     if code:
@@ -279,7 +306,7 @@ def decode_png(data: bytes, name: str = "<bytes>", impl=None
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError(f"{name} is not a PNG")
     pos, header, idat = len(PNG_SIGNATURE), None, []
-    palette = trns = None
+    palette = trns = exif = None
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
@@ -287,11 +314,15 @@ def decode_png(data: bytes, name: str = "<bytes>", impl=None
             raise ValueError(f"{name}: a {kind!r} chunk ends past the file")
         pos += 12 + length
         if kind == b"IHDR":
+            if length != 13:
+                raise ValueError(f"{name}: an IHDR chunk of {length} bytes")
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"tRNS":
             trns = body
+        elif kind == b"eXIf" and exif is None:   # the first, as libpng
+            exif = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -302,31 +333,53 @@ def decode_png(data: bytes, name: str = "<bytes>", impl=None
     if colour not in _CHANNELS or depth not in _DEPTHS[colour]:
         raise ValueError(f"{name}: PNG colour type {colour} at bit depth "
                          f"{depth}")
-    if interlace:
-        raise NotImplementedError(
-            f"{name}: Adam7-interlaced PNG: the port reads PNGs without "
-            f"interlace ({ITEM})")
     if colour == 3 and palette is None:
         raise ValueError(f"{name}: palette PNG without a PLTE chunk")
+    if interlace > 1:
+        raise ValueError(f"{name}: PNG interlace method {interlace}")
+    if w == 0 or h == 0 or w * h > MAX_PIXELS:
+        raise ValueError(f"{name}: a {w}x{h} PNG: no pixels, or above the "
+                         f"decoder's limit of 2^30 (cv2's)")
     ch = _CHANNELS[colour]
     bits = ch * depth
-    stride = (w * bits + 7) // 8
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < h * (stride + 1):
-        raise ValueError(f"{name}: {raw.size} image bytes for {w}x{h}")
-    rows = raw[:h * (stride + 1)].reshape(h, stride + 1)
-    out = png_unfilter(rows, max(1, bits // 8), impl)
-    if depth == 16:
-        samples = out.view(">u2").astype(np.uint16).reshape(h, w, ch)
-    elif depth == 8:
-        samples = out.reshape(h, w, ch)
-    else:
-        per = 8 // depth
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        px = (out[:, :, None] >> shifts) & ((1 << depth) - 1)
-        samples = px.reshape(h, stride * per)[:, :w, None].astype(np.uint8)
+    bpp = max(1, bits // 8)
+    need = sum((-(-(w - x0) // dx) * bits + 7) // 8 * -(-(h - y0) // dy)
+               + -(-(h - y0) // dy) for x0, y0, dx, dy in
+               (ADAM7 if interlace else ((0, 0, 1, 1),))
+               if w > x0 and h > y0)
+    try:      # no more than the image's bytes: a stream can expand 1032x
+        raw = np.frombuffer(zlib.decompressobj().decompress(
+            b"".join(idat), need), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"{name}: corrupt PNG image data: {e}") from None
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    samples = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    at = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:       # an empty pass has no scanlines
+            continue
+        stride = (pw * bits + 7) // 8
+        if raw.size < at + ph * (stride + 1):
+            raise ValueError(f"{name}: {raw.size} image bytes for {w}x{h}")
+        rows = raw[at:at + ph * (stride + 1)].reshape(ph, stride + 1)
+        at += ph * (stride + 1)
+        samples[y0::dy, x0::dx] = _unpack(png_unfilter(rows, bpp, impl), pw,
+                                          ch, depth)
     return samples, {"depth": depth, "colour": colour, "palette": palette,
-                     "trns": trns}
+                     "trns": trns, "exif": exif}
+
+
+def _unpack(out: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
+    """Unfiltered scanlines (h, stride) to (h, w, ch) samples."""
+    h = out.shape[0]
+    if depth == 16:
+        return out.view(">u2").astype(np.uint16).reshape(h, w, ch)
+    if depth == 8:
+        return out.reshape(h, w, ch)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    px = (out[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return px.reshape(h, -1)[:, :w, None].astype(np.uint8)
 
 
 def read_png(path: Union[str, Path, bytes], impl=None) -> np.ndarray:
@@ -370,8 +423,9 @@ def _png_mode(s: np.ndarray, info: Dict, mode: str) -> np.ndarray:
     if colour == 0:
         g = s[..., 0]
         if depth < 8:
-            if mode == "pil" and depth == 1:
-                return g.astype(bool)
+            if mode == "pil" and depth == 1:     # PIL's "1": True is 255
+                return np.where(g == 1, np.uint8(255), np.uint8(0)).view(
+                    np.bool_)
             g = _scale8(g, depth)
         if mode in ("pil", "cv2_unchanged"):
             return g
@@ -402,19 +456,31 @@ def _png_mode(s: np.ndarray, info: Dict, mode: str) -> np.ndarray:
 
 def read_image(path: Union[str, Path], mode: str) -> np.ndarray:
     """The array that the JAX package's reader ``mode`` (one of ``MODES``,
-    see the module's docstring) gives for a JPEG or PNG file."""
+    see the module's docstring) gives for a JPEG, PNG, BMP, PNM or TIFF
+    file (or its bytes)."""
     if mode not in MODES:
         raise ValueError(f"read_image mode {mode!r}: one of {MODES}")
     data, name = _bytes(path)
     if data.startswith(PNG_SIGNATURE):
         s, info = decode_png(data, name)
-        return _png_mode(s, info, mode)
+        img = _png_mode(s, info, mode)
+        if mode == "cv2_color" and info["exif"] is not None:
+            img = apply_orientation(img, _exif_orientation(info["exif"]))
+        return img
+    if data[:2] == b"BM":
+        return image_formats.read_bmp(data, name, mode)
+    if len(data) > 1 and data[0] == ord("P") and data[1] in b"123456":
+        return image_formats.read_pnm(data, name, mode)
+    if data[:4] in TIFF_SIGNATURES:
+        return tiff.read_tiff(data, name, mode)
     if not data.startswith(JPEG_SIGNATURE):
         raise NotImplementedError(
-            f"{name}: neither JPEG nor PNG (first bytes {data[:8]!r}): the "
-            f"port decodes those two formats ({ITEM})")
-    img = read_jpeg(data)
-    if img.ndim == 2:
+            f"{name}: first bytes {data[:12]!r}: the port decodes JPEG, PNG, "
+            f"BMP, PNM and TIFF ({ITEM})")
+    img = _decode_jpeg(data, name)
+    if img.ndim == 3 and img.shape[2] == 4:
+        img = _cmyk_mode(img, mode)
+    elif img.ndim == 2:
         if mode in ("pil", "cv2_unchanged"):
             return img
         img = np.repeat(img[..., None], 3, -1)
@@ -423,3 +489,27 @@ def read_image(path: Union[str, Path], mode: str) -> np.ndarray:
     if mode == "cv2_color":
         return apply_orientation(img, jpeg_orientation(data))
     return img
+
+
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """PIL's MULDIV255: a * b / 255 rounded, in integers."""
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def _cmyk_mode(cmyk: np.ndarray, mode: str) -> np.ndarray:
+    """A 4-component JPEG's CMYK (libjpeg's JCS_CMYK output) as each reader
+    gives it: PIL's ``CMYK;I`` raw mode (Adobe's inverted samples) in
+    ``pil``, PIL's ``cmyk2rgb`` of that in ``pil_rgb``; cv2's
+    ``icvCvt_CMYK2BGR_8u_C4C3R`` in RGB order in both cv2 modes (the caller
+    turns it to BGR for ``cv2_unchanged``)."""
+    if mode == "pil":
+        return 255 - cmyk
+    s = cmyk.astype(np.int32)
+    if mode == "pil_rgb":
+        nk = s[..., 3:]                  # 255 - PIL's inverted K
+        out = np.clip(nk - _muldiv255(255 - s[..., :3], nk), 0, 255)
+    else:
+        k = s[..., 3:]
+        out = k - (((255 - s[..., :3]) * k) >> 8)
+    return out.astype(np.uint8)

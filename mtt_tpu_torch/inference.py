@@ -3,18 +3,27 @@ batch (``predict``, with the decode of the 3D detections), and the
 single-image CLI of the repository's inference.py:
 
     python -m mtt_tpu_torch.inference --config_exp CONFIG.yml \
-        --image_path img.jpg [--ckpt_dir DIR] --output_dir out/
+        --image_path img.jpg [more.png ...] [--ckpt_dir DIR] --output_dir out/
 
-The image (any JPEG or PNG that ``data/image_io.py`` decodes, read as
-``cv2.imread`` reads it: RGB, a JPEG's EXIF orientation applied) is resized to the config's ``TEST.SCALE`` (cv2's uint8 cubic,
-``data/transforms.py: resize_cubic_u8``) and normalised; the model (seeded
-random weights, or the checkpoint ``latest.txt`` names in ``--ckpt_dir``,
-read by ``Trainer.restore_checkpoint``) runs on the card unless the caller
-of ``main`` passes another device; each task's map is written as
-``<task>.png`` (``visualize``), and for Cityscapes-3D the boxes above score
-0.3 as wireframes on the original image (``3ddet.png``), decoded with the
-Stuttgart camera and the resize's ``scale_xy``. Other formats raise
-(ROADMAP.md item 1.13).
+Each image is read as ``cv2.imread`` reads it (``data/image_io.py``'s
+``cv2_color`` mode: RGB, the EXIF orientation of a JPEG's Exif block or a
+PNG's eXIf chunk applied, a TIFF's Orientation tag 1-4 applied): JPEG
+(baseline or progressive, 1, 3 or 4 components, sampling factors 1-4),
+PNG (any depth and colour type, Adam7 too), BMP (1-, 4-, 8-, 24- and
+32-bit), PNM (P1-P6) and TIFF (strips or tiles, uncompressed, LZW, Deflate
+or PackBits; grey, RGB(A) or palette at 1-16 bits). WebP, GIF, JPEG 2000,
+AVIF, HDR, PFM, Sun raster, RLE BMP, JPEG-in-TIFF and the other forms
+``data/image_io.py`` names raise ``NotImplementedError`` (ROADMAP.md item
+1.13). The image is resized to the config's ``TEST.SCALE`` (cv2's uint8
+cubic, ``data/transforms.py: resize_cubic_u8``) and normalised; the model
+(seeded random weights, or the checkpoint ``latest.txt`` names in
+``--ckpt_dir``, read by ``Trainer.restore_checkpoint``), built once, runs
+on the card unless the caller of ``main`` passes another device; each
+task's map is written as ``<task>.png`` (``visualize``), and for
+Cityscapes-3D the boxes above score 0.3 as wireframes on the original
+image (``3ddet.png``), decoded with the Stuttgart camera and the resize's
+``scale_xy``. With several images, each one's maps go to
+``<output_dir>/<its file name without the extension>/``.
 """
 
 from __future__ import annotations
@@ -155,7 +164,8 @@ def load_image(path: str, size: Tuple[int, int]
                ) -> Tuple[np.ndarray, np.ndarray]:
     """(the image as RGB uint8, it resized to ``size`` = (H, W)), as the
     repository's inference.py reads it with ``cv2.imread``: grey repeated to
-    three channels, alpha dropped, a JPEG's EXIF orientation applied."""
+    three channels, alpha dropped, the orientation of a JPEG's or PNG's
+    EXIF block or a TIFF's tag applied."""
     from mtt_tpu_torch.data.image_io import read_image
     from mtt_tpu_torch.data.transforms import resize_cubic_u8
     img = read_image(path, "cv2_color")
@@ -165,7 +175,9 @@ def load_image(path: str, size: Tuple[int, int]
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="single-image inference")
     ap.add_argument("--config_exp", required=True)
-    ap.add_argument("--image_path", required=True)
+    ap.add_argument("--image_path", required=True, nargs="+",
+                    help="one image, or several: each one's maps go to a "
+                         "folder of its name under --output_dir")
     ap.add_argument("--ckpt_dir", default=None)
     ap.add_argument("--output_dir", default="inference_out")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"],
@@ -189,7 +201,12 @@ def main(argv=None, device=None) -> int:
                          "bf16 only")
     p = create_config(args.config_exp, {"run_mode": "infer"})
     size = tuple(p.TEST.SCALE)
-    ori_img, img = load_image(args.image_path, size)
+    paths = args.image_path
+    stems = [os.path.splitext(os.path.basename(x))[0] for x in paths]
+    if len(paths) > 1 and len(set(stems)) < len(stems):
+        raise ValueError(f"--image_path: two images of one name {stems}: "
+                         f"their maps would share a folder")
+    images = [load_image(x, size) for x in paths]   # before the model
 
     gen = torch.Generator(device=device).manual_seed(0)
     model = build_model(p, img_size=size, device=device, dtype=torch.float32)
@@ -205,19 +222,22 @@ def main(argv=None, device=None) -> int:
     else:
         print("[inference] WARNING: --ckpt_dir not given — RANDOM weights")
 
-    x = preprocess(torch.from_numpy(img[None]).to(device)).to(dtype)
-    scale_xy = np.array([img.shape[1] / ori_img.shape[1],
-                         img.shape[0] / ori_img.shape[0]], np.float32)
     cam_K = stuttgart_K() if "3ddet" in model.tasks else None
-    _, preds = predict(model, x, cam_K=cam_K, scale_factor=scale_xy)
-    os.makedirs(args.output_dir, exist_ok=True)
-    for t in p.TASKS.NAMES:
-        if t == "3ddet":
-            infer_3ddet(preds[t], ori_img, args.output_dir)
-            continue
-        path = os.path.join(args.output_dir, f"{t}.png")
-        write_png(path, visualize(t, preds[t][0].float().cpu().numpy()))
-        print(f"[inference] wrote {path}")
+    for (ori_img, img), stem in zip(images, stems):
+        out_dir = args.output_dir if len(paths) == 1 else os.path.join(
+            args.output_dir, stem)
+        x = preprocess(torch.from_numpy(img[None]).to(device)).to(dtype)
+        scale_xy = np.array([img.shape[1] / ori_img.shape[1],
+                             img.shape[0] / ori_img.shape[0]], np.float32)
+        _, preds = predict(model, x, cam_K=cam_K, scale_factor=scale_xy)
+        os.makedirs(out_dir, exist_ok=True)
+        for t in p.TASKS.NAMES:
+            if t == "3ddet":
+                infer_3ddet(preds[t], ori_img, out_dir)
+                continue
+            out = os.path.join(out_dir, f"{t}.png")
+            write_png(out, visualize(t, preds[t][0].float().cpu().numpy()))
+            print(f"[inference] wrote {out}")
     return 0
 
 

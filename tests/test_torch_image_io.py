@@ -150,11 +150,10 @@ def test_read_image_jpeg_exif_orientation(tmp_path, orientation):
                           cv2.imread(str(path), cv2.IMREAD_UNCHANGED))
 
 
-def _png(samples, depth, colour, palette=None, trns=None, filters=(0,),
-         interlace=0):
-    """PNG bytes of (H, W, C) samples as stored, each scanline y filtered
-    with filters[y % len(filters)] (PNG spec, sections 7 and 9), with a
-    tEXt chunk the readers skip."""
+def _scanlines(samples, depth, filters):
+    """The filtered scanlines of (H, W, C) samples as stored, each
+    scanline y filtered with filters[y % len(filters)] (PNG spec, sections
+    7 and 9)."""
     h, w, c = samples.shape
     lines = []
     for y in range(h):
@@ -191,6 +190,27 @@ def _png(samples, depth, colour, palette=None, trns=None, filters=(0,),
                              np.where(pb <= pc, prev, ul))
         raw += bytes([kind]) + (f % 256).astype(np.uint8).tobytes()
         prev = x
+    return bytes(raw)
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png(samples, depth, colour, palette=None, trns=None, filters=(0,),
+         interlace=0, chunks=()):
+    """PNG bytes of (H, W, C) samples as stored, each scanline y filtered
+    with filters[y % len(filters)] (PNG spec, sections 7 and 9), with a
+    tEXt chunk the readers skip and ``chunks`` ((type, body) pairs) before
+    the image data. ``interlace=1``: Adam7, each of its seven passes (the
+    empty ones left out) filtered on its own."""
+    h, w, c = samples.shape
+    if interlace:
+        raw = b"".join(_scanlines(samples[y0::dy, x0::dx], depth, filters)
+                       for x0, y0, dx, dy in ADAM7
+                       if w > x0 and h > y0)
+    else:
+        raw = _scanlines(samples, depth, filters)
 
     def chunk(kind, data):
         return (struct.pack(">I", len(data)) + kind + data
@@ -201,8 +221,9 @@ def _png(samples, depth, colour, palette=None, trns=None, filters=(0,),
         out += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
     if trns is not None:
         out += chunk(b"tRNS", trns)
+    out += b"".join(chunk(k, b) for k, b in chunks)
     return (out + chunk(b"tEXt", b"Comment\x00fixture")
-            + chunk(b"IDAT", zlib.compress(bytes(raw))) + chunk(b"IEND", b""))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
 
 _CH = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -324,29 +345,82 @@ def _cmyk():
     return b.getvalue()
 
 
+def _gif():
+    b = io.BytesIO()
+    Image.fromarray(_scene(16, 16, 1)).save(b, "GIF")
+    return b.getvalue()
+
+
+def _jpeg_in_tiff():
+    b = io.BytesIO()
+    Image.fromarray(_scene(16, 16, 1)).save(b, "TIFF", compression="jpeg")
+    return b.getvalue()
+
+
+def _bmp_rle8():
+    """An 8-bit BMP whose header says RLE8 (compression 1)."""
+    data = bytearray(cv2.imencode(".bmp", _scene(4, 4, 1)[..., 0])[1])
+    data[30] = 1
+    return bytes(data)
+
+
 UNSUPPORTED = {
     "arithmetic": lambda: _arith_sof(_pil_jpeg(_scene(16, 16, 1))),
     "lossless": lambda: _lossless(_pil_jpeg(_scene(16, 16, 1))),
     "12-bit": lambda: _twelve_bit(_pil_jpeg(_scene(16, 16, 1))),
-    "cmyk": _cmyk,
-    "sampling-4x1": lambda: _cv2_jpeg(
-        _scene(16, 32, 1), sampling=cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411),
-    "adam7": lambda: _png(np.zeros((4, 4, 1), np.int64), 8, 0, interlace=1),
-    "bmp": lambda: cv2.imencode(".bmp", _scene(4, 4, 1))[1].tobytes(),
+    "webp": lambda: cv2.imencode(".webp", _scene(16, 16, 1))[1].tobytes(),
+    "gif": _gif,
+    "jpeg-in-tiff": _jpeg_in_tiff,
+    "bmp-rle8": _bmp_rle8,
 }
 
 
 @pytest.mark.parametrize("form", list(UNSUPPORTED))
 def test_unsupported_forms_raise(tmp_path, form):
-    """Arithmetic-coded, lossless, 12-bit, 4-component and 4:1:1 JPEG,
-    Adam7 PNG and other formats raise NotImplementedError naming ROADMAP
-    item 1.13, in every mode."""
+    """Arithmetic-coded, lossless and 12-bit JPEG, WebP, GIF, JPEG-in-TIFF
+    and RLE8 BMP raise NotImplementedError naming ROADMAP item 1.13, in
+    every mode; PIL reads the WebP, GIF and JPEG-in-TIFF files and takes
+    the BMP's header for RLE8."""
     from mtt_tpu_torch.data.image_io import MODES, read_image
+    data = UNSUPPORTED[form]()
     path = tmp_path / "x.img"
-    path.write_bytes(UNSUPPORTED[form]())
+    path.write_bytes(data)
+    if form == "bmp-rle8":
+        assert Image.open(path).info["compression"] == 1
+    elif form not in ("arithmetic", "lossless", "12-bit"):
+        Image.open(path).load()
     for mode in MODES:
         with pytest.raises(NotImplementedError, match="item 1.13"):
             read_image(path, mode)
+
+
+FORMERLY_REFUSED = {
+    "cmyk": _cmyk,
+    "sampling-4x1": lambda: _cv2_jpeg(
+        _scene(16, 32, 1), sampling=cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411),
+    "adam7": lambda: _png(np.arange(16).reshape(4, 4, 1) * 16, 8, 0,
+                          interlace=1),
+    "bmp": lambda: cv2.imencode(".bmp", _scene(4, 4, 1))[1].tobytes(),
+}
+
+
+@pytest.mark.parametrize("form", list(FORMERLY_REFUSED))
+def test_formerly_refused_forms_match(tmp_path, form):
+    """A CMYK JPEG, a 4:1:1 JPEG, an Adam7 PNG and a BMP, which the port
+    refused before, decode in each mode to the array of the call it stands
+    for, dtype and shape included."""
+    from mtt_tpu_torch.data.image_io import read_image
+    path = tmp_path / "x.img"
+    path.write_bytes(FORMERLY_REFUSED[form]())
+    want = {"pil": np.array(Image.open(path)),
+            "pil_rgb": np.array(Image.open(path).convert("RGB")),
+            "cv2_color": cv2.cvtColor(cv2.imread(str(path)),
+                                      cv2.COLOR_BGR2RGB),
+            "cv2_unchanged": cv2.imread(str(path), cv2.IMREAD_UNCHANGED)}
+    for mode, w in want.items():
+        got = read_image(path, mode)
+        assert got.dtype == w.dtype and got.shape == w.shape, mode
+        assert np.array_equal(got, w), mode
 
 
 def _dht(data, table):

@@ -165,14 +165,19 @@ def test_resize_cubic_u8_within_a_level_of_cv2():
 
 
 def test_cli_refuses_what_is_not_a_png(tmp_path):
-    """A file that is neither PNG nor JPEG raises and names ROADMAP item
-    1.13; a JPEG loads as ``cv2.imread`` reads it (RGB order), a grey PNG
-    repeated to three channels."""
+    """A format the port does not decode (WebP) raises and names ROADMAP
+    item 1.13; a BMP and a JPEG load as ``cv2.imread`` reads them (RGB
+    order), a grey PNG repeated to three channels."""
     from mtt_tpu_torch.inference import load_image
+    webp = tmp_path / "x.webp"
+    cv2.imwrite(str(webp), _photo(20, 30, 5))
+    with pytest.raises(NotImplementedError, match="item 1.13"):
+        load_image(str(webp), (32, 32))
     bmp = tmp_path / "x.bmp"
     cv2.imwrite(str(bmp), _photo(20, 30, 5))
-    with pytest.raises(NotImplementedError, match="item 1.13"):
-        load_image(str(bmp), (32, 32))
+    ori, _ = load_image(str(bmp), (32, 32))
+    assert np.array_equal(ori, cv2.cvtColor(cv2.imread(str(bmp)),
+                                            cv2.COLOR_BGR2RGB))
     path = tmp_path / "x.jpg"
     cv2.imwrite(str(path), _photo(20, 30, 5))
     ori, img = load_image(str(path), (32, 32))
@@ -184,3 +189,42 @@ def test_cli_refuses_what_is_not_a_png(tmp_path):
     ori, img = load_image(str(grey), (40, 60))
     assert ori.shape == (20, 30, 3) and img.shape == (40, 60, 3)
     assert np.array_equal(ori[..., 1], ori[..., 0])
+
+
+def test_cli_several_images_one_model(tmp_path, monkeypatch):
+    """``--image_path`` with a JPEG, a BMP and a TIFF: one model, each
+    image's five maps in a folder of its name, each the root ``visualize``
+    of ``predict`` on that image read as ``cv2.imread`` reads it."""
+    import inference as root
+    from mtt_tpu_torch import inference
+    from mtt_tpu_torch.config import create_config
+    from mtt_tpu_torch.config.config import DB_SCALES
+    from mtt_tpu_torch.evaluation.save_preds import read_png
+    monkeypatch.setitem(DB_SCALES, "PASCALContext", ((64, 64), (64, 64)))
+    yml = _yaml(tmp_path, ("pascal", "taskprompter_vitLp16.yml"),
+                (("backbone: TaskPrompter_vitL", "backbone: TaskPrompter_vitT"),
+                 ("embed_dim: 300", "embed_dim: 24"),
+                 ("final_embed_dim: 350", "final_embed_dim: 28")))
+    p = create_config(yml, {"run_mode": "infer"})
+    model = _checkpoint(p, (64, 64), tmp_path / "ck", 6, False)
+    paths = []
+    for i, ext in enumerate((".jpg", ".bmp", ".tif")):
+        paths.append(str(tmp_path / f"in{i}{ext}"))
+        cv2.imwrite(paths[-1], _photo(40 + 8 * i, 56, i))
+    out = tmp_path / "out"
+    assert inference.main(["--config_exp", yml, "--image_path", *paths,
+                           "--ckpt_dir", str(tmp_path / "ck"),
+                           "--output_dir", str(out), "--dtype", "float32"],
+                          device="cpu") == 0
+    assert sorted(os.listdir(out)) == ["in0", "in1", "in2"]
+    tasks = ("semseg", "human_parts", "sal", "normals", "edge")
+    for i, path in enumerate(paths):
+        ori, img = inference.load_image(path, (64, 64))
+        assert np.array_equal(ori, cv2.cvtColor(cv2.imread(path),
+                                                cv2.COLOR_BGR2RGB))
+        _, preds = inference.predict(model, inference.preprocess(
+            torch.from_numpy(img[None])))
+        for t in tasks:
+            want = root.visualize(t, preds[t][0].numpy())
+            assert np.array_equal(read_png(str(out / f"in{i}" / f"{t}.png")),
+                                  want), (path, t)
