@@ -237,13 +237,31 @@ Phases, in order (the seconds each took are printed):
      inference CLI once over a JPEG, a PNG, a TIFF, a BMP and a PPM with
      one TaskPrompter-ViT-L model; its launches are the kernels line's
      ``formats`` path, one eval forward's a image.
+  23. ``f32``: float32 on the card, JAX's default dtype (TF32 off). Each f32
+     form (rows 1-6; rows 13 and 14 through the module API) against its
+     plain version at f32 at the main path's shapes and one ragged shape
+     each, relative RMS at most F32_KERNEL_TOL, with its ms, the plain
+     version's, the library call's or composition's and its bound (f32
+     flops at 67 TFLOP/s or bytes); the TaskPrompter-ViT-L PASCAL eval
+     forward at batch 8 and 512x512 in f32 through the kernels, each map
+     within F32_FORWARD_TOL of the plain f32 forward of the same weights,
+     the bf16 kernel forward's distance beside it, each f32 counter equal
+     to the bf16 forward's row by row and no bf16 counter moving, the two
+     forwards' device ms; ViT-B PASCAL and NYUD ViT-L at batch 2 the same
+     way; ``Attention`` without LN and ``dot_product_attention`` at f32; the
+     inference CLI at its f32 default over a JPEG and a PNG; ``main
+     --run_mode infer --dtype float32`` over one val batch. Its launches
+     are the kernels line's ``f32`` path (the ViT-L forward), ``f32_api``
+     (rows 13 and 14), ``f32_vitb``, ``f32_nyud``, ``f32_cli`` and
+     ``f32_main``.
 The line before the last is the kernels JSON; the last line is the device JSON.
 
 ``python3 chip_smoke.py --profile`` runs none of these phases: after the
 build it traces one eval forward of each model and one training step of
 each training path (for ``options``: the InvPT-ViT-L and Swin-B steps with
-remat off and on) with ``torch.profiler`` and prints their wall time and
-device time by kernel group (with ``--phases``, only those paths').
+remat off and on; for ``f32``: the ViT-L eval forward at f32) with
+``torch.profiler`` and prints their wall time and device time by kernel
+group (with ``--phases``, only those paths').
 ``python3 chip_smoke.py --grad-diag`` runs none of them either: it prints how
 far the Swin-B training step's bf16 gradients move between two runs on equal
 inputs, and how far they sit from the f32 step's when both run free, by loss
@@ -255,7 +273,7 @@ bf16 error grows with them.
 ``--phases kernels,invpt`` (any subset of kernels, attention_api, eval,
 invpt, swin, nyud, train, swin_train, invpt_train, nyud_train, evaluate,
 loop, detect, convert, parallel, datasets, options, limits, widths,
-formats)
+formats, f32)
 runs only those phases and prints no result lines: a quick look, not the
 check.
 """
@@ -392,6 +410,31 @@ KERNEL_ROWS = {
     "window_attention_bwd": ("mtt_tpu_torch/csrc/window_attention_bwd.cu",
                              "mtt_tpu/kernels/attention.py:838",
                              "window_attention_bwd", "swin_train"),
+    # the f32 forms (phase 23): the f32 eval forward's path, rows 13 and 14
+    # the module API's at f32
+    "layernorm_f32": ("mtt_tpu_torch/csrc/layernorm.cu",
+                      "mtt_tpu/kernels/layernorm.py:29", "layernorm_f32",
+                      "f32"),
+    "attention_cached_f32": ("mtt_tpu_torch/csrc/attention_f32.cu",
+                             "mtt_tpu/kernels/attention.py:423",
+                             "attention_cached_f32", "f32"),
+    "attention_emit_f32": ("mtt_tpu_torch/csrc/attention_f32.cu",
+                           "mtt_tpu/kernels/attention.py:393",
+                           "attention_emit_f32", "f32"),
+    "mlp_ln_res_f32": ("mtt_tpu_torch/csrc/gemm_f32.cu",
+                       "mtt_tpu/kernels/mlp.py:355", "mlp_ln_res_f32", "f32"),
+    "task_decode_f32": ("mtt_tpu_torch/csrc/task_decode_f32.cu",
+                        "mtt_tpu/kernels/task_decode.py:49",
+                        "task_decode_f32", "f32"),
+    "head_up4_f32": ("mtt_tpu_torch/csrc/head_up4.cu",
+                     "mtt_tpu/kernels/head_up4.py:168", "head_up4_f32",
+                     "f32"),
+    "attention_qkv_f32": ("mtt_tpu_torch/csrc/attention_f32.cu",
+                          "mtt_tpu/kernels/attention.py:230",
+                          "attention_qkv_f32", "f32_api"),
+    "attention_generic_f32": ("mtt_tpu_torch/csrc/attention_f32.cu",
+                              "mtt_tpu/kernels/attention.py:118",
+                              "attention_generic_f32", "f32_api"),
 }
 
 
@@ -3058,7 +3101,8 @@ def detect_phase():
         rc = inference.main(["--config_exp", LOOP_CONFIG, "--image_path",
                              os.path.join(work, "pascal.png"), "--ckpt_dir",
                              os.path.join(work, "ck_vitl"), "--output_dir",
-                             os.path.join(work, "out_vitl")])
+                             os.path.join(work, "out_vitl"), "--dtype",
+                             "bfloat16"])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t
         counts["detect_cli_vitl"] = dict(_build.COUNTS)
@@ -3102,7 +3146,8 @@ def detect_phase():
         t = time.perf_counter()
         rc = inference.main(["--config_exp", CS3D_CONFIG, "--image_path",
                              os.path.join(work, "cs.png"), "--output_dir",
-                             os.path.join(work, "out_cs")])
+                             os.path.join(work, "out_cs"), "--dtype",
+                             "bfloat16"])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t
         counts["detect_cli_swin"] = dict(_build.COUNTS)
@@ -3557,7 +3602,8 @@ def convert_phase(vary: float = CONVERT_VARY):
                                          "--image_path",
                                          os.path.join(work, "in.png"),
                                          "--ckpt_dir", ck, "--output_dir",
-                                         os.path.join(work, f"out_{tag}")])
+                                         os.path.join(work, f"out_{tag}"),
+                                         "--dtype", "bfloat16"])
                 finally:
                     inference.predict = real_predict
                 if rc != 0:
@@ -5483,7 +5529,8 @@ def formats_phase():
         _build.reset_counts()
         t = time.perf_counter()
         rc = inference.main(["--config_exp", LOOP_CONFIG, "--image_path",
-                             *paths, "--output_dir", out])
+                             *paths, "--output_dir", out, "--dtype",
+                             "bfloat16"])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t
         counts = dict(_build.COUNTS)
@@ -5527,6 +5574,458 @@ def formats_phase():
     return {"formats": counts}
 
 
+# Phase 23: float32, JAX's default dtype. Each f32 form against its plain
+# version at f32 (relative RMS): both compute in f32 throughout and differ
+# only in the order of their f32 sums, about 1e-6 (a bf16 shortcut would read
+# about 1e-2). The f32 kernel forward against the plain f32 forward of the
+# same weights, per map: 24 blocks of random weights carry the sums' order a
+# little further.
+F32_KERNEL_TOL = 1e-5
+F32_FORWARD_TOL = 1e-4
+F32_CLI = ("jpeg_411_500x375.jpg", "adam7_rgb.png")
+# the kernels line's f32 rows: name -> the bf16 entry point whose count the
+# f32 eval forward must match, row by row
+F32_ROWS = {"layernorm_f32": "layernorm",
+            "attention_cached_f32": "attention_cached",
+            "attention_emit_f32": "attention_emit",
+            "mlp_ln_res_f32": "mlp_ln_res", "task_decode_f32": "task_decode",
+            "head_up4_f32": "head_up4", "attention_qkv_f32": "attention_qkv",
+            "attention_generic_f32": "attention_generic"}
+
+
+def expected_f32(bf16_counts: dict) -> dict:
+    """The launch counts of a forward at f32: each f32 form's counter takes
+    the bf16 forward's count of its entry point; every other counter 0."""
+    rows = {v: k for k, v in F32_ROWS.items()}
+    return _expected(**{rows[k]: v for k, v in bf16_counts.items()
+                        if v and k in rows})
+
+
+def _rel_err(got, want) -> float:
+    return ((got.double() - want.double()).norm()
+            / want.double().norm()).item()
+
+
+def _f32_cases(rnd):
+    """(name: (call(impl), ragged call(impl), library call or None, library
+    composition or None, bytes, f32 flops)) of the f32 forms at the main
+    path's shapes, each with one ragged shape."""
+    from mtt_tpu_torch.kernels.attention import (fused_attention,
+                                                 fused_attention_ln_qkv,
+                                                 fused_attention_qkv)
+    from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
+    from mtt_tpu_torch.kernels.layernorm import fused_layernorm
+    from mtt_tpu_torch.kernels.mlp import fused_mlp_ln_res
+    from mtt_tpu_torch.kernels.task_decode import fused_task_decode
+
+    f32 = torch.float32
+    M = B * N
+
+    def r(*shape, std=1.0, mean=0.0):
+        return rnd(*shape, std=std, mean=mean, dtype=f32)
+
+    def ln_args(rows, c):
+        return r(*rows, c), r(c, std=0.1, mean=1.0), r(c, std=0.1)
+
+    def front(rows, c):
+        x, g, b = ln_args(rows, c)
+        return x, g, b, r(3 * c, c, std=c ** -0.5), r(3 * c, std=0.1)
+
+    def mlp(rows, c, hd):
+        x, g, b = ln_args(rows, c)
+        return (x, g, b, r(hd, c, std=c ** -0.5), r(hd, std=0.1),
+                r(c, hd, std=hd ** -0.5), r(c, std=0.1))
+
+    def decode(b_, s_, c_, t_, g_, tar, fin):
+        return (r(b_, s_, c_), r(b_, t_, s_, g_), r(b_, t_, c_),
+                r(t_, tar, c_, std=c_ ** -0.5), r(t_, tar, std=0.1),
+                r(t_, tar, c_, std=c_ ** -0.5), r(t_, tar, std=0.1),
+                r(t_, fin, 2 * tar, std=(2 * tar) ** -0.5),
+                r(t_, fin, std=0.1))
+
+    def head(b_, gh, gw, c_, n):
+        return (r(b_, gh, gw, c_, std=0.5), r(3, 3, c_, c_,
+                                              std=(9 * c_) ** -0.5),
+                r(c_, std=0.1, mean=1.0), r(c_, std=0.1),
+                r(c_, n, std=c_ ** -0.5))
+
+    ln, ln_r = ln_args((B, N), C), ln_args((5, 77), 830)
+    fa, fa_r = front((B, N), C), front((2, 77), 256)
+    ml, ml_r = mlp((B, N), C, HIDDEN), mlp((129,), 166, 664)
+    dc = decode(B, S, C, T, G, TAR, FIN)
+    dc_r = decode(2, 77, 768, T, 12, TAR, FIN)
+    hd, hd_r = head(B, GRID, GRID, FIN, NLOG), head(2, NYUD_GH, NYUD_GW,
+                                                   NYUD_C, NYUD_NLOG)
+    qkv, qkv_r = r(B, N, 3 * C, std=1.5), r(2, 65, 4 * 3 * 72, std=1.5)
+    qg = [r(B, N, HEADS, D, std=2.0 if i == 0 else 1.0) for i in range(3)]
+    qg_r = [r(2, 300, 2, 72, std=2.0), r(2, 33, 2, 72), r(2, 33, 2, 72)]
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        ).transpose(1, 2)
+
+    def front_lib(x, g, b, w, bq):
+        def lib():
+            q, k, v = F.linear(F.layer_norm(x, (C,), g, b, 1e-6), w, bq) \
+                .view(B, N, HEADS, 3, D).unbind(3)
+            return sdpa(q, k, v).reshape(B, N, C)
+        return lib
+
+    def decode_lib(x, a, cw, ws, bs, wc, bc, wf, bfin):
+        def lib():
+            xt = x[:, None]
+            f = torch.einsum("btsc,trc->btsr", xt * a.repeat_interleave(
+                C // G, -1) + xt, ws) + bs[None, :, None]
+            fc = torch.einsum("btsc,trc->btsr", xt * cw[:, :, None] + xt,
+                              wc) + bc[None, :, None]
+            return torch.einsum("btsr,tfr->btsf", torch.cat([f, fc], -1),
+                                wf) + bfin[None, :, None]
+        return lib
+
+    def head_lib(x, kc, inv, addv, kp):
+        kc_oihw = kc.permute(3, 2, 0, 1).contiguous()
+        kp_oihw = kp.t()[:, :, None, None].contiguous()
+
+        def lib():
+            up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=4,
+                               mode="bilinear", align_corners=False)
+            y = F.gelu(F.conv2d(up, kc_oihw, padding=1)
+                       * inv[:, None, None] + addv[:, None, None])
+            return F.conv2d(y, kp_oihw)
+        return lib
+
+    attn_flops = 4.0 * B * HEADS * N * N * D
+    px = B * 16 * GRID * GRID
+    b_ = _nbytes
+    return {
+        "layernorm_f32": (
+            lambda impl, a=ln: fused_layernorm(*a, impl=impl),
+            lambda impl, a=ln_r: fused_layernorm(*a, impl=impl),
+            lambda: F.layer_norm(ln[0], (C,), ln[1], ln[2], 1e-6), None,
+            b_(*ln, ln[0]), 8.0 * M * C),
+        "attention_cached_f32": (
+            lambda impl, a=fa: fused_attention_ln_qkv(*a, HEADS, impl=impl),
+            lambda impl, a=fa_r: fused_attention_ln_qkv(*a, 4, impl=impl),
+            None, front_lib(*fa), b_(*fa, fa[0]),
+            2.0 * M * C * 3 * C + attn_flops),
+        "attention_cached_f32@safe": (
+            lambda impl, a=fa: fused_attention_ln_qkv(*a, HEADS, impl=impl,
+                                                      safe=True),
+            lambda impl, a=fa_r: fused_attention_ln_qkv(*a, 4, impl=impl,
+                                                        safe=True),
+            None, front_lib(*fa), b_(*fa, fa[0]),
+            2.0 * M * C * 3 * C + attn_flops),
+        "attention_emit_f32": (
+            lambda impl, a=fa: fused_attention_ln_qkv(*a, HEADS,
+                                                      need_qkv=True,
+                                                      impl=impl),
+            lambda impl, a=fa_r: fused_attention_ln_qkv(*a, 4, need_qkv=True,
+                                                        impl=impl),
+            None, front_lib(*fa), b_(*fa, fa[0], fa[0]) + M * 3 * C * 4,
+            2.0 * M * C * 3 * C + attn_flops),
+        "mlp_ln_res_f32": (
+            lambda impl, a=ml: fused_mlp_ln_res(*a, impl=impl),
+            lambda impl, a=ml_r: fused_mlp_ln_res(*a, impl=impl),
+            None, lambda a=ml: a[0] + F.linear(F.gelu(F.linear(F.layer_norm(
+                a[0], (C,), a[1], a[2], 1e-6), a[3], a[4])), a[5], a[6]),
+            b_(*ml, ml[0]), 4.0 * M * C * HIDDEN),
+        "task_decode_f32": (
+            lambda impl, a=dc: fused_task_decode(*a, impl=impl),
+            lambda impl, a=dc_r: fused_task_decode(*a, impl=impl),
+            None, decode_lib(*dc), b_(*dc) + B * S * T * FIN * 4,
+            2.0 * B * T * S * (2 * C * TAR + 2 * TAR * FIN)),
+        "head_up4_f32": (
+            lambda impl, a=hd: fused_up4_head(*a, impl=impl),
+            lambda impl, a=hd_r: fused_up4_head(*a, impl=impl),
+            None, head_lib(*hd), b_(*hd) + px * NLOG * 4,
+            # Gm (9 taps), the width and height mixes (6 nonzero taps each),
+            # the affine and GELU (~25 flops), the 1x1
+            2.0 * B * GRID * GRID * FIN * 9 * FIN
+            + 12.0 * B * GRID * 3 * FIN * 4 * GRID
+            + (12.0 + 25.0) * px * FIN + 2.0 * px * FIN * NLOG),
+        "attention_qkv_f32": (
+            lambda impl, a=qkv: fused_attention_qkv(a, HEADS, impl=impl),
+            lambda impl, a=qkv_r: fused_attention_qkv(a, 4, impl=impl),
+            lambda: sdpa(*qkv.view(B, N, HEADS, 3, D).unbind(3)), None,
+            b_(qkv) + M * C * 4, attn_flops),
+        "attention_qkv_f32@safe": (
+            lambda impl, a=qkv: fused_attention_qkv(a, HEADS, impl=impl,
+                                                    safe=True),
+            lambda impl, a=qkv_r: fused_attention_qkv(a, 4, impl=impl,
+                                                      safe=True),
+            lambda: sdpa(*qkv.view(B, N, HEADS, 3, D).unbind(3)), None,
+            b_(qkv) + M * C * 4, attn_flops),
+        "attention_generic_f32": (
+            lambda impl, a=qg: fused_attention(*a, impl=impl),
+            lambda impl, a=qg_r: fused_attention(*a, impl=impl),
+            lambda: sdpa(*qg), None, b_(*qg, qg[0]), attn_flops),
+    }
+
+
+def _f32_forward(tag: str, title: str, p: dict, seed: int, size,
+                 batch: int, want_bf16: dict, timed: bool = False):
+    """One TaskPrompter-ViT eval forward at f32 through the kernels against
+    the plain f32 forward of the same weights, map by map; the bf16 kernel
+    forward of the same weights beside it (its launches ``want_bf16``, its
+    distance from the plain f32 forward printed). Returns the f32 forward's
+    launch counts and, when ``timed``, the device ms of the f32 and bf16
+    forwards."""
+    from mtt_tpu_torch.inference import predict, preprocess
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.models.layers import init_weights
+    from mtt_tpu_torch.models.wrappers import build_model
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = build_model(p, img_size=size, device=dev,
+                        dtype=torch.float32).eval()
+    init_weights(model, gen)
+    x = preprocess(torch.randint(0, 256, (batch, *size, 3), generator=gen,
+                                 device=dev))
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    logits, preds = predict(model, x)
+    torch.cuda.synchronize()
+    counts = dict(_build.COUNTS)
+    want = expected_f32(want_bf16)
+    if counts != want:
+        raise RuntimeError(f"{tag}: f32 launch counts {counts} != {want}")
+    ref, _ = predict(model, x, impl="plain")
+    bmodel = copy.deepcopy(model).to(torch.bfloat16)
+    _build.reset_counts()
+    blogits, _ = predict(bmodel, x.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    bcounts = dict(_build.COUNTS)
+    if bcounts != want_bf16:
+        raise RuntimeError(f"{tag}: bf16 launch counts {bcounts} != "
+                           f"{want_bf16}")
+    rows = {k: (counts[k], bcounts[v]) for k, v in F32_ROWS.items()}
+    if any(a != b for a, b in rows.values()):
+        raise RuntimeError(f"{tag}: f32 counters {rows} differ from the "
+                           f"bf16 forward's, row by row")
+    errs = {}
+    for t in model.tasks:
+        k, r = logits[t], ref[t]
+        if k.dtype != torch.float32 or not torch.isfinite(k).all() or \
+                k.shape != r.shape or preds[t].shape[:3] != (batch, *size):
+            raise RuntimeError(f"{tag} {t}: logits {k.dtype} "
+                               f"{tuple(k.shape)} or non-finite")
+        errs[t] = (_rel_err(k, r), _rel_err(blogits[t].float(), r))
+    shown = {t: [float(f"{e:.4g}") for e in pair]
+             for t, pair in errs.items()}
+    print(f"[f32] {tag}: {title}, batch {batch} at {size[0]}x{size[1]}, f32 "
+          f"through the kernels; launches {counts} (each f32 counter equal "
+          f"to the bf16 forward's: {rows}); per map, relative RMS error "
+          f"against the plain f32 forward of the same weights, [f32 kernels "
+          f"(tol {F32_FORWARD_TOL}), the bf16 kernel forward]: {shown}",
+          flush=True)
+    bad = [t for t, (e, _) in errs.items() if not e <= F32_FORWARD_TOL]
+    if bad:
+        raise RuntimeError(f"{tag}: maps {bad} of the f32 kernel forward "
+                           f"over {F32_FORWARD_TOL} from the plain f32 one")
+    ms = None
+    if timed:
+        with torch.no_grad():
+            ms = (_time_ms(lambda: model(x), reps=5, warmup=1),
+                  _time_ms(lambda: bmodel(x.to(torch.bfloat16)), reps=5,
+                           warmup=1))
+        print(f"[f32] {tag}: forward device ms (CUDA events, median of 5): "
+              f"f32 {ms[0]:.3f}, bf16 {ms[1]:.3f} ({ms[0] / ms[1]:.2f}x)",
+              flush=True)
+    del model, bmodel, logits, ref, blogits
+    torch.cuda.empty_cache()
+    return counts, ms
+
+
+def f32_phase():
+    """Phase 23: float32 on the card, JAX's default dtype. Each f32 form
+    (rows 1-6, 13 and 14) against its plain version at f32 at the main
+    path's shapes and one ragged shape (relative RMS, F32_KERNEL_TOL),
+    with its time, the plain version's, the library call's or
+    composition's at f32 and its bound (bytes at 3.35 TB/s or f32 flops at
+    67 TFLOP/s); the TaskPrompter-ViT-L PASCAL eval forward at batch 8 and
+    512x512 in f32 through the kernels against the plain f32 forward, map by
+    map (F32_FORWARD_TOL), its launches row by row those of the bf16
+    forward, the two forwards' device ms; ViT-B PASCAL and NYUD ViT-L at
+    batch 2 the same way; the module API of rows 13 and 14 at f32; the
+    inference CLI at its f32 default over a JPEG and a PNG; ``main
+    --run_mode infer --dtype float32`` over one val batch. TF32 is off for
+    the phase (the CLI and main turn it off themselves and put it back).
+    Returns the results of the f32 rows and the launch counts by path."""
+    import numpy as np
+    from mtt_tpu_torch import inference
+    from mtt_tpu_torch import main as port_main
+    from mtt_tpu_torch.evaluation.save_preds import read_png
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.models.layers import (Attention,
+                                             dot_product_attention,
+                                             init_weights)
+    from mtt_tpu_torch.models.wrappers import (NYUD_TASKPROMPTER_VITL,
+                                               PASCAL_TASKPROMPTER_VITB)
+    from mtt_tpu_torch.train import PASCAL_VITL
+    from mtt_tpu_torch.utils import common_config as cc
+    from mtt_tpu_torch.utils.precision import exact_f32
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def rnd(*shape, std=1.0, mean=0.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen, device=dev) * std
+                + mean).to(dtype)
+
+    results, paths = {}, {}
+    with exact_f32():
+        for name, (call, ragged, lib, comp, nbytes, flops) in \
+                _f32_cases(rnd).items():
+            errs = []
+            for c in (call, ragged):
+                got, want = c("cuda"), c("plain")
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                torch.cuda.synchronize()
+                for g_, w_ in zip(got, want):
+                    if g_.shape != w_.shape or g_.dtype != torch.float32 or \
+                            w_.dtype != torch.float32 or \
+                            not torch.isfinite(g_).all():
+                        raise RuntimeError(f"{name}: bad f32 output "
+                                           f"{tuple(g_.shape)} {g_.dtype}")
+                    errs.append((_rel_err(g_, w_), _max_err(g_, w_)))
+                del got, want
+            rel = max(e for e, _ in errs)
+            if not rel <= F32_KERNEL_TOL:
+                raise RuntimeError(f"{name}: relative RMS {rel:.3g} from its "
+                                   f"plain version, over {F32_KERNEL_TOL}")
+            kms = _time_ms(lambda: call("cuda"))
+            pms = _time_ms(lambda: call("plain"), reps=3, warmup=1)
+            lms = _time_ms(lib) if lib else None
+            cms = _time_ms(comp) if comp else None
+            bms, bby = _bound(nbytes, 0.0, flops)
+            results[name] = dict(
+                max_abs_err=errs[0][1], rel_rms=errs[0][0],
+                ragged_rel_rms=max(e for e, _ in errs[1:]),
+                tol=F32_KERNEL_TOL, kernel_ms=kms, plain_ms=pms,
+                library_ms=lms, library_composition_ms=cms, bound_ms=bms,
+                bound_by=bby)
+            print(f"[f32] {name}: relative RMS against the plain f32 version "
+                  f"{errs[0][0]:.3g} (ragged {results[name]['ragged_rel_rms']:.3g}; "
+                  f"tol {F32_KERNEL_TOL}), max_abs_err {errs[0][1]:.3g}; "
+                  f"kernel_ms={kms:.4f} plain_ms={pms:.4f} library_ms={lms} "
+                  f"library_composition_ms={cms} bound_ms={bms:.4f} ({bby}, "
+                  f"f32 flops at {PEAK_F32 / 1e12:.0f} TFLOP/s)", flush=True)
+        print(f"[f32] kernels {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+
+        paths["f32"], ms = _f32_forward(
+            "vitl", "TaskPrompter-ViT-L PASCAL (5 tasks, CTR, factored up4 "
+            "head)", PASCAL_VITL, 1, (IMG, IMG), B, expected_eval("factored"),
+            timed=True)
+        results["forward_ms"] = ms
+        paths["f32_vitb"], _ = _f32_forward(
+            "vitb", "TaskPrompter-ViT-B PASCAL", PASCAL_TASKPROMPTER_VITB, 7,
+            (IMG, IMG), 2, expected_vitb())
+        paths["f32_nyud"], _ = _f32_forward(
+            "nyud", "TaskPrompter-ViT-L NYUD-v2 (16 channel windows, no task "
+            "decode launch)", NYUD_TASKPROMPTER_VITL, 5, NYUD_IMG, 2,
+            expected_nyud_taskprompter())
+
+        # the module API of rows 13 and 14 at f32
+        attn = Attention(C, HEADS, device=dev, dtype=torch.float32)
+        init_weights(attn, gen)
+        xa = rnd(2, N, C)
+        _build.reset_counts()
+        with torch.no_grad():
+            out = attn(xa)
+            q, k, v = attn.qkv(xa).view(2, N, HEADS, 3, D).unbind(3)
+            o_dpa = dot_product_attention(q, k, v)
+        torch.cuda.synchronize()
+        paths["f32_api"] = dict(_build.COUNTS)
+        want = _expected(attention_qkv_f32=1, attention_generic_f32=1)
+        with torch.no_grad():
+            e_api = (_rel_err(out, attn(xa, impl="plain")),
+                     _rel_err(o_dpa, dot_product_attention(q, k, v,
+                                                           impl="plain")))
+        print(f"[f32] api: ViT-L Attention without LN and "
+              f"dot_product_attention at f32, batch 2: launches "
+              f"{paths['f32_api']}; relative RMS against the plain versions "
+              f"{e_api[0]:.3g} / {e_api[1]:.3g}", flush=True)
+        if paths["f32_api"] != want or max(e_api) > F32_FORWARD_TOL:
+            raise RuntimeError(f"f32 api: launches {paths['f32_api']} (want "
+                               f"{want}) or errors {e_api}")
+        del attn, xa, out, q, k, v, o_dpa
+
+    # the CLI at its default (f32) and main in infer mode at f32, each of
+    # which sets TF32 itself and puts the flags back
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    work = tempfile.mkdtemp(prefix="chip_smoke_f32_")
+    real_get_dataset = cc.get_dataset
+    try:
+        if inference.parse_args(["--config_exp", "x", "--image_path",
+                                 "y"]).dtype != "float32":
+            raise RuntimeError("f32: the inference CLI's default is not "
+                               "float32")
+        paths_in = [os.path.join(FORMAT_FIXTURES, n) for n in F32_CLI]
+        out = os.path.join(work, "out")
+        _build.reset_counts()
+        t = time.perf_counter()
+        rc = inference.main(["--config_exp", LOOP_CONFIG, "--image_path",
+                             *paths_in, "--output_dir", out])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+        paths["f32_cli"] = dict(_build.COUNTS)
+        want = {k: len(paths_in) * v for k, v in
+                expected_f32(expected_eval("factored")).items()}
+        maps = {(n, task): read_png(os.path.join(
+                    out, os.path.splitext(n)[0], f"{task}.png"))
+                for n in F32_CLI for task in ("semseg", "human_parts", "sal",
+                                              "normals", "edge")}
+        ok_maps = all(a.shape == (IMG, IMG, 3) and a.dtype == np.uint8
+                      for a in maps.values())
+        print(f"[f32] inference CLI (no --dtype: float32), TaskPrompter-ViT-L "
+              f"PASCAL over {list(F32_CLI)}: rc {rc}, {cli_s:.1f} s (model "
+              f"build included), {len(maps)} maps of {IMG}x{IMG}x3; launches "
+              f"{paths['f32_cli']}", flush=True)
+        if rc != 0 or paths["f32_cli"] != want or not ok_maps:
+            raise RuntimeError(f"f32: the CLI returned {rc}, launches "
+                               f"{paths['f32_cli']} (want {want})")
+
+        def one_batch(p, split, transforms=None, overfit=False):
+            ds = real_get_dataset(p, split, transforms, overfit)
+            if split != "train":
+                ds.length = int(p["valBatch"])
+            return ds
+        cc.get_dataset = one_batch
+        cwd = os.getcwd()
+        os.chdir(work)
+        try:
+            _build.reset_counts()
+            t = time.perf_counter()
+            rc = port_main.main(["--config_exp", LOOP_CONFIG, "--run_mode",
+                                 "infer", "--dtype", "float32"])
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t
+        finally:
+            os.chdir(cwd)
+        paths["f32_main"] = dict(_build.COUNTS)
+        want = expected_f32(expected_eval("factored"))
+        print(f"[f32] main --run_mode infer --dtype float32, one val batch "
+              f"of 6 (synthetic): rc {rc}, {main_s:.1f} s; launches "
+              f"{paths['f32_main']}", flush=True)
+        if rc != 0 or paths["f32_main"] != want:
+            raise RuntimeError(f"f32: main infer returned {rc}, launches "
+                               f"{paths['f32_main']} (want {want})")
+    finally:
+        cc.get_dataset = real_get_dataset
+        shutil.rmtree(work, ignore_errors=True)
+    if (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) != flags:
+        raise RuntimeError("f32: the CLI or main left the TF32 flags changed")
+    print(f"[f32] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"results": results, "paths": paths}
+
+
 # profile: kernel-name fragment -> group; anything else is library work
 PROFILE_GROUPS = (# the shared GEMM (gemm.cu) by its epilogue: fc1 of rows 4
                   # and 8; fc2 of row 4; fc2 of row 8 and rows 1-2's qkv
@@ -5541,6 +6040,16 @@ PROFILE_GROUPS = (# the shared GEMM (gemm.cu) by its epilogue: fc1 of rows 4
                   ("gemm_kernel<3,", "up4 head"),
                   ("gemm_kernel<4,", "InvPT tail"),
                   ("gemm_kernel", "GEMM (gemm.cu)"),
+                  # the f32 forms (phase 23): the f32 GEMM by its epilogue,
+                  # the f32 core, decode and up4 mix
+                  ("gemm_f32_kernel<0>", "f32 GEMM + GELU (fc1, row 4)"),
+                  ("gemm_f32_kernel<1>", "f32 GEMM + bias + residual (fc2, "
+                                         "row 4)"),
+                  ("gemm_f32_kernel<2>", "f32 GEMM + bias (qkv of rows 1-2)"),
+                  ("gemm_f32_kernel<3>", "f32 up4 head"),
+                  ("attn_f32_kernel", "f32 attention core"),
+                  ("task_decode_f32", "f32 task decode"),
+                  ("head_up4_mix_kernel<float", "f32 up4 head"),
                   ("wattn_bwd", "window attention backward"),
                   ("wattn_dbias", "window attention backward"),
                   ("attn_bwd", "attention backward"),
@@ -5636,6 +6145,14 @@ def profile_phase(wanted):
     if "eval" in wanted:
         model, x = _eval_model()
         _profile(f"eval forward, batch {B}", lambda: predict(model, x))
+        del model, x
+    if "f32" in wanted:
+        from mtt_tpu_torch.utils.precision import exact_f32
+        model, x = _eval_model()
+        model.float()
+        with exact_f32():
+            _profile(f"eval forward at f32, batch {B}",
+                     lambda: predict(model, x))
         del model, x
     for tail_head in (False, True) if "invpt" in wanted else ():
         model, x = _invpt_model(tail_head)
@@ -5857,7 +6374,7 @@ PHASES = {"kernels": kernel_phase, "attention_api": attention_api_phase,
           "convert": convert_phase, "parallel": parallel_phase,
           "datasets": datasets_phase, "options": options_phase,
           "limits": limits_phase, "widths": widths_phase,
-          "formats": formats_phase}
+          "formats": formats_phase, "f32": f32_phase}
 
 
 def main(argv=None):
@@ -5928,7 +6445,8 @@ def main(argv=None):
     if len(outcome) < len(PHASES):
         print(f"[partial] ran only {sorted(outcome)}: no result", flush=True)
         return 0
-    results, eval_counts = outcome["kernels"], outcome["eval"]
+    results = {**outcome["kernels"], **outcome["f32"]["results"]}
+    eval_counts = outcome["eval"]
     invpt_counts, train_counts = outcome["invpt"], outcome["train"]
     swin_counts, swin_train_counts = outcome["swin"], outcome["swin_train"]
     api_counts, serve_counts = outcome["attention_api"], outcome["nyud"]
@@ -5940,7 +6458,7 @@ def main(argv=None):
                    **{f"options_{k}": c
                       for k, c in outcome["options"].items()},
                    **outcome["limits"], **outcome["widths"],
-                   **outcome["formats"]}
+                   **outcome["formats"], **outcome["f32"]["paths"]}
 
     rows = []
     for name, (src, replaces, counter, path) in KERNEL_ROWS.items():
@@ -5961,7 +6479,8 @@ def main(argv=None):
                               "invpt": "invpt_tail",
                               "invpt_head": "invpt_tail_head",
                               "swin": "swin", "swin_train": "swin_train",
-                              "attention_api": "attention_api"}[path]],
+                              "attention_api": "attention_api",
+                              "f32": "f32", "f32_api": "f32_api"}[path]],
             launches_by_path=by_path, max_abs_err=r["max_abs_err"],
             tol=r["tol"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

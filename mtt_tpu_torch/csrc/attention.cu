@@ -29,3 +29,12 @@ extern "C" int mtt_qkv_proj_bf16(const void* xn, const void* w, const void* bias
                                  int N, int K, int bias_f32, void* stream) {
   return mtt_gemm_bf16(xn, w, qkv, bias, bias_f32, nullptr, M, N, K, EPI_BIAS, stream);
 }
+
+// The f32 form of the projection (the front half at JAX's default dtype):
+// xn (M, K), w (N, K), bias (N,) and qkv (M, N) f32, one launch of the f32
+// GEMM (gemm_f32.cu) with its bias epilogue. Any M; N and K multiples of 8;
+// every pointer 16-byte aligned.
+extern "C" int mtt_qkv_proj_f32(const void* xn, const void* w, const void* bias, void* qkv, int M,
+                                int N, int K, void* stream) {
+  return mtt_gemm_f32(xn, 0, w, qkv, 0, bias, nullptr, M, N, K, EPI_BIAS, stream);
+}

@@ -1,4 +1,4 @@
-// The port's one bf16 GEMM (gemm.cu): out[M, N] = epilogue(a[M, K] . b[N, K]^T),
+// The port's bf16 GEMM (gemm.cu): out[M, N] = epilogue(a[M, K] . b[N, K]^T),
 // a and b row-major with K contiguous (activations, and weights as nn.Linear
 // stores them), f32 accumulators, one bf16 rounding. Row 4's two products
 // (mlp.cu), row 8's two (mlp.cu), the qkv projection of rows 1-2
@@ -32,3 +32,11 @@ __host__ __device__ constexpr bool epi_reads_bias(int epi) {
 extern "C" int mtt_gemm_bf16(const void* a, const void* b, void* out, const void* bias,
                              int bias_f32, const void* res, int M, int N, int K, int epi,
                              void* stream);
+
+// The f32 form (gemm_f32.cu): a, b, out, bias (N,) and res f32, the same
+// epilogues summed in the same order, nothing rounded. a (M, K) at row pitch
+// lda, out and res (M, N) at row pitch ldo (0: packed); K, lda and ldo
+// multiples of 4, every pointer 16-byte aligned; any M and N.
+extern "C" int mtt_gemm_f32(const void* a, long long lda, const void* b, void* out, long long ldo,
+                            const void* bias, const void* res, int M, int N, int K, int epi,
+                            void* stream);

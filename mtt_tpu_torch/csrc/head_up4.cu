@@ -48,6 +48,12 @@
 //     equal bits run to run). Neighbouring strips run side by side (the
 //     strip is the fastest grid axis), so the Gm rows two strips share come
 //     from L2.
+// The f32 form (mtt_head_up4_f32, the TaskPrompter-ViT eval forward at JAX's
+// default dtype) is the same mix kernel over f32 Gm from the f32 GEMM
+// (gemm_f32.cu): every rounding point above is then the identity, and its
+// 1x1 runs on the CUDA cores (see head_up4_mix_kernel).
+#include <type_traits>
+
 #include "common.cuh"
 #include "gemm.cuh"
 
@@ -62,16 +68,28 @@ constexpr int GC = SW + 2;       // staged Gm columns s0 - 1 .. s0 + SW
 constexpr int DCH = 64;          // channels per step
 constexpr int DS_MAX = 384;      // channels per slab (the ring's depth), at most
 constexpr int PIX = 4 * WS;      // output pixels of a row group
-constexpr int TLD = DCH + 8;     // padded rows of the t tile
-constexpr int GS = GC * 9 * DCH;          // bf16: [column][k, l][d], one buffer
+constexpr int GS = GC * 9 * DCH;          // elements: [column][k, l][d], one buffer
 constexpr int NBUF = 3;                   // staged steps: two in flight
 constexpr int kSmemMax = 232448;
+constexpr int MAX_LOGITS = 128;  // logits a pixel (the bf16 mma tiles, the f32 registers)
+constexpr int DS_F32 = 192;      // channels per slab in f32: the ring is twice as large
 
-// ring (bf16 [row slot][k][W][d] over a slab of DS channels), staged Gm and
-// kp steps, the t tile, the slab's inv and addv, the bands
+// The mix runs in the element type T of Gm, the ring and the t tile: bf16, or
+// f32 at JAX's default dtype, where every rounding point is the identity.
+template <typename T>
+constexpr bool kBf16 = std::is_same<T, bf16>::value;
+// the t tile's row: padded for ldmatrix in bf16; 65 floats in f32, so that
+// the 1x1's reads of a pixel's row are conflict-free
+template <typename T>
+constexpr int kTld = kBf16<T> ? DCH + 8 : DCH + 1;
+
+// ring ([row slot][k][W][d] over a slab of DS channels), staged Gm steps, the
+// staged kp steps (bf16 only: its 1x1 runs on the tensor cores), the t tile,
+// the slab's inv and addv, the bands
+template <typename T>
 __host__ __device__ constexpr int mix_smem(int NP, int R, int DS) {
-  return 3 * 3 * WS * DS * 2 + NBUF * GS * 2 + NBUF * DCH * (NP + 8) * 2 + PIX * TLD * 2 + 2 * DS * 4 +
-         WS * 9 * 4 + 4 * R * 9 * 4;
+  return (3 * 3 * WS * DS + NBUF * GS + PIX * kTld<T>) * static_cast<int>(sizeof(T)) +
+         (kBf16<T> ? NBUF * DCH * (NP + 8) * 2 : 0) + 2 * DS * 4 + WS * 9 * 4 + 4 * R * 9 * 4;
 }
 
 // The two low-res rows (or columns) that output row (column) 4 s + p draws on
@@ -94,22 +112,47 @@ __device__ __forceinline__ float2 bf2f(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
-// gm (B gh gw, 9 DP) bf16; kp (DP, NP) bf16 with zero padding; inv, addv (D,)
-// f32; swb (4gw, 3, 3), shb (4gh, 3, 3) f32 bands -> out (B, 4gh, 4gw, n) f32.
+// two neighbouring channels of Gm or the ring, widened to f32; stored back
+// rounded to T
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  return bf2f(*reinterpret_cast<const uint32_t*>(p));
+}
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void st2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(a, b);
+}
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// gm (B gh gw, 9 DP) T; kp (DP, NP) T with zero padding; inv, addv (D,) f32;
+// swb (4gw, 3, 3), shb (4gh, 3, 3) f32 bands -> out (B, 4gh, 4gw, n) f32.
 // Grid (gw / SW strips, row ranges of R, B); slabs of DS channels. MINB: the
-// blocks an SM must hold (2 for one slab: 128 registers; 3 for the slabbed
-// form, whose ring is half as deep: 85).
-template <int MINB>
+// blocks an SM must hold (bf16: 2 for one slab, 128 registers; 3 for the
+// slabbed form, whose ring is half as deep, 85; f32: 2).
+//
+// T = f32: the block, the strip, the row ranges, the staged Gm steps, the
+// ring and the height weights are bf16's; Gm, the width mix and t stay f32,
+// and the 1x1 runs on the CUDA cores in f32 (mma.sync has no f32 operands;
+// TF32 would round them): thread t takes pixel t % 32 of the row group and
+// logits t / 32 + 8 m (m < ceil(n / 8)), summing t (from shared memory) times
+// kp (read through the read-only cache, one address a warp) over the slab's
+// channels in registers.
+template <typename T, int MINB>
 __global__ void __launch_bounds__(MT, MINB) head_up4_mix_kernel(
-    const bf16* __restrict__ gm, const bf16* __restrict__ kp, const float* __restrict__ inv,
+    const T* __restrict__ gm, const T* __restrict__ kp, const float* __restrict__ inv,
     const float* __restrict__ addv, const float* __restrict__ swb, const float* __restrict__ shb,
     float* __restrict__ out, int gh, int gw, int D, int DP, int n, int NP, int R, int DS) {
+  constexpr bool BF = kBf16<T>;
+  constexpr int TLD = kTld<T>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = ring + 3 * 3 * WS * DS;
-  bf16* Ks = Gs + NBUF * GS;
+  T* ring = reinterpret_cast<T*>(smem);
+  T* Gs = ring + 3 * 3 * WS * DS;
+  bf16* Ks = reinterpret_cast<bf16*>(Gs + NBUF * GS);
   const int KLD = NP + 8;
-  bf16* Ts = Ks + NBUF * DCH * KLD;
+  T* Ts = reinterpret_cast<T*>(Ks + (BF ? NBUF * DCH * KLD : 0));
   float* IVs = reinterpret_cast<float*>(Ts + PIX * TLD);
   float* ADs = IVs + DS;
   float* SWs = ADs + DS;
@@ -137,22 +180,26 @@ __global__ void __launch_bounds__(MT, MINB) head_up4_mix_kernel(
       gof[l][e] = ((Wl / 4 + dw) * 9 + l) * DCH + 2 * dp;
     }
 
-  // the 1x1's tiles: 2 pixel tiles of 16 x NP / 16 logit tiles of 16; warp
-  // w takes tiles w and w + 8
+  // the 1x1's tiles in bf16: 2 pixel tiles of 16 x NP / 16 logit tiles of
+  // 16; warp w takes tiles w and w + 8
   const int ntiles = 2 * (NP / 16);
   // e / (NP / 8) for the 64 (NP / 8) kp pieces of a step as a multiply and
   // shift: exact while e < 2^16 / (NP / 8)
   const int krcp = (65536 + NP / 8 - 1) / (NP / 8);
+  // the 1x1 in f32: pixel pl of the row group, logits jg + 8 m
+  const int pl = lane, jg = warp, mj = (n - jg + 7) / 8;
   // this thread's 16-byte pieces of a step's Gm columns (GC x 9 (k, l) x 64
-  // channels, at most two a thread): their place in the stage, their offset
-  // in a Gm row from channel d0, whether their column is on the map
-  constexpr int GP = GC * 9 * (DCH / 8);
-  int gdst[2], gsrc[2], gdd[2];
-  bool gok[2];
+  // channels, at most two a thread in bf16, three in f32): their place in
+  // the stage, their offset in a Gm row from channel d0, whether their
+  // column is on the map
+  constexpr int EPC = 16 / sizeof(T), CPS = DCH / EPC;
+  constexpr int GP = GC * 9 * CPS, GH = (GP + MT - 1) / MT;
+  int gdst[GH], gsrc[GH], gdd[GH];
+  bool gok[GH];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < GH; ++h) {
     const int e = min(t + MT * h, GP - 1);
-    const int j = e / (9 * (DCH / 8)), kl = (e / (DCH / 8)) % 9, dd = (e % (DCH / 8)) * 8;
+    const int j = e / (9 * CPS), kl = (e / CPS) % 9, dd = (e % CPS) * EPC;
     const int w = s0 - 1 + j;
     gdst[h] = (j * 9 + kl) * DCH + dd;
     gsrc[h] = (w * 9 + kl) * DP + dd;
@@ -170,8 +217,8 @@ __global__ void __launch_bounds__(MT, MINB) head_up4_mix_kernel(
       IVs[i] = d < D ? inv[d] : 0.f;
       ADs[i] = d < D ? addv[d] : 0.f;
     }
-    // one step's Gm columns and kp rows, zero where the row, the column or
-    // the channel is off the map
+    // one step's Gm columns (and in bf16 kp rows), zero where the row, the
+    // column or the channel is off the map
     auto stage = [&](int i) {
       if (i >= nsteps) {
         cp_async_commit();  // an empty group keeps the wait count uniform
@@ -179,25 +226,29 @@ __global__ void __launch_bounds__(MT, MINB) head_up4_mix_kernel(
       }
       const int r = q0 - 1 + i / nch, c = i % nch, buf = i % NBUF;
       const int d0 = ds0 + c * DCH;
-      bf16* g = Gs + buf * GS;
+      T* g = Gs + buf * GS;
       const bool rok = r >= 0 && r < gh;
-      const bf16* grow = gm + (rok ? ((size_t)b * gh + r) * gw * 9 * DP + d0 : 0);
+      const T* grow = gm + (rok ? ((size_t)b * gh + r) * gw * 9 * DP + d0 : 0);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < GH; ++h) {
         if (t + MT * h >= GP) break;
         const bool ok = gok[h] && rok && d0 + gdd[h] < DP;
         cp_async16(g + gdst[h], ok ? grow + gsrc[h] : gm, ok);
       }
-      bf16* k = Ks + buf * DCH * KLD;
-      for (int e = t; e < DCH * (NP / 8); e += MT) {
-        const int row = (e * krcp) >> 16, cc = (e - row * (NP / 8)) * 8;
-        const bool ok = d0 + row < DP;
-        cp_async16(k + row * KLD + cc, ok ? kp + (size_t)(d0 + row) * NP + cc : kp, ok);
+      if constexpr (BF) {
+        bf16* k = Ks + buf * DCH * KLD;
+        for (int e = t; e < DCH * (NP / 8); e += MT) {
+          const int row = (e * krcp) >> 16, cc = (e - row * (NP / 8)) * 8;
+          const bool ok = d0 + row < DP;
+          cp_async16(k + row * KLD + cc, ok ? kp + (size_t)(d0 + row) * NP + cc : kp, ok);
+        }
       }
       cp_async_commit();
     };
 
+    // bf16: [a][h][e] of the mma tiles; f32: logit jg + 8 m at [m / 8][m / 4 % 2][m % 4]
     float acc[2][2][4];
+    static_assert(MAX_LOGITS / 8 == 2 * 2 * 4, "the f32 1x1's logits fill acc");
     stage(0);
     stage(1);
     for (int i = 0; i < nsteps; ++i) {
@@ -207,10 +258,10 @@ __global__ void __launch_bounds__(MT, MINB) head_up4_mix_kernel(
       stage(i + 2);
 
       // width mix of row r (3 taps k, the 6 nonzero of its 9 (l, dw)),
-      // rounded to bf16, into the ring
+      // rounded to T, into the ring
       const int dl = c * DCH + 2 * dp;  // the pair's channel in the slab
-      const bf16* g = Gs + buf * GS;
-      bf16* slot = ring + ((r + 1) % 3) * 3 * WS * DS;
+      const T* g = Gs + buf * GS;
+      T* slot = ring + ((r + 1) % 3) * 3 * WS * DS;
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         float m0 = 0.f, m1 = 0.f;
@@ -218,17 +269,16 @@ __global__ void __launch_bounds__(MT, MINB) head_up4_mix_kernel(
         for (int l = 0; l < 3; ++l)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float2 v =
-                bf2f(*reinterpret_cast<const uint32_t*>(g + gof[l][e] + k * 3 * DCH));
+            const float2 v = ld2(g + gof[l][e] + k * 3 * DCH);
             m0 = fmaf(swt[l][e], v.x, m0);
             m1 = fmaf(swt[l][e], v.y, m1);
           }
-        *reinterpret_cast<uint32_t*>(slot + (k * WS + Wl) * DS + dl) = pack_bf16x2(m0, m1);
+        st2(slot + (k * WS + Wl) * DS + dl, m0, m1);
       }
       if (r < q0 + 1) continue;  // the ring is not full yet (uniform over the block)
 
       // row group q = r - 1: height mix over rows q - 1 .. q + 1 in f32, the
-      // affine and the GELU, t rounded to bf16 into the tile
+      // affine and the GELU, t rounded to T into the tile
       const int q = r - 1;
       if (c == 0) {
 #pragma unroll
@@ -244,8 +294,7 @@ __global__ void __launch_bounds__(MT, MINB) head_up4_mix_kernel(
         for (int dh = 0; dh < 3; ++dh)
 #pragma unroll
           for (int k = 0; k < 3; ++k)
-            m[dh][k] = bf2f(*reinterpret_cast<const uint32_t*>(
-                ring + (((q + dh) % 3) * 3 + k) * WS * DS + Wl * DS + dl));
+            m[dh][k] = ld2(ring + (((q + dh) % 3) * 3 + k) * WS * DS + Wl * DS + dl);
         float y0[4] = {0.f, 0.f, 0.f, 0.f}, y1[4] = {0.f, 0.f, 0.f, 0.f};
         const float* sh = SHs + 4 * (q - q0) * 9;  // [p][k][dh]
         const bool border = q == 0 || q == gh - 1;  // uniform over the block
@@ -262,51 +311,116 @@ __global__ void __launch_bounds__(MT, MINB) head_up4_mix_kernel(
             }
         const float iv0 = IVs[dl], iv1 = IVs[dl + 1], ad0 = ADs[dl], ad1 = ADs[dl + 1];
 #pragma unroll
-        for (int p = 0; p < 4; ++p)
-          *reinterpret_cast<uint32_t*>(Ts + (p * WS + Wl) * TLD + 2 * dp) =
-              pack_bf16x2(gelu_erf_poly_fast(y0[p] * iv0 + ad0),
-                          gelu_erf_poly_fast(y1[p] * iv1 + ad1));
+        for (int p = 0; p < 4; ++p) {
+          T* tr = Ts + (p * WS + Wl) * TLD + 2 * dp;
+          const float t0 = gelu_erf_poly_fast(y0[p] * iv0 + ad0);
+          const float t1 = gelu_erf_poly_fast(y1[p] * iv1 + ad1);
+          if constexpr (BF) {
+            st2(tr, t0, t1);
+          } else {  // rows of 65 floats: a pair is not 8-byte aligned
+            tr[0] = t0;
+            tr[1] = t1;
+          }
+        }
       }
       __syncthreads();
 
       // logits of the group += t (32 pixels x 64) . kp (64 x NP)
-      const bf16* kt = Ks + buf * DCH * KLD;
+      if constexpr (BF) {
+        const bf16* kt = Ks + buf * DCH * KLD;
 #pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const int tile = warp + 8 * a;
-        if (tile >= ntiles) break;
-        const int mt = tile & 1, n16 = tile >> 1;
+        for (int a = 0; a < 2; ++a) {
+          const int tile = warp + 8 * a;
+          if (tile >= ntiles) break;
+          const int mt = tile & 1, n16 = tile >> 1;
 #pragma unroll
-        for (int kk = 0; kk < DCH; kk += 16) {
-          uint32_t af[4], bfr[4];
-          ldsm_x4(af, Ts + mt * 16 * TLD + kk + ldsm_a_off(lane, TLD));
-          ldsm_x4_trans(bfr, kt + kk * KLD + n16 * 16 + ldsm_b_off(lane, KLD));
-          mma_16816(acc[a][0], af, bfr[0], bfr[1]);
-          mma_16816(acc[a][1], af, bfr[2], bfr[3]);
+          for (int kk = 0; kk < DCH; kk += 16) {
+            uint32_t af[4], bfr[4];
+            ldsm_x4(af, Ts + mt * 16 * TLD + kk + ldsm_a_off(lane, TLD));
+            ldsm_x4_trans(bfr, kt + kk * KLD + n16 * 16 + ldsm_b_off(lane, KLD));
+            mma_16816(acc[a][0], af, bfr[0], bfr[1]);
+            mma_16816(acc[a][1], af, bfr[2], bfr[3]);
+          }
+        }
+      } else {
+        const float* tp = Ts + pl * TLD;
+        const float* kr = kp + (size_t)(ds0 + c * DCH) * NP + jg;
+        const int dn = min(DCH, DP - ds0 - c * DCH);
+        for (int d = 0; d < dn; ++d) {
+          const float tv = tp[d];
+#pragma unroll
+          for (int mm = 0; mm < MAX_LOGITS / 8; ++mm)
+            if (mm < mj) {
+              float& a = acc[mm >> 3][(mm >> 2) & 1][mm & 3];
+              a = fmaf(tv, __ldg(kr + (size_t)d * NP + 8 * mm), a);
+            }
         }
       }
       if (c + 1 < nch) continue;
 
       // the group's logits, f32; the later slabs add to the first one's
+      if constexpr (BF) {
 #pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const int tile = warp + 8 * a;
-        if (tile >= ntiles) break;
-        const int mt = tile & 1, n16 = tile >> 1;
+        for (int a = 0; a < 2; ++a) {
+          const int tile = warp + 8 * a;
+          if (tile >= ntiles) break;
+          const int mt = tile & 1, n16 = tile >> 1;
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int px = mt * 16 + (lane >> 2) + (e >> 1) * 8;
-            const int j = n16 * 16 + h * 8 + 2 * (lane & 3) + (e & 1);
-            if (j < n) {
-              float* o = out + (((size_t)b * H4 + 4 * q + px / WS) * W4 + 4 * s0 + px % WS) * n + j;
-              *o = ds0 == 0 ? acc[a][h][e] : *o + acc[a][h][e];
+            for (int e = 0; e < 4; ++e) {
+              const int px = mt * 16 + (lane >> 2) + (e >> 1) * 8;
+              const int j = n16 * 16 + h * 8 + 2 * (lane & 3) + (e & 1);
+              if (j < n) {
+                float* o = out + (((size_t)b * H4 + 4 * q + px / WS) * W4 + 4 * s0 + px % WS) * n + j;
+                *o = ds0 == 0 ? acc[a][h][e] : *o + acc[a][h][e];
+              }
             }
+        }
+      } else {
+        float* o = out + (((size_t)b * H4 + 4 * q + pl / WS) * W4 + 4 * s0 + pl % WS) * n + jg;
+#pragma unroll
+        for (int mm = 0; mm < MAX_LOGITS / 8; ++mm)
+          if (mm < mj) {
+            const float a = acc[mm >> 3][(mm >> 2) & 1][mm & 3];
+            o[8 * mm] = ds0 == 0 ? a : o[8 * mm] + a;
           }
       }
     }
   }
+}
+
+// The mix kernel over Gm: the strips of all images side by side; the rows
+// split into ranges only as far as the blocks the card holds at once need.
+template <typename T, int MINB>
+int launch_mix(const void* gm, const void* kp, const void* inv, const void* addv, const void* swb,
+               const void* shb, void* out, int B, int gh, int gw, int D, int DP, int n, int NP,
+               int DS, cudaStream_t st) {
+  auto kernel = head_up4_mix_kernel<T, MINB>;
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, MT,
+                                                        mix_smem<T>(NP, gh, DS));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int strips = gw / SW;
+  int ranges = min(gh, max(1, sms * max(occ, 1) / (strips * B)));
+  const int R = (gh + ranges - 1) / ranges;
+  ranges = (gh + R - 1) / R;
+  dim3 grid(strips, ranges, B);
+  kernel<<<grid, MT, mix_smem<T>(NP, R, DS), st>>>(
+      static_cast<const T*>(gm), static_cast<const T*>(kp), static_cast<const float*>(inv),
+      static_cast<const float*>(addv), static_cast<const float*>(swb),
+      static_cast<const float*>(shb), static_cast<float*>(out), gh, gw, D, DP, n, NP, R, DS);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int B, int gh, int gw, int CP, int D, int DP, int n, int NP) {
+  return B <= 0 || gh < 1 || gw % SW || CP % 8 || DP % 8 || D > DP || D < 1 || NP % 16 ||
+         NP > MAX_LOGITS || n < 1 || n > NP;
 }
 
 }  // namespace
@@ -321,35 +435,34 @@ extern "C" int mtt_head_up4_bf16(const void* x, const void* wg, const void* kp, 
                                  const void* addv, const void* swb, const void* shb, void* gm,
                                  void* out, int B, int gh, int gw, int CP, int D, int DP, int n,
                                  int NP, void* stream) {
-  if (B <= 0 || gh < 1 || gw % SW || CP % 8 || DP % 8 || D > DP || D < 1 || NP % 16 || NP > 128 ||
-      n < 1 || n > NP)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, gh, gw, CP, D, DP, n, NP)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   int e = mtt_gemm_bf16(x, wg, gm, nullptr, 0, nullptr, B * gh * gw, 9 * DP, CP, EPI_NONE, stream);
   if (e) return e;
-  // the strips of all images side by side; the rows split into ranges only
-  // as far as the blocks the card holds at once need
   // heads that fit one slab keep it (PASCAL's 352 channels: each row is
   // formed once); wider ones walk slabs of 192 channels, whose smaller ring
   // lets three blocks share an SM
-  const int DS = DP <= DS_MAX ? DS_MAX : DS_MAX / 2;
-  auto kernel = DS == DS_MAX ? head_up4_mix_kernel<2> : head_up4_mix_kernel<3>;
-  int dev = 0, sms = 0, occ = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, MT, mix_smem(NP, gh, DS));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int strips = gw / SW;
-  int ranges = min(gh, max(1, sms * max(occ, 1) / (strips * B)));
-  const int R = (gh + ranges - 1) / ranges;
-  ranges = (gh + R - 1) / R;
-  dim3 grid(strips, ranges, B);
-  kernel<<<grid, MT, mix_smem(NP, R, DS), st>>>(
-      static_cast<const bf16*>(gm), static_cast<const bf16*>(kp), static_cast<const float*>(inv),
-      static_cast<const float*>(addv), static_cast<const float*>(swb),
-      static_cast<const float*>(shb), static_cast<float*>(out), gh, gw, D, DP, n, NP, R, DS);
-  return static_cast<int>(cudaGetLastError());
+  return DP <= DS_MAX
+             ? launch_mix<bf16, 2>(gm, kp, inv, addv, swb, shb, out, B, gh, gw, D, DP, n, NP,
+                                   DS_MAX, st)
+             : launch_mix<bf16, 3>(gm, kp, inv, addv, swb, shb, out, B, gh, gw, D, DP, n, NP,
+                                   DS_MAX / 2, st);
+}
+
+// The f32 form: x (B gh gw, CP) f32 (CP % 8 == 0, zero-padded); wg (9 DP, CP)
+// f32; kp (DP, NP) f32 zero-padded, NP % 16 == 0 and <= 128; inv, addv, swb,
+// shb as above; gm (B gh gw, 9 DP) f32 scratch -> out (B, 4gh, 4gw, n) f32.
+// Two launches: the f32 GEMM (Gm, gemm_f32.cu) and the mix kernel in f32,
+// slabs of 192 channels (two blocks an SM).
+extern "C" int mtt_head_up4_f32(const void* x, const void* wg, const void* kp, const void* inv,
+                                const void* addv, const void* swb, const void* shb, void* gm,
+                                void* out, int B, int gh, int gw, int CP, int D, int DP, int n,
+                                int NP, void* stream) {
+  if (bad_shape(B, gh, gw, CP, D, DP, n, NP)) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  int e = mtt_gemm_f32(x, 0, wg, gm, 0, nullptr, nullptr, B * gh * gw, 9 * DP, CP, EPI_NONE,
+                       stream);
+  if (e) return e;
+  return launch_mix<float, 2>(gm, kp, inv, addv, swb, shb, out, B, gh, gw, D, DP, n, NP, DS_F32,
+                              st);
 }

@@ -1,4 +1,5 @@
-// Transformer MLPs, bf16 in and out: launches of the shared GEMM (gemm.cu).
+// Transformer MLPs, bf16 in and out: launches of the shared GEMM (gemm.cu);
+// the half-block also at f32 (mtt_mlp_ln_res_f32, at the end).
 //
 // The pre-norm half-block out = x + fc2(gelu(fc1(LN(x)))) (mtt_mlp_ln_res_bf16)
 // replaces mtt_tpu/kernels/mlp.py:_mlp_ln_res_kernel and its batch-blocked twin
@@ -34,6 +35,10 @@ extern "C" int mtt_layernorm_bf16(const void* x, const void* gamma, const void* 
                                   int rows, int C, float eps, int flags, void* stream);
 extern "C" int mtt_layernorm_ld_bf16(const void* x, const void* gamma, const void* beta, void* y,
                                      int rows, int C, int ld, float eps, int flags, void* stream);
+extern "C" int mtt_layernorm_f32(const void* x, const void* gamma, const void* beta, void* y,
+                                 int rows, int C, float eps, int flags, void* stream);
+extern "C" int mtt_layernorm_ld_f32(const void* x, const void* gamma, const void* beta, void* y,
+                                    int rows, int C, int ld, float eps, int flags, void* stream);
 
 // The half-block x + fc2(gelu(fc1(LN(x)))) as three launches. x (M, CP) bf16
 // with CP = C rounded up to a multiple of 8: the wrapper zero-pads the
@@ -70,4 +75,25 @@ extern "C" int mtt_mlp_fc_bf16(const void* x, const void* w1, const void* b1, co
   int e = mtt_gemm_bf16(x, w1, h, b1, flags & 1, nullptr, M, Hd, C, EPI_GELU, stream);
   if (e) return e;
   return mtt_gemm_bf16(h, w2, out, b2, (flags >> 1) & 1, nullptr, M, C, Hd, EPI_BIAS, stream);
+}
+
+// The f32 form of the half-block, for the TaskPrompter-ViT eval forward at
+// JAX's default dtype: the same three launches, each the f32 form of its
+// bf16 one (the LayerNorm kernel at f32, then the f32 GEMM of gemm_f32.cu
+// twice), xn and h f32 scratch; at f32 the two cuts round nothing. The
+// arguments as mtt_mlp_ln_res_bf16's, every tensor f32 but gamma and beta
+// (flags bits 0-1, as stored).
+extern "C" int mtt_mlp_ln_res_f32(const void* x, const void* gamma, const void* beta,
+                                  const void* w1, const void* b1, const void* w2, const void* b2,
+                                  void* xn, void* h, void* out, int M, int C, int Hd, float eps,
+                                  int flags, void* stream) {
+  if (M <= 0) return 0;
+  const int CP = (C + 7) / 8 * 8;
+  if (C <= 0 || CP > 16384 || Hd % 8 || Hd <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int e = CP == C ? mtt_layernorm_f32(x, gamma, beta, xn, M, C, eps, flags & 3, stream)
+                  : mtt_layernorm_ld_f32(x, gamma, beta, xn, M, C, CP, eps, flags & 3, stream);
+  if (e) return e;
+  e = mtt_gemm_f32(xn, 0, w1, h, 0, b1, nullptr, M, Hd, CP, EPI_GELU, stream);
+  if (e) return e;
+  return mtt_gemm_f32(h, 0, w2, out, 0, b2, x, M, CP, Hd, EPI_RES, stream);
 }

@@ -18,7 +18,10 @@ AVIF, HDR, PFM, Sun raster, RLE BMP, JPEG-in-TIFF and the other forms
 cubic, ``data/transforms.py: resize_cubic_u8``) and normalised; the model
 (seeded random weights, or the checkpoint ``latest.txt`` names in
 ``--ckpt_dir``, read by ``Trainer.restore_checkpoint``), built once, runs
-on the card unless the caller of ``main`` passes another device; each
+on the card unless the caller of ``main`` passes another device, at
+float32 by default as JAX's CLI runs (``--dtype bfloat16``; on the card
+InvPT and Swin take bfloat16 until ROADMAP.md item 1.14, and a float32 run
+turns TF32 off for the call); each
 task's map is written as ``<task>.png`` (``visualize``), and for
 Cityscapes-3D the boxes above score 0.3 as wireframes on the original
 image (``3ddet.png``), decoded with the Stuttgart camera and the resize's
@@ -181,25 +184,34 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt_dir", default=None)
     ap.add_argument("--output_dir", default="inference_out")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"],
-                    default="bfloat16",
-                    help="compute dtype; the card's kernels take bf16 only")
+                    default="float32",
+                    help="compute dtype: float32, as JAX's inference.py "
+                         "runs every model (on the card: the TaskPrompter-"
+                         "ViT configs; InvPT and Swin take bfloat16 until "
+                         "ROADMAP.md item 1.14)")
     return ap.parse_args(argv)
 
 
 def main(argv=None, device=None) -> int:
     args = parse_args(argv)
+    from mtt_tpu_torch.utils.precision import exact_f32
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    with exact_f32(dtype == torch.float32):
+        return _main(args, dtype, device)
+
+
+def _main(args, dtype, device) -> int:
     from mtt_tpu_torch.config import create_config
     from mtt_tpu_torch.evaluation.save_preds import write_png
     from mtt_tpu_torch.models.layers import init_weights
     from mtt_tpu_torch.models.wrappers import build_model, default_device
+    from mtt_tpu_torch.utils.precision import check_card_dtype
     from mtt_tpu_torch.utils.train_utils import Trainer
 
     device = default_device(device)
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    if device.type == "cuda" and dtype != torch.bfloat16:
-        raise ValueError("--dtype float32 on the card: the kernels take "
-                         "bf16 only")
     p = create_config(args.config_exp, {"run_mode": "infer"})
+    if device.type == "cuda":
+        check_card_dtype(p, "infer", dtype)
     size = tuple(p.TEST.SCALE)
     paths = args.image_path
     stems = [os.path.splitext(os.path.basename(x))[0] for x in paths]

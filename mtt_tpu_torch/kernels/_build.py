@@ -12,6 +12,8 @@ Each exported C function launches on the stream it is given and returns
 ``COUNTS`` holds one plain integer per kernel entry point, bumped by the
 wrappers in this package each time they launch their CUDA kernel and nowhere
 else, so a caller can show that a forward really went through the kernels.
+An entry point with a float32 form (``F32_FORMS``: rows 1-6, 13 and 14 of the
+TaskPrompter-ViT eval forward) counts that form under ``<name>_f32``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,13 @@ COUNTS = {"layernorm": 0, "attention_cached": 0, "attention_emit": 0,
           "mlp_ln_res": 0, "mlp_fc": 0, "task_decode": 0, "head_up4": 0,
           "invpt_attention": 0, "invpt_tail": 0, "invpt_tail_head": 0,
           "window_attention": 0, "window_attention_bwd": 0}
+# the entry points with an f32 form count it under a counter of its own
+F32_FORMS = ("layernorm", "attention_cached", "attention_emit",
+             "attention_qkv", "attention_generic", "mlp_ln_res",
+             "task_decode", "head_up4")
+COUNTS.update({f"{k}_f32": 0 for k in F32_FORMS})
+# where the float32 forms of the rest are planned
+F32_LATER = "ROADMAP.md item 1.14"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,6 +72,14 @@ _SIGNATURES = {
     "mtt_window_attention_bwd_bf16": (*[_P] * 9, _I, _I, _I, _I, *[_L] * 6,
                                       _I, _F, _P),
     "mtt_task_decode_split_bf16": (*[_P] * 11, *[_I] * 8, _P),
+    "mtt_layernorm_f32": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    "mtt_qkv_proj_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "mtt_attn_core_f32": (_P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
+    "mtt_attn_generic_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_L] * 9,
+                             _F, _P),
+    "mtt_mlp_ln_res_f32": (*[_P] * 10, _I, _I, _I, _F, _I, _P),
+    "mtt_task_decode_f32": (*[_P] * 10, *[_I] * 7, _P),
+    "mtt_head_up4_f32": (*[_P] * 9, *[_I] * 8, _P),
 }
 
 _lock = threading.Lock()
@@ -91,6 +108,29 @@ def resolve_impl(impl, x: torch.Tensor) -> str:
     if impl == "cuda" and x.device.type != "cuda":
         raise ValueError("impl='cuda' needs tensors on a CUDA device")
     return impl
+
+
+def form(x: torch.Tensor, what: str) -> str:
+    """The kernel form for the activation dtype of ``x``: "bf16" or "f32".
+    Any other dtype raises: nothing is cast to reach a kernel."""
+    if x.dtype == torch.bfloat16:
+        return "bf16"
+    if x.dtype == torch.float32:
+        return "f32"
+    raise TypeError(f"{what} takes bfloat16 or float32, got {x.dtype}")
+
+
+def no_f32_form(what: str) -> TypeError:
+    """The error of a kernel (or a shape of one) that has a bf16 form and no
+    float32 form yet."""
+    return TypeError(f"{what} takes bfloat16 only: its float32 form is "
+                     f"{F32_LATER}")
+
+
+def count(name: str, dtype: torch.dtype) -> None:
+    """One launch of entry point ``name`` in its form for ``dtype``: the
+    f32 forms count under ``<name>_f32``."""
+    COUNTS[f"{name}_f32" if dtype == torch.float32 else name] += 1
 
 
 def param_flags(*params: torch.Tensor) -> int:

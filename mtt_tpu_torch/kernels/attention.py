@@ -27,6 +27,15 @@ Port of mtt_tpu/kernels/attention.py:
   (csrc/attention_generic.cu) under three softmax policies: fast, safe and
   generic.
 
+Every launch has an f32 form, taken for an f32 activation (the
+TaskPrompter-ViT eval forward at JAX's default dtype): the LayerNorm
+kernel's, the f32 GEMM's (csrc/gemm_f32.cu) and the f32 core
+(csrc/attention_f32.cu, the Generic, Fast and Safe policies in f32 on the
+CUDA cores), each counted under ``<name>_f32``. At f32 every rounding point
+above is the identity, so the plain versions are the f32 forms' references
+as they stand. The backward kernel has no f32 form yet (ROADMAP.md item
+1.14).
+
 The weight of the front half is the nn.Linear layout (3C, C) whose rows are
 HEAD-MAJOR (H, 3, D): the transpose of the JAX package's (C, 3C) kernel with
 head-major columns.
@@ -210,6 +219,8 @@ def attn_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, heads: int,
     B, N, C3 = qkv.shape
     D = C3 // heads // 3
     check_attn_head_dim(D, "the attention backward kernel")
+    if qkv.dtype == torch.float32:
+        raise _build.no_f32_form("the attention backward kernel (row 7)")
     if qkv.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
         raise TypeError("the attention backward kernel takes bfloat16")
     if g.shape != (B, N, heads * D) or not g.is_contiguous() \
@@ -254,23 +265,28 @@ def qkv_proj_padded(xn, w, b, run):
 def _qkv_proj_launch(xn, w, b):
     K, N = xn.shape[-1], w.shape[0]
     M = xn.numel() // K
-    flags = _build.param_flags(b)
+    # the bf16 GEMM reads the bias as stored; the f32 one takes f32
+    flags = () if xn.dtype == torch.float32 else (_build.param_flags(b),)
     _build.check_aligned("the qkv projection", xn, w, b)
     qkv = torch.empty(*xn.shape[:-1], N, dtype=xn.dtype, device=xn.device)
-    _build.check(_build.lib().mtt_qkv_proj_bf16(
+    name = "mtt_qkv_proj_" + ("bf16" if flags else "f32")
+    _build.check(getattr(_build.lib(), name)(
         xn.data_ptr(), w.data_ptr(), b.data_ptr(), qkv.data_ptr(), M, N, K,
-        flags, _build.stream()), "mtt_qkv_proj_bf16")
+        *flags, _build.stream()), name)
     return qkv
 
 
 def qkv_proj_cuda(xn: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
-    """One launch of the shared GEMM (csrc/gemm.cu) with its bias epilogue:
-    xn (..., C) . w^T + b, summed in f32 and rounded once, the bias read in
-    its stored dtype. Any row count and widths (zero-padded to multiples of
+    """One launch of the shared GEMM with its bias epilogue: xn (..., C) .
+    w^T + b. bf16 (csrc/gemm.cu): summed in f32 and rounded once, the bias
+    read in its stored dtype; f32 (csrc/gemm_f32.cu): every operand f32,
+    nothing rounded. Any row count and widths (zero-padded to multiples of
     8 where they are not: ``qkv_proj_padded``)."""
-    if xn.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"the qkv projection takes bfloat16, got {xn.dtype} "
-                        f"and {w.dtype}")
+    form = _build.form(xn, "the qkv projection")
+    if w.dtype != xn.dtype or (form == "f32" and b.dtype != xn.dtype):
+        raise TypeError(f"the qkv projection takes its weights in the "
+                        f"activation dtype {xn.dtype}, got {w.dtype} and "
+                        f"{b.dtype}")
     return qkv_proj_padded(xn, w, b, _qkv_proj_launch)
 
 
@@ -291,23 +307,24 @@ def _attn_core_launch(qkv, heads, scale, safe):
     D = C3 // heads // 3
     out = torch.empty(B, N, heads * D, dtype=qkv.dtype, device=qkv.device)
     s2 = float(scaled_log2e(scale, qkv.dtype))
-    _build.check(_build.lib().mtt_attn_core_bf16(
+    name = "mtt_attn_core_" + ("f32" if qkv.dtype == torch.float32
+                               else "bf16")
+    _build.check(getattr(_build.lib(), name)(
         qkv.data_ptr(), out.data_ptr(), B, N, heads, D, s2, exp2_clamp_hi(N),
-        int(safe), _build.stream()), "mtt_attn_core_bf16")
+        int(safe), _build.stream()), name)
     return out
 
 
 def attn_core_cuda(qkv: torch.Tensor, heads: int, scale: float, safe: bool):
-    """The attention core (``mtt_attn_core_bf16``: csrc/attention_generic.cu's
-    kernel under its Fast or Safe softmax policy): bf16, a contiguous
-    head-major (B, N, H*3*D) qkv, D up to 128 (zero-padded to a multiple of
-    8 where it is not: ``attn_core_padded``)."""
+    """The attention core under its Fast or Safe softmax policy: bf16
+    (``mtt_attn_core_bf16``, csrc/attention_generic.cu, tensor cores) or
+    f32 (``mtt_attn_core_f32``, csrc/attention_f32.cu, scores, softmax and
+    P.V in f32); a contiguous head-major (B, N, H*3*D) qkv, D up to 128
+    (zero-padded to a multiple of 8 where it is not: ``attn_core_padded``)."""
     B, N, C3 = qkv.shape
     D = C3 // heads // 3
     check_attn_head_dim(D, "the attention kernel")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"the attention kernel takes bfloat16, got "
-                        f"{qkv.dtype}")
+    _build.form(qkv, "the attention kernel")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("the attention kernel takes a contiguous, 16-byte "
                          "aligned qkv")
@@ -324,17 +341,16 @@ class _AttentionLnQkv(torch.autograd.Function):
         if impl == "plain":
             return attention_ln_qkv_plain(x, gamma, beta, w, b, heads, scale,
                                           eps, need_qkv, safe)
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"the attention kernels take bfloat16, got "
-                            f"{x.dtype}")
+        _build.form(x, "the attention kernels")
         xn = layernorm_cuda(x, gamma, beta, eps)
         if need_qkv:
             # tap layers: LN(x) is an output, a launch of the public LN entry
             # point, as attention.py:550 calls fused_layernorm
-            _build.COUNTS["layernorm"] += 1
+            _build.count("layernorm", x.dtype)
         qkv = qkv_proj_cuda(xn, w, b)
         out = attn_core_cuda(qkv, heads, scale, safe)
-        _build.COUNTS["attention_emit" if need_qkv else "attention_cached"] += 1
+        _build.count("attention_emit" if need_qkv else "attention_cached",
+                     x.dtype)
         return (out, qkv, xn) if need_qkv else out
 
     @staticmethod
@@ -419,7 +435,7 @@ class _AttentionQkv(torch.autograd.Function):
         if impl == "plain":
             return attention_qkv_plain(qkv, heads, scale, safe)
         out = attn_core_cuda(qkv, heads, scale, safe)
-        _build.COUNTS["attention_qkv"] += 1
+        _build.count("attention_qkv", qkv.dtype)
         return out
 
     @staticmethod
@@ -529,30 +545,32 @@ def attention_generic_padded(q, k, v, scale: float, run):
 def _attention_generic_launch(q, k, v, scale):
     B, Nq, H, D = q.shape
     Nk = k.shape[1]
+    per16 = 16 // q.element_size()      # elements in 16 bytes
     for t in (q, k, v):
-        if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]) \
+        if t.stride(-1) != 1 or any(st % per16 for st in t.stride()[:3]) \
                 or t.data_ptr() % 16:
             raise ValueError(f"the generic attention kernel needs the last "
                              f"axis contiguous and 16-byte aligned strides, "
                              f"got strides {t.stride()}")
     out = torch.empty(B, Nq, H, D, dtype=q.dtype, device=q.device)
     sq, sk, sv = (t.stride()[:3] for t in (q, k, v))
-    _build.check(_build.lib().mtt_attn_generic_bf16(
+    name = "mtt_attn_generic_" + ("f32" if q.dtype == torch.float32
+                                  else "bf16")
+    _build.check(getattr(_build.lib(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Nq, Nk,
         H, D, *sq, *sk, *sv, float(torch.tensor(scale, dtype=q.dtype)),
-        _build.stream()), "mtt_attn_generic_bf16")
+        _build.stream()), name)
     return out
 
 
 def attention_generic_cuda(q, k, v, scale: float):
     """The kernel reads q, k, v through their (B, N, H) strides: the last
     axis contiguous, every stride and the base 16-byte aligned. It takes
-    bf16 and head dims up to 128; one that is not a multiple of 8 runs
-    zero-padded to one (``attention_generic_padded``)."""
+    bf16 (csrc/attention_generic.cu) or f32 (csrc/attention_f32.cu, its
+    Generic policy) and head dims up to 128; one that is not a multiple of
+    8 runs zero-padded to one (``attention_generic_padded``)."""
     D = q.shape[-1]
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the generic attention kernel takes bfloat16, got "
-                        f"{q.dtype}")
+    _build.form(q, "the generic attention kernel")
     if D > 128:
         raise ValueError(f"the generic attention kernel takes head dims up "
                          f"to 128 (zero-padded to multiples of 8), got {D}")
@@ -568,7 +586,7 @@ class _AttentionGeneric(torch.autograd.Function):
         if impl == "plain":
             return attention_generic_plain(q, k, v, scale)
         out = attention_generic_cuda(q, k, v, scale)
-        _build.COUNTS["attention_generic"] += 1
+        _build.count("attention_generic", q.dtype)
         return out
 
     @staticmethod

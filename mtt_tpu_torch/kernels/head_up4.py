@@ -22,6 +22,13 @@ then the mix kernel from Gm to the logits. Their plain versions are
 reads rows whose pitch is a multiple of 16 bytes) and the logits to 16 for
 the tensor-core tiles, with zeros that add nothing.
 
+At f32 (the TaskPrompter-ViT eval forward at JAX's default dtype) the two
+launches are the f32 GEMM (csrc/gemm_f32.cu) and the mix kernel at f32
+(``mtt_head_up4_f32``), counted under ``head_up4_f32``: every rounding point
+above is the identity there; the GELU stays the fast polynomial, as the
+plain version keeps it at every dtype (JAX's f32 head, its XLA twin, takes
+the A&S erf GELU: |err| <= 2.1e-4 pointwise).
+
 The gradient is torch autograd through ``head_up4_plain``, as the JAX custom
 VJP differentiates its XLA composition (head_up4.py:496-519); the training
 head does not call this kernel.
@@ -117,8 +124,10 @@ def _pad8(n: int) -> int:
 
 
 def head_up4_cuda(x, kc, inv, addv, kp):
-    """Two launches: Gm on the shared GEMM into a (B gh gw, 9 DP) bf16
-    scratch, then the mix kernel. Unlike the TPU, which sends a head whose
+    """Two launches: Gm on the shared GEMM into a (B gh gw, 9 DP) scratch of
+    x's dtype, then the mix kernel over that dtype (at f32: Gm, the width
+    mix and t unrounded, the 1x1 in f32 on the CUDA cores). Unlike
+    the TPU, which sends a head whose
     VMEM estimate fails ``_ok`` (NYUD's 40-class semseg at C = 768) to the
     XLA composition, the card takes every width. Per call the wrapper lays
     out what the kernels read: kc as (9 DP, CP), K-major for the GEMM, and
@@ -128,8 +137,7 @@ def head_up4_cuda(x, kc, inv, addv, kp):
     D = kc.shape[-1]
     n = kp.shape[-1]
     check_head_up4_shape(gh, gw, n)
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the up4 head kernel takes bfloat16, got {x.dtype}")
+    form = _build.form(x, "the up4 head kernel")
     dt = x.dtype
     CP, DP, NP = _pad8(C), _pad8(D), -(-n // 16) * 16
     xa = (x if CP == C else F.pad(x, (0, CP - C))).contiguous()
@@ -145,11 +153,11 @@ def head_up4_cuda(x, kc, inv, addv, kp):
     gm = x.new_empty(B * gh * gw, 9 * DP)
     out = torch.empty(B, 4 * gh, 4 * gw, n, dtype=torch.float32,
                       device=x.device)
-    _build.check(_build.lib().mtt_head_up4_bf16(
+    name = f"mtt_head_up4_{form}"
+    _build.check(getattr(_build.lib(), name)(
         xa.data_ptr(), wg.data_ptr(), kpp.data_ptr(), invf.data_ptr(),
         addvf.data_ptr(), swb.data_ptr(), shb.data_ptr(), gm.data_ptr(),
-        out.data_ptr(), B, gh, gw, CP, D, DP, n, NP, _build.stream()),
-        "mtt_head_up4_bf16")
+        out.data_ptr(), B, gh, gw, CP, D, DP, n, NP, _build.stream()), name)
     return out
 
 
@@ -160,7 +168,7 @@ class _HeadUp4(torch.autograd.Function):
         if impl == "plain":
             return head_up4_plain(x, kc, inv, addv, kp)
         out = head_up4_cuda(x, kc, inv, addv, kp)
-        _build.COUNTS["head_up4"] += 1
+        _build.count("head_up4", x.dtype)
         return out
 
     @staticmethod

@@ -249,6 +249,8 @@ def invpt_attention_cuda(q, k, v, msg, w, b, scale: float, plan=None):
     TMA ring, and sends fused out of the tile by bulk copies (the note at
     the head of csrc/invpt_attention.cu)."""
     H, D = q.shape[1], q.shape[3]
+    if q.dtype == torch.float32:
+        raise _build.no_f32_form("the InvPT attention kernel (row 9)")
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the InvPT attention kernel takes bfloat16, got "
                         f"{q.dtype}")

@@ -205,6 +205,8 @@ def ms_tail_cuda(xs, kc, inv, addv, th: int, tw: int, wh=None, bh=None):
     B, _, _, C = x0.shape
     D = kc.shape[-1]
     dt = x0.dtype
+    if dt == torch.float32:
+        raise _build.no_f32_form("the multi-scale tail kernel (row 10)")
     if dt != torch.bfloat16:
         raise TypeError(f"the multi-scale tail kernel takes bfloat16, got "
                         f"{dt}")

@@ -1,7 +1,8 @@
 """Row LayerNorm: the CUDA kernel (csrc/layernorm.cu) and its plain version.
 
 Port of mtt_tpu/kernels/layernorm.py (``_ln_kernel``, ``fused_layernorm``).
-Statistics and affine run in f32; the result is cast to the input dtype once.
+Statistics and affine run in f32; the result is cast to the input dtype once
+(at f32 the kernel's f32 form rounds nothing).
 On the H100 the op is bound by device memory (one read, one write of x); the
 kernel keeps each row in the registers of one warp (or, at C <= 128, of a
 half or a quarter of one; past 4096 columns, of a block of four warps) so x
@@ -88,19 +89,20 @@ def check_layernorm_width(C: int) -> None:
 
 
 def layernorm_cuda(x, gamma, beta, eps: float = 1e-6) -> torch.Tensor:
-    """Launches the kernel; counts nothing (callers count)."""
+    """Launches the kernel in its form for x's dtype (bf16, or f32: the same
+    statistics, nothing rounded); counts nothing (callers count)."""
     C = x.shape[-1]
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the LayerNorm kernel takes bfloat16, got {x.dtype}")
+    form = _build.form(x, "the LayerNorm kernel")
     check_layernorm_width(C)
     y = torch.empty_like(x)
     rows = x.numel() // C
     g, b = gamma.contiguous(), beta.contiguous()
     flags = _build.param_flags(g, b)
     _build.check_aligned("the LayerNorm kernel", x, g, b)
-    _build.check(_build.lib().mtt_layernorm_bf16(
+    name = f"mtt_layernorm_{form}"
+    _build.check(getattr(_build.lib(), name)(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), rows, C,
-        float(eps), flags, _build.stream()), "mtt_layernorm_bf16")
+        float(eps), flags, _build.stream()), name)
     return y
 
 
@@ -112,7 +114,7 @@ class _LayerNorm(torch.autograd.Function):
         if impl == "plain":
             return layernorm_plain(x, gamma, beta, eps)
         y = layernorm_cuda(x, gamma, beta, eps)
-        _build.COUNTS["layernorm"] += 1
+        _build.count("layernorm", x.dtype)
         return y
 
     @staticmethod

@@ -17,6 +17,11 @@ three stages. The MLP alone is the last two of them, with fc2's epilogue
 adding b2 only (see the source note in mlp.cu). Both read their parameters
 as stored (bf16 or f32): no cast is launched.
 
+The half-block has an f32 form (``mtt_mlp_ln_res_f32``: the LayerNorm
+kernel at f32, then the f32 GEMM of csrc/gemm_f32.cu twice, nothing
+rounded), counted under ``mlp_ln_res_f32``; the MLP alone has none yet
+(ROADMAP.md item 1.14) and raises at f32.
+
 The gradients are the JAX package's hand-written backwards (mlp.py:201-222
 for ``fused_mlp``, :499-540 for ``fused_mlp_ln_res``), computed in plain torch
 as JAX computes them in XLA: they recompute the hidden layer, and their large
@@ -187,7 +192,9 @@ def mlp_ln_res_padded(x, gamma, beta, w1, b1, w2, b2, eps, run):
 
 
 def _mlp_ln_res_launch(x, gamma, beta, w1, b1, w2, b2, eps, C):
-    """x (..., CP) with CP = C rounded up to 8, its columns past C zero."""
+    """x (..., CP) with CP = C rounded up to 8, its columns past C zero; the
+    bf16 form or the f32 one (``mtt_mlp_ln_res_f32``, which takes f32
+    biases) by x's dtype."""
     CP, Hd = x.shape[-1], w1.shape[0]
     M = x.numel() // CP
     out = torch.empty_like(x)
@@ -199,23 +206,27 @@ def _mlp_ln_res_launch(x, gamma, beta, w1, b1, w2, b2, eps, C):
     flags = _build.param_flags(*params)
     _build.check_aligned("the MLP-LN-residual kernels", x, w1, w2, *params)
     g, b, bias1, bias2 = params
-    _build.check(_build.lib().mtt_mlp_ln_res_bf16(
+    name = "mtt_mlp_ln_res_" + ("f32" if x.dtype == torch.float32 else "bf16")
+    _build.check(getattr(_build.lib(), name)(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(),
         bias1.data_ptr(), w2.data_ptr(), bias2.data_ptr(), xn.data_ptr(),
         h.data_ptr(), out.data_ptr(), M, C, Hd, float(eps), flags,
-        _build.stream()), "mtt_mlp_ln_res_bf16")
+        _build.stream()), name)
     return out
 
 
 def mlp_ln_res_cuda(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
     """The LayerNorm launch and the two GEMMs; the scratch xn (rows, C) and
-    h (rows, hidden) come from torch.empty. Parameters are read in their
-    stored dtype (bf16 or f32): no cast is launched. Widths that are not
-    multiples of 8 run zero-padded (``mlp_ln_res_padded``): the LayerNorm
-    counts the true C and writes zeros past it."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the MLP kernel takes bfloat16, got {x.dtype}")
+    h (rows, hidden) come from torch.empty. bf16: parameters are read in
+    their stored dtype (bf16 or f32), no cast is launched; f32: the f32
+    forms (csrc/mlp.cu: mtt_mlp_ln_res_f32), the weights and biases f32.
+    Widths that are not multiples of 8 run zero-padded
+    (``mlp_ln_res_padded``): the LayerNorm counts the true C and writes
+    zeros past it."""
+    form = _build.form(x, "the MLP kernel")
     check_layernorm_width(x.shape[-1])
+    if form == "f32" and (b1.dtype != x.dtype or b2.dtype != x.dtype):
+        raise TypeError("the MLP kernel's f32 form takes f32 biases")
     return mlp_ln_res_padded(x, gamma, beta, w1, b1, w2, b2, eps,
                              _mlp_ln_res_launch)
 
@@ -255,6 +266,8 @@ def mlp_fc_cuda(x, w1, b1, w2, b2):
     (rows, hidden) from torch.empty, then fc2 + b2. Any row count and
     widths (zero-padded to multiples of 8 where they are not:
     ``mlp_fc_padded``); the biases read in their stored dtype."""
+    if x.dtype == torch.float32:
+        raise _build.no_f32_form("the MLP kernel (row 8)")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the MLP kernel takes bfloat16, got {x.dtype}")
     return mlp_fc_padded(x, w1, b1, w2, b2, _mlp_fc_launch)
@@ -268,7 +281,7 @@ class _MlpLnRes(torch.autograd.Function):
         if impl == "plain":
             return mlp_ln_res_plain(x, gamma, beta, w1, b1, w2, b2, eps)
         out = mlp_ln_res_cuda(x, gamma, beta, w1, b1, w2, b2, eps)
-        _build.COUNTS["mlp_ln_res"] += 1
+        _build.count("mlp_ln_res", x.dtype)
         return out
 
     @staticmethod

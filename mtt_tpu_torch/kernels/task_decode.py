@@ -11,6 +11,11 @@ Past the one launch's tar 304 and F 352 (TaskPrompter-ViT-L at embed_dim
 scratch, then one launch of the shared GEMM a task (the JAX wrapper sends
 that shape to its XLA composition ``_decode_xla``).
 
+At f32 the one launch's widths run its f32 form (csrc/task_decode_f32.cu,
+``task_decode_f32``: the three products in f32 on the CUDA cores, nothing
+rounded, counted under ``task_decode_f32``); the split form has no f32
+form yet (ROADMAP.md item 1.14).
+
 Layouts follow the grouped 1x1 convs' torch weights viewed per task:
 x (B, S, C); a (B, T, S, G) head-major groups; cw (B, T, C);
 ws/wc (T, tar, C); bs/bc (T, tar); wf (T, F, 2 tar) with [f; fc] input
@@ -168,6 +173,8 @@ def task_decode_cuda(x, a, cw, ws, bs, wc, bc, wf, bf):
     T, tar, _ = ws.shape
     fin = wf.shape[1]
     G = a.shape[-1]
+    if x.dtype == torch.float32:
+        return task_decode_f32(x, a, cw, ws, bs, wc, bc, wf, bf)
     dt = torch.bfloat16
     if x.dtype != dt or ws.dtype != dt or wc.dtype != dt or wf.dtype != dt:
         raise TypeError("the task-decode kernel takes bfloat16 x and weights")
@@ -190,6 +197,31 @@ def task_decode_cuda(x, a, cw, ws, bs, wc, bc, wf, bf):
     return out
 
 
+def task_decode_f32(x, a, cw, ws, bs, wc, bc, wf, bf):
+    """The f32 form of the one launch (csrc/task_decode_f32.cu): every
+    tensor f32, the three products in f32, nothing rounded; the one
+    launch's widths (``task_decode_one_launch``). The split form past them
+    has no f32 form yet."""
+    B, S, C = x.shape
+    T, tar, _ = ws.shape
+    fin = wf.shape[1]
+    G = a.shape[-1]
+    args = (x, a, cw, ws, bs, wc, bc, wf, bf)
+    if any(t.dtype != torch.float32 for t in args):
+        raise TypeError(f"the task-decode kernel's f32 form takes every "
+                        f"tensor in f32, got {[t.dtype for t in args]}")
+    check_task_decode_widths(C, G, tar, fin)
+    if not task_decode_one_launch(tar, fin):
+        raise _build.no_f32_form(f"the task-decode kernel's split form (tar "
+                                 f"{tar}, F {fin})")
+    _build.check_aligned("the task-decode kernel", *args)
+    out = torch.empty(B, S, T * fin, dtype=x.dtype, device=x.device)
+    _build.check(_build.lib().mtt_task_decode_f32(
+        *(t.data_ptr() for t in args), out.data_ptr(), B, S, C, T, G, tar,
+        fin, _build.stream()), "mtt_task_decode_f32")
+    return out
+
+
 class _TaskDecode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, impl, *args):
@@ -197,7 +229,7 @@ class _TaskDecode(torch.autograd.Function):
         if impl == "plain":
             return task_decode_plain(*args)
         out = task_decode_cuda(*args)
-        _build.COUNTS["task_decode"] += 1
+        _build.count("task_decode", args[0].dtype)
         return out
 
     @staticmethod

@@ -118,6 +118,8 @@ def window_attention_cuda(q, k, v, bias, mask, scale: float, nW: int):
     copied once. Returns a (BW, M, H, D) view of a contiguous (BW, M, H * D)
     tensor."""
     BW, M, H, D = q.shape
+    if q.dtype == torch.float32:
+        raise _build.no_f32_form("the window attention kernel (row 11)")
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the window attention kernel takes bfloat16, got "
                         f"{q.dtype}")
@@ -176,6 +178,9 @@ def window_attention_bwd_cuda(q, k, v, bias, mask, g, scale: float, nW: int):
     takes them. Returns (dqkv (BW, M, 3, H, D) in q's dtype, dbias (H, M, M)
     f32)."""
     BW, M, H, D = q.shape
+    if q.dtype == torch.float32:
+        raise _build.no_f32_form("the window attention backward kernel "
+                                 "(row 12)")
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the window attention backward kernel takes "
                         f"bfloat16, got {q.dtype}")

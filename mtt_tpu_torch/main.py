@@ -13,8 +13,11 @@ resumes from the checkpoint ``latest.txt`` names; ``--run_mode infer``
 scores the restored model with ``test_phase`` (with ``--vis``, from the
 same forward it also renders each 2D task's map of every val image under
 ``save_dir/vis_<task>``). Batches are ``trBatch`` and
-``valBatch`` for one card. The compute dtype defaults to bf16 (the kernels
-take bf16 only; an f32 run on the card is refused), with f32 master weights.
+``valBatch`` for one card. The compute dtype defaults to bf16, with f32
+master weights; ``--dtype float32`` runs on the card for ``--run_mode
+infer`` of a TaskPrompter-ViT config (its eval forward has f32 kernels), with
+TF32 off for the call (``utils/precision.py``); f32 training and InvPT or
+Swin at f32 are refused before anything is built (ROADMAP.md item 1.14).
 ``main(argv, device=None)`` runs on the card unless the caller passes
 another device.
 
@@ -44,6 +47,11 @@ import torch
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="multi-task training")
     ap.add_argument("--config_exp", required=True)
+    ap.add_argument("--trained_model", default=None,
+                    help="accepted as JAX's main.py accepts it; JAX's main "
+                         "reads it nowhere, and neither does this one (a "
+                         "checkpoint is resumed from the config's "
+                         "checkpoint directory)")
     ap.add_argument("--run_mode", choices=["train", "infer"], default="train")
     ap.add_argument("--overfit", action="store_true",
                     help="64-image overfit sanity mode")
@@ -52,8 +60,9 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", choices=["float32", "bfloat16"],
                     default="bfloat16",
-                    help="compute dtype (the master weights stay f32); the "
-                         "card's kernels take bf16 only")
+                    help="compute dtype (the master weights stay f32); on "
+                         "the card float32 runs --run_mode infer of a "
+                         "TaskPrompter-ViT config (ROADMAP.md item 1.14)")
     ap.add_argument("--debug_eval", action="store_true",
                     help="run a full eval pass before training")
     ap.add_argument("--vis", action="store_true",
@@ -66,12 +75,20 @@ def parse_args(argv=None):
 
 def main(argv=None, device=None) -> int:
     args = parse_args(argv)
+    from mtt_tpu_torch.utils.precision import exact_f32
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    with exact_f32(dtype == torch.float32):
+        return _main(args, dtype, device)
+
+
+def _main(args, dtype, device) -> int:
     from mtt_tpu_torch.config import create_config
     from mtt_tpu_torch.models.layers import init_weights
     from mtt_tpu_torch.models.wrappers import build_model, default_device
     from mtt_tpu_torch.parallel.mesh import data_shard_info, init_distributed
     from mtt_tpu_torch.utils import common_config as cc
     from mtt_tpu_torch.utils.logger import install
+    from mtt_tpu_torch.utils.precision import check_card_dtype
     from mtt_tpu_torch.utils.train_utils import (Trainer, test_phase,
                                                  train_phase)
 
@@ -80,10 +97,10 @@ def main(argv=None, device=None) -> int:
     device = init_distributed(device) if args.multihost \
         else default_device(device)
     nshards, shard = data_shard_info()
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    if device.type == "cuda" and dtype != torch.bfloat16:
-        raise ValueError("--dtype float32 on the card: the kernels take "
-                         "bf16 only (the master weights are f32 either way)")
+    if device.type == "cuda":
+        # before anything is built: an infer-mode config makes no directory
+        check_card_dtype(create_config(args.config_exp, {"run_mode": "infer"}),
+                         args.run_mode, dtype)
     p = create_config(args.config_exp, {"run_mode": args.run_mode})
     if args.max_iter:
         p["max_iter"] = args.max_iter

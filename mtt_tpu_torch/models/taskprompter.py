@@ -68,6 +68,14 @@ def row_drop(branch, num_prompts: int, rate: float,
     return branch * mask[:, rows, None].to(branch.dtype)
 
 
+def channel_windows(chan_nheads: int) -> Tuple[int, int]:
+    """The (rows, columns) of channel-attention windows a config's
+    ``chan_nheads`` gives: (1, 1) runs the task decode kernel, more windows
+    the windowed decode in torch (NYUD's 16)."""
+    nh = int(round(chan_nheads ** 0.5))
+    return (nh, max(chan_nheads // max(nh, 1), 1))
+
+
 class PromptedBlock(nn.Module):
     """One TaskPrompter block over the joint stream (B, P+N, C)."""
 
@@ -290,8 +298,7 @@ class TaskPrompterViT(nn.Module):
         self.tap_set = set(select_list)
         self.depth = depth
         gh, gw = img_size[0] // patch_size, img_size[1] // patch_size
-        nh = int(round(chan_nheads ** 0.5))
-        chan_windows = (nh, max(chan_nheads // max(nh, 1), 1))
+        chan_windows = channel_windows(chan_nheads)
         self.patch_embed = PatchEmbed(patch_size, embed_dim, **kw)
         self.pos_embed = nn.Parameter(torch.zeros(1, gh * gw + 1, embed_dim,
                                                   **kw))

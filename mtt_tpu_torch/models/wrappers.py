@@ -325,6 +325,12 @@ class TaskPrompterSwinNet(nn.Module):
         return out
 
 
+def vit_taskprompter(p) -> bool:
+    """True for a TaskPrompter config on a ViT backbone (not Swin)."""
+    return p["model"] == "TaskPrompter" and \
+        "swin" not in p["backbone"].lower()
+
+
 def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
                 tail_head: bool = False, head_up4: Optional[str] = None,
                 factored_tail: bool = False,
@@ -348,9 +354,7 @@ def build_model(p: dict, img_size: Optional[Tuple[int, int]] = None, *,
         debug_tiny = bool(os.environ.get("MTT_DEBUG_TINY"))
     tasks, num_outputs = task_table(p["train_db_name"], p["task_dictionary"])
     remat = bool(p.get("remat", False))
-    vit_taskprompter = p["model"] == "TaskPrompter" and \
-        "swin" not in p["backbone"].lower()
-    if head_up4 is not None and not vit_taskprompter:
+    if head_up4 is not None and not vit_taskprompter(p):
         raise ValueError(f"head_up4 is TaskPrompter-ViT's; this config "
                          f"builds {p['model']} {p['backbone']}")
     if p["model"] == "TransformerNet":

@@ -224,10 +224,11 @@ def test_dot_product_attention_matches_jax():
 
 def test_kernel_paths_refuse_what_the_kernels_do_not_take():
     """The card's entry points check before any launch, so the refusals show
-    on the CPU: row 13 takes bf16, a contiguous qkv and head dims up to 128
-    (ViT-T has 16); row 14 bf16, head dims up to 128 and aligned strides;
-    both raise on a request for the kernel with a CPU tensor. A head dim
-    that is not a multiple of 8 reaches the kernel zero-padded to one."""
+    on the CPU: row 13 takes bf16 or f32 (no other dtype), a contiguous qkv
+    and head dims up to 128 (ViT-T has 16); row 14 bf16 or f32, head dims up
+    to 128 and aligned strides; both raise on a request for the kernel with
+    a CPU tensor. A head dim that is not a multiple of 8 reaches the kernel
+    zero-padded to one."""
     from mtt_tpu_torch.kernels.attention import (attention_generic_cuda,
                                                  attention_generic_padded,
                                                  attn_core_cuda,
@@ -235,8 +236,9 @@ def test_kernel_paths_refuse_what_the_kernels_do_not_take():
                                                  fused_attention,
                                                  fused_attention_qkv)
     bf = torch.bfloat16
-    with pytest.raises(TypeError, match="bfloat16"):
-        attn_core_cuda(torch.zeros(1, 5, 384), 2, 0.125, False)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        attn_core_cuda(torch.zeros(1, 5, 384, dtype=torch.float16), 2, 0.125,
+                       False)
     with pytest.raises(ValueError, match="contiguous"):
         attn_core_cuda(torch.zeros(1, 384, 5, dtype=bf).transpose(1, 2),
                            2, 0.125, False)
@@ -246,8 +248,8 @@ def test_kernel_paths_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="H\\*3\\*D"):
         fused_attention_qkv(torch.zeros(1, 5, 100), 3)
     q = torch.zeros(1, 5, 2, 72, dtype=bf)
-    with pytest.raises(TypeError, match="bfloat16"):
-        attention_generic_cuda(q.float(), q.float(), q.float(), 0.1)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        attention_generic_cuda(q.half(), q.half(), q.half(), 0.1)
     seen = []
 
     def launch(q, k, v, scale):

@@ -1340,19 +1340,284 @@ def test_png_encoder_decodes_to_the_array(tmp_path):
 
 
 def test_main_refuses_float32_on_the_card(tmp_path, monkeypatch):
-    """``--dtype float32`` on the card raises before anything is built:
-    the kernels take bf16 only."""
+    """Training at ``--dtype float32`` on the card raises before anything is
+    built, naming ROADMAP.md item 1.14 (rows 7 and 8 have no f32 form yet),
+    as InvPT at float32 does, and a TaskPrompter-ViT YAML whose task decode
+    takes the split form; ``--run_mode infer --dtype float32`` of a
+    TaskPrompter-ViT config runs its eval forward through the f32 kernels
+    (the val set cut to one batch here), TF32 off during the call and the
+    flags as they were after it."""
     import os
-    from mtt_tpu_torch.main import main
+    from mtt_tpu_torch import main as port_main
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.utils import common_config as cc
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     monkeypatch.chdir(tmp_path)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with pytest.raises(ValueError, match="bf16 only"):
-        main(["--config_exp", os.path.join(
-            root, "configs/pascal/taskprompter_vitBp16.yml"),
+    vitb = os.path.join(root, "configs/pascal/taskprompter_vitBp16.yml")
+    with pytest.raises(ValueError, match="item 1.14"):
+        port_main.main(["--config_exp", vitb, "--dtype", "float32"])
+    with pytest.raises(ValueError, match="item 1.14"):
+        port_main.main(["--config_exp", os.path.join(
+            root, "configs/pascal/invpt_vitLp16.yml"), "--run_mode", "infer",
             "--dtype", "float32"])
+    # a decode past the one launch's tar 304 / F 352: the split form
+    with open(vitb) as f:
+        text = f.read().replace("\nembed_dim: 300\n", "\nembed_dim: 768\n")
+    wide = tmp_path.parent / f"{tmp_path.name}_vitb768.yml"
+    wide.write_text(text)
+    with pytest.raises(ValueError, match="split form.*item 1.14"):
+        port_main.main(["--config_exp", str(wide), "--run_mode", "infer",
+                        "--dtype", "float32"])
     assert not os.listdir(tmp_path)
+
+    real = cc.get_dataset
+
+    def one_batch(p, split, transforms=None, overfit=False):
+        ds = real(p, split, transforms, overfit)
+        if split != "train":
+            ds.length = int(p["valBatch"])
+        return ds
+    monkeypatch.setattr(cc, "get_dataset", one_batch)
+    seen = {}
+    from mtt_tpu_torch.utils import train_utils
+    real_test_phase = train_utils.test_phase
+
+    def spy(p, model, loader, **kw):
+        seen["dtype"] = next(model.parameters()).dtype
+        seen["tf32"] = (torch.backends.cuda.matmul.allow_tf32,
+                        torch.backends.cudnn.allow_tf32)
+        _build.reset_counts()
+        scores = real_test_phase(p, model, loader, **kw)
+        seen["counts"] = dict(_build.COUNTS)
+        return scores
+    monkeypatch.setattr(train_utils, "test_phase", spy)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    assert port_main.main(["--config_exp", vitb, "--run_mode", "infer",
+                           "--dtype", "float32"]) == 0
+    assert seen["dtype"] == torch.float32 and seen["tf32"] == (False, False)
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == flags
+    c = seen["counts"]
+    assert c["attention_cached_f32"] == 8 and c["attention_emit_f32"] == 4
+    assert c["mlp_ln_res_f32"] == 12 and c["task_decode_f32"] == 4
+    assert c["head_up4_f32"] == 5 and c["layernorm_f32"] == 5
+    assert all(v == 0 for k, v in c.items() if not k.endswith("_f32"))
+
+
+# ---- the f32 forms (rows 1-6, 13, 14) against their plain versions --------
+
+def _check_f32(got, want, tol=1e-5):
+    """Relative RMS error ``tol`` per output: kernel and plain version are
+    both f32 throughout and differ only in the order of their f32 sums (a
+    bf16 shortcut would read about 1e-2)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+        assert torch.isfinite(g).all()
+        err = ((g.double() - w.double()).norm() / w.double().norm()).item()
+        assert err <= tol, err
+
+
+@pytest.fixture
+def no_tf32():
+    """The plain versions' products in full f32."""
+    from mtt_tpu_torch.utils.precision import exact_f32
+    with exact_f32():
+        yield
+
+
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 37, 1024), (5, 64), (2, 9, 1536),
+                                   (3, 11, 4096), (2, 5, 830), (7, 6),
+                                   (2, 3, 8196), (2, 16384), (1025, 1024)])
+def test_layernorm_kernel_f32(gen, no_tf32, shape, param_dtype):
+    """The f32 form on packed rows (widths in 16-byte chunks of 4), ragged
+    ones (830, 6: value by value) and rows past 2048 columns (four warps)."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.layernorm import fused_layernorm
+    C = shape[-1]
+    x = _rnd(gen, *shape, std=2.0, mean=0.5, dtype=torch.float32)
+    g = _rnd(gen, C, std=0.1, mean=1.0, dtype=param_dtype)
+    b = _rnd(gen, C, std=0.1, dtype=param_dtype)
+    _build.reset_counts()
+    got = fused_layernorm(x, g, b)
+    assert _build.COUNTS == _counts(layernorm_f32=1)
+    _check_f32(got, fused_layernorm(x, g, b, impl="plain"))
+
+
+@pytest.mark.parametrize("need_qkv", [False, True])
+@pytest.mark.parametrize("safe", [False, True])
+@pytest.mark.parametrize("N,C,H", [(77, 256, 4), (1029, 1024, 16),
+                                   (65, 192, 4), (129, 96, 2)])
+def test_attention_front_half_f32(gen, no_tf32, need_qkv, safe, N, C, H):
+    """Rows 1-2 at f32: LN, the projection on the f32 GEMM and the core, at
+    head dims 64, 48 (tile 64) and 48 with 3 heads of 32 rows; every output
+    of the emit path."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.attention import fused_attention_ln_qkv
+    f32 = torch.float32
+    x = _rnd(gen, 2, N, C, dtype=f32)
+    g = _rnd(gen, C, std=0.1, mean=1.0, dtype=f32)
+    be = _rnd(gen, C, std=0.1, dtype=f32)
+    w = _rnd(gen, 3 * C, C, std=C ** -0.5, dtype=f32)
+    bq = _rnd(gen, 3 * C, std=0.1, dtype=f32)
+    _build.reset_counts()
+    got = fused_attention_ln_qkv(x, g, be, w, bq, H, need_qkv=need_qkv,
+                                 safe=safe)
+    want = _counts(attention_emit_f32=1, layernorm_f32=1) if need_qkv \
+        else _counts(attention_cached_f32=1)
+    assert _build.COUNTS == want
+    _check_f32(got, fused_attention_ln_qkv(x, g, be, w, bq, H,
+                                           need_qkv=need_qkv, safe=safe,
+                                           impl="plain"))
+
+
+@pytest.mark.parametrize("safe", [False, True])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 129, 1029])
+@pytest.mark.parametrize("H,D", [(4, 16), (16, 64), (2, 72), (2, 128),
+                                 (3, 20)])
+def test_attention_qkv_kernel_f32(gen, no_tf32, N, H, D, safe):
+    """Row 13 (the core alone) at f32: ragged key tiles, head dims 16-128
+    (72 in the 128 tile, 20 zero-padded to 24), fast and safe; logits
+    spread so that the safe softmax's max matters."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.attention import fused_attention_qkv
+    qkv = _rnd(gen, 2, N, H * 3 * D, std=1.5, dtype=torch.float32)
+    _build.reset_counts()
+    got = fused_attention_qkv(qkv, H, safe=safe)
+    assert _build.COUNTS == _counts(attention_qkv_f32=1)
+    _check_f32(got, fused_attention_qkv(qkv, H, safe=safe, impl="plain"))
+
+
+@pytest.mark.parametrize("Nq,Nk,H,D", [(77, 77, 4, 64), (1029, 1029, 16, 64),
+                                       (300, 33, 2, 72), (5, 1, 3, 8)])
+def test_attention_generic_kernel_f32(gen, no_tf32, Nq, Nk, H, D):
+    """Row 14 at f32 (the Generic policy: natural exp after the max over
+    all keys) on strided views of packed tensors, as the module API hands
+    them over."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.attention import fused_attention
+    f32 = torch.float32
+    q = _rnd(gen, 2, Nq, H, 2 * D, std=2.0, dtype=f32)[..., :D]
+    kv = _rnd(gen, 2, Nk, 2, H, D, dtype=f32)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    _build.reset_counts()
+    got = fused_attention(q, k, v)
+    assert _build.COUNTS == _counts(attention_generic_f32=1)
+    _check_f32(got, fused_attention(q, k, v, impl="plain"))
+
+
+@pytest.mark.parametrize("rows,C,Hd", [(77, 256, 1024), (8232, 1024, 4096),
+                                       (129, 166, 664), (3, 768, 3072)])
+def test_mlp_ln_res_kernel_f32(gen, no_tf32, rows, C, Hd):
+    """Row 4 at f32: LN, fc1 + GELU and fc2 + residual on the f32 GEMM; 166
+    runs zero-padded to 168 (the LayerNorm's padded pitch)."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.mlp import fused_mlp_ln_res
+    f32 = torch.float32
+    x = _rnd(gen, rows, C, dtype=f32)
+    g = _rnd(gen, C, std=0.1, mean=1.0, dtype=f32)
+    be = _rnd(gen, C, std=0.1, dtype=f32)
+    w1 = _rnd(gen, Hd, C, std=C ** -0.5, dtype=f32)
+    b1 = _rnd(gen, Hd, std=0.1, dtype=f32)
+    w2 = _rnd(gen, C, Hd, std=Hd ** -0.5, dtype=f32)
+    b2 = _rnd(gen, C, std=0.1, dtype=f32)
+    _build.reset_counts()
+    got = fused_mlp_ln_res(x, g, be, w1, b1, w2, b2)
+    assert _build.COUNTS == _counts(mlp_ln_res_f32=1)
+    _check_f32(got, fused_mlp_ln_res(x, g, be, w1, b1, w2, b2,
+                                     impl="plain"))
+
+
+def _decode_inputs_f32(gen, B, S, C, T, G, tar, fin):
+    f32 = torch.float32
+    return (_rnd(gen, B, S, C, dtype=f32), _rnd(gen, B, T, S, G, dtype=f32),
+            _rnd(gen, B, T, C, dtype=f32),
+            _rnd(gen, T, tar, C, std=C ** -0.5, dtype=f32),
+            _rnd(gen, T, tar, std=0.1, dtype=f32),
+            _rnd(gen, T, tar, C, std=C ** -0.5, dtype=f32),
+            _rnd(gen, T, tar, std=0.1, dtype=f32),
+            _rnd(gen, T, fin, 2 * tar, std=(2 * tar) ** -0.5, dtype=f32),
+            _rnd(gen, T, fin, std=0.1, dtype=f32))
+
+
+@pytest.mark.parametrize("B,S,C,T,G,tar,fin", [
+    (2, 1024, 1024, 5, 16, 300, 350), (2, 77, 768, 5, 12, 300, 350),
+    (1, 50, 256, 3, 4, 20, 28), (2, 33, 64, 2, 4, 304, 352),
+    (1, 31, 128, 1, 2, 4, 2)])
+def test_task_decode_kernel_f32(gen, no_tf32, B, S, C, T, G, tar, fin):
+    """Row 5's one launch at f32: ViT-L's and ViT-B's widths (tar 300, F
+    350), ragged row tiles, the one launch's widest (304, 352) and
+    narrowest; then the split form, which has no f32 form yet."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.task_decode import fused_task_decode
+    args = _decode_inputs_f32(gen, B, S, C, T, G, tar, fin)
+    _build.reset_counts()
+    got = fused_task_decode(*args)
+    assert _build.COUNTS == _counts(task_decode_f32=1)
+    _check_f32(got, fused_task_decode(*args, impl="plain"))
+
+
+def test_task_decode_split_form_refuses_f32(gen):
+    from mtt_tpu_torch.kernels.task_decode import fused_task_decode
+    args = _decode_inputs_f32(gen, 1, 16, 64, 2, 4, 312, 40)
+    with pytest.raises(TypeError, match="item 1.14"):
+        fused_task_decode(*args)
+
+
+@pytest.mark.parametrize("B,gh,gw,C,n", [(8, 32, 32, 350, 21), (2, 8, 12, 350, 7),
+                                         (2, 28, 36, 768, 40), (1, 8, 8, 64, 1),
+                                         (1, 12, 8, 100, 128)])
+def test_head_up4_kernel_f32(gen, no_tf32, B, gh, gw, C, n):
+    """Row 6 at f32: Gm on the f32 GEMM and the mix kernel at f32 (slabs
+    of 192 channels: PASCAL's 352 in two, NYUD's 768 in four), n from 1 to
+    128."""
+    from mtt_tpu_torch.kernels import _build
+    from mtt_tpu_torch.kernels.head_up4 import fused_up4_head
+    f32 = torch.float32
+    x = _rnd(gen, B, gh, gw, C, std=0.5, dtype=f32)
+    kc = _rnd(gen, 3, 3, C, C, std=(9 * C) ** -0.5, dtype=f32)
+    inv = _rnd(gen, C, std=0.1, mean=1.0, dtype=f32)
+    addv = _rnd(gen, C, std=0.1, dtype=f32)
+    kp = _rnd(gen, C, n, std=C ** -0.5, dtype=f32)
+    _build.reset_counts()
+    got = fused_up4_head(x, kc, inv, addv, kp)
+    assert _build.COUNTS == _counts(head_up4_f32=1)
+    _check_f32(got, fused_up4_head(x, kc, inv, addv, kp, impl="plain"))
+
+
+def test_f32_refusals_on_the_card(gen):
+    """Kernels without an f32 form raise naming ROADMAP.md item 1.14 (row 8,
+    row 7's backward, rows 11 and 9); a dtype with no form raises; nothing
+    is cast to reach a kernel."""
+    from mtt_tpu_torch.kernels.attention import (attn_core_bwd_cuda,
+                                                 fused_attention_qkv)
+    from mtt_tpu_torch.kernels.invpt_attention import invpt_attention_cuda
+    from mtt_tpu_torch.kernels.mlp import fused_mlp
+    from mtt_tpu_torch.kernels.window_attention import window_attention_cuda
+    f32 = torch.float32
+    x = _rnd(gen, 3, 64, dtype=f32)
+    w1, w2 = _rnd(gen, 128, 64, dtype=f32), _rnd(gen, 64, 128, dtype=f32)
+    with pytest.raises(TypeError, match="item 1.14"):
+        fused_mlp(x, w1, _rnd(gen, 128, dtype=f32), w2,
+                  _rnd(gen, 64, dtype=f32))
+    qkv = _rnd(gen, 2, 9, 3 * 64, dtype=f32)
+    with pytest.raises(TypeError, match="item 1.14"):
+        attn_core_bwd_cuda(qkv, _rnd(gen, 2, 9, 64, dtype=f32), 1, 0.125)
+    q = _rnd(gen, 2, 147, 4, 32, dtype=f32)
+    with pytest.raises(TypeError, match="item 1.14"):
+        window_attention_cuda(q, q, q, _rnd(gen, 4, 147, 147, dtype=f32),
+                              None, 0.17, 1)
+    qi = _rnd(gen, 1, 2, 64, 72, dtype=f32)
+    with pytest.raises(TypeError, match="item 1.14"):
+        invpt_attention_cuda(qi, qi, qi, None, None, None, 72 ** -0.5)
+    with pytest.raises(TypeError, match="float16"):
+        fused_attention_qkv(qkv.half(), 1)
 
 
 def test_collectives_on_the_card(gen, tmp_path):

@@ -60,10 +60,11 @@ def _checkpoint(p, size, ck_dir, seed, det_prior=False):
     return model
 
 
-def _run_cli(tmp_path, yml, size, ori, seed, det_prior=False):
-    """Writes ``ori`` as a PNG, saves a checkpoint, runs the CLI; returns
-    (the output directory, the checkpoint's model, the CLI's resized
-    input)."""
+def _run_cli(tmp_path, yml, size, ori, seed, det_prior=False,
+             dtype_args=("--dtype", "float32")):
+    """Writes ``ori`` as a PNG, saves a checkpoint, runs the CLI (with
+    ``dtype_args``); returns (the output directory, the checkpoint's model,
+    the CLI's resized input)."""
     from mtt_tpu_torch import inference
     from mtt_tpu_torch.config import create_config
     from mtt_tpu_torch.data.transforms import resize_cubic_u8
@@ -74,7 +75,7 @@ def _run_cli(tmp_path, yml, size, ori, seed, det_prior=False):
     write_png(str(png), ori)
     assert inference.main(["--config_exp", yml, "--image_path", str(png),
                            "--ckpt_dir", str(tmp_path / "ck"),
-                           "--output_dir", str(out), "--dtype", "float32"],
+                           "--output_dir", str(out), *dtype_args],
                           device="cpu") == 0
     return out, model, resize_cubic_u8(ori, (size[1], size[0]))
 
@@ -99,6 +100,43 @@ def test_cli_vit_t_pascal_matches_root_visualize(tmp_path, monkeypatch,
     tasks = ("semseg", "human_parts", "sal", "normals", "edge")
     assert sorted(os.listdir(out)) == sorted(f"{t}.png" for t in tasks)
     for t in tasks:
+        want = root.visualize(t, preds[t][0].numpy())
+        assert np.array_equal(read_png(str(out / f"{t}.png")), want), t
+
+
+def test_cli_default_dtype_is_float32_as_root_inference(tmp_path,
+                                                       monkeypatch):
+    """Without ``--dtype`` the CLI runs at float32, the dtype of every
+    forward of the root inference.py (JAX's ``build_model`` default): the
+    ViT-T TaskPrompter PASCAL experiment's forward gets an f32 input from an
+    f32 model, and its five PNGs are the root ``visualize`` of the f32
+    ``predict`` on the resized input. ``--dtype bfloat16`` stays."""
+    import inference as root
+    from mtt_tpu_torch import inference
+    from mtt_tpu_torch.config.config import DB_SCALES
+    from mtt_tpu_torch.evaluation.save_preds import read_png
+    assert inference.parse_args(["--config_exp", "x.yml", "--image_path",
+                                 "a.png"]).dtype == "float32"
+    assert inference.parse_args(["--config_exp", "x.yml", "--image_path",
+                                 "a.png", "--dtype",
+                                 "bfloat16"]).dtype == "bfloat16"
+    monkeypatch.setitem(DB_SCALES, "PASCALContext", ((64, 64), (64, 64)))
+    yml = _yaml(tmp_path, ("pascal", "taskprompter_vitLp16.yml"),
+                (("backbone: TaskPrompter_vitL", "backbone: TaskPrompter_vitT"),
+                 ("embed_dim: 300", "embed_dim: 24"),
+                 ("final_embed_dim: 350", "final_embed_dim: 28")))
+    seen = {}
+    real = inference.predict
+
+    def spy(model, images, **kw):
+        seen.update(x=images.dtype, w=next(model.parameters()).dtype)
+        return real(model, images, **kw)
+    monkeypatch.setattr(inference, "predict", spy)
+    out, model, img = _run_cli(tmp_path, yml, (64, 64), _photo(50, 60, 7),
+                               seed=8, dtype_args=())
+    assert seen == {"x": torch.float32, "w": torch.float32}
+    _, preds = real(model, inference.preprocess(torch.from_numpy(img[None])))
+    for t in ("semseg", "human_parts", "sal", "normals", "edge"):
         want = root.visualize(t, preds[t][0].numpy())
         assert np.array_equal(read_png(str(out / f"{t}.png")), want), t
 

@@ -302,8 +302,12 @@ def test_tail_and_window_kernels_check_before_launch():
 
 def test_kernel_build_needs_no_card_to_import_and_hashes_sources():
     """Importing the build helper compiles nothing; the library path is
-    keyed by the sources' hash."""
+    keyed by the sources' hash. The entry points with an f32 form count it
+    under a counter of their own."""
     from mtt_tpu_torch.kernels import _build
+    f32_forms = {"layernorm", "attention_cached", "attention_emit",
+                 "attention_qkv", "attention_generic", "mlp_ln_res",
+                 "task_decode", "head_up4"}
     assert _build.COUNTS.keys() == {"layernorm", "attention_cached",
                                     "attention_emit", "attention_qkv",
                                     "attention_generic", "attention_bwd",
@@ -311,14 +315,16 @@ def test_kernel_build_needs_no_card_to_import_and_hashes_sources():
                                     "head_up4", "invpt_attention",
                                     "invpt_tail", "invpt_tail_head",
                                     "window_attention",
-                                    "window_attention_bwd"}
+                                    "window_attention_bwd"} | {
+        f"{k}_f32" for k in f32_forms}
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "layernorm.cu", "attention.cu", "attention_generic.cu",
         "attention_bwd.cu", "gemm.cu", "mlp.cu",
         "task_decode.cu", "head_up4.cu", "invpt_attention.cu",
-        "invpt_tail.cu", "window_attention.cu", "window_attention_bwd.cu"}
+        "invpt_tail.cu", "window_attention.cu", "window_attention_bwd.cu",
+        "gemm_f32.cu", "attention_f32.cu", "task_decode_f32.cu"}
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
