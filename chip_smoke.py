@@ -241,8 +241,10 @@ Phases, in order (the seconds each took are printed):
      form (rows 1-6; rows 13 and 14 through the module API) against its
      plain version at f32 at the main path's shapes and one ragged shape
      each, relative RMS at most F32_KERNEL_TOL, with its ms, the plain
-     version's, the library call's or composition's and its bound (f32
-     flops at 67 TFLOP/s or bytes); the TaskPrompter-ViT-L PASCAL eval
+     version's, the library call's or composition's and its bound (bytes,
+     or the f32 GEMM's and attention core's products as three TF32 passes
+     at 495 TFLOP/s and the rest at 67; every f32 flop at 67 beside it, the
+     FFMA forms' bound); the TaskPrompter-ViT-L PASCAL eval
      forward at batch 8 and 512x512 in f32 through the kernels, each map
      within F32_FORWARD_TOL of the plain f32 forward of the same weights,
      the bf16 kernel forward's distance beside it, each f32 counter equal
@@ -366,6 +368,9 @@ FACTORED_TAIL_TOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
 # outside them, HBM bandwidth
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# TF32 tensor cores: the f32 GEMM and the f32 attention core run three TF32
+# products a product (3xTF32), so their f32 flops count three times at it
+PEAK_TF32 = 495e12
 
 KERNEL_ROWS = {
     # name: (source, TPU kernel it replaces, counter, path it runs on)
@@ -468,11 +473,14 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _bound(nbytes: float, tc_flops: float, f32_flops: float = 0.0):
+def _bound(nbytes: float, tc_flops: float, f32_flops: float = 0.0,
+           tf32x3_flops: float = 0.0):
     """Least time of the card for the work, ms: bytes at the HBM rate
-    against tensor-core bf16 plus f32 operations at their peaks."""
+    against tensor-core bf16, f32 and 3xTF32 operations at their peaks
+    (the last three TF32 products each)."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = (tc_flops / PEAK_BF16 + f32_flops / PEAK_F32) * 1e3
+    t_ops = (tc_flops / PEAK_BF16 + f32_flops / PEAK_F32
+             + 3.0 * tf32x3_flops / PEAK_TF32) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -5608,8 +5616,11 @@ def _rel_err(got, want) -> float:
 
 def _f32_cases(rnd):
     """(name: (call(impl), ragged call(impl), library call or None, library
-    composition or None, bytes, f32 flops)) of the f32 forms at the main
-    path's shapes, each with one ragged shape."""
+    composition or None, bytes, 3xTF32 flops, f32 flops)) of the f32 forms
+    at the main path's shapes, each with one ragged shape: the products of
+    the f32 GEMM and the f32 attention core run as three TF32 products on
+    the tensor cores, the LayerNorm, the task decode and the up4 mix in f32
+    on the CUDA cores."""
     from mtt_tpu_torch.kernels.attention import (fused_attention,
                                                  fused_attention_ln_qkv,
                                                  fused_attention_qkv)
@@ -5703,19 +5714,19 @@ def _f32_cases(rnd):
             lambda impl, a=ln: fused_layernorm(*a, impl=impl),
             lambda impl, a=ln_r: fused_layernorm(*a, impl=impl),
             lambda: F.layer_norm(ln[0], (C,), ln[1], ln[2], 1e-6), None,
-            b_(*ln, ln[0]), 8.0 * M * C),
+            b_(*ln, ln[0]), 0.0, 8.0 * M * C),
         "attention_cached_f32": (
             lambda impl, a=fa: fused_attention_ln_qkv(*a, HEADS, impl=impl),
             lambda impl, a=fa_r: fused_attention_ln_qkv(*a, 4, impl=impl),
             None, front_lib(*fa), b_(*fa, fa[0]),
-            2.0 * M * C * 3 * C + attn_flops),
+            2.0 * M * C * 3 * C + attn_flops, 8.0 * M * C),
         "attention_cached_f32@safe": (
             lambda impl, a=fa: fused_attention_ln_qkv(*a, HEADS, impl=impl,
                                                       safe=True),
             lambda impl, a=fa_r: fused_attention_ln_qkv(*a, 4, impl=impl,
                                                         safe=True),
             None, front_lib(*fa), b_(*fa, fa[0]),
-            2.0 * M * C * 3 * C + attn_flops),
+            2.0 * M * C * 3 * C + attn_flops, 8.0 * M * C),
         "attention_emit_f32": (
             lambda impl, a=fa: fused_attention_ln_qkv(*a, HEADS,
                                                       need_qkv=True,
@@ -5723,43 +5734,43 @@ def _f32_cases(rnd):
             lambda impl, a=fa_r: fused_attention_ln_qkv(*a, 4, need_qkv=True,
                                                         impl=impl),
             None, front_lib(*fa), b_(*fa, fa[0], fa[0]) + M * 3 * C * 4,
-            2.0 * M * C * 3 * C + attn_flops),
+            2.0 * M * C * 3 * C + attn_flops, 8.0 * M * C),
         "mlp_ln_res_f32": (
             lambda impl, a=ml: fused_mlp_ln_res(*a, impl=impl),
             lambda impl, a=ml_r: fused_mlp_ln_res(*a, impl=impl),
             None, lambda a=ml: a[0] + F.linear(F.gelu(F.linear(F.layer_norm(
                 a[0], (C,), a[1], a[2], 1e-6), a[3], a[4])), a[5], a[6]),
-            b_(*ml, ml[0]), 4.0 * M * C * HIDDEN),
+            b_(*ml, ml[0]), 4.0 * M * C * HIDDEN, 8.0 * M * C),
         "task_decode_f32": (
             lambda impl, a=dc: fused_task_decode(*a, impl=impl),
             lambda impl, a=dc_r: fused_task_decode(*a, impl=impl),
-            None, decode_lib(*dc), b_(*dc) + B * S * T * FIN * 4,
+            None, decode_lib(*dc), b_(*dc) + B * S * T * FIN * 4, 0.0,
             2.0 * B * T * S * (2 * C * TAR + 2 * TAR * FIN)),
         "head_up4_f32": (
             lambda impl, a=hd: fused_up4_head(*a, impl=impl),
             lambda impl, a=hd_r: fused_up4_head(*a, impl=impl),
             None, head_lib(*hd), b_(*hd) + px * NLOG * 4,
-            # Gm (9 taps), the width and height mixes (6 nonzero taps each),
-            # the affine and GELU (~25 flops), the 1x1
-            2.0 * B * GRID * GRID * FIN * 9 * FIN
-            + 12.0 * B * GRID * 3 * FIN * 4 * GRID
+            # Gm (9 taps) on the f32 GEMM; the width and height mixes (6
+            # nonzero taps each), the affine and GELU (~25 flops), the 1x1
+            2.0 * B * GRID * GRID * FIN * 9 * FIN,
+            12.0 * B * GRID * 3 * FIN * 4 * GRID
             + (12.0 + 25.0) * px * FIN + 2.0 * px * FIN * NLOG),
         "attention_qkv_f32": (
             lambda impl, a=qkv: fused_attention_qkv(a, HEADS, impl=impl),
             lambda impl, a=qkv_r: fused_attention_qkv(a, 4, impl=impl),
             lambda: sdpa(*qkv.view(B, N, HEADS, 3, D).unbind(3)), None,
-            b_(qkv) + M * C * 4, attn_flops),
+            b_(qkv) + M * C * 4, attn_flops, 0.0),
         "attention_qkv_f32@safe": (
             lambda impl, a=qkv: fused_attention_qkv(a, HEADS, impl=impl,
                                                     safe=True),
             lambda impl, a=qkv_r: fused_attention_qkv(a, 4, impl=impl,
                                                       safe=True),
             lambda: sdpa(*qkv.view(B, N, HEADS, 3, D).unbind(3)), None,
-            b_(qkv) + M * C * 4, attn_flops),
+            b_(qkv) + M * C * 4, attn_flops, 0.0),
         "attention_generic_f32": (
             lambda impl, a=qg: fused_attention(*a, impl=impl),
             lambda impl, a=qg_r: fused_attention(*a, impl=impl),
-            lambda: sdpa(*qg), None, b_(*qg, qg[0]), attn_flops),
+            lambda: sdpa(*qg), None, b_(*qg, qg[0]), attn_flops, 0.0),
     }
 
 
@@ -5843,9 +5854,11 @@ def f32_phase():
     (rows 1-6, 13 and 14) against its plain version at f32 at the main
     path's shapes and one ragged shape (relative RMS, F32_KERNEL_TOL),
     with its time, the plain version's, the library call's or
-    composition's at f32 and its bound (bytes at 3.35 TB/s or f32 flops at
-    67 TFLOP/s); the TaskPrompter-ViT-L PASCAL eval forward at batch 8 and
-    512x512 in f32 through the kernels against the plain f32 forward, map by
+    composition's at f32 and its bound (bytes at 3.35 TB/s or operations:
+    the 3xTF32 products three times at 495 TFLOP/s, the rest at 67; every
+    f32 flop at 67 beside it); the TaskPrompter-ViT-L PASCAL eval forward at
+    batch 8 and 512x512 in f32 through the kernels against the plain f32
+    forward, map by
     map (F32_FORWARD_TOL), its launches row by row those of the bf16
     forward, the two forwards' device ms; ViT-B PASCAL and NYUD ViT-L at
     batch 2 the same way; the module API of rows 13 and 14 at f32; the
@@ -5877,7 +5890,7 @@ def f32_phase():
 
     results, paths = {}, {}
     with exact_f32():
-        for name, (call, ragged, lib, comp, nbytes, flops) in \
+        for name, (call, ragged, lib, comp, nbytes, tf32x3, flops) in \
                 _f32_cases(rnd).items():
             errs = []
             for c in (call, ragged):
@@ -5901,19 +5914,24 @@ def f32_phase():
             pms = _time_ms(lambda: call("plain"), reps=3, warmup=1)
             lms = _time_ms(lib) if lib else None
             cms = _time_ms(comp) if comp else None
-            bms, bby = _bound(nbytes, 0.0, flops)
+            # the 3xTF32 bound; beside it every f32 flop on the CUDA cores
+            # (the FFMA forms' bound before this slice), never below it
+            bms, bby = _bound(nbytes, 0.0, flops, tf32x3)
+            fms, _ = _bound(nbytes, 0.0, flops + tf32x3)
             results[name] = dict(
                 max_abs_err=errs[0][1], rel_rms=errs[0][0],
                 ragged_rel_rms=max(e for e, _ in errs[1:]),
                 tol=F32_KERNEL_TOL, kernel_ms=kms, plain_ms=pms,
                 library_ms=lms, library_composition_ms=cms, bound_ms=bms,
-                bound_by=bby)
+                bound_by=bby, ffma_bound_ms=fms)
             print(f"[f32] {name}: relative RMS against the plain f32 version "
                   f"{errs[0][0]:.3g} (ragged {results[name]['ragged_rel_rms']:.3g}; "
                   f"tol {F32_KERNEL_TOL}), max_abs_err {errs[0][1]:.3g}; "
                   f"kernel_ms={kms:.4f} plain_ms={pms:.4f} library_ms={lms} "
                   f"library_composition_ms={cms} bound_ms={bms:.4f} ({bby}, "
-                  f"f32 flops at {PEAK_F32 / 1e12:.0f} TFLOP/s)", flush=True)
+                  f"3xTF32 flops at {PEAK_TF32 / 1e12:.0f} TFLOP/s, the rest "
+                  f"at {PEAK_F32 / 1e12:.0f}) ffma_bound_ms={fms:.4f} (every "
+                  f"f32 flop at {PEAK_F32 / 1e12:.0f})", flush=True)
         print(f"[f32] kernels {time.perf_counter() - t_phase:.1f} s",
               flush=True)
 

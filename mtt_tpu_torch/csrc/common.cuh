@@ -79,6 +79,28 @@ __device__ __forceinline__ void frag_row8(const FragC& acc, float* scratch, int 
   __syncwarp();
 }
 
+// The exact-form GELU on the Abramowitz-Stegun 7.1.26 erf (|err| <= 1.5e-7),
+// as the plain version (kernels/mlp.py: gelu_erf_poly) and
+// mtt_tpu/kernels/mlp.py: _gelu_erf_poly compute it, with the reciprocal of
+// its polynomial taken without a branch: the approximate reciprocal refined
+// by one Newton step (within an ulp of the rounded quotient; d >= 1 here, so
+// no slow path is needed). The division's slow-path branch put every
+// element's chain in a basic block of its own, which kept the compiler from
+// interleaving the epilogue. The GELU epilogues of both GEMMs (gemm.cu,
+// gemm_f32.cu) and the f32 up4 head's GELU (head_up4.cu) take it.
+__device__ __forceinline__ float gelu_erf_poly(float h) {
+  const float z = h * 0.70710678118654752f;
+  const float az = fabsf(z);
+  const float d = 1.0f + 0.3275911f * az;
+  float t;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(d));
+  t = fmaf(t, fmaf(-d, t, 1.0f), t);
+  const float poly =
+      t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float r = 1.0f - poly * expf(-az * az);
+  return 0.5f * h * (1.0f + (z > 0.f ? r : (z < 0.f ? -r : 0.f)));
+}
+
 // The polynomial-only GELU of the up4 head (mtt_tpu/kernels/mlp.py:
 // _gelu_erf_poly_fast, |err| <= 2.1e-4): erf(z)/z as a degree-9 polynomial in
 // z^2 on z clamped to [-3, 3], evaluated by Horner's rule from the top.
@@ -96,6 +118,26 @@ __device__ __forceinline__ float gelu_erf_poly_fast(float h) {
   p = p * u + -3.7607042872e-01f;
   p = p * u + 1.1283768672e+00f;
   return 0.5f * h * (1.0f + z * p);
+}
+
+// ---- the 3xTF32 split of the f32 forms (gemm_f32.cu, attention_f32.cu) -----
+//
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest
+// with ties away from zero (cvt.rna); x - hi is exact in f32. The tensor core
+// truncates the low 13 bits of what it reads, so both halves are formed here.
+// hi.hi + hi.lo + lo.hi, summed in f32, keeps an f32 product to about 2^-22
+// of each term (the dropped lo.lo and lo's own rounding); one TF32 pass keeps
+// 2^-11 (tests/test_torch_tf32_split.py models both).
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);
 }
 
 // ---- streamed tiles for the register-resident kernels ----------------------

@@ -74,29 +74,6 @@ struct GemmShape {
   static constexpr int SMEM = STAGES * STAGE + OUT + 1024 + (2 * STAGES + 2) * 8;
 };
 
-// The exact-form GELU on the Abramowitz-Stegun 7.1.26 erf (|err| <= 1.5e-7), as
-// mtt_tpu/kernels/mlp.py:_erf_poly/_gelu_erf_poly compute it, with the
-// reciprocal of its polynomial taken without a branch: the approximate
-// reciprocal refined by one Newton step (within an ulp of the rounded
-// quotient; d >= 1 here, so no slow path is needed). The division's slow-path
-// branch split every element's chain into its own basic block, which kept the
-// compiler from interleaving the epilogue.
-__device__ __forceinline__ float rcp_newton(float d) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
-  return fmaf(r, fmaf(-d, r, 1.0f), r);
-}
-
-__device__ __forceinline__ float gelu_erf_poly_nb(float h) {
-  const float z = h * 0.70710678118654752f;
-  const float az = fabsf(z);
-  const float t = rcp_newton(1.0f + 0.3275911f * az);
-  const float poly =
-      t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  const float r = 1.0f - poly * expf(-az * az);
-  return 0.5f * h * (1.0f + (z > 0.f ? r : (z < 0.f ? -r : 0.f)));
-}
-
 template <typename T>
 __device__ __forceinline__ float2 load_pair(const T* p) {
   if constexpr (sizeof(T) == 4) return *reinterpret_cast<const float2*>(p);
@@ -135,8 +112,8 @@ __device__ __forceinline__ void gemm_epilogue(float (&d)[2][64], uint32_t boxes,
         float& v0 = d[h][4 * j + 2 * r];
         float& v1 = d[h][4 * j + 2 * r + 1];
         if constexpr (EPI == EPI_GELU) {
-          v0 = gelu_erf_poly_nb(v0 + b.x);
-          v1 = gelu_erf_poly_nb(v1 + b.y);
+          v0 = gelu_erf_poly(v0 + b.x);
+          v1 = gelu_erf_poly(v1 + b.y);
         } else if constexpr (EPI == EPI_RES) {
           const int row = min(row0 + h * row_step + 8 * r, M - 1);
           const float2 x = load_pair(res + (size_t)row * N + col);

@@ -50,8 +50,11 @@
 //     from L2.
 // The f32 form (mtt_head_up4_f32, the TaskPrompter-ViT eval forward at JAX's
 // default dtype) is the same mix kernel over f32 Gm from the f32 GEMM
-// (gemm_f32.cu): every rounding point above is then the identity, and its
-// 1x1 runs on the CUDA cores (see head_up4_mix_kernel).
+// (gemm_f32.cu): every rounding point above is then the identity, its GELU
+// is the A&S erf (gelu_erf_poly) of JAX's f32 head, _head_xla
+// (mtt_tpu/kernels/head_up4.py:460-479: JAX's gate runs the Pallas kernel,
+// and its fast GELU, at bf16 only), and its 1x1 runs on the CUDA cores (see
+// head_up4_mix_kernel).
 #include <type_traits>
 
 #include "common.cuh"
@@ -313,13 +316,14 @@ __global__ void __launch_bounds__(MT, MINB) head_up4_mix_kernel(
 #pragma unroll
         for (int p = 0; p < 4; ++p) {
           T* tr = Ts + (p * WS + Wl) * TLD + 2 * dp;
-          const float t0 = gelu_erf_poly_fast(y0[p] * iv0 + ad0);
-          const float t1 = gelu_erf_poly_fast(y1[p] * iv1 + ad1);
+          // bf16: the TPU kernel's fast polynomial; f32: the A&S erf of
+          // JAX's f32 head (_head_xla), which never runs the Pallas kernel
           if constexpr (BF) {
-            st2(tr, t0, t1);
+            st2(tr, gelu_erf_poly_fast(y0[p] * iv0 + ad0),
+                gelu_erf_poly_fast(y1[p] * iv1 + ad1));
           } else {  // rows of 65 floats: a pair is not 8-byte aligned
-            tr[0] = t0;
-            tr[1] = t1;
+            tr[0] = gelu_erf_poly(y0[p] * iv0 + ad0);
+            tr[1] = gelu_erf_poly(y1[p] * iv1 + ad1);
           }
         }
       }

@@ -1,5 +1,6 @@
 // TMA, mbarrier and wgmma helpers of the port's Hopper kernels: the shared
-// GEMM (gemm.cu) and the task decode (task_decode.cu).
+// GEMM (gemm.cu), its f32 form (gemm_f32.cu) and the task decode
+// (task_decode.cu).
 //
 // A kernel built on them keeps a ring of shared-memory stages that one
 // producer thread fills with TMA copies (cp.async.bulk.tensor, completion
@@ -130,6 +131,33 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) = A (64 x 8) . B (128 x 8)^T (+ D where acc), tf32
+// operands, both from shared memory (K-major, 128-byte swizzle: a k-step of 8
+// is 32 bytes of the row, as bf16's 16); the accumulator layout of
+// wgmma_m64n128k16. The tensor core reads the top 19 bits of each f32
+// operand (gemm_f32.cu splits them).
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t da, uint64_t db,
+                                                     int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
 }
 
 // One TMA copy of a (rows, 64) box at (k, row, z) of a 3-D tensor map
@@ -263,6 +291,21 @@ inline bool make_map_pitch(CUtensorMap* map, const void* ptr, int rows, int cols
   cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
   cuuint32_t box[2] = {TMA_BK, static_cast<cuuint32_t>(box_rows)}, elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), d, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (rows, cols) f32 tensor whose rows lie ld elements apart (ld >= cols,
+// ld % 4 == 0: TMA's 16-byte pitch) as (box_rows, 32) boxes: one 128-byte
+// swizzle row of f32 a box row; zero fill past its edges on loads.
+inline bool make_map_f32(CUtensorMap* map, const void* ptr, long long rows, long long cols,
+                         long long ld, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn || ld < cols || ld % 4) return false;
+  cuuint64_t d[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 4};
+  cuuint32_t box[2] = {32, static_cast<cuuint32_t>(box_rows)}, elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), d, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

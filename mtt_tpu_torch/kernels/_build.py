@@ -80,6 +80,10 @@ _SIGNATURES = {
     "mtt_mlp_ln_res_f32": (*[_P] * 10, _I, _I, _I, _F, _I, _P),
     "mtt_task_decode_f32": (*[_P] * 10, *[_I] * 7, _P),
     "mtt_head_up4_f32": (*[_P] * 9, *[_I] * 8, _P),
+    # the f32 GEMM itself (csrc/gemm_f32.cu), which the f32 forms of rows
+    # 1-2, 4 and 6 launch from C; bound here for the card's tests of its
+    # contract
+    "mtt_gemm_f32": (_P, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -30,10 +30,12 @@ Port of mtt_tpu/kernels/attention.py:
 Every launch has an f32 form, taken for an f32 activation (the
 TaskPrompter-ViT eval forward at JAX's default dtype): the LayerNorm
 kernel's, the f32 GEMM's (csrc/gemm_f32.cu) and the f32 core
-(csrc/attention_f32.cu, the Generic, Fast and Safe policies in f32 on the
-CUDA cores), each counted under ``<name>_f32``. At f32 every rounding point
-above is the identity, so the plain versions are the f32 forms' references
-as they stand. The backward kernel has no f32 form yet (ROADMAP.md item
+(csrc/attention_f32.cu, the Generic, Fast and Safe policies; Generic and
+Safe with one online pass over the keys), both 3xTF32 on the tensor cores,
+each counted under ``<name>_f32``. At f32 every rounding point above is the
+identity, so the plain versions are the f32 forms' references as they stand
+(the exact max there; the kernel's running max moves results by f32
+rounding only). The backward kernel has no f32 form yet (ROADMAP.md item
 1.14).
 
 The weight of the front half is the nn.Linear layout (3C, C) whose rows are
@@ -318,8 +320,9 @@ def _attn_core_launch(qkv, heads, scale, safe):
 def attn_core_cuda(qkv: torch.Tensor, heads: int, scale: float, safe: bool):
     """The attention core under its Fast or Safe softmax policy: bf16
     (``mtt_attn_core_bf16``, csrc/attention_generic.cu, tensor cores) or
-    f32 (``mtt_attn_core_f32``, csrc/attention_f32.cu, scores, softmax and
-    P.V in f32); a contiguous head-major (B, N, H*3*D) qkv, D up to 128
+    f32 (``mtt_attn_core_f32``, csrc/attention_f32.cu, scores and P.V as
+    3xTF32, the softmax in f32); a contiguous head-major (B, N, H*3*D) qkv,
+    D up to 128
     (zero-padded to a multiple of 8 where it is not: ``attn_core_padded``)."""
     B, N, C3 = qkv.shape
     D = C3 // heads // 3

@@ -4,8 +4,8 @@ versions.
 Port of mtt_tpu/kernels/head_up4.py ``fused_up4_head`` (``_head_kernel_stencil``,
 the default, whose function ``_head_kernel`` and ``_head_kernel_stencil2``
 share): conv3x3-SAME(bilinear_upsample4(x)) with the channel contraction at
-low resolution, the folded-BN affine, the fast polynomial GELU and the 1x1,
-with the (B, 4gh, 4gw, n) f32 logits the only output. The 1x1 bias is the
+low resolution, the folded-BN affine, the GELU and the 1x1, with the (B,
+4gh, 4gw, n) f32 logits the only output. The 1x1 bias is the
 caller's, as in JAX.
 
 Rounding points, kept by the kernels and the plain versions alike: Gm and the
@@ -25,9 +25,11 @@ the tensor-core tiles, with zeros that add nothing.
 At f32 (the TaskPrompter-ViT eval forward at JAX's default dtype) the two
 launches are the f32 GEMM (csrc/gemm_f32.cu) and the mix kernel at f32
 (``mtt_head_up4_f32``), counted under ``head_up4_f32``: every rounding point
-above is the identity there; the GELU stays the fast polynomial, as the
-plain version keeps it at every dtype (JAX's f32 head, its XLA twin, takes
-the A&S erf GELU: |err| <= 2.1e-4 pointwise).
+above is the identity there. The GELU follows JAX's gate, which runs the
+Pallas kernel at bf16 only: at bf16 the TPU kernel's fast polynomial
+(|err| <= 2.1e-4), at f32 the A&S erf (|err| <= 1.5e-7) of JAX's f32 head,
+its XLA twin ``_head_xla`` (head_up4.py:460-479); kernel and plain version
+alike.
 
 The gradient is torch autograd through ``head_up4_plain``, as the JAX custom
 VJP differentiates its XLA composition (head_up4.py:496-519); the training
@@ -43,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from mtt_tpu_torch.kernels import _build
-from mtt_tpu_torch.kernels.mlp import gelu_erf_poly_fast
+from mtt_tpu_torch.kernels.mlp import gelu_erf_poly, gelu_erf_poly_fast
 from mtt_tpu_torch.models.layers import (_up4_shift_stack_np, on_device,
                                          up4_conv3x3_factored, up4_conv3x3_gm,
                                          up4_conv3x3_mix)
@@ -52,15 +54,18 @@ MAX_LOGITS = 128   # the mix kernel keeps every logit of a pixel in registers
 
 
 def _affine_gelu_1x1(Y, inv, addv, kp, dt):
-    t = gelu_erf_poly_fast(Y * inv.float()[:, None, None]
-                           + addv.float()[:, None, None]).to(dt)
+    # JAX's gate: the Pallas kernel's fast GELU at bf16, _head_xla's A&S erf
+    # at f32
+    gelu = gelu_erf_poly if dt == torch.float32 else gelu_erf_poly_fast
+    t = gelu(Y * inv.float()[:, None, None]
+             + addv.float()[:, None, None]).to(dt)
     return torch.einsum("bdWH,dn->bHWn", t.float(), kp.to(dt).float())
 
 
 def head_up4_plain(x, kc, inv, addv, kp):
     """x (B, gh, gw, C); kc (3, 3, C, D) HWIO; inv/addv (D,) f32 folded BN;
     kp (D, n) -> (B, 4gh, 4gw, n) f32 logits without the 1x1 bias. The XLA
-    twin ``_head_xla`` with the kernel's fast GELU."""
+    twin ``_head_xla``, with the kernel's fast GELU at bf16."""
     return _affine_gelu_1x1(up4_conv3x3_factored(x, kc), inv, addv, kp,
                             x.dtype)
 
@@ -125,8 +130,9 @@ def _pad8(n: int) -> int:
 
 def head_up4_cuda(x, kc, inv, addv, kp):
     """Two launches: Gm on the shared GEMM into a (B gh gw, 9 DP) scratch of
-    x's dtype, then the mix kernel over that dtype (at f32: Gm, the width
-    mix and t unrounded, the 1x1 in f32 on the CUDA cores). Unlike
+    x's dtype, then the mix kernel over that dtype (at f32: Gm from the
+    3xTF32 f32 GEMM, the width mix and t unrounded, the A&S erf GELU, the
+    1x1 in f32 on the CUDA cores). Unlike
     the TPU, which sends a head whose
     VMEM estimate fails ``_ok`` (NYUD's 40-class semseg at C = 768) to the
     XLA composition, the card takes every width. Per call the wrapper lays

@@ -18,8 +18,8 @@ adding b2 only (see the source note in mlp.cu). Both read their parameters
 as stored (bf16 or f32): no cast is launched.
 
 The half-block has an f32 form (``mtt_mlp_ln_res_f32``: the LayerNorm
-kernel at f32, then the f32 GEMM of csrc/gemm_f32.cu twice, nothing
-rounded), counted under ``mlp_ln_res_f32``; the MLP alone has none yet
+kernel at f32, then the f32 GEMM of csrc/gemm_f32.cu twice, 3xTF32 on the
+tensor cores, nothing rounded but f32 sums), counted under ``mlp_ln_res_f32``; the MLP alone has none yet
 (ROADMAP.md item 1.14) and raises at f32.
 
 The gradients are the JAX package's hand-written backwards (mlp.py:201-222

@@ -13,7 +13,12 @@ A float32 run must not round its products to TF32: PyTorch's cuDNN
 convolutions do by default (``torch.backends.cudnn.allow_tf32`` is True),
 which touches the patch embedding, the decode's grouped convolutions and the
 dense heads. ``exact_f32`` turns TF32 off for matmuls and convolutions for
-the length of a call and puts the flags back after it.
+the length of a call and puts the flags back after it. The port's own f32
+GEMM and f32 attention core (csrc/gemm_f32.cu, csrc/attention_f32.cu) run on
+the TF32 tensor cores as three products of split operands (3xTF32: x = hi +
+lo, both TF32, and lo.hi + hi.lo + hi.hi in f32), which holds f32 accuracy
+(relative RMS 1e-5 against the exact f32 plain versions); no kernel takes a
+single TF32 pass, and library calls stay in full f32.
 """
 
 from __future__ import annotations

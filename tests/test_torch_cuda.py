@@ -1591,6 +1591,127 @@ def test_head_up4_kernel_f32(gen, no_tf32, B, gh, gw, C, n):
     _check_f32(got, fused_up4_head(x, kc, inv, addv, kp, impl="plain"))
 
 
+# ---- the 3xTF32 kernels: the f32 GEMM and the f32 attention core ----------
+
+def _gemm_f32_plain(a, w, epi, bias, res):
+    """The f32 GEMM's function in exact f32 (TF32 off): the epilogues of
+    csrc/gemm.cuh in their order (GELU, residual, bias, none)."""
+    from mtt_tpu_torch.kernels.mlp import gelu_erf_poly
+    acc = a @ w.t()
+    return (gelu_erf_poly(acc + bias), acc + bias + res, acc + bias,
+            acc)[epi]
+
+
+@pytest.mark.parametrize("epi", [0, 1, 2, 3])
+@pytest.mark.parametrize("M,N,K,lda", [(1, 4, 12, 12), (77, 4, 100, 108),
+                                       (129, 257, 36, 40),
+                                       (300, 520, 1028, 1036),
+                                       (5, 1000, 4, 8),
+                                       (8232, 3072, 1024, 1024)])
+def test_gemm_f32_kernel(gen, no_tf32, epi, M, N, K, lda):
+    """``mtt_gemm_f32`` (3xTF32 on wgmma) at ragged M, N and K (K = 4 x odd,
+    N = 4, M = 1) and the qkv projection's shape, A read at a row pitch lda
+    past K, out and res at a pitch ldo past N, under all four epilogues:
+    within 1e-5 relative RMS of the exact f32 product, the columns past N
+    untouched, two launches with equal bits."""
+    from mtt_tpu_torch.kernels import _build
+    f32 = torch.float32
+    ldo = -(-N // 4) * 4 + 4
+    a = _rnd(gen, M, lda, dtype=f32)[:, :K]
+    w = _rnd(gen, N, K, std=K ** -0.5, dtype=f32)
+    bias = _rnd(gen, N, std=0.1, dtype=f32)
+    res = _rnd(gen, M, ldo, dtype=f32)[:, :N]
+
+    def call():
+        out = torch.full((M, ldo), 7.0, device="cuda")
+        _build.check(_build.lib().mtt_gemm_f32(
+            a.data_ptr(), lda, w.data_ptr(), out.data_ptr(), ldo,
+            bias.data_ptr() if epi != 3 else None,
+            res.data_ptr() if epi == 1 else None, M, N, K, epi,
+            _build.stream()), "mtt_gemm_f32")
+        return out
+
+    got, again = call(), call()
+    _check_f32(got[:, :N], _gemm_f32_plain(a, w, epi, bias, res))
+    assert (got[:, N:] == 7.0).all()
+    assert torch.equal(got, again)
+
+
+def _qkv_packed(q, k, v):
+    """Head-major packed (B, N, H*3*D) from (B, N, H, D) q, k, v."""
+    B, N, H, D = q.shape
+    return torch.stack([q, k, v], 3).reshape(B, N, H * 3 * D).contiguous()
+
+
+def _attn_f32_twice(policy, q, k, v):
+    """(kernel output, again, plain version) of the f32 core: Generic through
+    ``fused_attention``, Fast and Safe through ``fused_attention_qkv`` on the
+    packed q, k, v (Nq = Nk)."""
+    from mtt_tpu_torch.kernels.attention import (fused_attention,
+                                                 fused_attention_qkv)
+    if policy == "generic":
+        def run(impl=None):
+            return fused_attention(q, k, v, impl=impl)
+    else:
+        qkv, H = _qkv_packed(q, k, v), q.shape[2]
+
+        def run(impl=None):
+            return fused_attention_qkv(qkv, H, safe=policy == "safe",
+                                       impl=impl)
+    return run(), run(), run("plain")
+
+
+@pytest.mark.parametrize("policy", ["fast", "safe", "generic"])
+@pytest.mark.parametrize("Nk", [1, 5, 65, 1029])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+def test_attention_f32_key_tails_and_head_dims(gen, no_tf32, policy, Nk, D):
+    """The f32 core at key counts 1, 5, 65 and 1029 (= 16 x 64 + 5: ragged
+    last tiles) and head dims 16-128 under each policy: within 1e-5 of its
+    plain version, two launches with equal bits. Generic takes 77 queries,
+    Fast and Safe attend over Nk tokens."""
+    f32 = torch.float32
+    nq = 77 if policy == "generic" else Nk
+    q = _rnd(gen, 2, nq, 2, D, std=1.5, dtype=f32)
+    k, v = _rnd(gen, 2, Nk, 2, D, dtype=f32), _rnd(gen, 2, Nk, 2, D, dtype=f32)
+    got, again, want = _attn_f32_twice(policy, q, k, v)
+    _check_f32(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("policy", ["safe", "generic"])
+def test_attention_f32_rescales_every_key_tile(gen, no_tf32, policy):
+    """Scores that rise along the keys (q positive, k drifting up by 4 over
+    the keys: about 2.6 a 64-key tile against a spread of 0.4, up to about
+    45), so that every key tile raises the running max and the row max sits
+    in the last tile: the online rescale against the plain version's exact
+    max, 1e-5, equal bits."""
+    f32 = torch.float32
+    B, N, H, D = 2, 1029, 2, 64
+    q = _rnd(gen, B, N, H, D, dtype=f32).abs() + 0.5
+    drift = torch.linspace(0.0, 4.0, N, device="cuda")[None, :, None, None]
+    k = _rnd(gen, B, N, H, D, std=0.25, dtype=f32) + drift
+    v = _rnd(gen, B, N, H, D, dtype=f32)
+    got, again, want = _attn_f32_twice(policy, q, k, v)
+    _check_f32(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("policy", ["safe", "generic"])
+def test_attention_f32_large_scores(gen, no_tf32, policy):
+    """Scores up to about +-1e3 (q and k of std 17 at head dim 64; the Safe
+    policy's log2 units reach 1.4e3): no clamp, no overflow; finite and
+    within 1e-5 of the plain version's exact max."""
+    f32 = torch.float32
+    q = _rnd(gen, 2, 257, 2, 64, std=17.0, dtype=f32)
+    k = _rnd(gen, 2, 257, 2, 64, std=17.0, dtype=f32)
+    v = _rnd(gen, 2, 257, 2, 64, dtype=f32)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * 64 ** -0.5
+    assert 5e2 < s.abs().max().item() < 2e3
+    got, again, want = _attn_f32_twice(policy, q, k, v)
+    _check_f32(got, want)
+    assert torch.equal(got, again)
+
+
 def test_f32_refusals_on_the_card(gen):
     """Kernels without an f32 form raise naming ROADMAP.md item 1.14 (row 8,
     row 7's backward, rows 11 and 9); a dtype with no form raises; nothing

@@ -9,11 +9,12 @@ ViT-T widths (C = 64, 4 heads of 16, hidden 256; the task decode and the
 head at the ViT-T test configs' tar 24 and F 28): the Pallas kernel in
 interpret mode where its gate admits the shape, the XLA twin JAX falls back
 to where it does not. Everything is f32, so the two sides differ in the
-order of their f32 sums, and the up4 head in its GELU besides: JAX's gate
-sends f32 to its XLA twin ``_head_xla``, which takes the A&S erf GELU, where
-the port's head (kernel and plain version, at every dtype) keeps the TPU
-kernel's polynomial (|err| <= 2.1e-4 pointwise, 6e-7 relative RMS on these
-inputs). Relative RMS error 1e-5 for every row. The f32 cases of these rows
+order of their f32 sums. Relative RMS error 1e-5 for every row, and 2e-7
+for the up4 head: JAX's gate sends f32 to its XLA twin ``_head_xla``, which
+takes the A&S erf GELU, and so does the port's f32 head (kernel and plain
+version); the port's head sits 1.5e-7 from it on these inputs, where the TPU
+kernel's fast polynomial (|err| <= 2.1e-4 pointwise), which the port's f32
+head took before, read 6e-7. The f32 cases of these rows
 at other widths (C = 128 and 256, head dim 64) are
 tests/test_torch_kernels.py's and tests/test_torch_head.py's, not repeated
 here; the inference CLI at its f32 default is tests/test_torch_inference.py's.
@@ -36,6 +37,9 @@ from torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 TOL = 1e-5
+# the up4 head at f32: twice the distance measured with the A&S erf GELU
+# (1.5e-7), at most 2e-7; the fast polynomial GELU reads 6e-7
+TOL_ROW = {"6": 2e-7}
 # ViT-T: embed 64, 4 heads of 16, MLP hidden 256; 2 images of 36 tokens
 # plus 1 prompt; the decode at tar 24, F 28 over a 6x6 grid, 3 tasks
 B, N, C, H, HID = 2, 37, 64, 4, 256
@@ -127,12 +131,13 @@ def _row(row, rng):
 @pytest.mark.parametrize("row", ["1", "2", "3", "4", "5", "6", "13", "14"])
 def test_plain_f32_matches_jax_at_vit_t(row, monkeypatch):
     """Each row's plain version at f32 (the CPU's path, the card's
-    reference) against the JAX function at f32: relative RMS 1e-5."""
+    reference) against the JAX function at f32: relative RMS 1e-5; the up4
+    head 2e-7 (its GELU is JAX's f32 head's)."""
     monkeypatch.delenv("MTT_ATTN_SAFE_SOFTMAX", raising=False)
     got, want = _row(row, np.random.default_rng(int(row)))
     assert got.dtype == torch.float32
     err = _rel(got.numpy(), np.asarray(want, np.float32))
-    assert err <= TOL, (row, err)
+    assert err <= TOL_ROW.get(row, TOL), (row, err)
 
 
 def _shipped():

@@ -55,21 +55,16 @@ def test_head_up4_plain_matches_pallas_interpret(gh, gw):
 
 @pytest.mark.parametrize("gh,gw", [(8, 8), (8, 12)])
 def test_head_up4_plain_matches_head_xla(gh, gw):
-    """f32 against JAX's XLA twin _head_xla, which uses the A&S erf GELU
-    where the kernel and the plain version use the fast polynomial: the
-    tolerance is 1e-5 of the logit scale plus 2.1e-4 (the fast GELU's error
-    for |h| <= 9.2, checked on these inputs) times max_j sum_d |kp[d, j]|."""
+    """f32 against JAX's XLA twin _head_xla, which JAX's gate takes at f32:
+    both on the A&S erf GELU (the kernel's fast polynomial is its bf16
+    form's), so the tolerance is 1e-5 of the logit scale."""
     from mtt_tpu.kernels.head_up4 import _head_xla
     from mtt_tpu_torch.kernels.head_up4 import head_up4_plain
-    from mtt_tpu_torch.models.layers import up4_conv3x3_factored
 
     x, kc, inv, addv, kp = _head_inputs(gh, gw, 96, 5, seed=1)
     want = np.asarray(_head_xla(*map(jnp.asarray, (x, kc, inv, addv, kp))))
     got = head_up4_plain(*map(_t, (x, kc, inv, addv, kp))).numpy()
-    h = up4_conv3x3_factored(_t(x), _t(kc)) * _t(inv)[:, None, None] \
-        + _t(addv)[:, None, None]
-    assert h.abs().max() <= 9.2
-    tol = 1e-5 * np.abs(want).max() + 2.1e-4 * np.abs(kp).sum(0).max()
+    tol = 1e-5 * np.abs(want).max()
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= tol
 

@@ -10,8 +10,8 @@ module's tree and carried into the port by ``state_dict_from_flax`` (strict
 load); both sides run the same numpy inputs in f32.
 
 Tolerance: max |port - jax| <= 1e-5 * max |jax| per output (the same function
-in f32 with sums in another order), and for the factored head the fast GELU's
-slack of tests/test_torch_model.py. The config dicts are held to their YAML
+in f32 with sums in another order; the factored head's f32 GELU is the A&S
+erf on both sides). The config dicts are held to their YAML
 files, which this box can read (the card's machine has no PyYAML, so the port
 keeps them as dicts).
 """
@@ -25,7 +25,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from test_torch_model import _gelu_poly_slack, random_variables
+from test_torch_model import random_variables
 from torch_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
@@ -114,10 +114,9 @@ def test_nyud_taskprompter_matches_jax(chan_nheads, monkeypatch):
     assert port.backbone.decode_0.chan_windows == (nh, chan_nheads // nh)
     with torch.no_grad():
         got = port(_t(x))
-    slack = _gelu_poly_slack(port, x)
     for t, n in NUM_OUT.items():
         assert got[t].shape == (2, *IMG, n)
-        _close(got[t], want[t], slack[t], what=t)
+        _close(got[t], want[t], what=t)
 
 
 def test_nyud_invpt_matches_jax():
@@ -147,11 +146,9 @@ def test_nyud_invpt_matches_jax():
 def test_up4_head_plain_at_768_matches_head_xla(n):
     """The up4 head's plain version at NYUD's width C = D = 768 on a 4x6 grid
     against JAX's XLA twin ``_head_xla`` (which the TPU takes for the 40-class
-    semseg), f32: 1e-5 of the logit scale plus the fast GELU's 2.1e-4 (for
-    |h| <= 9.2, checked) times max_j sum_d |kp[d, j]|."""
+    semseg), f32, both on the A&S erf GELU: 1e-5 of the logit scale."""
     from mtt_tpu.kernels.head_up4 import _head_xla
     from mtt_tpu_torch.kernels.head_up4 import head_up4_plain
-    from mtt_tpu_torch.models.layers import up4_conv3x3_factored
 
     rng = np.random.default_rng(8)
     C = 768
@@ -163,10 +160,7 @@ def test_up4_head_plain_at_768_matches_head_xla(n):
     args = (x, kc, inv, addv, kp)
     want = np.asarray(_head_xla(*map(jnp.asarray, args)))
     got = head_up4_plain(*map(_t, args))
-    h = up4_conv3x3_factored(_t(x), _t(kc)) * _t(inv)[:, None, None] \
-        + _t(addv)[:, None, None]
-    assert h.abs().max() <= 9.2
-    _close(got, want, 2.1e-4 * np.abs(kp).sum(0).max())
+    _close(got, want)
 
 
 def _config_dicts():

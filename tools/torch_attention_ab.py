@@ -5,6 +5,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
     git archive <parent> mtt_tpu_torch | tar -x -C build/parent
     python3 tools/torch_attention_ab.py --parent build/parent
     python3 tools/torch_attention_ab.py --parent build/parent --rows invpt
+    python3 tools/torch_attention_ab.py --parent build/parent --rows f32
 
 Both checkouts' ``mtt_tpu_torch/csrc`` are built (each into its own
 ``build/`` directory). Each run loads one of the two libraries, in a process
@@ -34,7 +35,10 @@ version (rows 11's shares printed), and each kernel runs twice to show
 equal bits. It prints the card's
 name and power limit, each kernel's ptxas registers and spills, and one JSON
 line of the times; it fails when the change's kernels miss a tolerance or
-differ between two runs.
+differ between two runs. The f32 rows (``f32_cases``; ``--rows f32`` alone):
+rows 14, 13 and 1-2's core at f32 (``mtt_attn_generic_f32``,
+``mtt_attn_core_f32``) beside SDPA at f32 with TF32 off, held to the exact f32
+plain versions at 1e-5 relative RMS.
 """
 
 from __future__ import annotations
@@ -234,6 +238,65 @@ def invpt_plan_times(cases: dict, reps: int) -> dict:
     return times
 
 
+def f32_cases(bld, gen, stream) -> dict:
+    """The f32 rows: row 14's f32 form (``mtt_attn_generic_f32``) at (8,
+    1029, 16, 64) and at the cross shape, row 13's and rows 1-2's f32 core
+    (``mtt_attn_core_f32``, fast and safe) at the packed ViT-L qkv (8, 1029,
+    3072), beside SDPA at f32 (TF32 off), each held to its exact f32 plain
+    version at 1e-5 relative RMS."""
+    from mtt_tpu_torch.kernels.attention import (attention_generic_plain,
+                                                 attention_qkv_plain,
+                                                 exp2_clamp_hi,
+                                                 fused_attention,
+                                                 fused_attention_qkv,
+                                                 scaled_log2e)
+    dev, f32 = torch.device("cuda"), torch.float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * std
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+
+    cases = {}
+    for name, (nq, nk, h, d) in {
+            "attention_generic_f32": (1029, 1029, 16, 64),
+            "attention_generic_f32@cross": (5120, 320, 2, 72)}.items():
+        q, k, v = rnd(8, nq, h, d, std=2.0), rnd(8, nk, h, d), rnd(8, nk, h, d)
+
+        def call(q=q, k=k, v=v, d=d):
+            out = torch.empty_like(q)
+            strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+            bld.check(bld.lib().mtt_attn_generic_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3],
+                *strides, d ** -0.5, stream()), "mtt_attn_generic_f32")
+            return (out,)
+
+        cases[name] = (call, (attention_generic_plain(q, k, v, d ** -0.5),),
+                       lambda q=q, k=k, v=v: sdpa(q, k, v),
+                       lambda q=q, k=k, v=v: fused_attention(q, k, v))
+    B, N, H, D = 8, 1029, 16, 64
+    qkv = rnd(B, N, 3 * H * D, std=1.5)
+    s2 = float(scaled_log2e(D ** -0.5, f32))
+    for safe in (False, True):
+        def core_call(safe=safe):
+            out = torch.empty(B, N, H * D, device=dev)
+            bld.check(bld.lib().mtt_attn_core_f32(
+                qkv.data_ptr(), out.data_ptr(), B, N, H, D, s2,
+                exp2_clamp_hi(N), int(safe), stream()), "mtt_attn_core_f32")
+            return (out,)
+
+        cases["attention_qkv_f32" + ("_safe" if safe else "")] = (
+            core_call, (attention_qkv_plain(qkv, H, D ** -0.5, safe),),
+            lambda: sdpa(*qkv.view(B, N, H, 3, D).unbind(3)),
+            lambda safe=safe: fused_attention_qkv(qkv, H, safe=safe))
+    return cases
+
+
 def run_one(checkout: Path, tag: str, reps: int, rows: str) -> dict:
     """Errors, equal bits and times of one checkout's kernels."""
     from mtt_tpu_torch.kernels.attention import (attention_generic_plain,
@@ -258,6 +321,8 @@ def run_one(checkout: Path, tag: str, reps: int, rows: str) -> dict:
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
+    if rows == "f32":
+        return measure(checkout, bld, reps, f32_cases(bld, gen, stream))
     if rows == "invpt":
         cases = invpt_cases(checkout, bld, gen, stream)
         result = measure(checkout, bld, reps, cases)
@@ -423,6 +488,7 @@ def run_one(checkout: Path, tag: str, reps: int, rows: str) -> dict:
                 window_attention_bwd_cuda(q, k, v, bias, mask, gw,
                                           32 ** -0.5, bw))
     cases.update(invpt_cases(checkout, bld, gen, stream))
+    cases.update(f32_cases(bld, gen, stream))
     return measure(checkout, bld, reps, cases)
 
 
@@ -430,11 +496,28 @@ def measure(checkout: Path, bld, reps: int, cases: dict) -> dict:
     """Errors, equal bits and times of ``cases``: name -> (raw call, the
     plain version's outputs, the library call or None, the wrapper call)."""
     result = {"ptxas": ptxas_lines(bld, ("attn_generic", "attn_bwd",
-                                         "attn_core", "wattn_bwd",
+                                         "attn_core", "attn_f32", "wattn_bwd",
                                          "wattn_kernel",
                                          "invpt_attention"))}
     for name, (call, want, lib, wrapper) in cases.items():
         row9 = name.startswith("invpt_attention")
+        if "_f32" in name:
+            # the f32 forms: relative RMS 1e-5 against the exact f32 version
+            got, again = tuple(x.clone() for x in call()), call()
+            torch.cuda.synchronize()
+            rel = max(((a.double() - w.double()).norm() / w.double().norm())
+                      .item() for a, w in zip(got, want))
+            result[name] = dict(
+                ms=time_ms(call, reps), library_ms=time_ms(lib, reps),
+                max_abs_err=max((a - w).abs().max().item()
+                                for a, w in zip(got, want)),
+                rel_rms=rel, within_tol=rel <= 1e-5 and all(
+                    bool(torch.isfinite(a).all()) for a in got),
+                equal_bits=all(torch.equal(a, b)
+                               for a, b in zip(got, again)))
+            if checkout == ROOT:
+                result[name]["wrapper_ms"] = time_ms(wrapper, reps)
+            continue
         # row 9's raw calls write into the same buffers each time
         got, again = tuple(x.clone() for x in call()), call()
         torch.cuda.synchronize()
@@ -486,8 +569,9 @@ def main(argv=None):
     ap.add_argument("--parent", required=True, type=Path,
                     help="a checkout holding the parent's mtt_tpu_torch/")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--rows", choices=("all", "invpt"), default="all",
-                    help="every row, or row 9 alone")
+    ap.add_argument("--rows", choices=("all", "invpt", "f32"),
+                    default="all",
+                    help="every row, row 9 alone, or the f32 rows alone")
     ap.add_argument("--one", choices=("parent", "change"),
                     help="internal: one run of one checkout, as JSON")
     args = ap.parse_args(argv)
@@ -534,6 +618,8 @@ def main(argv=None):
                     row["change_streamed_ms"] = [r[name]["streamed_ms"]
                                                  for r in rs]
             row[f"{tag}_max_abs_err"] = rs[0][name]["max_abs_err"]
+            if "rel_rms" in rs[0][name]:
+                row[f"{tag}_rel_rms"] = rs[0][name]["rel_rms"]
             row[f"{tag}_within_tol"] = all(r[name]["within_tol"] for r in rs)
             row[f"{tag}_equal_bits"] = all(r[name]["equal_bits"] for r in rs)
             if "bit_equal_share" in rs[0][name]:

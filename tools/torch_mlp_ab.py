@@ -6,6 +6,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     mkdir -p build/parent && git archive <parent> mtt_tpu_torch | tar -x -C build/parent
     python3 tools/torch_mlp_ab.py --parent build/parent
+    python3 tools/torch_mlp_ab.py --parent build/parent --rows f32
 
 Both checkouts' ``mtt_tpu_torch/csrc`` are built (each into its own
 ``build/`` directory); each run loads one of the two libraries, in a process
@@ -35,11 +36,20 @@ card's name and power limit, each kernel's ptxas registers and spills, the
 bound of each case (bytes at 3.35 TB/s or bf16 tensor-core operations at 989
 TFLOP/s), and one JSON line of the times; it fails when the change's kernels
 miss a tolerance or differ between two runs.
+
+The f32 rows (``--rows f32`` alone; ``f32_cases``): the f32 GEMM
+(``mtt_gemm_f32``) at fc1, fc2 and the qkv projection of a ViT-L block,
+each under its epilogue and under ``EPI_NONE`` (``/none``: the products
+alone), row 4's and row 3's f32 forms, raw, beside ``F.linear``, the composition and
+``F.layer_norm`` at f32 with TF32 off, held to the exact f32 plain versions
+at 1e-5 relative RMS; their bound is three TF32 passes at 495 TFLOP/s (the
+3xTF32 kernels' work), printed beside the f32 products at 67 TFLOP/s.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import statistics
 import subprocess
@@ -56,6 +66,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 from torch_attention_ab import load_build, ptxas_lines  # noqa: E402
 
 PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
+PEAK_TF32, PEAK_F32 = 495e12, 67e12   # TF32 tensor cores; f32 outside them
 
 
 def raw_ms(fn, launches: int, reps: int) -> float:
@@ -76,7 +87,101 @@ def raw_ms(fn, launches: int, reps: int) -> float:
     return statistics.median(times)
 
 
-def run_one(checkout: Path, tag: str, launches: int, reps: int) -> dict:
+def f32_cases(bld, lib, rnd, stream) -> dict:
+    """The f32 rows: ``mtt_gemm_f32`` at fc1 (GELU), fc2 (+ residual) and
+    the qkv projection (+ bias) of a ViT-L block at (8232, 1024), and at the
+    same shapes without an epilogue, row 4's
+    f32 form (``mtt_mlp_ln_res_f32``) and row 3's (``mtt_layernorm_f32``),
+    raw, beside ``F.linear``, the composition and ``F.layer_norm`` at f32
+    with TF32 off. Outputs are held to the exact f32 plain versions at 1e-5
+    relative RMS. Bounds: three TF32 passes at 495 TFLOP/s against the
+    bytes (the change's kernels run on the tensor cores), beside the f32
+    products at 67 TFLOP/s outside them."""
+    from mtt_tpu_torch.kernels.layernorm import layernorm_plain
+    from mtt_tpu_torch.kernels.mlp import gelu_erf_poly, mlp_ln_res_plain
+    f32 = torch.float32
+    fn = lib.mtt_gemm_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rows, C, Hd = 8 * 1029, 1024, 4096
+
+    def bounds(flops, nbytes):
+        return dict(bound_ms=max(3 * flops / PEAK_TF32, nbytes / PEAK_BYTES)
+                    * 1e3, bound_by="operations",
+                    ffma_bound_ms=flops / PEAK_F32 * 1e3)
+
+    cases = {}
+    # each shape under its epilogue, then under EPI_NONE (3): the products
+    # alone, so that the epilogue's share of the time shows
+    for name, (N, K, epi) in {"gemm_f32@fc1": (Hd, C, 0),
+                              "gemm_f32@fc2": (C, Hd, 1),
+                              "gemm_f32@qkv": (3 * C, C, 2),
+                              "gemm_f32@fc1/none": (Hd, C, 3),
+                              "gemm_f32@fc2/none": (C, Hd, 3),
+                              "gemm_f32@qkv/none": (3 * C, C, 3)}.items():
+        a = rnd(rows, K, dtype=f32)
+        w = rnd(N, K, std=K ** -0.5, dtype=f32)
+        bias = rnd(N, std=0.1, dtype=f32)
+        res = rnd(rows, N, dtype=f32) if epi == 1 else None
+        out = a.new_empty(rows, N)
+
+        def call(a=a, w=w, bias=bias, res=res, out=out, N=N, K=K, epi=epi):
+            bld.check(fn(a.data_ptr(), 0, w.data_ptr(), out.data_ptr(), 0,
+                         bias.data_ptr(), res.data_ptr() if res is not None
+                         else None, rows, N, K, epi, stream()),
+                      "mtt_gemm_f32")
+            return (out,)
+
+        acc = a @ w.t() + bias if epi != 3 else a @ w.t()
+        want = gelu_erf_poly(acc) if epi == 0 else acc + res if epi == 1 \
+            else acc
+        cases[name] = dict(
+            call=call, want=(want,), rel_tol=1e-5,
+            library=lambda a=a, w=w, bias=bias if epi != 3 else None:
+            F.linear(a, w, bias),
+            **bounds(2.0 * rows * N * K, 4 * (a.numel() + w.numel()
+                                              + 2 * out.numel())))
+    x = rnd(rows, C, dtype=f32)
+    g, be = rnd(C, std=0.1, mean=1.0, dtype=f32), rnd(C, std=0.1, dtype=f32)
+    w1, b1 = rnd(Hd, C, std=C ** -0.5, dtype=f32), rnd(Hd, std=0.1, dtype=f32)
+    w2, b2 = rnd(C, Hd, std=Hd ** -0.5, dtype=f32), rnd(C, std=0.1, dtype=f32)
+    out, xn, h = torch.empty_like(x), torch.empty_like(x), x.new_empty(rows, Hd)
+
+    def mlp_call():
+        bld.check(lib.mtt_mlp_ln_res_f32(
+            x.data_ptr(), g.data_ptr(), be.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), xn.data_ptr(),
+            h.data_ptr(), out.data_ptr(), rows, C, Hd, 1e-6, 3, stream()),
+            "mtt_mlp_ln_res_f32")
+        return (out,)
+
+    cases["mlp_ln_res_f32"] = dict(
+        call=mlp_call, want=(mlp_ln_res_plain(x, g, be, w1, b1, w2, b2),),
+        rel_tol=1e-5,
+        library=lambda: x + F.linear(F.gelu(F.linear(F.layer_norm(
+            x, (C,), g, be, 1e-6), w1, b1)), w2, b2),
+        **bounds(4.0 * rows * C * Hd, 4 * (3 * x.numel() + w1.numel()
+                                           + w2.numel())))
+    y = torch.empty_like(x)
+
+    def ln_call():
+        bld.check(lib.mtt_layernorm_f32(
+            x.data_ptr(), g.data_ptr(), be.data_ptr(), y.data_ptr(), rows, C,
+            1e-6, 3, stream()), "mtt_layernorm_f32")
+        return (y,)
+
+    cases["layernorm_f32"] = dict(
+        call=ln_call, want=(layernorm_plain(x, g, be, 1e-6),), rel_tol=1e-5,
+        library=lambda: F.layer_norm(x, (C,), g, be, 1e-6),
+        bound_ms=2 * x.numel() * 4 / PEAK_BYTES * 1e3, bound_by="bytes")
+    return cases
+
+
+def run_one(checkout: Path, tag: str, launches: int, reps: int,
+            rows_: str = "all") -> dict:
     """Errors, equal bits and times of one checkout's kernels."""
     from mtt_tpu_torch.kernels.layernorm import (fused_layernorm,
                                                  layernorm_plain)
@@ -98,7 +203,13 @@ def run_one(checkout: Path, tag: str, launches: int, reps: int) -> dict:
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
+    # the library's f32 calls in full f32, as the plain versions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cases = {}
+    if rows_ == "f32":
+        return measure(checkout, bld, f32_cases(bld, lib, rnd, stream),
+                       launches, reps)
     for name, (rows, C, eps) in {"layernorm": (8 * 1029, 1024, 1e-6),
                                  "layernorm@swin0": (192 * 384, 128, 1e-5)
                                  }.items():
@@ -234,16 +345,32 @@ def run_one(checkout: Path, tag: str, launches: int, reps: int) -> dict:
             bound_ms=2.0 * rows * C * 3 * C / PEAK_BF16 * 1e3,
             bound_by="operations")
 
+    cases.update(f32_cases(bld, lib, rnd, stream))
+    return measure(checkout, bld, cases, launches, reps)
+
+
+def measure(checkout: Path, bld, cases: dict, launches: int,
+            reps: int) -> dict:
+    """Errors, equal bits and raw times of ``cases``; the change's wrapper
+    times after them."""
     result = {"ptxas": ptxas_lines(bld, ("ln_kernel", "gemm", "mlp_kernel"))}
     for name, c in cases.items():
         # the calls write into one output buffer: copy it between them
         got = tuple(t.clone() for t in c["call"]())
         again = c["call"]()
         torch.cuda.synchronize()
-        errs, tols = [], []
+        errs, tols, rels = [], [], []
         for a, w in zip(got, c["want"]):
             errs.append((a.float() - w.float()).abs().max().item())
-            tols.append(c["ulps"] * 2.0 ** -7 * w.float().abs().max().item())
+            if "rel_tol" in c:
+                # f32 forms: relative RMS against the exact f32 version
+                rels.append(((a.double() - w.double()).norm()
+                             / w.double().norm()).item())
+                tols.append(float("inf") if rels[-1] <= c["rel_tol"]
+                            else -1.0)
+            else:
+                tols.append(c["ulps"] * 2.0 ** -7
+                            * w.float().abs().max().item())
         result[name] = dict(
             ms=raw_ms(c["call"], launches, reps),
             library_ms=raw_ms(c["library"], launches, reps),
@@ -252,11 +379,17 @@ def run_one(checkout: Path, tag: str, launches: int, reps: int) -> dict:
             within_tol=all(e <= t for e, t in zip(errs, tols)) and all(
                 bool(torch.isfinite(a).all()) for a in got),
             equal_bits=all(torch.equal(a, b) for a, b in zip(got, again)))
+        if rels:
+            result[name]["rel_rms"] = max(rels)
+        if "ffma_bound_ms" in c:
+            result[name]["ffma_bound_ms"] = c["ffma_bound_ms"]
     # the change's Python entry points after every raw launch is timed, so
     # that both checkouts time their raw launches after the same work
     if checkout == ROOT:
         for name, c in cases.items():
-            result[name]["wrapper_ms"] = raw_ms(c["wrapper"], launches, reps)
+            if "wrapper" in c:
+                result[name]["wrapper_ms"] = raw_ms(c["wrapper"], launches,
+                                                    reps)
     return result
 
 
@@ -266,6 +399,8 @@ def main(argv=None):
                     help="a checkout holding the parent's mtt_tpu_torch/")
     ap.add_argument("--launches", type=int, default=20)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--rows", choices=("all", "f32"), default="all",
+                    help="every row, or the f32 rows alone")
     ap.add_argument("--one", choices=("parent", "change"),
                     help="internal: one run of one checkout, as JSON")
     args = ap.parse_args(argv)
@@ -275,7 +410,7 @@ def main(argv=None):
     if args.one:
         checkout = args.parent.resolve() if args.one == "parent" else ROOT
         print(json.dumps(run_one(checkout, args.one, args.launches,
-                                 args.reps)))
+                                 args.reps, args.rows)))
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -285,7 +420,8 @@ def main(argv=None):
         run = subprocess.run(
             [sys.executable, __file__, "--parent", str(args.parent),
              "--launches", str(args.launches), "--reps", str(args.reps),
-             "--one", tag], capture_output=True, text=True)
+             "--rows", args.rows, "--one", tag], capture_output=True,
+            text=True)
         if run.returncode:
             raise RuntimeError(f"{tag} run failed:\n{run.stderr[-4000:]}")
         res = json.loads(run.stdout.strip().splitlines()[-1])
@@ -297,16 +433,19 @@ def main(argv=None):
     for name in runs["change"][0]:
         if name == "ptxas":
             continue
-        row = {"bound_ms": runs["change"][0][name]["bound_ms"],
-               "bound_by": runs["change"][0][name]["bound_by"]}
+        first = runs["change"][0][name]
+        row = {k: first[k] for k in ("bound_ms", "bound_by", "ffma_bound_ms")
+               if k in first}
         for tag, rs in runs.items():
             if name not in rs[0]:
                 continue
             row[f"{tag}_ms"] = [r[name]["ms"] for r in rs]
             row[f"{tag}_library_ms"] = [r[name]["library_ms"] for r in rs]
-            if tag == "change":
+            if tag == "change" and "wrapper_ms" in rs[0][name]:
                 row["change_wrapper_ms"] = [r[name]["wrapper_ms"] for r in rs]
             row[f"{tag}_max_abs_err"] = rs[0][name]["max_abs_err"]
+            if "rel_rms" in rs[0][name]:
+                row[f"{tag}_rel_rms"] = rs[0][name]["rel_rms"]
             row[f"{tag}_within_tol"] = all(r[name]["within_tol"] for r in rs)
             row[f"{tag}_equal_bits"] = all(r[name]["equal_bits"] for r in rs)
         ok = ok and row["change_within_tol"] and row["change_equal_bits"]
